@@ -1,0 +1,49 @@
+"""Centralized synchronous full-precision data parallelism.
+
+Port of ``bagua_tpu/algorithms/gradient_allreduce.py``: one allreduce per
+bucket, averaged (or summed) over the ranks.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..communication import ReduceOp
+from .base import Algorithm, AlgorithmContext
+
+
+class GradientAllReduceAlgorithm(Algorithm):
+    name = "gradient_allreduce"
+
+    def __init__(
+        self,
+        hierarchical: bool = False,
+        average: bool = True,
+        comm_dtype: Optional[torch.dtype] = None,
+    ):
+        """
+        Args:
+            hierarchical: intra-node then inter-node communication; not
+                ported yet, so True raises ``NotImplementedError``.
+            average: If True average gradients over ranks, else sum.
+            comm_dtype: Optional on-the-wire dtype for the allreduce (e.g.
+                ``torch.bfloat16`` halves the bytes); gradients are cast
+                back afterwards, so params and optimizer state stay in full
+                precision.
+        """
+        if hierarchical:
+            raise NotImplementedError(
+                "GradientAllReduceAlgorithm(hierarchical=True) is not ported yet")
+        self.average = average
+        self.comm_dtype = comm_dtype
+
+    def reduce_bucket_grad(self, ctx: AlgorithmContext, index: int, flat):
+        op = ReduceOp.AVG if self.average else ReduceOp.SUM
+        if self.comm_dtype is None:
+            return ctx.bucket_allreduce(flat, op)
+        orig = flat.dtype
+        return ctx.bucket_allreduce(flat.to(self.comm_dtype), op).to(orig)
+
+    process_grads = Algorithm.process_grads_bucketed

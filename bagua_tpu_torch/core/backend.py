@@ -1,0 +1,130 @@
+"""BaguaTrainer: the data-parallel training step.
+
+Port of the main path of ``bagua_tpu/core/backend.py``.  One step is: the
+per-rank mean loss, its backward, the gradients flattened into the bucket
+plan's flat buffers, the algorithm's ``process_grads`` (for
+``GradientAllReduceAlgorithm``, one allreduce per bucket), the optimizer
+step on the reduced gradients, and the loss averaged over the ranks.
+
+PyTorch runs eagerly, so there is no compiled-step cache; the state is the
+module and the optimizer, updated in place, rather than an immutable pytree.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from .. import env
+from ..algorithms.base import Algorithm, AlgorithmContext
+from ..bucket import split_bucket_by_bucket_size
+from ..communication import ReduceOp, get_backend
+from ..device import resolve_device
+from ..tensor import build_params
+
+
+@dataclass
+class TrainState:
+    """The module (params), its optimizer (and thus the optimizer state),
+    the algorithm's state and the step count.  ``train_step`` updates the
+    module and optimizer in place and returns a new ``TrainState``."""
+
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    algo_state: Any = None
+
+
+class BaguaTrainer:
+    """Owns the bucket plan and drives the algorithm around each step.
+
+    Args:
+        loss_fn: ``loss_fn(model, batch) -> scalar tensor`` (per-rank mean).
+        optimizer_factory: ``optimizer_factory(params) -> Optimizer``, e.g.
+            ``functools.partial(torch.optim.AdamW, lr=1e-4)``.
+        algorithm: a :class:`bagua_tpu_torch.algorithms.base.Algorithm`.
+        device: where the model and batches live; ``cuda`` by default.
+        bucket_bytes: bucket size in bytes (default env
+            ``BAGUA_DEFAULT_BUCKET_SIZE``, 10 MiB).
+    """
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        optimizer_factory: Callable,
+        algorithm: Algorithm,
+        device=None,
+        bucket_bytes: Optional[int] = None,
+    ):
+        self.loss_fn = loss_fn
+        self.optimizer_factory = optimizer_factory
+        self.algorithm = algorithm
+        self.device = resolve_device(device)
+        self.bucket_bytes = (env.get_default_bucket_size()
+                             if bucket_bytes is None else bucket_bytes)
+        self.comm = get_backend().global_communicator
+        self.world_size = self.comm.nranks()
+        self._ctx: Optional[AlgorithmContext] = None
+        self._params = None
+
+    @property
+    def plan(self):
+        return self._ctx.plan
+
+    def init(self, model: nn.Module) -> TrainState:
+        """Move ``model`` to the trainer's device, give every rank rank 0's
+        weights, build the bucket plan and the optimizer."""
+        model.to(self.device)
+        with torch.no_grad():
+            for p in model.parameters():
+                dist.broadcast(p.data, src=0)
+        algo = self.algorithm
+        named = algo.init_tensors(build_params(model))
+        decls = [p.declaration() for p in named]
+        plan = algo.tensors_to_buckets(
+            split_bucket_by_bucket_size(decls, self.bucket_bytes), named)
+        self._ctx = AlgorithmContext(comm=self.comm, plan=plan)
+        self._params = dict(model.named_parameters())
+        optimizer = self.optimizer_factory(model.parameters())
+        return TrainState(0, model, optimizer, algo.init_state(self._ctx, self._params))
+
+    def shard_batch(self, local_batch: Mapping) -> dict:
+        """This rank's batch on the trainer's device.  Each rank feeds its
+        own slice of the global batch, as each reference rank feeds its own
+        DataLoader split."""
+        def put(x):
+            if not isinstance(x, torch.Tensor):
+                x = torch.tensor(np.asarray(x))
+            return x.to(self.device, non_blocking=True)
+
+        return {k: put(v) for k, v in local_batch.items()}
+
+    def train_step(self, state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        """One step; returns the new state and the loss averaged over ranks."""
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        for p in self._params.values():
+            p.grad = None
+        loss = self.loss_fn(model, batch)
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in self._params.items()}
+        grads, algo_state = self.algorithm.process_grads(
+            self._ctx, grads, self._params, state.algo_state, state.step)
+        for n, g in grads.items():
+            self._params[n].grad = g
+        optimizer.step()
+        loss = self.comm.allreduce(loss.detach().clone(), ReduceOp.AVG)
+        return TrainState(state.step + 1, model, optimizer, algo_state), loss
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch) -> torch.Tensor:
+        """Forward-only loss averaged over the ranks; the state is untouched."""
+        state.model.eval()
+        loss = self.loss_fn(state.model, batch)
+        return self.comm.allreduce(loss.detach().clone(), ReduceOp.AVG)

@@ -1,0 +1,272 @@
+"""Flash attention: hand-written Hopper kernels behind a torch autograd Function.
+
+Port of ``bagua_tpu/ops/flash_attention.py``.  The three Pallas TPU kernels
+(forward, dK/dV, dQ) become the CUDA kernels of ``csrc/flash_attention.cu``,
+built with ``nvcc`` at first use and called through ``ctypes``.  Each kernel
+has a wrapper here (:func:`flash_fwd`, :func:`flash_bwd_dkv`,
+:func:`flash_bwd_dq`) and a plain PyTorch version of the same function beside
+it.  A wrapper takes the plain version only for tensors on the CPU (that is
+what the CPU tests run); for a CUDA tensor it launches the kernel or raises.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+The public functions take ``[batch, seq, heads, head_dim]`` like the JAX
+ones and fold to ``[batch * heads, seq, head_dim]`` for the kernels.  Any
+sequence length is taken (the kernels mask the ragged tail), so unlike the
+JAX package there is no fallback to the materializing path and no TPU
+sequence-length gate.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reference_attention(q, k, v, dtype=None, causal: bool = True):
+    """Plain (materializing) attention, the golden: ``q/k/v`` are
+    ``[batch, seq, heads, head_dim]``; logits and softmax in f32, the
+    products in the input dtype, as in the JAX reference."""
+    s, d = q.shape[1], q.shape[3]
+    dtype = dtype or q.dtype
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the three kernels, on folded [bh, s, d] tensors
+# ---------------------------------------------------------------------------
+
+
+def _scaled_logits(q, k, causal):
+    """Masked ``q.k / sqrt(d)`` in f32; the product is accumulated in f32 and
+    rounded to the input dtype, as XLA computes :func:`reference_attention`'s
+    einsum."""
+    s, d = q.shape[1], q.shape[2]
+    qk = torch.einsum("bqd,bkd->bqk", q.float(), k.float()).to(q.dtype)
+    logits = qk.float() / math.sqrt(d)
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, NEG_INF)
+    return logits
+
+
+def _probs(q, k, lse, causal):
+    return torch.exp(_scaled_logits(q, k, causal) - lse[..., None])
+
+
+def fwd_plain(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel, :func:`reference_attention`'s
+    math on folded inputs plus the logsumexp: ``(o, lse)`` with ``o`` in the
+    input dtype and ``lse`` ``[bh, s]`` f32.  The softmax is jax.nn.softmax's
+    ``exp(x - max) / sum``.  (The kernel keeps q.k in f32 and rounds P before
+    normalizing, so in bf16 the two differ by rounding.)"""
+    logits = _scaled_logits(q, k, causal)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    l = e.sum(dim=-1, keepdim=True)
+    p = (e / l).to(q.dtype)
+    o = torch.einsum("bqk,bkd->bqd", p.float(), v.float()).to(q.dtype)
+    return o, (m + torch.log(l)).squeeze(-1)
+
+
+def dkv_plain(q, k, v, do, lse, delta, causal: bool):
+    """Plain version of the dK/dV kernel: P rounded to the input dtype, dS
+    rounded before dS^T Q."""
+    scale = 1.0 / math.sqrt(q.shape[2])
+    p = _probs(q, k, lse, causal).to(q.dtype).float()
+    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dk = scale * torch.einsum("bqk,bqd->bkd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def dq_plain(q, k, v, do, lse, delta, causal: bool):
+    """Plain version of the dQ kernel: P in f32, dS rounded before dS K."""
+    scale = 1.0 / math.sqrt(q.shape[2])
+    p = _probs(q, k, lse, causal)
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    return (scale * torch.einsum("bqk,bkd->bqd", ds, k.float())).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "bagua_flash_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "bagua_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
+    "bagua_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
+}
+_lib_cache = []
+
+
+def _lib():
+    if not _lib_cache:
+        from ._build import load
+
+        lib = load("flash_attention")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib_cache.append(lib)
+    return _lib_cache[0]
+
+
+def _check(mats, rows):
+    """Raise on anything the kernels do not take: every tensor on one CUDA
+    device and contiguous; ``mats`` ``[bh, s, d]`` of one dtype (f32 or
+    bf16) with d 64 or 128; ``rows`` ``[bh, s]`` f32."""
+    ref = mats[0]
+    if ref.device.type != "cuda":
+        raise ValueError(f"flash kernels take CUDA tensors, got {ref.device}")
+    if ref.dim() != 3:
+        raise ValueError(f"expected [bh, s, d], got {tuple(ref.shape)}")
+    bh, s, d = ref.shape
+    if ref.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash kernels take float32 or bfloat16, got {ref.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {d}")
+    for t in mats:
+        if t.shape != ref.shape or t.dtype != ref.dtype:
+            raise ValueError(f"operand {tuple(t.shape)} {t.dtype} does not "
+                             f"match {tuple(ref.shape)} {ref.dtype}")
+    for t in rows:
+        if t.shape != (bh, s) or t.dtype != torch.float32:
+            raise ValueError(f"row statistic must be [bh, s] float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in (*mats, *rows):
+        if t.device != ref.device:
+            raise ValueError(f"operands on {t.device} and {ref.device}")
+        if not t.is_contiguous():
+            raise ValueError("flash kernels take contiguous tensors")
+    return bh, s, d, _DTYPE_CODE[ref.dtype]
+
+
+def _launch(fn, *args):
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+
+
+def flash_fwd(q, k, v, causal: bool):
+    """Forward kernel: ``(o [bh, s, d], lse [bh, s] f32)``."""
+    if q.device.type == "cpu":
+        return fwd_plain(q, k, v, causal)
+    bh, s, d, code = _check((q, k, v), ())
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    _launch(_lib().bagua_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, s, d, code, int(causal))
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+    """dK/dV kernel: ``(dk, dv)``, each ``[bh, s, d]``."""
+    if q.device.type == "cpu":
+        return dkv_plain(q, k, v, do, lse, delta, causal)
+    bh, s, d, code = _check((q, k, v, do), (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(_lib().bagua_flash_bwd_dkv, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, s, d, code, int(causal))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+    """dQ kernel: ``dq [bh, s, d]``."""
+    if q.device.type == "cpu":
+        return dq_plain(q, k, v, do, lse, delta, causal)
+    bh, s, d, code = _check((q, k, v, do), (lse, delta))
+    dq = torch.empty_like(q)
+    _launch(_lib().bagua_flash_bwd_dq, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), bh, s, d, code, int(causal))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+KERNELS = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class _FlashLse(torch.autograd.Function):
+    """``(o, lse)`` of folded ``[bh, s, d]`` inputs; the backward is the two
+    backward kernels.  ``dlse`` (the logsumexp's cotangent, nonzero only
+    when a caller consumes lse) enters as ``delta - dlse``, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1) - dlse.float()
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
+def _fold(x):  # [b, s, h, d] -> [b*h, s, d], contiguous
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+
+
+def _flash_lse(q, k, v, causal):
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    o, lse = _FlashLse.apply(_fold(q), _fold(k), _fold(v), causal)
+    return o.view(b, h, s, d).permute(0, 2, 1, 3), lse.view(b, h, s)
+
+
+def flash_attention(q, k, v, dtype: Optional[torch.dtype] = None, *,
+                    causal: bool = True):
+    """Drop-in for :func:`reference_attention`: ``q/k/v`` are
+    ``[batch, seq, heads, head_dim]``; returns the same shape in ``dtype``
+    (default ``q.dtype``)."""
+    o, _ = _flash_lse(q, k, v, causal)
+    return o.to(dtype or q.dtype)
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool):
+    """Like :func:`flash_attention` but also returns the per-row logsumexp
+    ``[batch, heads, seq]`` f32, the merge statistic of ring attention.
+    ``o`` is f32 (merging precision)."""
+    o, lse = _flash_lse(q, k, v, causal)
+    return o.float(), lse
