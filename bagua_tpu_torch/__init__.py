@@ -23,5 +23,7 @@ from .core.backend import BaguaTrainer, TrainState  # noqa: F401
 from .define import TensorDeclaration, TensorDtype  # noqa: F401
 from .env import get_local_rank, get_rank, get_world_size  # noqa: F401
 from .models.transformer import TransformerConfig, TransformerLM, lm_loss_fn  # noqa: F401
+from .model_parallel.moe import MoEMLP, moe_lm_loss_fn  # noqa: F401
 from .ops.flash_attention import flash_attention, reference_attention  # noqa: F401
+from .ops.gmm import gmm  # noqa: F401
 from .tensor import NamedParam, build_params  # noqa: F401

@@ -5,7 +5,9 @@ torch ``Linear`` weights ``[out, in]``; the attention q/k/v kernels are
 ``DenseGeneral`` ``[d_model, heads, head_dim]`` and the ``o`` kernel
 ``[heads, head_dim, d_model]``; and a few leaves are renamed
 (``embed.embedding`` -> ``embed.weight``, ``pos_embed`` ->
-``pos_embed.weight``, ``*.kernel`` -> ``*.weight``).
+``pos_embed.weight``, ``*.kernel`` -> ``*.weight``, and a block's
+``MoEMLP_0`` -> ``mlp``).  The MoE expert tables ``[E, d_in, d_out]`` keep
+their layout.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 
 def torch_name(jax_name: str) -> str:
     """Dotted flax param name -> the port's parameter name."""
+    jax_name = jax_name.replace(".MoEMLP_0.", ".mlp.")
     if jax_name == "pos_embed":
         return "pos_embed.weight"
     if jax_name == "embed.embedding":

@@ -10,10 +10,12 @@ at every sequence length.
 
 Submodules and parameters are registered in the order the JAX package's
 sorted pytree flatten visits them (``block_0, ..., embed, final_norm,
-lm_head, pos_embed``; within a block ``attn, attn_norm, mlp, mlp_norm``), so
-``build_params`` lists them, and ``BucketPlan.build`` buckets them, exactly
-as the JAX trainer does.  Weights follow torch's layouts (``Linear`` is
-``[out, in]``); ``models.convert`` maps flax params onto them.
+lm_head, pos_embed``; within a block ``attn, attn_norm, mlp, mlp_norm``, or
+with an ``mlp_factory`` module such as ``MoEMLP``, which flax names
+``MoEMLP_0``, that module first), so ``build_params`` lists them, and
+``BucketPlan.build`` buckets them, exactly as the JAX trainer does.  Weights
+follow torch's layouts (``Linear`` is ``[out, in]``); ``models.convert`` maps
+flax params onto them.
 """
 
 from __future__ import annotations
@@ -118,11 +120,19 @@ class MLPBlock(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None):
+    """Pre-norm attention and MLP.  ``mlp()``, when given, builds the MLP
+    (a MoE drops in here); it registers first, where flax's sorted flatten
+    puts its auto-named module."""
+
+    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
+                 mlp: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
+        if mlp is not None:
+            self.mlp = mlp()
         self.attn = Attention(cfg, attn_fn)
         self.attn_norm = RMSNorm(cfg.d_model, cfg)
-        self.mlp = MLPBlock(cfg)
+        if mlp is None:
+            self.mlp = MLPBlock(cfg)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg)
 
     def forward(self, x):
@@ -134,14 +144,19 @@ class TransformerLM(nn.Module):
     """Causal LM: token ids ``[batch, seq]`` -> logits ``[batch, seq, vocab]``
     f32.  Weights are drawn from ``seed`` on ``device`` (``cuda`` unless the
     caller passes another).  ``attn_fn(q, k, v, dtype)`` replaces
-    :func:`causal_attention` (for example with the plain reference)."""
+    :func:`causal_attention` (for example with the plain reference).
+    ``mlp_factory(i)`` returns, for layer ``i``, a zero-argument function
+    that makes that block's MLP (e.g. a ``MoEMLP``), or None for the dense
+    one, as in the JAX package."""
 
     def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0,
-                 attn_fn: Optional[Callable] = None):
+                 attn_fn: Optional[Callable] = None,
+                 mlp_factory: Optional[Callable[[int], Optional[Callable]]] = None):
         super().__init__()
         self.cfg = cfg
         for i in sorted(range(cfg.n_layers), key=str):
-            self.add_module(f"block_{i}", Block(cfg, attn_fn))
+            mlp = mlp_factory(i) if mlp_factory is not None else None
+            self.add_module(f"block_{i}", Block(cfg, attn_fn, mlp))
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype)
         self.final_norm = RMSNorm(cfg.d_model, cfg)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg)
@@ -153,14 +168,17 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Flax-like initialization: ``Dense`` normal with std
-        ``1/sqrt(fan_in)``, embedding std ``1/sqrt(d_model)``, position
-        table std 0.02, norm scales 1."""
+        ``1/sqrt(fan_in)``, embedding std ``1/sqrt(d_model)``, position table
+        std 0.02, norm scales 1.  An MLP built by ``mlp_factory`` initializes
+        itself through its own ``reset_parameters(generator)``."""
         for m in self.modules():
             if isinstance(m, Dense):
                 m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
                                  generator=generator)
             elif isinstance(m, RMSNorm):
                 m.scale.fill_(1.0)
+            elif isinstance(m, Block) and not isinstance(m.mlp, MLPBlock):
+                m.mlp.reset_parameters(generator)
         self.embed.weight.normal_(0.0, 1.0 / math.sqrt(self.cfg.d_model),
                                   generator=generator)
         self.pos_embed.weight.normal_(0.0, 0.02, generator=generator)

@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -98,3 +100,25 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+def bind(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """:func:`load`, with each function of ``signatures`` given its
+    ``argtypes`` (``c_void_p`` for a pointer or the stream, ``c_int`` for an
+    int, so that ctypes cuts nothing) and an ``int`` return, the CUDA error
+    code."""
+    lib = load(name)
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(fn, *args) -> None:
+    """Call a bound kernel launcher on PyTorch's current stream; raise if
+    it returns a CUDA error (a refused launch never runs, and a later
+    synchronize would not report it)."""
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")

@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import _build
+
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,14 +119,7 @@ _lib_cache = []
 
 def _lib():
     if not _lib_cache:
-        from ._build import load
-
-        lib = load("flash_attention")
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib_cache.append(lib)
+        _lib_cache.append(_build.bind("flash_attention", _SIGNATURES))
     return _lib_cache[0]
 
 
@@ -158,13 +153,6 @@ def _check(mats, rows):
     return bh, s, d, _DTYPE_CODE[ref.dtype]
 
 
-def _launch(fn, *args):
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
-
-
 def flash_fwd(q, k, v, causal: bool):
     """Forward kernel: ``(o [bh, s, d], lse [bh, s] f32)``."""
     if q.device.type == "cpu":
@@ -172,8 +160,8 @@ def flash_fwd(q, k, v, causal: bool):
     bh, s, d, code = _check((q, k, v), ())
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    _launch(_lib().bagua_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, s, d, code, int(causal))
+    _build.launch(_lib().bagua_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), lse.data_ptr(), bh, s, d, code, int(causal))
     flash_fwd.launches += 1
     return o, lse
 
@@ -184,9 +172,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
         return dkv_plain(q, k, v, do, lse, delta, causal)
     bh, s, d, code = _check((q, k, v, do), (lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_lib().bagua_flash_bwd_dkv, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), bh, s, d, code, int(causal))
+    _build.launch(_lib().bagua_flash_bwd_dkv, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), bh, s, d, code, int(causal))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -197,9 +185,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
         return dq_plain(q, k, v, do, lse, delta, causal)
     bh, s, d, code = _check((q, k, v, do), (lse, delta))
     dq = torch.empty_like(q)
-    _launch(_lib().bagua_flash_bwd_dq, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), bh, s, d, code, int(causal))
+    _build.launch(_lib().bagua_flash_bwd_dq, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), bh, s, d, code, int(causal))
     flash_bwd_dq.launches += 1
     return dq
 

@@ -1,11 +1,13 @@
 """Where the time of one port training step goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_step_profile.py
+    python3 scripts/torch_step_profile.py [--slice longctx|moe]
 
-Builds chip_smoke.py's slice (the long-context TransformerLM under
-BaguaTrainer + GradientAllReduceAlgorithm, random weights from a seed), runs
-three warm-up steps, times five steps on the host clock, then traces five
-more with ``torch.profiler``.  Prints the device time per kernel class per
+Builds one of chip_smoke.py's slices with its ``build_slice`` (BaguaTrainer +
+GradientAllReduceAlgorithm, random weights from a seed): ``longctx`` (the
+default) the long-context TransformerLM with AdamW, ``moe`` the dropless MoE
+TransformerLM of ``bench_moe_longseq`` with Adam.  Runs three warm-up steps,
+times five steps on the host clock, then traces five more with
+``torch.profiler``.  Prints the device time per kernel class per
 step, the ten most expensive kernels, and the device busy share of the traced
 window alone: the union of its kernels' intervals over the span from the
 first kernel's start to the last kernel's end, and over the window's host
@@ -16,7 +18,7 @@ CUDA card.
 
 from __future__ import annotations
 
-import functools
+import argparse
 import json
 import os
 import sys
@@ -34,10 +36,16 @@ CLASSES = (
     ("flash_fwd", ("fwd_mma_kernel", "fwd_kernel")),
     ("flash_bwd_dkv", ("dkv_mma_kernel", "dkv_kernel")),
     ("flash_bwd_dq", ("dq_mma_kernel", "dq_kernel")),
+    ("gmm", ("gmm_kernel",)),
+    ("gmm_drhs", ("gmm_drhs_kernel",)),
     ("nccl", ("nccl",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("optimizer", ("multi_tensor_apply",)),
     ("softmax_cross_entropy", ("SoftMax", "softmax", "nll_loss")),
+    # MoE routing: top-k, the stable sort by expert, the row gather, the
+    # group-size scatter-add and the output index_add
+    ("sort_gather_scatter", ("Sort", "sort", "TopK", "radix", "scatter_gather",
+                             "indexSelect", "indexFunc", "index_elementwise")),
     ("elementwise_and_copy", ("elementwise_kernel", "copy_kernel")),
     ("reduce", ("reduce_kernel",)),
 )
@@ -62,21 +70,16 @@ def union_us(spans) -> float:
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--slice", choices=("longctx", "moe"), default="longctx")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     import bagua_tpu_torch as bt
-    from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from chip_smoke import build_slice
 
     bt.init_process_group()
-    cfg = TransformerConfig(vocab_size=32768, d_model=1024, n_heads=16, n_layers=4,
-                            d_ff=4096, max_seq_len=4096)
-    adamw = functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9, 0.999),
-                              eps=1e-8, weight_decay=1e-4)
-    trainer = bt.BaguaTrainer(bt.lm_loss_fn, adamw, bt.GradientAllReduceAlgorithm())
-    state = trainer.init(TransformerLM(cfg, seed=0))
-    g = torch.Generator(device="cuda").manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1),
-                                     device="cuda", generator=g)}
+    _, trainer, state, batch = build_slice(args.slice)
     for _ in range(3):
         state, loss = trainer.train_step(state, batch)
     torch.cuda.synchronize()
@@ -112,6 +115,7 @@ def main():
     busy_ms = union_us(spans) / 1e3
     kernel_span_ms = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3
     out = {
+        "slice": args.slice,
         "card": torch.cuda.get_device_name(0),
         "steps": STEPS,
         "wall_ms_per_step": wall_ms / STEPS,

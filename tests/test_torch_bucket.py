@@ -9,11 +9,13 @@ import torch
 from bagua_tpu import bucket as jbucket
 from bagua_tpu import define as jdefine
 from bagua_tpu import tensor as jtensor
+from bagua_tpu.model_parallel.moe import MoEMLP as JMoEMLP
 from bagua_tpu.models.transformer import TransformerConfig as JConfig
 from bagua_tpu.models.transformer import TransformerLM as JLM
 from bagua_tpu_torch import bucket as tbucket
 from bagua_tpu_torch import define as tdefine
 from bagua_tpu_torch import tensor as ttensor
+from bagua_tpu_torch.model_parallel.moe import MoEMLP
 from bagua_tpu_torch.models.convert import torch_name
 from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
@@ -24,24 +26,50 @@ SMALL = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,
              max_seq_len=128)
 
 
+def _pair(jax_mlp_factory=None, mlp_factory=None):
+    # names, shapes and dtypes are all the plans read, so no init runs
+    jmodel = JLM(JConfig(**SMALL), mlp_factory=jax_mlp_factory)
+    jparams = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                             jnp.zeros((1, 8), jnp.int32))["params"]
+    return jparams, TransformerLM(TransformerConfig(**SMALL), device="cpu",
+                                  mlp_factory=mlp_factory)
+
+
 @pytest.fixture(scope="module")
 def models():
-    # names, shapes and dtypes are all the plans read, so no init runs
-    jparams = jax.eval_shape(JLM(JConfig(**SMALL)).init, jax.random.PRNGKey(0),
-                             jnp.zeros((1, 8), jnp.int32))["params"]
-    return jparams, TransformerLM(TransformerConfig(**SMALL), device="cpu")
+    return _pair()
 
 
-def test_build_params_order_matches(models):
-    jparams, model = models
+@pytest.fixture(scope="module")
+def moe_models():
+    """The MoE LM of the dropless slice at small widths: a MoE in every odd
+    layer, which flax names ``MoEMLP_0`` and sorts first in its block."""
+    return _pair(
+        lambda i: (lambda: JMoEMLP(n_experts=8, d_ff=SMALL["d_ff"], k=2,
+                                   dropless=True)) if i % 2 == 1 else None,
+        lambda i: (lambda: MoEMLP(8, SMALL["d_ff"], d_model=SMALL["d_model"], k=2,
+                                  dropless=True)) if i % 2 == 1 else None)
+
+
+def _assert_same_order(jparams, model):
     want = [torch_name(p.name) for p in jtensor.build_params(jparams)]
     assert [p.name for p in ttensor.build_params(model)] == want
     assert want[0] == "pos_embed.weight"  # reversed registration order
+    return want
 
 
-@pytest.mark.parametrize("bucket_bytes", [64 * 1024, 300 * 1024, 10 * 1024 ** 2])
-def test_bucket_partition_matches(models, bucket_bytes):
-    jparams, model = models
+def test_build_params_order_matches(models):
+    _assert_same_order(*models)
+
+
+def test_moe_build_params_order_matches(moe_models):
+    names = _assert_same_order(*moe_models)
+    assert names.index("block_1.mlp.router.weight") < names.index(
+        "block_1.mlp.expert_wo") < names.index("block_1.mlp.expert_wi")
+    assert "block_1.mlp.wo.weight" not in names
+
+
+def _assert_same_partition(jparams, model, bucket_bytes):
     jplan = jbucket.BucketPlan.build(jtensor.build_params(jparams), bucket_bytes)
     tplan = tbucket.BucketPlan.build(ttensor.build_params(model), bucket_bytes)
     want = [[torch_name(t.name) for t in b.tensors] for b in jplan.buckets]
@@ -49,6 +77,16 @@ def test_bucket_partition_matches(models, bucket_bytes):
     assert [b.numel for b in tplan.buckets] == [b.numel for b in jplan.buckets]
     if bucket_bytes < 10 * 1024 ** 2:
         assert len(want) > 1
+
+
+@pytest.mark.parametrize("bucket_bytes", [64 * 1024, 300 * 1024, 10 * 1024 ** 2])
+def test_bucket_partition_matches(models, bucket_bytes):
+    _assert_same_partition(*models, bucket_bytes)
+
+
+@pytest.mark.parametrize("bucket_bytes", [64 * 1024, 300 * 1024, 10 * 1024 ** 2])
+def test_moe_bucket_partition_matches(moe_models, bucket_bytes):
+    _assert_same_partition(*moe_models, bucket_bytes)
 
 
 @pytest.mark.parametrize("bucket_bytes", [64 * 1024, 300 * 1024])

@@ -25,7 +25,8 @@ def _imported_roots(path: Path):
 def test_sources_found():
     names = {p.relative_to(REPO).as_posix() for p in SOURCES}
     assert {"chip_smoke.py", "bagua_tpu_torch/core/backend.py",
-            "bagua_tpu_torch/ops/flash_attention.py"} <= names
+            "bagua_tpu_torch/ops/flash_attention.py", "bagua_tpu_torch/ops/gmm.py",
+            "bagua_tpu_torch/model_parallel/moe/layer.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
