@@ -2,15 +2,22 @@
 
 The same layout and public names as the JAX package, built on torch and
 numpy alone: collectives over ``torch.distributed`` (NCCL on the card, gloo
-on the CPU) and the JAX package's Pallas kernels rewritten by hand in CUDA
-for Hopper (``ops/csrc``).  Entry points run on ``cuda`` unless the caller
+on the CPU, or gloo through host memory for several ranks on one card) and
+the JAX package's Pallas kernels rewritten by hand in CUDA for Hopper
+(``ops/csrc``).  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
 from . import env  # noqa: F401
-from .algorithms import Algorithm, AlgorithmContext, GradientAllReduceAlgorithm  # noqa: F401
+from .algorithms import (  # noqa: F401
+    Algorithm,
+    AlgorithmContext,
+    ByteGradAlgorithm,
+    GradientAllReduceAlgorithm,
+    QAdamAlgorithm,
+)
 from .bucket import BucketPlan, BucketSpec, split_bucket_by_bucket_size  # noqa: F401
 from .communication import (  # noqa: F401
     BaguaBackend,
@@ -22,7 +29,12 @@ from .communication import (  # noqa: F401
 from .core.backend import BaguaTrainer, TrainState  # noqa: F401
 from .define import TensorDeclaration, TensorDtype  # noqa: F401
 from .env import get_local_rank, get_rank, get_world_size  # noqa: F401
-from .models.transformer import TransformerConfig, TransformerLM, lm_loss_fn  # noqa: F401
+from .models.transformer import (  # noqa: F401
+    TransformerConfig,
+    TransformerLM,
+    bert_large_config,
+    lm_loss_fn,
+)
 from .model_parallel.moe import MoEMLP, moe_lm_loss_fn  # noqa: F401
 from .ops.flash_attention import flash_attention, reference_attention  # noqa: F401
 from .ops.gmm import gmm  # noqa: F401

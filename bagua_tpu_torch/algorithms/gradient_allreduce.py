@@ -1,7 +1,9 @@
 """Centralized synchronous full-precision data parallelism.
 
 Port of ``bagua_tpu/algorithms/gradient_allreduce.py``: one allreduce per
-bucket, averaged (or summed) over the ranks.
+bucket, averaged (or summed) over the ranks, through
+``AlgorithmContext.bucket_allreduce``, so a codec forced with
+``compress_intra`` rides the compressed ring.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ class GradientAllReduceAlgorithm(Algorithm):
         if hierarchical:
             raise NotImplementedError(
                 "GradientAllReduceAlgorithm(hierarchical=True) is not ported yet")
+        self.hierarchical = hierarchical
         self.average = average
         self.comm_dtype = comm_dtype
 

@@ -1,0 +1,121 @@
+"""QAdam: quantized-momentum Adam (the 1-bit-Adam family).
+
+Port of ``bagua_tpu/algorithms/q_adam.py``.  Two phases, switched by
+``need_reset`` at the warmup boundary:
+
+- warmup (``step < warmup_steps``): gradients are averaged in full
+  precision, both Adam moments update from the averaged gradient, and the
+  parameters step by the Adam rule;
+- compressed: the momentum (``exp_avg``) updates locally from the raw
+  gradient, is then averaged by the 8-bit compressed scatter-gather (kernels
+  K1 and K2), and the second moment is frozen.
+
+The algorithm owns its optimizer, so the trainer builds no torch optimizer
+for it.  The moments are dicts of tensors by parameter name; the update runs
+in place on the parameters.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from ..communication import ReduceOp
+from ..compression import compressed_scatter_gather_allreduce
+from .base import Algorithm, AlgorithmContext
+
+
+class QAdamOptState(NamedTuple):
+    exp_avg: Dict[str, torch.Tensor]
+    exp_avg_sq: Dict[str, torch.Tensor]
+
+
+class QAdamAlgorithm(Algorithm):
+    name = "qadam"
+    owns_optimizer = True
+    #: every rank owns an equal chunk of the compressed scatter-gather
+    align_to_world = True
+
+    def __init__(
+        self,
+        warmup_steps: int = 100,
+        lr: float = 1e-3,
+        betas: Tuple[float, float] = (0.9, 0.999),
+        eps: float = 1e-8,
+        weight_decay: float = 0.0,
+        hierarchical: bool = True,
+    ):
+        """
+        Args:
+            warmup_steps: steps of full-precision gradient allreduce before
+                the switch to compressed momentum communication.
+            lr / betas / eps / weight_decay: the Adam hyperparameters.
+            hierarchical: hierarchical communication in the compressed
+                phase; not ported yet, so True raises ``NotImplementedError``.
+        """
+        if hierarchical:
+            raise NotImplementedError("QAdamAlgorithm(hierarchical=True) is not ported yet")
+        self.warmup_steps = warmup_steps
+        self.lr = lr
+        self.betas = betas
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.hierarchical = hierarchical
+        self._compressed = False
+
+    def need_reset(self, step: int) -> bool:
+        if step == self.warmup_steps and not self._compressed:
+            self._compressed = True
+            return True
+        return False
+
+    # ---- phase 1: warmup gradient allreduce --------------------------------
+
+    def process_grads(self, ctx: AlgorithmContext, grads, params, algo_state, step):
+        if self._compressed:
+            return grads, algo_state
+        flats = [ctx.comm.allreduce(f, ReduceOp.AVG) for f in ctx.bucket_flats(grads)]
+        return ctx.from_bucket_flats(flats), algo_state
+
+    # ---- optimizer -----------------------------------------------------------
+
+    def init_optimizer_state(self, params):
+        return QAdamOptState(exp_avg={n: torch.zeros_like(p) for n, p in params.items()},
+                             exp_avg_sq={n: torch.zeros_like(p) for n, p in params.items()})
+
+    def _communicate_momentum(self, ctx: AlgorithmContext, exp_avg):
+        if ctx.comm.nranks() <= 1:
+            return exp_avg
+        out = []
+        for f in ctx.bucket_flats(exp_avg):
+            if ctx.codec_for("minmax_uint8") is None:
+                # compress_intra="off": the full-precision escape hatch
+                out.append(ctx.bucket_allreduce(f, ReduceOp.AVG))
+            else:
+                out.append(compressed_scatter_gather_allreduce(ctx.comm, f, average=True))
+        return ctx.from_bucket_flats(out)
+
+    @torch.no_grad()
+    def optimizer_update(self, ctx, params, grads, opt_state: QAdamOptState, algo_state, step):
+        beta1, beta2 = self.betas
+        # the reference's QAdamOptimizer.step counts from 1
+        step_id = step + 1
+        exp_avg = {n: m.mul_(beta1).add_(grads[n] * (1.0 - beta1))
+                   for n, m in opt_state.exp_avg.items()}
+        if self._compressed:
+            # second moment frozen; momentum averaged through the codec
+            exp_avg = self._communicate_momentum(ctx, exp_avg)
+            exp_avg_sq = opt_state.exp_avg_sq
+        else:
+            exp_avg_sq = {n: v.mul_(beta2).add_(grads[n] * grads[n] * (1.0 - beta2))
+                          for n, v in opt_state.exp_avg_sq.items()}
+        bias1 = 1.0 - beta1 ** step_id
+        bias2 = 1.0 - beta2 ** step_id
+        for n, p in params.items():
+            denom = exp_avg_sq[n].sqrt().div_(bias2 ** 0.5).add_(self.eps)
+            decay = p * (self.lr * self.weight_decay) if self.weight_decay else None
+            p.sub_(exp_avg[n] / denom * (self.lr / bias1))
+            if decay is not None:
+                p.sub_(decay)
+        return params, QAdamOptState(exp_avg, exp_avg_sq), algo_state

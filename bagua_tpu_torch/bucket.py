@@ -3,7 +3,9 @@
 Port of ``bagua_tpu/bucket.py``: the reference autotuner's greedy
 ``split_bucket_by_bucket_size`` and the ``BucketSpec``/``BucketPlan``
 partition.  Each bucket is one contiguous flat tensor, so one collective
-moves it (the reference's ``_flatten_``).
+moves it (the reference's ``_flatten_``), padded with zeros to a multiple of
+its ``alignment`` (the compressed algorithms align to the world size, so
+every rank owns an equal chunk).
 """
 
 from __future__ import annotations
@@ -42,14 +44,20 @@ def split_bucket_by_bucket_size(
 
 @dataclass(frozen=True)
 class BucketSpec:
-    """One bucket: ordered named tensors of one dtype."""
+    """One bucket: ordered named tensors of one dtype, padded to a multiple
+    of ``alignment`` elements."""
 
     name: str
     tensors: Tuple[NamedParam, ...]
+    alignment: int = 1
 
     @property
     def numel(self) -> int:
         return sum(t.numel for t in self.tensors)
+
+    @property
+    def padded_numel(self) -> int:
+        return -(-self.numel // self.alignment) * self.alignment
 
     @property
     def dtype(self) -> torch.dtype:
@@ -77,10 +85,12 @@ class BucketPlan:
     def from_declaration_buckets(
         decl_buckets: Sequence[Sequence[TensorDeclaration]],
         named_params: Sequence[NamedParam],
+        alignment: int = 1,
     ) -> "BucketPlan":
         by_name = {p.name: p for p in named_params}
         plan = BucketPlan(buckets=tuple(
-            BucketSpec(name=str(i), tensors=tuple(by_name[d.name] for d in db))
+            BucketSpec(name=str(i), tensors=tuple(by_name[d.name] for d in db),
+                       alignment=alignment)
             for i, db in enumerate(decl_buckets)
         ))
         missing = set(by_name) - set(plan.tensor_names)
@@ -92,19 +102,22 @@ class BucketPlan:
     def build(
         named_params: Sequence[NamedParam],
         bucket_bytes: int,
+        alignment: int = 1,
     ) -> "BucketPlan":
         decls = [p.declaration() for p in named_params]
         decl_buckets = split_bucket_by_bucket_size(decls, bucket_bytes)
-        return BucketPlan.from_declaration_buckets(decl_buckets, named_params)
+        return BucketPlan.from_declaration_buckets(decl_buckets, named_params, alignment)
 
     def flatten(self, named: Mapping[str, torch.Tensor]) -> List[torch.Tensor]:
-        """Tensors by name -> one new contiguous flat buffer per bucket."""
+        """Tensors by name -> one new contiguous flat buffer per bucket, its
+        pad tail zero (a codec's per-chunk min/max reads it)."""
         flats = []
         for b in self.buckets:
             t0 = named[b.tensors[0].name]
-            flat = torch.empty(b.numel, dtype=b.dtype, device=t0.device)
+            flat = torch.empty(b.padded_numel, dtype=b.dtype, device=t0.device)
             for t, off in zip(b.tensors, b.offsets()):
                 flat[off:off + t.numel].copy_(named[t.name].reshape(-1))
+            flat[b.numel:].zero_()
             flats.append(flat)
         return flats
 

@@ -1,17 +1,27 @@
-"""Process group and the bucket allreduce over ``torch.distributed``.
+"""Process group, collectives and the ring collectives over
+``torch.distributed``.
 
-Port of the slice of ``bagua_tpu/communication.py`` the trainer needs:
-``ReduceOp``, :func:`init_process_group`, a :class:`BaguaCommunicator` whose
-``allreduce`` sums or averages one tensor over every rank, and
-:func:`get_backend`.  NCCL carries the collectives on the card, gloo on the
-CPU.  Even at world size 1 every bucket goes through a real
-``all_reduce``.
+Port of the part of ``bagua_tpu/communication.py`` the trainer and the
+compressed algorithms need: ``ReduceOp``, :func:`init_process_group`, a
+:class:`BaguaCommunicator` over every rank (allreduce, allgather,
+reduce_scatter, alltoall, ppermute, and the ring reduce-scatter / allgather /
+allreduce with an optional wire codec) and :func:`get_backend`.  NCCL
+carries the collectives on the card, gloo on the CPU.  Even at world size 1
+every bucket goes through a real ``all_reduce``.
+
+gloo takes CUDA tensors for ``all_reduce`` and ``broadcast`` only.  On a gloo
+group (which a caller may pick for CUDA tensors, for example to run two
+ranks on one card, where NCCL refuses a second rank on the same device) the
+other collectives copy a CUDA operand to the host, run there and copy the
+result back; gloo's own CUDA ``all_reduce`` does the same inside gloo.
+``BaguaCommunicator.host_staged_bytes`` counts the bytes of both (each
+direction) for the communicator's collectives.  An NCCL group never stages.
 """
 
 from __future__ import annotations
 
 from enum import IntEnum
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,24 +42,41 @@ class ReduceOp(IntEnum):
     AVG = 10
 
 
+#: payload types no collective backend is relied on to carry; they move as
+#: bytes (every collective that carries them only moves data)
+_BYTE_VIEW_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+# the flat-output collectives under their newer names where this PyTorch has
+# them (the older ones are deprecated there)
+_all_gather_flat = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter_flat = (getattr(dist, "reduce_scatter_single", None)
+                        or dist.reduce_scatter_tensor)
+
+
 def init_process_group(
     init_method: Optional[str] = None,
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     device=None,
+    backend: Optional[str] = None,
 ) -> "BaguaBackend":
     """Initialize distributed state; call before the other APIs.
 
-    ``device`` picks the collective backend: NCCL for ``cuda`` (the default),
-    gloo for ``cpu``.  Without ``init_method`` a single process forms a
-    world of 1 from an in-process store (no network); several processes pass
-    ``init_method`` (``tcp://host:port``, ``file://path`` or ``env://``) with
-    ``world_size`` and ``rank``, which default to ``WORLD_SIZE``/``RANK``.
-    Calling it again returns the existing backend.
+    ``device`` is where this rank's tensors live: ``cuda`` (the default; an
+    index-less ``cuda`` means ``cuda:<LOCAL_RANK>``) or ``cpu``.
+    ``backend`` is the collective backend, by default NCCL for ``cuda`` and
+    gloo for ``cpu``; gloo with ``cuda`` stages what gloo cannot take
+    through host memory (see the module docstring).  Without
+    ``init_method`` a single process forms a world of 1 from an in-process
+    store (no network); several processes pass ``init_method``
+    (``tcp://host:port``, ``file://path`` or ``env://``) with ``world_size``
+    and ``rank``, which default to ``WORLD_SIZE``/``RANK``.  Calling it
+    again returns the existing backend.
     """
     device = resolve_device(device)
     if not dist.is_initialized():
-        backend = "nccl" if device.type == "cuda" else "gloo"
+        if backend is None:
+            backend = "nccl" if device.type == "cuda" else "gloo"
         world_size = env.get_world_size() if world_size is None else world_size
         rank = env.get_rank() if rank is None else rank
         if device.type == "cuda":
@@ -69,8 +96,45 @@ def init_process_group(
 class BaguaCommunicator:
     """All ranks of the default process group."""
 
+    def __init__(self):
+        self.stages_cuda = dist.get_backend() == "gloo"
+        #: bytes of CUDA operands copied to and from the host for gloo (by
+        #: this port or inside gloo's all_reduce)
+        self.host_staged_bytes = 0
+
     def nranks(self) -> int:
         return dist.get_world_size()
+
+    def rank(self) -> int:
+        return dist.get_rank()
+
+    # -- host staging for gloo ----------------------------------------------
+
+    def _to_wire(self, x: torch.Tensor) -> torch.Tensor:
+        """The contiguous tensor a data-moving collective sends for ``x``:
+        bytes for the types in ``_BYTE_VIEW_DTYPES``, a host copy for a CUDA
+        tensor on a gloo group."""
+        x = x.contiguous()
+        if x.dtype in _BYTE_VIEW_DTYPES:
+            x = x.view(torch.uint8)
+        if self.stages_cuda and x.is_cuda:
+            self.host_staged_bytes += x.numel() * x.element_size()
+            x = x.cpu()
+        return x
+
+    def _wire_empty(self, shape, like: torch.Tensor) -> torch.Tensor:
+        dtype = torch.uint8 if like.dtype in _BYTE_VIEW_DTYPES else like.dtype
+        device = "cpu" if self.stages_cuda else like.device
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    def _from_wire(self, y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`_to_wire` for a received tensor."""
+        if y.device != like.device:
+            self.host_staged_bytes += y.numel() * y.element_size()
+            y = y.to(like.device)
+        return y.view(like.dtype) if like.dtype in _BYTE_VIEW_DTYPES else y
+
+    # -- collectives ---------------------------------------------------------
 
     def allreduce(self, x: torch.Tensor, op: ReduceOp = ReduceOp.AVG) -> torch.Tensor:
         """Sum (SUM) or mean (AVG) of ``x`` over the ranks, reduced in place
@@ -78,10 +142,189 @@ class BaguaCommunicator:
         since gloo has no AVG."""
         if op not in (ReduceOp.SUM, ReduceOp.AVG):
             raise NotImplementedError(f"allreduce supports SUM and AVG, not {op!r}")
+        if self.stages_cuda and x.is_cuda:
+            # gloo copies the operand to the host and the sum back
+            self.host_staged_bytes += 2 * x.numel() * x.element_size()
         dist.all_reduce(x, dist.ReduceOp.SUM)
         if op == ReduceOp.AVG:
             x.div_(self.nranks())
         return x
+
+    def allgather(self, x: torch.Tensor, axis: int = 0, tiled: bool = True) -> torch.Tensor:
+        """Every rank's ``x`` in rank order: concatenated along dim 0
+        (``tiled``) or stacked on a new leading dim."""
+        if axis != 0:
+            raise NotImplementedError("allgather gathers along dim 0 only")
+        n = self.nranks()
+        wire = self._to_wire(x)
+        out = self._wire_empty((n * x.shape[0],) + tuple(x.shape[1:]), x)
+        _all_gather_flat(out, wire)
+        out = self._from_wire(out, x)
+        return out if tiled else out.reshape((n,) + tuple(x.shape))
+
+    def reduce_scatter(self, x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+                       axis: int = 0) -> torch.Tensor:
+        """This rank's contiguous 1/n slice (along dim 0) of the sum (SUM)
+        or mean (AVG) of ``x`` over the ranks."""
+        if axis != 0:
+            raise NotImplementedError("reduce_scatter scatters along dim 0 only")
+        if op not in (ReduceOp.SUM, ReduceOp.AVG):
+            raise ValueError(f"reduce_scatter supports SUM/AVG, got {op}")
+        n = self.nranks()
+        if x.shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over {n} ranks")
+        wire = self._to_wire(x)
+        out = self._wire_empty((x.shape[0] // n,) + tuple(x.shape[1:]), x)
+        _reduce_scatter_flat(out, wire)
+        out = self._from_wire(out, x)
+        return out / n if op == ReduceOp.AVG else out
+
+    def alltoall(self, x: torch.Tensor, split_axis: int = 0,
+                 concat_axis: int = 0) -> torch.Tensor:
+        """``x`` is ``[n, ...]``; row ``j`` of the result is row ``r`` of
+        rank ``j``'s ``x`` (r = this rank)."""
+        if split_axis != 0 or concat_axis != 0:
+            raise NotImplementedError("alltoall splits and concatenates along dim 0 only")
+        if x.shape[0] != self.nranks():
+            raise ValueError(f"alltoall needs a leading dim of {self.nranks()}, "
+                             f"got {tuple(x.shape)}")
+        wire = self._to_wire(x)
+        out = torch.empty_like(wire)
+        dist.all_to_all_single(out, wire)
+        return self._from_wire(out, x)
+
+    def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``perm`` pairs ``(src, dst)``: this rank sends ``x`` to its
+        ``dst`` and returns what its ``src`` sent, zeros if no rank sends to
+        it (``lax.ppermute``'s contract), over ``batch_isend_irecv``."""
+        r = self.rank()
+        dst = [d for s, d in perm if s == r]
+        src = [s for s, d in perm if d == r]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"perm {perm} sends or receives twice at rank {r}")
+        wire = self._to_wire(x)
+        out = self._wire_empty(tuple(x.shape), x)
+        ops = [dist.P2POp(dist.isend, wire, d) for d in dst]
+        ops += [dist.P2POp(dist.irecv, out, s) for s in src]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        if not src:
+            out.zero_()
+        return self._from_wire(out, x)
+
+    # -- ring collectives -----------------------------------------------------
+    #
+    # The ring forms decompose a collective into ``ppermute`` hops and local
+    # adds (``:233-457``).  The JAX package also splits a ring into
+    # independent sub-collectives when the overlap scheduler sets a chunk
+    # size; that scheduler is not ported, so every ring here is one.  Rank r
+    # owns the r-th contiguous slice, as ``reduce_scatter`` does.
+    # ``codec=`` quantizes on the hop: every reduce-scatter hop carries the
+    # codec's payload and f32 sidecar, the receiver decodes and adds its own
+    # block in f32, and the allgather phase encodes each rank's finished
+    # chunk once and forwards that payload unchanged, so every rank decodes
+    # the same bytes.
+
+    def _ring_valid(self) -> bool:
+        """A ring needs more than one rank."""
+        return self.nranks() > 1
+
+    def _ring_blocks(self, x: torch.Tensor, n: int):
+        """``[n * m, ...]`` -> its ``n`` rank blocks, indexed modulo ``n``."""
+        if x.shape[0] % n:
+            raise ValueError(f"{tuple(x.shape)} does not split into {n} blocks")
+        blocks = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+        return lambda i: blocks[i % n]
+
+    def _ring_reduce_scatter_1(self, x, op: ReduceOp, codec=None):
+        """One ring: rank r ends with the reduction of every rank's r-th
+        block.  The partial sum for block b starts at rank ``b + 1`` and
+        travels +1 per hop, each rank adding its own block: n-1 hops of 1/n
+        of the bytes.  With ``codec`` every hop carries the encoded partial
+        sum and the result is f32."""
+        n, r = self.nranks(), self.rank()
+        if op not in (ReduceOp.SUM, ReduceOp.AVG):
+            raise ValueError(f"ring reduce_scatter supports SUM/AVG, got {op}")
+        block = self._ring_blocks(x, n)
+        perm = [(i, (i + 1) % n) for i in range(n)]
+        if codec is None:
+            buf = block(r - 1)
+            for s in range(n - 1):
+                buf = self.ppermute(buf, perm) + block(r - 2 - s)
+        else:
+            buf = block(r - 1).float()
+            m = buf.shape[0]
+            for s in range(n - 1):
+                parts = tuple(self.ppermute(p, perm) for p in codec.encode(buf[None]))
+                buf = codec.decode(parts, m)[0] + block(r - 2 - s).float()
+        return buf / n if op == ReduceOp.AVG else buf
+
+    def _ring_allgather_1(self, x, codec=None):
+        """One ring: this rank's block in, every block in rank order out
+        (``[n * m, ...]``).  With ``codec`` the block is encoded once, the
+        hops forward the payload, and the stacked parts decode in one pass
+        at the end."""
+        n, r = self.nranks(), self.rank()
+        perm = [(i, (i + 1) % n) for i in range(n)]
+        cur = [x] if codec is None else [p[0] for p in codec.encode(x[None])]
+        stacked = [c.new_zeros((n,) + tuple(c.shape)) for c in cur]
+        for o, c in zip(stacked, cur):
+            o[r] = c
+        for s in range(n - 1):
+            cur = [self.ppermute(c, perm) for c in cur]
+            for o, c in zip(stacked, cur):
+                o[(r - 1 - s) % n] = c
+        if codec is None:
+            return stacked[0].reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+        return codec.decode(tuple(stacked), x.shape[0]).reshape(-1)
+
+    @staticmethod
+    def _resolve_codec(codec):
+        if codec is None:
+            return None
+        from .compression.codecs import resolve_codec
+
+        return resolve_codec(codec)
+
+    def ring_reduce_scatter(self, x, op: ReduceOp = ReduceOp.SUM, codec=None):
+        """Ring reduce-scatter of flat ``x`` (``numel % nranks == 0``): this
+        rank's contiguous slice.  With ``codec`` the f32 accumulation is cast
+        back to ``x``'s dtype.  A single rank falls back to
+        :meth:`reduce_scatter` (no wire to compress)."""
+        codec = self._resolve_codec(codec)
+        if not self._ring_valid():
+            return self.reduce_scatter(x, op)
+        out = self._ring_reduce_scatter_1(x, op, codec)
+        return out.to(x.dtype) if codec is not None else out
+
+    def ring_allgather(self, x, codec=None):
+        """Ring all-gather of this rank's flat chunk, the inverse of
+        :meth:`ring_reduce_scatter` (``[m] -> [nranks * m]``).  ``codec``
+        encodes the chunk once; every receiver decodes the same payload."""
+        codec = self._resolve_codec(codec)
+        if not self._ring_valid():
+            return self.allgather(x, axis=0, tiled=True)
+        out = self._ring_allgather_1(x, codec)
+        return out.to(x.dtype) if codec is not None else out
+
+    def ring_allreduce(self, x, op: ReduceOp = ReduceOp.AVG, codec=None):
+        """Ring allreduce: a reduce-scatter ring then an all-gather ring.  A
+        buffer that does not split evenly is zero-padded (sound for SUM/AVG)
+        and sliced back.  With ``codec`` the hops carry encoded partial sums,
+        the finished chunk (already divided for AVG) is encoded once and
+        forwarded unchanged."""
+        codec = self._resolve_codec(codec)
+        if not self._ring_valid():
+            return self.allreduce(x, op)
+        size = x.shape[0]
+        pad = (-size) % self.nranks()
+        if pad:
+            x = torch.cat([x, x.new_zeros(pad)])
+        out = self._ring_allgather_1(self._ring_reduce_scatter_1(x, op, codec), codec)
+        if codec is not None:
+            out = out.to(x.dtype)
+        return out[:size] if pad else out
 
 
 class BaguaBackend:

@@ -4,7 +4,9 @@ Port of the main path of ``bagua_tpu/core/backend.py``.  One step is: the
 per-rank mean loss, its backward, the gradients flattened into the bucket
 plan's flat buffers, the algorithm's ``process_grads`` (for
 ``GradientAllReduceAlgorithm``, one allreduce per bucket), the optimizer
-step on the reduced gradients, and the loss averaged over the ranks.
+step on the reduced gradients, and the loss averaged over the ranks.  An
+algorithm that owns its optimizer (QAdam) gets no torch optimizer: its
+``optimizer_update`` runs after ``process_grads``.
 
 PyTorch runs eagerly, so there is no compiled-step cache; the state is the
 module and the optimizer, updated in place, rather than an immutable pytree.
@@ -24,6 +26,7 @@ from .. import env
 from ..algorithms.base import Algorithm, AlgorithmContext
 from ..bucket import split_bucket_by_bucket_size
 from ..communication import ReduceOp, get_backend
+from ..compression.codecs import validate_codec_policy
 from ..device import resolve_device
 from ..tensor import build_params
 
@@ -32,12 +35,15 @@ from ..tensor import build_params
 class TrainState:
     """The module (params), its optimizer (and thus the optimizer state),
     the algorithm's state and the step count.  ``train_step`` updates the
-    module and optimizer in place and returns a new ``TrainState``."""
+    module and optimizer in place and returns a new ``TrainState``.  For an
+    algorithm that owns its optimizer, ``optimizer`` is None and
+    ``opt_state`` holds the algorithm's optimizer state."""
 
     step: int
     model: nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Optional[torch.optim.Optimizer]
     algo_state: Any = None
+    opt_state: Any = None
 
 
 class BaguaTrainer:
@@ -46,11 +52,22 @@ class BaguaTrainer:
     Args:
         loss_fn: ``loss_fn(model, batch) -> scalar tensor`` (per-rank mean).
         optimizer_factory: ``optimizer_factory(params) -> Optimizer``, e.g.
-            ``functools.partial(torch.optim.AdamW, lr=1e-4)``.
+            ``functools.partial(torch.optim.AdamW, lr=1e-4)``; unused (and
+            may be None) for an algorithm that owns its optimizer.
         algorithm: a :class:`bagua_tpu_torch.algorithms.base.Algorithm`.
         device: where the model and batches live; ``cuda`` by default.
         bucket_bytes: bucket size in bytes (default env
             ``BAGUA_DEFAULT_BUCKET_SIZE``, 10 MiB).
+        compress_intra: codec policy of the flat ring (default env
+            ``BAGUA_COMPRESS_INTRA``, ``auto``): ``auto`` keeps the
+            family's own wire format, ``off`` forces full precision, a codec
+            name (``minmax_uint8``, ``int8``, ``fp8_e4m3``, ``fp8_e5m2``)
+            makes every bucket allreduce ride the compressed ring at world
+            size > 1.
+        compress_inter: codec policy of the cross-node tier (default env
+            ``BAGUA_COMPRESS_INTER``): ``auto`` or ``off``.  A codec name
+            raises ``NotImplementedError``: the hierarchical forms that
+            would carry it are not ported yet.
     """
 
     def __init__(
@@ -60,6 +77,8 @@ class BaguaTrainer:
         algorithm: Algorithm,
         device=None,
         bucket_bytes: Optional[int] = None,
+        compress_intra: Optional[str] = None,
+        compress_inter: Optional[str] = None,
     ):
         self.loss_fn = loss_fn
         self.optimizer_factory = optimizer_factory
@@ -69,8 +88,20 @@ class BaguaTrainer:
                              if bucket_bytes is None else bucket_bytes)
         self.comm = get_backend().global_communicator
         self.world_size = self.comm.nranks()
+        self.compress_intra = validate_codec_policy(
+            env.get_compress_intra() if compress_intra is None else compress_intra,
+            "compress_intra")
+        self.compress_inter = validate_codec_policy(
+            env.get_compress_inter() if compress_inter is None else compress_inter,
+            "compress_inter")
+        if self.compress_inter not in ("auto", "off"):
+            raise NotImplementedError(
+                f"compress_inter={self.compress_inter!r} compresses the cross-node tier "
+                f"of the hierarchical collectives, which are not ported yet")
         self._ctx: Optional[AlgorithmContext] = None
         self._params = None
+        #: train_step calls on this trainer, the counter ``need_reset`` reads
+        self._step_counter = 0
 
     @property
     def plan(self):
@@ -78,7 +109,8 @@ class BaguaTrainer:
 
     def init(self, model: nn.Module) -> TrainState:
         """Move ``model`` to the trainer's device, give every rank rank 0's
-        weights, build the bucket plan and the optimizer."""
+        weights, build the bucket plan and the optimizer (or the algorithm's
+        optimizer state)."""
         model.to(self.device)
         with torch.no_grad():
             for p in model.parameters():
@@ -87,11 +119,16 @@ class BaguaTrainer:
         named = algo.init_tensors(build_params(model))
         decls = [p.declaration() for p in named]
         plan = algo.tensors_to_buckets(
-            split_bucket_by_bucket_size(decls, self.bucket_bytes), named)
-        self._ctx = AlgorithmContext(comm=self.comm, plan=plan)
+            split_bucket_by_bucket_size(decls, self.bucket_bytes), named, self.world_size)
+        self._ctx = AlgorithmContext(comm=self.comm, plan=plan, world_size=self.world_size,
+                                     intra_codec=self.compress_intra)
         self._params = dict(model.named_parameters())
+        algo_state = algo.init_state(self._ctx, self._params)
+        if algo.owns_optimizer:
+            return TrainState(0, model, None, algo_state,
+                              algo.init_optimizer_state(self._params))
         optimizer = self.optimizer_factory(model.parameters())
-        return TrainState(0, model, optimizer, algo.init_state(self._ctx, self._params))
+        return TrainState(0, model, optimizer, algo_state)
 
     def shard_batch(self, local_batch: Mapping) -> dict:
         """This rank's batch on the trainer's device.  Each rank feeds its
@@ -106,7 +143,11 @@ class BaguaTrainer:
 
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         """One step; returns the new state and the loss averaged over ranks."""
-        model, optimizer = state.model, state.optimizer
+        model, optimizer, algo = state.model, state.optimizer, self.algorithm
+        self._step_counter += 1
+        # the phase switch (QAdam's warmup boundary) on the trainer's own
+        # step count, at the top of the step, as the JAX trainer does
+        algo.need_reset(self._step_counter - 1)
         model.train()
         for p in self._params.values():
             p.grad = None
@@ -114,13 +155,18 @@ class BaguaTrainer:
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in self._params.items()}
-        grads, algo_state = self.algorithm.process_grads(
+        grads, algo_state = algo.process_grads(
             self._ctx, grads, self._params, state.algo_state, state.step)
-        for n, g in grads.items():
-            self._params[n].grad = g
-        optimizer.step()
+        opt_state = state.opt_state
+        if algo.owns_optimizer:
+            _, opt_state, algo_state = algo.optimizer_update(
+                self._ctx, self._params, grads, opt_state, algo_state, state.step)
+        else:
+            for n, g in grads.items():
+                self._params[n].grad = g
+            optimizer.step()
         loss = self.comm.allreduce(loss.detach().clone(), ReduceOp.AVG)
-        return TrainState(state.step + 1, model, optimizer, algo_state), loss
+        return TrainState(state.step + 1, model, optimizer, algo_state, opt_state), loss
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Typed environment readers and process topology.
 
-Port of the part of ``bagua_tpu/env.py`` this slice reads: the registry of
-declared ``BAGUA_*`` variables with typed ``env_int``/``env_bool`` readers,
-the default bucket size, and rank / world size / local rank.
+Port of the part of ``bagua_tpu/env.py`` the port reads: the registry of
+declared ``BAGUA_*`` variables with typed ``env_str``/``env_int``/``env_bool``
+readers, the default bucket size, the per-link codec policy, and rank /
+world size / local rank.
 """
 
 from __future__ import annotations
@@ -29,6 +30,16 @@ def _declare(name: str, type: str, default: str, doc: str) -> None:
 
 _declare("BAGUA_DEFAULT_BUCKET_SIZE", "int", str(10 * 1024 ** 2),
          "Default communication bucket size in bytes (reference env.py:50-57).")
+_declare("BAGUA_COMPRESS_INTRA", "str", "auto",
+         "Per-link codec policy of the fast tier and the flat ring: `auto` "
+         "(default) keeps it full precision; `off` forces full precision; a "
+         "codec name (minmax_uint8|int8|fp8_e4m3|fp8_e5m2) makes the flat "
+         "ring's hops carry that codec's payload.")
+_declare("BAGUA_COMPRESS_INTER", "str", "auto",
+         "Per-link codec policy of the cross-node tier of the hierarchical "
+         "collectives: `auto` (default) defers to the algorithm family, "
+         "`off` forces full precision.  A codec name is refused until the "
+         "hierarchical forms are ported.")
 
 
 def _raw(name: str) -> Optional[str]:
@@ -37,6 +48,11 @@ def _raw(name: str) -> Optional[str]:
         raise KeyError(f"{name} is not declared in env.ENV_REGISTRY")
     v = os.environ.get(name)
     return None if v in (None, "") else v
+
+
+def env_str(name: str) -> str:
+    v = _raw(name)
+    return ENV_REGISTRY[name].default if v is None else v
 
 
 def env_int(name: str) -> int:
@@ -98,3 +114,16 @@ def get_local_rank() -> int:
 def get_default_bucket_size() -> int:
     """Default bucket size in bytes; 10 MiB like the reference."""
     return env_int("BAGUA_DEFAULT_BUCKET_SIZE")
+
+
+def get_compress_intra() -> str:
+    """Codec policy of the fast tier and the flat ring (``auto``; validated
+    by :func:`bagua_tpu_torch.compression.codecs.validate_codec_policy`)."""
+    return env_str("BAGUA_COMPRESS_INTRA")
+
+
+def get_compress_inter() -> str:
+    """Codec policy of the cross-node tier (``auto``: the family's own; the
+    trainer refuses a codec name, as no hierarchical form is ported)."""
+    return env_str("BAGUA_COMPRESS_INTER")
+

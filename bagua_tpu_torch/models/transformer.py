@@ -49,6 +49,15 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
+def bert_large_config(**kw) -> TransformerConfig:
+    """BERT-Large-scale shapes (the reference's SQuAD workload scale).
+    Keyword overrides (e.g. ``max_seq_len=384`` for SQuAD) replace defaults."""
+    defaults = dict(vocab_size=30528, d_model=1024, n_heads=16, n_layers=24, d_ff=4096,
+                    max_seq_len=512)
+    defaults.update(kw)
+    return TransformerConfig(**defaults)
+
+
 class Dense(nn.Linear):
     """Bias-free ``Linear`` whose input and weight are cast to ``dtype`` for
     the product, like flax ``Dense(dtype=...)``."""

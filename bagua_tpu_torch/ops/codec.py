@@ -1,0 +1,196 @@
+"""Chunked gradient codecs: hand-written Hopper kernels for the MinMaxUInt8
+codec and the absmax reduction of the int8/fp8 codecs.
+
+Port of the codec kernels of ``bagua_tpu/compression/pallas_codec.py``.  A
+flat tensor of ``n * m`` elements is ``n`` chunks of ``m``; each chunk gets
+its own quantization grid.  The three Pallas TPU kernels become the CUDA
+kernels of ``csrc/codec.cu``, built with ``nvcc`` at first use and called
+through ``ctypes``:
+
+- :func:`compress_chunked` (K1): per-chunk ``mn``/``mx`` and the uint8
+  payload ``clip(round(x * scale), lower, upper) - lower`` with ``scale =
+  255 / (mx - mn + 1e-7)``, ``upper = round(mx * scale)``, ``lower = upper -
+  255`` (``minmax_uint8.py:39-56``);
+- :func:`decompress_chunked` (K2): ``(payload + lower) / scale`` in f32
+  (``minmax_uint8.py:59-66``);
+- :func:`absmax_chunked` (K3): per-chunk ``max |x|``, a NaN kept.
+
+Each wrapper has a plain PyTorch version beside it and counts its launches in
+``<wrapper>.launches``.  A wrapper takes the plain version only for tensors on
+the CPU; for a CUDA tensor it launches the kernel at every chunk size or
+raises.  The kernels and the plain versions agree byte for byte, and both
+equal the JAX package's jnp codec, including its saturating uint8 convert.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+EPS = 1e-7
+LEVELS = 255.0
+
+#: elements per block of the kernels' (tile, chunk) grid, at least; a chunk
+#: is cut into at most ``MAX_TILES`` tiles, so pass 2's reduce over the
+#: partials stays small
+MIN_TILE = 4096
+MAX_TILES = 1024
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the three kernels
+# ---------------------------------------------------------------------------
+
+
+def _grid(mn, mx):
+    """``(scale, lower, upper)`` per chunk, ``[n, 1]`` each.  Every quotient
+    is a tensor by a tensor: PyTorch divides by a Python number as a product
+    with its reciprocal, which rounds twice."""
+    d = mx - mn + EPS
+    scale = torch.full_like(d, LEVELS) / d
+    upper = torch.round(mx * scale)
+    return scale[:, None], (upper - LEVELS)[:, None], upper[:, None]
+
+
+def _saturate_u8(d):
+    """f32 -> uint8 as XLA converts it: NaN -> 0, clamped to [0, 255]."""
+    return torch.nan_to_num(d, nan=0.0).clamp_(0.0, LEVELS).to(torch.uint8)
+
+
+def quantize_plain(x2d, mn, mx):
+    """Quantize ``[n, m]`` chunks against given per-chunk bounds: the
+    quantize half of the codec (``minmax_uint8.py:102-116``).  A value
+    outside the bounds clamps to the grid's edge, so sound bounds cost at
+    most one extra grid step of error."""
+    scale, lower, upper = _grid(mn, mx)
+    level = torch.minimum(torch.maximum(torch.round(x2d.float() * scale), lower), upper)
+    return _saturate_u8(level - lower)
+
+
+def compress_chunked_plain(x, n_chunks: int):
+    """Plain version of :func:`compress_chunked`."""
+    chunks = x.reshape(n_chunks, -1).float()
+    mn, mx = chunks.amin(dim=1), chunks.amax(dim=1)
+    return mn, mx, quantize_plain(chunks, mn, mx)
+
+
+def decompress_chunked_plain(mn, mx, payload):
+    """Plain version of :func:`decompress_chunked`."""
+    scale, lower, _ = _grid(mn, mx)
+    return ((payload.float() + lower) / scale).reshape(-1)
+
+
+def absmax_chunked_plain(x, n_chunks: int):
+    """Plain version of :func:`absmax_chunked`."""
+    return x.reshape(n_chunks, -1).float().abs().amax(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "bagua_minmax_compress": [_P, _I, _I, _L, _L, _I, _P, _P, _P, _P, _P],
+    "bagua_minmax_decompress": [_P, _P, _P, _I, _L, _L, _I, _P, _P],
+    "bagua_absmax": [_P, _I, _I, _L, _L, _I, _P, _P, _P],
+}
+_lib_cache = []
+
+
+def _lib():
+    if not _lib_cache:
+        _lib_cache.append(_build.bind("codec", _SIGNATURES))
+    return _lib_cache[0]
+
+
+def _tiling(m: int):
+    """``(tile, tiles)``: elements per block and blocks per chunk."""
+    tile = max(MIN_TILE, -(-m // MAX_TILES))
+    return tile, -(-m // tile)
+
+
+def _check_input(x, n_chunks: int) -> int:
+    """Raise on what the kernels do not take; returns the chunk length."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"codec kernels take float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("codec kernels take contiguous tensors")
+    if not 1 <= n_chunks <= 65535 or x.numel() == 0 or x.numel() % n_chunks:
+        raise ValueError(f"{x.numel()} elements do not split into {n_chunks} chunks")
+    return x.numel() // n_chunks
+
+
+def compress_chunked(x, n_chunks: int):
+    """K1: ``(mn, mx, payload)`` for flat ``x`` (f32 or bf16, ``numel %
+    n_chunks == 0``): ``mn``/``mx`` f32 ``[n_chunks]``, payload uint8
+    ``[n_chunks, chunk]``."""
+    if x.device.type == "cpu":
+        return compress_chunked_plain(x, n_chunks)
+    m = _check_input(x, n_chunks)
+    tile, tiles = _tiling(m)
+    dev = x.device
+    partials = torch.empty((n_chunks, tiles, 2), dtype=torch.float32, device=dev)
+    mn = torch.empty(n_chunks, dtype=torch.float32, device=dev)
+    mx = torch.empty(n_chunks, dtype=torch.float32, device=dev)
+    payload = torch.empty((n_chunks, m), dtype=torch.uint8, device=dev)
+    _build.launch(_lib().bagua_minmax_compress, x.data_ptr(), int(x.dtype == torch.bfloat16),
+                  n_chunks, m, tile, tiles, partials.data_ptr(), mn.data_ptr(),
+                  mx.data_ptr(), payload.data_ptr())
+    compress_chunked.launches += 1
+    return mn, mx, payload
+
+
+def decompress_chunked(mn, mx, payload):
+    """K2: the inverse of :func:`compress_chunked`, flat f32 of
+    ``payload.numel()`` elements; ``mn``/``mx`` f32 ``[n]``, payload uint8
+    ``[n, chunk]``."""
+    if payload.device.type == "cpu":
+        return decompress_chunked_plain(mn, mx, payload)
+    if payload.dim() != 2 or payload.dtype != torch.uint8 or not payload.is_contiguous():
+        raise ValueError(f"payload must be a contiguous uint8 [n, chunk], got "
+                         f"{tuple(payload.shape)} {payload.dtype}")
+    n, m = payload.shape
+    for t in (mn, mx):
+        if t.shape != (n,) or t.dtype != torch.float32 or t.device != payload.device \
+                or not t.is_contiguous():
+            raise ValueError(f"mn and mx must be contiguous float32 [{n}] on "
+                             f"{payload.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+    if not 1 <= n <= 65535 or m == 0:
+        raise ValueError(f"cannot decompress {n} chunks of {m}")
+    tile, tiles = _tiling(m)
+    out = torch.empty(n * m, dtype=torch.float32, device=payload.device)
+    _build.launch(_lib().bagua_minmax_decompress, mn.data_ptr(), mx.data_ptr(),
+                  payload.data_ptr(), n, m, tile, tiles, out.data_ptr())
+    decompress_chunked.launches += 1
+    return out
+
+
+def absmax_chunked(x, n_chunks: int):
+    """K3: per-chunk ``max |x|`` of flat ``x`` (f32 or bf16), f32
+    ``[n_chunks]``; a chunk holding a NaN gives NaN."""
+    if x.device.type == "cpu":
+        return absmax_chunked_plain(x, n_chunks)
+    m = _check_input(x, n_chunks)
+    tile, tiles = _tiling(m)
+    partials = torch.empty((n_chunks, tiles), dtype=torch.float32, device=x.device)
+    out = torch.empty(n_chunks, dtype=torch.float32, device=x.device)
+    _build.launch(_lib().bagua_absmax, x.data_ptr(), int(x.dtype == torch.bfloat16),
+                  n_chunks, m, tile, tiles, partials.data_ptr(), out.data_ptr())
+    absmax_chunked.launches += 1
+    return out
+
+
+KERNELS = (compress_chunked, decompress_chunked, absmax_chunked)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -7,41 +7,65 @@ Phases, in order; any failure exits non-zero before the result line:
 1. device: a CUDA card is required; prints its name and power limit.
 2. build: compiles every ``bagua_tpu_torch/ops/csrc/*.cu`` with ``nvcc``.
 3. kernels: each flash-attention kernel against its plain PyTorch version on
-   the card (bf16 at both slices' training shapes, a ragged bf16 length,
-   f32), and the times of the kernel, the plain version and the PyTorch
-   library call at slice 1's shape.
+   the card (bf16 at every slice's training shape: b·h 32 and 64 at seq
+   4096, BERT-Large's 128 at seq 384; a ragged bf16 length; f32), and the
+   times of the kernel, the plain version and the PyTorch library call at
+   slice 1's shape.
 4. gmm kernels: each grouped-matmul kernel against its plain version at the
    MoE path's shapes (both (d, f) pairs; balanced, skewed and empty-group
    sizes) and a small ragged case, their times, and one MoE layer's forward
    and backward under ``torch.cuda.set_sync_debug_mode("error")``, so that a
    host sync on the MoE path fails the run.
-5. slice 1: the long-context TransformerLM (``bench_longctx``'s widths,
+5. codec kernels: the MinMaxUInt8 compress (K1) and decompress (K2) and the
+   absmax (K3) kernels against their plain versions, payload bytes,
+   sidecars and decoded values exactly equal: chunks of 128 KiB, 1 MiB,
+   8 MiB, the path's bucket chunk (10 MiB / 2 ranks) and its embedding
+   bucket's chunk, a ragged, a tiny, a constant, a ±inf and a NaN chunk, a
+   bf16 input; their times against the plain versions at every size, and
+   each kernel's time with a cold L2.
+6. slice 1: the long-context TransformerLM (``bench_longctx``'s widths,
    random weights from a seed) trained for 10 steps by ``BaguaTrainer`` with
    ``GradientAllReduceAlgorithm`` over NCCL; losses must be finite and
    falling, every flash kernel must have launched ``n_layers * steps`` times,
    and the model's logits on a short input must agree with the plain
    attention.
-6. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
+7. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
    every odd layer, 8 experts, top-2) trained for 10 steps with Adam and the
    load-balancing loss; losses finite and falling, exact launch counts of
    the gmm and flash kernels, and the logits on a short input against the
    plain gmm and plain attention.
+8. slice 3: compressed data parallelism at world size 2.  The script starts
+   itself twice as worker processes, two ranks on the one card, whose
+   collectives go over gloo through host memory (NCCL refuses two ranks on
+   one device).  Each rank trains BERT-Large (``bench_bert``: 24 layers,
+   seq 384, batch 8 per rank, AdamW 1e-4) for 10 steps with
+   ``ByteGradAlgorithm``, then a 4-layer cut of it with
+   ``GradientAllReduceAlgorithm`` and ``compress_intra`` ``int8`` and
+   ``fp8_e4m3``, and with ``QAdamAlgorithm(warmup_steps=2, lr=1e-5)``; losses finite
+   and falling, exact codec and flash launch counts, parameters bitwise
+   equal on both ranks, and one ByteGrad bucket's reduction through the
+   kernels equal byte for byte to the same collective through the plain
+   codec.  Each run prints its step time, the bytes staged through the host
+   and the time of a forward and backward alone.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  ``build_slice`` holds each
-slice's model, trainer and batch; ``scripts/torch_step_profile.py`` profiles
-the same ones.
+The flash kernels are checked at every slice's shape (phase 3).  The line
+before the last is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.  ``build_slice`` holds slices 1 and 2's
+model, trainer and batch; ``scripts/torch_step_profile.py`` profiles the
+same ones.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -49,9 +73,14 @@ import torch
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
+SLEEP_CYCLES = 50_000_000  # about 25 ms at the H100's clock: longer than any timed enqueue
+L2_FLUSH_BYTES = 256 * 1024 ** 2   # five times the H100's 50 MB L2
 
 MAIN = dict(b=2, s=4096, h=16, d=64)
 MOE = dict(b=8, s=4096, h=8, experts=8, k=2, d_model=512, d_ff=2048)
+BERT = dict(b=8, s=384, h=16, d=64, cut_layers=4)   # bench_bert, per rank
+CODEC_WORLD = 2
+CODEC_BUCKET_BYTES = 10 * 1024 ** 2
 STEPS = 10
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # gmm: the bf16 product is summed in f32 and rounded once on both sides (one
@@ -63,9 +92,13 @@ REPLACES = {
     "flash_bwd_dq": "bagua_tpu/ops/flash_attention.py:291",
     "grouped_matmul": "bagua_tpu/ops/gmm.py:95",
     "grouped_matmul_drhs": "bagua_tpu/ops/gmm.py:133",
+    "compress_chunked": "bagua_tpu/compression/pallas_codec.py:158",
+    "decompress_chunked": "bagua_tpu/compression/pallas_codec.py:515",
+    "absmax_chunked": "bagua_tpu/compression/pallas_codec.py:276",
 }
 SOURCE = "bagua_tpu_torch/ops/csrc/flash_attention.cu"
 GMM_SOURCE = "bagua_tpu_torch/ops/csrc/gmm.cu"
+CODEC_SOURCE = "bagua_tpu_torch/ops/csrc/codec.cu"
 
 
 def log(*args):
@@ -73,10 +106,14 @@ def log(*args):
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up.  A
+    sleep kernel queued first holds the card while the host enqueues every
+    call, so the launches run back to back and the events time the device,
+    not the host's enqueue (longer than a small kernel's run)."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -85,13 +122,32 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_cold(fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` with a cold L2: before each call a write of
+    ``L2_FLUSH_BYTES`` evicts its inputs, and two events around the call
+    alone time it (behind a sleep kernel, as in :func:`cuda_ms`)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)] for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.fmean(start.elapsed_time(end) for start, end in events)
+
+
 def rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
 def abs_err(got, want) -> float:
-    return (got.float() - want.float()).abs().max().item()
+    d = (got.float() - want.float()).abs()
+    return d.max().item() if d.numel() else 0.0
 
 
 def phase_device():
@@ -181,8 +237,11 @@ def phase_kernels():
     # slice 2's shape: b·h = 64 (batch 8 × 8 heads of 64) at its seq
     _, errs_moe = check_kernels(MOE["b"] * MOE["h"], MOE["s"], MOE["d_model"] // MOE["h"],
                                 torch.bfloat16, True, seed=6)
+    # slice 3's shape: BERT-Large, b·h = 128 (batch 8 × 16 heads of 64) at seq 384
+    _, errs_bert = check_kernels(BERT["b"] * BERT["h"], BERT["s"], BERT["d"],
+                                 torch.bfloat16, True, seed=7)
     (q, k, v, do, lse, delta), errs = check_kernels(bh, s, d, torch.bfloat16, True)
-    errs = {n: max(e, errs_moe[n]) for n, e in errs.items()}
+    errs = {n: max(e, errs_moe[n], errs_bert[n]) for n, e in errs.items()}
 
     ms = {
         "flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, True)),
@@ -566,19 +625,356 @@ def phase_slice_moe():
     return launches, st
 
 
+# ---------------------------------------------------------------------------
+# codec kernels (K1-K3), the compressed path's
+# ---------------------------------------------------------------------------
+
+
+def same(a, b) -> bool:
+    """Bitwise equal, any NaN equal to any NaN (its bits are not defined)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        nan = a.isnan()
+        if not torch.equal(nan, b.isnan()):
+            return False
+        bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        return torch.equal(a.view(bits)[~nan], b.view(bits)[~nan])
+    return torch.equal(a, b)
+
+
+def check_codec(x, n, label):
+    """K1, K2 and K3 against their plain versions on one input: sidecars,
+    payload bytes (of the chunks whose values are all finite: elsewhere the
+    grid is NaN and the u8 convert undefined on every side) and decoded
+    values exactly equal; returns the largest absolute decode difference
+    (0 when exact) by kernel."""
+    from bagua_tpu_torch.ops import codec as cd
+
+    mn, mx, p = cd.compress_chunked(x, n)
+    pmn, pmx, pp = cd.compress_chunked_plain(x, n)
+    y = cd.decompress_chunked(mn, mx, p)
+    py = cd.decompress_chunked_plain(pmn, pmx, pp)
+    am = cd.absmax_chunked(x, n)
+    pam = cd.absmax_chunked_plain(x, n)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(x.view(n, -1).float()).all(dim=1)
+    checks = {"mn": same(mn, pmn), "mx": same(mx, pmx),
+              "payload": torch.equal(p[finite], pp[finite]), "decoded": same(y, py),
+              "absmax": same(am, pam)}
+    log(f"codec {label} ({n} x {x.numel() // n} {x.dtype}): "
+        + ", ".join(f"{k} {'equal' if v else 'DIFFERS'}" for k, v in checks.items())
+        + f"; {int((~finite).sum())} non-finite chunks")
+    if not all(checks.values()):
+        raise AssertionError(f"codec kernel disagrees with its plain version on {label}: "
+                             f"{checks}")
+    ok = torch.isfinite(y) & torch.isfinite(py)
+    errs = {"compress_chunked": max(abs_err(mn[finite], pmn[finite]),
+                                    abs_err(mx[finite], pmx[finite]),
+                                    abs_err(p[finite], pp[finite])),
+            "decompress_chunked": abs_err(y[ok], py[ok]),
+            "absmax_chunked": abs_err(am[finite], pam[finite])}
+    return finite, (mn, y, am), errs
+
+
+def codec_bound(name, n, m):
+    """Least time of one launch: each input byte read once, each output byte
+    written once, over the memory rate (K1: f32 in, u8 out; K2: u8 in, f32
+    out; K3: f32 in; the per-chunk sidecars are noise)."""
+    per_elem = {"compress_chunked": 5, "decompress_chunked": 5, "absmax_chunked": 4}[name]
+    return per_elem * n * m / PEAK_BYTES * 1e3, "bytes"
+
+
+def phase_codec_kernels():
+    from bagua_tpu_torch.models.transformer import bert_large_config
+    from bagua_tpu_torch.ops import codec as cd
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    n = CODEC_WORLD
+    path_m = CODEC_BUCKET_BYTES // 4 // n
+    embed_m = bert_large_config().vocab_size * bert_large_config().d_model // n
+    sizes = {"128 KiB": 32768, "1 MiB": 262144, "8 MiB": 2097152,
+             "bucket chunk 5 MiB": path_m}
+    errs = {}
+
+    def check(x, label):
+        finite, outs, e = check_codec(x, n, label)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        return finite, outs
+
+    for label, m in {**sizes, "embedding bucket chunk": embed_m}.items():
+        check(randn(n * m), label)
+    check(randn(n * 100003) * 1e-3, "ragged")
+    check(randn(n * 3), "tiny")
+    check(torch.ones(n * 4099, device="cuda"), "constant 1.0")
+    check(torch.full((n * 4099,), -3.0, device="cuda"), "constant -3.0")
+    check(randn(n * path_m, dtype=torch.bfloat16), "bf16 bucket chunk")
+    x = randn(n * 50001)
+    x[17], x[50001 + 5] = float("inf"), float("-inf")
+    check(x, "±inf")
+    x = randn(n * 50001)
+    x[123] = float("nan")
+    finite, (mn, y, am) = check(x, "NaN")
+    if finite.tolist() != [False, True] or not (mn[0].isnan() and y[:50001].isnan().all()
+                                               and am[0].isnan()):
+        raise AssertionError("a NaN chunk must give a NaN sidecar, a NaN absmax and a "
+                             "NaN decode")
+
+    # times at each chunk size (f32), kernel against plain, both with the
+    # inputs repeated (hot L2: the path's 5 MiB chunk fits in it) and the
+    # kernel alone with a cold L2; K3 as the ring encode calls it, one chunk
+    times, cold = {}, {}
+    for label, m in sizes.items():
+        x = randn(n * m)
+        mn, mx, p = cd.compress_chunked(x, n)
+        x1 = x[:m]
+        fns = {"compress_chunked": (lambda: cd.compress_chunked(x, n),
+                                    lambda: cd.compress_chunked_plain(x, n)),
+               "decompress_chunked": (lambda: cd.decompress_chunked(mn, mx, p),
+                                      lambda: cd.decompress_chunked_plain(mn, mx, p)),
+               "absmax_chunked": (lambda: cd.absmax_chunked(x1, 1),
+                                  lambda: cd.absmax_chunked_plain(x1, 1))}
+        times[label] = {k: (cuda_ms(kern, 20), cuda_ms(plain, 5))
+                        for k, (kern, plain) in fns.items()}
+        cold[label] = {k: cuda_ms_cold(kern) for k, (kern, _) in fns.items()}
+        log(f"codec timing chunk {label} ({m} f32): " + ", ".join(
+            f"{k} {a:.4f} ms, cold L2 {cold[label][k]:.4f} ms (plain {b:.4f}, "
+            f"{'kernel' if a < b else 'PLAIN'} faster)"
+            for k, (a, b) in times[label].items()))
+    # the library yardsticks at the path's chunk: aminmax computes only the
+    # reduction half of K1; vector_norm(inf) is K3's whole function
+    x = randn(n * path_m)
+    x1 = x[:path_m]
+    library = {"compress_chunked": cuda_ms(lambda: torch.aminmax(x.view(n, -1), dim=1), 20),
+               "decompress_chunked": None,
+               "absmax_chunked": cuda_ms(lambda: torch.linalg.vector_norm(
+                   x1.view(1, -1), float("inf"), dim=1), 20)}
+    log(f"codec library at the bucket chunk: torch.aminmax {library['compress_chunked']:.4f} "
+        f"ms (reduction only), vector_norm(inf) {library['absmax_chunked']:.4f} ms")
+    rows = {}
+    path = times["bucket chunk 5 MiB"]
+    for name in ("compress_chunked", "decompress_chunked", "absmax_chunked"):
+        b_ms, b_by = codec_bound(name, 1 if name == "absmax_chunked" else n, path_m)
+        rows[name] = {"name": name, "route": "cuda", "source": CODEC_SOURCE,
+                      "replaces": REPLACES[name], "launches": None, "max_abs_err": errs[name],
+                      "ms": path[name][0], "plain_ms": path[name][1], "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": library[name]}
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# slice 3: compressed data parallelism, two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+#: (name, layers, algorithm, BaguaTrainer keywords): (a) ByteGrad on the
+#: full BERT-Large, (b) the forced int8 and fp8 rings and (c) QAdam on a
+#: 4-layer cut of it
+SLICE3_RUNS = (
+    ("bytegrad", None, "bytegrad", {}),
+    ("int8", BERT["cut_layers"], "gradient_allreduce", {"compress_intra": "int8"}),
+    ("fp8_e4m3", BERT["cut_layers"], "gradient_allreduce", {"compress_intra": "fp8_e4m3"}),
+    ("qadam", BERT["cut_layers"], "qadam", {}),
+)
+QADAM_WARMUP = 2
+
+
+def _slice3_algorithm(name):
+    import bagua_tpu_torch as bt
+
+    if name == "bytegrad":
+        return bt.ByteGradAlgorithm(hierarchical=False)
+    if name == "qadam":
+        # lr 1e-5: at 1e-4 the second moment frozen after two warmup steps
+        # turns grown gradients into steps that make the loss diverge from
+        # the third compressed step on, with the codec or without it
+        # (compress_intra="off"), in the JAX package's QAdam as in the port
+        return bt.QAdamAlgorithm(warmup_steps=QADAM_WARMUP, hierarchical=False, lr=1e-5)
+    return bt.GradientAllReduceAlgorithm(hierarchical=False)
+
+
+def fwd_bwd_ms(model, batch, reps: int = 3) -> float:
+    """Median host time of this rank's forward and backward alone, no
+    communication; both ranks run it at once on the one card, as in a step."""
+    import bagua_tpu_torch as bt
+
+    times = []
+    for _ in range(reps):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt.lm_loss_fn(model, batch).backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def _flat_digests(trainer, model):
+    """sha256 of every bucket flat of the parameters."""
+    import hashlib
+
+    with torch.no_grad():
+        flats = trainer.plan.flatten(dict(model.named_parameters()))
+    return [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest() for f in flats]
+
+
+def slice3_run(rank, world, run, device):
+    """One of ``SLICE3_RUNS`` on this rank; returns its record."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.ops import codec as cd
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    name, layers, algo_name, kw = run
+    cfg = bt.bert_large_config(max_seq_len=BERT["s"],
+                               **({} if layers is None else {"n_layers": layers}))
+    model = bt.TransformerLM(cfg, device=device, seed=0)
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4)
+    trainer = bt.BaguaTrainer(bt.lm_loss_fn, adamw, _slice3_algorithm(algo_name),
+                              device=device, **kw)
+    state = trainer.init(model)
+    # each rank feeds its own slice of one global batch (seed 1)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (world * BERT["b"], cfg.max_seq_len + 1),
+                           device=device, generator=g)
+    batch = trainer.shard_batch({"tokens": tokens[rank * BERT["b"]:(rank + 1) * BERT["b"]]})
+    comm = trainer.comm
+    staged0 = comm.host_staged_bytes
+    losses, launches, st = train_steps(trainer, state, batch, BERT["b"] * cfg.max_seq_len,
+                                       [fa, cd])
+    staged = comm.host_staged_bytes - staged0
+    compute_ms = fwd_bwd_ms(model, batch)
+    n_buckets = len(trainer.plan.buckets)
+    codec_steps = STEPS - QADAM_WARMUP if algo_name == "qadam" else STEPS
+    want = {k.__name__: 0 for k in cd.KERNELS}
+    want.update({k: cfg.n_layers * STEPS for k in ("flash_fwd", "flash_bwd_dkv",
+                                                    "flash_bwd_dq")})
+    if algo_name in ("bytegrad", "qadam"):
+        want["compress_chunked"] = n_buckets * codec_steps
+        want["decompress_chunked"] = 2 * n_buckets * codec_steps
+    else:
+        want["absmax_chunked"] = 2 * n_buckets * STEPS
+    record = {"name": name, "layers": cfg.n_layers, "buckets": n_buckets,
+              "params": sum(p.numel() for p in model.parameters()), "losses": losses,
+              "launches": launches, "stats": st, "fwd_bwd_ms": compute_ms,
+              "host_staged_bytes": staged,
+              "digests": _flat_digests(trainer, model)}
+    log(f"[rank {rank}] slice 3 {name}: {record['params']} params, {cfg.n_layers} layers, "
+        f"{n_buckets} buckets; losses {losses}")
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
+    if algo_name == "bytegrad":
+        # one bucket's reduction through the kernels against the same
+        # collective through the plain codec (CPU tensors take it), on a
+        # fresh local gradient
+        from bagua_tpu_torch.compression import compressed_scatter_gather_allreduce
+
+        model.zero_grad(set_to_none=True)
+        bt.lm_loss_fn(model, batch).backward()
+        i = n_buckets // 2
+        flat = trainer.plan.flatten({n: p.grad for n, p in model.named_parameters()})[i]
+        got = compressed_scatter_gather_allreduce(comm, flat).cpu()
+        want_flat = compressed_scatter_gather_allreduce(comm, flat.cpu())
+        record["plain_bucket"] = {"index": i, "numel": flat.numel(),
+                                  "equal": bool(same(got, want_flat))}
+        log(f"[rank {rank}] bucket {i} ({flat.numel()} elements) reduced through the "
+            f"kernels vs the plain codec: {'equal' if record['plain_bucket']['equal'] else 'DIFFERS'}")
+        if not record["plain_bucket"]["equal"]:
+            raise AssertionError(f"[rank {rank}] the kernel path's bucket {i} differs from "
+                                 f"the plain codec's")
+    return record
+
+
+def slice3_worker(rank, init_method, out_path, device="cuda"):
+    """One rank of slice 3: every run of ``SLICE3_RUNS``, records to
+    ``out_path`` as JSON."""
+    import bagua_tpu_torch as bt
+
+    device = torch.device(device)
+    world = CODEC_WORLD
+    bt.init_process_group(init_method, world_size=world, rank=rank, device=device,
+                          backend="gloo")
+    records = []
+    for run in SLICE3_RUNS:
+        records.append(slice3_run(rank, world, run, device))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(out_path, "w") as f:
+        json.dump(records, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_slice3():
+    """Start two ranks of this script on the one card and check them; fails
+    if either rank fails."""
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{os.path.join(tmp, 'store')}"
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(CODEC_WORLD)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--slice3-worker", str(r), init, outs[r]])
+                 for r in range(CODEC_WORLD)]
+        try:
+            codes = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        if codes != [0] * CODEC_WORLD:
+            raise AssertionError(f"slice 3 ranks exited with {codes}")
+        ranks = []
+        for path in outs:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    for runs in zip(*ranks):
+        name = runs[0]["name"]
+        if any(r["digests"] != runs[0]["digests"] for r in runs):
+            raise AssertionError(f"slice 3 {name}: parameters differ between the ranks")
+        if any(r["losses"] != runs[0]["losses"] for r in runs):
+            raise AssertionError(f"slice 3 {name}: losses differ between the ranks")
+        for r, rec in enumerate(runs):
+            st = rec["stats"]
+            log(f"slice 3 {name} rank {r} (gloo through host memory, two ranks on one "
+                f"card): step {st['step_ms']:.3f} ms (steps 2-{STEPS} as one window; median "
+                f"{st['median_ms']:.3f} ms; first {st['first_ms']:.3f} ms), "
+                f"{st['tokens_s']:.1f} tokens/s, peak memory {st['peak_gb']:.3f} GB, "
+                f"host-staged {rec['host_staged_bytes']} bytes in {STEPS} steps, "
+                f"{rec['buckets']} buckets, launches {rec['launches']}; forward+backward "
+                f"alone (no communication) {rec['fwd_bwd_ms']:.3f} ms")
+        log(f"slice 3 {name}: parameters bitwise equal on both ranks "
+            f"({len(runs[0]['digests'])} bucket digests)")
+    return {rec["name"]: rec for rec in ranks[0]}
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--slice3-worker"]:
+        rank, init, out = sys.argv[2:5]
+        slice3_worker(int(rank), init, out)
+        return
     card = phase_device()
     phase_build()
     rows = phase_kernels()
     rows.update(phase_gmm_kernels())
+    rows.update(phase_codec_kernels())
     launches = phase_slice()
     launches_moe, _ = phase_slice_moe()
     torch.distributed.destroy_process_group()
-    # each kernel's launches come from its own path: flash from slice 1,
-    # gmm from slice 2 (slice 2 checked the flash counts too)
+    gc.collect()
+    torch.cuda.empty_cache()   # the two slice-3 ranks share this card
+    slice3 = phase_slice3()
+    # each kernel's launches come from its own path: flash from slice 1, gmm
+    # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8
+    # ring (slices 2 and 3 checked the flash counts too)
+    own = {"compress_chunked": slice3["bytegrad"]["launches"],
+           "decompress_chunked": slice3["bytegrad"]["launches"],
+           "absmax_chunked": slice3["int8"]["launches"]}
     for name, row in rows.items():
-        row["launches"] = launches[name] if name in launches else launches_moe[name]
+        row["launches"] = (own[name][name] if name in own else launches[name]
+                           if name in launches else launches_moe[name])
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
