@@ -5,24 +5,39 @@ tensors to communicate and their buckets (``init_tensors``,
 ``tensors_to_buckets``) and transforms the gradients between the backward
 pass and the optimizer step (``process_grads``).  Dense families implement
 ``reduce_bucket_grad`` for one bucket's flat gradient and alias
-``process_grads`` to ``process_grads_bucketed``, which runs it over every
-bucket in plan order.  A family that owns its optimizer (QAdam) sets
-``owns_optimizer`` and provides ``init_optimizer_state`` and
-``optimizer_update``.  Gradients travel between the stages as a
-``name -> tensor`` dict.
+``process_grads`` to ``process_grads_bucketed``, which folds in the
+error-feedback residual and runs it over every bucket in plan order.  A
+family that owns its optimizer (QAdam) sets ``owns_optimizer`` and provides
+``init_optimizer_state`` and ``optimizer_update``.  Gradients travel between
+the stages as a ``name -> tensor`` dict.
+
+The context carries the two tiers of the hierarchical collectives (the
+intra-node and inter-node communicators, ``communication.py``) and their
+codec policy, and composes the two-level allreduce from them: an intra-node
+reduce-scatter, the inter-node allreduce of the ``1 / intra`` shard (through
+the compressed ring where a codec resolves), an intra-node allgather.  The
+JAX package's chunked rings of its overlap scheduler are not ported.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
 from ..bucket import BucketPlan
-from ..communication import BaguaCommunicator, ReduceOp
+from ..communication import LINK_DCN, LINK_ICI, BaguaCommunicator, ReduceOp
+from ..compression.codecs import get_codec
 from ..define import TensorDeclaration
 from ..tensor import NamedParam
+
+logger = logging.getLogger(__name__)
+
+#: (family, codec, reason) triples whose stateless-EF warning was logged:
+#: an error-feedback codec riding without its residual says so once a run
+_EF_STATELESS_WARNED: set = set()
 
 
 @dataclass
@@ -32,10 +47,21 @@ class AlgorithmContext:
     comm: BaguaCommunicator
     plan: BucketPlan
     world_size: int = 1
-    #: codec policy of the flat ring (``BAGUA_COMPRESS_INTRA`` values):
-    #: ``auto`` defers to the algorithm family's own wire codec, ``off``
-    #: forces full precision, a codec name forces that codec
+    #: codec policy of the intra-node tier and the flat ring
+    #: (``BAGUA_COMPRESS_INTRA`` values): ``auto`` defers to the algorithm
+    #: family's own wire codec, ``off`` forces full precision, a codec name
+    #: forces that codec
     intra_codec: Optional[str] = None
+    #: codec policy of the inter-node tier (``BAGUA_COMPRESS_INTER``)
+    inter_codec: Optional[str] = None
+    #: the communicators of the two tiers (None: no tiers)
+    intranode: Optional[BaguaCommunicator] = None
+    internode: Optional[BaguaCommunicator] = None
+    #: whether the error-feedback residual may be carried (off with
+    #: ``BAGUA_EF_RESIDUAL=off``); :meth:`Algorithm.ef_codec` reads it
+    ef_enabled: bool = False
+    #: where the algorithm's state lives
+    device: Optional[torch.device] = None
 
     def bucket_flats(self, tensors: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         """One flat buffer per bucket from tensors by name."""
@@ -45,11 +71,11 @@ class AlgorithmContext:
         """Inverse of :meth:`bucket_flats`: views into the flats, by name."""
         return self.plan.unflatten(flats)
 
-    def codec_for(self, family_default=None):
-        """The flat ring's wire codec: the policy knob where it names a
-        codec or forces ``off``, else the family's default (None = full
-        precision)."""
-        knob = self.intra_codec
+    def codec_for(self, link_class: str, family_default=None):
+        """The wire codec of one link class: the tier's policy knob where it
+        names a codec or forces ``off``, else the family's default (None =
+        full precision)."""
+        knob = self.inter_codec if link_class == LINK_DCN else self.intra_codec
         if knob in (None, "", "auto"):
             return family_default
         if knob == "off":
@@ -60,15 +86,80 @@ class AlgorithmContext:
         """The knob-forced codec of the flat (whole world) ring, or None when
         there is none or the world is a single rank (no ring, no wire: the
         codec is dropped, as on the JAX package's single-rank meshes)."""
-        codec = self.codec_for(None)
+        codec = self.codec_for(LINK_ICI, None)
         return codec if codec is not None and self.comm.nranks() > 1 else None
 
-    def bucket_allreduce(self, flat: torch.Tensor, op: ReduceOp) -> torch.Tensor:
-        """One bucket's allreduce over every rank: the ring with the forced
-        flat codec where one resolves, else one fused allreduce
-        (``base.py:325-350``).  The JAX package's two-tier hierarchical
-        decomposition and the chunked ring of its overlap scheduler are not
-        ported (a family that asks for the former raises at construction)."""
+    # -- the two tiers --------------------------------------------------------
+
+    def two_tier(self) -> bool:
+        """Whether the two-level decomposition is available: both tiers exist,
+        are distinct, each has more than one rank, and the two together tile
+        the world (``base.py:174-187``).  The JAX condition lets a one-node
+        world (inter-node tier of one rank) through, where the inter-node
+        ring sends its shard exactly while an error-feedback codec on that
+        tier still keeps a residual; a one-node world takes the flat path
+        here instead."""
+        return (
+            self.internode is not None
+            and self.intranode is not None
+            and self.internode is not self.intranode
+            and self.intranode.nranks() > 1
+            and self.internode.nranks() > 1
+            and self.world_size == self.internode.nranks() * self.intranode.nranks()
+        )
+
+    def tier_reduce_scatter(self, flat, op: ReduceOp, codec=None):
+        """Intra-node reduce-scatter of ``flat``: this rank's contiguous
+        ``1 / intra`` chunk, through the compressed ring where the intra-node
+        policy resolves a codec (``codec`` is the family default)."""
+        codec = self.codec_for(LINK_ICI, codec)
+        if codec is not None:
+            return self.intranode.ring_reduce_scatter(flat, op, codec=codec)
+        return self.intranode.reduce_scatter(flat, op)
+
+    def tier_allreduce(self, chunk, op: ReduceOp, codec=None):
+        """Inter-node allreduce of this rank's shard, the only stage whose
+        bytes cross nodes and so the one the codec policy compresses: with a
+        resolved codec it rides the compressed ring."""
+        codec = self.codec_for(LINK_DCN, codec)
+        if codec is not None:
+            return self.internode.ring_allreduce(chunk, op, codec=codec)
+        return self.internode.allreduce(chunk, op)
+
+    def tier_allgather(self, chunk, codec=None):
+        """Intra-node allgather of this rank's chunk back to the full flat."""
+        codec = self.codec_for(LINK_ICI, codec)
+        if codec is not None:
+            return self.intranode.ring_allgather(chunk, codec=codec)
+        return self.intranode.allgather(chunk, axis=0, tiled=True)
+
+    def two_level_allreduce(self, flat, op: ReduceOp):
+        """Intra-node reduce-scatter, inter-node allreduce of the ``1 /
+        intra`` shard, intra-node allgather.  A flat the intra-node tier does
+        not divide is zero-padded and sliced back.  AVG divides once, by the
+        world, after the summing stages, as the flat allreduce does, so only
+        the order of the sum differs from it.  The inter-node stage is
+        compressed only where ``compress_inter`` names a codec."""
+        if op not in (ReduceOp.SUM, ReduceOp.AVG):
+            raise ValueError(f"two_level_allreduce supports SUM/AVG, got {op}")
+        size = flat.shape[0]
+        pad = (-size) % self.intranode.nranks()
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        chunk = self.tier_reduce_scatter(flat, ReduceOp.SUM)
+        chunk = self.tier_allreduce(chunk, ReduceOp.SUM)
+        if op == ReduceOp.AVG:
+            chunk = chunk / self.world_size
+        full = self.tier_allgather(chunk)
+        return full[:size] if pad else full
+
+    def bucket_allreduce(self, flat: torch.Tensor, op: ReduceOp,
+                         hierarchical: bool = False) -> torch.Tensor:
+        """One bucket's allreduce (``base.py:325-350``): the two-level form
+        where ``hierarchical`` and the tiers allow it; else the flat ring
+        with the forced flat codec where one resolves; else one allreduce."""
+        if hierarchical and self.two_tier():
+            return self.two_level_allreduce(flat, op)
         codec = self.flat_ring_codec()
         if codec is not None:
             return self.comm.ring_allreduce(flat, op, codec=codec)
@@ -83,6 +174,20 @@ class Algorithm:
     #: True pads every bucket to a multiple of the world size (the
     #: compressed scatter-gather gives each rank an equal chunk)
     align_to_world: bool = False
+    #: intra-node then inter-node communication
+    hierarchical: bool = False
+    #: the family's wire codecs: on the inter-node stage of its hierarchical
+    #: path (ByteGrad and QAdam compress it), and on its own flat pipeline
+    #: (ByteGrad's and QAdam's scatter-gather); None = full precision.  They
+    #: are what the codec policy's ``auto`` resolves to.
+    wire_codec_dcn: Optional[str] = None
+    wire_codec_flat: Optional[str] = None
+    #: True when the family's gradient communication is the per-bucket
+    #: reduction of :meth:`process_grads_bucketed`, so a per-bucket f32
+    #: residual can ride ``algo_state`` and :meth:`compensate_flats` can fold
+    #: it in; an error-feedback codec forced onto another family rides
+    #: without it, with a warning
+    supports_ef_state: bool = False
 
     def need_reset(self, step: int) -> bool:
         """Host-side, at the top of every step (``step`` counts the
@@ -107,8 +212,83 @@ class Algorithm:
             decl_buckets, named_params, alignment=world_size if self.align_to_world else 1)
 
     def init_state(self, ctx: AlgorithmContext, params) -> Any:
-        """Algorithm state (peer replicas, momenta, ...); none by default."""
+        """Algorithm state: the error-feedback residual where an EF codec is
+        active under ``ctx``, else None."""
+        return self.ef_init_state(ctx, None)
+
+    # -- error-feedback residual (the stateful codecs) -----------------------
+    #
+    # The 1-bit and top-k codecs are biased: SGD on their raw output does not
+    # converge.  Error feedback (EF-SignSGD, arXiv:1901.09847; 1-bit Adam,
+    # arXiv:2102.02888) carries the quantization error forward: each step
+    # sends ``grad + residual`` and keeps what the wire lost.  One local
+    # encode/decode per bucket models the wire's error; the ring's
+    # re-quantization of partial sums is not captured (``base.py:618-636``).
+    # The residual is ``algo_state["ef"]["buckets"]``: one f32 flat per
+    # bucket.  Each process is one rank, so it has no leading rank axis.
+
+    def ef_codec(self, ctx: AlgorithmContext):
+        """The error-feedback codec whose residual this family carries under
+        ``ctx``, or None (``base.py:637-680``): the inter-node then
+        intra-node codec on the two-level path, the flat ring's codec
+        otherwise (not for a family with its own flat pipeline, where a
+        forced codec name never reaches the wire).  An EF codec on a family
+        without EF state, or with the residual off, rides without it and
+        warns once."""
+        names: List = []
+        if self.hierarchical and ctx.two_tier():
+            names.append(ctx.codec_for(LINK_DCN, self.wire_codec_dcn))
+            names.append(ctx.codec_for(LINK_ICI, None))
+        elif self.wire_codec_flat is None:
+            names.append(ctx.flat_ring_codec())
+        codec = next((c for c in (get_codec(n) for n in names if n is not None)
+                      if c.error_feedback), None)
+        if codec is None:
+            return None
+        if self.supports_ef_state and ctx.ef_enabled:
+            return codec
+        reason = "unsupported_family" if not self.supports_ef_state else "residual_disabled"
+        key = (type(self).__name__, codec.name, reason)
+        if key not in _EF_STATELESS_WARNED:
+            _EF_STATELESS_WARNED.add(key)
+            logger.warning(
+                "codec %r is an error-feedback codec but its residual is OFF (%s) for %s: "
+                "the wire carries raw %s output, whose bias is known to stall or diverge "
+                "SGD; use this only as a convergence control",
+                codec.name, reason, type(self).__name__, codec.name)
         return None
+
+    def ef_init_state(self, ctx: AlgorithmContext, state: Any) -> Any:
+        """``state`` with the residual added: one zero f32 flat of
+        ``padded_numel`` per bucket.  ``state`` unchanged when no EF codec
+        is active."""
+        if self.ef_codec(ctx) is None:
+            return state
+        ef = {"buckets": tuple(torch.zeros(b.padded_numel, dtype=torch.float32,
+                                           device=ctx.device)
+                               for b in ctx.plan.buckets)}
+        if state is None:
+            return {"ef": ef}
+        if not isinstance(state, dict) or "ef" in state:
+            raise ValueError(f"cannot add the EF residual to algorithm state {state!r}")
+        return {**state, "ef": ef}
+
+    def compensate_flats(self, ctx: AlgorithmContext, flats, algo_state):
+        """Fold the residual into the bucket flats about to go on the wire and
+        keep the new quantization error (``base.py:708-731``): ``c = g + r``;
+        the wire carries ``encode(c)``; ``r' = c - decode(encode(c))``.
+        Identity when no EF codec is active."""
+        codec = self.ef_codec(ctx)
+        ef = algo_state.get("ef") if isinstance(algo_state, dict) else None
+        if codec is None or ef is None:
+            return flats, algo_state
+        out, residuals = [], []
+        for flat, res in zip(flats, ef["buckets"]):
+            c = flat.float() + res
+            dec = codec.decode(codec.encode(c[None]), c.shape[0])[0]
+            residuals.append(c - dec)
+            out.append(c.to(flat.dtype))
+        return out, {**algo_state, "ef": {"buckets": tuple(residuals)}}
 
     def process_grads(self, ctx: AlgorithmContext, grads, params, algo_state, step):
         """Gradient communication stage, after the full backward."""
@@ -122,10 +302,11 @@ class Algorithm:
 
     def process_grads_bucketed(self, ctx: AlgorithmContext, grads, params,
                                algo_state, step):
-        """Flatten the gradients per bucket, reduce each bucket with
-        :meth:`reduce_bucket_grad` in plan order, and hand back views into
-        the reduced flats by name."""
+        """Flatten the gradients per bucket, fold in the error-feedback
+        residual, reduce each bucket with :meth:`reduce_bucket_grad` in plan
+        order, and hand back views into the reduced flats by name."""
         flats = ctx.bucket_flats(grads)
+        flats, algo_state = self.compensate_flats(ctx, flats, algo_state)
         reduced = [self.reduce_bucket_grad(ctx, i, f) for i, f in enumerate(flats)]
         return ctx.from_bucket_flats(reduced), algo_state
 

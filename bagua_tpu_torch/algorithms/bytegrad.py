@@ -1,17 +1,23 @@
 """ByteGrad: 8-bit compressed gradient allreduce.
 
 Port of ``bagua_tpu/algorithms/bytegrad.py``: buckets aligned to the world
-size, and per bucket the compressed scatter-gather of
-:func:`~bagua_tpu_torch.compression.minmax_uint8.compressed_scatter_gather_allreduce`
-(MinMaxUInt8, kernels K1 and K2) at world size > 1.  A single rank has no
-wire: the flat is returned untouched and no codec runs.  The hierarchical
-two-tier form (full-precision in-node reduce, compressed cross-node ring)
-is not ported yet.
+size, and per bucket either
+
+- the two-level form (``hierarchical=True``, the default, where the tiers
+  allow it): a full-precision intra-node reduce-scatter, the compressed ring
+  allreduce of the ``1 / intra`` shard across nodes (the codec on every
+  inter-node hop, MinMaxUInt8 unless ``compress_inter`` names another:
+  kernels K1 and K2), a full-precision intra-node allgather; or
+- the compressed scatter-gather of
+  :func:`~bagua_tpu_torch.compression.minmax_uint8.compressed_scatter_gather_allreduce`
+  (K1 and K2) over the whole world.
+
+A single rank has no wire: the flat is returned untouched and no codec runs.
 """
 
 from __future__ import annotations
 
-from ..communication import ReduceOp
+from ..communication import LINK_ICI, ReduceOp
 from ..compression import compressed_scatter_gather_allreduce
 from .base import Algorithm, AlgorithmContext
 
@@ -20,29 +26,38 @@ class ByteGradAlgorithm(Algorithm):
     name = "bytegrad"
     #: every rank owns an equal chunk of the scatter-gather
     align_to_world = True
+    #: the wire formats of the inter-node ring hops and of the flat pipeline
+    wire_codec_dcn = "minmax_uint8"
+    wire_codec_flat = "minmax_uint8"
+    #: the inter-node stage carries a residual when ``compress_inter`` names a
+    #: stateful codec; the flat scatter-gather never does
+    supports_ef_state = True
 
     def __init__(self, hierarchical: bool = True, average: bool = True):
         """
         Args:
-            hierarchical: slice-local full-precision reduce, compressed
-                cross-node ring; not ported yet, so True raises
-                ``NotImplementedError``.
+            hierarchical: intra-node full-precision reduce, compressed
+                inter-node ring; the flat scatter-gather where the tiers do
+                not allow it.
             average: If True average the reduced gradients, else sum.
         """
-        if hierarchical:
-            raise NotImplementedError(
-                "ByteGradAlgorithm(hierarchical=True) is not ported yet")
         self.hierarchical = hierarchical
         self.average = average
 
     def reduce_bucket_grad(self, ctx: AlgorithmContext, index: int, flat):
+        op = ReduceOp.AVG if self.average else ReduceOp.SUM
+        if self.hierarchical and ctx.two_tier():
+            # the shard divides the inter-node world: buckets are padded to
+            # the whole world's size
+            chunk = ctx.tier_reduce_scatter(flat, op)
+            chunk = ctx.tier_allreduce(chunk, op, codec=self.wire_codec_dcn)
+            return ctx.tier_allgather(chunk)
         if ctx.comm.nranks() <= 1:
             return flat
-        if ctx.codec_for("minmax_uint8") is None:
+        if ctx.codec_for(LINK_ICI, self.wire_codec_flat) is None:
             # compress_intra="off": full precision, the escape hatch for
             # debugging a divergence (a forced codec name keeps the
             # scatter-gather, which has one wire format)
-            op = ReduceOp.AVG if self.average else ReduceOp.SUM
             return ctx.bucket_allreduce(flat, op)
         return compressed_scatter_gather_allreduce(ctx.comm, flat, average=self.average)
 

@@ -2,8 +2,11 @@
 
 Port of ``bagua_tpu/algorithms/gradient_allreduce.py``: one allreduce per
 bucket, averaged (or summed) over the ranks, through
-``AlgorithmContext.bucket_allreduce``, so a codec forced with
-``compress_intra`` rides the compressed ring.
+``AlgorithmContext.bucket_allreduce``: the two-level form with
+``hierarchical=True`` where the tiers allow it (a codec forced with
+``compress_inter`` rides its inter-node ring), the compressed flat ring with
+a codec forced by ``compress_intra``.  A stateful codec (``onebit_ef``,
+``topk``) carries the error-feedback residual.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from .base import Algorithm, AlgorithmContext
 
 class GradientAllReduceAlgorithm(Algorithm):
     name = "gradient_allreduce"
+    #: the per-bucket reduction carries the residual of a stateful codec
+    supports_ef_state = True
 
     def __init__(
         self,
@@ -27,17 +32,15 @@ class GradientAllReduceAlgorithm(Algorithm):
     ):
         """
         Args:
-            hierarchical: intra-node then inter-node communication; not
-                ported yet, so True raises ``NotImplementedError``.
+            hierarchical: intra-node then inter-node communication (the
+                two-level allreduce); on a world whose tiers do not allow it,
+                the flat path.
             average: If True average gradients over ranks, else sum.
             comm_dtype: Optional on-the-wire dtype for the allreduce (e.g.
                 ``torch.bfloat16`` halves the bytes); gradients are cast
                 back afterwards, so params and optimizer state stay in full
                 precision.
         """
-        if hierarchical:
-            raise NotImplementedError(
-                "GradientAllReduceAlgorithm(hierarchical=True) is not ported yet")
         self.hierarchical = hierarchical
         self.average = average
         self.comm_dtype = comm_dtype
@@ -45,8 +48,8 @@ class GradientAllReduceAlgorithm(Algorithm):
     def reduce_bucket_grad(self, ctx: AlgorithmContext, index: int, flat):
         op = ReduceOp.AVG if self.average else ReduceOp.SUM
         if self.comm_dtype is None:
-            return ctx.bucket_allreduce(flat, op)
+            return ctx.bucket_allreduce(flat, op, self.hierarchical)
         orig = flat.dtype
-        return ctx.bucket_allreduce(flat.to(self.comm_dtype), op).to(orig)
+        return ctx.bucket_allreduce(flat.to(self.comm_dtype), op, self.hierarchical).to(orig)
 
     process_grads = Algorithm.process_grads_bucketed

@@ -7,8 +7,14 @@ Port of ``bagua_tpu/algorithms/q_adam.py``.  Two phases, switched by
   precision, both Adam moments update from the averaged gradient, and the
   parameters step by the Adam rule;
 - compressed: the momentum (``exp_avg``) updates locally from the raw
-  gradient, is then averaged by the 8-bit compressed scatter-gather (kernels
-  K1 and K2), and the second moment is frozen.
+  gradient and is then averaged, and the second moment is frozen.  The
+  average takes the two-level form where ``hierarchical`` and the tiers
+  allow it (a full-precision intra-node reduce-scatter, the compressed ring
+  across nodes, K1 and K2 unless ``compress_inter`` names another codec, an
+  intra-node allgather), else the 8-bit compressed scatter-gather over the
+  whole world.  The JAX package's third form, the "legacy Leader"
+  (``q_adam.py:133-160``), runs only where an extra mesh axis makes the tiers
+  refuse; the port's tiers have no such axis, so it is left out.
 
 The algorithm owns its optimizer, so the trainer builds no torch optimizer
 for it.  The moments are dicts of tensors by parameter name; the update runs
@@ -21,7 +27,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from ..communication import ReduceOp
+from ..communication import LINK_ICI, ReduceOp
 from ..compression import compressed_scatter_gather_allreduce
 from .base import Algorithm, AlgorithmContext
 
@@ -36,6 +42,10 @@ class QAdamAlgorithm(Algorithm):
     owns_optimizer = True
     #: every rank owns an equal chunk of the compressed scatter-gather
     align_to_world = True
+    #: the compressed phase's wire formats: the inter-node ring hops and the
+    #: flat scatter-gather
+    wire_codec_dcn = "minmax_uint8"
+    wire_codec_flat = "minmax_uint8"
 
     def __init__(
         self,
@@ -51,11 +61,9 @@ class QAdamAlgorithm(Algorithm):
             warmup_steps: steps of full-precision gradient allreduce before
                 the switch to compressed momentum communication.
             lr / betas / eps / weight_decay: the Adam hyperparameters.
-            hierarchical: hierarchical communication in the compressed
-                phase; not ported yet, so True raises ``NotImplementedError``.
+            hierarchical: the two-level form in the compressed phase where
+                the tiers allow it.
         """
-        if hierarchical:
-            raise NotImplementedError("QAdamAlgorithm(hierarchical=True) is not ported yet")
         self.warmup_steps = warmup_steps
         self.lr = lr
         self.betas = betas
@@ -85,15 +93,22 @@ class QAdamAlgorithm(Algorithm):
                              exp_avg_sq={n: torch.zeros_like(p) for n, p in params.items()})
 
     def _communicate_momentum(self, ctx: AlgorithmContext, exp_avg):
-        if ctx.comm.nranks() <= 1:
+        two_level = self.hierarchical and ctx.two_tier()
+        if not two_level and ctx.comm.nranks() <= 1:
             return exp_avg
         out = []
         for f in ctx.bucket_flats(exp_avg):
-            if ctx.codec_for("minmax_uint8") is None:
+            if two_level:
+                # buckets are world-aligned, so both tiers divide them
+                f = ctx.tier_reduce_scatter(f, ReduceOp.AVG)
+                f = ctx.tier_allreduce(f, ReduceOp.AVG, codec=self.wire_codec_dcn)
+                f = ctx.tier_allgather(f)
+            elif ctx.codec_for(LINK_ICI, self.wire_codec_flat) is None:
                 # compress_intra="off": the full-precision escape hatch
-                out.append(ctx.bucket_allreduce(f, ReduceOp.AVG))
+                f = ctx.bucket_allreduce(f, ReduceOp.AVG)
             else:
-                out.append(compressed_scatter_gather_allreduce(ctx.comm, f, average=True))
+                f = compressed_scatter_gather_allreduce(ctx.comm, f, average=True)
+            out.append(f)
         return ctx.from_bucket_flats(out)
 
     @torch.no_grad()

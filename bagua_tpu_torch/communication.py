@@ -3,11 +3,20 @@
 
 Port of the part of ``bagua_tpu/communication.py`` the trainer and the
 compressed algorithms need: ``ReduceOp``, :func:`init_process_group`, a
-:class:`BaguaCommunicator` over every rank (allreduce, allgather,
+:class:`BaguaCommunicator` over a process group (allreduce, allgather,
 reduce_scatter, alltoall, ppermute, and the ring reduce-scatter / allgather /
-allreduce with an optional wire codec) and :func:`get_backend`.  NCCL
-carries the collectives on the card, gloo on the CPU.  Even at world size 1
-every bucket goes through a real ``all_reduce``.
+allreduce with an optional wire codec) and :func:`get_backend`, whose
+:class:`BaguaBackend` holds the global communicator and the two tiers of the
+hierarchical collectives.  NCCL carries the collectives on the card, gloo on
+the CPU.  Even at world size 1 every bucket goes through a real
+``all_reduce``.
+
+Tiers.  The JAX package splits its device mesh into an ``intra`` axis
+(slice-local ICI) and an ``inter`` axis (cross-slice DCN,
+``parallel/mesh.py:66-85``).  Here they are process groups: the intra-node
+groups hold ``intra_size`` consecutive ranks, the inter-node groups the ranks
+of one local index; rank ``r`` is intra-node rank ``r % intra_size`` and
+inter-node rank ``r // intra_size``.
 
 gloo takes CUDA tensors for ``all_reduce`` and ``broadcast`` only.  On a gloo
 group (which a caller may pick for CUDA tensors, for example to run two
@@ -53,12 +62,21 @@ _reduce_scatter_flat = (getattr(dist, "reduce_scatter_single", None)
                         or dist.reduce_scatter_tensor)
 
 
+#: link classes of the two tiers, under the JAX package's names (there ICI is
+#: the slice-local interconnect and DCN the cross-slice network), so that the
+#: codec policy reads the same: here ``LINK_ICI`` is the intra-node tier and
+#: the flat ring, ``LINK_DCN`` the inter-node tier
+LINK_ICI = "ici"
+LINK_DCN = "dcn"
+
+
 def init_process_group(
     init_method: Optional[str] = None,
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     device=None,
     backend: Optional[str] = None,
+    intra_size: Optional[int] = None,
 ) -> "BaguaBackend":
     """Initialize distributed state; call before the other APIs.
 
@@ -70,8 +88,9 @@ def init_process_group(
     ``init_method`` a single process forms a world of 1 from an in-process
     store (no network); several processes pass ``init_method``
     (``tcp://host:port``, ``file://path`` or ``env://``) with ``world_size``
-    and ``rank``, which default to ``WORLD_SIZE``/``RANK``.  Calling it
-    again returns the existing backend.
+    and ``rank``, which default to ``WORLD_SIZE``/``RANK``.  ``intra_size``
+    is the ranks per node of the two tiers (default ``LOCAL_WORLD_SIZE``,
+    else the world size).  Calling it again returns the existing backend.
     """
     device = resolve_device(device)
     if not dist.is_initialized():
@@ -90,23 +109,33 @@ def init_process_group(
         else:
             dist.init_process_group(backend, init_method=init_method,
                                     world_size=world_size, rank=rank)
-    return get_backend()
+    global _BACKEND
+    if _BACKEND is None:
+        _BACKEND = BaguaBackend(intra_size)
+    return _BACKEND
 
 
 class BaguaCommunicator:
-    """All ranks of the default process group."""
+    """The ranks of one process group (``None``: the default group, every
+    rank).  ``nranks`` and ``rank`` count within the group."""
 
-    def __init__(self):
-        self.stages_cuda = dist.get_backend() == "gloo"
+    def __init__(self, group=None):
+        self.group = group
+        self.stages_cuda = dist.get_backend(group) == "gloo"
         #: bytes of CUDA operands copied to and from the host for gloo (by
         #: this port or inside gloo's all_reduce)
         self.host_staged_bytes = 0
 
     def nranks(self) -> int:
-        return dist.get_world_size()
+        return dist.get_world_size(self.group)
 
     def rank(self) -> int:
-        return dist.get_rank()
+        return dist.get_rank(self.group)
+
+    def _global_rank(self, r: int) -> int:
+        """The global rank of group rank ``r``: a point-to-point peer is
+        named by its global rank even inside a group."""
+        return r if self.group is None else dist.get_global_rank(self.group, r)
 
     # -- host staging for gloo ----------------------------------------------
 
@@ -145,7 +174,7 @@ class BaguaCommunicator:
         if self.stages_cuda and x.is_cuda:
             # gloo copies the operand to the host and the sum back
             self.host_staged_bytes += 2 * x.numel() * x.element_size()
-        dist.all_reduce(x, dist.ReduceOp.SUM)
+        dist.all_reduce(x, dist.ReduceOp.SUM, group=self.group)
         if op == ReduceOp.AVG:
             x.div_(self.nranks())
         return x
@@ -158,7 +187,7 @@ class BaguaCommunicator:
         n = self.nranks()
         wire = self._to_wire(x)
         out = self._wire_empty((n * x.shape[0],) + tuple(x.shape[1:]), x)
-        _all_gather_flat(out, wire)
+        _all_gather_flat(out, wire, group=self.group)
         out = self._from_wire(out, x)
         return out if tiled else out.reshape((n,) + tuple(x.shape))
 
@@ -175,7 +204,7 @@ class BaguaCommunicator:
             raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over {n} ranks")
         wire = self._to_wire(x)
         out = self._wire_empty((x.shape[0] // n,) + tuple(x.shape[1:]), x)
-        _reduce_scatter_flat(out, wire)
+        _reduce_scatter_flat(out, wire, group=self.group)
         out = self._from_wire(out, x)
         return out / n if op == ReduceOp.AVG else out
 
@@ -190,13 +219,14 @@ class BaguaCommunicator:
                              f"got {tuple(x.shape)}")
         wire = self._to_wire(x)
         out = torch.empty_like(wire)
-        dist.all_to_all_single(out, wire)
+        dist.all_to_all_single(out, wire, group=self.group)
         return self._from_wire(out, x)
 
     def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
-        """``perm`` pairs ``(src, dst)``: this rank sends ``x`` to its
-        ``dst`` and returns what its ``src`` sent, zeros if no rank sends to
-        it (``lax.ppermute``'s contract), over ``batch_isend_irecv``."""
+        """``perm`` pairs ``(src, dst)`` of group ranks: this rank sends
+        ``x`` to its ``dst`` and returns what its ``src`` sent, zeros if no
+        rank sends to it (``lax.ppermute``'s contract), over
+        ``batch_isend_irecv``."""
         r = self.rank()
         dst = [d for s, d in perm if s == r]
         src = [s for s, d in perm if d == r]
@@ -204,8 +234,8 @@ class BaguaCommunicator:
             raise ValueError(f"perm {perm} sends or receives twice at rank {r}")
         wire = self._to_wire(x)
         out = self._wire_empty(tuple(x.shape), x)
-        ops = [dist.P2POp(dist.isend, wire, d) for d in dst]
-        ops += [dist.P2POp(dist.irecv, out, s) for s in src]
+        ops = [dist.P2POp(dist.isend, wire, self._global_rank(d), self.group) for d in dst]
+        ops += [dist.P2POp(dist.irecv, out, self._global_rank(s), self.group) for s in src]
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
@@ -327,14 +357,40 @@ class BaguaCommunicator:
         return out[:size] if pad else out
 
 
-class BaguaBackend:
-    """Per-process comm backend: the global communicator.  Intra/inter-node
-    communicators come with the hierarchical slice."""
+def _tier_groups(world: int, rank: int, intra: int):
+    """``(intra-node group, inter-node group)`` of this rank.  Every rank
+    creates every group, in the same order, as ``new_group`` requires."""
+    intra_groups = [dist.new_group(list(range(i, i + intra))) for i in range(0, world, intra)]
+    inter_groups = [dist.new_group(list(range(j, world, intra))) for j in range(intra)]
+    return intra_groups[rank // intra], inter_groups[rank % intra]
 
-    def __init__(self):
+
+class BaguaBackend:
+    """Per-process comm backend: the global communicator and the intra-node
+    and inter-node communicators of the two tiers (``communication.py:582-609``).
+    Where ``intra_size`` does not tile the world into groups of more than one
+    node's ranks, or at world size 1, both tiers are the global communicator,
+    as on the JAX package's single-axis meshes."""
+
+    def __init__(self, intra_size: Optional[int] = None):
         if not dist.is_initialized():
             raise RuntimeError("call init_process_group() first")
         self.global_communicator = BaguaCommunicator()
+        world, rank = dist.get_world_size(), dist.get_rank()
+        intra = intra_size or env.get_local_world_size() or world
+        if world > 1 and 1 <= intra <= world and world % intra == 0:
+            intra_group, inter_group = _tier_groups(world, rank, intra)
+            self.intranode_communicator = BaguaCommunicator(intra_group)
+            self.internode_communicator = BaguaCommunicator(inter_group)
+        else:
+            self.intranode_communicator = self.global_communicator
+            self.internode_communicator = self.global_communicator
+
+    def communicators(self):
+        """The distinct communicators (the tiers may be the global one)."""
+        comms = [self.global_communicator, self.intranode_communicator,
+                 self.internode_communicator]
+        return [c for i, c in enumerate(comms) if all(c is not d for d in comms[:i])]
 
 
 _BACKEND: Optional[BaguaBackend] = None

@@ -1,7 +1,9 @@
 from .codecs import (  # noqa: F401
     CODECS,
     POLICY_VALUES,
+    OneBitEfCodec,
     RingCodec,
+    TopKCodec,
     get_codec,
     resolve_codec,
     validate_codec_policy,

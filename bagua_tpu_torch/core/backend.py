@@ -6,7 +6,9 @@ plan's flat buffers, the algorithm's ``process_grads`` (for
 ``GradientAllReduceAlgorithm``, one allreduce per bucket), the optimizer
 step on the reduced gradients, and the loss averaged over the ranks.  An
 algorithm that owns its optimizer (QAdam) gets no torch optimizer: its
-``optimizer_update`` runs after ``process_grads``.
+``optimizer_update`` runs after ``process_grads``.  Where a stateful codec
+(``onebit_ef``, ``topk``) rides the wire, ``state.algo_state["ef"]["buckets"]``
+carries the error-feedback residual, one f32 flat per bucket.
 
 PyTorch runs eagerly, so there is no compiled-step cache; the state is the
 module and the optimizer, updated in place, rather than an immutable pytree.
@@ -58,16 +60,15 @@ class BaguaTrainer:
         device: where the model and batches live; ``cuda`` by default.
         bucket_bytes: bucket size in bytes (default env
             ``BAGUA_DEFAULT_BUCKET_SIZE``, 10 MiB).
-        compress_intra: codec policy of the flat ring (default env
-            ``BAGUA_COMPRESS_INTRA``, ``auto``): ``auto`` keeps the
-            family's own wire format, ``off`` forces full precision, a codec
-            name (``minmax_uint8``, ``int8``, ``fp8_e4m3``, ``fp8_e5m2``)
-            makes every bucket allreduce ride the compressed ring at world
-            size > 1.
-        compress_inter: codec policy of the cross-node tier (default env
-            ``BAGUA_COMPRESS_INTER``): ``auto`` or ``off``.  A codec name
-            raises ``NotImplementedError``: the hierarchical forms that
-            would carry it are not ported yet.
+        compress_intra: codec policy of the intra-node tier and the flat
+            ring (default env ``BAGUA_COMPRESS_INTRA``, ``auto``): ``auto``
+            keeps the family's own wire format, ``off`` forces full
+            precision, a codec name (``minmax_uint8``, ``int8``,
+            ``fp8_e4m3``, ``fp8_e5m2``, ``onebit_ef``, ``topk``) makes every
+            bucket allreduce ride the compressed ring at world size > 1.
+        compress_inter: codec policy of the inter-node tier of the
+            hierarchical forms (default env ``BAGUA_COMPRESS_INTER``, same
+            values).
     """
 
     def __init__(
@@ -86,7 +87,8 @@ class BaguaTrainer:
         self.device = resolve_device(device)
         self.bucket_bytes = (env.get_default_bucket_size()
                              if bucket_bytes is None else bucket_bytes)
-        self.comm = get_backend().global_communicator
+        self.backend = get_backend()
+        self.comm = self.backend.global_communicator
         self.world_size = self.comm.nranks()
         self.compress_intra = validate_codec_policy(
             env.get_compress_intra() if compress_intra is None else compress_intra,
@@ -94,10 +96,9 @@ class BaguaTrainer:
         self.compress_inter = validate_codec_policy(
             env.get_compress_inter() if compress_inter is None else compress_inter,
             "compress_inter")
-        if self.compress_inter not in ("auto", "off"):
-            raise NotImplementedError(
-                f"compress_inter={self.compress_inter!r} compresses the cross-node tier "
-                f"of the hierarchical collectives, which are not ported yet")
+        #: whether the error-feedback residual may be carried; whether it is
+        #: is the algorithm's call (``Algorithm.ef_codec``)
+        self._ef_enabled = not env.is_ef_residual_disabled()
         self._ctx: Optional[AlgorithmContext] = None
         self._params = None
         #: train_step calls on this trainer, the counter ``need_reset`` reads
@@ -106,6 +107,17 @@ class BaguaTrainer:
     @property
     def plan(self):
         return self._ctx.plan
+
+    @property
+    def host_staged_bytes(self) -> int:
+        """Bytes staged through the host for gloo so far, summed over the
+        global and the two tier communicators."""
+        return sum(c.host_staged_bytes for c in self.backend.communicators())
+
+    def _ef_active(self) -> bool:
+        """Whether this configuration carries the error-feedback residual in
+        ``algo_state``."""
+        return self._ctx is not None and self.algorithm.ef_codec(self._ctx) is not None
 
     def init(self, model: nn.Module) -> TrainState:
         """Move ``model`` to the trainer's device, give every rank rank 0's
@@ -120,8 +132,12 @@ class BaguaTrainer:
         decls = [p.declaration() for p in named]
         plan = algo.tensors_to_buckets(
             split_bucket_by_bucket_size(decls, self.bucket_bytes), named, self.world_size)
-        self._ctx = AlgorithmContext(comm=self.comm, plan=plan, world_size=self.world_size,
-                                     intra_codec=self.compress_intra)
+        self._ctx = AlgorithmContext(
+            comm=self.comm, plan=plan, world_size=self.world_size,
+            intra_codec=self.compress_intra, inter_codec=self.compress_inter,
+            intranode=self.backend.intranode_communicator,
+            internode=self.backend.internode_communicator,
+            ef_enabled=self._ef_enabled, device=self.device)
         self._params = dict(model.named_parameters())
         algo_state = algo.init_state(self._ctx, self._params)
         if algo.owns_optimizer:

@@ -2,15 +2,16 @@
 
 Port of the part of ``bagua_tpu/env.py`` the port reads: the registry of
 declared ``BAGUA_*`` variables with typed ``env_str``/``env_int``/``env_bool``
-readers, the default bucket size, the per-link codec policy, and rank /
-world size / local rank.
+readers, the default bucket size, the per-link codec policy, the stateful
+codecs' knobs (top-k ratio, error-feedback residual), and rank / world size /
+local rank / local world size.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -19,27 +20,43 @@ class EnvVar:
     type: str
     default: str
     doc: str
+    choices: Tuple[str, ...] = ()
 
 
 ENV_REGISTRY: Dict[str, EnvVar] = {}
 
 
-def _declare(name: str, type: str, default: str, doc: str) -> None:
-    ENV_REGISTRY[name] = EnvVar(name, type, default, doc)
+def _declare(name: str, type: str, default: str, doc: str,
+             choices: Tuple[str, ...] = ()) -> None:
+    ENV_REGISTRY[name] = EnvVar(name, type, default, doc, choices)
 
 
 _declare("BAGUA_DEFAULT_BUCKET_SIZE", "int", str(10 * 1024 ** 2),
          "Default communication bucket size in bytes (reference env.py:50-57).")
 _declare("BAGUA_COMPRESS_INTRA", "str", "auto",
-         "Per-link codec policy of the fast tier and the flat ring: `auto` "
-         "(default) keeps it full precision; `off` forces full precision; a "
-         "codec name (minmax_uint8|int8|fp8_e4m3|fp8_e5m2) makes the flat "
-         "ring's hops carry that codec's payload.")
+         "Per-link codec policy of the intra-node tier and the flat ring: "
+         "`auto` (default) keeps it full precision; `off` forces full "
+         "precision; a codec name "
+         "(minmax_uint8|int8|fp8_e4m3|fp8_e5m2|onebit_ef|topk) makes the "
+         "ring hops carry that codec's payload.")
 _declare("BAGUA_COMPRESS_INTER", "str", "auto",
-         "Per-link codec policy of the cross-node tier of the hierarchical "
-         "collectives: `auto` (default) defers to the algorithm family, "
-         "`off` forces full precision.  A codec name is refused until the "
-         "hierarchical forms are ported.")
+         "Per-link codec policy of the inter-node tier of the hierarchical "
+         "collectives: `auto` (default) defers to the algorithm family "
+         "(ByteGrad and QAdam compress it natively, the exact families keep "
+         "it full precision), `off` forces full precision, a codec name "
+         "(minmax_uint8|int8|fp8_e4m3|fp8_e5m2|onebit_ef|topk) compresses "
+         "the inter-node ring hops for every family.")
+_declare("BAGUA_TOPK_RATIO", "float", "0.01",
+         "Fraction of each chunk's elements the `topk` ring codec keeps on "
+         "the wire (int32 indices and f32 values; 0.01 keeps the top 1% by "
+         "magnitude).  Read when the codec is looked up, so a value set "
+         "before the trainer is built takes effect.")
+_declare("BAGUA_EF_RESIDUAL", "enum", "on",
+         "Error-feedback residual of the stateful ring codecs "
+         "(onebit_ef|topk): `on` (default) carries each bucket's "
+         "quantization error into the next step's gradient; `off` lets the "
+         "codec ride without it (biased sign or sparse SGD, a convergence "
+         "control).  Set before the trainer is built.", choices=("on", "off"))
 
 
 def _raw(name: str) -> Optional[str]:
@@ -63,6 +80,25 @@ def env_int(name: str) -> int:
         return int(v)
     except ValueError:
         raise ValueError(f"{name} must be an integer, got {v!r}") from None
+
+
+def env_float(name: str) -> float:
+    v = _raw(name)
+    if v is None:
+        return float(ENV_REGISTRY[name].default)
+    try:
+        return float(v)
+    except ValueError:
+        raise ValueError(f"{name} must be a number, got {v!r}") from None
+
+
+def env_enum(name: str) -> str:
+    """The value, lower-cased, checked against the variable's choices."""
+    v = env_str(name).strip().lower() or ENV_REGISTRY[name].default
+    choices = ENV_REGISTRY[name].choices
+    if choices and v not in choices:
+        raise ValueError(f"{name} must be {'|'.join(choices)}, got {v!r}")
+    return v
 
 
 def env_bool(name: str) -> bool:
@@ -111,6 +147,13 @@ def get_local_rank() -> int:
     return _int_env("LOCAL_RANK", 0)
 
 
+def get_local_world_size() -> Optional[int]:
+    """Ranks per node from ``LOCAL_WORLD_SIZE`` (the launcher's), or None
+    when unset: the default intra-node group size."""
+    v = _int_env("LOCAL_WORLD_SIZE", 0)
+    return v if v > 0 else None
+
+
 def get_default_bucket_size() -> int:
     """Default bucket size in bytes; 10 MiB like the reference."""
     return env_int("BAGUA_DEFAULT_BUCKET_SIZE")
@@ -123,7 +166,18 @@ def get_compress_intra() -> str:
 
 
 def get_compress_inter() -> str:
-    """Codec policy of the cross-node tier (``auto``: the family's own; the
-    trainer refuses a codec name, as no hierarchical form is ported)."""
+    """Codec policy of the inter-node tier (``auto``: the family's own)."""
     return env_str("BAGUA_COMPRESS_INTER")
+
+
+def get_topk_ratio() -> float:
+    """Fraction of each chunk the ``topk`` codec keeps (default 0.01); read
+    each time the codec is looked up."""
+    return env_float("BAGUA_TOPK_RATIO")
+
+
+def is_ef_residual_disabled() -> bool:
+    """True when ``BAGUA_EF_RESIDUAL=off``: the stateful codecs ride without
+    their residual."""
+    return env_enum("BAGUA_EF_RESIDUAL") == "off"
 

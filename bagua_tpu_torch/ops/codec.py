@@ -1,9 +1,9 @@
 """Chunked gradient codecs: hand-written Hopper kernels for the MinMaxUInt8
-codec and the absmax reduction of the int8/fp8 codecs.
+codec, the absmax reduction of the int8/fp8 codecs and the 1-bit sign codec.
 
 Port of the codec kernels of ``bagua_tpu/compression/pallas_codec.py``.  A
 flat tensor of ``n * m`` elements is ``n`` chunks of ``m``; each chunk gets
-its own quantization grid.  The three Pallas TPU kernels become the CUDA
+its own quantization grid.  The five Pallas TPU kernels become the CUDA
 kernels of ``csrc/codec.cu``, built with ``nvcc`` at first use and called
 through ``ctypes``:
 
@@ -13,13 +13,20 @@ through ``ctypes``:
   255`` (``minmax_uint8.py:39-56``);
 - :func:`decompress_chunked` (K2): ``(payload + lower) / scale`` in f32
   (``minmax_uint8.py:59-66``);
-- :func:`absmax_chunked` (K3): per-chunk ``max |x|``, a NaN kept.
+- :func:`absmax_chunked` (K3): per-chunk ``max |x|``, a NaN kept;
+- :func:`sign_compress_chunked` (K4): per-chunk mean-abs ``scale`` and the
+  sign bits packed bit-planar into ``ceil(m / 1024) * 128`` bytes
+  (``pallas_codec.py:329-468``);
+- :func:`sign_decompress_chunked` (K5): the planar bits as ``±scale``, the
+  padded ``[n, 8 * B]`` block (``pallas_codec.py:471-511``).
 
 Each wrapper has a plain PyTorch version beside it and counts its launches in
 ``<wrapper>.launches``.  A wrapper takes the plain version only for tensors on
 the CPU; for a CUDA tensor it launches the kernel at every chunk size or
-raises.  The kernels and the plain versions agree byte for byte, and both
-equal the JAX package's jnp codec, including its saturating uint8 convert.
+raises.  K1-K3 and K5 agree with their plain versions byte for byte, and
+both equal the JAX package's jnp codec, including its saturating uint8
+convert; K4's payload does too, its scale is a sum whose order differs
+(within 1e-6 relative).
 """
 
 from __future__ import annotations
@@ -88,6 +95,38 @@ def absmax_chunked_plain(x, n_chunks: int):
     return x.reshape(n_chunks, -1).float().abs().amax(dim=1)
 
 
+def sign_payload_bytes(m: int) -> int:
+    """Packed bytes of one ``m``-element chunk: ``ceil(m / 1024) * 128``
+    (the TPU's planar layout pads to whole (8, 128) bit-plane groups;
+    ``codecs.py:234-238``)."""
+    return -(-int(m) // 1024) * 128
+
+
+def sign_compress_chunked_plain(x, n_chunks: int):
+    """Plain version of :func:`sign_compress_chunked`: the mean-abs scale
+    (a tensor-by-tensor quotient, as in :func:`_grid`) and the planar pack
+    of ``_jnp_sign_pack`` (``pallas_codec.py:394-405``)."""
+    chunks = x.reshape(n_chunks, -1).float()
+    m = chunks.shape[1]
+    sums = chunks.abs().sum(dim=1)
+    scale = sums / torch.full_like(sums, float(m))
+    nbytes = sign_payload_bytes(m)
+    padded = torch.nn.functional.pad(chunks, (0, 8 * nbytes - m))
+    bits = (padded >= 0).to(torch.uint8).reshape(n_chunks, 8, nbytes)
+    payload = bits[:, 0].clone()
+    for b in range(1, 8):
+        payload |= bits[:, b] << b
+    return scale, payload
+
+
+def sign_decompress_chunked_plain(scale, payload):
+    """Plain version of :func:`sign_decompress_chunked`."""
+    n, nbytes = payload.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=payload.device).reshape(1, 8, 1)
+    bits = ((payload[:, None, :] >> shifts) & 1).reshape(n, 8 * nbytes)
+    return (bits.float() * 2.0 - 1.0) * scale[:, None]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -99,6 +138,8 @@ _SIGNATURES = {
     "bagua_minmax_compress": [_P, _I, _I, _L, _L, _I, _P, _P, _P, _P, _P],
     "bagua_minmax_decompress": [_P, _P, _P, _I, _L, _L, _I, _P, _P],
     "bagua_absmax": [_P, _I, _I, _L, _L, _I, _P, _P, _P],
+    "bagua_sign_compress": [_P, _I, _I, _L, _L, _L, _I, _P, _P, _P, _P],
+    "bagua_sign_decompress": [_P, _P, _I, _L, _L, _I, _P, _P],
 }
 _lib_cache = []
 
@@ -186,7 +227,67 @@ def absmax_chunked(x, n_chunks: int):
     return out
 
 
-KERNELS = (compress_chunked, decompress_chunked, absmax_chunked)
+#: bytes of the sign payload per block of K4/K5's grid, at least (4096
+#: elements, as K1-K3's ``MIN_TILE``)
+MIN_SIGN_TILE = 512
+
+
+def _sign_tiling(nbytes: int):
+    """``(tile, tiles)``: payload bytes per block and blocks per chunk."""
+    tile = max(MIN_SIGN_TILE, -(-nbytes // MAX_TILES))
+    return tile, -(-nbytes // tile)
+
+
+def sign_compress_chunked(x, n_chunks: int):
+    """K4: ``(scale, payload)`` for flat ``x`` (f32 or bf16, ``numel %
+    n_chunks == 0``): ``scale`` f32 ``[n_chunks]``, the mean of ``|x|`` over
+    each chunk's ``m`` elements; payload uint8 ``[n_chunks, B]``, ``B =
+    ceil(m / 1024) * 128``, bit ``b`` of byte ``j`` the sign bit ``x[b * B +
+    j] >= 0`` of the chunk zero-padded to ``8 * B`` (a pad element's bit is
+    1, a NaN's 0)."""
+    if x.device.type == "cpu":
+        return sign_compress_chunked_plain(x, n_chunks)
+    m = _check_input(x, n_chunks)
+    nbytes = sign_payload_bytes(m)
+    tile, tiles = _sign_tiling(nbytes)
+    dev = x.device
+    partials = torch.empty((n_chunks, tiles), dtype=torch.float32, device=dev)
+    scale = torch.empty(n_chunks, dtype=torch.float32, device=dev)
+    payload = torch.empty((n_chunks, nbytes), dtype=torch.uint8, device=dev)
+    _build.launch(_lib().bagua_sign_compress, x.data_ptr(), int(x.dtype == torch.bfloat16),
+                  n_chunks, m, nbytes, tile, tiles, partials.data_ptr(), scale.data_ptr(),
+                  payload.data_ptr())
+    sign_compress_chunked.launches += 1
+    return scale, payload
+
+
+def sign_decompress_chunked(scale, payload):
+    """K5: the inverse of :func:`sign_compress_chunked`, the padded f32
+    block ``[n, 8 * B]`` of ``±scale`` (the codec slices it to ``m``); a NaN
+    or Inf scale makes its whole chunk non-finite."""
+    if payload.device.type == "cpu":
+        return sign_decompress_chunked_plain(scale, payload)
+    if payload.dim() != 2 or payload.dtype != torch.uint8 or not payload.is_contiguous() \
+            or payload.shape[1] % 128:
+        raise ValueError(f"payload must be a contiguous uint8 [n, 128 k], got "
+                         f"{tuple(payload.shape)} {payload.dtype}")
+    n, nbytes = payload.shape
+    if scale.shape != (n,) or scale.dtype != torch.float32 or scale.device != payload.device \
+            or not scale.is_contiguous():
+        raise ValueError(f"scale must be a contiguous float32 [{n}] on {payload.device}, "
+                         f"got {tuple(scale.shape)} {scale.dtype} {scale.device}")
+    if not 1 <= n <= 65535 or nbytes == 0:
+        raise ValueError(f"cannot decompress {n} chunks of {nbytes} bytes")
+    tile, tiles = _sign_tiling(nbytes)
+    out = torch.empty((n, 8 * nbytes), dtype=torch.float32, device=payload.device)
+    _build.launch(_lib().bagua_sign_decompress, scale.data_ptr(), payload.data_ptr(), n,
+                  nbytes, tile, tiles, out.data_ptr())
+    sign_decompress_chunked.launches += 1
+    return out
+
+
+KERNELS = (compress_chunked, decompress_chunked, absmax_chunked, sign_compress_chunked,
+           sign_decompress_chunked)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -1,5 +1,5 @@
-// Chunked gradient codecs for Hopper (sm_90a): the MinMaxUInt8 codec and the
-// absmax reduction of the int8/fp8 codecs.
+// Chunked gradient codecs for Hopper (sm_90a): the MinMaxUInt8 codec, the
+// absmax reduction of the int8/fp8 codecs and the 1-bit sign codec.
 //
 // Replaces the Pallas TPU kernels of bagua_tpu/compression/pallas_codec.py:
 //   bagua_minmax_compress   <- compress_chunked_pallas   (K1: pallas_call :176
@@ -10,6 +10,12 @@
 //   bagua_absmax            <- absmax_chunked_pallas     (K3: pallas_call :295
 //                              fused, :311 tiled; _absmax_kernel :235,
 //                              _absmax_tile_kernel :249)
+//   bagua_sign_compress     <- sign_compress_chunked_pallas (K4: pallas_call
+//                              :424 fused, :452 tiled; _sign_pack_kernel :347,
+//                              _sumabs_tile_kernel :368, _jnp_sign_pack :394)
+//   bagua_sign_decompress   <- sign_decompress_chunked_pallas (K5: pallas_call
+//                              :496, _sign_unpack_kernel :471)
+// (K4 and K5 are described with their kernels below.)
 //
 // Layout: x is [n, m] row-major (n chunks of m elements, f32 or bf16), m any
 // positive count, so a chunk need not start on a 16-byte boundary.
@@ -247,6 +253,109 @@ bool bad_shape(int n, long long m, long long tile, int tiles) {
          (long long)tiles != (m + tile - 1) / tile;
 }
 
+// ---- 1-bit sign codec (K4, K5) --------------------------------------------
+//
+// A chunk of m elements packs into B = ceil(m / 1024) * 128 bytes, bit-planar:
+// bit b of byte j is x_pad[b * B + j] >= 0, where x_pad is the chunk padded
+// with zeros to 8 * B elements (a pad element's bit is 1; a NaN's is 0).  The
+// flat input is not padded in memory: an index >= m reads as 0 and is never
+// loaded.  scale = sum |x| / m over the m real elements.
+//
+// Both are bound by memory bandwidth: K4 reads 4 bytes an element and writes
+// 1/8, K5 reads 1/8 and writes 4.  Each thread makes (K4) or unpacks (K5) one
+// byte from 8 elements at stride B, so in every plane neighbouring threads
+// touch neighbouring addresses.  The grid is (tile, chunk) over the payload's
+// bytes, as for K1/K3: pass 1 packs its tile's bytes (the pack does not need
+// the scale) and writes the tile's partial sum of |x|; pass 2, one block a
+// chunk, adds the partials in a fixed order and divides with __fdiv_rn.  No
+// atomics: the scale does not depend on timing.
+
+// Sum over the block in a fixed tree; every thread gets the result.  The xor
+// butterfly adds the same two values in every lane of a pair, so all lanes
+// agree.  `scratch` holds kWarps floats.
+__device__ float block_sum(float v, float* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  v = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) v = __fadd_rn(v, scratch[w]);
+  return v;
+}
+
+// Pass 1: pack bytes [t * tile, min((t + 1) * tile, B)) of chunk c and write
+// the partial sum of |x| over their elements.  grid (tiles, n).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sign_pack_kernel(const T* __restrict__ x, long long m, long long B, long long tile, int tiles,
+                 float* __restrict__ partials, uint8_t* __restrict__ payload) {
+  __shared__ float scratch[kWarps];
+  const int c = blockIdx.y, t = blockIdx.x;
+  const T* xc = x + (long long)c * m;
+  uint8_t* pc = payload + (long long)c * B;
+  const long long lo = (long long)t * tile;
+  const long long hi = lo + tile < B ? lo + tile : B;
+  float acc = 0.0f;
+  for (long long j = lo + threadIdx.x; j < hi; j += kThreads) {
+    float v[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const long long i = b * B + j;
+      v[b] = i < m ? load(xc + i) : 0.0f;
+    }
+    unsigned byte = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      byte |= (v[b] >= 0.0f ? 1u : 0u) << b;
+      acc = __fadd_rn(acc, fabsf(v[b]));
+    }
+    pc[j] = (uint8_t)byte;
+  }
+  acc = block_sum(acc, scratch);
+  if (threadIdx.x == 0) partials[(long long)c * tiles + t] = acc;
+}
+
+// Pass 2: scale[c] = (sum of chunk c's partials) / m.  grid (n).
+__global__ void __launch_bounds__(kThreads)
+sign_scale_kernel(const float* __restrict__ partials, int tiles, long long m,
+                  float* __restrict__ scale) {
+  __shared__ float scratch[kWarps];
+  const int c = blockIdx.x;
+  float v = 0.0f;
+  for (int j = threadIdx.x; j < tiles; j += kThreads)
+    v = __fadd_rn(v, partials[(long long)c * tiles + j]);
+  v = block_sum(v, scratch);
+  if (threadIdx.x == 0) scale[c] = __fdiv_rn(v, (float)m);
+}
+
+// out[c, b * B + j] = (bit b of payload[c, j] ? 1 : -1) * scale[c], the padded
+// [n, 8 * B] block.  A NaN or Inf scale makes the whole chunk non-finite.
+// grid (tiles, n).
+__global__ void __launch_bounds__(kThreads)
+sign_unpack_kernel(const float* __restrict__ scale, const uint8_t* __restrict__ payload,
+                   long long B, long long tile, float* __restrict__ out) {
+  const int c = blockIdx.y, t = blockIdx.x;
+  const float s = scale[c];
+  const uint8_t* pc = payload + (long long)c * B;
+  float* oc = out + (long long)c * 8 * B;
+  const long long lo = (long long)t * tile;
+  const long long hi = lo + tile < B ? lo + tile : B;
+  for (long long j = lo + threadIdx.x; j < hi; j += kThreads) {
+    const unsigned byte = pc[j];
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      oc[b * B + j] = __fmul_rn(((byte >> b) & 1u) ? 1.0f : -1.0f, s);
+  }
+}
+
+bool bad_sign_shape(int n, long long m, long long B, long long tile, int tiles) {
+  return n < 1 || n > 65535 || m < 1 || B != (m + 1023) / 1024 * 128 || tile < 1 ||
+         tiles < 1 || (long long)tiles != (B + tile - 1) / tile;
+}
+
 }  // namespace
 
 extern "C" {
@@ -298,6 +407,35 @@ int bagua_absmax(const void* x, int is_bf16, int n, long long m, long long tile,
     partials_kernel<float, true><<<grid, kThreads, 0, s>>>((const float*)x, m, tile, tiles,
                                                            (float*)partials);
   absmax_final_kernel<<<n, kThreads, 0, s>>>((const float*)partials, tiles, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// x [n, m] f32 or bf16; partials [n, tiles] f32 scratch; scale [n] f32;
+// payload [n, B] u8 with B = ceil(m / 1024) * 128; tiles = ceil(B / tile).
+int bagua_sign_compress(const void* x, int is_bf16, int n, long long m, long long B,
+                        long long tile, int tiles, void* partials, void* scale, void* payload,
+                        void* stream) {
+  if (bad_sign_shape(n, m, B, tile, tiles)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(tiles, n);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    sign_pack_kernel<bf16><<<grid, kThreads, 0, s>>>((const bf16*)x, m, B, tile, tiles,
+                                                     (float*)partials, (uint8_t*)payload);
+  else
+    sign_pack_kernel<float><<<grid, kThreads, 0, s>>>((const float*)x, m, B, tile, tiles,
+                                                      (float*)partials, (uint8_t*)payload);
+  sign_scale_kernel<<<n, kThreads, 0, s>>>((const float*)partials, tiles, m, (float*)scale);
+  return (int)cudaGetLastError();
+}
+
+// scale [n] f32; payload [n, B] u8; out [n, 8 * B] f32.
+int bagua_sign_decompress(const void* scale, const void* payload, int n, long long B,
+                          long long tile, int tiles, void* out, void* stream) {
+  if (n < 1 || n > 65535 || B < 1 || B % 128 || tile < 1 || tiles < 1 ||
+      (long long)tiles != (B + tile - 1) / tile)
+    return (int)cudaErrorInvalidValue;
+  sign_unpack_kernel<<<dim3(tiles, n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)scale, (const uint8_t*)payload, B, tile, (float*)out);
   return (int)cudaGetLastError();
 }
 

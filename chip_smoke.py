@@ -23,18 +23,26 @@ Phases, in order; any failure exits non-zero before the result line:
    bucket's chunk, a ragged, a tiny, a constant, a ±inf and a NaN chunk, a
    bf16 input; their times against the plain versions at every size, and
    each kernel's time with a cold L2.
-6. slice 1: the long-context TransformerLM (``bench_longctx``'s widths,
+6. sign kernels: the 1-bit codec's compress (K4) and decompress (K5) against
+   their plain versions, payload bytes and decoded values exactly equal, the
+   scale within 1e-6 relative: chunks of 128 KiB, 1 MiB, 8 MiB, the main
+   path's ring chunk (5 MiB), its whole 10 MiB bucket (the error-feedback
+   step encodes a bucket as one chunk), its embedding bucket's chunk and the
+   2 x 2 path's inter-node chunk, a ragged, a tiny, an all-zero, a ±inf and a
+   NaN chunk, a bf16 input; their times hot and cold against the plain
+   versions and against ``abs().sum(dim=1)``, K4's reduction half.
+7. slice 1: the long-context TransformerLM (``bench_longctx``'s widths,
    random weights from a seed) trained for 10 steps by ``BaguaTrainer`` with
    ``GradientAllReduceAlgorithm`` over NCCL; losses must be finite and
    falling, every flash kernel must have launched ``n_layers * steps`` times,
    and the model's logits on a short input must agree with the plain
    attention.
-7. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
+8. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
    every odd layer, 8 experts, top-2) trained for 10 steps with Adam and the
    load-balancing loss; losses finite and falling, exact launch counts of
    the gmm and flash kernels, and the logits on a short input against the
    plain gmm and plain attention.
-8. slice 3: compressed data parallelism at world size 2.  The script starts
+9. slice 3: compressed data parallelism at world size 2.  The script starts
    itself twice as worker processes, two ranks on the one card, whose
    collectives go over gloo through host memory (NCCL refuses two ranks on
    one device).  Each rank trains BERT-Large (``bench_bert``: 24 layers,
@@ -47,6 +55,19 @@ Phases, in order; any failure exits non-zero before the result line:
    kernels equal byte for byte to the same collective through the plain
    codec.  Each run prints its step time, the bytes staged through the host
    and the time of a forward and backward alone.
+10. slice 4, the 1-bit and top-k codecs with the error-feedback residual, two
+   ranks as in slice 3: the main path is the README quick start with
+   ``GradientAllReduceAlgorithm()`` and ``compress_intra="onebit_ef"`` on the
+   full BERT-Large, AdamW 1e-4, 10 steps; then ``compress_intra="topk"`` on
+   the 4-layer cut.  Launches exact (K4 = K5 = 3 x buckets x steps), the
+   residual finite and nonzero, parameters bitwise equal on both ranks, and
+   the error-feedback step of the largest bucket through the kernels against
+   the plain codec (payload equal, residual within 1e-5 of the scale).
+11. slice 4 at 2 x 2: four ranks of this script on the card, two nodes of two
+   (``intra_size=2``), on the 4-layer cut: ``GradientAllReduceAlgorithm(
+   hierarchical=True)`` with ``compress_inter="onebit_ef"`` (K4 = K5 = 3 x
+   buckets x steps) and ``ByteGradAlgorithm()`` at its default two-level form
+   (K1 = K2 = 2 x buckets x steps); the same checks.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -95,7 +116,15 @@ REPLACES = {
     "compress_chunked": "bagua_tpu/compression/pallas_codec.py:158",
     "decompress_chunked": "bagua_tpu/compression/pallas_codec.py:515",
     "absmax_chunked": "bagua_tpu/compression/pallas_codec.py:276",
+    "sign_compress_chunked": "bagua_tpu/compression/pallas_codec.py:409",
+    "sign_decompress_chunked": "bagua_tpu/compression/pallas_codec.py:483",
 }
+#: K4's scale against its plain version: the same sum of |x| in another order
+SIGN_RTOL = 1e-6
+#: the same, over the main path's largest bucket encoded as one chunk (31.6 M
+#: elements): two f32 sums of that many positive terms in different orders
+#: (the pairwise bound alone is log2(n) 2^-24 = 1.5e-6 for each)
+EF_BUCKET_RTOL = 1e-5
 SOURCE = "bagua_tpu_torch/ops/csrc/flash_attention.cu"
 GMM_SOURCE = "bagua_tpu_torch/ops/csrc/gmm.cu"
 CODEC_SOURCE = "bagua_tpu_torch/ops/csrc/codec.cu"
@@ -335,7 +364,7 @@ def build_slice(name):
 def train_steps(trainer, state, batch, tokens_per_step, modules):
     """``STEPS`` training steps with every launch count of ``modules`` set to
     0 just before and read just after; returns the losses, the launches by
-    kernel, and the step statistics."""
+    kernel, the step statistics and the last state."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in modules:
@@ -360,7 +389,7 @@ def train_steps(trainer, state, batch, tokens_per_step, modules):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    return losses, launches, stats
+    return losses, launches, stats, state
 
 
 def log_steps(name, losses, launches, st):
@@ -383,8 +412,8 @@ def phase_slice():
     log(f"slice: {n_params} params in {len(trainer.plan.buckets)} buckets, "
         f"world {trainer.world_size} over {torch.distributed.get_backend()}")
 
-    losses, launches, st = train_steps(trainer, state, batch,
-                                       MAIN["b"] * cfg.max_seq_len, [fa])
+    losses, launches, st, _ = train_steps(trainer, state, batch,
+                                          MAIN["b"] * cfg.max_seq_len, [fa])
     log_steps("slice", losses, launches, st)
     want = cfg.n_layers * STEPS
     if any(n != want for n in launches.values()):
@@ -572,8 +601,8 @@ def phase_slice_moe():
     log(f"slice 2: {n_params} params in {len(trainer.plan.buckets)} buckets, "
         f"world {trainer.world_size} over {torch.distributed.get_backend()}")
 
-    losses, launches, st = train_steps(trainer, state, batch,
-                                       MOE["b"] * cfg.max_seq_len, [fa, gm])
+    losses, launches, st, _ = train_steps(trainer, state, batch,
+                                          MOE["b"] * cfg.max_seq_len, [fa, gm])
     log_steps("slice 2", losses, launches, st)
     n_moe = cfg.n_layers // 2
     want = {"flash_fwd": cfg.n_layers * STEPS, "flash_bwd_dkv": cfg.n_layers * STEPS,
@@ -768,11 +797,143 @@ def phase_codec_kernels():
 
 
 # ---------------------------------------------------------------------------
-# slice 3: compressed data parallelism, two ranks on one card over gloo
+# sign codec kernels (K4, K5), the 1-bit path's
 # ---------------------------------------------------------------------------
 
-#: (name, layers, algorithm, BaguaTrainer keywords): (a) ByteGrad on the
-#: full BERT-Large, (b) the forced int8 and fp8 rings and (c) QAdam on a
+
+def check_sign(x, n, label):
+    """K4 and K5 against their plain versions on one input: payload bytes
+    exactly equal, the scale (a sum in another order) within ``SIGN_RTOL``
+    relative, K5 on the kernel's parts exactly equal to its plain version;
+    returns the parts, the decode and the largest absolute differences."""
+    from bagua_tpu_torch.ops import codec as cd
+
+    scale, p = cd.sign_compress_chunked(x, n)
+    pscale, pp = cd.sign_compress_chunked_plain(x, n)
+    y = cd.sign_decompress_chunked(scale, p)
+    py = cd.sign_decompress_chunked_plain(scale, p)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(pscale)
+    rel = ((scale - pscale).abs() / pscale.abs().clamp_min(1e-30))[finite]
+    checks = {"payload": torch.equal(p, pp),
+              "scale": torch.equal(finite, torch.isfinite(scale))
+              and torch.equal(scale.isnan(), pscale.isnan())
+              and bool((rel <= SIGN_RTOL).all()),
+              "decoded": same(y, py)}
+    log(f"sign {label} ({n} x {x.numel() // n} {x.dtype}, {p.shape[1]} bytes a chunk): "
+        + ", ".join(f"{k} {'equal' if v else 'DIFFERS'}" for k, v in checks.items())
+        + f"; scale rel err {rel.max().item() if rel.numel() else 0.0:.3g}; "
+        f"{int((~finite).sum())} non-finite chunks")
+    if not all(checks.values()):
+        raise AssertionError(f"sign kernel disagrees with its plain version on {label}: "
+                             f"{checks}")
+    ok = torch.isfinite(y) & torch.isfinite(py)
+    errs = {"sign_compress_chunked": abs_err(scale[finite], pscale[finite]),
+            "sign_decompress_chunked": abs_err(y[ok], py[ok])}
+    return (scale, p, y), errs
+
+
+def sign_bound(name, n, m, itemsize=4):
+    """Least time of one launch: each input byte read once, each output byte
+    written once, over the memory rate.  K4 reads ``m`` elements and writes
+    ``B = ceil(m / 1024) * 128`` bytes and a scale a chunk; K5 reads those and
+    writes the padded ``8 B`` f32 elements.  At f32 and m a multiple of 1024,
+    4.125 bytes an element each."""
+    from bagua_tpu_torch.ops.codec import sign_payload_bytes
+
+    nbytes = sign_payload_bytes(m)
+    moved = n * (m * itemsize + nbytes + 4) if name == "sign_compress_chunked" \
+        else n * (nbytes + 4 + 32 * nbytes)
+    return moved / PEAK_BYTES * 1e3, "bytes"
+
+
+def phase_sign_kernels():
+    from bagua_tpu_torch.models.transformer import bert_large_config
+    from bagua_tpu_torch.ops import codec as cd
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    n = CODEC_WORLD
+    cfg = bert_large_config()
+    path_m = CODEC_BUCKET_BYTES // 4 // n          # the main path's ring chunk
+    sizes = {"128 KiB": 32768, "1 MiB": 262144, "8 MiB": 2097152,
+             "ring chunk 5 MiB": path_m}
+    # the 2 x 2 path's inter-node ring chunk: a quarter of a 10 MiB bucket
+    shapes = {**{k: (n, m) for k, m in sizes.items()},
+              "2x2 inter chunk 2.5 MiB": (2, CODEC_BUCKET_BYTES // 4 // 4),
+              "embedding bucket chunk": (n, cfg.vocab_size * cfg.d_model // n),
+              "whole 10 MiB bucket (compensate)": (1, CODEC_BUCKET_BYTES // 4)}
+    errs = {}
+
+    def check(x, k, label):
+        outs, e = check_sign(x, k, label)
+        for key, v in e.items():
+            errs[key] = max(errs.get(key, 0.0), v)
+        return outs
+
+    for label, (k, m) in shapes.items():
+        check(randn(k * m), k, label)
+    check(randn(n * 100003) * 1e-3, n, "ragged")
+    check(randn(n * 3), n, "tiny")
+    scale, p, y = check(torch.zeros(n * 5000, device="cuda"), n, "all-zero")
+    if not ((scale == 0).all() and (p == 255).all() and (y == 0).all()):
+        raise AssertionError("an all-zero chunk must give scale 0, all sign bits 1, zeros")
+    check(randn(n * path_m, dtype=torch.bfloat16), n, "bf16 ring chunk")
+    x = randn(n * 50001)
+    x[17], x[50001 + 5] = float("inf"), float("-inf")
+    scale, _, y = check(x, n, "±inf")
+    if torch.isfinite(scale).any() or torch.isfinite(y).any():
+        raise AssertionError("an inf in a chunk must make its scale and decode non-finite")
+    x = randn(n * 50001)
+    x[123] = float("nan")
+    scale, _, y = check(x, n, "NaN")
+    if not (scale[0].isnan() and y[0].isnan().all() and torch.isfinite(y[1]).all()):
+        raise AssertionError("a NaN chunk must give a NaN scale and a NaN decode")
+
+    # times at each chunk size (f32): kernels hot and with a cold L2, plain
+    # versions hot
+    times, cold = {}, {}
+    for label, m in sizes.items():
+        x = randn(n * m)
+        scale, p = cd.sign_compress_chunked(x, n)
+        fns = {"sign_compress_chunked": (lambda: cd.sign_compress_chunked(x, n),
+                                         lambda: cd.sign_compress_chunked_plain(x, n)),
+               "sign_decompress_chunked": (lambda: cd.sign_decompress_chunked(scale, p),
+                                           lambda: cd.sign_decompress_chunked_plain(scale, p))}
+        times[label] = {k: (cuda_ms(kern, 20), cuda_ms(plain, 5))
+                        for k, (kern, plain) in fns.items()}
+        cold[label] = {k: cuda_ms_cold(kern) for k, (kern, _) in fns.items()}
+        log(f"sign timing chunk {label} ({m} f32): " + ", ".join(
+            f"{k} {a:.4f} ms, cold L2 {cold[label][k]:.4f} ms (plain {b:.4f}, "
+            f"{'kernel' if a < b else 'PLAIN'} faster)"
+            for k, (a, b) in times[label].items()))
+    # the library yardstick of K4 at the path's chunk: its reduction half
+    x = randn(n * path_m)
+    library = {"sign_compress_chunked": cuda_ms(lambda: x.view(n, -1).abs().sum(dim=1), 20),
+               "sign_decompress_chunked": None}
+    log(f"sign library at the ring chunk: abs().sum(dim=1) "
+        f"{library['sign_compress_chunked']:.4f} ms (reduction only)")
+    rows = {}
+    path = times["ring chunk 5 MiB"]
+    for name in ("sign_compress_chunked", "sign_decompress_chunked"):
+        b_ms, b_by = sign_bound(name, n, path_m)
+        rows[name] = {"name": name, "route": "cuda", "source": CODEC_SOURCE,
+                      "replaces": REPLACES[name], "launches": None, "max_abs_err": errs[name],
+                      "ms": path[name][0], "plain_ms": path[name][1], "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": library[name]}
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# slices 3 and 4: compressed data parallelism, several ranks on one card over
+# gloo
+# ---------------------------------------------------------------------------
+
+#: (name, layers, algorithm, BaguaTrainer keywords).  Slice 3: (a) ByteGrad on
+#: the full BERT-Large, (b) the forced int8 and fp8 rings and (c) QAdam on a
 #: 4-layer cut of it
 SLICE3_RUNS = (
     ("bytegrad", None, "bytegrad", {}),
@@ -780,26 +941,75 @@ SLICE3_RUNS = (
     ("fp8_e4m3", BERT["cut_layers"], "gradient_allreduce", {"compress_intra": "fp8_e4m3"}),
     ("qadam", BERT["cut_layers"], "qadam", {}),
 )
+#: slice 4 at world 2: (a) the main path, the README quick start with the
+#: 1-bit codec on the full BERT-Large, (b) top-k (1%) on the 4-layer cut
+SLICE4_RUNS = (
+    ("onebit_ef", None, "gradient_allreduce", {"compress_intra": "onebit_ef"}),
+    ("topk", BERT["cut_layers"], "gradient_allreduce", {"compress_intra": "topk"}),
+)
+#: slice 4 at world 4, two nodes of two ranks, on the 4-layer cut: (a) the
+#: two-level allreduce with the 1-bit codec on the inter-node tier, (b)
+#: ByteGrad at its default hierarchical=True (MinMaxUInt8 on that tier)
+SLICE4_2X2_RUNS = (
+    ("hier_onebit_ef", BERT["cut_layers"], "hierarchical", {"compress_inter": "onebit_ef"}),
+    ("bytegrad_2x2", BERT["cut_layers"], "bytegrad_default", {}),
+)
+#: the multi-rank phases: name -> (label, runs, world, intra-node size)
+MULTI_RANK = {
+    "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
+    "slice4": ("slice 4", SLICE4_RUNS, CODEC_WORLD, None),
+    "slice4_2x2": ("slice 4 (2 x 2)", SLICE4_2X2_RUNS, 4, 2),
+}
 QADAM_WARMUP = 2
+#: seconds a multi-rank phase may take before its ranks are killed
+WORKER_TIMEOUT = 420
 
 
-def _slice3_algorithm(name):
+def _algorithm(name):
     import bagua_tpu_torch as bt
 
     if name == "bytegrad":
         return bt.ByteGradAlgorithm(hierarchical=False)
+    if name == "bytegrad_default":
+        return bt.ByteGradAlgorithm()
     if name == "qadam":
         # lr 1e-5: at 1e-4 the second moment frozen after two warmup steps
         # turns grown gradients into steps that make the loss diverge from
         # the third compressed step on, with the codec or without it
         # (compress_intra="off"), in the JAX package's QAdam as in the port
         return bt.QAdamAlgorithm(warmup_steps=QADAM_WARMUP, hierarchical=False, lr=1e-5)
-    return bt.GradientAllReduceAlgorithm(hierarchical=False)
+    return bt.GradientAllReduceAlgorithm(hierarchical=name == "hierarchical")
+
+
+def _want_launches(algo_name, kw, n_layers, n_buckets):
+    """Each codec and flash kernel's launches in ``STEPS`` steps.  Per bucket
+    and step: ByteGrad's and QAdam's scatter-gather one K1 and two K2; the
+    two-level ByteGrad's inter-node ring at n = 2 one hop and the allgather's
+    encode, two K1 and two K2; the int8/fp8 rings at world 2 two K3; the
+    1-bit codec's error-feedback step one K4 and one K5, its ring at n = 2
+    two more of each (one hop, then the allgather's encode and the decode of
+    the gathered parts); top-k none."""
+    from bagua_tpu_torch.ops import codec as cd
+
+    want = {k.__name__: 0 for k in cd.KERNELS}
+    want.update({k: n_layers * STEPS for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
+    codec = kw.get("compress_intra") or kw.get("compress_inter")
+    if algo_name in ("bytegrad", "qadam"):
+        codec_steps = STEPS - QADAM_WARMUP if algo_name == "qadam" else STEPS
+        want["compress_chunked"] = n_buckets * codec_steps
+        want["decompress_chunked"] = 2 * n_buckets * codec_steps
+    elif algo_name == "bytegrad_default":
+        want["compress_chunked"] = want["decompress_chunked"] = 2 * n_buckets * STEPS
+    elif codec in ("int8", "fp8_e4m3"):
+        want["absmax_chunked"] = 2 * n_buckets * STEPS
+    elif codec == "onebit_ef":
+        want["sign_compress_chunked"] = want["sign_decompress_chunked"] = 3 * n_buckets * STEPS
+    return want
 
 
 def fwd_bwd_ms(model, batch, reps: int = 3) -> float:
     """Median host time of this rank's forward and backward alone, no
-    communication; both ranks run it at once on the one card, as in a step."""
+    communication; every rank runs it at once on the one card, as in a step."""
     import bagua_tpu_torch as bt
 
     times = []
@@ -822,8 +1032,66 @@ def _flat_digests(trainer, model):
     return [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest() for f in flats]
 
 
-def slice3_run(rank, world, run, device):
-    """One of ``SLICE3_RUNS`` on this rank; returns its record."""
+def _check_plain_bucket(rank, trainer, model, batch, record):
+    """One ByteGrad bucket's reduction through the kernels against the same
+    collective through the plain codec (CPU tensors take it), on a fresh
+    local gradient: byte for byte."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.compression import compressed_scatter_gather_allreduce
+
+    model.zero_grad(set_to_none=True)
+    bt.lm_loss_fn(model, batch).backward()
+    i = len(trainer.plan.buckets) // 2
+    flat = trainer.plan.flatten({n: p.grad for n, p in model.named_parameters()})[i]
+    got = compressed_scatter_gather_allreduce(trainer.comm, flat).cpu()
+    want_flat = compressed_scatter_gather_allreduce(trainer.comm, flat.cpu())
+    record["plain_bucket"] = {"index": i, "numel": flat.numel(),
+                              "equal": bool(same(got, want_flat))}
+    log(f"[rank {rank}] bucket {i} ({flat.numel()} elements) reduced through the "
+        f"kernels vs the plain codec: {'equal' if record['plain_bucket']['equal'] else 'DIFFERS'}")
+    if not record["plain_bucket"]["equal"]:
+        raise AssertionError(f"[rank {rank}] the kernel path's bucket {i} differs from "
+                             f"the plain codec's")
+
+
+def _check_ef_bucket(rank, trainer, state, model, batch, record):
+    """The error-feedback step of the largest bucket through the kernels
+    against the plain codec, on a fresh local gradient and the run's
+    residual: ``c = g + r`` is the same on both sides, so the payload must be
+    equal byte for byte and the new residual ``c - decode(encode(c))`` within
+    ``EF_BUCKET_RTOL`` of the scale (the scale's sum runs in another order),
+    and each side's scale within it of the f64 mean of ``|c|``."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.compression import get_codec
+
+    model.zero_grad(set_to_none=True)
+    bt.lm_loss_fn(model, batch).backward()
+    buckets = trainer.plan.buckets
+    i = max(range(len(buckets)), key=lambda j: buckets[j].padded_numel)
+    flat = trainer.plan.flatten({n: p.grad for n, p in model.named_parameters()})[i]
+    c = (flat.float() + state.algo_state["ef"]["buckets"][i])[None]
+    codec = get_codec("onebit_ef")
+    parts, pparts = codec.encode(c), codec.encode(c.cpu())
+    res = (c - codec.decode(parts, c.shape[1])).cpu()
+    pres = c.cpu() - codec.decode(pparts, c.shape[1])
+    scale = pparts[0].item()
+    err = (res - pres).abs().max().item() / scale
+    exact = c.double().abs().mean().item()
+    scale_err = {"kernel": abs(parts[0].item() / exact - 1), "plain": abs(scale / exact - 1)}
+    equal = bool(torch.equal(parts[1].cpu(), pparts[1]))
+    record["ef_bucket"] = {"index": i, "numel": c.shape[1], "payload_equal": equal,
+                           "residual_err_over_scale": err, "scale_err_vs_f64": scale_err}
+    log(f"[rank {rank}] bucket {i} ({c.shape[1]} elements) error-feedback step through the "
+        f"kernels vs the plain codec: payload {'equal' if equal else 'DIFFERS'}, new "
+        f"residual within {err:.3g} of the scale; scale relative error against the f64 "
+        f"mean: kernel {scale_err['kernel']:.3g}, plain {scale_err['plain']:.3g}")
+    if not (equal and err <= EF_BUCKET_RTOL and max(scale_err.values()) <= EF_BUCKET_RTOL):
+        raise AssertionError(f"[rank {rank}] the kernel path's error-feedback step of bucket "
+                             f"{i} differs from the plain codec's: {record['ef_bucket']}")
+
+
+def compressed_run(rank, world, run, device, label):
+    """One run of a multi-rank slice on this rank; returns its record."""
     import bagua_tpu_torch as bt
     from bagua_tpu_torch.ops import codec as cd
     from bagua_tpu_torch.ops import flash_attention as fa
@@ -834,73 +1102,55 @@ def slice3_run(rank, world, run, device):
     model = bt.TransformerLM(cfg, device=device, seed=0)
     adamw = functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                               weight_decay=1e-4)
-    trainer = bt.BaguaTrainer(bt.lm_loss_fn, adamw, _slice3_algorithm(algo_name),
-                              device=device, **kw)
+    trainer = bt.BaguaTrainer(bt.lm_loss_fn, adamw, _algorithm(algo_name), device=device,
+                              **kw)
     state = trainer.init(model)
     # each rank feeds its own slice of one global batch (seed 1)
     g = torch.Generator(device=device).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (world * BERT["b"], cfg.max_seq_len + 1),
                            device=device, generator=g)
     batch = trainer.shard_batch({"tokens": tokens[rank * BERT["b"]:(rank + 1) * BERT["b"]]})
-    comm = trainer.comm
-    staged0 = comm.host_staged_bytes
-    losses, launches, st = train_steps(trainer, state, batch, BERT["b"] * cfg.max_seq_len,
-                                       [fa, cd])
-    staged = comm.host_staged_bytes - staged0
-    compute_ms = fwd_bwd_ms(model, batch)
+    staged0 = trainer.host_staged_bytes
+    losses, launches, st, state = train_steps(trainer, state, batch,
+                                              BERT["b"] * cfg.max_seq_len, [fa, cd])
+    staged = trainer.host_staged_bytes - staged0
     n_buckets = len(trainer.plan.buckets)
-    codec_steps = STEPS - QADAM_WARMUP if algo_name == "qadam" else STEPS
-    want = {k.__name__: 0 for k in cd.KERNELS}
-    want.update({k: cfg.n_layers * STEPS for k in ("flash_fwd", "flash_bwd_dkv",
-                                                    "flash_bwd_dq")})
-    if algo_name in ("bytegrad", "qadam"):
-        want["compress_chunked"] = n_buckets * codec_steps
-        want["decompress_chunked"] = 2 * n_buckets * codec_steps
-    else:
-        want["absmax_chunked"] = 2 * n_buckets * STEPS
+    ef = state.algo_state["ef"]["buckets"] if state.algo_state else None
     record = {"name": name, "layers": cfg.n_layers, "buckets": n_buckets,
               "params": sum(p.numel() for p in model.parameters()), "losses": losses,
-              "launches": launches, "stats": st, "fwd_bwd_ms": compute_ms,
-              "host_staged_bytes": staged,
+              "launches": launches, "stats": st, "host_staged_bytes": staged,
+              "ef_norm": None if ef is None else sum(r.abs().sum().item() for r in ef),
+              "ef_finite": ef is None or all(bool(r.isfinite().all()) for r in ef),
               "digests": _flat_digests(trainer, model)}
-    log(f"[rank {rank}] slice 3 {name}: {record['params']} params, {cfg.n_layers} layers, "
-        f"{n_buckets} buckets; losses {losses}")
+    record["fwd_bwd_ms"] = fwd_bwd_ms(model, batch)
+    log(f"[rank {rank}] {label} {name}: {record['params']} params, {cfg.n_layers} layers, "
+        f"{n_buckets} buckets; losses {losses}; residual L1 {record['ef_norm']}")
+    want = _want_launches(algo_name, kw, cfg.n_layers, n_buckets)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
-    if algo_name == "bytegrad":
-        # one bucket's reduction through the kernels against the same
-        # collective through the plain codec (CPU tensors take it), on a
-        # fresh local gradient
-        from bagua_tpu_torch.compression import compressed_scatter_gather_allreduce
-
-        model.zero_grad(set_to_none=True)
-        bt.lm_loss_fn(model, batch).backward()
-        i = n_buckets // 2
-        flat = trainer.plan.flatten({n: p.grad for n, p in model.named_parameters()})[i]
-        got = compressed_scatter_gather_allreduce(comm, flat).cpu()
-        want_flat = compressed_scatter_gather_allreduce(comm, flat.cpu())
-        record["plain_bucket"] = {"index": i, "numel": flat.numel(),
-                                  "equal": bool(same(got, want_flat))}
-        log(f"[rank {rank}] bucket {i} ({flat.numel()} elements) reduced through the "
-            f"kernels vs the plain codec: {'equal' if record['plain_bucket']['equal'] else 'DIFFERS'}")
-        if not record["plain_bucket"]["equal"]:
-            raise AssertionError(f"[rank {rank}] the kernel path's bucket {i} differs from "
-                                 f"the plain codec's")
+    if trainer._ef_active() != (ef is not None) or not record["ef_finite"] or \
+            (ef is not None and not record["ef_norm"] > 0):
+        raise AssertionError(f"[rank {rank}] {name}: the error-feedback residual is "
+                             f"{record['ef_norm']} (finite {record['ef_finite']})")
+    if name == "bytegrad":
+        _check_plain_bucket(rank, trainer, model, batch, record)
+    if name == "onebit_ef":
+        _check_ef_bucket(rank, trainer, state, model, batch, record)
     return record
 
 
-def slice3_worker(rank, init_method, out_path, device="cuda"):
-    """One rank of slice 3: every run of ``SLICE3_RUNS``, records to
-    ``out_path`` as JSON."""
+def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
+    """One rank of a multi-rank phase of ``MULTI_RANK``: every run, records
+    to ``out_path`` as JSON."""
     import bagua_tpu_torch as bt
 
+    label, runs, world, intra = MULTI_RANK[phase]
     device = torch.device(device)
-    world = CODEC_WORLD
     bt.init_process_group(init_method, world_size=world, rank=rank, device=device,
-                          backend="gloo")
+                          backend="gloo", intra_size=intra)
     records = []
-    for run in SLICE3_RUNS:
-        records.append(slice3_run(rank, world, run, device))
+    for run in runs:
+        records.append(compressed_run(rank, world, run, device, label))
         if device.type == "cuda":
             torch.cuda.empty_cache()
     with open(out_path, "w") as f:
@@ -908,23 +1158,26 @@ def slice3_worker(rank, init_method, out_path, device="cuda"):
     torch.distributed.destroy_process_group()
 
 
-def phase_slice3():
-    """Start two ranks of this script on the one card and check them; fails
-    if either rank fails."""
+def phase_multi_rank(phase):
+    """Start the phase's ranks as processes of this script on the one card and
+    check them; fails if any rank fails or the phase outlasts
+    ``WORKER_TIMEOUT``."""
+    label, _, world, _ = MULTI_RANK[phase]
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'store')}"
-        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(CODEC_WORLD)]
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--slice3-worker", str(r), init, outs[r]])
-                 for r in range(CODEC_WORLD)]
+                                   "--worker", phase, str(r), init, outs[r]])
+                 for r in range(world)]
+        deadline = time.monotonic() + WORKER_TIMEOUT
         try:
-            codes = [p.wait(timeout=900) for p in procs]
+            codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
         finally:
             for p in procs:
                 p.kill()
                 p.wait()
-        if codes != [0] * CODEC_WORLD:
-            raise AssertionError(f"slice 3 ranks exited with {codes}")
+        if codes != [0] * world:
+            raise AssertionError(f"{label} ranks exited with {codes}")
         ranks = []
         for path in outs:
             with open(path) as f:
@@ -932,46 +1185,52 @@ def phase_slice3():
     for runs in zip(*ranks):
         name = runs[0]["name"]
         if any(r["digests"] != runs[0]["digests"] for r in runs):
-            raise AssertionError(f"slice 3 {name}: parameters differ between the ranks")
+            raise AssertionError(f"{label} {name}: parameters differ between the ranks")
         if any(r["losses"] != runs[0]["losses"] for r in runs):
-            raise AssertionError(f"slice 3 {name}: losses differ between the ranks")
+            raise AssertionError(f"{label} {name}: losses differ between the ranks")
         for r, rec in enumerate(runs):
             st = rec["stats"]
-            log(f"slice 3 {name} rank {r} (gloo through host memory, two ranks on one "
+            log(f"{label} {name} rank {r} (gloo through host memory, {world} ranks on one "
                 f"card): step {st['step_ms']:.3f} ms (steps 2-{STEPS} as one window; median "
                 f"{st['median_ms']:.3f} ms; first {st['first_ms']:.3f} ms), "
                 f"{st['tokens_s']:.1f} tokens/s, peak memory {st['peak_gb']:.3f} GB, "
                 f"host-staged {rec['host_staged_bytes']} bytes in {STEPS} steps, "
                 f"{rec['buckets']} buckets, launches {rec['launches']}; forward+backward "
                 f"alone (no communication) {rec['fwd_bwd_ms']:.3f} ms")
-        log(f"slice 3 {name}: parameters bitwise equal on both ranks "
+        log(f"{label} {name}: parameters bitwise equal on all {world} ranks "
             f"({len(runs[0]['digests'])} bucket digests)")
     return {rec["name"]: rec for rec in ranks[0]}
 
 
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if sys.argv[1:2] == ["--slice3-worker"]:
-        rank, init, out = sys.argv[2:5]
-        slice3_worker(int(rank), init, out)
+    if sys.argv[1:2] == ["--worker"]:
+        phase, rank, init, out = sys.argv[2:6]
+        multi_rank_worker(phase, int(rank), init, out)
         return
     card = phase_device()
     phase_build()
     rows = phase_kernels()
     rows.update(phase_gmm_kernels())
     rows.update(phase_codec_kernels())
+    rows.update(phase_sign_kernels())
     launches = phase_slice()
     launches_moe, _ = phase_slice_moe()
     torch.distributed.destroy_process_group()
     gc.collect()
-    torch.cuda.empty_cache()   # the two slice-3 ranks share this card
-    slice3 = phase_slice3()
+    torch.cuda.empty_cache()   # the ranks of slices 3 and 4 share this card
+    slice3 = phase_multi_rank("slice3")
+    slice4 = phase_multi_rank("slice4")
+    phase_multi_rank("slice4_2x2")
     # each kernel's launches come from its own path: flash from slice 1, gmm
     # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8
-    # ring (slices 2 and 3 checked the flash counts too)
+    # ring, K4 and K5 from slice 4's main path (the other slices checked the
+    # flash counts too, and slice 4's 2 x 2 runs K1, K2, K4 and K5)
     own = {"compress_chunked": slice3["bytegrad"]["launches"],
            "decompress_chunked": slice3["bytegrad"]["launches"],
-           "absmax_chunked": slice3["int8"]["launches"]}
+           "absmax_chunked": slice3["int8"]["launches"],
+           "sign_compress_chunked": slice4["onebit_ef"]["launches"],
+           "sign_decompress_chunked": slice4["onebit_ef"]["launches"]}
     for name, row in rows.items():
         row["launches"] = (own[name][name] if name in own else launches[name]
                            if name in launches else launches_moe[name])

@@ -130,7 +130,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     mn, mx, p = cd.compress_chunked(x, 2)
     cd.decompress_chunked(mn, mx, p)
     cd.absmax_chunked(x, 2)
-    assert [k.launches for k in cd.KERNELS] == [0, 0, 0]
+    assert all(k.launches == 0 for k in cd.KERNELS)
     want = cd.compress_chunked_plain(x, 2)
     assert all(torch.equal(a, b) for a, b in zip((mn, mx, p), want))
 
@@ -168,14 +168,16 @@ def test_ring_codecs_match_jax(name, kind):
 
 
 def test_codec_registry_and_policy():
-    assert sorted(tcodecs.CODECS) == ["fp8_e4m3", "fp8_e5m2", "int8", "minmax_uint8"]
+    assert sorted(tcodecs.CODECS) == sorted(jcodecs.CODECS) == [
+        "fp8_e4m3", "fp8_e5m2", "int8", "minmax_uint8", "onebit_ef", "topk"]
+    assert tcodecs.POLICY_VALUES == jcodecs.POLICY_VALUES
     with pytest.raises(ValueError, match="unknown ring codec"):
         tcodecs.get_codec("uint4")
-    for name in ("onebit_ef", "topk"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tcodecs.get_codec(name)
-        with pytest.raises(NotImplementedError):
-            tcodecs.validate_codec_policy(name, "compress_intra")
+    for name in ("onebit_ef", "topk"):     # the stateful codecs resolve
+        assert tcodecs.get_codec(name).name == name and tcodecs.get_codec(name).error_feedback
+        assert tcodecs.validate_codec_policy(name.upper(), "compress_intra") == name
+    with pytest.raises(ValueError, match="compress_intra must be one of"):
+        tcodecs.validate_codec_policy("onebit", "compress_intra")
     assert tcodecs.validate_codec_policy(None, "k") == "auto"
     assert tcodecs.validate_codec_policy(" INT8 ", "k") == "int8"
     with pytest.raises(ValueError, match="compress_inter must be one of"):

@@ -71,10 +71,10 @@ def process_group():
     bt.init_process_group(device="cpu")
 
 
-def _spawn(script, world, args, tmp):
+def _spawn(script, world, args, tmp, environ=None):
     """Run ``world`` ranks of a worker; returns each rank's output npz."""
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join(
-        [str(REPO), os.environ.get("PYTHONPATH", "")])}
+        [str(REPO), os.environ.get("PYTHONPATH", "")]), **(environ or {})}
     init = f"file://{tmp / 'store'}"
     outs = [tmp / f"out{r}.npz" for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(WORKERS / script), str(r), str(world), init,
@@ -215,6 +215,11 @@ def _golden():
     return loss_fn, params, batch, {k: v.numpy() for k, v in sd.items()}
 
 
+#: the inter-node int8 ring on the two-level allreduce, run at 2 x 2
+#: (``LOCAL_WORLD_SIZE=2``) beside the world-4 runs
+HIER_ALGO = "hier_int8"
+
+
 def _trainer_run(world, tmp_path_factory):
     key = ("train", world)
     if key not in _RUNS:
@@ -224,23 +229,28 @@ def _trainer_run(world, tmp_path_factory):
         np.savez(tmp / "params.npz", **{f"{layer}.{k}": np.asarray(v)
                                         for layer, leaves in params.items()
                                         for k, v in leaves.items()})
+        algos = ALGOS + (HIER_ALGO,) if world == 4 else ALGOS
         _RUNS[key] = _spawn("torch_trainer_worker.py", world,
-                            [str(tmp / "data.npz"), str(STEPS), ",".join(ALGOS),
-                             str(tmp / "params.npz")], tmp)
+                            [str(tmp / "data.npz"), str(STEPS), ",".join(algos),
+                             str(tmp / "params.npz")], tmp, {"LOCAL_WORLD_SIZE": "2"})
     return _RUNS[key]
 
 
 def _jax_losses(world, algo):
     loss_fn, params, batch, _ = _golden()
     kw = {}
+    mesh = build_mesh({"dp": world}, jax.devices()[:world])
     if algo == "bytegrad":
         jalgo, opt = JByteGrad(hierarchical=False), optax.sgd(0.1)
     elif algo == "qadam":
         jalgo, opt = JQAdam(warmup_steps=2, hierarchical=False), None
+    elif algo == HIER_ALGO:
+        jalgo, opt = JGradientAllReduce(hierarchical=True), optax.sgd(0.1)
+        kw = {"compress_inter": "int8"}
+        mesh = build_mesh({"inter": world // 2, "intra": 2}, jax.devices()[:world])
     else:
         jalgo, opt, kw = JGradientAllReduce(), optax.sgd(0.1), {"compress_intra": "int8"}
-    trainer = JTrainer(loss_fn, opt, jalgo, autotune=False,
-                       mesh=build_mesh({"dp": world}, jax.devices()[:world]), **kw)
+    trainer = JTrainer(loss_fn, opt, jalgo, autotune=False, mesh=mesh, **kw)
     state = trainer.init(params)
     losses = []
     for _ in range(STEPS):
@@ -300,7 +310,7 @@ def test_world_one_bytegrad_is_gradient_allreduce_and_runs_no_codec(monkeypatch)
         runs.append((losses, [p.detach().clone() for p in model.parameters()]))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
-    assert [k.launches for k in cd.KERNELS] == [0, 0, 0]
+    assert all(k.launches == 0 for k in cd.KERNELS)
 
 
 def test_flatten_zeroes_the_pad_tail(monkeypatch):
@@ -331,23 +341,38 @@ def test_compressed_families_align_buckets_to_the_world(algo, alignment):
     assert (bucket.alignment, bucket.padded_numel) == (alignment, 7 if alignment == 1 else 8)
 
 
-def test_codec_knobs_and_unported_forms(monkeypatch):
+def test_codec_knobs_and_unported_forms(monkeypatch, tmp_path_factory):
+    """The codec knobs, and the forms that were refused before the
+    hierarchical collectives were ported: a codec name on the inter-node
+    tier is taken, and int8 there trains at 2 x 2 within 1e-3 of the JAX
+    trainer on an (inter 2, intra 2) mesh."""
+    # first the run, while the environment holds no codec knob
+    outs = _trainer_run(4, tmp_path_factory)
+    got = outs[0][f"{HIER_ALGO}/losses"]
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o[f"{HIER_ALGO}/losses"], got)
+        np.testing.assert_array_equal(o[f"{HIER_ALGO}/dense_0.kernel"],
+                                      outs[0][f"{HIER_ALGO}/dense_0.kernel"])
+    want = _jax_losses(4, HIER_ALGO)
+    gap = np.abs(got - want) / np.abs(want)
+    assert gap.max() <= 1e-3, f"largest relative loss gap {gap.max():.3g} at step {gap.argmax()}"
+    assert got[-1] < 0.7 * got[0]
+
     sgd = functools.partial(torch.optim.SGD, lr=0.1)
     algo = bt.GradientAllReduceAlgorithm()
     with pytest.raises(ValueError, match="compress_intra must be one of"):
         bt.BaguaTrainer(_ce, sgd, algo, device="cpu", compress_intra="gzip")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        bt.BaguaTrainer(_ce, sgd, algo, device="cpu", compress_inter="onebit_ef")
-    # no hierarchical form is ported, so a cross-node codec has no tier to ride
-    with pytest.raises(NotImplementedError, match="hierarchical collectives"):
-        bt.BaguaTrainer(_ce, sgd, algo, device="cpu", compress_inter="int8")
+    with pytest.raises(ValueError, match="compress_inter must be one of"):
+        bt.BaguaTrainer(_ce, sgd, algo, device="cpu", compress_inter="int4")
+    for codec in ("onebit_ef", "topk", "int8"):
+        trainer = bt.BaguaTrainer(_ce, sgd, algo, device="cpu", compress_inter=codec)
+        assert trainer.compress_inter == codec
     monkeypatch.setenv("BAGUA_COMPRESS_INTRA", "fp8_e5m2")
     monkeypatch.setenv("BAGUA_COMPRESS_INTER", "off")
     trainer = bt.BaguaTrainer(_ce, sgd, algo, device="cpu")
     assert (trainer.compress_intra, trainer.compress_inter) == ("fp8_e5m2", "off")
     for cls in (bt.ByteGradAlgorithm, bt.QAdamAlgorithm):
-        with pytest.raises(NotImplementedError, match="hierarchical=True"):
-            cls()
+        assert cls().hierarchical and cls().wire_codec_dcn == "minmax_uint8"
 
 
 def test_qadam_switches_phase_once_at_warmup():

@@ -176,8 +176,23 @@ def test_eval_step_and_comm_dtype():
 
 
 def test_hierarchical_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        bt.GradientAllReduceAlgorithm(hierarchical=True)
+    """``hierarchical=True`` builds; at world size 1 there are no tiers, so
+    it takes the flat path: the same losses and parameters, bit for bit."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((16, 4)).astype(np.float32)
+    batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(rng.integers(0, 8, 16))}
+    runs = []
+    for hierarchical in (True, False):
+        model = MLP(4, features=(32, 8), device="cpu", seed=3)
+        trainer = bt.BaguaTrainer(_ce, functools.partial(torch.optim.SGD, lr=0.1),
+                                  bt.GradientAllReduceAlgorithm(hierarchical=hierarchical),
+                                  device="cpu")
+        state = trainer.init(model)
+        assert not trainer._ctx.two_tier() and state.algo_state is None
+        losses = [trainer.train_step(state, batch)[1].item() for _ in range(5)]
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 def test_default_bucket_size_and_env(monkeypatch):

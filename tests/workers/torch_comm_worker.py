@@ -1,11 +1,14 @@
-"""One rank of the port's collective checks (tests/test_torch_compressed.py).
+"""One rank of the port's collective checks (tests/test_torch_compressed.py,
+tests/test_torch_hierarchical.py).
 
     python torch_comm_worker.py RANK WORLD INIT_METHOD IN_NPZ OUT_NPZ
 
 Rank r takes row r of every array in ``IN_NPZ`` (``xs`` ``[world, size]``
 f32, ``xs_odd`` ``[world, size_odd]`` f32), runs each collective of ``OPS``
 on it over gloo and writes the results to ``OUT_NPZ`` under the op's name.
-Imports only torch, numpy and the port.
+The ``tier_*`` ops run the two-level allreduce over the tiers, whose size is
+``LOCAL_WORLD_SIZE`` (else the world).  Imports only torch, numpy and the
+port.
 """
 
 import sys
@@ -21,6 +24,12 @@ from bagua_tpu_torch.compression import compressed_scatter_gather_allreduce
 
 def _ctx(comm, **kw):
     return AlgorithmContext(comm=comm, plan=None, world_size=comm.nranks(), **kw)
+
+
+def _tier_ctx(comm, **kw):
+    backend = bt.get_backend()
+    return _ctx(comm, intranode=backend.intranode_communicator,
+                internode=backend.internode_communicator, **kw)
 
 
 OPS = {
@@ -50,6 +59,21 @@ OPS = {
         y.clone(), ReduceOp.SUM),
     "ctx_forced_int8": lambda c, x, y: _ctx(c, intra_codec="int8").bucket_allreduce(
         x.clone(), ReduceOp.AVG),
+    # the two-level allreduce: full precision (an odd length, padded to the
+    # intra-node tier), and the inter-node ring with a codec
+    "tier_avg_odd": lambda c, x, y: _tier_ctx(c).bucket_allreduce(
+        y.clone(), ReduceOp.AVG, hierarchical=True),
+    "tier_sum": lambda c, x, y: _tier_ctx(c).bucket_allreduce(
+        x.clone(), ReduceOp.SUM, hierarchical=True),
+    "tier_int8": lambda c, x, y: _tier_ctx(c, inter_codec="int8").bucket_allreduce(
+        x.clone(), ReduceOp.AVG, hierarchical=True),
+    "tier_onebit": lambda c, x, y: _tier_ctx(c, inter_codec="onebit_ef").bucket_allreduce(
+        x.clone(), ReduceOp.AVG, hierarchical=True),
+    "tier_rs_int8": lambda c, x, y: _tier_ctx(
+        c, intra_codec="int8").tier_reduce_scatter(x.clone(), ReduceOp.SUM),
+    "tier_ranks": lambda c, x, y: torch.tensor(
+        [bt.get_backend().intranode_communicator.rank(),
+         bt.get_backend().internode_communicator.rank()]),
 }
 
 

@@ -1,5 +1,6 @@
 """One rank of the port's gloo runs (tests/test_torch_trainer.py,
-tests/test_torch_compressed.py).
+tests/test_torch_compressed.py, tests/test_torch_onebit.py,
+tests/test_torch_hierarchical.py).
 
     python torch_trainer_worker.py RANK WORLD INIT_METHOD DATA_NPZ OUT_NPZ STEPS [ALGOS [PARAMS_NPZ]]
 
@@ -8,15 +9,19 @@ Trains the golden-task MLP on this rank's contiguous slice of the batch in
 Without ``ALGOS`` it trains once with ``GradientAllReduceAlgorithm`` at
 512-byte buckets from a per-rank random init (the trainer gives every rank
 rank 0's weights) and writes unprefixed keys.  ``ALGOS`` is a comma-separated
-list of ``bytegrad``, ``qadam``, ``int8`` (``GradientAllReduceAlgorithm``
-with ``compress_intra="int8"``) and ``gradient_allreduce``, each trained at the
-default bucket size from the flax params in ``PARAMS_NPZ`` (keys
-``dense_<i>.kernel`` ``[in, out]`` and ``dense_<i>.bias``) held in flax's
-layout, so that every bucket flat, and so every codec chunk, holds the same
-elements as the JAX trainer's; keys prefixed ``<algo>/``.  Imports only
-torch, numpy and the port.
+list of the names in ``ALGORITHMS`` below, each trained at the default
+bucket size from the flax params in ``PARAMS_NPZ`` (keys ``dense_<i>.kernel``
+``[in, out]`` and ``dense_<i>.bias``) held in flax's layout, so that every
+bucket flat, and so every codec chunk, holds the same elements as the JAX
+trainer's; keys prefixed ``<algo>/``, with the L1 norm of this rank's
+error-feedback residual (``ef_norm``, -1 when there is none) and whether it
+is finite.  The tiers' size is ``LOCAL_WORLD_SIZE`` (else the world).
+Imports only torch, numpy and the port.
 """
 
+import os
+
+import contextlib
 import functools
 import sys
 
@@ -54,17 +59,50 @@ class FlaxLayoutMLP(torch.nn.Module):
         return x
 
 
+#: name -> (algorithm factory, BaguaTrainer keywords, environment)
+ALGORITHMS = {
+    "gradient_allreduce": (bt.GradientAllReduceAlgorithm, {}, {}),
+    "bytegrad": (lambda: bt.ByteGradAlgorithm(hierarchical=False), {}, {}),
+    "qadam": (lambda: bt.QAdamAlgorithm(warmup_steps=2, hierarchical=False), {}, {}),
+    "int8": (bt.GradientAllReduceAlgorithm, {"compress_intra": "int8"}, {}),
+    # the defaults: hierarchical=True, two-level where the tiers allow it
+    "bytegrad_default": (bt.ByteGradAlgorithm, {}, {}),
+    "qadam_default": (lambda: bt.QAdamAlgorithm(warmup_steps=2), {}, {}),
+    # the stateful codecs on the flat ring, with and without the residual
+    "onebit": (bt.GradientAllReduceAlgorithm, {"compress_intra": "onebit_ef"}, {}),
+    "onebit_off": (bt.GradientAllReduceAlgorithm, {"compress_intra": "onebit_ef"},
+                   {"BAGUA_EF_RESIDUAL": "off"}),
+    "topk": (bt.GradientAllReduceAlgorithm, {"compress_intra": "topk"},
+             {"BAGUA_TOPK_RATIO": "0.1"}),
+    # the two-level allreduce, full precision and with an inter-node codec
+    "hier": (lambda: bt.GradientAllReduceAlgorithm(hierarchical=True), {}, {}),
+    "hier_onebit": (lambda: bt.GradientAllReduceAlgorithm(hierarchical=True),
+                    {"compress_inter": "onebit_ef"}, {}),
+    "hier_int8": (lambda: bt.GradientAllReduceAlgorithm(hierarchical=True),
+                  {"compress_inter": "int8"}, {}),
+}
+
+
+@contextlib.contextmanager
+def _environ(values):
+    """``values`` set in the environment for the run (the codec knobs are
+    read while the trainer is built and at every lookup of the codec)."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
 def _trainer(algo, ce, bucket_bytes=None):
-    kw = {"device": "cpu", "bucket_bytes": bucket_bytes}
-    if algo == "bytegrad":
-        return bt.BaguaTrainer(ce, SGD, bt.ByteGradAlgorithm(hierarchical=False), **kw)
-    if algo == "qadam":
-        return bt.BaguaTrainer(ce, None, bt.QAdamAlgorithm(warmup_steps=2, hierarchical=False),
-                               **kw)
-    if algo == "int8":
-        return bt.BaguaTrainer(ce, SGD, bt.GradientAllReduceAlgorithm(),
-                               compress_intra="int8", **kw)
-    return bt.BaguaTrainer(ce, SGD, bt.GradientAllReduceAlgorithm(), **kw)
+    factory, kw, _ = ALGORITHMS[algo]
+    opt = None if algo.startswith("qadam") else SGD
+    return bt.BaguaTrainer(ce, opt, factory(), device="cpu", bucket_bytes=bucket_bytes, **kw)
 
 
 def main(rank, world, init_method, data_path, out_path, steps, algos=None, params_path=None):
@@ -80,23 +118,33 @@ def main(rank, world, init_method, data_path, out_path, steps, algos=None, param
 
     out = {}
     for algo in (algos or "gradient_allreduce").split(","):
-        if algos is None:
-            model = MLP(data["x"].shape[1], features=(32, 8), device="cpu", seed=int(rank))
-            trainer, prefix = _trainer(algo, ce, bucket_bytes=512), ""
-        else:
-            model = FlaxLayoutMLP(np.load(params_path))
-            trainer, prefix = _trainer(algo, ce), f"{algo}/"
-        state = trainer.init(model)   # every rank starts from rank 0's weights
-        batch = trainer.shard_batch(local)
-        losses = []
-        for _ in range(steps):
-            state, loss = trainer.train_step(state, batch)
-            losses.append(loss.item())
-        out[prefix + "losses"] = np.array(losses)
-        out[prefix + "n_buckets"] = len(trainer.plan.buckets)
-        out.update({prefix + n: p.detach().numpy().copy() for n, p in model.named_parameters()})
+        with _environ(ALGORITHMS[algo][2]):
+            out.update(_run(algo, algos is None, rank, data, local, ce, steps, params_path))
     np.savez(out_path, **out)
     torch.distributed.destroy_process_group()
+
+
+def _run(algo, random_init, rank, data, local, ce, steps, params_path):
+    """One algorithm's run on this rank; returns its output arrays."""
+    if random_init:
+        model = MLP(data["x"].shape[1], features=(32, 8), device="cpu", seed=int(rank))
+        trainer, prefix = _trainer(algo, ce, bucket_bytes=512), ""
+    else:
+        model = FlaxLayoutMLP(np.load(params_path))
+        trainer, prefix = _trainer(algo, ce), f"{algo}/"
+    state = trainer.init(model)   # every rank starts from rank 0's weights
+    batch = trainer.shard_batch(local)
+    losses = []
+    for _ in range(steps):
+        state, loss = trainer.train_step(state, batch)
+        losses.append(loss.item())
+    ef = state.algo_state["ef"]["buckets"] if state.algo_state else None
+    out = {prefix + "losses": np.array(losses),
+           prefix + "n_buckets": len(trainer.plan.buckets),
+           prefix + "ef_norm": -1.0 if ef is None else float(sum(r.abs().sum() for r in ef)),
+           prefix + "ef_finite": ef is None or all(bool(r.isfinite().all()) for r in ef)}
+    out.update({prefix + n: p.detach().numpy().copy() for n, p in model.named_parameters()})
+    return out
 
 
 if __name__ == "__main__":
