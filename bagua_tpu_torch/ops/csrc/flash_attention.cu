@@ -13,30 +13,44 @@
 // What bounds them on an H100: at the model's shapes (s = 4096, D = 64,
 // causal) each kernel does 2-3 x 10^10 multiply-adds on ~17 MB per operand,
 // far above the card's ~295 flop/byte ridge, so all three are bound by
-// arithmetic.  The TPU kernels keep whole-sequence K/V (forward, dQ) or Q/dO
-// (dK/dV) resident in VMEM; at s = 4096 that is over 1 MiB, far above the
-// 227 KB a block can hold, so here every operand is streamed through shared
-// memory one 64-row tile at a time, and the [s, s] score matrix only ever
-// exists as one 64 x 64 tile.
+// arithmetic: by how fully the tensor cores are kept busy, and in the
+// backward by the dependent chain S -> P -> dP -> dS -> products that each
+// streamed tile walks through.  The TPU kernels keep whole-sequence K/V
+// (forward, dQ) or Q/dO (dK/dV) resident in VMEM; at s = 4096 that is over
+// 1 MiB, far above the 227 KB a block can hold, so here every operand is
+// streamed through shared memory tile by tile, and the [s, s] score matrix
+// only ever exists as one tile in registers.
 //
-// Design (FlashAttention-2 order, a simple first version): one block per
-// (64-row tile, batch*head).  The forward and dQ blocks loop over k tiles up
-// to the diagonal, the dK/dV blocks over q tiles from the diagonal on.  Blocks
-// never depend on each other: the TPU grid's in-order carry is a loop inside
-// the block, and each output tile is written by exactly one block, so no
-// atomics are needed.  Causal blocks with the most work are launched first.
+// Design: blocks never depend on each other.  The TPU grid's in-order carry
+// is a loop inside the block, each output tile is written by exactly one
+// block in a fixed order (no atomics: the gradients are deterministic), and
+// causal blocks with the most work are launched first.
 //
-// bf16 (the training path) runs on the tensor cores: four warps of
-// mma.sync.m16n8k16 with f32 accumulation, each warp owning 16 rows, scores
-// and P kept in registers.  wgmma, TMA and a pipelined ring of tiles are left
-// to a later version.  f32 (kept for precision checks) has no tensor-core
-// format of full precision, so it runs 256 threads of FP32 FMAs from shared
-// memory, each thread owning a 4 x 4 piece of the 64 x 64 score tile.
+// The forward (bf16) is FlashAttention-2 order on mma.sync.m16n8k16: one
+// block of four warps per 64-row tile, each warp owning 16 rows, scores and P
+// in registers, tiles loaded synchronously.  f32 (kept for precision checks)
+// has no tensor-core format of full precision, so it runs 256 threads of FP32
+// FMAs from shared memory, each thread owning a 4 x 4 piece of the 64 x 64
+// score tile.
+//
+// The backward (bf16) is two warp-specialized wgmma kernels, the layout the
+// TPU kernels have: dK/dV (a block owns 128 keys) and dQ (a block owns 128
+// queries).  A producer warp streams the other operand pair by TMA into a
+// three-stage ring guarded by mbarriers while two consumer warpgroups run
+// wgmma on the tiles that have landed, so loads overlap the products; every
+// score product takes its A operand (K, V, Q or dO) and its B operand from
+// shared memory, and every gradient product takes P^T or dS (dS^T) from
+// registers, its B operand being the same streamed tile read MN-major.  The
+// pass is not fused into one kernel with an atomic f32 dQ (FlashAttention-3):
+// that would do 5 products instead of these 7, but the sum order of dQ would
+// change from run to run, and every kernel of the port writes each output
+// tile from one block in a fixed order.
 //
 // Numerics follow the TPU kernels: softmax state in f32, masking with -1e30
 // (not -inf) and l clamped at 1e-30; in bf16, P is rounded before P.V and in
 // the dK/dV pass, and dS before its products.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -349,13 +363,13 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels (mma.sync m16n8k16, f32 accumulation)
+// bf16 forward: tensor-core kernel (mma.sync m16n8k16, f32 accumulation)
 //
 // 128 threads: four warps, each owning 16 rows of the 64-row tile.  Tiles
 // sit in shared memory as bf16 with rows padded to D + 8 elements, so the
-// fragment loads of a warp hit 32 distinct banks.  Scores, P and dS never
-// leave registers: an m16n8k16 accumulator pair is exactly the A operand of
-// the next product (the FlashAttention-2 register layout).
+// fragment loads of a warp hit 32 distinct banks.  Scores and P never leave
+// registers: an m16n8k16 accumulator pair is exactly the A operand of the
+// next product (the FlashAttention-2 register layout).
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -368,10 +382,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -577,130 +587,495 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_acc_bf16<D>(o + base, acc, q0 + wr, s, g, tq, inv[0], inv[1]);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward: wgmma fed by TMA through an mbarrier-guarded ring
+//
+// A block owns 128 rows (keys for dK/dV, queries for dQ): two consumer
+// warpgroups of 64 rows each, and a producer warpgroup of which one warp
+// works.  The producer loads the block's own rows once, then streams the
+// other operand pair in 64-row tiles through a ring of kStages shared-memory
+// stages, each guarded by a "full" and an "empty" mbarrier, while the
+// consumers run wgmma on the stages that have landed.  Every tile is one
+// [rows, 64] TMA box per 64-column half in the 128-byte swizzle (a D = 64
+// bf16 row is exactly 128 bytes), the layout the wgmma descriptors below
+// read.  Rows at or past s arrive as zeros: the tensor maps are [bh, s, D],
+// so a head's last partial tile never reads the next head's rows.
+//
+// Scores and their gradients stay in registers.  The m64n64 accumulator of
+// a score product is, rounded to bf16, the register A operand of the next
+// product (the layout of mma.sync's C and A fragments, which wgmma keeps),
+// so P and dS never pass through shared memory.
+//
+// Budget (D = 64): a consumer thread holds the f32 dK and dV accumulators (64
+// registers) beside S and dP (32 each), about 140 registers in all.  Two
+// blocks on an SM, each with a producer warp, leave 96 registers a thread,
+// and both kernels then spill (the "two_blocks" variant of
+// scripts/torch_flash_variants.py; PERF.md has its times).  So a block has
+// the SM to itself: 384 threads at 168 registers each, the producer's
+// warpgroup handing its registers to the consumers with setmaxnreg (24 and
+// 240), which also holds D = 128's 128 accumulator registers without a
+// spill.  Shared memory: 84 KB a block at D = 64, 165 KB at D = 128.
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;             // rows of a streamed tile (one stage)
+constexpr int kBlockRows = 128;       // rows a block owns: two warpgroups of 64
+constexpr int kStages = 3;            // depth of the ring
+constexpr int kConsumers = 256;       // two warpgroups
+constexpr int kBwdThreads = kConsumers + 128;   // and the producer's warpgroup
+constexpr int kProducerRegs = 24;     // registers a thread after setmaxnreg
+constexpr int kConsumerRegs = 240;    // (3 x 168 = 24 + 2 x 240 per SM sub-partition)
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte boundary of shared memory at or after p (the
+// 128-byte swizzle repeats every 1024 bytes, and the descriptors assume it
+// starts on one)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// one arrival, and `bytes` more that the phase waits for from TMA
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: rows [row0, row0 + rows) of head bh of a [bh, s, D] tensor into dst,
+// one [rows, 64] box per 64-column half, completing on `bar`
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int causal,
-               float scale) {
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  constexpr int ld = D + 8;
-  bf16* sK = reinterpret_cast<bf16*>(smem_bytes);
-  bf16* sV = sK + kTile * ld;
-  bf16* sQ = sV + kTile * ld;
-  bf16* sdO = sQ + kTile * ld;
-  float* sL = reinterpret_cast<float*>(sdO + kTile * ld);
-  float* sDelta = sL + kTile;
-
-  const int kb = blockIdx.x;  // causal: low k tiles see the most q tiles
-  const int k0 = kb * kTile;
-  const size_t base = (size_t)blockIdx.y * s * D;
-  const size_t rbase = (size_t)blockIdx.y * s;
-  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  const int wr = (threadIdx.x / 32) * 16;
-  const int keys[2] = {k0 + wr + g, k0 + wr + g + 8};
-
-  load_tile_bf16<D>(sK, k + base, k0, s);
-  load_tile_bf16<D>(sV, v + base, k0, s);
-  const int nqb = (s + kTile - 1) / kTile;
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+__device__ __forceinline__ void tma_load_rows(bf16* dst, const CUtensorMap* map, int rows,
+                                              int row0, int bh, uint64_t* bar) {
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+  for (int h = 0; h < D / 64; ++h)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst + h * rows * 64)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(h * 64), "r"(row0), "r"(bh),
+        "r"(smem_u32(bar))
+        : "memory");
+}
 
-  for (int qb = causal ? kb : 0; qb < nqb; ++qb) {
-    const int q0 = qb * kTile;
-    __syncthreads();
-    load_tile_bf16<D>(sQ, q + base, q0, s);
-    load_tile_bf16<D>(sdO, dout + base, q0, s);
-    for (int r = threadIdx.x; r < kTile; r += kMmaThreads) {
-      sL[r] = q0 + r < s ? lse[rbase + q0 + r] : 0.f;
-      sDelta[r] = q0 + r < s ? delta[rbase + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    // transposed scores: rows are this warp's keys, columns the tile's queries
-    float p[8][4], ds[8][4];
-    mma_rows_x_rows<D>(p, sK, sQ, wr, lane);     // S^T = K Q^T
-    mma_rows_x_rows<D>(ds, sV, sdO, wr, lane);   // dP^T = V dO^T
+// wgmma descriptor of a tile in the 128-byte swizzle: start address, leading
+// and stride byte offsets (in 16-byte units), layout type 1 (128B swizzle)
+__device__ __forceinline__ uint64_t sw128_desc(const bf16* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+// K-major operand: rows from r0 of a tile of `rows` rows, reduction columns
+// [16 kk, 16 kk + 16): 8-row groups 1024 bytes apart, the k step 32 bytes
+// into the swizzled 128-byte row of its 64-column half
+__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int rows, int r0, int kk) {
+  return sw128_desc(tile + (kk / 4) * rows * 64 + r0 * 64 + (kk % 4) * 16, 16, 1024);
+}
+// MN-major operand (the tile's rows are the reduction dimension): rows
+// [r0, r0 + 16) by all D columns: 8-row groups 1024 bytes apart, the
+// 64-column halves rows * 128 bytes apart
+__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int rows, int r0) {
+  return sw128_desc(tile + r0 * 64, rows * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accesses to registers across a wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma.m64nNk16 bf16 -> f32 on the accumulator d (N / 2 registers a
+// thread: element 4 j + e is row 16 warp + lane / 4 + 8 (e / 2), column
+// 8 j + 2 (lane % 4) + e % 2).  wgmma_ss (N = 64): A and B from shared
+// memory, both K-major, d overwritten when acc is 0.  wgmma_rs (N = D): A
+// from registers, B MN-major, added to d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// the A operand of k step kk (columns [16 kk, 16 kk + 16)) from an
+// accumulator, rounded to bf16
+template <int R>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const float (&c)[R], int kk) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = keys[e / 2], qi = nt * 8 + 2 * tq + (e % 2), qpos = q0 + qi;
-        const bool valid = qpos < s && key < s && (!causal || key <= qpos);
-        const float pe = valid ? round_bf16(expf(p[nt][e] * scale - sL[qi])) : 0.f;
-        p[nt][e] = pe;
-        ds[nt][e] = pe * (ds[nt][e] - sDelta[qi]);
-      }
-    mma_acc_x_tile<D>(dv_acc, p, sdO, lane);    // dV += P^T dO
-    mma_acc_x_tile<D>(dk_acc, ds, sQ, lane);    // dK += dS^T Q, dS rounded
+  for (int w = 0; w < 4; ++w) a[w] = pack_bf16(c[8 * kk + 2 * w], c[8 * kk + 2 * w + 1]);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// rows `row` and `row + 8` of an m64nD accumulator, times mul, into a bf16
+// [s, D] matrix; rows at or past s are not written
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 2],
+                                           int row, int s, int tq, float mul) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= s) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(row + 8 * r) * D + 8 * j + 2 * tq) =
+          pack_bf16(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
   }
-  store_acc_bf16<D>(dk + base, dk_acc, k0 + wr, s, g, tq, scale, scale);
-  store_acc_bf16<D>(dv + base, dv_acc, k0 + wr, s, g, tq, 1.f, 1.f);
+}
+
+__device__ __forceinline__ void init_ring(uint64_t* full, int full_count, uint64_t* empty,
+                                          uint64_t* once) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], full_count);
+      mbar_init(&empty[i], kConsumers);
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int s, int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  constexpr int ld = D + 8;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_bytes);
-  bf16* sdO = sQ + kTile * ld;
-  bf16* sK = sdO + kTile * ld;
-  bf16* sV = sK + kTile * ld;
+struct DkvSmem {
+  bf16 k[kBlockRows * D];          // the block's keys, [D / 64][128][64]
+  bf16 v[kBlockRows * D];
+  bf16 q[kStages][kRows * D];      // streamed queries, [D / 64][64][64] a stage
+  bf16 dout[kStages][kRows * D];
+  float lse[kStages][kRows];       // times log2(e)
+  float delta[kStages][kRows];
+  uint64_t full[kStages], empty[kStages], kv_full;
+};
 
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qb * kTile;
-  const size_t base = (size_t)blockIdx.y * s * D;
-  const size_t rbase = (size_t)blockIdx.y * s;
-  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  const int wr = (threadIdx.x / 32) * 16;
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float row_lse[2], row_delta[2];
+// dK/dV: block (128 keys, bh); the query tiles from the diagonal on stream
+// through the ring.  Each consumer warpgroup computes, for its 64 keys and a
+// 64-query tile, S^T = K Q^T and dP^T = V dO^T (A = K / V, B = Q / dO, both
+// from shared memory), then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+// from registers and B the same Q / dO tile read MN-major.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int causal, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<DkvSmem<D>*>(align_1024(smem_raw));
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kBlockRows;   // causal: low key blocks see the most query tiles
+  const int qt0 = causal ? k0 / kRows : 0;
+  const int ntiles = (s + kRows - 1) / kRows - qt0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // full: the producer warp's 32 arrivals (row statistics) and the TMA bytes
+  init_ring(sm.full, 32, sm.empty, &sm.kv_full);
+
+  if (warp >= kConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp != kConsumers / 32) return;
+    // producer warp: the block's K and V once, then Q, dO, lse and delta
+    // tile by tile, each stage once both consumer warpgroups released it
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.kv_full, 2 * kBlockRows * D * sizeof(bf16));
+      tma_load_rows<D>(sm.k, &tm_k, kBlockRows, k0, bh, &sm.kv_full);
+      tma_load_rows<D>(sm.v, &tm_v, kBlockRows, k0, bh, &sm.kv_full);
+    }
+    const size_t rbase = (size_t)bh * s;
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % kStages, q0 = (qt0 + it) * kRows;
+      if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
+      for (int r = lane; r < kRows; r += 32) {
+        const bool in = q0 + r < s;
+        sm.lse[st][r] = in ? lse[rbase + q0 + r] * kLog2e : 0.f;
+        sm.delta[st][r] = in ? delta[rbase + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[st], 2 * kRows * D * sizeof(bf16));
+        tma_load_rows<D>(sm.q[st], &tm_q, kRows, q0, bh, &sm.full[st]);
+        tma_load_rows<D>(sm.dout[st], &tm_do, kRows, q0, bh, &sm.full[st]);
+      } else {
+        mbar_arrive(&sm.full[st]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp / 4, g = lane / 4, tq = lane % 4;
+  const int kw = k0 + wg * 64;                   // this warpgroup's first key
+  const int key_lo = kw + (warp % 4) * 16 + g;   // this thread's keys: key_lo, key_lo + 8
+  const float scale_log2 = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  mbar_wait(&sm.kv_full, 0);
+  __syncwarp();   // wgmma wants converged warps
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % kStages, q0 = (qt0 + it) * kRows;
+    const bf16* qt = sm.q[st];
+    const bf16* dot = sm.dout[st];
+    mbar_wait(&sm.full[st], (it / kStages) & 1);
+    __syncwarp();
+    // skipped: a causal tile wholly before this warpgroup's keys, and keys
+    // all at or past s (never stored)
+    if (kw < s && (!causal || q0 >= kw)) {
+      float sc[kRows / 2], dp[kRows / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)   // S^T = K Q^T
+        wgmma_ss(sc, kmajor(sm.k, kBlockRows, wg * 64, kk), kmajor(qt, kRows, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+      // P^T, masked on the diagonal and past s only
+      const bool edge = (causal && q0 == kw) || q0 + kRows > s;
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[st][8 * j + 2 * tq]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = exp2f(fmaf(sc[4 * j + e], scale_log2, -(e & 1 ? l2.y : l2.x)));
+          if (edge) {
+            const int qpos = q0 + 8 * j + 2 * tq + (e & 1), key = key_lo + 8 * (e >> 1);
+            if (qpos >= s || (causal && key > qpos)) x = 0.f;
+          }
+          sc[4 * j + e] = x;
+        }
+      }
+      uint32_t pf[kRows / 16][4];   // P^T rounded to bf16, used by both products
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) frag_a(pf[kk], sc, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)   // dP^T = V dO^T
+        wgmma_ss(dp, kmajor(sm.v, kBlockRows, wg * 64, kk), kmajor(dot, kRows, 0, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)   // dV += P^T dO
+        wgmma_rs(dv_acc, pf[kk], mnmajor(dot, kRows, 16 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(dp);
+      // dS^T = P^T (dP^T - delta), rounded to bf16
+      uint32_t dsf[kRows / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int i = 8 * kk + 2 * w;   // accumulator elements i, i + 1
+          const float2 p = unpack_bf16(pf[kk][w]);
+          const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[st][8 * (i / 4) + 2 * tq]);
+          dsf[kk][w] = pack_bf16(p.x * (dp[i] - dl.x), p.y * (dp[i + 1] - dl.y));
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)   // dK += dS^T Q
+        wgmma_rs(dk_acc, dsf[kk], mnmajor(qt, kRows, 16 * kk), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    reg_fence(dk_acc);
+    reg_fence(dv_acc);
+    mbar_arrive(&sm.empty[st]);
+  }
+  const size_t base = (size_t)bh * s * D;
+  store_rows<D>(dk + base, dk_acc, key_lo, s, tq, scale);
+  store_rows<D>(dv + base, dv_acc, key_lo, s, tq, 1.f);
+}
+
+template <int D>
+struct DqSmem {
+  bf16 q[kBlockRows * D];          // the block's queries, [D / 64][128][64]
+  bf16 dout[kBlockRows * D];
+  bf16 k[kStages][kRows * D];      // streamed keys, [D / 64][64][64] a stage
+  bf16 v[kStages][kRows * D];
+  uint64_t full[kStages], empty[kStages], qo_full;
+};
+
+// dQ: block (128 queries, bh); the key tiles up to the diagonal stream
+// through the ring.  Each consumer warpgroup computes, for its 64 queries
+// and a 64-key tile, S = Q K^T and dP = dO V^T (both operands from shared
+// memory), then dQ += dS K with dS from registers and K read MN-major.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dq, int s, int causal, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<DqSmem<D>*>(align_1024(smem_raw));
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;   // longest causal rows first
+  int ntiles = (s + kRows - 1) / kRows;
+  if (causal) ntiles = min(ntiles, (min(q0 + kBlockRows, s) - 1) / kRows + 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // full: the producer's one arrival and the TMA bytes
+  init_ring(sm.full, 1, sm.empty, &sm.qo_full);
+
+  if (warp >= kConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp != kConsumers / 32 || lane != 0) return;
+    // producer: the block's Q and dO once, then K and V tile by tile
+    mbar_arrive_expect_tx(&sm.qo_full, 2 * kBlockRows * D * sizeof(bf16));
+    tma_load_rows<D>(sm.q, &tm_q, kBlockRows, q0, bh, &sm.qo_full);
+    tma_load_rows<D>(sm.dout, &tm_do, kBlockRows, q0, bh, &sm.qo_full);
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % kStages;
+      if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
+      mbar_arrive_expect_tx(&sm.full[st], 2 * kRows * D * sizeof(bf16));
+      tma_load_rows<D>(sm.k[st], &tm_k, kRows, it * kRows, bh, &sm.full[st]);
+      tma_load_rows<D>(sm.v[st], &tm_v, kRows, it * kRows, bh, &sm.full[st]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp / 4, g = lane / 4, tq = lane % 4;
+  const int qw = q0 + wg * 64;                   // this warpgroup's first query
+  const int row_lo = qw + (warp % 4) * 16 + g;   // this thread's rows: row_lo, row_lo + 8
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dlt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    row_lse[r] = rows[r] < s ? lse[rbase + rows[r]] : 0.f;
-    row_delta[r] = rows[r] < s ? delta[rbase + rows[r]] : 0.f;
+    const int row = row_lo + 8 * r;
+    lse2[r] = row < s ? lse[(size_t)bh * s + row] * kLog2e : 0.f;
+    dlt[r] = row < s ? delta[(size_t)bh * s + row] : 0.f;
   }
+  float dq_acc[D / 2];
+  zero(dq_acc);
+  mbar_wait(&sm.qo_full, 0);
+  __syncwarp();   // wgmma wants converged warps
 
-  load_tile_bf16<D>(sQ, q + base, q0, s);
-  load_tile_bf16<D>(sdO, dout + base, q0, s);
-  int nkb = (s + kTile - 1) / kTile;
-  if (causal) nkb = min(nkb, qb + 1);
-
-  float acc[D / 8][4];
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % kStages, k0 = it * kRows;
+    const bf16* kt = sm.k[st];
+    const bf16* vt = sm.v[st];
+    mbar_wait(&sm.full[st], (it / kStages) & 1);
+    __syncwarp();
+    // skipped: a causal tile wholly after this warpgroup's queries, and
+    // queries all at or past s (never stored)
+    if (qw < s && (!causal || k0 <= qw)) {
+      float sc[kRows / 2], dp[kRows / 2];
+      wgmma_fence();
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+      for (int kk = 0; kk < D / 16; ++kk)   // S = Q K^T
+        wgmma_ss(sc, kmajor(sm.q, kBlockRows, wg * 64, kk), kmajor(kt, kRows, 0, kk), kk);
+      wgmma_commit();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();
-    load_tile_bf16<D>(sK, k + base, k0, s);
-    load_tile_bf16<D>(sV, v + base, k0, s);
-    __syncthreads();
-    float sc[8][4], dp[8][4];
-    mma_rows_x_rows<D>(sc, sQ, sK, wr, lane);    // S = Q K^T
-    mma_rows_x_rows<D>(dp, sdO, sV, wr, lane);   // dP = dO V^T
+      for (int kk = 0; kk < D / 16; ++kk)   // dP = dO V^T
+        wgmma_ss(dp, kmajor(sm.dout, kBlockRows, wg * 64, kk), kmajor(vt, kRows, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(sc);
+      // P in f32, masked on the diagonal and past s only
+      const bool edge = (causal && k0 == qw) || k0 + kRows > s;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2, key = k0 + nt * 8 + 2 * tq + (e % 2);
-        const bool valid = rows[r] < s && key < s && (!causal || key <= rows[r]);
-        const float p = valid ? expf(sc[nt][e] * scale - row_lse[r]) : 0.f;
-        sc[nt][e] = p * (dp[nt][e] - row_delta[r]);
+      for (int i = 0; i < kRows / 2; ++i) {
+        const int r = (i % 4) / 2;
+        float x = exp2f(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (edge) {
+          const int key = k0 + 8 * (i / 4) + 2 * tq + (i % 2);
+          if (key >= s || (causal && key > row_lo + 8 * r)) x = 0.f;
+        }
+        sc[i] = x;
       }
-    mma_acc_x_tile<D>(acc, sc, sK, lane);   // dQ += dS K, dS rounded
+      wgmma_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int i = 0; i < kRows / 2; ++i) sc[i] *= dp[i] - dlt[(i % 4) / 2];   // dS
+      uint32_t dsf[kRows / 16][4];   // dS rounded to bf16
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) frag_a(dsf[kk], sc, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)   // dQ += dS K
+        wgmma_rs(dq_acc, dsf[kk], mnmajor(kt, kRows, 16 * kk), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    reg_fence(dq_acc);
+    mbar_arrive(&sm.empty[st]);
   }
-  store_acc_bf16<D>(dq + base, acc, q0 + wr, s, g, tq, scale, scale);
+  store_rows<D>(dq + (size_t)bh * s * D, dq_acc, row_lo, s, tq, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -708,15 +1083,66 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, int bh, int s,
-                   cudaStream_t stream, Args... args) {
+cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid, cudaStream_t stream,
+                   Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((s + kTile - 1) / kTile, bh);
   kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
+
+dim3 tiles(int s, int bh, int rows) { return dim3((s + rows - 1) / rows, bh); }
+
+// cuTensorMapEncodeTiled lives in the driver library, which the build does
+// not link: fetch it through the runtime once
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the bf16 [bh, s, d] tensor at `base` as a 3-D map of [rows, 64] boxes in
+// the 128-byte swizzle; the map holds the address, so it is made per call
+bool encode_rows(CUtensorMap* map, const void* base, int bh, int s, int d, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(bf16), (cuuint64_t)s * d * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the four operand maps of a backward kernel: q and dout in boxes of
+// q_rows, k and v in boxes of k_rows
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+  bool ok;
+  BwdMaps(const void* q_, const void* k_, const void* v_, const void* do_, int bh, int s, int d,
+          int q_rows, int k_rows)
+      : ok(encode_rows(&q, q_, bh, s, d, q_rows) && encode_rows(&k, k_, bh, s, d, k_rows) &&
+           encode_rows(&v, v_, bh, s, d, k_rows) && encode_rows(&dout, do_, bh, s, d, q_rows)) {}
+};
 
 template <int D>
 constexpr size_t bf16_tiles(int n) { return (size_t)n * kTile * (D + 8) * sizeof(bf16); }
@@ -726,13 +1152,13 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
                        int bh, int s, int causal, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
   if constexpr (std::is_same<T, bf16>::value)
-    return launch(fwd_mma_kernel<D>, kMmaThreads, bf16_tiles<D>(3), bh, s, stream,
+    return launch(fwd_mma_kernel<D>, kMmaThreads, bf16_tiles<D>(3), tiles(s, bh, kTile), stream,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
                   s, causal, scale);
   else
     return launch(fwd_kernel<D>, kThreads,
-                  (3 * kTile * (D + 1) + kTile * kPS) * sizeof(float), bh, s, stream,
-                  (const float*)q, (const float*)k, (const float*)v, (float*)o,
+                  (3 * kTile * (D + 1) + kTile * kPS) * sizeof(float), tiles(s, bh, kTile),
+                  stream, (const float*)q, (const float*)k, (const float*)v, (float*)o,
                   (float*)lse, s, causal, scale);
 }
 
@@ -741,18 +1167,20 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int bh,
                        int s, int causal, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
-  if constexpr (std::is_same<T, bf16>::value)
-    return launch(dkv_mma_kernel<D>, kMmaThreads,
-                  bf16_tiles<D>(4) + 2 * kTile * sizeof(float), bh, s, stream,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-                  (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, s,
-                  causal, scale);
-  else
+  if constexpr (std::is_same<T, bf16>::value) {
+    const BwdMaps maps(q, k, v, dout, bh, s, D, kRows, kBlockRows);
+    if (!maps.ok) return cudaErrorInvalidValue;
+    return launch(dkv_wgmma_kernel<D>, kBwdThreads, sizeof(DkvSmem<D>) + 1024,
+                  tiles(s, bh, kBlockRows), stream, maps.q, maps.k, maps.v, maps.dout,
+                  (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, s, causal,
+                  scale);
+  } else {
     return launch(dkv_kernel<D>, kThreads,
                   (4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile) * sizeof(float),
-                  bh, s, stream, (const float*)q, (const float*)k, (const float*)v,
-                  (const float*)dout, (const float*)lse, (const float*)delta,
+                  tiles(s, bh, kTile), stream, (const float*)q, (const float*)k,
+                  (const float*)v, (const float*)dout, (const float*)lse, (const float*)delta,
                   (float*)dk, (float*)dv, s, causal, scale);
+  }
 }
 
 template <typename T, int D>
@@ -760,16 +1188,19 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, void* dq, int bh, int s,
                       int causal, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)D);
-  if constexpr (std::is_same<T, bf16>::value)
-    return launch(dq_mma_kernel<D>, kMmaThreads, bf16_tiles<D>(4), bh, s, stream,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+  if constexpr (std::is_same<T, bf16>::value) {
+    const BwdMaps maps(q, k, v, dout, bh, s, D, kBlockRows, kRows);
+    if (!maps.ok) return cudaErrorInvalidValue;
+    return launch(dq_wgmma_kernel<D>, kBwdThreads, sizeof(DqSmem<D>) + 1024,
+                  tiles(s, bh, kBlockRows), stream, maps.q, maps.k, maps.v, maps.dout,
                   (const float*)lse, (const float*)delta, (bf16*)dq, s, causal, scale);
-  else
+  } else {
     return launch(dq_kernel<D>, kThreads,
-                  (4 * kTile * (D + 1) + kTile * kPS + 2 * kTile) * sizeof(float), bh,
-                  s, stream, (const float*)q, (const float*)k, (const float*)v,
-                  (const float*)dout, (const float*)lse, (const float*)delta,
+                  (4 * kTile * (D + 1) + kTile * kPS + 2 * kTile) * sizeof(float),
+                  tiles(s, bh, kTile), stream, (const float*)q, (const float*)k,
+                  (const float*)v, (const float*)dout, (const float*)lse, (const float*)delta,
                   (float*)dq, s, causal, scale);
+  }
 }
 
 // dtype: 0 = float32, 1 = bfloat16

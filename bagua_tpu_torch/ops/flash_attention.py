@@ -126,7 +126,8 @@ def _lib():
 def _check(mats, rows):
     """Raise on anything the kernels do not take: every tensor on one CUDA
     device and contiguous; ``mats`` ``[bh, s, d]`` of one dtype (f32 or
-    bf16) with d 64 or 128; ``rows`` ``[bh, s]`` f32."""
+    bf16) with d 64 or 128, each starting on a 16-byte boundary (the
+    backward kernels load them by TMA); ``rows`` ``[bh, s]`` f32."""
     ref = mats[0]
     if ref.device.type != "cuda":
         raise ValueError(f"flash kernels take CUDA tensors, got {ref.device}")
@@ -150,6 +151,8 @@ def _check(mats, rows):
             raise ValueError(f"operands on {t.device} and {ref.device}")
         if not t.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
+    if any(t.data_ptr() % 16 for t in mats):
+        raise ValueError("flash kernels take tensors starting on a 16-byte boundary")
     return bh, s, d, _DTYPE_CODE[ref.dtype]
 
 

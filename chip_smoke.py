@@ -8,9 +8,13 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: compiles every ``bagua_tpu_torch/ops/csrc/*.cu`` with ``nvcc``.
 3. kernels: each flash-attention kernel against its plain PyTorch version on
    the card (bf16 at every slice's training shape: b·h 32 and 64 at seq
-   4096, BERT-Large's 128 at seq 384; a ragged bf16 length; f32), and the
-   times of the kernel, the plain version and the PyTorch library call at
-   slice 1's shape.
+   4096, BERT-Large's 128 at seq 384; a ragged bf16 length; f32); the
+   backward kernels at a ragged length beside a head of values near 1e4
+   (no read across heads) and twice on the same inputs (bitwise equal); the
+   times of each kernel (hot and cold L2), its plain version and the
+   PyTorch library call at slice 1's shape, and of the port's whole
+   backward (delta, dK/dV and dQ, as autograd runs them) against SDPA's
+   backward, whose kernels are named from one profiler window.
 4. gmm kernels: each grouped-matmul kernel against its plain version at the
    MoE path's shapes (both (d, f) pairs; balanced, skewed and empty-group
    sizes) and a small ragged case, their times, and one MoE layer's forward
@@ -83,6 +87,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -199,8 +204,29 @@ def phase_build():
     logs = _build.build_all()
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
-        usage = [ln for ln in text.splitlines() if "registers" in ln]
-        log(f"  {name}: " + "; ".join(ln.split(":", 1)[-1].strip() for ln in usage))
+        log(f"  {name}: " + "; ".join(ptxas_usage(text)))
+
+
+def ptxas_usage(text):
+    """Each kernel's registers and spills from ``nvcc -Xptxas -v``'s output,
+    as ``name<template args>: N registers, S spill bytes``."""
+    out, kernel, spill = [], "?", "0"
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:   # the mangled name: <length><name>, then I<template args>E
+            names = [(n, i) for i, n in re.findall(r"(\d+)([a-z_]+kernel)", m.group(1))
+                     if int(i) == len(n)]
+            kernel = names[-1][0] if names else m.group(1)
+            args = re.search(kernel + r"I((?:Li\d+E)+)E", m.group(1))
+            if args:
+                kernel += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{kernel}: {m.group(1)} registers, {spill} spill bytes")
+    return out
 
 
 def _inputs(bh, s, d, dtype, seed):
@@ -237,6 +263,54 @@ def check_kernels(bh, s, d, dtype, causal, seed=0):
     return (q, k, v, do, plse, delta), errs
 
 
+def check_backward_edges():
+    """The backward kernels at a ragged length (100) with every row of the
+    next head set to 1e4: the other heads' gradients still match the plain
+    versions (a tensor map over [bh * s, d] would fill a head's last tile
+    with the next head's rows); and two launches on the same ordinary
+    inputs give bitwise-equal dK, dV and dQ (one block writes each output
+    tile, in a fixed order)."""
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    def backward(q, k, v, do, kernels):
+        po, plse = fa.fwd_plain(q, k, v, True)
+        delta = (do.float() * po.float()).sum(dim=-1)
+        if kernels:
+            return [*fa.flash_bwd_dkv(q, k, v, do, plse, delta, True),
+                    fa.flash_bwd_dq(q, k, v, do, plse, delta, True)]
+        return [*fa.dkv_plain(q, k, v, do, plse, delta, True),
+                fa.dq_plain(q, k, v, do, plse, delta, True)]
+
+    for d in (64, 128):
+        q, k, v, do = _inputs(3, 100, d, torch.bfloat16, seed=8)
+        for x in (q, k, v, do):
+            x[1] = 1e4
+        got, want = backward(q, k, v, do, True), backward(q, k, v, do, False)
+        rel = {n: max(rel_err(a[h], b[h]) for h in (0, 2))
+               for n, a, b in zip(("dk", "dv", "dq"), got, want)}
+        inputs = _inputs(8, 1000, d, torch.bfloat16, seed=9)
+        same_bits = all(torch.equal(a, b) for a, b in
+                        zip(backward(*inputs, True), backward(*inputs, True)))
+        torch.cuda.synchronize()
+        log(f"backward head boundary d={d} (s 100, head 1 at 1e4): heads 0 and 2 "
+            + ", ".join(f"{n} {e:.3g}" for n, e in rel.items())
+            + f"; two launches (b·h 8, s 1000) bitwise equal: {same_bits}")
+        if not (max(rel.values()) <= TOL[torch.bfloat16] and same_bits):
+            raise AssertionError(f"backward kernels read across heads or are not "
+                                 f"deterministic: {rel}, bitwise {same_bits}")
+
+
+def sdpa_backward_kernels(sdpa_out, inputs, grad):
+    """Names of the device kernels one SDPA backward runs (one profiler
+    window), so that the yardstick's implementation is on record."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.autograd.grad(sdpa_out, inputs, grad, retain_graph=True)
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def bound(name, bh, s, d, dtype, causal):
     """Least time on the card: the larger of the matmul flops over the
     tensor-core peak and the bytes each input read once and each output
@@ -271,11 +345,17 @@ def phase_kernels():
                                  torch.bfloat16, True, seed=7)
     (q, k, v, do, lse, delta), errs = check_kernels(bh, s, d, torch.bfloat16, True)
     errs = {n: max(e, errs_moe[n], errs_bert[n]) for n, e in errs.items()}
+    check_backward_edges()
 
     ms = {
         "flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, True)),
         "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)),
         "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)),
+    }
+    cold_ms = {
+        "flash_fwd": cuda_ms_cold(lambda: fa.flash_fwd(q, k, v, True)),
+        "flash_bwd_dkv": cuda_ms_cold(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)),
+        "flash_bwd_dq": cuda_ms_cold(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)),
     }
     plain_ms = {
         "flash_fwd": cuda_ms(lambda: fa.fwd_plain(q, k, v, True), 3),
@@ -284,14 +364,24 @@ def phase_kernels():
     }
     # the library yardstick, timed here only: PyTorch's fused attention on
     # the same [b, h, s, d] inputs (the port never calls it).  Its backward
-    # computes dK, dV and dQ in one call, so that one time stands against
-    # dK/dV and dQ together, on both rows.
+    # computes dK, dV and dQ in one call, and its own row statistic (delta)
+    # inside, so that one time stands against dK/dV and dQ together, on both
+    # rows, and against the port's whole backward: delta, dK/dV and dQ as
+    # autograd runs _FlashLse.backward
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, do))
     qg, kg, vg = (x.clone().requires_grad_() for x in (q4, k4, v4))
     sdpa_out = sdpa(qg, kg, vg, is_causal=True)   # one forward, built once
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), do4, retain_graph=True))
+    sdpa_kernels = sdpa_backward_kernels(sdpa_out, (qg, kg, vg), do4)
+    qf, kf, vf = (x.clone().requires_grad_() for x in (q, k, v))
+    port_out, _ = fa._FlashLse.apply(qf, kf, vf, True)
+    port_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        port_out, (qf, kf, vf), do, retain_graph=True))
+    log(f"whole backward bh={bh} s={s} d={d} bf16 causal: port (delta + dK/dV + dQ) "
+        f"{port_bwd_ms:.4f} ms, sdpa {sdpa_bwd_ms:.4f} ms, port / sdpa "
+        f"{port_bwd_ms / sdpa_bwd_ms:.3f}; sdpa backward kernels: {sdpa_kernels}")
     library = {"flash_fwd": cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True)),
                "flash_bwd_dkv": sdpa_bwd_ms, "flash_bwd_dq": sdpa_bwd_ms}
 
@@ -300,7 +390,8 @@ def phase_kernels():
 
     sdpa_train_ms = cuda_ms(sdpa_fwd_bwd)
     flash_train_ms = ms["flash_fwd"] + ms["flash_bwd_dkv"] + ms["flash_bwd_dq"]
-    log(f"timing bh={bh} s={s} d={d} bf16 causal: kernels {ms}, plain {plain_ms}, "
+    log(f"timing bh={bh} s={s} d={d} bf16 causal: kernels {ms}, cold {cold_ms}, "
+        f"plain {plain_ms}, "
         f"sdpa fwd {library['flash_fwd']:.4f} ms, sdpa bwd alone {sdpa_bwd_ms:.4f} ms "
         f"(flash dkv+dq {ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} ms), sdpa "
         f"fwd+bwd {sdpa_train_ms:.4f} ms, flash fwd+dkv+dq {flash_train_ms:.4f} ms")

@@ -42,7 +42,7 @@ def _torch_grads(fn, q, k, v, g):
     return out.detach().numpy(), [x.grad.numpy() for x in leaves]
 
 
-@pytest.mark.parametrize("s", [256, 384, 512])
+@pytest.mark.parametrize("s", [128, 256, 384, 512])
 @pytest.mark.parametrize("causal", [True, False])
 def test_forward_and_grads_match_jax(causal, s):
     q, k, v, g = _inputs(s + causal, s=s)
@@ -114,11 +114,13 @@ def test_reference_attention_matches_jax(causal):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
 
 
-def test_plain_kernels_match_autograd_on_ragged_length():
+@pytest.mark.parametrize("s", [1, 100, 127, 128, 129])
+def test_plain_kernels_match_autograd_on_ragged_length(s):
     # the kernels' plain versions (what the chip smoke holds the kernels to)
-    # against autograd through the plain forward, at a length no block divides
+    # against autograd through the plain forward, at lengths around the
+    # kernels' 64-row tiles and 128-row blocks
     q, k, v, do = (torch.tensor(x[0].transpose(1, 0, 2))
-                   for x in _inputs(6, s=100, h=3))
+                   for x in _inputs(6, s=s, h=3))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     o, lse = tfa.fwd_plain(*leaves, True)
     o.backward(do)
