@@ -12,11 +12,13 @@
 // depend on them.
 //   bagua_gmm:      out[r] = lhs[r] @ B_g, B_g = rhs[g] ([K, N] row-major) or,
 //                   with trans_rhs, rhs[g]^T (rhs[g] is [N, K] row-major);
-//                   bf16 in, f32 accumulation, bf16 out.  Rows past the last
-//                   group are written as zeros.
+//                   f32 accumulation, out in the operands' dtype.  Rows past
+//                   the last group are written as zeros.
 //   bagua_gmm_drhs: out[g] = lhs_g^T @ gout_g over the group's rows, [G, M, N]
 //                   f32; an empty group writes zeros.
-// K, M and N are multiples of 128 (the JAX kernel path's own domain).
+// The operands are bf16 or f32 (dtype 1 or 0).  K, M and N are multiples of 8
+// (a bf16 row starts on a 16-byte boundary); a tile that reaches past one is
+// zero-filled by its copy and stored only up to it.
 //
 // What bounds them on an H100: at the MoE path's shapes (rows 65536, G 8,
 // (K, N) = (512, 2048) or (2048, 512)) each call is 2 * 65536 * 512 * 2048 =
@@ -41,6 +43,11 @@
 // current one multiplies), rows padded by 16 bytes so ldmatrix is free of bank
 // conflicts, rows outside the group zero-filled by the copy itself.  wgmma,
 // TMA and a deeper pipeline are left to a later version.
+//
+// f32 has no tensor-core format of full precision, so its two kernels (on no
+// measured path: the MoE layers of the port's models compute in bf16) run
+// FP32 FMAs from shared memory, 256 threads on a [64, 64] output tile, each
+// thread a 4 x 4 piece of it, in the same grids and sum orders.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -141,6 +148,27 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ sizes, int g,
   end = min(rows, off + max(sizes[g], 0));
 }
 
+// The row tile t of the static worst-case grid: walking the groups' tiles of
+// `tile` rows in order (each group's last tile ragged), tile t is rows
+// [rs, re) of group g; "group" G is the tail past the last group, written
+// as zeros.  False for a surplus tile past the end.
+__device__ __forceinline__ bool row_tile(const int* __restrict__ sizes, int rows, int G, int t,
+                                         int tile, int& g, int& rs, int& re) {
+  int start = 0;
+  for (g = 0; g <= G; ++g) {
+    const int end = g < G ? min(rows, start + max(sizes[g], 0)) : rows;
+    const int tiles = (end - start + tile - 1) / tile;
+    if (t < tiles) {
+      rs = start + t * tile;
+      re = min(end, rs + tile);
+      return true;
+    }
+    t -= tiles;
+    start = end;
+  }
+  return false;
+}
+
 // ---------------------------------------------------------------------------
 // bagua_gmm: out[r] = lhs[r] @ B_g
 // ---------------------------------------------------------------------------
@@ -161,21 +189,8 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
   __shared__ __align__(16) GmmSmem<TRANS_B> sm;
   using S = GmmSmem<TRANS_B>;
 
-  // this block's group and row range: walk the groups' row tiles in order;
-  // "group" G is the tail past the last group, written as zeros
-  int t = blockIdx.y, g = 0, rs = 0, re = 0, start = 0;
-  for (; g <= G; ++g) {
-    const int end = g < G ? min(rows, start + max(sizes[g], 0)) : rows;
-    const int tiles = (end - start + kBM - 1) / kBM;
-    if (t < tiles) {
-      rs = start + t * kBM;
-      re = min(end, rs + kBM);
-      break;
-    }
-    t -= tiles;
-    start = end;
-  }
-  if (g > G) return;  // surplus block of the static worst-case grid
+  int g, rs, re;
+  if (!row_tile(sizes, rows, G, blockIdx.y, kBM, g, rs, re)) return;
 
   const int n0 = blockIdx.x * kBN;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -197,7 +212,7 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
       for (int it = 0; it < (kBM * kBK / 8) / kThreads; ++it) {
         const int v = threadIdx.x + it * kThreads;
         const int r = v / (kBK / 8), c = (v % (kBK / 8)) * 8;
-        const bool valid = rs + r < re;
+        const bool valid = rs + r < re && k0 + c < K;
         cp_async16(&sm.a[stage][r][c], valid ? lhs + (size_t)(rs + r) * K + k0 + c : lhs,
                    valid);
       }
@@ -206,15 +221,17 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
         const int v = threadIdx.x + it * kThreads;
         if (TRANS_B) {  // rhs[g] is [N, K]: rows n, columns k
           const int r = v / (kBK / 8), c = (v % (kBK / 8)) * 8;
-          cp_async16(&sm.b[stage][r][c], B + (size_t)(n0 + r) * K + k0 + c, true);
+          const bool valid = n0 + r < N && k0 + c < K;
+          cp_async16(&sm.b[stage][r][c], valid ? B + (size_t)(n0 + r) * K + k0 + c : B, valid);
         } else {        // rhs[g] is [K, N]: rows k, columns n
           const int r = v / (kBN / 8), c = (v % (kBN / 8)) * 8;
-          cp_async16(&sm.b[stage][r][c], B + (size_t)(k0 + r) * N + n0 + c, true);
+          const bool valid = k0 + r < K && n0 + c < N;
+          cp_async16(&sm.b[stage][r][c], valid ? B + (size_t)(k0 + r) * N + n0 + c : B, valid);
         }
       }
     };
 
-    const int nk = K / kBK;
+    const int nk = (K + kBK - 1) / kBK;
     load_stage(0, 0);
     cp_async_commit();
     for (int kt = 0; kt < nk; ++kt) {
@@ -252,9 +269,12 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
       const int row = rs + wm + 16 * i + gq + 8 * h;
       if (row >= re) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * N + n0 + wn + 8 * j + 2 * tq) =
-            pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * tq;
+        if (col < N)
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
+              pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
     }
 }
 
@@ -293,14 +313,14 @@ gmm_drhs_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ gout,
     for (int it = 0; it < (kBK * kBM / 8) / kThreads; ++it) {
       const int v = threadIdx.x + it * kThreads;
       const int r = v / (kBM / 8), c = (v % (kBM / 8)) * 8;
-      const bool valid = r0 + r < end;
+      const bool valid = r0 + r < end && m0 + c < M;
       cp_async16(&sm.a[stage][r][c], valid ? lhs + (size_t)(r0 + r) * M + m0 + c : lhs, valid);
     }
 #pragma unroll
     for (int it = 0; it < (kBK * kBN / 8) / kThreads; ++it) {
       const int v = threadIdx.x + it * kThreads;
       const int r = v / (kBN / 8), c = (v % (kBN / 8)) * 8;
-      const bool valid = r0 + r < end;
+      const bool valid = r0 + r < end && n0 + c < N;
       cp_async16(&sm.b[stage][r][c], valid ? gout + (size_t)(r0 + r) * N + n0 + c : gout,
                  valid);
     }
@@ -339,48 +359,159 @@ gmm_drhs_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ gout,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + wm + 16 * i + gq + 8 * h;
+      if (row >= M) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float2*>(dst + (size_t)row * N + n0 + wn + 8 * j + 2 * tq) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * tq;
+        if (col < N)
+          *reinterpret_cast<float2*>(dst + (size_t)row * N + col) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
     }
+}
+
+// ---------------------------------------------------------------------------
+// f32: the same two products by FMA
+// ---------------------------------------------------------------------------
+
+constexpr int kFT = 64;   // rows and columns of an f32 output tile
+constexpr int kFK = 16;   // depth of one f32 step
+
+// acc[i][j] += sum_kk a[kk][ty + 16 i] * b[kk][tx + 16 j]
+__device__ __forceinline__ void fma_step(float (&acc)[4][4], const float (&a)[kFK][kFT],
+                                         const float (&b)[kFK][kFT], int ty, int tx) {
+#pragma unroll
+  for (int kk = 0; kk < kFK; ++kk) {
+    float x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = a[kk][ty + 16 * i], y[i] = b[kk][tx + 16 * i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  }
+}
+
+template <bool TRANS_B>
+__global__ void __launch_bounds__(kThreads)
+gmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
+               const int* __restrict__ sizes, float* __restrict__ out, int rows, int K, int N,
+               int G) {
+  __shared__ float a[kFK][kFT], b[kFK][kFT];   // [k][row], [k][n]
+  int g, rs, re;
+  if (!row_tile(sizes, rows, G, blockIdx.y, kFT, g, rs, re)) return;
+  const int n0 = blockIdx.x * kFT;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  if (g < G) {
+    const float* B = rhs + (size_t)g * K * N;
+    for (int k0 = 0; k0 < K; k0 += kFK) {
+      for (int v = threadIdx.x; v < kFK * kFT; v += kThreads) {
+        const int r = v / kFK, c = v % kFK;   // a row (or n) and a depth
+        a[c][r] = rs + r < re && k0 + c < K ? lhs[(size_t)(rs + r) * K + k0 + c] : 0.f;
+        if (TRANS_B) {   // rhs[g] is [N, K]
+          b[c][r] = n0 + r < N && k0 + c < K ? B[(size_t)(n0 + r) * K + k0 + c] : 0.f;
+        } else {         // rhs[g] is [K, N]
+          const int kr = v / kFT, n = v % kFT;
+          b[kr][n] = k0 + kr < K && n0 + n < N ? B[(size_t)(k0 + kr) * N + n0 + n] : 0.f;
+        }
+      }
+      __syncthreads();
+      fma_step(acc, a, b, ty, tx);
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = rs + ty + 16 * i;
+    if (row >= re) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (n0 + tx + 16 * j < N) out[(size_t)row * N + n0 + tx + 16 * j] = acc[i][j];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gmm_drhs_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ gout,
+                    const int* __restrict__ sizes, float* __restrict__ out, int rows, int M,
+                    int N) {
+  __shared__ float a[kFK][kFT], b[kFK][kFT];   // [row][m], [row][n]
+  const int g = blockIdx.z, m0 = blockIdx.y * kFT, n0 = blockIdx.x * kFT;
+  int start, end;
+  group_rows(sizes, g, rows, start, end);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  for (int r0 = start; r0 < end; r0 += kFK) {
+    for (int v = threadIdx.x; v < kFK * kFT; v += kThreads) {
+      const int r = v / kFT, c = v % kFT;
+      const bool in = r0 + r < end;
+      a[r][c] = in && m0 + c < M ? lhs[(size_t)(r0 + r) * M + m0 + c] : 0.f;
+      b[r][c] = in && n0 + c < N ? gout[(size_t)(r0 + r) * N + n0 + c] : 0.f;
+    }
+    __syncthreads();
+    fma_step(acc, a, b, ty, tx);
+    __syncthreads();
+  }
+  float* dst = out + (size_t)g * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (n0 + tx + 16 * j < N) dst[(size_t)row * N + n0 + tx + 16 * j] = acc[i][j];
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// lhs [rows, k] bf16, rhs [groups, k, n] bf16 (trans_rhs 0) or [groups, n, k]
-// (trans_rhs 1), group_sizes [groups] int32, out [rows, n] bf16
+// lhs [rows, k], rhs [groups, k, n] (trans_rhs 0) or [groups, n, k] (trans_rhs
+// 1), out [rows, n], all bf16 (dtype 1) or f32 (dtype 0); group_sizes
+// [groups] int32
 int bagua_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out, int rows,
-              int k, int n, int groups, int trans_rhs, void* stream) {
-  if (rows < 0 || groups < 1 || k < kBK || k % kBK || n < kBN || n % kBN)
+              int k, int n, int groups, int trans_rhs, int dtype, void* stream) {
+  if (rows < 0 || groups < 1 || k < 8 || k % 8 || n < 8 || n % 8 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
-  const long long tiles = ((long long)rows + kBM - 1) / kBM + groups + 1;
+  const int tile = dtype ? kBM : kFT, tile_n = dtype ? kBN : kFT;
+  const long long tiles = ((long long)rows + tile - 1) / tile + groups + 1;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / kBN, (unsigned)tiles);
+  const dim3 grid((n + tile_n - 1) / tile_n, (unsigned)tiles);
   cudaStream_t s = (cudaStream_t)stream;
-  if (trans_rhs)
-    gmm_kernel<true><<<grid, kThreads, 0, s>>>((const bf16*)lhs, (const bf16*)rhs,
-                                               (const int*)group_sizes, (bf16*)out, rows, k,
-                                               n, groups);
+  const int* sizes = (const int*)group_sizes;
+  if (dtype == 1 && trans_rhs)
+    gmm_kernel<true><<<grid, kThreads, 0, s>>>((const bf16*)lhs, (const bf16*)rhs, sizes,
+                                               (bf16*)out, rows, k, n, groups);
+  else if (dtype == 1)
+    gmm_kernel<false><<<grid, kThreads, 0, s>>>((const bf16*)lhs, (const bf16*)rhs, sizes,
+                                                (bf16*)out, rows, k, n, groups);
+  else if (trans_rhs)
+    gmm_f32_kernel<true><<<grid, kThreads, 0, s>>>((const float*)lhs, (const float*)rhs, sizes,
+                                                   (float*)out, rows, k, n, groups);
   else
-    gmm_kernel<false><<<grid, kThreads, 0, s>>>((const bf16*)lhs, (const bf16*)rhs,
-                                                (const int*)group_sizes, (bf16*)out, rows,
-                                                k, n, groups);
+    gmm_f32_kernel<false><<<grid, kThreads, 0, s>>>((const float*)lhs, (const float*)rhs, sizes,
+                                                    (float*)out, rows, k, n, groups);
   return (int)cudaGetLastError();
 }
 
-// lhs [rows, m] bf16, gout [rows, n] bf16, group_sizes [groups] int32,
-// out [groups, m, n] float32
+// lhs [rows, m], gout [rows, n], both bf16 (dtype 1) or f32 (dtype 0);
+// group_sizes [groups] int32; out [groups, m, n] float32
 int bagua_gmm_drhs(const void* lhs, const void* gout, const void* group_sizes, void* out,
-                   int rows, int m, int n, int groups, void* stream) {
-  if (rows < 0 || groups < 1 || groups > 65535 || m < kBM || m % kBM || n < kBN || n % kBN ||
-      m / kBM > 65535)
+                   int rows, int m, int n, int groups, int dtype, void* stream) {
+  const int tile_m = dtype ? kBM : kFT, tile_n = dtype ? kBN : kFT;
+  if (rows < 0 || groups < 1 || groups > 65535 || m < 8 || m % 8 || n < 8 || n % 8 ||
+      dtype < 0 || dtype > 1 || (m + tile_m - 1) / tile_m > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / kBN, m / kBM, groups);
-  gmm_drhs_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)lhs, (const bf16*)gout, (const int*)group_sizes, (float*)out, rows, m, n);
+  const dim3 grid((n + tile_n - 1) / tile_n, (m + tile_m - 1) / tile_m, groups);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    gmm_drhs_kernel<<<grid, kThreads, 0, s>>>((const bf16*)lhs, (const bf16*)gout,
+                                              (const int*)group_sizes, (float*)out, rows, m, n);
+  else
+    gmm_drhs_f32_kernel<<<grid, kThreads, 0, s>>>((const float*)lhs, (const float*)gout,
+                                                  (const int*)group_sizes, (float*)out, rows,
+                                                  m, n);
   return (int)cudaGetLastError();
 }
 

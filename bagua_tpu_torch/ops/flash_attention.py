@@ -11,9 +11,16 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 The public functions take ``[batch, seq, heads, head_dim]`` like the JAX
 ones and fold to ``[batch * heads, seq, head_dim]`` for the kernels.  Any
-sequence length is taken (the kernels mask the ragged tail), so unlike the
-JAX package there is no fallback to the materializing path and no TPU
-sequence-length gate.
+sequence length is taken (the kernels mask the ragged tail).
+
+What the kernels take is :func:`kernels_take`, on shape and dtype alone:
+float32 or bfloat16, with a head_dim that is a multiple of 8 up to
+``MAX_HEAD_DIM``.  They compute at width 64 or 128 and widen a narrower head
+with zeros in shared memory, so a head_dim of 32 costs the time of 64.  A
+CUDA tensor outside that raises, in :func:`flash_attention` as in the
+wrappers: there is no fallback to the materializing path on the card, and
+none of the JAX package's TPU speed gates (a sequence floor, block
+alignment, the VMEM budget) is carried over.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+#: the widest head the kernels take; a head_dim must be a multiple of 8 (a
+#: bf16 row then starts on a 16-byte boundary, as TMA requires)
+MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -123,21 +132,27 @@ def _lib():
     return _lib_cache[0]
 
 
+def kernels_take(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take a CUDA tensor of this head_dim and dtype."""
+    return (dtype in _DTYPE_CODE and 0 < head_dim <= MAX_HEAD_DIM
+            and head_dim % 8 == 0)
+
+
 def _check(mats, rows):
     """Raise on anything the kernels do not take: every tensor on one CUDA
-    device and contiguous; ``mats`` ``[bh, s, d]`` of one dtype (f32 or
-    bf16) with d 64 or 128, each starting on a 16-byte boundary (the
-    backward kernels load them by TMA); ``rows`` ``[bh, s]`` f32."""
+    device and contiguous; ``mats`` ``[bh, s, d]`` of one dtype and head_dim
+    that :func:`kernels_take` accepts, each starting on a 16-byte boundary
+    (the bf16 kernels load them by TMA); ``rows`` ``[bh, s]`` f32."""
     ref = mats[0]
     if ref.device.type != "cuda":
         raise ValueError(f"flash kernels take CUDA tensors, got {ref.device}")
     if ref.dim() != 3:
         raise ValueError(f"expected [bh, s, d], got {tuple(ref.shape)}")
     bh, s, d = ref.shape
-    if ref.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash kernels take float32 or bfloat16, got {ref.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {d}")
+    if not kernels_take(d, ref.dtype):
+        raise ValueError(f"flash kernels take float32 or bfloat16 with a head_dim "
+                         f"that is a multiple of 8 up to {MAX_HEAD_DIM}, got "
+                         f"{ref.dtype} and {d}")
     for t in mats:
         if t.shape != ref.shape or t.dtype != ref.dtype:
             raise ValueError(f"operand {tuple(t.shape)} {t.dtype} does not "
@@ -196,11 +211,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
 
 
 KERNELS = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's launch count."""
     for k in KERNELS:
         k.launches = 0
 
@@ -261,3 +275,6 @@ def flash_attention_with_lse(q, k, v, *, causal: bool):
     ``o`` is f32 (merging precision)."""
     o, lse = _flash_lse(q, k, v, causal)
     return o.float(), lse
+
+
+reset_launch_counts()   # every count starts at zero

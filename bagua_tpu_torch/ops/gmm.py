@@ -17,8 +17,14 @@ Each wrapper has a plain PyTorch version beside it and counts its launches in
 ``<wrapper>.launches``.  A wrapper takes the plain version only for tensors
 on the CPU; for a CUDA tensor it launches the kernel or raises.  The kernels
 read the group sizes on the device (they are routing counts, data of every
-step), so nothing here reads them back to the host.  Unlike the JAX package
-there is no fallback to the dense reference off the TPU or at tiny shapes.
+step), so nothing here reads them back to the host.
+
+What the kernels take is :func:`kernels_take`, on shape and dtype alone: d
+and f positive multiples of ``DIM_MULTIPLE`` and a bfloat16 or float32
+compute dtype (that of ``lhs``; float32 runs FMA kernels, bfloat16 the tensor
+cores).  A CUDA tensor outside that raises, in :func:`gmm` as in the
+wrappers: there is no fallback to the dense reference on the card, and the
+JAX package's TPU gate ``rows >= block_rows`` is not carried over.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ import torch
 
 from . import _build
 
-#: d and f must be multiples of this for the kernels (the JAX kernel path's
-#: own condition, ``gmm.py:199-204``)
-DIM_MULTIPLE = 128
+#: d and f must be multiples of this for the kernels (a bf16 row then starts
+#: on a 16-byte boundary, the unit of their copies); the JAX kernel path
+#: takes multiples of 128 (``gmm.py:199-204``)
+DIM_MULTIPLE = 8
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _group_of_row(group_sizes, rows: int, device):
@@ -89,8 +97,8 @@ def grouped_matmul_drhs_plain(lhs, gout, group_sizes, n_groups: int):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "bagua_gmm": [_P] * 4 + [_I] * 5 + [_P],
-    "bagua_gmm_drhs": [_P] * 4 + [_I] * 4 + [_P],
+    "bagua_gmm": [_P] * 4 + [_I] * 6 + [_P],
+    "bagua_gmm_drhs": [_P] * 4 + [_I] * 5 + [_P],
 }
 _lib_cache = []
 
@@ -101,16 +109,29 @@ def _lib():
     return _lib_cache[0]
 
 
-def _check(mats, group_sizes, dims):
+def kernels_take(d: int, f: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take a product ``[rows, d] x [d, f]`` computed in
+    ``dtype``."""
+    return (dtype in _DTYPE_CODE
+            and all(n >= DIM_MULTIPLE and n % DIM_MULTIPLE == 0 for n in (d, f)))
+
+
+def _check(mats, group_sizes, d, f):
     """Raise on anything the kernels do not take: every tensor on one CUDA
-    device and contiguous; ``mats`` bf16 and 16-byte aligned;
-    ``group_sizes`` int32 ``[G]``; ``dims`` multiples of 128."""
+    device and contiguous; ``mats`` of one dtype and 16-byte aligned, their
+    dtype, d and f what :func:`kernels_take` accepts; ``group_sizes`` int32
+    ``[G]``.  Returns the dtype's code."""
     ref = mats[0]
     if ref.device.type != "cuda":
         raise ValueError(f"gmm kernels take CUDA tensors, got {ref.device}")
     for t in mats:
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"gmm kernels take bfloat16 operands, got {t.dtype}")
+        if t.dtype != ref.dtype:
+            raise ValueError(f"gmm kernels take operands of one dtype, got "
+                             f"{t.dtype} and {ref.dtype}")
+    if not kernels_take(d, f, ref.dtype):
+        raise ValueError(f"gmm kernels take bfloat16 or float32 with d and f each "
+                         f"a positive multiple of {DIM_MULTIPLE}, got {ref.dtype}, "
+                         f"d {d}, f {f}")
     if group_sizes.dtype != torch.int32 or group_sizes.dim() != 1:
         raise ValueError(f"group_sizes must be a 1-d int32 tensor, got "
                          f"{tuple(group_sizes.shape)} {group_sizes.dtype}")
@@ -122,10 +143,7 @@ def _check(mats, group_sizes, dims):
     for t in mats:
         if t.data_ptr() % 16:
             raise ValueError("gmm kernels take 16-byte aligned operands")
-    for name, n in dims.items():
-        if n < DIM_MULTIPLE or n % DIM_MULTIPLE:
-            raise ValueError(f"{name} must be a positive multiple of "
-                             f"{DIM_MULTIPLE}, got {n}")
+    return _DTYPE_CODE[ref.dtype]
 
 
 def grouped_matmul(lhs, rhs, group_sizes, transpose_rhs: bool = False):
@@ -145,11 +163,11 @@ def grouped_matmul(lhs, rhs, group_sizes, transpose_rhs: bool = False):
         raise ValueError(f"shapes do not match: lhs {tuple(lhs.shape)}, rhs "
                          f"{tuple(rhs.shape)} (transpose_rhs={transpose_rhs}), "
                          f"group_sizes {tuple(group_sizes.shape)}")
-    _check((lhs, rhs), group_sizes, {"d": d, "f": f})
+    code = _check((lhs, rhs), group_sizes, d, f)
     out = torch.empty((rows, f), dtype=lhs.dtype, device=lhs.device)
     _build.launch(_lib().bagua_gmm, lhs.data_ptr(), rhs.data_ptr(),
                   group_sizes.data_ptr(), out.data_ptr(), rows, d, f, n_groups,
-                  int(transpose_rhs))
+                  int(transpose_rhs), code)
     grouped_matmul.launches += 1
     return out
 
@@ -166,20 +184,19 @@ def grouped_matmul_drhs(lhs, gout, group_sizes, n_groups: int):
                          f"{tuple(group_sizes.shape)}, {n_groups} groups")
     rows, d = lhs.shape
     f = gout.shape[1]
-    _check((lhs, gout), group_sizes, {"d": d, "f": f})
+    code = _check((lhs, gout), group_sizes, d, f)
     out = torch.empty((n_groups, d, f), dtype=torch.float32, device=lhs.device)
     _build.launch(_lib().bagua_gmm_drhs, lhs.data_ptr(), gout.data_ptr(),
-                  group_sizes.data_ptr(), out.data_ptr(), rows, d, f, n_groups)
+                  group_sizes.data_ptr(), out.data_ptr(), rows, d, f, n_groups, code)
     grouped_matmul_drhs.launches += 1
     return out
 
 
 KERNELS = (grouped_matmul, grouped_matmul_drhs)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's launch count."""
     for k in KERNELS:
         k.launches = 0
 
@@ -225,3 +242,6 @@ def gmm(lhs, rhs, group_sizes):
                          f"{tuple(lhs.shape)} and {tuple(rhs.shape)}")
     group_sizes = group_sizes.to(device=lhs.device, dtype=torch.int32)
     return _GMM.apply(lhs.contiguous(), rhs, group_sizes)
+
+
+reset_launch_counts()   # every count starts at zero

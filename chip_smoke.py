@@ -8,16 +8,19 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: compiles every ``bagua_tpu_torch/ops/csrc/*.cu`` with ``nvcc``.
 3. kernels: each flash-attention kernel against its plain PyTorch version on
    the card (bf16 at every slice's training shape: b·h 32 and 64 at seq
-   4096, BERT-Large's 128 at seq 384; a ragged bf16 length; f32); the
-   backward kernels at a ragged length beside a head of values near 1e4
-   (no read across heads) and twice on the same inputs (bitwise equal); the
-   times of each kernel (hot and cold L2), its plain version and the
-   PyTorch library call at slice 1's shape, and of the port's whole
-   backward (delta, dK/dV and dQ, as autograd runs them) against SDPA's
-   backward, whose kernels are named from one profiler window.
+   4096, BERT-Large's 128 at seq 384; a ragged bf16 length; f32; heads of 32
+   and 96, which the kernels widen to 64 and 128); every kernel at a ragged
+   length beside a head of values near 1e4 (no read across heads) and twice
+   on the same inputs (bitwise equal); the times of
+   each kernel (hot and cold L2), its plain version and the PyTorch library
+   call at slice 1's shape, the forward's and SDPA's forward at slice 2's and
+   BERT-Large's shapes, and the port's whole backward (delta, dK/dV and dQ,
+   as autograd runs them) against SDPA's backward; SDPA's forward and
+   backward kernels are named from one profiler window each.
 4. gmm kernels: each grouped-matmul kernel against its plain version at the
    MoE path's shapes (both (d, f) pairs; balanced, skewed and empty-group
-   sizes) and a small ragged case, their times, and one MoE layer's forward
+   sizes), a small ragged case, one at widths that end inside a tile (64 and
+   200), one in f32, their times, and one MoE layer's forward
    and backward under ``torch.cuda.set_sync_debug_mode("error")``, so that a
    host sync on the MoE path fails the run.
 5. codec kernels: the MinMaxUInt8 compress (K1) and decompress (K2) and the
@@ -35,18 +38,25 @@ Phases, in order; any failure exits non-zero before the result line:
    2 x 2 path's inter-node chunk, a ragged, a tiny, an all-zero, a ±inf and a
    NaN chunk, a bf16 input; their times hot and cold against the plain
    versions and against ``abs().sum(dim=1)``, K4's reduction half.
-7. slice 1: the long-context TransformerLM (``bench_longctx``'s widths,
+7. narrow and f32 shapes: the tiny SQuAD model of
+   ``examples/squad_finetune.py`` (head_dim 32) takes one forward and
+   backward on the card through the flash kernels (one launch of each a
+   layer), its loss and gradients finite and its logits against the same
+   model with the plain attention; an ``MoEMLP`` with d_model 64 in bf16 and
+   one with d_model 128 in f32 each take one forward and backward through the
+   gmm kernels, against the same layer with the dense reference gmm.
+8. slice 1: the long-context TransformerLM (``bench_longctx``'s widths,
    random weights from a seed) trained for 10 steps by ``BaguaTrainer`` with
    ``GradientAllReduceAlgorithm`` over NCCL; losses must be finite and
    falling, every flash kernel must have launched ``n_layers * steps`` times,
    and the model's logits on a short input must agree with the plain
    attention.
-8. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
+9. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
    every odd layer, 8 experts, top-2) trained for 10 steps with Adam and the
    load-balancing loss; losses finite and falling, exact launch counts of
    the gmm and flash kernels, and the logits on a short input against the
    plain gmm and plain attention.
-9. slice 3: compressed data parallelism at world size 2.  The script starts
+10. slice 3: compressed data parallelism at world size 2.  The script starts
    itself twice as worker processes, two ranks on the one card, whose
    collectives go over gloo through host memory (NCCL refuses two ranks on
    one device).  Each rank trains BERT-Large (``bench_bert``: 24 layers,
@@ -59,7 +69,7 @@ Phases, in order; any failure exits non-zero before the result line:
    kernels equal byte for byte to the same collective through the plain
    codec.  Each run prints its step time, the bytes staged through the host
    and the time of a forward and backward alone.
-10. slice 4, the 1-bit and top-k codecs with the error-feedback residual, two
+11. slice 4, the 1-bit and top-k codecs with the error-feedback residual, two
    ranks as in slice 3: the main path is the README quick start with
    ``GradientAllReduceAlgorithm()`` and ``compress_intra="onebit_ef"`` on the
    full BERT-Large, AdamW 1e-4, 10 steps; then ``compress_intra="topk"`` on
@@ -67,7 +77,7 @@ Phases, in order; any failure exits non-zero before the result line:
    residual finite and nonzero, parameters bitwise equal on both ranks, and
    the error-feedback step of the largest bucket through the kernels against
    the plain codec (payload equal, residual within 1e-5 of the scale).
-11. slice 4 at 2 x 2: four ranks of this script on the card, two nodes of two
+12. slice 4 at 2 x 2: four ranks of this script on the card, two nodes of two
    (``intra_size=2``), on the 4-layer cut: ``GradientAllReduceAlgorithm(
    hierarchical=True)`` with ``compress_inter="onebit_ef"`` (K4 = K5 = 3 x
    buckets x steps) and ``ByteGradAlgorithm()`` at its default two-level form
@@ -105,6 +115,9 @@ L2_FLUSH_BYTES = 256 * 1024 ** 2   # five times the H100's 50 MB L2
 MAIN = dict(b=2, s=4096, h=16, d=64)
 MOE = dict(b=8, s=4096, h=8, experts=8, k=2, d_model=512, d_ff=2048)
 BERT = dict(b=8, s=384, h=16, d=64, cut_layers=4)   # bench_bert, per rank
+#: examples/squad_finetune.py --tiny: head_dim 32, which the flash kernels widen to 64
+SQUAD_TINY = dict(vocab_size=1024, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+                  max_seq_len=384)
 CODEC_WORLD = 2
 CODEC_BUCKET_BYTES = 10 * 1024 ** 2
 STEPS = 10
@@ -112,6 +125,8 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # gmm: the bf16 product is summed in f32 and rounded once on both sides (one
 # bf16 ulp, 2^-8); d_rhs is f32 on both sides (summation order only)
 GMM_TOL = {"grouped_matmul": 1e-2, "grouped_matmul_drhs": 1e-4}
+#: ... and with f32 operands both are f32 on both sides
+GMM_TOL_F32 = 1e-4
 REPLACES = {
     "flash_fwd": "bagua_tpu/ops/flash_attention.py:119",
     "flash_bwd_dkv": "bagua_tpu/ops/flash_attention.py:274",
@@ -205,6 +220,8 @@ def phase_build():
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         log(f"  {name}: " + "; ".join(ptxas_usage(text)))
+        for warning in sorted({ln.strip() for ln in text.splitlines() if "Performance Loss" in ln}):
+            log(f"  {name}: {warning}")
 
 
 def ptxas_usage(text):
@@ -264,48 +281,49 @@ def check_kernels(bh, s, d, dtype, causal, seed=0):
 
 
 def check_backward_edges():
-    """The backward kernels at a ragged length (100) with every row of the
-    next head set to 1e4: the other heads' gradients still match the plain
-    versions (a tensor map over [bh * s, d] would fill a head's last tile
-    with the next head's rows); and two launches on the same ordinary
-    inputs give bitwise-equal dK, dV and dQ (one block writes each output
-    tile, in a fixed order)."""
+    """The forward and backward kernels at a ragged length (100) with every
+    row of the next head set to 1e4: the other heads' o, lse and gradients
+    still match the plain versions (a tensor map over [bh * s, d] would fill
+    a head's last tile with the next head's rows); and two launches on the
+    same ordinary inputs give bitwise-equal o, lse, dK, dV and dQ (one block
+    writes each output tile, in a fixed order)."""
     from bagua_tpu_torch.ops import flash_attention as fa
 
-    def backward(q, k, v, do, kernels):
+    def outputs(q, k, v, do, kernels):
         po, plse = fa.fwd_plain(q, k, v, True)
         delta = (do.float() * po.float()).sum(dim=-1)
         if kernels:
-            return [*fa.flash_bwd_dkv(q, k, v, do, plse, delta, True),
+            return [*fa.flash_fwd(q, k, v, True),
+                    *fa.flash_bwd_dkv(q, k, v, do, plse, delta, True),
                     fa.flash_bwd_dq(q, k, v, do, plse, delta, True)]
-        return [*fa.dkv_plain(q, k, v, do, plse, delta, True),
+        return [po, plse, *fa.dkv_plain(q, k, v, do, plse, delta, True),
                 fa.dq_plain(q, k, v, do, plse, delta, True)]
 
-    for d in (64, 128):
+    for d in (32, 64, 128):
         q, k, v, do = _inputs(3, 100, d, torch.bfloat16, seed=8)
         for x in (q, k, v, do):
             x[1] = 1e4
-        got, want = backward(q, k, v, do, True), backward(q, k, v, do, False)
+        got, want = outputs(q, k, v, do, True), outputs(q, k, v, do, False)
         rel = {n: max(rel_err(a[h], b[h]) for h in (0, 2))
-               for n, a, b in zip(("dk", "dv", "dq"), got, want)}
+               for n, a, b in zip(("o", "lse", "dk", "dv", "dq"), got, want)}
         inputs = _inputs(8, 1000, d, torch.bfloat16, seed=9)
         same_bits = all(torch.equal(a, b) for a, b in
-                        zip(backward(*inputs, True), backward(*inputs, True)))
+                        zip(outputs(*inputs, True), outputs(*inputs, True)))
         torch.cuda.synchronize()
-        log(f"backward head boundary d={d} (s 100, head 1 at 1e4): heads 0 and 2 "
-            + ", ".join(f"{n} {e:.3g}" for n, e in rel.items())
+        log(f"forward and backward head boundary d={d} (s 100, head 1 at 1e4): heads 0 "
+            f"and 2 " + ", ".join(f"{n} {e:.3g}" for n, e in rel.items())
             + f"; two launches (b·h 8, s 1000) bitwise equal: {same_bits}")
         if not (max(rel.values()) <= TOL[torch.bfloat16] and same_bits):
-            raise AssertionError(f"backward kernels read across heads or are not "
+            raise AssertionError(f"flash kernels read across heads or are not "
                                  f"deterministic: {rel}, bitwise {same_bits}")
 
 
-def sdpa_backward_kernels(sdpa_out, inputs, grad):
-    """Names of the device kernels one SDPA backward runs (one profiler
-    window), so that the yardstick's implementation is on record."""
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` runs (one profiler
+    window), so that a yardstick's implementation is on record."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        torch.autograd.grad(sdpa_out, inputs, grad, retain_graph=True)
+        fn()
         torch.cuda.synchronize()
     return sorted({e.name for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA})
@@ -337,12 +355,17 @@ def phase_kernels():
     check_kernels(4, 512, d, torch.float32, True, seed=2)
     check_kernels(4, 512, 128, torch.float32, False, seed=3)
     check_kernels(4, 1000, 128, torch.bfloat16, True, seed=4)
+    # heads the kernels widen: 32 to 64, 96 to 128
+    check_kernels(4, 1000, 32, torch.bfloat16, True, seed=10)
+    check_kernels(4, 512, 32, torch.float32, True, seed=11)
+    check_kernels(4, 384, 96, torch.bfloat16, False, seed=12)
     # slice 2's shape: b·h = 64 (batch 8 × 8 heads of 64) at its seq
-    _, errs_moe = check_kernels(MOE["b"] * MOE["h"], MOE["s"], MOE["d_model"] // MOE["h"],
-                                torch.bfloat16, True, seed=6)
+    moe_inputs, errs_moe = check_kernels(MOE["b"] * MOE["h"], MOE["s"],
+                                         MOE["d_model"] // MOE["h"], torch.bfloat16, True,
+                                         seed=6)
     # slice 3's shape: BERT-Large, b·h = 128 (batch 8 × 16 heads of 64) at seq 384
-    _, errs_bert = check_kernels(BERT["b"] * BERT["h"], BERT["s"], BERT["d"],
-                                 torch.bfloat16, True, seed=7)
+    bert_inputs, errs_bert = check_kernels(BERT["b"] * BERT["h"], BERT["s"], BERT["d"],
+                                           torch.bfloat16, True, seed=7)
     (q, k, v, do, lse, delta), errs = check_kernels(bh, s, d, torch.bfloat16, True)
     errs = {n: max(e, errs_moe[n], errs_bert[n]) for n, e in errs.items()}
     check_backward_edges()
@@ -357,6 +380,18 @@ def phase_kernels():
         "flash_bwd_dkv": cuda_ms_cold(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)),
         "flash_bwd_dq": cuda_ms_cold(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)),
     }
+    # a head of 32 runs the kernels of width 64: its times beside d 64's
+    qn, kn, vn, don = _inputs(bh, s, 32, torch.bfloat16, seed=13)
+    on, lsen = fa.flash_fwd(qn, kn, vn, True)
+    deltan = (don.float() * on.float()).sum(dim=-1)
+    narrow = {
+        "flash_fwd": cuda_ms(lambda: fa.flash_fwd(qn, kn, vn, True)),
+        "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(qn, kn, vn, don, lsen, deltan, True)),
+        "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(qn, kn, vn, don, lsen, deltan, True)),
+    }
+    log(f"narrow head bh={bh} s={s} d=32 bf16 causal (widened to 64): "
+        + ", ".join(f"{n} {narrow[n]:.4f} ms (d 64 {ms[n]:.4f})" for n in ms))
+    del qn, kn, vn, don, on, lsen, deltan
     plain_ms = {
         "flash_fwd": cuda_ms(lambda: fa.fwd_plain(q, k, v, True), 3),
         "flash_bwd_dkv": cuda_ms(lambda: fa.dkv_plain(q, k, v, do, lse, delta, True), 3),
@@ -374,7 +409,8 @@ def phase_kernels():
     sdpa_out = sdpa(qg, kg, vg, is_causal=True)   # one forward, built once
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), do4, retain_graph=True))
-    sdpa_kernels = sdpa_backward_kernels(sdpa_out, (qg, kg, vg), do4)
+    sdpa_kernels = device_kernels(lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), do4, retain_graph=True))
     qf, kf, vf = (x.clone().requires_grad_() for x in (q, k, v))
     port_out, _ = fa._FlashLse.apply(qf, kf, vf, True)
     port_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -384,6 +420,18 @@ def phase_kernels():
         f"{port_bwd_ms / sdpa_bwd_ms:.3f}; sdpa backward kernels: {sdpa_kernels}")
     library = {"flash_fwd": cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True)),
                "flash_bwd_dkv": sdpa_bwd_ms, "flash_bwd_dq": sdpa_bwd_ms}
+    log(f"sdpa forward kernels: "
+        f"{device_kernels(lambda: sdpa(q4, k4, v4, is_causal=True))}")
+    # the forward at slice 2's and BERT-Large's shapes, beside SDPA's forward
+    for label, (q_, k_, v_, *_) in (("slice 2", moe_inputs), ("BERT-Large", bert_inputs)):
+        bh_, s_, d_ = q_.shape
+        q4_, k4_, v4_ = (x.view(1, bh_, s_, d_) for x in (q_, k_, v_))
+        fwd_ms = cuda_ms(lambda: fa.flash_fwd(q_, k_, v_, True))
+        sdpa_ms = cuda_ms(lambda: sdpa(q4_, k4_, v4_, is_causal=True))
+        log(f"forward {label} bh={bh_} s={s_} d={d_} bf16 causal: flash_fwd {fwd_ms:.4f} ms, "
+            f"cold {cuda_ms_cold(lambda: fa.flash_fwd(q_, k_, v_, True)):.4f} ms, sdpa "
+            f"forward {sdpa_ms:.4f} ms, flash / sdpa {fwd_ms / sdpa_ms:.3f}, bound "
+            f"{bound('flash_fwd', bh_, s_, d_, torch.bfloat16, True)[0]:.4f} ms")
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do4)
@@ -530,11 +578,11 @@ def phase_slice():
 # ---------------------------------------------------------------------------
 
 
-def _gmm_inputs(rows, d, f, groups, seed):
+def _gmm_inputs(rows, d, f, groups, seed, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    lhs = torch.randn(rows, d, device="cuda", generator=g).bfloat16()
-    rhs = (torch.randn(groups, d, f, device="cuda", generator=g) / math.sqrt(d)).bfloat16()
-    gout = torch.randn(rows, f, device="cuda", generator=g).bfloat16()
+    lhs = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
+    rhs = (torch.randn(groups, d, f, device="cuda", generator=g) / math.sqrt(d)).to(dtype)
+    gout = torch.randn(rows, f, device="cuda", generator=g).to(dtype)
     return lhs, rhs, gout
 
 
@@ -554,10 +602,12 @@ def check_gmm(lhs, rhs, gout, sizes, label):
     torch.cuda.synchronize()
     rel = {k: rel_err(got[k], want[k]) for k in got}
     log(f"gmm {label}: " + ", ".join(f"{k} {e:.3g}" for k, e in rel.items()))
-    bad = {k: e for k, e in rel.items() if not e <= GMM_TOL[k.replace("_dlhs", "")]}
+    tol = ({k: GMM_TOL[k.replace("_dlhs", "")] for k in rel} if lhs.dtype == torch.bfloat16
+           else dict.fromkeys(rel, GMM_TOL_F32))
+    bad = {k: e for k, e in rel.items() if not e <= tol[k]}
     if bad:
         raise AssertionError(f"gmm kernel disagrees with its plain version: {bad} "
-                             f"(tolerance {GMM_TOL})")
+                             f"(tolerance {tol})")
     errs = {k: abs_err(got[k], want[k]) for k in got}
     return {"grouped_matmul": max(errs["grouped_matmul"], errs["grouped_matmul_dlhs"]),
             "grouped_matmul_drhs": errs["grouped_matmul_drhs"]}
@@ -609,6 +659,10 @@ def phase_gmm_kernels():
     skewed.append(rows - sum(skewed))             # one group holds half the rows
     empty = [0, rows // 2, 0, rows // 4, rows // 4, 0, 0, 0]
     check_gmm(*_gmm_inputs(300, 128, 256, 4, seed=9), [1, 0, 170, 100], "ragged 300 rows")
+    check_gmm(*_gmm_inputs(300, 64, 200, 4, seed=10), [1, 0, 170, 100],
+              "ragged 300 rows (64, 200)")
+    check_gmm(*_gmm_inputs(300, 200, 64, 4, seed=11, dtype=torch.float32), [1, 0, 170, 100],
+              "ragged 300 rows (200, 64) f32")
     errs = {}
     for m, n in ((d, f), (f, d)):
         inputs = _gmm_inputs(rows, m, n, G, seed=m)
@@ -655,6 +709,13 @@ def phase_gmm_kernels():
                     library[name].append(None)
                     refused.append(f"{name} {shape}: {str(e).splitlines()[0]}")
                 bounds[name].append(gmm_bound(name, rows, *shape, G))
+    # f32 operands run the FMA kernels: their times at the path's first shape
+    lhs, rhs, gout = _gmm_inputs(rows, d, f, G, seed=2, dtype=torch.float32)
+    log(f"gmm f32 (FMA kernels) rows {rows} ({d}, {f}) balanced: grouped_matmul "
+        f"{cuda_ms(lambda: gm.grouped_matmul(lhs, rhs, sizes)):.4f} ms, grouped_matmul_drhs "
+        f"{cuda_ms(lambda: gm.grouped_matmul_drhs(lhs, gout, sizes, G)):.4f} ms (bf16 "
+        f"{ms['grouped_matmul'][0]:.4f} and {ms['grouped_matmul_drhs'][0]:.4f}), bound "
+        f"{2 * rows * d * f / PEAK_F32_FLOPS * 1e3:.4f} ms each")
     # the routing of a fresh model is not balanced: the skewed sizes' times
     lhs, rhs, gout = _gmm_inputs(rows, d, f, G, seed=1)
     sk = torch.tensor(skewed, dtype=torch.int32, device="cuda")
@@ -1019,6 +1080,79 @@ def phase_sign_kernels():
 
 
 # ---------------------------------------------------------------------------
+# narrow and f32 shapes: the kernels widen what is narrower than their tiles
+# ---------------------------------------------------------------------------
+
+
+def phase_narrow_shapes():
+    """The tiny SQuAD model (head_dim 32): one forward and backward on the
+    card through the flash kernels, one launch of each a layer, the loss and
+    every gradient finite, and the logits on the same input within the
+    slices' 5e-2 of the same model with the plain attention.  An ``MoEMLP``
+    with d_model 64 in bf16 and one with d_model 128 in f32: one forward and
+    backward each through the gmm kernels (four K7a and two K7b launches),
+    against the same layer whose gmm is the dense reference (the routing,
+    computed before either, is the same): the output within the product's
+    tolerance and every gradient within twice it."""
+    from bagua_tpu_torch.model_parallel.moe import MoEMLP
+    from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM, lm_loss_fn
+    from bagua_tpu_torch.ops import flash_attention as fa
+    from bagua_tpu_torch.ops import gmm as gm
+
+    cfg = TransformerConfig(**SQUAD_TINY)
+    model = TransformerLM(cfg, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1), device="cuda",
+                           generator=g)
+    fa.reset_launch_counts()
+    loss = lm_loss_fn(model, {"tokens": tokens})
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in fa.KERNELS}
+    finite = bool(torch.isfinite(loss)) and all(
+        torch.isfinite(p.grad).all() for p in model.parameters())
+    plain = TransformerLM(cfg, attn_fn=lambda q, k, v, dtype:
+                          fa.reference_attention(q, k, v, dtype))
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        short = tokens[:1, :cfg.max_seq_len]
+        got, want = model(short), plain(short)
+    err = rel_err(got, want)
+    log(f"narrow heads: SQuAD tiny (head_dim {cfg.head_dim}) loss {loss.item():.4f}, finite "
+        f"{finite}, launches {launches}; logits vs plain attention rel err {err:.3g}")
+    if not (finite and set(launches.values()) == {cfg.n_layers} and err <= 5e-2):
+        raise AssertionError(f"head_dim {cfg.head_dim}: launches {launches}, finite "
+                             f"{finite}, logits rel err {err}")
+
+    for d_model, dtype in ((64, torch.bfloat16), (128, torch.float32)):
+        g = torch.Generator(device="cuda").manual_seed(d_model)
+        x0 = torch.randn(2, cfg.max_seq_len, d_model, device="cuda", generator=g).to(dtype)
+        runs = []
+        for gmm_fn in (None, gm.gmm_reference):
+            torch.manual_seed(0)
+            layer = MoEMLP(MOE["experts"], 256, d_model=d_model, k=MOE["k"], dropless=True,
+                           dtype=dtype, gmm_fn=gmm_fn).cuda()
+            x = x0.clone().requires_grad_()
+            gm.reset_launch_counts()
+            y = layer(x)
+            (y.float().square().mean() + layer.l_aux).backward()
+            torch.cuda.synchronize()
+            runs.append((y, [x.grad, *(p.grad for p in layer.parameters())],
+                         [k.launches for k in gm.KERNELS]))
+        (y, grads, launches), (ref_y, ref_grads, _) = runs
+        tol = GMM_TOL["grouped_matmul"] if dtype == torch.bfloat16 else GMM_TOL_F32
+        err = rel_err(y, ref_y)
+        grad_err = max(rel_err(a, b) for a, b in zip(grads, ref_grads))
+        finite = all(torch.isfinite(t).all() for t in (y, *grads))
+        log(f"narrow and f32 gmm: MoEMLP d_model {d_model} {dtype}: launches {launches}, "
+            f"output vs dense reference rel err {err:.3g}, gradients {grad_err:.3g}, "
+            f"finite {finite}")
+        if not (finite and launches == [4, 2] and err <= tol and grad_err <= 2 * tol):
+            raise AssertionError(f"MoEMLP d_model {d_model} {dtype}: launches {launches}, "
+                                 f"rel err {err}, gradients {grad_err}, finite {finite}")
+
+
+# ---------------------------------------------------------------------------
 # slices 3 and 4: compressed data parallelism, several ranks on one card over
 # gloo
 # ---------------------------------------------------------------------------
@@ -1305,6 +1439,7 @@ def main():
     rows.update(phase_gmm_kernels())
     rows.update(phase_codec_kernels())
     rows.update(phase_sign_kernels())
+    phase_narrow_shapes()
     launches = phase_slice()
     launches_moe, _ = phase_slice_moe()
     torch.distributed.destroy_process_group()

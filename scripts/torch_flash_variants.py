@@ -1,16 +1,19 @@
-"""Time the flash backward kernels against variants of their source, in turns.
+"""Time the flash kernels against variants of their source, in turns.
 
     python3 scripts/torch_flash_variants.py [--baseline OTHER.cu]
 
 Builds ``bagua_tpu_torch/ops/csrc/flash_attention.cu`` as it is and as each
-variant of ``VARIANTS`` (the same file with a few lines replaced: the design
-choices the source note argues for), plus, with ``--baseline``, another
+variant of ``VARIANTS`` (the same file with a few lines replaced: the two
+design choices the source note says were settled by timing), plus, with ``--baseline``, another
 version of the file (for example the parent commit's, unpacked with ``git
-archive`` into a directory ``.gitignore`` lists).  Each build's registers and
-spills per kernel are printed; each build's dK/dV and dQ are held against
-the plain versions (bf16, 2e-2) at a ragged length, then timed hot at every
-slice's shape in the order A B ... B A, so that two versions are compared on
-one card in one call.  Needs a CUDA card and ``nvcc``.
+archive`` into a directory ``.gitignore`` lists); one ``nvcc`` each, all
+started together.  Each build's registers and spills per kernel are printed;
+each build's forward (o and lse), dK/dV and dQ are held against the plain
+versions (bf16, 2e-2) at a ragged length and both head dims, then timed hot at
+every slice's shape in the order A B ... B A, so that two versions are
+compared on one card in one call, with PyTorch's fused attention forward
+(SDPA) timed first and last as the forward's yardstick.  Needs a CUDA card
+and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -27,33 +30,77 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-# name -> [(text in the source, replacement), ...]
-_PRODUCER_WARP = [
-    ("constexpr int kBwdThreads = kConsumers + 128;", "constexpr int kBwdThreads = kConsumers + 32;"),
-    ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(kProducerRegs));\n', ""),
-    ('  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n', ""),
-]
+_KEYS = "constexpr int kFwdKeys = 128;"
+# the forward's loop, by its first line and the line after it
+_FWD_LOOP = ("  // tile it: S = Q K^T is issued before", "  // O / l and lse")
+# the plain order: round it issues O += P V of tile it - 1 and S of tile it
+# and waits for both, so the softmax overlaps no product of its own
+# warpgroup
+_PLAIN_ORDER = """\
+  for (int it = 0; it <= ntiles; ++it) {
+    const int st = it % kStages, prev = (it + kStages - 1) % kStages;
+    const bool pv = it >= 1 && it <= own, qk = it < own;
+    if (it < ntiles) {
+      mbar_wait(&sm.full[st], (it / kStages) & 1);
+      __syncwarp();
+    }
+    if (pv) issue_pv<D, kFwdKeys>(o_acc, pf, sm.v[prev]);
+    if (qk) issue_qk<D, kFwdKeys>(sc, sm.q, wg, sm.k[st]);
+    wgmma_wait<0>();
+    if (pv) {
+      reg_fence(o_acc);
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk) reg_fence(pf[kk]);
+    }
+    if (it > 0) mbar_arrive(&sm.empty[prev]);
+    if (qk) {
+      reg_fence(sc);
+      softmax(sc, m, l, corr, it * kFwdKeys, qw, row_lo, s, causal, tq, scale_log2);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i % 4) / 2];
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk) frag_a(pf[kk], sc, kk);
+    }
+  }
+
+"""
+# name -> [(text in the source, or its first line and the line after it;
+# replacement), ...]: the two choices of the forward's design that were
+# settled by timing (PERF.md has the times of these and of the variants
+# timed once and dropped)
 VARIANTS = {
-    # one producer warp beside the consumers, no register hand-over
-    "producer_warp": _PRODUCER_WARP,
-    # the same at two blocks an SM (96 registers a thread)
-    "two_blocks": _PRODUCER_WARP + [("__launch_bounds__(kBwdThreads, 1)",
-                                     "__launch_bounds__(kBwdThreads, 2)")],
+    # the forward's key tile at 64 keys (S an m64n64 product)
+    "keys_64": [(_KEYS, "constexpr int kFwdKeys = 64;")],
+    "plain_order": [(_FWD_LOOP, _PLAIN_ORDER)],
 }
+
+
+def variant_source(text, edits):
+    """``text`` with each edit of a variant made; an edit's old text may be
+    given by its first line and the line after it."""
+    for old, new in edits:
+        if isinstance(old, tuple):
+            if old[0] not in text or old[1] not in text:
+                raise SystemExit(f"{old!r} is not in the source")
+            old = text[text.index(old[0]):text.index(old[1])]
+        if old not in text:
+            raise SystemExit(f"{old!r} is not in the source")
+        text = text.replace(old, new)
+    return text
+
+
 SHAPES = [(32, 4096, 64), (64, 4096, 64), (128, 384, 64), (4, 4096, 128)]
+KERNELS = ("fwd", "dkv", "dq")
 
 
-def build(name, source, out_dir):
+def start_build(name, source, out_dir):
     from bagua_tpu_torch.ops import _build
 
     src = out_dir / f"{name}.cu"
     src.write_text(source)
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                           str(out_dir / f"{name}.so"), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-    return proc.stdout + proc.stderr
+    return subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                             str(out_dir / f"{name}.so"), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def bind(path):
@@ -66,14 +113,22 @@ def bind(path):
     return lib
 
 
-def backward(lib, q, k, v, do, lse, delta):
+def launchers(lib, q, k, v, do, lse, delta):
+    """The three kernels of ``lib`` on one input, each a function returning
+    its CUDA error code, and their outputs."""
     bh, s, d = q.shape
-    dk, dv, dq = (torch.empty_like(q) for _ in range(3))
+    o, dk, dv, dq = (torch.empty_like(q) for _ in range(4))
+    lse_out = torch.empty_like(lse)
     stream = torch.cuda.current_stream().cuda_stream
     p = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-    dkv = lambda: lib.bagua_flash_bwd_dkv(*p, dk.data_ptr(), dv.data_ptr(), bh, s, d, 1, 1, stream)
-    dqf = lambda: lib.bagua_flash_bwd_dq(*p, dq.data_ptr(), bh, s, d, 1, 1, stream)
-    return dkv, dqf, (dk, dv, dq)
+    fns = {
+        "fwd": lambda: lib.bagua_flash_fwd(*p[:3], o.data_ptr(), lse_out.data_ptr(),
+                                           bh, s, d, 1, 1, stream),
+        "dkv": lambda: lib.bagua_flash_bwd_dkv(*p, dk.data_ptr(), dv.data_ptr(), bh, s, d,
+                                               1, 1, stream),
+        "dq": lambda: lib.bagua_flash_bwd_dq(*p, dq.data_ptr(), bh, s, d, 1, 1, stream),
+    }
+    return fns, {"o": o, "lse": lse_out, "dk": dk, "dv": dv, "dq": dq}
 
 
 def main():
@@ -91,53 +146,60 @@ def main():
     final = (_build.CSRC / "flash_attention.cu").read_text()
     sources = {"final": final}
     for name, edits in VARIANTS.items():
-        text = final
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        sources[name] = text
+        sources[name] = variant_source(final, edits)
     if args.baseline:
         sources["baseline"] = args.baseline.read_text()
+    procs = {name: start_build(name, text, out_dir) for name, text in sources.items()}
     libs = {}
-    for name, text in sources.items():
-        log = build(name, text, out_dir)
-        usage = [u for u in ptxas_usage(log) if "dkv" in u or "dq" in u]
-        print(f"{name}: " + "; ".join(usage), flush=True)
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        usage = [u for u in ptxas_usage(log) if "mma" in u]
+        slow = sorted({ln.strip() for ln in log.splitlines() if "Performance Loss" in ln})
+        print(f"{name}: " + "; ".join(usage) + "".join(f"; {w}" for w in slow), flush=True)
         libs[name] = bind(out_dir / f"{name}.so")
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(3, 1000, 64, device="cuda", dtype=torch.bfloat16, generator=g)
-                   for _ in range(4))
-    po, plse = fa.fwd_plain(q, k, v, True)
-    delta = (do.float() * po.float()).sum(-1)
-    want = (*fa.dkv_plain(q, k, v, do, plse, delta, True),
-            fa.dq_plain(q, k, v, do, plse, delta, True))
-    for name, lib in libs.items():
-        dkv, dqf, got = backward(lib, q, k, v, do, plse, delta)
-        if dkv() or dqf():
-            raise SystemExit(f"{name}: launch failed")
-        torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(got, want)]
-        print(f"{name}: dk, dv, dq against plain (b·h 3, s 1000, causal) {errs}", flush=True)
-        if max(errs) > 2e-2:
-            raise SystemExit(f"{name} disagrees with the plain versions")
+    for d in (64, 128):
+        q, k, v, do = (torch.randn(3, 1000, d, device="cuda", dtype=torch.bfloat16,
+                                   generator=g) for _ in range(4))
+        po, plse = fa.fwd_plain(q, k, v, True)
+        delta = (do.float() * po.float()).sum(-1)
+        want = {"o": po, "lse": plse, "dk": None, "dv": None,
+                "dq": fa.dq_plain(q, k, v, do, plse, delta, True)}
+        want["dk"], want["dv"] = fa.dkv_plain(q, k, v, do, plse, delta, True)
+        for name, lib in libs.items():
+            fns, got = launchers(lib, q, k, v, do, plse, delta)
+            if any(fn() for fn in fns.values()):
+                raise SystemExit(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            errs = {n: round(rel_err(got[n], want[n]), 5) for n in want}
+            print(f"{name}: against plain (b·h 3, s 1000, d {d}, causal) {errs}", flush=True)
+            if max(errs.values()) > 2e-2:
+                raise SystemExit(f"{name} disagrees with the plain versions")
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     order = list(libs) + list(libs)[::-1]
     for bh, s, d in SHAPES:
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", dtype=torch.bfloat16, generator=g)
                        for _ in range(4))
         o, lse = fa.flash_fwd(q, k, v, True)
         delta = (do.float() * o.float()).sum(-1)
-        times = {name: ([], []) for name in libs}
+        q4, k4, v4 = (x.view(1, bh, s, d) for x in (q, k, v))
+        times = {name: {kern: [] for kern in KERNELS} for name in libs}
+        sdpa_ms = [cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True))]
         for name in order:
-            dkv, dqf, _ = backward(libs[name], q, k, v, do, lse, delta)
-            times[name][0].append(cuda_ms(dkv))
-            times[name][1].append(cuda_ms(dqf))
-        print(f"b·h {bh} s {s} d {d} causal, ms hot (dK/dV; dQ), each run twice in the "
-              f"order {order}: " + "; ".join(
-                  f"{n} {statistics.fmean(a):.4f} {a}; {statistics.fmean(b):.4f} {b}"
-                  for n, (a, b) in times.items()), flush=True)
+            fns, _ = launchers(libs[name], q, k, v, do, lse, delta)
+            for kern in KERNELS:
+                times[name][kern].append(cuda_ms(fns[kern]))
+        sdpa_ms.append(cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True)))
+        for kern in KERNELS:
+            print(f"b·h {bh} s {s} d {d} causal, {kern} ms hot, each run twice in the order "
+                  f"{order}: " + "; ".join(
+                      f"{n} {statistics.fmean(t[kern]):.4f} {t[kern]}" for n, t in times.items())
+                  + (f"; sdpa forward {statistics.fmean(sdpa_ms):.4f} {sdpa_ms} (first and last)"
+                     if kern == "fwd" else ""), flush=True)
 
 
 if __name__ == "__main__":

@@ -33,9 +33,9 @@ STEPS = 5
 
 # name fragments -> class, first match wins
 CLASSES = (
-    ("flash_fwd", ("fwd_mma_kernel", "fwd_kernel")),
-    ("flash_bwd_dkv", ("dkv_wgmma_kernel", "dkv_kernel")),
-    ("flash_bwd_dq", ("dq_wgmma_kernel", "dq_kernel")),
+    ("flash_fwd", ("fwd_wgmma", "fwd_kernel")),
+    ("flash_bwd_dkv", ("dkv_wgmma", "dkv_kernel")),
+    ("flash_bwd_dq", ("dq_wgmma", "dq_kernel")),
     ("gmm", ("gmm_kernel",)),
     ("gmm_drhs", ("gmm_drhs_kernel",)),
     ("nccl", ("nccl",)),

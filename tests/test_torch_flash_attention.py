@@ -146,6 +146,32 @@ def test_non_cpu_tensor_takes_the_kernel_or_raises():
         tfa.flash_fwd(q, q, q, True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfa.flash_bwd_dq(q, q, q, q, None, None, True)
+    # the entry point has no fallback off the CPU: a narrow head_dim reaches
+    # the wrappers like any other, which refuse a tensor not on a CUDA card
+    tfa.reset_launch_counts()
+    for d in (32, 64):
+        q = torch.empty(2, 128, 4, d, device="meta")
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tfa.flash_attention(q, q, q)
+    assert [f.launches for f in tfa.KERNELS] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+def test_kernels_take_rule(head_dim, dtype):
+    want = head_dim <= 128 and dtype in (torch.bfloat16, torch.float32)
+    assert tfa.kernels_take(head_dim, dtype) is want
+
+
+def test_cpu_reference_shapes_are_not_counted():
+    # CPU tensors take the kernels' plain versions whatever the head_dim,
+    # and no launch is counted
+    tfa.reset_launch_counts()
+    q, k, v = (torch.tensor(x) for x in _inputs(9, s=64, d=32, n=3))
+    got = tfa.flash_attention(q, k, v)
+    want = tfa.reference_attention(q, k, v)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert [f.launches for f in tfa.KERNELS] == [0, 0, 0]
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):

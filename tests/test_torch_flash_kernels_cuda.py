@@ -29,7 +29,7 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])   # 32 and 96 run widened to 64 and 128
 @pytest.mark.parametrize("s,causal", [(256, True), (1000, True), (77, False)])
 def test_kernels_match_plain(card, dtype, d, s, causal):
     g = torch.Generator(device="cuda").manual_seed(s + d)
@@ -63,6 +63,28 @@ def _backward(q, k, v, do, causal):
     return got, want
 
 
+def _forward(q, k, v, causal):
+    """Kernel and plain (o, lse) on one input."""
+    got, want = fa.flash_fwd(q, k, v, causal), fa.fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 384, 1000])
+def test_forward_at_tile_edges(card, s, d, causal):
+    # the forward owns 128-query blocks and streams 64- or 128-key tiles:
+    # every length around those edges, at three heads
+    g = torch.Generator(device="cuda").manual_seed(1000 * s + d + causal + 7)
+    q, k, v = (torch.randn(3, s, d, device="cuda", dtype=torch.bfloat16, generator=g)
+               for _ in range(3))
+    got, want = _forward(q, k, v, causal)
+    for name, a, b in zip(("o", "lse"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel(a, b) <= TOL[torch.bfloat16], name
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 384, 1000])
@@ -86,7 +108,8 @@ def test_backward_at_tile_edges(card, s, d, causal):
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_backward_reads_no_row_of_the_next_head(card, d):
-    # at a ragged length the last tile of head 0 ends past s; a tensor map
+    # the forward and backward kernels: at a ragged length the last tile of
+    # head 0 ends past s; a tensor map
     # over [bh * s, d] would fill it with head 1's rows instead of zeros.
     # Every row of head 1 is about 1e4, so such a read would show in head 0.
     s = 100
@@ -96,14 +119,16 @@ def test_backward_reads_no_row_of_the_next_head(card, d):
     for x in (q, k, v, do):
         x[1] = 1e4
     got, want = _backward(q, k, v, do, True)
-    for name, a, b in zip(("dk", "dv", "dq"), got, want):
+    fwd_got, fwd_want = _forward(q, k, v, True)
+    for name, a, b in zip(("dk", "dv", "dq", "o", "lse"), (*got, *fwd_got),
+                          (*want, *fwd_want)):
         assert _rel(a[0], b[0]) <= TOL[torch.bfloat16], name
         assert _rel(a[2], b[2]) <= TOL[torch.bfloat16], name
 
 
 def test_backward_is_deterministic(card):
     # each output tile is written by one block in a fixed order: two
-    # launches on the same inputs agree bit for bit
+    # launches on the same inputs agree bit for bit, backward and forward
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn(8, 1000, 64, device="cuda", dtype=torch.bfloat16, generator=g)
                    for _ in range(4))
@@ -111,12 +136,17 @@ def test_backward_is_deterministic(card):
     second, _ = _backward(q, k, v, do, True)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    # the forward too: o and lse
+    (o1, lse1), _ = _forward(q, k, v, True)
+    (o2, lse2), _ = _forward(q, k, v, True)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
-    q = torch.randn(2, 64, 32, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_fwd(q, q, q, True)
+    for d in (36, 256):   # not a multiple of 8; wider than 128
+        q = torch.randn(2, 64, d, device="cuda")
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_fwd(q, q, q, True)
     q = torch.randn(2, 64, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_fwd(q, q, q, True)
@@ -126,3 +156,42 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.randn(2 * 64 * 64 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(2, 64, 64)
     with pytest.raises(ValueError, match="16-byte boundary"):
         fa.flash_fwd(q, q, q, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_32_model_matches_the_cpu(card, dtype):
+    # examples/squad_finetune.py's --tiny model has head_dim 32: its
+    # attention runs the kernels (widened to 64) on the card, one launch of
+    # each a layer, and agrees with the same model on the CPU, whose
+    # attention is the kernels' plain versions.  f32: loss and gradients
+    # within 1e-4; bf16: logits within 5e-2, the tolerance of the slices'
+    # whole-model checks.
+    from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM, lm_loss_fn
+
+    cfg = TransformerConfig(vocab_size=1024, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+                            max_seq_len=128, dtype=dtype)
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1), generator=g)
+    weights = TransformerLM(cfg, device="cpu", seed=0).state_dict()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = TransformerLM(cfg, device=device)
+        model.load_state_dict(weights)
+        fa.reset_launch_counts()
+        loss = lm_loss_fn(model, {"tokens": tokens.to(device)})
+        loss.backward()
+        with torch.no_grad():
+            logits = model(tokens[:1, :cfg.max_seq_len].to(device))
+        runs[device] = (loss, logits, [p.grad for p in model.parameters()],
+                        [f.launches for f in fa.KERNELS])
+    (loss, logits, grads, launches), (cpu_loss, cpu_logits, cpu_grads, cpu_launches) = (
+        runs["cuda"], runs["cpu"])
+    assert launches == [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]   # loss, then logits
+    assert cpu_launches == [0, 0, 0]
+    assert torch.isfinite(loss) and all(torch.isfinite(p).all() for p in grads)
+    if dtype == torch.float32:
+        assert _rel(loss.cpu().reshape(1), cpu_loss.reshape(1)) <= 1e-4
+        for a, b in zip(grads, cpu_grads):
+            assert _rel(a.cpu(), b) <= 1e-4
+    else:
+        assert _rel(logits.cpu(), cpu_logits) <= 5e-2

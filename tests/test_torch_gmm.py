@@ -96,3 +96,33 @@ def test_transposed_rhs_is_the_d_lhs_product():
 def test_gmm_rejects_mismatched_shapes():
     with pytest.raises(ValueError, match="expected lhs"):
         tgmm.gmm(torch.zeros(4, 8), torch.zeros(2, 6, 3), torch.tensor([2, 2]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,f", [(64, 128), (128, 64), (128, 256), (192, 128), (0, 128)])
+def test_kernels_take_rule(d, f, dtype):
+    want = dtype in (torch.bfloat16, torch.float32) and d > 0
+    assert tgmm.kernels_take(d, f, dtype) is want
+
+
+def test_non_cpu_tensor_takes_the_kernel_or_the_counted_reference():
+    # on meta tensors (not the CPU) gmm has no fallback: d 64 and 128, in
+    # bf16 or f32, all reach the kernel wrapper, which refuses a tensor that
+    # is not on a CUDA card
+    tgmm.reset_launch_counts()
+    sizes = torch.tensor([3, 0, 7])
+    for d, dtype in ((64, torch.bfloat16), (128, torch.float32), (128, torch.bfloat16)):
+        lhs = torch.empty(10, d, device="meta", dtype=dtype)
+        rhs = torch.empty(3, d, 128, device="meta", dtype=dtype)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tgmm.gmm(lhs, rhs, sizes)
+    assert [k.launches for k in tgmm.KERNELS] == [0, 0]
+
+
+def test_cpu_tensors_are_not_counted():
+    tgmm.reset_launch_counts()
+    lhs, rhs, _, gs = _case([4, 6], 8, 12, seed=5)
+    got = tgmm.gmm(torch.tensor(lhs), torch.tensor(rhs), torch.from_numpy(gs))
+    want = np.concatenate([lhs[:4] @ rhs[0], lhs[4:] @ rhs[1]])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert [k.launches for k in tgmm.KERNELS] == [0, 0]

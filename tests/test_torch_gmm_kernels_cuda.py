@@ -6,7 +6,7 @@ On the card, where JAX is not installed, skip the JAX conftest:
 Tolerances (max-abs error over the plain version's max-abs): the bf16
 product 1e-2 (kernel and plain version both sum in f32 and round once to
 bf16, so they differ by at most one bf16 ulp, 2^-8 of an element); the f32
-d_rhs 1e-4 (another summation order of exact bf16 products).
+d_rhs, and every product of f32 operands, 1e-4 (another summation order).
 """
 
 import pytest
@@ -29,11 +29,11 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def _case(rows, d, f, n_groups, seed):
+def _case(rows, d, f, n_groups, seed, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    lhs = torch.randn(rows, d, device="cuda", generator=g).bfloat16()
-    rhs = torch.randn(n_groups, d, f, device="cuda", generator=g).bfloat16()
-    gout = torch.randn(rows, f, device="cuda", generator=g).bfloat16()
+    lhs = torch.randn(rows, d, device="cuda", generator=g).to(dtype)
+    rhs = torch.randn(n_groups, d, f, device="cuda", generator=g).to(dtype)
+    gout = torch.randn(rows, f, device="cuda", generator=g).to(dtype)
     return lhs, rhs, gout
 
 
@@ -46,11 +46,13 @@ SIZES = {
 }
 
 
-@pytest.mark.parametrize("d,f", [(128, 256), (256, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,f", [(128, 256), (256, 128), (64, 200), (200, 64)])
 @pytest.mark.parametrize("kind", sorted(SIZES))
-def test_kernels_match_plain(card, kind, d, f):
+def test_kernels_match_plain(card, kind, d, f, dtype):
+    # (64, 200) and (200, 64): widths that end inside a 128-wide tile
     rows = 256
-    lhs, rhs, gout = _case(rows, d, f, 4, seed=d + len(kind))
+    lhs, rhs, gout = _case(rows, d, f, 4, seed=d + len(kind), dtype=dtype)
     sizes = torch.tensor(SIZES[kind], dtype=torch.int32, device="cuda")
     counts = [k.launches for k in gm.KERNELS]
     out = gm.grouped_matmul(lhs, rhs, sizes)
@@ -61,7 +63,8 @@ def test_kernels_match_plain(card, kind, d, f):
     want = gm.grouped_matmul_plain(lhs, rhs, sizes)
     want_dl = gm.grouped_matmul_plain(gout, rhs, sizes, transpose_rhs=True)
     want_dr = gm.grouped_matmul_drhs_plain(lhs, gout, sizes, 4)
-    for got, ref, tol in ((out, want, TOL_BF16), (d_lhs, want_dl, TOL_BF16),
+    tol_out = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    for got, ref, tol in ((out, want, tol_out), (d_lhs, want_dl, tol_out),
                           (d_rhs, want_dr, TOL_F32)):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert _rel(got, ref) <= tol
@@ -93,13 +96,46 @@ def test_gmm_autograd_uses_both_kernels(card):
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     lhs, rhs, gout = _case(64, 128, 128, 2, seed=1)
     sizes = torch.tensor([32, 32], dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="bfloat16"):
-        gm.grouped_matmul(lhs.float(), rhs.float(), sizes)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        gm.grouped_matmul(lhs[:, :64].contiguous(), rhs[:, :64].contiguous(), sizes)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        gm.grouped_matmul(lhs.half(), rhs.half(), sizes)
+    with pytest.raises(ValueError, match="one dtype"):
+        gm.grouped_matmul(lhs, rhs.float(), sizes)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gm.grouped_matmul(lhs[:, :60].contiguous(), rhs[:, :60].contiguous(), sizes)
     with pytest.raises(ValueError, match="int32"):
         gm.grouped_matmul(lhs, rhs, sizes.long())
     with pytest.raises(ValueError, match="contiguous"):
         gm.grouped_matmul_drhs(lhs, gout.t().contiguous().t(), sizes, 2)
     with pytest.raises(ValueError, match="do not match"):
         gm.grouped_matmul(lhs, rhs, sizes[:1])
+
+
+@pytest.mark.parametrize("d_model,dtype", [(64, torch.bfloat16), (128, torch.float32)])
+def test_moe_layer_at_narrow_and_f32_widths_matches_the_reference(card, d_model, dtype):
+    # d_model 64, or an f32 compute dtype: the layer's grouped matmuls run the
+    # kernels, and agree with the same layer whose gmm is the dense reference
+    # (the routing, computed before either, is the same): the output within
+    # the product's tolerance (bf16 1e-2, f32 1e-4) and the gradients, two
+    # products deep, within twice it
+    from bagua_tpu_torch.model_parallel.moe import MoEMLP
+
+    g = torch.Generator(device="cuda").manual_seed(d_model)
+    x0 = torch.randn(2, 64, d_model, device="cuda", generator=g).to(dtype)
+    runs = []
+    for gmm_fn in (None, gm.gmm_reference):
+        torch.manual_seed(0)
+        layer = MoEMLP(4, 256, d_model=d_model, k=2, dropless=True, dtype=dtype,
+                       gmm_fn=gmm_fn).cuda()
+        x = x0.clone().requires_grad_()
+        gm.reset_launch_counts()
+        y = layer(x)
+        (y.float().square().mean() + layer.l_aux).backward()
+        torch.cuda.synchronize()
+        runs.append((y, [x.grad, *(p.grad for p in layer.parameters())],
+                     [k.launches for k in gm.KERNELS]))
+    (y, grads, launches), (ref_y, ref_grads, ref_launches) = runs
+    assert launches == [4, 2] and ref_launches == [0, 0]   # 2 products, 2 + 2 gradients
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    assert torch.isfinite(y).all() and _rel(y, ref_y) <= tol
+    for a, b in zip(grads, ref_grads):
+        assert torch.isfinite(a).all() and _rel(a, b) <= 2 * tol

@@ -76,6 +76,36 @@ def test_loss_and_grads_match_jax():
                                    rtol=1e-4, err_msg=name)
 
 
+# examples/squad_finetune.py's --tiny configuration: head_dim 32, which the
+# flash kernels do not take (on the card the model takes the reference path)
+SQUAD_TINY = dict(vocab_size=1024, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+                  max_seq_len=64)
+
+
+def test_squad_tiny_head_dim_32_matches_jax():
+    jmodel = JLM(JConfig(**SQUAD_TINY, dtype=jnp.float32))
+    params = jmodel.init(jax.random.PRNGKey(4), jnp.zeros((1, 8), jnp.int32))["params"]
+    model = TransformerLM(TransformerConfig(**SQUAD_TINY, dtype=torch.float32), device="cpu")
+    assert model.cfg.head_dim == 32
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model))
+    tokens = np.random.default_rng(5).integers(0, SQUAD_TINY["vocab_size"],
+                                               (2, SQUAD_TINY["max_seq_len"] + 1),
+                                               dtype=np.int32)
+    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(tokens[:, :-1])))
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens[:, :-1]).long())
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    jloss, jgrads = jax.value_and_grad(jlm_loss_fn(jmodel))(
+        params, {"tokens": jnp.asarray(tokens)})
+    loss = lm_loss_fn(model, {"tokens": torch.from_numpy(tokens).long()})
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-4, rtol=1e-4)
+    want_grads = params_from_jax(jax.tree.map(np.asarray, jgrads), model)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
 def test_params_from_jax_layouts():
     _, params, model = _pair("f32")
     sd = model.state_dict()
