@@ -2,8 +2,8 @@
 
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/kernels/<name>-<hash>.so`` beside the package (a directory
-``.gitignore`` lists); the content hash in the file name keeps a stale library
-from being loaded after a source edit.  :func:`build_all` starts one ``nvcc``
+``.gitignore`` lists); the hash in the file name covers the source and every
+``csrc/*.cuh`` header, so that an edit of either never loads a stale library.  :func:`build_all` starts one ``nvcc``
 per source, all at once.  Nothing here runs at import time: the CPU tests
 import every module on a machine with no ``nvcc``.
 """
@@ -24,9 +24,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# -split-compile=0: the compiler's optimizations run on all of the host's
+# cores (the flash library alone has 45 kernels)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile=0",
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -48,9 +50,19 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` goes: named by a hash of that
+    source and of every header in ``csrc`` (which any source may include)."""
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def nvcc_command(src, out) -> List[str]:
+    """The ``nvcc`` command that compiles ``src`` into the library ``out``;
+    ``csrc`` is on the include path, so a copy of a source elsewhere (a
+    variant to time) still finds the headers."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
 
 
 def _start(name: str):
@@ -62,8 +74,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", tmp), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

@@ -19,12 +19,16 @@ on the CPU; for a CUDA tensor it launches the kernel or raises.  The kernels
 read the group sizes on the device (they are routing counts, data of every
 step), so nothing here reads them back to the host.
 
-What the kernels take is :func:`kernels_take`, on shape and dtype alone: d
-and f positive multiples of ``DIM_MULTIPLE`` and a bfloat16 or float32
-compute dtype (that of ``lhs``; float32 runs FMA kernels, bfloat16 the tensor
-cores).  A CUDA tensor outside that raises, in :func:`gmm` as in the
-wrappers: there is no fallback to the dense reference on the card, and the
-JAX package's TPU gate ``rows >= block_rows`` is not carried over.
+What :func:`gmm` takes is :func:`kernels_take`, on shape and dtype alone:
+any positive d and f and a float16, bfloat16 or float32 compute dtype (that
+of ``lhs``; float32 runs FMA kernels, the 16-bit types the tensor cores).
+The kernels' loads need rows of a multiple of ``WIDTH_MULTIPLE`` elements,
+so on the kernel path :func:`gmm` pads lhs and rhs with zero columns and
+rows up to one (zeros add nothing to a product) and slices the output back;
+the wrappers take only multiples.  A CUDA tensor outside the rule raises, in
+:func:`gmm` as in the wrappers: there is no fallback to the dense reference
+on the card, and the JAX package's TPU gate ``rows >= block_rows`` is not
+carried over.
 """
 
 from __future__ import annotations
@@ -32,14 +36,19 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-#: d and f must be multiples of this for the kernels (a bf16 row then starts
-#: on a 16-byte boundary, the unit of their copies); the JAX kernel path
-#: takes multiples of 128 (``gmm.py:199-204``)
-DIM_MULTIPLE = 8
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels' d and f are multiples of this (a 16-bit row then starts on a
+#: 16-byte boundary, as TMA requires); :func:`gmm` pads to it.  The JAX
+#: kernel path takes multiples of 128 and runs its reference otherwise
+#: (``gmm.py:199-204``)
+WIDTH_MULTIPLE = 8
+#: the most groups (experts) the kernels take: K7b orders its work in a table
+#: of this size in shared memory
+MAX_GROUPS = 2048
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _group_of_row(group_sizes, rows: int, device):
@@ -110,17 +119,25 @@ def _lib():
 
 
 def kernels_take(d: int, f: int, dtype: torch.dtype) -> bool:
-    """Whether the kernels take a product ``[rows, d] x [d, f]`` computed in
-    ``dtype``."""
-    return (dtype in _DTYPE_CODE
-            and all(n >= DIM_MULTIPLE and n % DIM_MULTIPLE == 0 for n in (d, f)))
+    """Whether :func:`gmm` runs the kernels for a product ``[rows, d] x
+    [d, f]`` computed in ``dtype`` (padding d and f to multiples of
+    ``WIDTH_MULTIPLE`` first)."""
+    return dtype in _DTYPE_CODE and d >= 1 and f >= 1
+
+
+def _require_taken(d: int, f: int, dtype: torch.dtype) -> None:
+    """Raise unless :func:`kernels_take` accepts the product."""
+    if not kernels_take(d, f, dtype):
+        raise ValueError(f"gmm kernels take float16, bfloat16 or float32 with positive "
+                         f"d and f, got {dtype}, d {d}, f {f}")
 
 
 def _check(mats, group_sizes, d, f):
     """Raise on anything the kernels do not take: every tensor on one CUDA
     device and contiguous; ``mats`` of one dtype and 16-byte aligned, their
-    dtype, d and f what :func:`kernels_take` accepts; ``group_sizes`` int32
-    ``[G]``.  Returns the dtype's code."""
+    dtype, d and f what :func:`kernels_take` accepts and multiples of
+    ``WIDTH_MULTIPLE``; ``group_sizes`` int32 ``[G]``, G at most
+    ``MAX_GROUPS``.  Returns the dtype's code."""
     ref = mats[0]
     if ref.device.type != "cuda":
         raise ValueError(f"gmm kernels take CUDA tensors, got {ref.device}")
@@ -128,13 +145,16 @@ def _check(mats, group_sizes, d, f):
         if t.dtype != ref.dtype:
             raise ValueError(f"gmm kernels take operands of one dtype, got "
                              f"{t.dtype} and {ref.dtype}")
-    if not kernels_take(d, f, ref.dtype):
-        raise ValueError(f"gmm kernels take bfloat16 or float32 with d and f each "
-                         f"a positive multiple of {DIM_MULTIPLE}, got {ref.dtype}, "
-                         f"d {d}, f {f}")
+    _require_taken(d, f, ref.dtype)
+    if d % WIDTH_MULTIPLE or f % WIDTH_MULTIPLE:
+        raise ValueError(f"gmm kernels take d and f that are multiples of "
+                         f"{WIDTH_MULTIPLE} (gmm pads others), got d {d}, f {f}")
     if group_sizes.dtype != torch.int32 or group_sizes.dim() != 1:
         raise ValueError(f"group_sizes must be a 1-d int32 tensor, got "
                          f"{tuple(group_sizes.shape)} {group_sizes.dtype}")
+    if group_sizes.shape[0] > MAX_GROUPS:
+        raise ValueError(f"gmm kernels take at most {MAX_GROUPS} groups, got "
+                         f"{group_sizes.shape[0]}")
     for t in (*mats, group_sizes):
         if t.device != ref.device:
             raise ValueError(f"operands on {t.device} and {ref.device}")
@@ -231,6 +251,12 @@ class _GMM(torch.autograd.Function):
         return d_lhs, d_rhs, None
 
 
+def _kernel_path(x) -> bool:
+    """Whether :func:`gmm` sends ``x`` to the kernel wrappers as the kernels
+    take it (padded), rather than to the plain versions as it is."""
+    return x.device.type != "cpu"
+
+
 def gmm(lhs, rhs, group_sizes):
     """Grouped matmul: rows of ``lhs`` ``[rows, d]``, sorted so group ``g``
     occupies ``group_sizes[:g].sum() : group_sizes[:g+1].sum()``, each
@@ -241,7 +267,17 @@ def gmm(lhs, rhs, group_sizes):
         raise ValueError(f"expected lhs [rows, d] and rhs [G, d, f], got "
                          f"{tuple(lhs.shape)} and {tuple(rhs.shape)}")
     group_sizes = group_sizes.to(device=lhs.device, dtype=torch.int32)
-    return _GMM.apply(lhs.contiguous(), rhs, group_sizes)
+    d, f = rhs.shape[1:]
+    if not _kernel_path(lhs) or not (d % WIDTH_MULTIPLE or f % WIDTH_MULTIPLE):
+        return _GMM.apply(lhs.contiguous(), rhs, group_sizes)
+    _require_taken(d, f, lhs.dtype)   # before padding, so that the message has the real widths
+    # the kernels' rows must be a multiple of WIDTH_MULTIPLE elements: zero
+    # columns of lhs meet zero rows of rhs, zero columns of rhs give output
+    # columns that are cut off; autograd slices the gradients back
+    d8, f8 = (-(-n // WIDTH_MULTIPLE) * WIDTH_MULTIPLE for n in (d, f))
+    out = _GMM.apply(F.pad(lhs, (0, d8 - d)).contiguous(),
+                     F.pad(rhs, (0, f8 - f, 0, d8 - d)), group_sizes)
+    return out[:, :f]
 
 
 reset_launch_counts()   # every count starts at zero

@@ -8,10 +8,13 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: compiles every ``bagua_tpu_torch/ops/csrc/*.cu`` with ``nvcc``.
 3. kernels: each flash-attention kernel against its plain PyTorch version on
    the card (bf16 at every slice's training shape: b·h 32 and 64 at seq
-   4096, BERT-Large's 128 at seq 384; a ragged bf16 length; f32; heads of 32
-   and 96, which the kernels widen to 64 and 128); every kernel at a ragged
-   length beside a head of values near 1e4 (no read across heads) and twice
-   on the same inputs (bitwise equal); the times of
+   4096, BERT-Large's 128 at seq 384; a ragged bf16 length; f32; f16; heads
+   of 32, 96 and 136, which the kernels widen to 64, 128 and 256, and of 256
+   in bf16, f16 and f32); a head of 100 through ``flash_attention``, which
+   pads it to 104 (forward and gradients against the same call on the CPU);
+   every kernel at a ragged length beside a head of values near 1e4 (no read
+   across heads) and twice on the same inputs (bitwise equal), at D = 64,
+   128 and 256; the times of
    each kernel (hot and cold L2), its plain version and the PyTorch library
    call at slice 1's shape, the forward's and SDPA's forward at slice 2's and
    BERT-Large's shapes, and the port's whole backward (delta, dK/dV and dQ,
@@ -20,9 +23,13 @@ Phases, in order; any failure exits non-zero before the result line:
 4. gmm kernels: each grouped-matmul kernel against its plain version at the
    MoE path's shapes (both (d, f) pairs; balanced, skewed and empty-group
    sizes), a small ragged case, one at widths that end inside a tile (64 and
-   200), one in f32, their times, and one MoE layer's forward
-   and backward under ``torch.cuda.set_sync_debug_mode("error")``, so that a
-   host sync on the MoE path fails the run.
+   200), one in f32, f16 at the path's shapes, widths that are not multiples
+   of 8 ((100, 200) and (200, 100)) through ``gmm``, which pads them; K7b
+   twice on the same inputs, balanced and skewed (bitwise equal); each
+   kernel's times per form, hot and cold, balanced and skewed, beside
+   ``torch._grouped_mm``; and one MoE layer's forward and backward under
+   ``torch.cuda.set_sync_debug_mode("error")``, so that a host sync on the
+   MoE path fails the run.
 5. codec kernels: the MinMaxUInt8 compress (K1) and decompress (K2) and the
    absmax (K3) kernels against their plain versions, payload bytes,
    sidecars and decoded values exactly equal: chunks of 128 KiB, 1 MiB,
@@ -38,13 +45,14 @@ Phases, in order; any failure exits non-zero before the result line:
    2 x 2 path's inter-node chunk, a ragged, a tiny, an all-zero, a ±inf and a
    NaN chunk, a bf16 input; their times hot and cold against the plain
    versions and against ``abs().sum(dim=1)``, K4's reduction half.
-7. narrow and f32 shapes: the tiny SQuAD model of
-   ``examples/squad_finetune.py`` (head_dim 32) takes one forward and
-   backward on the card through the flash kernels (one launch of each a
-   layer), its loss and gradients finite and its logits against the same
-   model with the plain attention; an ``MoEMLP`` with d_model 64 in bf16 and
-   one with d_model 128 in f32 each take one forward and backward through the
-   gmm kernels, against the same layer with the dense reference gmm.
+7. narrow, f16 and f32 shapes: the tiny SQuAD model of
+   ``examples/squad_finetune.py`` (head_dim 32), in bf16 and in f16, takes
+   one forward and backward on the card through the flash kernels (one launch
+   of each a layer), its loss and gradients finite and its logits against
+   the same model with the plain attention; an ``MoEMLP`` with d_model 64 in
+   bf16, one with d_model 128 in f32 and one with d_model 128 in f16 each
+   take one forward and backward through the gmm kernels, against the same
+   layer with the dense reference gmm.
 8. slice 1: the long-context TransformerLM (``bench_longctx``'s widths,
    random weights from a seed) trained for 10 steps by ``BaguaTrainer`` with
    ``GradientAllReduceAlgorithm`` over NCCL; losses must be finite and
@@ -121,12 +129,14 @@ SQUAD_TINY = dict(vocab_size=1024, d_model=128, n_heads=4, n_layers=4, d_ff=512,
 CODEC_WORLD = 2
 CODEC_BUCKET_BYTES = 10 * 1024 ** 2
 STEPS = 10
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# gmm: the bf16 product is summed in f32 and rounded once on both sides (one
-# bf16 ulp, 2^-8); d_rhs is f32 on both sides (summation order only)
-GMM_TOL = {"grouped_matmul": 1e-2, "grouped_matmul_drhs": 1e-4}
-#: ... and with f32 operands both are f32 on both sides
-GMM_TOL_F32 = 1e-4
+# flash: bf16 and f16 round P and dS at other places than the plain versions
+# (f16's ulp is an eighth of bf16's); f32 sums in another order
+TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+# gmm, by the operands' dtype: a 16-bit product is summed in f32 and rounded
+# once on both sides (one ulp: bf16 2^-8, f16 2^-11); an f32 product, and
+# d_rhs (f32 on both sides), differ by summation order only
+GMM_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-4}
+GMM_DRHS_TOL = 1e-4
 REPLACES = {
     "flash_fwd": "bagua_tpu/ops/flash_attention.py:119",
     "flash_bwd_dkv": "bagua_tpu/ops/flash_attention.py:274",
@@ -231,19 +241,43 @@ def ptxas_usage(text):
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:   # the mangled name: <length><name>, then I<template args>E
-            names = [(n, i) for i, n in re.findall(r"(\d+)([a-z_]+kernel)", m.group(1))
-                     if int(i) == len(n)]
-            kernel = names[-1][0] if names else m.group(1)
-            args = re.search(kernel + r"I((?:Li\d+E)+)E", m.group(1))
-            if args:
-                kernel += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+            mangled = m.group(1)
+            names = [(mangled[end - n:end], end) for end in
+                     (k.end() for k in re.finditer("kernel", mangled))
+                     for n in range(len("kernel"), end)
+                     if mangled[:end - n].endswith(str(n)) and not mangled[end - n].isdigit()]
+            kernel = names[-1][0] + _template_args(mangled, names[-1][1]) if names else mangled
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out.append(f"{kernel}: {m.group(1)} registers, {spill} spill bytes")
+            spill = "0"
     return out
+
+
+def _template_args(mangled, i):
+    """The template arguments that follow a kernel's name at ``i`` in its
+    mangled name (``I`` ... ``E``), as ``<a,b>``; integers and bools by
+    value, types by name."""
+    if mangled[i:i + 1] != "I":
+        return ""
+    i, args = i + 1, []
+    while i < len(mangled) and mangled[i] != "E":
+        m = re.match(r"L[ib](\d+)E", mangled[i:])
+        n = re.match(r"\d+", mangled[i:])
+        if m:
+            args.append(m.group(1))
+            i += m.end()
+        elif n:
+            j = i + n.end()
+            args.append(mangled[j:j + int(n.group())])
+            i = j + int(n.group())
+        else:
+            args.append({"f": "float", "b": "bool", "i": "int"}.get(mangled[i], mangled[i]))
+            i += 1
+    return "<" + ",".join(args) + ">"
 
 
 def _inputs(bh, s, d, dtype, seed):
@@ -299,7 +333,7 @@ def check_backward_edges():
         return [po, plse, *fa.dkv_plain(q, k, v, do, plse, delta, True),
                 fa.dq_plain(q, k, v, do, plse, delta, True)]
 
-    for d in (32, 64, 128):
+    for d in (32, 64, 128, 256):
         q, k, v, do = _inputs(3, 100, d, torch.bfloat16, seed=8)
         for x in (q, k, v, do):
             x[1] = 1e4
@@ -316,6 +350,36 @@ def check_backward_edges():
         if not (max(rel.values()) <= TOL[torch.bfloat16] and same_bits):
             raise AssertionError(f"flash kernels read across heads or are not "
                                  f"deterministic: {rel}, bitwise {same_bits}")
+
+
+def check_padded_head():
+    """A head of 100 through ``flash_attention``, which pads it to 104 on the
+    card and passes the scale of 100: one launch of each kernel, and o and
+    the gradients of q, k and v against the same call on the CPU, whose
+    wrappers run the plain versions on the unpadded head (o within the
+    kernels' tolerance, the gradients, two products deep, within twice it)."""
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, do = (torch.randn(2, 512, 4, 100, device="cuda", generator=g).bfloat16()
+                   for _ in range(4))
+    runs = []
+    for device in ("cuda", "cpu"):
+        leaves = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
+        fa.reset_launch_counts()
+        out = fa.flash_attention(*leaves)
+        out.backward(do.to(device))
+        torch.cuda.synchronize()
+        runs.append(([out.cpu(), *(x.grad.cpu() for x in leaves)],
+                     [f.launches for f in fa.KERNELS]))
+    (got, launches), (want, _) = runs
+    rel = {n: rel_err(a, b) for n, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+    log(f"head_dim 100 through flash_attention (padded to 104; b 2, s 512, 4 heads, bf16): "
+        f"launches {launches}, against the CPU's plain versions "
+        + ", ".join(f"{n} {e:.3g}" for n, e in rel.items()))
+    tol = TOL[torch.bfloat16]
+    if launches != [1, 1, 1] or rel["o"] > tol or max(rel.values()) > 2 * tol:
+        raise AssertionError(f"padded head: launches {launches}, rel err {rel}")
 
 
 def device_kernels(fn):
@@ -341,7 +405,7 @@ def bound(name, bh, s, d, dtype, causal):
     nbytes = {"flash_fwd": 4 * mat + row,          # q k v -> o, lse
               "flash_bwd_dkv": 6 * mat + 2 * row,  # q k v do lse delta -> dk dv
               "flash_bwd_dq": 5 * mat + 2 * row}[name]
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS   # f16's = bf16's
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -355,10 +419,17 @@ def phase_kernels():
     check_kernels(4, 512, d, torch.float32, True, seed=2)
     check_kernels(4, 512, 128, torch.float32, False, seed=3)
     check_kernels(4, 1000, 128, torch.bfloat16, True, seed=4)
-    # heads the kernels widen: 32 to 64, 96 to 128
+    # heads the kernels widen: 32 to 64, 96 to 128, 136 to 256
     check_kernels(4, 1000, 32, torch.bfloat16, True, seed=10)
     check_kernels(4, 512, 32, torch.float32, True, seed=11)
     check_kernels(4, 384, 96, torch.bfloat16, False, seed=12)
+    check_kernels(4, 384, 136, torch.bfloat16, False, seed=17)
+    # f16, and heads of 256 (Gemma's), in every dtype
+    check_kernels(4, 1000, 64, torch.float16, True, seed=14)
+    check_kernels(4, 1000, 256, torch.float16, True, seed=15)
+    check_kernels(4, 1000, 256, torch.bfloat16, True, seed=16)
+    check_kernels(2, 256, 256, torch.float32, True, seed=18)
+    check_padded_head()
     # slice 2's shape: b·h = 64 (batch 8 × 8 heads of 64) at its seq
     moe_inputs, errs_moe = check_kernels(MOE["b"] * MOE["h"], MOE["s"],
                                          MOE["d_model"] // MOE["h"], torch.bfloat16, True,
@@ -392,6 +463,21 @@ def phase_kernels():
     log(f"narrow head bh={bh} s={s} d=32 bf16 causal (widened to 64): "
         + ", ".join(f"{n} {narrow[n]:.4f} ms (d 64 {ms[n]:.4f})" for n in ms))
     del qn, kn, vn, don, on, lsen, deltan
+    # heads of 256 (the D = 256 layouts) and f16 at d 64: their times, at the
+    # same tokens and the same b·h times head_dim as slice 1
+    for dtype, bh_, d_ in ((torch.bfloat16, bh // 4, 256), (torch.float16, bh, d)):
+        qw, kw, vw, dow = _inputs(bh_, s, d_, dtype, seed=20)
+        ow, lsew = fa.flash_fwd(qw, kw, vw, True)
+        deltaw = (dow.float() * ow.float()).sum(dim=-1)
+        wide = {
+            "flash_fwd": cuda_ms(lambda: fa.flash_fwd(qw, kw, vw, True)),
+            "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(qw, kw, vw, dow, lsew, deltaw, True)),
+            "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(qw, kw, vw, dow, lsew, deltaw, True)),
+        }
+        log(f"head bh={bh_} s={s} d={d_} {dtype} causal: "
+            + ", ".join(f"{n} {t:.4f} ms (bound {bound(n, bh_, s, d_, dtype, True)[0]:.4f})"
+                        for n, t in wide.items()))
+        del qw, kw, vw, dow, ow, lsew, deltaw
     plain_ms = {
         "flash_fwd": cuda_ms(lambda: fa.fwd_plain(q, k, v, True), 3),
         "flash_bwd_dkv": cuda_ms(lambda: fa.dkv_plain(q, k, v, do, lse, delta, True), 3),
@@ -602,8 +688,7 @@ def check_gmm(lhs, rhs, gout, sizes, label):
     torch.cuda.synchronize()
     rel = {k: rel_err(got[k], want[k]) for k in got}
     log(f"gmm {label}: " + ", ".join(f"{k} {e:.3g}" for k, e in rel.items()))
-    tol = ({k: GMM_TOL[k.replace("_dlhs", "")] for k in rel} if lhs.dtype == torch.bfloat16
-           else dict.fromkeys(rel, GMM_TOL_F32))
+    tol = {k: GMM_DRHS_TOL if k == "grouped_matmul_drhs" else GMM_TOL[lhs.dtype] for k in rel}
     bad = {k: e for k, e in rel.items() if not e <= tol[k]}
     if bad:
         raise AssertionError(f"gmm kernel disagrees with its plain version: {bad} "
@@ -649,6 +734,32 @@ def check_moe_no_sync():
         "set_sync_debug_mode('error') with no host sync")
 
 
+def check_gmm_padded(d, f, dtype, seed):
+    """A product whose d and f are not multiples of 8 through ``gmm``, which
+    pads its operands (one K7a launch forward, one K7a and one K7b backward),
+    against the plain versions on the unpadded operands: output and
+    gradients within the product's tolerance."""
+    from bagua_tpu_torch.ops import gmm as gm
+
+    lhs, rhs, gout = _gmm_inputs(300, d, f, 3, seed=seed, dtype=dtype)
+    sizes = torch.tensor([120, 0, 150], dtype=torch.int32, device="cuda")
+    runs = []
+    for fn in (gm.gmm, gm.grouped_matmul_plain):
+        a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+        gm.reset_launch_counts()
+        out = fn(a, b, sizes)
+        out.backward(gout)
+        torch.cuda.synchronize()
+        runs.append(([out, a.grad, b.grad], [k.launches for k in gm.KERNELS]))
+    (got, launches), (want, _) = runs
+    rel = {n: rel_err(x, y) for n, x, y in zip(("out", "d_lhs", "d_rhs"), got, want)}
+    tol = GMM_TOL[dtype]
+    log(f"gmm ({d}, {f}) {dtype} through gmm (padded to multiples of 8): launches "
+        f"{launches}, " + ", ".join(f"{n} {e:.3g}" for n, e in rel.items()))
+    if launches != [2, 1] or max(rel.values()) > tol or got[0].shape != (300, f):
+        raise AssertionError(f"padded gmm ({d}, {f}): launches {launches}, rel err {rel}")
+
+
 def phase_gmm_kernels():
     from bagua_tpu_torch.ops import gmm as gm
 
@@ -663,6 +774,8 @@ def phase_gmm_kernels():
               "ragged 300 rows (64, 200)")
     check_gmm(*_gmm_inputs(300, 200, 64, 4, seed=11, dtype=torch.float32), [1, 0, 170, 100],
               "ragged 300 rows (200, 64) f32")
+    check_gmm_padded(100, 200, torch.bfloat16, seed=12)
+    check_gmm_padded(200, 100, torch.float16, seed=13)
     errs = {}
     for m, n in ((d, f), (f, d)):
         inputs = _gmm_inputs(rows, m, n, G, seed=m)
@@ -671,58 +784,80 @@ def phase_gmm_kernels():
             e = check_gmm(*inputs, sizes, f"rows {rows} ({m}, {n}) {label}")
             for k, v in e.items():
                 errs[k] = max(errs.get(k, 0.0), v)
+    check_gmm(*_gmm_inputs(rows, d, f, G, seed=14, dtype=torch.float16), skewed,
+              f"rows {rows} ({d}, {f}) skewed f16")
+    # K7b sums a group of more than one chunk in chunk order: two launches on
+    # the same inputs are bitwise equal
+    lhs, _, gout = _gmm_inputs(rows, d, f, G, seed=15)
+    same_bits = {}
+    for label, sizes in (("balanced", balanced), ("skewed", skewed)):
+        sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        first = gm.grouped_matmul_drhs(lhs, gout, sz, G)
+        second = gm.grouped_matmul_drhs(lhs, gout, sz, G)
+        torch.cuda.synchronize()
+        same_bits[label] = torch.equal(first, second)
+    log(f"gmm: two grouped_matmul_drhs launches on the same inputs bitwise equal: {same_bits}")
+    if not all(same_bits.values()):
+        raise AssertionError(f"grouped_matmul_drhs is not deterministic: {same_bits}")
+    del lhs, gout, first, second
 
-    # times at the path's shapes and balanced sizes: the four K7a launches of
-    # a MoE layer's step ((d, f) and (f, d), each plain and transposed) and
-    # its two K7b launches
-    sizes = torch.tensor(balanced, dtype=torch.int32, device="cuda")
-    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
-    ms, plain_ms, library, bounds, refused = {}, {}, {}, {}, []
+    # times at the path's shapes: the four K7a launches of a MoE layer's
+    # step ((d, f) and (f, d), each plain and transposed) and its two K7b
+    # launches, balanced (hot and cold) and skewed (hot)
+    ms, cold_ms, plain_ms, library, bounds, refused = {}, {}, {}, {}, {}, []
     names = ("grouped_matmul", "grouped_matmul_drhs")
     for name in names:
-        ms[name], plain_ms[name], library[name], bounds[name] = [], [], [], []
+        ms[name], cold_ms[name], plain_ms[name], library[name], bounds[name] = [], [], [], [], []
+    sizes = torch.tensor(balanced, dtype=torch.int32, device="cuda")
+    sk = torch.tensor(skewed, dtype=torch.int32, device="cuda")
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
     for m, n in ((d, f), (f, d)):
         lhs, rhs, gout = _gmm_inputs(rows, m, n, G, seed=m)
         rhs_t = rhs.transpose(1, 2).contiguous()   # [G, n, m]: d_lhs of [rows, n]
         variants = {
             "grouped_matmul": [
-                (lambda: gm.grouped_matmul(lhs, rhs, sizes),
+                ("plain rhs", lambda sz: gm.grouped_matmul(lhs, rhs, sz),
                  lambda: gm.grouped_matmul_plain(lhs, rhs, sizes),
-                 lambda: torch._grouped_mm(lhs, rhs, offs=offs), (m, n)),
-                (lambda: gm.grouped_matmul(lhs, rhs_t, sizes, transpose_rhs=True),
+                 lambda: torch._grouped_mm(lhs, rhs, offs=offs)),
+                ("transposed rhs", lambda sz: gm.grouped_matmul(lhs, rhs_t, sz, transpose_rhs=True),
                  lambda: gm.grouped_matmul_plain(lhs, rhs_t, sizes, True),
-                 lambda: torch._grouped_mm(lhs, rhs_t.transpose(1, 2), offs=offs), (m, n)),
+                 lambda: torch._grouped_mm(lhs, rhs_t.transpose(1, 2), offs=offs)),
             ],
             "grouped_matmul_drhs": [
-                (lambda: gm.grouped_matmul_drhs(lhs, gout, sizes, G),
+                ("", lambda sz: gm.grouped_matmul_drhs(lhs, gout, sz, G),
                  lambda: gm.grouped_matmul_drhs_plain(lhs, gout, sizes, G),
-                 lambda: torch._grouped_mm(lhs.t(), gout, offs=offs), (m, n)),
+                 lambda: torch._grouped_mm(lhs.t(), gout, offs=offs)),
             ],
         }
         for name, runs in variants.items():
-            for kernel, plain, lib, shape in runs:
-                ms[name].append(cuda_ms(kernel))
+            for form, kernel, plain, lib in runs:
+                hot, cold = cuda_ms(lambda: kernel(sizes)), cuda_ms_cold(lambda: kernel(sizes))
+                skewed_ms = cuda_ms(lambda: kernel(sk))
+                ms[name].append(hot)
+                cold_ms[name].append(cold)
                 plain_ms[name].append(cuda_ms(plain, 3))
                 try:   # the yardstick only: a refusal is recorded, not fatal
                     library[name].append(cuda_ms(lib))
                 except (RuntimeError, AttributeError, TypeError) as e:
                     library[name].append(None)
-                    refused.append(f"{name} {shape}: {str(e).splitlines()[0]}")
-                bounds[name].append(gmm_bound(name, rows, *shape, G))
-    # f32 operands run the FMA kernels: their times at the path's first shape
-    lhs, rhs, gout = _gmm_inputs(rows, d, f, G, seed=2, dtype=torch.float32)
-    log(f"gmm f32 (FMA kernels) rows {rows} ({d}, {f}) balanced: grouped_matmul "
-        f"{cuda_ms(lambda: gm.grouped_matmul(lhs, rhs, sizes)):.4f} ms, grouped_matmul_drhs "
-        f"{cuda_ms(lambda: gm.grouped_matmul_drhs(lhs, gout, sizes, G)):.4f} ms (bf16 "
-        f"{ms['grouped_matmul'][0]:.4f} and {ms['grouped_matmul_drhs'][0]:.4f}), bound "
-        f"{2 * rows * d * f / PEAK_F32_FLOPS * 1e3:.4f} ms each")
-    # the routing of a fresh model is not balanced: the skewed sizes' times
-    lhs, rhs, gout = _gmm_inputs(rows, d, f, G, seed=1)
-    sk = torch.tensor(skewed, dtype=torch.int32, device="cuda")
-    log(f"gmm timing skewed {skewed} ({d}, {f}): grouped_matmul "
-        f"{cuda_ms(lambda: gm.grouped_matmul(lhs, rhs, sk)):.4f} ms, grouped_matmul_drhs "
-        f"{cuda_ms(lambda: gm.grouped_matmul_drhs(lhs, gout, sk, G)):.4f} ms")
-    log(f"gmm timing rows {rows} G {G} balanced, per variant: kernels {ms}, plain "
+                    refused.append(f"{name} {(m, n)}: {str(e).splitlines()[0]}")
+                bounds[name].append(gmm_bound(name, rows, m, n, G))
+                lib_ms = library[name][-1]
+                log(f"gmm timing {name} {form} ({m}, {n}): balanced {hot:.4f} ms hot, "
+                    f"{cold:.4f} cold; skewed {skewed_ms:.4f} hot ({skewed_ms / hot:.3f}x); "
+                    f"plain {plain_ms[name][-1]:.4f}; torch._grouped_mm "
+                    + (f"{lib_ms:.4f}" if lib_ms is not None else "refused")
+                    + f"; bound {bounds[name][-1][0]:.4f}")
+    # f32 operands run the FMA kernels, f16 the tensor cores: their times at
+    # the path's first shape
+    for dtype in (torch.float32, torch.float16):
+        lhs, rhs, gout = _gmm_inputs(rows, d, f, G, seed=2, dtype=dtype)
+        log(f"gmm {dtype} rows {rows} ({d}, {f}) balanced: grouped_matmul "
+            f"{cuda_ms(lambda: gm.grouped_matmul(lhs, rhs, sizes)):.4f} ms, grouped_matmul_drhs "
+            f"{cuda_ms(lambda: gm.grouped_matmul_drhs(lhs, gout, sizes, G)):.4f} ms (bf16 "
+            f"{ms['grouped_matmul'][0]:.4f} and {ms['grouped_matmul_drhs'][0]:.4f}), bound "
+            f"{2 * rows * d * f / (PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS) * 1e3:.4f} ms each")
+    log(f"gmm timing rows {rows} G {G} balanced, per form: kernels {ms}, cold {cold_ms}, plain "
         f"{plain_ms}, torch._grouped_mm {library}"
         + (f", refused: {refused}" if refused else ""))
     mean = statistics.fmean
@@ -757,6 +892,20 @@ def phase_slice_moe():
                                           MOE["b"] * cfg.max_seq_len, [fa, gm])
     log_steps("slice 2", losses, launches, st)
     n_moe = cfg.n_layers // 2
+    # the rows each expert gets on the training batch after the steps: the
+    # skew the gmm kernels meet on this path
+    routed = []
+    hooks = [m.router.register_forward_hook(
+        lambda mod, inp, out: routed.append(torch.bincount(
+            torch.topk(out, MOE["k"], dim=-1).indices.reshape(-1),
+            minlength=MOE["experts"]).tolist()))
+        for m in model.modules() if isinstance(m, MoEMLP)]
+    with torch.no_grad():
+        model(tokens[:, :cfg.max_seq_len])
+    for h in hooks:
+        h.remove()
+    log(f"slice 2 routing: rows per expert of each MoE layer on the training batch "
+        f"after {STEPS} steps: {routed}")
     want = {"flash_fwd": cfg.n_layers * STEPS, "flash_bwd_dkv": cfg.n_layers * STEPS,
             "flash_bwd_dq": cfg.n_layers * STEPS,
             "grouped_matmul": 4 * n_moe * STEPS,       # 2 forward + 2 d_lhs
@@ -1085,48 +1234,52 @@ def phase_sign_kernels():
 
 
 def phase_narrow_shapes():
-    """The tiny SQuAD model (head_dim 32): one forward and backward on the
-    card through the flash kernels, one launch of each a layer, the loss and
-    every gradient finite, and the logits on the same input within the
-    slices' 5e-2 of the same model with the plain attention.  An ``MoEMLP``
-    with d_model 64 in bf16 and one with d_model 128 in f32: one forward and
-    backward each through the gmm kernels (four K7a and two K7b launches),
-    against the same layer whose gmm is the dense reference (the routing,
-    computed before either, is the same): the output within the product's
-    tolerance and every gradient within twice it."""
+    """The tiny SQuAD model (head_dim 32), in bf16 and in f16: one forward
+    and backward on the card through the flash kernels, one launch of each a
+    layer, the loss and every gradient finite, and the logits on the same
+    input within the slices' 5e-2 of the same model with the plain
+    attention.  An ``MoEMLP`` with d_model 64 in bf16, one with d_model 128 in
+    f32 and one with d_model 128 in f16: one forward and backward each
+    through the gmm kernels (four K7a and two K7b launches), against the same
+    layer whose gmm is the dense reference (the routing, computed before
+    either, is the same): the output within the product's tolerance and
+    every gradient within twice it."""
     from bagua_tpu_torch.model_parallel.moe import MoEMLP
     from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM, lm_loss_fn
     from bagua_tpu_torch.ops import flash_attention as fa
     from bagua_tpu_torch.ops import gmm as gm
 
-    cfg = TransformerConfig(**SQUAD_TINY)
-    model = TransformerLM(cfg, seed=0)
-    g = torch.Generator(device="cuda").manual_seed(12)
-    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1), device="cuda",
-                           generator=g)
-    fa.reset_launch_counts()
-    loss = lm_loss_fn(model, {"tokens": tokens})
-    loss.backward()
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in fa.KERNELS}
-    finite = bool(torch.isfinite(loss)) and all(
-        torch.isfinite(p.grad).all() for p in model.parameters())
-    plain = TransformerLM(cfg, attn_fn=lambda q, k, v, dtype:
-                          fa.reference_attention(q, k, v, dtype))
-    plain.load_state_dict(model.state_dict())
-    with torch.no_grad():
-        short = tokens[:1, :cfg.max_seq_len]
-        got, want = model(short), plain(short)
-    err = rel_err(got, want)
-    log(f"narrow heads: SQuAD tiny (head_dim {cfg.head_dim}) loss {loss.item():.4f}, finite "
-        f"{finite}, launches {launches}; logits vs plain attention rel err {err:.3g}")
-    if not (finite and set(launches.values()) == {cfg.n_layers} and err <= 5e-2):
-        raise AssertionError(f"head_dim {cfg.head_dim}: launches {launches}, finite "
-                             f"{finite}, logits rel err {err}")
+    for dtype in (torch.bfloat16, torch.float16):
+        cfg = TransformerConfig(**SQUAD_TINY, dtype=dtype)
+        model = TransformerLM(cfg, seed=0)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1), device="cuda",
+                               generator=g)
+        fa.reset_launch_counts()
+        loss = lm_loss_fn(model, {"tokens": tokens})
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in fa.KERNELS}
+        finite = bool(torch.isfinite(loss)) and all(
+            torch.isfinite(p.grad).all() for p in model.parameters())
+        plain = TransformerLM(cfg, attn_fn=lambda q, k, v, dtype:
+                              fa.reference_attention(q, k, v, dtype))
+        plain.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            short = tokens[:1, :cfg.max_seq_len]
+            got, want = model(short), plain(short)
+        err = rel_err(got, want)
+        log(f"narrow heads: SQuAD tiny (head_dim {cfg.head_dim}) {dtype} loss "
+            f"{loss.item():.4f}, finite {finite}, launches {launches}; logits vs plain "
+            f"attention rel err {err:.3g}")
+        if not (finite and set(launches.values()) == {cfg.n_layers} and err <= 5e-2):
+            raise AssertionError(f"head_dim {cfg.head_dim} {dtype}: launches {launches}, "
+                                 f"finite {finite}, logits rel err {err}")
 
-    for d_model, dtype in ((64, torch.bfloat16), (128, torch.float32)):
+    for d_model, dtype in ((64, torch.bfloat16), (128, torch.float32), (128, torch.float16)):
         g = torch.Generator(device="cuda").manual_seed(d_model)
-        x0 = torch.randn(2, cfg.max_seq_len, d_model, device="cuda", generator=g).to(dtype)
+        x0 = torch.randn(2, SQUAD_TINY["max_seq_len"], d_model, device="cuda",
+                         generator=g).to(dtype)
         runs = []
         for gmm_fn in (None, gm.gmm_reference):
             torch.manual_seed(0)
@@ -1140,11 +1293,11 @@ def phase_narrow_shapes():
             runs.append((y, [x.grad, *(p.grad for p in layer.parameters())],
                          [k.launches for k in gm.KERNELS]))
         (y, grads, launches), (ref_y, ref_grads, _) = runs
-        tol = GMM_TOL["grouped_matmul"] if dtype == torch.bfloat16 else GMM_TOL_F32
+        tol = GMM_TOL[dtype]
         err = rel_err(y, ref_y)
         grad_err = max(rel_err(a, b) for a, b in zip(grads, ref_grads))
         finite = all(torch.isfinite(t).all() for t in (y, *grads))
-        log(f"narrow and f32 gmm: MoEMLP d_model {d_model} {dtype}: launches {launches}, "
+        log(f"narrow, f16 and f32 gmm: MoEMLP d_model {d_model} {dtype}: launches {launches}, "
             f"output vs dense reference rel err {err:.3g}, gradients {grad_err:.3g}, "
             f"finite {finite}")
         if not (finite and launches == [4, 2] and err <= tol and grad_err <= 2 * tol):
@@ -1433,21 +1586,30 @@ def main():
         phase, rank, init, out = sys.argv[2:6]
         multi_rank_worker(phase, int(rank), init, out)
         return
-    card = phase_device()
-    phase_build()
-    rows = phase_kernels()
-    rows.update(phase_gmm_kernels())
-    rows.update(phase_codec_kernels())
-    rows.update(phase_sign_kernels())
-    phase_narrow_shapes()
-    launches = phase_slice()
-    launches_moe, _ = phase_slice_moe()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = timed("device", phase_device)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
+    rows.update(timed("gmm kernels", phase_gmm_kernels))
+    rows.update(timed("codec kernels", phase_codec_kernels))
+    rows.update(timed("sign kernels", phase_sign_kernels))
+    timed("narrow shapes", phase_narrow_shapes)
+    launches = timed("slice 1", phase_slice)
+    launches_moe, _ = timed("slice 2", phase_slice_moe)
     torch.distributed.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()   # the ranks of slices 3 and 4 share this card
-    slice3 = phase_multi_rank("slice3")
-    slice4 = phase_multi_rank("slice4")
-    phase_multi_rank("slice4_2x2")
+    slice3 = timed("slice 3", phase_multi_rank, "slice3")
+    slice4 = timed("slice 4", phase_multi_rank, "slice4")
+    timed("slice 4 (2 x 2)", phase_multi_rank, "slice4_2x2")
+    log(f"seconds by phase: {seconds}")
     # each kernel's launches come from its own path: flash from slice 1, gmm
     # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8
     # ring, K4 and K5 from slice 4's main path (the other slices checked the

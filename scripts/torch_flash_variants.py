@@ -30,7 +30,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-_KEYS = "constexpr int kFwdKeys = 128;"
+_KEYS = "constexpr int kFwdKeys = D == 256 ? 64 : 128;"
 # the forward's loop, by its first line and the line after it
 _FWD_LOOP = ("  // tile it: S = Q K^T is issued before", "  // O / l and lse")
 # the plain order: round it issues O += P V of tile it - 1 and S of tile it
@@ -38,28 +38,28 @@ _FWD_LOOP = ("  // tile it: S = Q K^T is issued before", "  // O / l and lse")
 # warpgroup
 _PLAIN_ORDER = """\
   for (int it = 0; it <= ntiles; ++it) {
-    const int st = it % kStages, prev = (it + kStages - 1) % kStages;
+    const int st = it % S, prev = (it + S - 1) % S;
     const bool pv = it >= 1 && it <= own, qk = it < own;
     if (it < ntiles) {
-      mbar_wait(&sm.full[st], (it / kStages) & 1);
+      mbar_wait(&sm.full[st], (it / S) & 1);
       __syncwarp();
     }
-    if (pv) issue_pv<D, kFwdKeys>(o_acc, pf, sm.v[prev]);
-    if (qk) issue_qk<D, kFwdKeys>(sc, sm.q, wg, sm.k[st]);
+    if (pv) issue_pv<T, D, KEYS>(o_acc, pf, sm.v[prev]);
+    if (qk) issue_qk<T, D, KEYS>(sc, sm.q, wg, sm.k[st]);
     wgmma_wait<0>();
     if (pv) {
       reg_fence(o_acc);
 #pragma unroll
-      for (int kk = 0; kk < kFwdKeys / 16; ++kk) reg_fence(pf[kk]);
+      for (int kk = 0; kk < KEYS / 16; ++kk) reg_fence(pf[kk]);
     }
     if (it > 0) mbar_arrive(&sm.empty[prev]);
     if (qk) {
       reg_fence(sc);
-      softmax(sc, m, l, corr, it * kFwdKeys, qw, row_lo, s, causal, tq, scale_log2);
+      softmax(sc, m, l, corr, it * KEYS, qw, row_lo, s, causal, tq, scale_log2);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i % 4) / 2];
 #pragma unroll
-      for (int kk = 0; kk < kFwdKeys / 16; ++kk) frag_a(pf[kk], sc, kk);
+      for (int kk = 0; kk < KEYS / 16; ++kk) frag_a<T>(pf[kk], sc, kk);
     }
   }
 
@@ -69,7 +69,7 @@ _PLAIN_ORDER = """\
 # settled by timing (PERF.md has the times of these and of the variants
 # timed once and dropped)
 VARIANTS = {
-    # the forward's key tile at 64 keys (S an m64n64 product)
+    # the forward's key tile at 64 keys (S an m64n64 product) at every D
     "keys_64": [(_KEYS, "constexpr int kFwdKeys = 64;")],
     "plain_order": [(_FWD_LOOP, _PLAIN_ORDER)],
 }
@@ -98,35 +98,38 @@ def start_build(name, source, out_dir):
 
     src = out_dir / f"{name}.cu"
     src.write_text(source)
-    return subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                             str(out_dir / f"{name}.so"), str(src)],
+    return subprocess.Popen(_build.nvcc_command(src, out_dir / f"{name}.so"),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def bind(path):
+def bind(path, head_dim_arg):
+    """The library at ``path``; a version without the head_dim argument
+    (before the entry points padded heads) takes one int fewer."""
     from bagua_tpu_torch.ops import flash_attention as fa
 
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in fa._SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).argtypes = argtypes if head_dim_arg else argtypes[:-2] + argtypes[-1:]
         getattr(lib, fn).restype = ctypes.c_int
+    lib.head_dim_arg = head_dim_arg
     return lib
 
 
 def launchers(lib, q, k, v, do, lse, delta):
-    """The three kernels of ``lib`` on one input, each a function returning
-    its CUDA error code, and their outputs."""
+    """The three kernels of ``lib`` on one bf16 input, each a function
+    returning its CUDA error code, and their outputs."""
     bh, s, d = q.shape
     o, dk, dv, dq = (torch.empty_like(q) for _ in range(4))
     lse_out = torch.empty_like(lse)
     stream = torch.cuda.current_stream().cuda_stream
     p = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    shape = (bh, s, d, d) if lib.head_dim_arg else (bh, s, d)   # ..., head_dim
     fns = {
         "fwd": lambda: lib.bagua_flash_fwd(*p[:3], o.data_ptr(), lse_out.data_ptr(),
-                                           bh, s, d, 1, 1, stream),
-        "dkv": lambda: lib.bagua_flash_bwd_dkv(*p, dk.data_ptr(), dv.data_ptr(), bh, s, d,
+                                           *shape, 1, 1, stream),
+        "dkv": lambda: lib.bagua_flash_bwd_dkv(*p, dk.data_ptr(), dv.data_ptr(), *shape,
                                                1, 1, stream),
-        "dq": lambda: lib.bagua_flash_bwd_dq(*p, dq.data_ptr(), bh, s, d, 1, 1, stream),
+        "dq": lambda: lib.bagua_flash_bwd_dq(*p, dq.data_ptr(), *shape, 1, 1, stream),
     }
     return fns, {"o": o, "lse": lse_out, "dk": dk, "dv": dv, "dq": dq}
 
@@ -158,7 +161,7 @@ def main():
         usage = [u for u in ptxas_usage(log) if "mma" in u]
         slow = sorted({ln.strip() for ln in log.splitlines() if "Performance Loss" in ln})
         print(f"{name}: " + "; ".join(usage) + "".join(f"; {w}" for w in slow), flush=True)
-        libs[name] = bind(out_dir / f"{name}.so")
+        libs[name] = bind(out_dir / f"{name}.so", "int head_dim, int dtype" in sources[name])
 
     g = torch.Generator(device="cuda").manual_seed(0)
     for d in (64, 128):

@@ -36,8 +36,8 @@ CLASSES = (
     ("flash_fwd", ("fwd_wgmma", "fwd_kernel")),
     ("flash_bwd_dkv", ("dkv_wgmma", "dkv_kernel")),
     ("flash_bwd_dq", ("dq_wgmma", "dq_kernel")),
-    ("gmm", ("gmm_kernel",)),
-    ("gmm_drhs", ("gmm_drhs_kernel",)),
+    ("gmm", ("gmm_kernel", "gmm_wgmma_kernel", "gmm_f32_kernel")),
+    ("gmm_drhs", ("gmm_drhs_",)),
     ("nccl", ("nccl",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("optimizer", ("multi_tensor_apply",)),

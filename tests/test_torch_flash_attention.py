@@ -5,7 +5,9 @@ kernels in interpret mode, as tests/test_flash_attention.py runs them) and
 through the port's ``flash_attention``, whose wrappers take the kernels'
 plain versions for CPU tensors.  Tolerances are the JAX tests' own: f32
 2e-5 for the forward and 5e-5 for the gradients (another summation order),
-bf16 2e-2 (P and the products rounded to bf16 at other places).
+bf16 2e-2 (P and the products rounded to bf16 at other places); f16 5e-3 of
+the largest magnitude (the same roundings in f16, whose ulp is 2^-10 below
+2: five of them).
 """
 
 import importlib
@@ -156,10 +158,13 @@ def test_non_cpu_tensor_takes_the_kernel_or_raises():
     assert [f.launches for f in tfa.KERNELS] == [0, 0, 0]
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("head_dim", [0, 32, 64, 100, 128, 136, 256, 257])
 def test_kernels_take_rule(head_dim, dtype):
-    want = head_dim <= 128 and dtype in (torch.bfloat16, torch.float32)
+    # any head up to 256 in a 16-bit type or f32; flash_attention pads a
+    # head that is not a multiple of 8 (100) for the kernels
+    want = 0 < head_dim <= 256 and dtype != torch.float64
     assert tfa.kernels_take(head_dim, dtype) is want
 
 
@@ -195,3 +200,55 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+JAX_DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5, 5e-5),
+              "f16": (jnp.float16, torch.float16, 5e-3, 5e-3)}
+
+
+@pytest.mark.parametrize("kind,d", [("f32", 100), ("f32", 256), ("f16", 64), ("f16", 100),
+                                    ("f16", 256)])
+def test_f16_and_wide_heads_match_jax(kind, d):
+    # f16, head_dim 256 and a head of 100 (not a multiple of 8): the
+    # forward and the gradients against JAX's kernels in interpret mode; the
+    # f16 tolerances are of the largest magnitude
+    jdt, tdt, tol, gtol = JAX_DTYPES[kind]
+    q, k, v, g = _inputs(d + len(kind), s=128, d=d)
+    jfn = lambda q, k, v: jfa.flash_attention(q, k, v, jdt, causal=True,
+                                              interpret=True, force=True)
+    want, vjp = jax.vjp(jfn, *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g, jdt))
+    leaves = [torch.tensor(x).to(tdt).requires_grad_() for x in (q, k, v)]
+    got = tfa.flash_attention(*leaves)
+    (got.float() * torch.tensor(g).to(tdt).float()).sum().backward()
+    assert got.dtype == tdt and got.shape == (1, 128, 2, d)
+    for name, a, b, t in (("o", got.detach(), want, tol),
+                          *((f"d{n}", x.grad, w, gtol)
+                            for n, x, w in zip("qkv", leaves, want_grads))):
+        b = np.asarray(jnp.asarray(b, jnp.float32))
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=0,
+                                   atol=t * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float16, 2e-3)])
+def test_padding_keeps_the_real_heads_scale(monkeypatch, dtype, tol):
+    # On the kernel path flash_attention pads a head of 100 to 104 zero
+    # columns and passes 100 beside it: the scale stays 1/sqrt(100).  Sent
+    # down that path on the CPU (the wrappers' plain versions take the
+    # padded tensors and the head_dim), output and gradients equal the
+    # unpadded plain result: f32 within 1e-5, f16 within 2e-3 of the largest
+    # magnitude (the f32 sums before each rounding to f16 run in another
+    # order: two f16 ulps); a scale of 1/sqrt(104) would move the logits by
+    # 2%.
+    q, k, v, g = (torch.tensor(x).to(dtype) for x in _inputs(13, s=96, d=100))
+    grads = []
+    for padded in (False, True):
+        monkeypatch.setattr(tfa, "_kernel_path", lambda x: padded)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out, lse = tfa.flash_attention_with_lse(*leaves, causal=True)
+        ((out * g.float()).sum() + lse.sum()).backward()
+        grads.append((out.detach(), lse.detach(), *(x.grad for x in leaves)))
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *grads):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = ((a.float() - b.float()).abs().max() / a.float().abs().max()).item()
+        assert err <= tol, (name, err)

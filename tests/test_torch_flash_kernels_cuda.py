@@ -5,7 +5,8 @@ On the card, where JAX is not installed, skip the JAX conftest:
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_kernels_cuda.py``.
 Tolerances (max-abs error over the plain version's max-abs): bf16 2e-2 (the
 kernel keeps q.k in f32 and rounds P before normalizing; the backward
-kernels sum in another order), f32 1e-4 (another summation order).
+kernels sum in another order), f16 5e-3 (the same roundings, in f16's ulp,
+an eighth of bf16's), f32 1e-4 (another summation order).
 """
 
 import pytest
@@ -14,7 +15,7 @@ import torch
 from bagua_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
 
 
 @pytest.fixture
@@ -28,8 +29,9 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])   # 32 and 96 run widened to 64 and 128
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+# 32, 96 and 136 run widened to 64, 128 and 256
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 136, 256])
 @pytest.mark.parametrize("s,causal", [(256, True), (1000, True), (77, False)])
 def test_kernels_match_plain(card, dtype, d, s, causal):
     g = torch.Generator(device="cuda").manual_seed(s + d)
@@ -70,29 +72,31 @@ def _forward(q, k, v, causal):
     return got, want
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 136, 256])
 @pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 384, 1000])
-def test_forward_at_tile_edges(card, s, d, causal):
-    # the forward owns 128-query blocks and streams 64- or 128-key tiles:
-    # every length around those edges, at three heads
+def test_forward_at_tile_edges(card, s, d, causal, dtype):
+    # the forward owns 128- or 192-query blocks and streams 64- or 128-key
+    # tiles: every length around those edges, at three heads
     g = torch.Generator(device="cuda").manual_seed(1000 * s + d + causal + 7)
-    q, k, v = (torch.randn(3, s, d, device="cuda", dtype=torch.bfloat16, generator=g)
+    q, k, v = (torch.randn(3, s, d, device="cuda", dtype=dtype, generator=g)
                for _ in range(3))
     got, want = _forward(q, k, v, causal)
     for name, a, b in zip(("o", "lse"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
-        assert _rel(a, b) <= TOL[torch.bfloat16], name
+        assert _rel(a, b) <= TOL[dtype], name
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 136, 256])
 @pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 384, 1000])
-def test_backward_at_tile_edges(card, s, d, causal):
-    # the backward kernels own 128-row blocks and stream 64-row tiles: every
-    # length around those edges, at three heads
+def test_backward_at_tile_edges(card, s, d, causal, dtype):
+    # the backward kernels own 128-row blocks (64 at D = 256) and stream
+    # 64-row tiles: every length around those edges, at three heads
     g = torch.Generator(device="cuda").manual_seed(1000 * s + d + causal)
-    q, k, v, do = (torch.randn(3, s, d, device="cuda", dtype=torch.bfloat16, generator=g)
+    q, k, v, do = (torch.randn(3, s, d, device="cuda", dtype=dtype, generator=g)
                    for _ in range(4))
     got, want = _backward(q, k, v, do, causal)
     scales = [w.float().abs().max() for w in want]
@@ -103,10 +107,10 @@ def test_backward_at_tile_edges(card, s, d, causal):
         scales[0] = scales[2] = scales[1]
     for name, a, b, scale in zip(("dk", "dv", "dq"), got, want, scales):
         assert a.dtype == b.dtype and a.shape == b.shape
-        assert ((a.float() - b.float()).abs().max() / scale).item() <= TOL[torch.bfloat16], name
+        assert ((a.float() - b.float()).abs().max() / scale).item() <= TOL[dtype], name
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_backward_reads_no_row_of_the_next_head(card, d):
     # the forward and backward kernels: at a ragged length the last tile of
     # head 0 ends past s; a tensor map
@@ -126,11 +130,13 @@ def test_backward_reads_no_row_of_the_next_head(card, d):
         assert _rel(a[2], b[2]) <= TOL[torch.bfloat16], name
 
 
-def test_backward_is_deterministic(card):
+@pytest.mark.parametrize("d", [64, 256])
+def test_backward_is_deterministic(card, d):
     # each output tile is written by one block in a fixed order: two
     # launches on the same inputs agree bit for bit, backward and forward
+    # (at D = 256 too, where two warpgroups split dK and dV)
     g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v, do = (torch.randn(8, 1000, 64, device="cuda", dtype=torch.bfloat16, generator=g)
+    q, k, v, do = (torch.randn(8, 1000, d, device="cuda", dtype=torch.bfloat16, generator=g)
                    for _ in range(4))
     first, _ = _backward(q, k, v, do, True)
     second, _ = _backward(q, k, v, do, True)
@@ -143,12 +149,19 @@ def test_backward_is_deterministic(card):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
-    for d in (36, 256):   # not a multiple of 8; wider than 128
-        q = torch.randn(2, 64, d, device="cuda")
-        with pytest.raises(ValueError, match="head_dim"):
-            fa.flash_fwd(q, q, q, True)
-    q = torch.randn(2, 64, 64, device="cuda", dtype=torch.float16)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    q = torch.randn(2, 64, 36, device="cuda")   # flash_attention pads it; the wrappers refuse
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_fwd(q, q, q, True)
+    q = torch.randn(2, 64, 264, device="cuda")   # wider than 256
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q, q, q, True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*(torch.randn(1, 64, 2, 260, device="cuda") for _ in range(3)))
+    q = torch.randn(2, 64, 64, device="cuda")
+    with pytest.raises(ValueError, match="within the stored"):
+        fa.flash_fwd(q, q, q, True, head_dim=72)
+    q = torch.randn(2, 64, 64, device="cuda", dtype=torch.float64)
+    with pytest.raises(ValueError, match="float16, bfloat16 or float32"):
         fa.flash_fwd(q, q, q, True)
     q = torch.randn(2, 64, 64, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
@@ -195,3 +208,32 @@ def test_head_dim_32_model_matches_the_cpu(card, dtype):
             assert _rel(a.cpu(), b) <= 1e-4
     else:
         assert _rel(logits.cpu(), cpu_logits) <= 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("d", [100, 20, 250])
+def test_entry_point_pads_a_head(card, d, dtype):
+    # a head that is not a multiple of 8 goes through flash_attention padded
+    # to one (104, 24, 256) and cut back: the kernels run (one launch each),
+    # with the scale of the real head, and the output and gradients equal
+    # the same call on the CPU, whose wrappers run the plain versions on the
+    # unpadded head, within the dtype's tolerance (gradients, two products
+    # deep, within twice it)
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v, do = (torch.randn(2, 300, 2, d, device="cuda", dtype=dtype, generator=g)
+                   for _ in range(4))
+    runs = []
+    for device in ("cuda", "cpu"):
+        leaves = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
+        fa.reset_launch_counts()
+        out = fa.flash_attention(*leaves)
+        out.backward(do.to(device))
+        torch.cuda.synchronize()
+        runs.append((out.cpu(), [x.grad.cpu() for x in leaves],
+                     [f.launches for f in fa.KERNELS]))
+    (out, grads, launches), (ref, ref_grads, ref_launches) = runs
+    assert launches == [1, 1, 1] and ref_launches == [0, 0, 0]
+    assert out.shape == q.shape and out.dtype == dtype
+    assert _rel(out, ref) <= TOL[dtype]
+    for a, b in zip(grads, ref_grads):
+        assert a.shape == q.shape and _rel(a, b) <= 2 * TOL[dtype]

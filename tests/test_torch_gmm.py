@@ -6,7 +6,9 @@ force=True``, as ``tests/test_gmm.py`` does) and its dense
 Inputs are made with numpy from a seed.  Forward, d_lhs and d_rhs are held
 with ragged group sizes and empty groups.  Tolerances: f32 1e-5 of the
 largest magnitude (summation order only); bf16 1e-2 of it (both sides sum in
-f32 and round once to bf16, so they differ by at most one bf16 ulp, 2^-8).
+f32 and round once to bf16, so they differ by at most one bf16 ulp, 2^-8);
+f16 2e-3 of it (the same in f16, whose ulp is 2^-11 of an element, with the
+f32 sums of the products in another order).
 """
 
 import jax
@@ -23,7 +25,8 @@ from bagua_tpu_torch.ops import gmm as tgmm
 torch.set_num_threads(1)
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
-          "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
+          "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2),
+          "f16": (jnp.float16, torch.float16, 2e-3)}
 SIZES = [[100, 156], [0, 256, 0], [37, 1, 218], [60, 0, 196]]
 
 
@@ -98,10 +101,14 @@ def test_gmm_rejects_mismatched_shapes():
         tgmm.gmm(torch.zeros(4, 8), torch.zeros(2, 6, 3), torch.tensor([2, 2]))
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d,f", [(64, 128), (128, 64), (128, 256), (192, 128), (0, 128)])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("d,f", [(64, 128), (128, 64), (128, 256), (192, 128), (0, 128),
+                                 (100, 30), (7, 1), (64, 0)])
 def test_kernels_take_rule(d, f, dtype):
-    want = dtype in (torch.bfloat16, torch.float32) and d > 0
+    # any positive d and f in a 16-bit type or f32; gmm pads widths that
+    # are not multiples of 8 for the kernels
+    want = dtype != torch.float64 and d > 0 and f > 0
     assert tgmm.kernels_take(d, f, dtype) is want
 
 
@@ -126,3 +133,29 @@ def test_cpu_tensors_are_not_counted():
     want = np.concatenate([lhs[:4] @ rhs[0], lhs[4:] @ rhs[1]])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     assert [k.launches for k in tgmm.KERNELS] == [0, 0]
+
+
+@pytest.mark.parametrize("kind", sorted(DTYPES))
+def test_odd_widths_match_jax(monkeypatch, kind):
+    # d 100 and f 30, not multiples of 8: JAX runs its gmm_reference there
+    # (only multiples of 128 take its kernel); the port's gmm on the kernel
+    # path pads lhs to [rows, 104] and rhs to [G, 104, 32] and cuts the
+    # output to f.  Sent down that path on the CPU (the wrappers' plain
+    # versions take the padded operands), output and gradients match JAX's,
+    # within the kind's tolerance, and have the unpadded shapes.
+    jdt, tdt, tol = DTYPES[kind]
+    sizes = [37, 0, 90]
+    lhs, rhs, gout, gs = _case(sizes, 100, 30, seed=21)
+    jl, jr, jg = (jnp.asarray(a, jdt) for a in (lhs, rhs, gout))
+    out, vjp = jax.vjp(lambda a, b: jgmm(a, b, jnp.asarray(gs)), jl, jr)
+    d_lhs, d_rhs = vjp(jg)
+    monkeypatch.setattr(tgmm, "_kernel_path", lambda x: True)
+    tl = torch.tensor(lhs).to(tdt).requires_grad_()
+    tr = torch.tensor(rhs).to(tdt).requires_grad_()
+    got = tgmm.gmm(tl, tr, torch.from_numpy(gs))
+    got.backward(torch.tensor(gout).to(tdt))
+    assert got.shape == (127, 30) and tl.grad.shape == tl.shape and tr.grad.shape == tr.shape
+    _close(got.detach(), out, tol, "out")
+    _close(tl.grad, d_lhs, tol, "d_lhs")
+    _close(tr.grad, d_rhs, tol, "d_rhs")
+    assert torch.all(tr.grad[1] == 0)
