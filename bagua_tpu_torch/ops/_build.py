@@ -4,7 +4,8 @@ Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/kernels/<name>-<hash>.so`` beside the package (a directory
 ``.gitignore`` lists); the hash in the file name covers the source and every
 ``csrc/*.cuh`` header, so that an edit of either never loads a stale library.  :func:`build_all` starts one ``nvcc``
-per source, all at once.  Nothing here runs at import time: the CPU tests
+per source, all at once; :func:`kernels_of_calls` names the device kernels
+that calls of a wrapper run.  Nothing here runs at import time: the CPU tests
 import every module on a machine with no ``nvcc``.
 """
 
@@ -133,3 +134,26 @@ def launch(fn, *args) -> None:
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+
+
+def kernels_of_calls(fn, calls=3, tries=5) -> List[str]:
+    """The device kernels that ``calls`` calls of ``fn`` run, one name a
+    launch, from one profiler window after a warm-up step.  The profiler now
+    and then loses device events of short kernels; a window that recorded
+    fewer launches than calls (every call launches one kernel at least) has
+    lost some and is taken again, up to ``tries`` windows."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    names = []
+    for _ in range(tries):
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            for _ in range(2):   # the warm-up step, then the recorded one
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= calls:
+            break
+    return names

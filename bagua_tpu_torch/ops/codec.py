@@ -20,6 +20,11 @@ through ``ctypes``:
 - :func:`sign_decompress_chunked` (K5): the planar bits as ``±scale``, the
   padded ``[n, 8 * B]`` block (``pallas_codec.py:471-511``).
 
+K1 and K4 are one launch a call: K1 one cooperative grid (one block an SM,
+the input read once from device memory where it fits in the grid's shared
+memory), K4 one grid whose last block of a chunk to finish computes the
+chunk's scale.
+
 Each wrapper has a plain PyTorch version beside it and counts its launches in
 ``<wrapper>.launches``.  A wrapper takes the plain version only for tensors on
 the CPU; for a CUDA tensor it launches the kernel at every chunk size or
@@ -32,6 +37,7 @@ convert; K4's payload does too, its scale is a sum whose order differs
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,9 +46,9 @@ from . import _build
 EPS = 1e-7
 LEVELS = 255.0
 
-#: elements per block of the kernels' (tile, chunk) grid, at least; a chunk
-#: is cut into at most ``MAX_TILES`` tiles, so pass 2's reduce over the
-#: partials stays small
+#: elements per block of K2's and K3's (tile, chunk) grid, at least; a chunk
+#: is cut into at most ``MAX_TILES`` tiles, so K3's reduce over the partials
+#: stays small
 MIN_TILE = 4096
 MAX_TILES = 1024
 
@@ -135,7 +141,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "bagua_minmax_compress": [_P, _I, _I, _L, _L, _I, _P, _P, _P, _P, _P],
+    "bagua_minmax_compress": [_P, _I, _I, _L, _P, _L, _P, _P, _P, _P],
     "bagua_minmax_decompress": [_P, _P, _P, _I, _L, _L, _I, _P, _P],
     "bagua_absmax": [_P, _I, _I, _L, _L, _I, _P, _P, _P],
     "bagua_sign_compress": [_P, _I, _I, _L, _L, _L, _I, _P, _P, _P, _P],
@@ -167,6 +173,28 @@ def _check_input(x, n_chunks: int) -> int:
     return x.numel() // n_chunks
 
 
+_last_stream = {}
+
+
+def _order_streams(device) -> None:
+    """Order a K4 launch after the last one made on another stream of the
+    same device: K4 keeps its per-chunk tickets in the library's device
+    memory, so two launches must not run at once.  The port launches codecs
+    on the current stream only, where this records nothing."""
+    stream = torch.cuda.current_stream(device)
+    last = _last_stream.get(device)
+    if last is not None and last != stream:
+        done = torch.cuda.Event()
+        done.record(last)
+        stream.wait_event(done)
+    _last_stream[device] = stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def compress_chunked(x, n_chunks: int):
     """K1: ``(mn, mx, payload)`` for flat ``x`` (f32 or bf16, ``numel %
     n_chunks == 0``): ``mn``/``mx`` f32 ``[n_chunks]``, payload uint8
@@ -174,14 +202,15 @@ def compress_chunked(x, n_chunks: int):
     if x.device.type == "cpu":
         return compress_chunked_plain(x, n_chunks)
     m = _check_input(x, n_chunks)
-    tile, tiles = _tiling(m)
     dev = x.device
-    partials = torch.empty((n_chunks, tiles, 2), dtype=torch.float32, device=dev)
+    # one partial (min, max) pair a chunk and block of the one-SM-a-block grid
+    partials = torch.empty((n_chunks + _sm_count(dev.index), 2), dtype=torch.float32,
+                           device=dev)
     mn = torch.empty(n_chunks, dtype=torch.float32, device=dev)
     mx = torch.empty(n_chunks, dtype=torch.float32, device=dev)
     payload = torch.empty((n_chunks, m), dtype=torch.uint8, device=dev)
     _build.launch(_lib().bagua_minmax_compress, x.data_ptr(), int(x.dtype == torch.bfloat16),
-                  n_chunks, m, tile, tiles, partials.data_ptr(), mn.data_ptr(),
+                  n_chunks, m, partials.data_ptr(), partials.shape[0], mn.data_ptr(),
                   mx.data_ptr(), payload.data_ptr())
     compress_chunked.launches += 1
     return mn, mx, payload
@@ -228,14 +257,25 @@ def absmax_chunked(x, n_chunks: int):
 
 
 #: bytes of the sign payload per block of K4/K5's grid, at least (4096
-#: elements, as K1-K3's ``MIN_TILE``)
+#: elements, as K2-K3's ``MIN_TILE``)
 MIN_SIGN_TILE = 512
+#: K4's threads a block (``kSignThreads`` in ``csrc/codec.cu``); a thread
+#: makes 16 / itemsize neighbouring payload bytes a pass, and a tile is one
+#: pass at least
+SIGN_THREADS = 256
 
 
-def _sign_tiling(nbytes: int):
-    """``(tile, tiles)``: payload bytes per block and blocks per chunk."""
+def _sign_tiling(nbytes: int, vector: int = 1):
+    """``(tile, tiles)``: payload bytes per block and blocks per chunk, the
+    tile a multiple of ``vector`` bytes."""
     tile = max(MIN_SIGN_TILE, -(-nbytes // MAX_TILES))
+    tile = -(-tile // vector) * vector
     return tile, -(-nbytes // tile)
+
+
+def _sign_compress_tiling(nbytes: int, itemsize: int):
+    """K4's ``(tile, tiles)``: tiles of one pass of a block at least."""
+    return _sign_tiling(nbytes, SIGN_THREADS * 16 // itemsize)
 
 
 def sign_compress_chunked(x, n_chunks: int):
@@ -249,11 +289,12 @@ def sign_compress_chunked(x, n_chunks: int):
         return sign_compress_chunked_plain(x, n_chunks)
     m = _check_input(x, n_chunks)
     nbytes = sign_payload_bytes(m)
-    tile, tiles = _sign_tiling(nbytes)
+    tile, tiles = _sign_compress_tiling(nbytes, x.element_size())
     dev = x.device
     partials = torch.empty((n_chunks, tiles), dtype=torch.float32, device=dev)
     scale = torch.empty(n_chunks, dtype=torch.float32, device=dev)
     payload = torch.empty((n_chunks, nbytes), dtype=torch.uint8, device=dev)
+    _order_streams(dev)
     _build.launch(_lib().bagua_sign_compress, x.data_ptr(), int(x.dtype == torch.bfloat16),
                   n_chunks, m, nbytes, tile, tiles, partials.data_ptr(), scale.data_ptr(),
                   payload.data_ptr())

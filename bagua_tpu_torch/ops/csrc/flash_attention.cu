@@ -6,12 +6,14 @@
 //   bagua_flash_bwd_dq  <- _bwd dQ       (pallas_call :291, _bwd_dq_kernel :204-247)
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [bh, s, d] row-major in T (float,
-// bf16 or f16); lse and delta are [bh, s] float.  d, the stored width, is a
-// multiple of 8 up to 256 (TMA needs 16-byte row strides; the Python entry
-// points pad a head to it): the kernels compute at width D = 64 (d <= 64),
-// 128 (d <= 128) or 256, the columns past d zero in shared memory and never
-// stored, so a narrow head costs the time of its D.  The softmax scale is
-// 1 / sqrt(head_dim), head_dim <= d being the real head before padding.
+// bf16 or f16); lse and delta are [bh, s] float.  d, the stored width, is any
+// multiple of 8 (TMA needs 16-byte row strides; the Python entry points pad a
+// head to it): up to 256 the kernels compute at width D = 64 (d <= 64), 128
+// (d <= 128) or 256, the columns past d zero in shared memory and never
+// stored, so a narrow head costs the time of its D; a wider head runs the
+// wide FMA kernels (below), which slice the output's columns.  The softmax
+// scale is 1 / sqrt(head_dim), head_dim <= d being the real head before
+// padding.
 // Any s >= 1 is taken: keys at or past s are masked out and rows at or past
 // s are never written, so ragged sequences need no padding by the caller.
 //
@@ -60,7 +62,9 @@
 // f32 (kept for precision checks, on no training path) has no tensor-core
 // format of full precision, so it runs 256 threads of FP32 FMAs from shared
 // memory, each thread owning a piece of the R x R score tile (R = 64; 32 at
-// D = 256, so that the tiles fit in shared memory).
+// D = 256, so that the tiles fit in shared memory).  Heads above 256, which
+// no configuration of the repo uses, run the same FMA layout in every dtype,
+// one block a 128-column slice of the output (design note at the kernels).
 //
 // Numerics follow the TPU kernels: softmax state in f32, masking with -1e30
 // (not -inf) and l clamped at 1e-30; in bf16 and f16, P is rounded to T
@@ -88,15 +92,41 @@ __device__ __forceinline__ float group16_sum(float x) {
   return x;
 }
 
-// rows [row0, row0 + R) of a [s, dg] matrix -> shared tile of D columns
-// and stride D + 1, zero past s and past dg
+template <typename T>
+__device__ __forceinline__ float to_f32(T v) {
+  if constexpr (std::is_same<T, float>::value) return v;
+  else if constexpr (std::is_same<T, bf16>::value) return __bfloat162float(v);
+  else return __half2float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, float>::value) return v;
+  else if constexpr (std::is_same<T, bf16>::value) return __float2bfloat16_rn(v);
+  else return __float2half_rn(v);
+}
+// v rounded to T and back
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// rows [row0, row0 + R) and columns [c0, c0 + C) of a T [s, dg] matrix ->
+// shared f32 tile of stride C + 1, zero past s and past dg
+template <int R, int C, typename T>
+__device__ __forceinline__ void load_piece(float* dst, const T* __restrict__ src, int row0,
+                                           int s, int c0, int dg) {
+  for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C, row = row0 + r, col = c0 + c;
+    dst[r * (C + 1) + c] = row < s && col < dg ? to_f32(src[(size_t)row * dg + col]) : 0.f;
+  }
+}
+
+// rows [row0, row0 + R) of an f32 [s, dg] matrix -> shared tile of D
+// columns and stride D + 1, zero past s and past dg
 template <int R, int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int row0, int s, int dg) {
-  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D, row = row0 + r;
-    dst[r * (D + 1) + c] = row < s && c < dg ? src[(size_t)row * dg + c] : 0.f;
-  }
+  load_piece<R, D>(dst, src, row0, s, 0, dg);
 }
 
 template <int R>
@@ -106,14 +136,10 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
     dst[r] = row0 + r < s ? src[row0 + r] : 0.f;
 }
 
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d]
+// acc[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d]
 template <int R, int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[R / 16][R / 16], const float* A,
-                                         const float* B, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < R / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < R / 16; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ void dot_acc(float (&acc)[R / 16][R / 16], const float* A,
+                                        const float* B, int ty, int tx) {
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
     float a[R / 16], b[R / 16];
@@ -126,6 +152,17 @@ __device__ __forceinline__ void dot_tile(float (&acc)[R / 16][R / 16], const flo
 #pragma unroll
       for (int j = 0; j < R / 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
+}
+
+// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d]
+template <int R, int D>
+__device__ __forceinline__ void dot_tile(float (&acc)[R / 16][R / 16], const float* A,
+                                         const float* B, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < R / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < R / 16; ++j) acc[i][j] = 0.f;
+  dot_acc<R, D>(acc, A, B, ty, tx);
 }
 
 // acc[i][j] += sum_c P'[ty + 16 i][c] * X[c][tx + 16 j], where P' is the
@@ -149,19 +186,21 @@ __device__ __forceinline__ void acc_tile(float (&acc)[R / 16][D / 16], const flo
   }
 }
 
-// the rows below s and columns below dg of an R x D accumulator, times mul,
-// into a [s, dg] matrix
-template <int R, int D>
-__device__ __forceinline__ void store_tile(float* __restrict__ dst,
-                                           float (&acc)[R / 16][D / 16], int row0, int s,
-                                           int dg, int ty, int tx, float mul) {
+// the rows below s and columns below dg of an R x D accumulator (columns
+// c0 + tx + 16 j), times mul, rounded to T, into a T [s, dg] matrix
+template <int R, int D, typename T>
+__device__ __forceinline__ void store_tile(T* __restrict__ dst, float (&acc)[R / 16][D / 16],
+                                           int row0, int s, int dg, int ty, int tx, float mul,
+                                           int c0 = 0) {
 #pragma unroll
   for (int i = 0; i < R / 16; ++i) {
     const int row = row0 + ty + 16 * i;
     if (row >= s) continue;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      if (tx + 16 * j < dg) dst[(size_t)row * dg + tx + 16 * j] = acc[i][j] * mul;
+    for (int j = 0; j < D / 16; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (col < dg) dst[(size_t)row * dg + col] = from_f32<T>(acc[i][j] * mul);
+    }
   }
 }
 
@@ -382,6 +421,245 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
     acc_tile<R, D, false>(dq_acc, sdS, sK, ty, tx);  // dQ += dS K
   }
   store_tile<R, D>(dq + base, dq_acc, q0, s, dg, ty, tx, scale);
+}
+
+// ---------------------------------------------------------------------------
+// heads wider than 256, every dtype: FMA kernels over column slices
+//
+// wgmma's N and a TMA box stop at 256, and a 64-row operand tile of a wider
+// head leaves no room in shared memory for a ring beside it.  These kernels
+// are the f32 kernels' layout made generic in the input type and the width:
+// a block owns 64 rows (queries; keys for dK/dV) and kWideOut columns of its
+// output (grid dimension z).  The scores S = Q K^T and dP = dO V^T contract
+// over the whole head: they stream through shared memory in pieces of
+// kWidePiece columns, and every column slice of a row tile computes them
+// anew, in the same order, so all slices agree and slice 0 alone writes the
+// lse.  Operands widen to f32 in shared memory; in bf16 and f16, P is rounded
+// to T before P V and the dK/dV products, and dS before its products, where
+// the wgmma kernels round their A fragments.  Right, not fast: each score is
+// computed ceil(d / 128) times, on FP32 FMAs.
+// ---------------------------------------------------------------------------
+
+constexpr int kWide = 0;          // the "compute width" of these kernels in the dispatch
+constexpr int kWideRows = 64;     // rows of a tile (queries or keys)
+constexpr int kWidePiece = 64;    // head columns of a streamed piece of S or dP
+constexpr int kWideOut = 128;     // output columns a block owns
+
+// acc = A B^T over the whole head: rows ra.. of a and rb.. of b, both T
+// [s, dg], streamed in pieces through sA and sB (each kWideRows x
+// (kWidePiece + 1) floats)
+template <typename T>
+__device__ __forceinline__ void scores_wide(float (&acc)[kWideRows / 16][kWideRows / 16],
+                                            float* sA, float* sB, const T* __restrict__ a,
+                                            int ra, const T* __restrict__ b, int rb, int s,
+                                            int dg, int ty, int tx) {
+  constexpr int R = kWideRows;
+#pragma unroll
+  for (int i = 0; i < R / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < R / 16; ++j) acc[i][j] = 0.f;
+  for (int c0 = 0; c0 < dg; c0 += kWidePiece) {
+    __syncthreads();   // the last piece's (and tile's) readers are done
+    load_piece<R, kWidePiece>(sA, a, ra, s, c0, dg);
+    load_piece<R, kWidePiece>(sB, b, rb, s, c0, dg);
+    __syncthreads();
+    dot_acc<R, kWidePiece>(acc, sA, sB, ty, tx);
+  }
+}
+
+constexpr int kWidePieceFloats = kWideRows * (kWidePiece + 1);
+constexpr int kWideOutFloats = kWideRows * (kWideOut + 1);
+constexpr int kWideScoreFloats = kWideRows * (kWideRows + 1);
+
+// forward: block (64 queries, bh, output slice); k tiles up to the diagonal
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ o, float* __restrict__ lse, int s, int dg, int causal,
+                float scale) {
+  constexpr int R = kWideRows, RT = R / 16, PS = R + 1, OT = kWideOut / 16;
+  extern __shared__ float smem[];
+  float* sA = smem;
+  float* sB = sA + kWidePieceFloats;
+  float* sV = sB + kWidePieceFloats;
+  float* sP = sV + kWideOutFloats;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int q0 = qb * R, c0 = blockIdx.z * kWideOut;
+  const size_t base = (size_t)blockIdx.y * s * dg;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  int nkb = (s + R - 1) / R;
+  if (causal) nkb = min(nkb, qb + 1);
+
+  float m[RT], l[RT], acc[RT][OT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < OT; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * R;
+    float sc[RT][RT];
+    scores_wide<T>(sc, sA, sB, q + base, q0, k + base, k0, s, dg, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        float x = sc[i][j] * scale;
+        if (kpos >= s || (causal && kpos > qpos)) x = kNegInf;
+        sc[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], group16_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        rs += p;
+        sP[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(p);
+      }
+      l[i] = l[i] * corr + group16_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < OT; ++j) acc[i][j] *= corr;
+    }
+    load_piece<R, kWideOut>(sV, v + base, k0, s, c0, dg);
+    __syncthreads();
+    acc_tile<R, kWideOut, false>(acc, sP, sV, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const float li = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < OT; ++j) acc[i][j] /= li;
+    const int row = q0 + ty + 16 * i;
+    if (blockIdx.z == 0 && tx == 0 && row < s) lse[(size_t)blockIdx.y * s + row] = m[i] + logf(li);
+  }
+  store_tile<R, kWideOut>(o + base, acc, q0, s, dg, ty, tx, 1.f, c0);
+}
+
+// dK/dV: block (64 keys, bh, output slice); q tiles from the diagonal on
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s,
+                int dg, int causal, float scale) {
+  constexpr int R = kWideRows, RT = R / 16, PS = R + 1, OT = kWideOut / 16;
+  extern __shared__ float smem[];
+  float* sA = smem;
+  float* sB = sA + kWidePieceFloats;
+  float* sdO = sB + kWidePieceFloats;   // the slice's columns of dO and Q
+  float* sQ = sdO + kWideOutFloats;
+  float* sP = sQ + kWideOutFloats;
+  float* sdS = sP + kWideScoreFloats;
+  float* sL = sdS + kWideScoreFloats;
+  float* sDelta = sL + R;
+
+  const int kb = blockIdx.x;  // causal: low k tiles see the most q tiles
+  const int k0 = kb * R, c0 = blockIdx.z * kWideOut;
+  const size_t base = (size_t)blockIdx.y * s * dg;
+  const size_t rbase = (size_t)blockIdx.y * s;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int nqb = (s + R - 1) / R;
+
+  float dk_acc[RT][OT], dv_acc[RT][OT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < OT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  for (int qb = causal ? kb : 0; qb < nqb; ++qb) {
+    const int q0 = qb * R;
+    float sc[RT][RT], dp[RT][RT];
+    scores_wide<T>(sc, sA, sB, q + base, q0, k + base, k0, s, dg, ty, tx);     // rows q, columns k
+    scores_wide<T>(dp, sA, sB, dout + base, q0, v + base, k0, s, dg, ty, tx);  // dP = dO V^T
+    load_piece<R, kWideOut>(sdO, dout + base, q0, s, c0, dg);
+    load_piece<R, kWideOut>(sQ, q + base, q0, s, c0, dg);
+    load_rows<R>(sL, lse + rbase, q0, s);
+    load_rows<R>(sDelta, delta + rbase, q0, s);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = ty + 16 * i, qpos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const int c = tx + 16 * j, kpos = k0 + c;
+        const bool valid = qpos < s && kpos < s && (!causal || kpos <= qpos);
+        const float p = valid ? round_to<T>(expf(sc[i][j] * scale - sL[r])) : 0.f;
+        sP[r * PS + c] = p;
+        sdS[r * PS + c] = round_to<T>(p * (dp[i][j] - sDelta[r]));
+      }
+    }
+    __syncthreads();
+    acc_tile<R, kWideOut, true>(dv_acc, sP, sdO, ty, tx);   // dV += P^T dO
+    acc_tile<R, kWideOut, true>(dk_acc, sdS, sQ, ty, tx);   // dK += dS^T Q
+  }
+  store_tile<R, kWideOut>(dk + base, dk_acc, k0, s, dg, ty, tx, scale, c0);
+  store_tile<R, kWideOut>(dv + base, dv_acc, k0, s, dg, ty, tx, 1.f, c0);
+}
+
+// dQ: block (64 queries, bh, output slice); k tiles up to the diagonal
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dq, int s, int dg, int causal,
+               float scale) {
+  constexpr int R = kWideRows, RT = R / 16, PS = R + 1, OT = kWideOut / 16;
+  extern __shared__ float smem[];
+  float* sA = smem;
+  float* sB = sA + kWidePieceFloats;
+  float* sK = sB + kWidePieceFloats;    // the slice's columns of K
+  float* sdS = sK + kWideOutFloats;
+  float* sL = sdS + kWideScoreFloats;
+  float* sDelta = sL + R;
+
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qb * R, c0 = blockIdx.z * kWideOut;
+  const size_t base = (size_t)blockIdx.y * s * dg;
+  const size_t rbase = (size_t)blockIdx.y * s;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  load_rows<R>(sL, lse + rbase, q0, s);   // read after scores_wide's barriers
+  load_rows<R>(sDelta, delta + rbase, q0, s);
+  int nkb = (s + R - 1) / R;
+  if (causal) nkb = min(nkb, qb + 1);
+
+  float dq_acc[RT][OT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < OT; ++j) dq_acc[i][j] = 0.f;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * R;
+    float sc[RT][RT], dp[RT][RT];
+    scores_wide<T>(sc, sA, sB, q + base, q0, k + base, k0, s, dg, ty, tx);
+    scores_wide<T>(dp, sA, sB, dout + base, q0, v + base, k0, s, dg, ty, tx);
+    load_piece<R, kWideOut>(sK, k + base, k0, s, c0, dg);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = ty + 16 * i, qpos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const int c = tx + 16 * j, kpos = k0 + c;
+        const bool valid = qpos < s && kpos < s && (!causal || kpos <= qpos);
+        const float p = valid ? expf(sc[i][j] * scale - sL[r]) : 0.f;
+        sdS[r * PS + c] = round_to<T>(p * (dp[i][j] - sDelta[r]));
+      }
+    }
+    __syncthreads();
+    acc_tile<R, kWideOut, false>(dq_acc, sdS, sK, ty, tx);  // dQ += dS K
+  }
+  store_tile<R, kWideOut>(dq + base, dq_acc, q0, s, dg, ty, tx, scale, c0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1203,7 +1481,14 @@ dq_wgmma_narrow_kernel(const __grid_constant__ CUtensorMap tm_q,
 // host side
 // ---------------------------------------------------------------------------
 
-dim3 tiles(int s, int bh, int rows) { return dim3((s + rows - 1) / rows, bh); }
+dim3 tiles(int s, int bh, int rows, int slices = 1) {
+  return dim3((s + rows - 1) / rows, bh, slices);
+}
+
+// the wide kernels' grid: row tiles, heads, output slices of kWideOut columns
+dim3 wide_tiles(int s, int bh, int dg) {
+  return tiles(s, bh, kWideRows, (dg + kWideOut - 1) / kWideOut);
+}
 
 // the T [bh, s, d] tensor at `base` as a 3-D map of [rows, 64] boxes
 template <typename T>
@@ -1243,12 +1528,18 @@ struct FwdMaps {
 // shared memory (the loads fill them, TMA past the map's last column), add
 // nothing to a score, and are never stored.  The scale is that of head_dim,
 // the real head before the entry point padded it to dg.  A bf16 or f16
-// kernel of width D has its own entry point for dg < D.
+// kernel of width D has its own entry point for dg < D.  D = kWide runs the
+// wide kernels, for any dg above 256, in every dtype.
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                        int bh, int s, int dg, int head_dim, int causal, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)head_dim);
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (D == kWide) {
+    return launch(fwd_wide_kernel<T>, kThreads,
+                  (2 * kWidePieceFloats + kWideOutFloats + kWideScoreFloats) * sizeof(float),
+                  wide_tiles(s, bh, dg), stream, (const T*)q, (const T*)k, (const T*)v, (T*)o,
+                  (float*)lse, s, dg, causal, scale);
+  } else if constexpr (std::is_same<T, float>::value) {
     constexpr int R = kFR<D>;
     return launch(fwd_kernel<D>, kThreads, (3 * R * (D + 1) + R * (R + 1)) * sizeof(float),
                   tiles(s, bh, R), stream, (const float*)q, (const float*)k, (const float*)v,
@@ -1271,7 +1562,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int bh,
                        int s, int dg, int head_dim, int causal, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)head_dim);
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (D == kWide) {
+    return launch(dkv_wide_kernel<T>, kThreads,
+                  (2 * kWidePieceFloats + 2 * kWideOutFloats + 2 * kWideScoreFloats +
+                   2 * kWideRows) * sizeof(float),
+                  wide_tiles(s, bh, dg), stream, (const T*)q, (const T*)k, (const T*)v,
+                  (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, s, dg,
+                  causal, scale);
+  } else if constexpr (std::is_same<T, float>::value) {
     constexpr int R = kFR<D>;
     return launch(dkv_kernel<D>, kThreads,
                   (4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R) * sizeof(float),
@@ -1299,7 +1597,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, void* dq, int bh, int s,
                       int dg, int head_dim, int causal, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)head_dim);
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (D == kWide) {
+    return launch(dq_wide_kernel<T>, kThreads,
+                  (2 * kWidePieceFloats + kWideOutFloats + kWideScoreFloats + 2 * kWideRows) *
+                      sizeof(float),
+                  wide_tiles(s, bh, dg), stream, (const T*)q, (const T*)k, (const T*)v,
+                  (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, s, dg, causal,
+                  scale);
+  } else if constexpr (std::is_same<T, float>::value) {
     constexpr int R = kFR<D>;
     return launch(dq_kernel<D>, kThreads,
                   (4 * R * (D + 1) + R * (R + 1) + 2 * R) * sizeof(float),
@@ -1322,13 +1627,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 }
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; d, the stored width, a
-// multiple of 8 up to 256, runs at compute width 64, 128 or 256; head_dim
-// (1 to d) sets the scale
-#define BY_WIDTH(T, d, CALL) (d <= 64 ? CALL(T, 64) : d <= 128 ? CALL(T, 128) : CALL(T, 256))
+// multiple of 8, runs at compute width 64, 128 or 256, or on the wide kernels
+// above 256; head_dim (1 to d) sets the scale
+#define BY_WIDTH(T, d, CALL)                                                      \
+  (d <= 64 ? CALL(T, 64) : d <= 128 ? CALL(T, 128) : d <= 256 ? CALL(T, 256)      \
+                                                              : CALL(T, kWide))
 #define DISPATCH(dtype, d, CALL)                                                  \
   do {                                                                            \
-    if (bh < 1 || s < 1 || bh > 65535 || d < 8 || d > 256 || d % 8 ||             \
-        head_dim < 1 || head_dim > d)                                             \
+    if (bh < 1 || s < 1 || bh > 65535 || d < 8 || d % 8 ||                        \
+        (d + kWideOut - 1) / kWideOut > 65535 || head_dim < 1 || head_dim > d)    \
       return (int)cudaErrorInvalidValue;                                          \
     if (dtype == 0) return (int)BY_WIDTH(float, d, CALL);                         \
     if (dtype == 1) return (int)BY_WIDTH(bf16, d, CALL);                          \

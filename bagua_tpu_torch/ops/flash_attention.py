@@ -14,13 +14,15 @@ ones and fold to ``[batch * heads, seq, head_dim]`` for the kernels.  Any
 sequence length is taken (the kernels mask the ragged tail).
 
 What the entry points take is :func:`kernels_take`, on shape and dtype
-alone: float16, bfloat16 or float32, with any head_dim up to
-``MAX_HEAD_DIM``.  The kernels compute at width 64, 128 or 256 and widen a
-narrower head with zeros in shared memory, so a head_dim of 32 costs the
-time of 64.  Their loads need rows of a multiple of ``WIDTH_MULTIPLE``
-elements, so on the kernel path :func:`flash_attention` pads q, k and v
-with zero columns up to one (zero columns add nothing to a score) and
-slices the output back; the softmax scale stays ``1/sqrt(head_dim)`` of the
+alone: float16, bfloat16 or float32, with any head_dim.  Up to 256 the
+kernels compute at width 64, 128 or 256 and widen a narrower head with zeros
+in shared memory, so a head_dim of 32 costs the time of 64; a wider head runs
+FMA kernels that give each block a 128-column slice of the output and
+recompute the scores for every slice (right, not fast: no configuration of
+the repo has such a head).  Their loads need rows of a multiple of
+``WIDTH_MULTIPLE`` elements, so on the kernel path :func:`flash_attention`
+pads q, k and v with zero columns up to one (zero columns add nothing to a
+score) and slices the output back; the softmax scale stays ``1/sqrt(head_dim)`` of the
 real head, passed to the kernels beside the padded width.  The wrappers
 take only what their kernels take.  A CUDA tensor outside the rule raises,
 in :func:`flash_attention` as in the wrappers: there is no fallback to the
@@ -40,8 +42,6 @@ import torch.nn.functional as F
 from . import _build
 
 NEG_INF = -1e30
-#: the widest head the kernels take (wgmma's N stops at 256)
-MAX_HEAD_DIM = 256
 #: the kernels' stored width is a multiple of this (a 16-bit row then starts
 #: on a 16-byte boundary, as TMA requires); the entry points pad to it
 WIDTH_MULTIPLE = 8
@@ -146,14 +146,14 @@ def kernels_take(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether :func:`flash_attention` runs the kernels for a CUDA tensor of
     this head_dim and dtype (padding the head to a multiple of
     ``WIDTH_MULTIPLE`` first)."""
-    return dtype in _DTYPE_CODE and 0 < head_dim <= MAX_HEAD_DIM
+    return dtype in _DTYPE_CODE and head_dim > 0
 
 
 def _require_taken(head_dim: int, dtype: torch.dtype) -> None:
     """Raise unless :func:`kernels_take` accepts the head."""
     if not kernels_take(head_dim, dtype):
         raise ValueError(f"flash kernels take float16, bfloat16 or float32 with a "
-                         f"head_dim up to {MAX_HEAD_DIM}, got {dtype} and {head_dim}")
+                         f"positive head_dim, got {dtype} and {head_dim}")
 
 
 def _check(mats, rows, head_dim):

@@ -9,15 +9,18 @@ Phases, in order; any failure exits non-zero before the result line:
 3. kernels: each flash-attention kernel against its plain PyTorch version on
    the card (bf16 at every slice's training shape: b·h 32 and 64 at seq
    4096, BERT-Large's 128 at seq 384; a ragged bf16 length; f32; f16; heads
-   of 32, 96 and 136, which the kernels widen to 64, 128 and 256, and of 256
-   in bf16, f16 and f32); a head of 100 through ``flash_attention``, which
+   of 32, 96 and 136, which the kernels widen to 64, 128 and 256, of 256
+   in bf16, f16 and f32, and of 384 and 512, above 256, on the wide kernels,
+   in every dtype); a head of 100 through ``flash_attention``, which
    pads it to 104 (forward and gradients against the same call on the CPU);
    every kernel at a ragged length beside a head of values near 1e4 (no read
    across heads) and twice on the same inputs (bitwise equal), at D = 64,
    128 and 256; the times of
    each kernel (hot and cold L2), its plain version and the PyTorch library
    call at slice 1's shape, the forward's and SDPA's forward at slice 2's and
-   BERT-Large's shapes, and the port's whole backward (delta, dK/dV and dQ,
+   BERT-Large's shapes, each kernel at heads of 384 and 512 (b·h 4, seq 4096)
+   beside its bound and SDPA's forward and backward, and the port's whole
+   backward (delta, dK/dV and dQ,
    as autograd runs them) against SDPA's backward; SDPA's forward and
    backward kernels are named from one profiler window each.
 4. gmm kernels: each grouped-matmul kernel against its plain version at the
@@ -36,7 +39,9 @@ Phases, in order; any failure exits non-zero before the result line:
    8 MiB, the path's bucket chunk (10 MiB / 2 ranks) and its embedding
    bucket's chunk, a ragged, a tiny, a constant, a ±inf and a NaN chunk, a
    bf16 input; their times against the plain versions at every size, and
-   each kernel's time with a cold L2.
+   each kernel's time with a cold L2, beside its bound; K1's times on the
+   embedding bucket's chunk (more than its grid holds in shared memory); the
+   device kernels a call of each runs (K1 must run one).
 6. sign kernels: the 1-bit codec's compress (K4) and decompress (K5) against
    their plain versions, payload bytes and decoded values exactly equal, the
    scale within 1e-6 relative: chunks of 128 KiB, 1 MiB, 8 MiB, the main
@@ -44,7 +49,8 @@ Phases, in order; any failure exits non-zero before the result line:
    step encodes a bucket as one chunk), its embedding bucket's chunk and the
    2 x 2 path's inter-node chunk, a ragged, a tiny, an all-zero, a ±inf and a
    NaN chunk, a bf16 input; their times hot and cold against the plain
-   versions and against ``abs().sum(dim=1)``, K4's reduction half.
+   versions and their bounds, and against ``abs().sum(dim=1)``, K4's
+   reduction half; the device kernels a call of each runs (K4 must run one).
 7. narrow, f16 and f32 shapes: the tiny SQuAD model of
    ``examples/squad_finetune.py`` (head_dim 32), in bf16 and in f16, takes
    one forward and backward on the card through the flash kernels (one launch
@@ -123,6 +129,8 @@ L2_FLUSH_BYTES = 256 * 1024 ** 2   # five times the H100's 50 MB L2
 MAIN = dict(b=2, s=4096, h=16, d=64)
 MOE = dict(b=8, s=4096, h=8, experts=8, k=2, d_model=512, d_ff=2048)
 BERT = dict(b=8, s=384, h=16, d=64, cut_layers=4)   # bench_bert, per rank
+#: heads above 256, timed at slice 1's seq (no configuration of the repo has one)
+WIDE = dict(bh=4)
 #: examples/squad_finetune.py --tiny: head_dim 32, which the flash kernels widen to 64
 SQUAD_TINY = dict(vocab_size=1024, d_model=128, n_heads=4, n_layers=4, d_ff=512,
                   max_seq_len=384)
@@ -382,15 +390,32 @@ def check_padded_head():
         raise AssertionError(f"padded head: launches {launches}, rel err {rel}")
 
 
-def device_kernels(fn):
+def device_kernels(fn, unique=True):
     """Names of the device kernels one call of ``fn`` runs (one profiler
-    window), so that a yardstick's implementation is on record."""
+    window), so that a yardstick's implementation is on record; with
+    ``unique`` False, one name a launch, in order."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(set(names)) if unique else names
+
+
+def kernels_a_call(label, fns, single, calls=3):
+    """Logs the device kernels a call of each codec wrapper of ``fns`` (name
+    -> call) runs; fails unless each one named in ``single`` runs exactly one
+    a call."""
+    from bagua_tpu_torch.ops import _build
+
+    for name, fn in fns.items():
+        fn()   # built and warm
+        kernels = _build.kernels_of_calls(fn, calls)
+        log(f"{label}: {name} runs {len(kernels) / calls:g} device kernel(s) a call: "
+            f"{sorted(set(kernels))}")
+        if name in single and len(kernels) != calls:
+            raise AssertionError(f"{name} must be one launch a call, ran {kernels} in "
+                                 f"{calls} calls")
 
 
 def bound(name, bh, s, d, dtype, causal):
@@ -408,6 +433,36 @@ def bound(name, bh, s, d, dtype, causal):
     peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS   # f16's = bf16's
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_wide_head(bh, s, d):
+    """The wide kernels' times at a head above 256 (bf16, causal), each
+    beside its bound, and SDPA's forward and forward + backward on the same
+    inputs (its kernels named: which backend takes such a head)."""
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _inputs(bh, s, d, torch.bfloat16, seed=d)
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    fns = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
+           "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+           "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)}
+    ms = {n: cuda_ms(fn, 3) for n, fn in fns.items()}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (x.view(1, bh, s, d) for x in (q, k, v, do))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do4)
+
+    sdpa_ms = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True), 3)
+    sdpa_train_ms = cuda_ms(sdpa_fwd_bwd, 3)
+    log(f"wide head bh={bh} s={s} d={d} bf16 causal: "
+        + ", ".join(f"{n} {t:.4f} ms (bound {bound(n, bh, s, d, torch.bfloat16, True)[0]:.4f})"
+                    for n, t in ms.items())
+        + f"; sdpa forward {sdpa_ms:.4f} ms, sdpa fwd+bwd {sdpa_train_ms:.4f} ms (flash "
+        f"{sum(ms.values()):.4f}); sdpa kernels "
+        f"{device_kernels(lambda: sdpa(q4, k4, v4, is_causal=True))}")
 
 
 def phase_kernels():
@@ -429,6 +484,11 @@ def phase_kernels():
     check_kernels(4, 1000, 256, torch.float16, True, seed=15)
     check_kernels(4, 1000, 256, torch.bfloat16, True, seed=16)
     check_kernels(2, 256, 256, torch.float32, True, seed=18)
+    # heads above 256 (the wide kernels), in every dtype, ragged and not
+    check_kernels(4, 1000, 384, torch.bfloat16, True, seed=22)
+    check_kernels(4, 1000, 512, torch.bfloat16, True, seed=23)
+    check_kernels(3, 333, 384, torch.float16, False, seed=24)
+    check_kernels(2, 256, 512, torch.float32, True, seed=25)
     check_padded_head()
     # slice 2's shape: b·h = 64 (batch 8 × 8 heads of 64) at its seq
     moe_inputs, errs_moe = check_kernels(MOE["b"] * MOE["h"], MOE["s"],
@@ -478,6 +538,8 @@ def phase_kernels():
             + ", ".join(f"{n} {t:.4f} ms (bound {bound(n, bh_, s, d_, dtype, True)[0]:.4f})"
                         for n, t in wide.items()))
         del qw, kw, vw, dow, ow, lsew, deltaw
+    for d_ in (384, 512):
+        time_wide_head(WIDE["bh"], s, d_)
     plain_ms = {
         "flash_fwd": cuda_ms(lambda: fa.fwd_plain(q, k, v, True), 3),
         "flash_bwd_dkv": cuda_ms(lambda: fa.dkv_plain(q, k, v, do, lse, delta, True), 3),
@@ -1073,9 +1135,21 @@ def phase_codec_kernels():
                         for k, (kern, plain) in fns.items()}
         cold[label] = {k: cuda_ms_cold(kern) for k, (kern, _) in fns.items()}
         log(f"codec timing chunk {label} ({m} f32): " + ", ".join(
-            f"{k} {a:.4f} ms, cold L2 {cold[label][k]:.4f} ms (plain {b:.4f}, "
+            f"{k} {a:.5f} ms, cold L2 {cold[label][k]:.5f} ms, bound "
+            f"{codec_bound(k, 1 if k == 'absmax_chunked' else n, m)[0]:.5f} (plain {b:.4f}, "
             f"{'kernel' if a < b else 'PLAIN'} faster)"
             for k, (a, b) in times[label].items()))
+        if label == "bucket chunk 5 MiB":
+            kernels_a_call(f"codec chunk {label}", {k: kern for k, (kern, _) in fns.items()},
+                           ("compress_chunked",))
+    # K1 on the embedding bucket's chunk: more than the grid holds in shared
+    # memory, so the part that does not fit is read again
+    x = randn(n * embed_m)
+    k1 = lambda: cd.compress_chunked(x, n)
+    log(f"codec timing embedding chunk ({embed_m} f32): compress_chunked "
+        f"{cuda_ms(k1, 5):.5f} ms, cold L2 {cuda_ms_cold(k1, 5):.5f} ms, bound "
+        f"{codec_bound('compress_chunked', n, embed_m)[0]:.5f} ms")
+    del x
     # the library yardsticks at the path's chunk: aminmax computes only the
     # reduction half of K1; vector_norm(inf) is K3's whole function
     x = randn(n * path_m)
@@ -1208,9 +1282,13 @@ def phase_sign_kernels():
                         for k, (kern, plain) in fns.items()}
         cold[label] = {k: cuda_ms_cold(kern) for k, (kern, _) in fns.items()}
         log(f"sign timing chunk {label} ({m} f32): " + ", ".join(
-            f"{k} {a:.4f} ms, cold L2 {cold[label][k]:.4f} ms (plain {b:.4f}, "
+            f"{k} {a:.5f} ms, cold L2 {cold[label][k]:.5f} ms, bound "
+            f"{sign_bound(k, n, m)[0]:.5f} (plain {b:.4f}, "
             f"{'kernel' if a < b else 'PLAIN'} faster)"
             for k, (a, b) in times[label].items()))
+        if label == "ring chunk 5 MiB":
+            kernels_a_call(f"sign chunk {label}", {k: kern for k, (kern, _) in fns.items()},
+                           ("sign_compress_chunked",))
     # the library yardstick of K4 at the path's chunk: its reduction half
     x = randn(n * path_m)
     library = {"sign_compress_chunked": cuda_ms(lambda: x.view(n, -1).abs().sum(dim=1), 20),

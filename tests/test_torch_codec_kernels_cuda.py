@@ -8,13 +8,17 @@ so sidecars, payload bytes and decoded values must be exactly equal (any NaN
 equal to any NaN); a chunk holding a NaN or an inf has a NaN grid, where the
 u8 payload is undefined, so its payload is not compared.  The sign kernels:
 K4's payload exactly equal, its scale (a sum taken in another order) within
-1e-6 relative; K5 on the same parts exactly equal.
+1e-6 relative; K5 on the same parts exactly equal.  The sizes: 128 KiB and
+5 MiB chunks (the path's), BERT-Large's 62.5 MB embedding chunk (more than
+K1's grid holds in shared memory: the part that does not fit is read again),
+chunks that start off a 16-byte boundary (m = 100003, 5, 4_194_307), one
+chunk and 64 of them.
 """
 
 import pytest
 import torch
 
-from bagua_tpu_torch.ops import codec as cd
+from bagua_tpu_torch.ops import _build, codec as cd
 
 pytestmark = pytest.mark.cuda
 
@@ -43,9 +47,11 @@ def _input(kind, n, m, dtype):
     return x.to(dtype)
 
 
+EMBED_M = 30522 * 1024 // 2   # BERT-Large's embedding bucket, one of two chunks
 CASES = [("normal", 2, 32768), ("normal", 2, 1310720), ("normal", 4, 100003),
          ("normal", 1, 5), ("normal", 3, 4_194_307), ("constant", 2, 4099),
-         ("inf", 2, 50001), ("nan", 2, 50001)]
+         ("inf", 2, 50001), ("nan", 2, 50001), ("normal", 2, EMBED_M), ("normal", 64, 4099),
+         ("normal", 1, 2621440)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -65,7 +71,8 @@ def test_codec_kernels_match_plain(card, kind, n, m, dtype):
 
 SIGN_CASES = [("normal", 2, 32768), ("normal", 2, 1310720), ("normal", 3, 100003),
               ("normal", 1, 3), ("normal", 2, 4_194_307), ("zero", 2, 5000),
-              ("inf", 2, 50001), ("nan", 2, 50001)]
+              ("inf", 2, 50001), ("nan", 2, 50001), ("normal", 2, EMBED_M),
+              ("normal", 64, 4099), ("normal", 1, 2621440)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -105,3 +112,54 @@ def test_codec_kernels_count_launches_and_reject_bad_input(card):
         cd.absmax_chunked(x.half(), 2)
     with pytest.raises(ValueError):
         cd.compress_chunked(torch.randn(4, 4, device="cuda").t(), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,m", [(2, 32768), (2, 1310720), (2, EMBED_M), (64, 4099)])
+def test_compress_kernels_are_one_launch(card, n, m, dtype):
+    # K1 and K4 each run one device kernel a call: no second pass, no memset
+    x = _input("normal", n, m, dtype)
+    cd.compress_chunked(x, n)   # built and warm
+    cd.sign_compress_chunked(x, n)
+    torch.cuda.synchronize()
+    k1 = _build.kernels_of_calls(lambda: cd.compress_chunked(x, n))
+    k4 = _build.kernels_of_calls(lambda: cd.sign_compress_chunked(x, n))
+    assert len(k1) == 3 and all("minmax_compress_kernel" in k for k in k1), k1
+    assert len(k4) == 3 and all("sign_compress_kernel" in k for k in k4), k4
+
+
+@pytest.mark.parametrize("n,m", [(2, 1310720), (1, 2621440), (3, 100003)])
+def test_sign_scale_is_reproducible(card, n, m):
+    # the chunk's last block adds the partials in index order, whichever
+    # block that is: 20 calls give the same scale, bit for bit
+    x = _input("normal", n, m, torch.float32)
+    first, payload = cd.sign_compress_chunked(x, n)
+    for _ in range(19):
+        scale, p = cd.sign_compress_chunked(x, n)
+        assert torch.equal(scale.view(torch.int32), first.view(torch.int32))
+        assert torch.equal(p, payload)
+    pscale, _ = cd.sign_compress_chunked_plain(x, n)
+    torch.testing.assert_close(first, pscale, rtol=1e-6, atol=0)
+
+
+def test_two_streams_alternating(card):
+    # calls that alternate between two streams, each on its own inputs, give
+    # the plain versions' answers: K1 keeps no state between launches, and
+    # K4's wrapper orders launches made on different streams (its tickets
+    # live in the library's memory)
+    n, m = 2, 1310720
+    xs = [_input("normal", n, m + i, torch.float32) for i in range(2)]
+    want = [(cd.compress_chunked_plain(x, n), cd.sign_compress_chunked_plain(x, n)) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for i in range(8):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append((i % 2, cd.compress_chunked(xs[i % 2], n),
+                        cd.sign_compress_chunked(xs[i % 2], n)))
+    torch.cuda.synchronize()
+    for j, (mn, mx, p), (scale, sp) in got:
+        (pmn, pmx, pp), (pscale, psp) = want[j]
+        assert _same(mn, pmn) and _same(mx, pmx) and torch.equal(p, pp)
+        assert torch.equal(sp, psp)
+        torch.testing.assert_close(scale, pscale, rtol=1e-6, atol=0)

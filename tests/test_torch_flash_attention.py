@@ -160,11 +160,13 @@ def test_non_cpu_tensor_takes_the_kernel_or_raises():
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32,
                                    torch.float64])
-@pytest.mark.parametrize("head_dim", [0, 32, 64, 100, 128, 136, 256, 257])
+@pytest.mark.parametrize("head_dim", [0, 32, 64, 100, 128, 136, 256, 257, 264, 384, 512,
+                                      1024])
 def test_kernels_take_rule(head_dim, dtype):
-    # any head up to 256 in a 16-bit type or f32; flash_attention pads a
-    # head that is not a multiple of 8 (100) for the kernels
-    want = 0 < head_dim <= 256 and dtype != torch.float64
+    # any positive head in a 16-bit type or f32 (above 256 on the wide
+    # kernels); flash_attention pads a head that is not a multiple of 8
+    # (100, 257) for the kernels
+    want = head_dim > 0 and dtype != torch.float64
     assert tfa.kernels_take(head_dim, dtype) is want
 
 
@@ -228,6 +230,29 @@ def test_f16_and_wide_heads_match_jax(kind, d):
         b = np.asarray(jnp.asarray(b, jnp.float32))
         np.testing.assert_allclose(a.float().numpy(), b, rtol=0,
                                    atol=t * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("d,padded", [(384, False), (300, False), (300, True)])
+def test_wide_heads_match_jax(monkeypatch, d, padded):
+    # heads above 256 (the wide kernels' on the card): the forward and the
+    # gradients of q, k and v in f32 against JAX's kernels in interpret mode,
+    # b 1, s 256, 2 heads, causal, within the f32 tolerances of this file
+    # (2e-5 forward, 5e-5 gradients, of the largest magnitude).  With
+    # `padded`, the head of 300 takes the kernel path's padding to 304 (the
+    # wrappers' plain versions get the padded tensors and the scale of 300).
+    monkeypatch.setattr(tfa, "_kernel_path", lambda x: padded)
+    q, k, v, g = _inputs(d, s=256, d=d)
+    jfn = lambda q, k, v: jfa.flash_attention(q, k, v, jnp.float32, causal=True,
+                                              interpret=True, force=True)
+    want, want_grads = _jax_out_and_grads(jfn, q, k, v, g)
+    got, grads = _torch_grads(lambda q, k, v: tfa.flash_attention(q, k, v, causal=True),
+                              q, k, v, g)
+    assert got.shape == (1, 256, 2, d)
+    for name, a, b, tol in (("o", got, want, 2e-5),
+                            *((f"d{n}", x, w, 5e-5) for n, x, w in zip("qkv", grads,
+                                                                       want_grads))):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol * np.abs(b).max(), err_msg=name)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float16, 2e-3)])

@@ -6,7 +6,8 @@ On the card, where JAX is not installed, skip the JAX conftest:
 Tolerances (max-abs error over the plain version's max-abs): bf16 2e-2 (the
 kernel keeps q.k in f32 and rounds P before normalizing; the backward
 kernels sum in another order), f16 5e-3 (the same roundings, in f16's ulp,
-an eighth of bf16's), f32 1e-4 (another summation order).
+an eighth of bf16's), f32 1e-4 (another summation order).  Heads above 256
+run the wide FMA kernels, held to the same tolerances.
 """
 
 import pytest
@@ -30,8 +31,9 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
-# 32, 96 and 136 run widened to 64, 128 and 256
-@pytest.mark.parametrize("d", [32, 64, 96, 128, 136, 256])
+# 32, 96 and 136 run widened to 64, 128 and 256; 264, 384 and 512 on the
+# wide kernels (one, three and four 128-column slices)
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 136, 256, 264, 384, 512])
 @pytest.mark.parametrize("s,causal", [(256, True), (1000, True), (77, False)])
 def test_kernels_match_plain(card, dtype, d, s, causal):
     g = torch.Generator(device="cuda").manual_seed(s + d)
@@ -130,11 +132,47 @@ def test_backward_reads_no_row_of_the_next_head(card, d):
         assert _rel(a[2], b[2]) <= TOL[torch.bfloat16], name
 
 
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [264, 384])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 200])
+def test_wide_heads_at_tile_edges(card, s, d, causal, dtype):
+    # the wide kernels own 64-row tiles and 128-column slices of the output
+    # (264: a slice of 8 columns; 384: three whole slices): lengths around the
+    # row tile's edges, forward and backward, at three heads
+    g = torch.Generator(device="cuda").manual_seed(1000 * s + d + causal + 3)
+    q, k, v, do = (torch.randn(3, s, d, device="cuda", dtype=dtype, generator=g)
+                   for _ in range(4))
+    (got_o, got_lse), (want_o, want_lse) = _forward(q, k, v, causal)
+    assert _rel(got_o, want_o) <= TOL[dtype] and _rel(got_lse, want_lse) <= TOL[dtype]
+    got, want = _backward(q, k, v, do, causal)
+    scales = [w.float().abs().max() for w in want]
+    if s == 1:   # as in test_backward_at_tile_edges: dK and dQ are rounding noise
+        scales[0] = scales[2] = scales[1]
+    for name, a, b, scale in zip(("dk", "dv", "dq"), got, want, scales):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert ((a.float() - b.float()).abs().max() / scale).item() <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_head_of_1024(card, dtype):
+    # the widest head tested: d 1024 at s 1024 (eight output slices), every
+    # kernel against its plain version
+    g = torch.Generator(device="cuda").manual_seed(1024)
+    q, k, v, do = (torch.randn(2, 1024, 1024, device="cuda", dtype=dtype, generator=g)
+                   for _ in range(4))
+    (fwd_got, fwd_want), (bwd_got, bwd_want) = _forward(q, k, v, True), _backward(
+        q, k, v, do, True)
+    for got, want in zip((*fwd_got, *bwd_got), (*fwd_want, *bwd_want)):
+        assert got.shape == want.shape and _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [64, 256, 384])
 def test_backward_is_deterministic(card, d):
     # each output tile is written by one block in a fixed order: two
     # launches on the same inputs agree bit for bit, backward and forward
-    # (at D = 256 too, where two warpgroups split dK and dV)
+    # (at D = 256 too, where two warpgroups split dK and dV, and on the wide
+    # kernels, whose column slices each recompute the scores)
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn(8, 1000, d, device="cuda", dtype=torch.bfloat16, generator=g)
                    for _ in range(4))
@@ -152,11 +190,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.randn(2, 64, 36, device="cuda")   # flash_attention pads it; the wrappers refuse
     with pytest.raises(ValueError, match="multiple of 8"):
         fa.flash_fwd(q, q, q, True)
-    q = torch.randn(2, 64, 264, device="cuda")   # wider than 256
+    # a head wider than 256 is taken (the wide kernels): 264 by the wrapper,
+    # 260 through flash_attention, which pads it to 264
+    q = torch.randn(2, 64, 264, device="cuda")
+    counts = [f.launches for f in fa.KERNELS]
+    assert fa.flash_fwd(q, q, q, True)[0].shape == q.shape
+    wide = fa.flash_attention(*(torch.randn(1, 64, 2, 260, device="cuda") for _ in range(3)))
+    assert wide.shape == (1, 64, 2, 260) and torch.isfinite(wide).all()
+    assert [f.launches for f in fa.KERNELS] == [counts[0] + 2, *counts[1:]]
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_fwd(q, q, q, True)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(*(torch.randn(1, 64, 2, 260, device="cuda") for _ in range(3)))
+        fa.flash_fwd(q[..., :0], q[..., :0], q[..., :0], True)
     q = torch.randn(2, 64, 64, device="cuda")
     with pytest.raises(ValueError, match="within the stored"):
         fa.flash_fwd(q, q, q, True, head_dim=72)

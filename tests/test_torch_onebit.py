@@ -165,6 +165,19 @@ def test_sign_wrappers_take_the_plain_version_on_the_cpu():
     assert all(k.launches == 0 for k in cd.KERNELS)
 
 
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [3, 1024, 32768, 262144, 655360, 1310720, 2621440, 15627264])
+def test_sign_compress_tiling(m, itemsize):
+    # K4's grid as its wrapper sizes it: tiles of whole passes of a block (a
+    # thread makes 16 / itemsize neighbouring bytes a pass) covering the
+    # chunk's B bytes, at least MIN_SIGN_TILE bytes and at most MAX_TILES
+    nbytes = cd.sign_payload_bytes(m)
+    tile, tiles = cd._sign_compress_tiling(nbytes, itemsize)
+    assert tile % (cd.SIGN_THREADS * 16 // itemsize) == 0
+    assert (tiles - 1) * tile < nbytes <= tiles * tile
+    assert tile >= cd.MIN_SIGN_TILE and tiles <= cd.MAX_TILES
+
+
 def test_onebit_codec_contract():
     codec = tcodecs.get_codec("onebit_ef")
     assert codec.error_feedback and not codec.env_tuned
