@@ -17,6 +17,7 @@ from .algorithms import (  # noqa: F401
     ByteGradAlgorithm,
     GradientAllReduceAlgorithm,
     QAdamAlgorithm,
+    ZeroOptimizerAlgorithm,
 )
 from .bucket import BucketPlan, BucketSpec, split_bucket_by_bucket_size  # noqa: F401
 from .communication import (  # noqa: F401

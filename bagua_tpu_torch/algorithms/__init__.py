@@ -2,3 +2,4 @@ from .base import Algorithm, AlgorithmContext  # noqa: F401
 from .bytegrad import ByteGradAlgorithm  # noqa: F401
 from .gradient_allreduce import GradientAllReduceAlgorithm  # noqa: F401
 from .q_adam import QAdamAlgorithm, QAdamOptState  # noqa: F401
+from .zero import ZeroOptimizerAlgorithm, ZeroOptState  # noqa: F401

@@ -7,9 +7,10 @@ pass and the optimizer step (``process_grads``).  Dense families implement
 ``reduce_bucket_grad`` for one bucket's flat gradient and alias
 ``process_grads`` to ``process_grads_bucketed``, which folds in the
 error-feedback residual and runs it over every bucket in plan order.  A
-family that owns its optimizer (QAdam) sets ``owns_optimizer`` and provides
-``init_optimizer_state`` and ``optimizer_update``.  Gradients travel between
-the stages as a ``name -> tensor`` dict.
+family that owns its optimizer (QAdam, ZeRO) sets ``owns_optimizer`` and
+provides ``init_optimizer_state`` (or, with ``sharded_opt_state``,
+``init_optimizer_state_sharded``) and ``optimizer_update``.  Gradients travel
+between the stages as a ``name -> tensor`` dict.
 
 The context carries the two tiers of the hierarchical collectives (the
 intra-node and inter-node communicators, ``communication.py``) and their
@@ -153,6 +154,25 @@ class AlgorithmContext:
         full = self.tier_allgather(chunk)
         return full[:size] if pad else full
 
+    def bucket_reduce_scatter(self, flat: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+        """One bucket's reduce-scatter, ZeRO's gradient half (``base.py:352-367``):
+        this rank's contiguous ``1 / world`` slice, through the flat ring
+        with the forced flat codec where one resolves, else one
+        reduce-scatter."""
+        codec = self.flat_ring_codec()
+        if codec is not None:
+            return self.comm.ring_reduce_scatter(flat, op, codec=codec)
+        return self.comm.reduce_scatter(flat, op)
+
+    def bucket_allgather(self, chunk: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`bucket_reduce_scatter`, ZeRO's
+        re-replication (``base.py:369-381``): every rank's chunk in rank
+        order, through the same ring and codec."""
+        codec = self.flat_ring_codec()
+        if codec is not None:
+            return self.comm.ring_allgather(chunk, codec=codec)
+        return self.comm.allgather(chunk, axis=0, tiled=True)
+
     def bucket_allreduce(self, flat: torch.Tensor, op: ReduceOp,
                          hierarchical: bool = False) -> torch.Tensor:
         """One bucket's allreduce (``base.py:325-350``): the two-level form
@@ -169,8 +189,11 @@ class AlgorithmContext:
 class Algorithm:
     """Base algorithm: plain data parallelism hooks; gradients unchanged."""
 
-    #: True when the algorithm provides its own optimizer update (QAdam)
+    #: True when the algorithm provides its own optimizer update (QAdam, ZeRO)
     owns_optimizer: bool = False
+    #: True when each rank keeps only its shard of the optimizer state (ZeRO):
+    #: the trainer builds it with :meth:`init_optimizer_state_sharded`
+    sharded_opt_state: bool = False
     #: True pads every bucket to a multiple of the world size (the
     #: compressed scatter-gather gives each rank an equal chunk)
     align_to_world: bool = False
@@ -313,6 +336,13 @@ class Algorithm:
     def init_optimizer_state(self, params: Dict[str, torch.Tensor]):
         """Optimizer state of an ``owns_optimizer`` family."""
         raise NotImplementedError("only algorithms with owns_optimizer=True")
+
+    def init_optimizer_state_sharded(self, ctx: AlgorithmContext,
+                                     params: Dict[str, torch.Tensor]):
+        """This rank's shard of the optimizer state of a
+        ``sharded_opt_state`` family; the trainer calls it in place of
+        :meth:`init_optimizer_state`."""
+        raise NotImplementedError("only algorithms with sharded_opt_state=True")
 
     def optimizer_update(self, ctx: AlgorithmContext, params, grads, opt_state,
                          algo_state, step):

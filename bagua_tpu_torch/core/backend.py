@@ -5,8 +5,9 @@ per-rank mean loss, its backward, the gradients flattened into the bucket
 plan's flat buffers, the algorithm's ``process_grads`` (for
 ``GradientAllReduceAlgorithm``, one allreduce per bucket), the optimizer
 step on the reduced gradients, and the loss averaged over the ranks.  An
-algorithm that owns its optimizer (QAdam) gets no torch optimizer: its
-``optimizer_update`` runs after ``process_grads``.  Where a stateful codec
+algorithm that owns its optimizer (QAdam, ZeRO) gets no torch optimizer: its
+``optimizer_update`` runs after ``process_grads`` (ZeRO's holds its
+collectives, and its state is this rank's shard).  Where a stateful codec
 (``onebit_ef``, ``topk``) rides the wire, ``state.algo_state["ef"]["buckets"]``
 carries the error-feedback residual, one f32 flat per bucket.
 
@@ -141,8 +142,9 @@ class BaguaTrainer:
         self._params = dict(model.named_parameters())
         algo_state = algo.init_state(self._ctx, self._params)
         if algo.owns_optimizer:
-            return TrainState(0, model, None, algo_state,
-                              algo.init_optimizer_state(self._params))
+            opt_state = (algo.init_optimizer_state_sharded(self._ctx, self._params)
+                         if algo.sharded_opt_state else algo.init_optimizer_state(self._params))
+            return TrainState(0, model, None, algo_state, opt_state)
         optimizer = self.optimizer_factory(model.parameters())
         return TrainState(0, model, optimizer, algo_state)
 

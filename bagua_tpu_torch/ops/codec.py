@@ -20,10 +20,10 @@ through ``ctypes``:
 - :func:`sign_decompress_chunked` (K5): the planar bits as ``±scale``, the
   padded ``[n, 8 * B]`` block (``pallas_codec.py:471-511``).
 
-K1 and K4 are one launch a call: K1 one cooperative grid (one block an SM,
-the input read once from device memory where it fits in the grid's shared
-memory), K4 one grid whose last block of a chunk to finish computes the
-chunk's scale.
+K1, K3 and K4 are one launch a call: K1 one cooperative grid (one block an
+SM, the input read once from device memory where it fits in the grid's
+shared memory), K3 and K4 one grid each whose last block of a chunk to
+finish writes the chunk's absmax (K3) or scale (K4).
 
 Each wrapper has a plain PyTorch version beside it and counts its launches in
 ``<wrapper>.launches``.  A wrapper takes the plain version only for tensors on
@@ -46,9 +46,8 @@ from . import _build
 EPS = 1e-7
 LEVELS = 255.0
 
-#: elements per block of K2's and K3's (tile, chunk) grid, at least; a chunk
-#: is cut into at most ``MAX_TILES`` tiles, so K3's reduce over the partials
-#: stays small
+#: elements per block of K2's (tile, chunk) grid, at least; a chunk is cut
+#: into at most ``MAX_TILES`` tiles (K4 and K5 cut their payload bytes so too)
 MIN_TILE = 4096
 MAX_TILES = 1024
 
@@ -143,7 +142,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "bagua_minmax_compress": [_P, _I, _I, _L, _P, _L, _P, _P, _P, _P],
     "bagua_minmax_decompress": [_P, _P, _P, _I, _L, _L, _I, _P, _P],
-    "bagua_absmax": [_P, _I, _I, _L, _L, _I, _P, _P, _P],
+    "bagua_absmax": [_P, _I, _I, _L, _P, _P],
     "bagua_sign_compress": [_P, _I, _I, _L, _L, _L, _I, _P, _P, _P, _P],
     "bagua_sign_decompress": [_P, _P, _I, _L, _L, _I, _P, _P],
 }
@@ -177,10 +176,11 @@ _last_stream = {}
 
 
 def _order_streams(device) -> None:
-    """Order a K4 launch after the last one made on another stream of the
-    same device: K4 keeps its per-chunk tickets in the library's device
-    memory, so two launches must not run at once.  The port launches codecs
-    on the current stream only, where this records nothing."""
+    """Order a K3 or K4 launch after the last one made on another stream of
+    the same device: K3 and K4 keep per-chunk tickets (and K3 a max word a
+    chunk) in the library's device memory, so two launches must not run at
+    once.  The port launches codecs on the current stream only, where this
+    records nothing."""
     stream = torch.cuda.current_stream(device)
     last = _last_stream.get(device)
     if last is not None and last != stream:
@@ -247,17 +247,16 @@ def absmax_chunked(x, n_chunks: int):
     if x.device.type == "cpu":
         return absmax_chunked_plain(x, n_chunks)
     m = _check_input(x, n_chunks)
-    tile, tiles = _tiling(m)
-    partials = torch.empty((n_chunks, tiles), dtype=torch.float32, device=x.device)
     out = torch.empty(n_chunks, dtype=torch.float32, device=x.device)
+    _order_streams(x.device)
     _build.launch(_lib().bagua_absmax, x.data_ptr(), int(x.dtype == torch.bfloat16),
-                  n_chunks, m, tile, tiles, partials.data_ptr(), out.data_ptr())
+                  n_chunks, m, out.data_ptr())
     absmax_chunked.launches += 1
     return out
 
 
 #: bytes of the sign payload per block of K4/K5's grid, at least (4096
-#: elements, as K2-K3's ``MIN_TILE``)
+#: elements, as K2's ``MIN_TILE``)
 MIN_SIGN_TILE = 512
 #: K4's threads a block (``kSignThreads`` in ``csrc/codec.cu``); a thread
 #: makes 16 / itemsize neighbouring payload bytes a pass, and a tile is one

@@ -35,11 +35,10 @@
 // the card's flop-per-byte ridge: all are bound by memory bandwidth, and at
 // the path's chunks (a few MiB) by the fixed cost of a launch beside it.
 //
-// K2 and K3 run a (tile, chunk) grid: blocks run in parallel and in no order,
-// and at world size 2 a bucket has only two chunks, so one block per chunk
-// would use 2 of 132 SMs.  K3 writes each tile's partial absmax into scratch
-// that the wrapper allocates, and a second kernel reduces them.  Their loads
-// are scalar and coalesced, four in flight per thread.
+// K2 runs a (tile, chunk) grid: blocks run in parallel and in no order, and
+// at world size 2 a bucket has only two chunks, so one block per chunk would
+// use 2 of 132 SMs.  Its loads are scalar and coalesced, four in flight per
+// thread.  K3 is one launch (described with its kernel below).
 //
 // Exactness: every product, sum and quotient uses the IEEE-rounded
 // intrinsics (__fmul_rn, __fadd_rn, __fdiv_rn: nothing is contracted into an
@@ -49,11 +48,12 @@
 // reductions here keep it (as jnp.min/max and torch.amin/amax do), so a NaN
 // chunk gives a NaN sidecar and a NaN decode.
 //
-// Library state.  K4 keeps a ticket counter a chunk in this library's device
-// memory; every launch leaves it at zero.  Two launches of K4 running at once
-// (on two streams) would share it, so its wrapper (ops/codec.py) orders K4
-// launches made on different streams of one device; the port itself launches
-// codecs on the current stream only (no module makes a torch.cuda.Stream).
+// Library state.  K3 and K4 keep a ticket counter a chunk (and K3 a max word
+// a chunk) in this library's device memory; every launch leaves them at zero.
+// Two launches of one of them running at once (on two streams) would share
+// them, so their wrappers (ops/codec.py) order K3 and K4 launches made on
+// different streams of one device; the port itself launches codecs on the
+// current stream only (no module makes a torch.cuda.Stream).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -89,53 +89,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
-}
-
-template <bool kMax>
-__device__ __forceinline__ float combine(float a, float b) {
-  return kMax ? nan_max(a, b) : nan_min(a, b);
-}
-
-// Reduce v over a block of kThreads; every thread gets the result.
-// `scratch` holds kWarps floats.  A fixed tree, so the result does not
-// depend on timing.
-template <bool kMax>
-__device__ float block_reduce(float v, float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = combine<kMax>(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // scratch may still be read from a previous call
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = scratch[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) v = combine<kMax>(v, scratch[w]);
-  return v;
-}
-
-// K3 pass 1: max |x| of one tile of one chunk.  grid (tiles, n); partials
-// [n, tiles].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-absmax_partials_kernel(const T* __restrict__ x, long long m, long long tile, int tiles,
-                       float* __restrict__ partials) {
-  __shared__ float scratch[kWarps];
-  const int c = blockIdx.y, t = blockIdx.x;
-  const T* xc = x + (long long)c * m;
-  const long long lo = (long long)t * tile;
-  const long long hi = lo + tile < m ? lo + tile : m;
-  float vmax = -inf();
-  long long i = lo + threadIdx.x;
-  for (; i + (kUnroll - 1) * kThreads < hi; i += kUnroll * kThreads) {
-    float v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = load(xc + i + u * kThreads);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) vmax = nan_max(vmax, fabsf(v[u]));
-  }
-  for (; i < hi; i += kThreads) vmax = nan_max(vmax, fabsf(load(xc + i)));
-  vmax = block_reduce<true>(vmax, scratch);
-  if (threadIdx.x == 0) partials[(long long)c * tiles + t] = vmax;
 }
 
 struct Grid {
@@ -537,21 +490,169 @@ decompress_kernel(const float* __restrict__ mn, const float* __restrict__ mx,
   for (; i < hi; i += kThreads) oc[i] = __fdiv_rn(__fadd_rn((float)pc[i], g.lower), g.scale);
 }
 
-// out[c] = max over the chunk's absmax partials.  grid (n).
-__global__ void __launch_bounds__(kThreads)
-absmax_final_kernel(const float* __restrict__ partials, int tiles, float* __restrict__ out) {
-  __shared__ float scratch[kWarps];
-  const int c = blockIdx.x;
-  float v = -inf();
-  for (int j = threadIdx.x; j < tiles; j += kThreads)
-    v = nan_max(v, partials[(long long)c * tiles + j]);
-  v = block_reduce<true>(v, scratch);
-  if (threadIdx.x == 0) out[c] = v;
-}
-
 bool bad_shape(int n, long long m, long long tile, int tiles) {
   return n < 1 || n > 65535 || m < 1 || tile < 1 || tiles < 1 ||
          (long long)tiles != (m + tile - 1) / tile;
+}
+
+// ---- K3, the absmax of the int8 and fp8 codecs: one launch -----------------
+//
+// out[c] = max |x| over chunk c (f32; bf16 widens exactly).  The TPU reads a
+// chunk once in one pallas_call where it fits in VMEM (:295) and in tiles
+// with a sequential grid otherwise (:311).  Here a chunk's max needs many
+// blocks at once: at world size 2 the ring encodes one chunk of 1.31 M
+// elements, and one block would use 1 of 132 SMs.  So one launch of a
+// (blocks, chunk) grid sized from the SM count: each block takes a contiguous
+// share of the chunk's 16-byte vectors (4 f32 or 8 bf16), eight read-only
+// loads a thread in flight, a share of eight loads a thread at least (80
+// blocks at the path's 5 MiB chunk), at most four blocks an SM.  A chunk that
+// does not start on a 16-byte boundary has a head (and a tail) of fewer than
+// one vector's elements, which block 0 loads one by one.
+//
+// Exact in bits (design (b)): |x| has its sign bit clear, so as a u32 its bit
+// pattern orders like its value, and every NaN's lies above +inf's
+// 0x7f800000.  The kernel takes the max of those u32 patterns throughout (one
+// integer instruction an element; a NaN is kept, -0.0 gives +0.0, the start
+// value 0 is +0.0), which does not depend on the order.  A chunk holding a
+// NaN gives a NaN whose payload bits are not defined.  Each block reduces its
+// threads (warp max reductions, then warp 0 over the warps), and where a
+// chunk has more than one block, thread 0 `red.max`es the block's result into
+// the chunk's word in this library's memory and takes a ticket
+// (`atom.add.acq_rel`, which orders the red before it); the chunk's last
+// block swaps the word for 0, writes out[c] and sets the ticket back to 0.
+// Chosen over K4's partials summed by the last block: no scratch, and the
+// last block reads one word instead of walking the partials.  A chunk of one
+// block writes out[c] directly.  At the path's chunk most of the time is fixed
+// (PERF.md): the launch, and the ticket's three serial L2 round trips (the red
+// before the ticket, the ticket, the swap); a release-only ticket with an
+// acquire fence in the last block was slower there, as were four loads in
+// flight, one block an SM, 256 threads, and one block for a chunk of up to
+// 128 KiB, which is faster at 128 KiB alone (scripts/torch_codec_variants.py).
+
+constexpr int kMaxChunks = 65535;   // the wrappers' limit, and a grid's y
+constexpr int kAbsmaxThreads = 512;
+constexpr int kAbsmaxInFlight = 8;      // 16-byte loads a thread in flight
+constexpr int kAbsmaxMinLoads = 8;      // a block's share: this many loads a thread at least
+constexpr int kAbsmaxBlocksPerSm = 4;   // a chunk's blocks: at most this many an SM
+__device__ unsigned int g_absmax_tickets[kMaxChunks];
+__device__ unsigned int g_absmax_bits[kMaxChunks];
+
+// |x| as u32 bits: the sign bit cleared (bf16 widened by a shift)
+__device__ __forceinline__ uint32_t abs_bits(float v) { return __float_as_uint(v) & 0x7fffffffu; }
+__device__ __forceinline__ uint32_t abs_bits(bf16 v) {
+  return (uint32_t)__bfloat16_as_ushort(v) << 16 & 0x7fffffffu;
+}
+
+// max |x| bits of one 16-byte vector: four f32, or eight bf16 (two a word)
+template <typename T>
+__device__ __forceinline__ uint32_t vector_abs_bits(const uint4& p) {
+  const uint32_t w[4] = {p.x, p.y, p.z, p.w};
+  uint32_t r = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      r = max(r, w[i] & 0x7fffffffu);
+    } else {
+      r = max(r, max(w[i] << 16 & 0x7fffffffu, w[i] & 0x7fff0000u));
+    }
+  }
+  return r;
+}
+
+__device__ __forceinline__ unsigned int atomic_add_acq_rel(unsigned int* p, unsigned int v) {
+  unsigned int old;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], %2;" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void red_max(unsigned int* p, unsigned int v) {
+  asm volatile("red.relaxed.gpu.global.max.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// grid (blocks, n): block b's share of chunk c's vectors
+template <typename T>
+__global__ void __launch_bounds__(kAbsmaxThreads)
+absmax_kernel(const T* __restrict__ x, long long m, float* __restrict__ out) {
+  constexpr int EPV = 16 / sizeof(T);
+  constexpr int kWarpsA = kAbsmaxThreads / 32;
+  __shared__ uint32_t scratch[kWarpsA];
+  const int c = blockIdx.y, b = blockIdx.x, blocks = gridDim.x;
+  const T* xc = x + (long long)c * m;
+  // elements before the first 16-byte boundary, the whole vectors, the rest
+  const long long skew = (long long)((16 - (reinterpret_cast<uintptr_t>(xc) & 15)) & 15) / sizeof(T);
+  const long long head = skew < m ? skew : m;
+  const long long vecs = (m - head) / EPV;
+  const long long tail = head + vecs * EPV;
+  uint32_t acc = 0;
+  if (b == 0) {
+    if (threadIdx.x < head) acc = abs_bits(xc[threadIdx.x]);
+    if (tail + threadIdx.x < m) acc = max(acc, abs_bits(xc[tail + threadIdx.x]));
+  }
+  const long long per = udiv(vecs + blocks - 1, blocks);
+  const long long lo = b * per;
+  const long long hi = lo + per < vecs ? lo + per : vecs;
+  const uint4* v = reinterpret_cast<const uint4*>(xc + head);
+  for (long long i = lo + threadIdx.x; i < hi; i += kAbsmaxInFlight * kAbsmaxThreads) {
+    // every load issued before any is used; one past the share reads vector
+    // i again, which a max does not mind
+    uint4 p[kAbsmaxInFlight];
+#pragma unroll
+    for (int u = 0; u < kAbsmaxInFlight; ++u) {
+      const long long j = i + u * kAbsmaxThreads;
+      p[u] = __ldg(v + (j < hi ? j : i));
+    }
+#pragma unroll
+    for (int u = 0; u < kAbsmaxInFlight; ++u) acc = max(acc, vector_abs_bits<T>(p[u]));
+  }
+  acc = __reduce_max_sync(0xffffffffu, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) scratch[warp] = acc;
+  __syncthreads();
+  if (warp != 0) return;
+  acc = __reduce_max_sync(0xffffffffu, lane < kWarpsA ? scratch[lane] : 0u);
+  if (lane != 0) return;
+  if (blocks == 1) {
+    out[c] = __uint_as_float(acc);
+    return;
+  }
+  red_max(&g_absmax_bits[c], acc);
+  if (atomic_add_acq_rel(&g_absmax_tickets[c], 1u) != (unsigned)blocks - 1) return;
+  // every block's red came before its ticket, and this ticket was the last
+  out[c] = __uint_as_float(atomicExch(&g_absmax_bits[c], 0u));
+  g_absmax_tickets[c] = 0;
+}
+
+// the card's SM count, per device, read once
+cudaError_t sm_count(int& sms) {
+  constexpr int kMaxDevices = 64;
+  static int known[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (known[dev] == 0) {
+    int v = 0;
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    known[dev] = v;
+  }
+  sms = known[dev];
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_absmax(const T* x, int n, long long m, float* out, cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return err;
+  const long long vectors = (m * (long long)sizeof(T) + 15) / 16;
+  const long long share = (long long)kAbsmaxThreads * kAbsmaxMinLoads;
+  const long long most = (long long)sms * kAbsmaxBlocksPerSm / n;
+  long long blocks = (vectors + share - 1) / share;
+  blocks = blocks < most ? blocks : most;
+  blocks = blocks > 1 ? blocks : 1;
+  absmax_kernel<T><<<dim3((unsigned)blocks, n), kAbsmaxThreads, 0, s>>>(x, m, out);
+  return cudaGetLastError();
 }
 
 // ---- 1-bit sign codec (K4, K5) --------------------------------------------
@@ -581,7 +682,6 @@ bool bad_shape(int n, long long m, long long tile, int tiles) {
 // last, and sets the chunk's ticket back to zero for the next launch.  The last bytes a thread makes
 // are stored after the ticket, so that its release has not them to wait for.
 
-constexpr int kMaxChunks = 65535;
 constexpr int kSignThreads = 256;
 __device__ unsigned int g_sign_tickets[kMaxChunks];
 
@@ -600,12 +700,6 @@ __device__ float block_sum(float v, float* scratch) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ unsigned int atomic_add_acq_rel(unsigned int* p, unsigned int v) {
-  unsigned int old;
-  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], %2;" : "=r"(old) : "l"(p), "r"(v) : "memory");
-  return old;
 }
 
 template <typename T>
@@ -754,7 +848,7 @@ cudaError_t minmax_device(MinmaxDevice& d) {
     return cudaSuccess;
   }
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = sm_count(d.sms);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   const void* kernel = reinterpret_cast<const void*>(&minmax_compress_kernel<T>);
@@ -815,20 +909,12 @@ int bagua_minmax_decompress(const void* mn, const void* mx, const void* payload,
   return (int)cudaGetLastError();
 }
 
-// x [n, m] f32 or bf16; partials [n, tiles] f32 scratch; out [n] f32.
-int bagua_absmax(const void* x, int is_bf16, int n, long long m, long long tile, int tiles,
-                 void* partials, void* out, void* stream) {
-  if (bad_shape(n, m, tile, tiles)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(tiles, n);
+// x [n, m] f32 or bf16; out [n] f32.  One launch.
+int bagua_absmax(const void* x, int is_bf16, int n, long long m, void* out, void* stream) {
+  if (n < 1 || n > kMaxChunks || m < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    absmax_partials_kernel<bf16><<<grid, kThreads, 0, s>>>((const bf16*)x, m, tile, tiles,
-                                                           (float*)partials);
-  else
-    absmax_partials_kernel<float><<<grid, kThreads, 0, s>>>((const float*)x, m, tile, tiles,
-                                                            (float*)partials);
-  absmax_final_kernel<<<n, kThreads, 0, s>>>((const float*)partials, tiles, (float*)out);
-  return (int)cudaGetLastError();
+  if (is_bf16) return (int)launch_absmax((const bf16*)x, n, m, (float*)out, s);
+  return (int)launch_absmax((const float*)x, n, m, (float*)out, s);
 }
 
 // x [n, m] f32 or bf16; partials [n, tiles] f32 scratch; scale [n] f32;

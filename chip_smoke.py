@@ -35,13 +35,14 @@ Phases, in order; any failure exits non-zero before the result line:
    MoE path fails the run.
 5. codec kernels: the MinMaxUInt8 compress (K1) and decompress (K2) and the
    absmax (K3) kernels against their plain versions, payload bytes,
-   sidecars and decoded values exactly equal: chunks of 128 KiB, 1 MiB,
-   8 MiB, the path's bucket chunk (10 MiB / 2 ranks) and its embedding
+   sidecars, decoded values and maxima exactly equal: chunks of 128 KiB,
+   1 MiB, 8 MiB, the path's bucket chunk (10 MiB / 2 ranks) and its embedding
    bucket's chunk, a ragged, a tiny, a constant, a ±inf and a NaN chunk, a
-   bf16 input; their times against the plain versions at every size, and
-   each kernel's time with a cold L2, beside its bound; K1's times on the
-   embedding bucket's chunk (more than its grid holds in shared memory); the
-   device kernels a call of each runs (K1 must run one).
+   bf16 input, and for K3 a chunk of -0.0 and one holding ±inf and a NaN;
+   their times against the plain versions at every size, and each kernel's
+   time with a cold L2, beside its bound; K1's times on the embedding
+   bucket's chunk (more than its grid holds in shared memory); the device
+   kernels a call of each runs (K1 and K3 must run one).
 6. sign kernels: the 1-bit codec's compress (K4) and decompress (K5) against
    their plain versions, payload bytes and decoded values exactly equal, the
    scale within 1e-6 relative: chunks of 128 KiB, 1 MiB, 8 MiB, the main
@@ -95,7 +96,16 @@ Phases, in order; any failure exits non-zero before the result line:
    (``intra_size=2``), on the 4-layer cut: ``GradientAllReduceAlgorithm(
    hierarchical=True)`` with ``compress_inter="onebit_ef"`` (K4 = K5 = 3 x
    buckets x steps) and ``ByteGradAlgorithm()`` at its default two-level form
-   (K1 = K2 = 2 x buckets x steps); the same checks.
+   (K1 = K2 = 2 x buckets x steps), and staged ZeRO
+   (``ZeroOptimizerAlgorithm(hierarchical=True)``, AdamW 1e-4; no codec);
+   the same checks.
+13. zero, ZeRO-1 at world size 2, two ranks as in slice 3: the full
+   BERT-Large with ``ZeroOptimizerAlgorithm`` over AdamW 1e-4 beside the
+   replicated ``GradientAllReduceAlgorithm`` with the same AdamW, then the
+   4-layer cut with ``compress_intra="int8"`` (K3 = 2 x buckets x steps: one
+   encode on the scatter hop, one on the gather; AdamW 1e-3, see
+   ``ZERO_RUNS``); the same checks, and ZeRO's optimizer state a rank exactly
+   half of the replicated run's, its peak memory below it.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -1116,6 +1126,19 @@ def phase_codec_kernels():
                                                and am[0].isnan()):
         raise AssertionError("a NaN chunk must give a NaN sidecar, a NaN absmax and a "
                              "NaN decode")
+    # K3's edges: a chunk of -0.0 (its max is +0.0), and +inf, -inf and a NaN
+    # in one chunk of the path's length (NaN) beside ±inf alone (inf)
+    x = randn(n * 50001)
+    x[:50001] = -0.0
+    _, (_, _, am) = check(x, "-0.0")
+    if am[0].view(torch.int32).item() != 0:
+        raise AssertionError(f"a chunk of -0.0 must give an absmax of +0.0, got {am[0]}")
+    x = randn(n * path_m)
+    x[5], x[path_m // 2], x[path_m - 1] = float("inf"), float("-inf"), float("nan")
+    x[path_m + 9], x[2 * path_m - 3] = float("-inf"), float("inf")
+    _, (_, _, am) = check(x, "±inf and NaN")
+    if not (am[0].isnan() and am[1].item() == float("inf")):
+        raise AssertionError(f"±inf with a NaN must give NaN, ±inf alone inf: {am}")
 
     # times at each chunk size (f32), kernel against plain, both with the
     # inputs repeated (hot L2: the path's 5 MiB chunk fits in it) and the
@@ -1141,7 +1164,7 @@ def phase_codec_kernels():
             for k, (a, b) in times[label].items()))
         if label == "bucket chunk 5 MiB":
             kernels_a_call(f"codec chunk {label}", {k: kern for k, (kern, _) in fns.items()},
-                           ("compress_chunked",))
+                           ("compress_chunked", "absmax_chunked"))
     # K1 on the embedding bucket's chunk: more than the grid holds in shared
     # memory, so the part that does not fit is read again
     x = randn(n * embed_m)
@@ -1409,21 +1432,44 @@ SLICE4_RUNS = (
 SLICE4_2X2_RUNS = (
     ("hier_onebit_ef", BERT["cut_layers"], "hierarchical", {"compress_inter": "onebit_ef"}),
     ("bytegrad_2x2", BERT["cut_layers"], "bytegrad_default", {}),
+    ("zero_2x2", BERT["cut_layers"], "zero_hierarchical", {}),
+)
+#: ZeRO-1 at world 2: (a) the full BERT-Large, its optimizer state sharded,
+#: beside (b) the replicated run it must halve that state of; (c) the 4-layer
+#: cut through the int8 ring.  (c) runs AdamW at 1e-3: its gather sends the
+#: parameters through the codec, and an AdamW step of 1e-4 is below half of
+#: the int8 grid step of every chunk of the weights (absmax / 127: 6.7e-4 to
+#: 1.3e-3 for 1.3 M draws of N(0, 1 / fan_in), 7.9e-3 where a norm scale of 1
+#: shares the chunk), so at 1e-4 the decoded parameters would not move, in
+#: the JAX package's ZeRO as in the port
+ZERO_RUNS = (
+    ("zero", None, "zero", {}),
+    ("replicated", None, "gradient_allreduce", {}),
+    ("zero_int8", BERT["cut_layers"], "zero", {"compress_intra": "int8", "lr": 1e-3}),
 )
 #: the multi-rank phases: name -> (label, runs, world, intra-node size)
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
     "slice4": ("slice 4", SLICE4_RUNS, CODEC_WORLD, None),
     "slice4_2x2": ("slice 4 (2 x 2)", SLICE4_2X2_RUNS, 4, 2),
+    "zero": ("zero", ZERO_RUNS, CODEC_WORLD, None),
 }
 QADAM_WARMUP = 2
 #: seconds a multi-rank phase may take before its ranks are killed
 WORKER_TIMEOUT = 420
 
 
-def _algorithm(name):
+def _adamw(lr=1e-4):
+    """``bench_bert``'s AdamW."""
+    return functools.partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def _algorithm(name, lr=1e-4):
     import bagua_tpu_torch as bt
 
+    if name in ("zero", "zero_hierarchical"):
+        return bt.ZeroOptimizerAlgorithm(_adamw(lr), hierarchical=name == "zero_hierarchical")
     if name == "bytegrad":
         return bt.ByteGradAlgorithm(hierarchical=False)
     if name == "bytegrad_default":
@@ -1441,7 +1487,8 @@ def _want_launches(algo_name, kw, n_layers, n_buckets):
     """Each codec and flash kernel's launches in ``STEPS`` steps.  Per bucket
     and step: ByteGrad's and QAdam's scatter-gather one K1 and two K2; the
     two-level ByteGrad's inter-node ring at n = 2 one hop and the allgather's
-    encode, two K1 and two K2; the int8/fp8 rings at world 2 two K3; the
+    encode, two K1 and two K2; the int8/fp8 rings at world 2 two K3 (the
+    allreduce's, and ZeRO's: one on the scatter hop, one on the gather); the
     1-bit codec's error-feedback step one K4 and one K5, its ring at n = 2
     two more of each (one hop, then the allgather's encode and the decode of
     the gathered parts); top-k none."""
@@ -1477,6 +1524,14 @@ def fwd_bwd_ms(model, batch, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times) * 1e3
+
+
+def optimizer_state_bytes(opt) -> int:
+    """Bytes of an optimizer's per-element state on this rank: every state
+    tensor shaped like its parameter (AdamW's two moments), not the step
+    counters."""
+    return sum(t.numel() * t.element_size() for p, st in opt.state.items()
+               for t in st.values() if torch.is_tensor(t) and t.shape == p.shape)
 
 
 def _flat_digests(trainer, model):
@@ -1553,13 +1608,13 @@ def compressed_run(rank, world, run, device, label):
     from bagua_tpu_torch.ops import flash_attention as fa
 
     name, layers, algo_name, kw = run
+    kw = dict(kw)
+    lr = kw.pop("lr", 1e-4)
     cfg = bt.bert_large_config(max_seq_len=BERT["s"],
                                **({} if layers is None else {"n_layers": layers}))
     model = bt.TransformerLM(cfg, device=device, seed=0)
-    adamw = functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
-                              weight_decay=1e-4)
-    trainer = bt.BaguaTrainer(bt.lm_loss_fn, adamw, _algorithm(algo_name), device=device,
-                              **kw)
+    algo = _algorithm(algo_name, lr)
+    trainer = bt.BaguaTrainer(bt.lm_loss_fn, _adamw(lr), algo, device=device, **kw)
     state = trainer.init(model)
     # each rank feeds its own slice of one global batch (seed 1)
     g = torch.Generator(device=device).manual_seed(1)
@@ -1572,7 +1627,10 @@ def compressed_run(rank, world, run, device, label):
     staged = trainer.host_staged_bytes - staged0
     n_buckets = len(trainer.plan.buckets)
     ef = state.algo_state["ef"]["buckets"] if state.algo_state else None
+    opt = state.opt_state.optimizer if algo.sharded_opt_state else state.optimizer
     record = {"name": name, "layers": cfg.n_layers, "buckets": n_buckets,
+              "padded_numel": sum(b.padded_numel for b in trainer.plan.buckets),
+              "opt_state_bytes": None if opt is None else optimizer_state_bytes(opt),
               "params": sum(p.numel() for p in model.parameters()), "losses": losses,
               "launches": launches, "stats": st, "host_staged_bytes": staged,
               "ef_norm": None if ef is None else sum(r.abs().sum().item() for r in ef),
@@ -1651,11 +1709,31 @@ def phase_multi_rank(phase):
                 f"{st['median_ms']:.3f} ms; first {st['first_ms']:.3f} ms), "
                 f"{st['tokens_s']:.1f} tokens/s, peak memory {st['peak_gb']:.3f} GB, "
                 f"host-staged {rec['host_staged_bytes']} bytes in {STEPS} steps, "
+                f"optimizer state {rec['opt_state_bytes']} bytes, "
                 f"{rec['buckets']} buckets, launches {rec['launches']}; forward+backward "
                 f"alone (no communication) {rec['fwd_bwd_ms']:.3f} ms")
         log(f"{label} {name}: parameters bitwise equal on all {world} ranks "
             f"({len(runs[0]['digests'])} bucket digests)")
     return {rec["name"]: rec for rec in ranks[0]}
+
+
+def check_zero(zero):
+    """ZeRO's full BERT-Large run against the replicated one of the same
+    call: its optimizer state a rank exactly half (``1 / world``; BERT-Large's
+    buckets need no padding at world 2), its peak memory below."""
+    sharded, full = zero["zero"], zero["replicated"]
+    log(f"zero: optimizer state {sharded['opt_state_bytes']} bytes a rank against the "
+        f"replicated run's {full['opt_state_bytes']} (ratio "
+        f"{sharded['opt_state_bytes'] / full['opt_state_bytes']:.6f}); peak memory "
+        f"{sharded['stats']['peak_gb']:.3f} GB against {full['stats']['peak_gb']:.3f} GB; step "
+        f"{sharded['stats']['step_ms']:.3f} ms against {full['stats']['step_ms']:.3f} ms; "
+        f"staged {sharded['host_staged_bytes']} bytes against {full['host_staged_bytes']}")
+    if not (sharded["padded_numel"] == full["params"]
+            and CODEC_WORLD * sharded["opt_state_bytes"] == full["opt_state_bytes"]
+            and sharded["stats"]["peak_gb"] < full["stats"]["peak_gb"]):
+        raise AssertionError(f"ZeRO's state or peak: {sharded['opt_state_bytes']} bytes, "
+                             f"{sharded['stats']['peak_gb']} GB against "
+                             f"{full['opt_state_bytes']}, {full['stats']['peak_gb']}")
 
 
 def main():
@@ -1687,6 +1765,7 @@ def main():
     slice3 = timed("slice 3", phase_multi_rank, "slice3")
     slice4 = timed("slice 4", phase_multi_rank, "slice4")
     timed("slice 4 (2 x 2)", phase_multi_rank, "slice4_2x2")
+    check_zero(timed("zero", phase_multi_rank, "zero"))
     log(f"seconds by phase: {seconds}")
     # each kernel's launches come from its own path: flash from slice 1, gmm
     # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8

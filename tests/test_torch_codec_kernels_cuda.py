@@ -12,7 +12,9 @@ K4's payload exactly equal, its scale (a sum taken in another order) within
 5 MiB chunks (the path's), BERT-Large's 62.5 MB embedding chunk (more than
 K1's grid holds in shared memory: the part that does not fit is read again),
 chunks that start off a 16-byte boundary (m = 100003, 5, 4_194_307), one
-chunk and 64 of them.
+chunk and 64 of them.  K3 (one launch whose last block of a chunk writes
+its max) also on inputs that start off a 16-byte boundary, -0.0, ±inf with
+a NaN, and 1 to 65535 chunks: equal to its plain version bit for bit.
 """
 
 import pytest
@@ -117,15 +119,49 @@ def test_codec_kernels_count_launches_and_reject_bad_input(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,m", [(2, 32768), (2, 1310720), (2, EMBED_M), (64, 4099)])
 def test_compress_kernels_are_one_launch(card, n, m, dtype):
-    # K1 and K4 each run one device kernel a call: no second pass, no memset
+    # K1, K3 and K4 each run one device kernel a call: no second pass, no
+    # memset
     x = _input("normal", n, m, dtype)
     cd.compress_chunked(x, n)   # built and warm
+    cd.absmax_chunked(x, n)
     cd.sign_compress_chunked(x, n)
     torch.cuda.synchronize()
     k1 = _build.kernels_of_calls(lambda: cd.compress_chunked(x, n))
+    k3 = _build.kernels_of_calls(lambda: cd.absmax_chunked(x, n))
     k4 = _build.kernels_of_calls(lambda: cd.sign_compress_chunked(x, n))
     assert len(k1) == 3 and all("minmax_compress_kernel" in k for k in k1), k1
+    assert len(k3) == 3 and all("absmax_kernel" in k for k in k3), k3
     assert len(k4) == 3 and all("sign_compress_kernel" in k for k in k4), k4
+
+
+ABSMAX_CASES = [("negzero", 2, 1310720), ("inf_nan", 2, 1310720), ("inf_nan", 3, 100003),
+                ("normal", 1, 1), ("normal", 1, 7), ("normal", 65535, 3), ("normal", 65535, 64),
+                ("normal", 1000, 4097), ("normal", 1, 15630336), ("offset", 2, 100003),
+                ("offset", 1, 2621441)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,n,m", ABSMAX_CASES)
+def test_absmax_kernel_matches_plain(card, kind, n, m, dtype):
+    # "negzero": every element of chunk 0 is -0.0 (its max is +0.0, bits 0);
+    # "inf_nan": chunk 0 holds +inf, -inf and a NaN (NaN), chunk 1 +inf and
+    # -inf (inf); "offset": the input starts one element past an aligned
+    # address, so every chunk has a head and a tail
+    x = _input("normal", 1, n * m + 1, dtype)[1:] if kind == "offset" else \
+        _input("normal", n, m, dtype)
+    if kind == "negzero":
+        x[:m] = -0.0
+    if kind == "inf_nan":
+        x[3], x[m // 2], x[m - 2] = float("inf"), float("-inf"), float("nan")
+        x[m + 1], x[2 * m - 1] = float("-inf"), float("inf")
+    got, want = cd.absmax_chunked(x, n), cd.absmax_chunked_plain(x, n)
+    assert _same(got, want)
+    if kind == "negzero":
+        assert got[0].view(torch.int32).item() == 0
+    if kind == "inf_nan":
+        assert got[0].isnan() and got[1].item() == float("inf")
+    # the tickets and words are left at zero: a second call gives the same
+    assert _same(cd.absmax_chunked(x, n), want)
 
 
 @pytest.mark.parametrize("n,m", [(2, 1310720), (1, 2621440), (3, 100003)])
@@ -145,21 +181,23 @@ def test_sign_scale_is_reproducible(card, n, m):
 def test_two_streams_alternating(card):
     # calls that alternate between two streams, each on its own inputs, give
     # the plain versions' answers: K1 keeps no state between launches, and
-    # K4's wrapper orders launches made on different streams (its tickets
-    # live in the library's memory)
+    # K3's and K4's wrappers order launches made on different streams (their
+    # tickets live in the library's memory)
     n, m = 2, 1310720
     xs = [_input("normal", n, m + i, torch.float32) for i in range(2)]
-    want = [(cd.compress_chunked_plain(x, n), cd.sign_compress_chunked_plain(x, n)) for x in xs]
+    want = [(cd.compress_chunked_plain(x, n), cd.sign_compress_chunked_plain(x, n),
+             cd.absmax_chunked_plain(x, n)) for x in xs]
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
     torch.cuda.synchronize()
     got = []
     for i in range(8):
         with torch.cuda.stream(streams[i % 2]):
             got.append((i % 2, cd.compress_chunked(xs[i % 2], n),
-                        cd.sign_compress_chunked(xs[i % 2], n)))
+                        cd.sign_compress_chunked(xs[i % 2], n), cd.absmax_chunked(xs[i % 2], n)))
     torch.cuda.synchronize()
-    for j, (mn, mx, p), (scale, sp) in got:
-        (pmn, pmx, pp), (pscale, psp) = want[j]
+    for j, (mn, mx, p), (scale, sp), am in got:
+        (pmn, pmx, pp), (pscale, psp), pam = want[j]
         assert _same(mn, pmn) and _same(mx, pmx) and torch.equal(p, pp)
         assert torch.equal(sp, psp)
         torch.testing.assert_close(scale, pscale, rtol=1e-6, atol=0)
+        assert _same(am, pam)

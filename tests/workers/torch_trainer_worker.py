@@ -15,7 +15,10 @@ bucket size from the flax params in ``PARAMS_NPZ`` (keys ``dense_<i>.kernel``
 bucket flat, and so every codec chunk, holds the same elements as the JAX
 trainer's; keys prefixed ``<algo>/``, with the L1 norm of this rank's
 error-feedback residual (``ef_norm``, -1 when there is none) and whether it
-is finite.  The tiers' size is ``LOCAL_WORLD_SIZE`` (else the world).
+is finite, the plan's padded element count (``padded_numel``) and, for the
+ZeRO runs, the elements of each of this rank's optimizer state tensors by
+name (``state/<name>``).  The tiers' size is ``LOCAL_WORLD_SIZE`` (else the
+world).
 Imports only torch, numpy and the port.
 """
 
@@ -32,6 +35,9 @@ import bagua_tpu_torch as bt
 from bagua_tpu_torch.models.mlp import MLP
 
 SGD = functools.partial(torch.optim.SGD, lr=0.1)
+#: ``bench._algorithms()["zero"]``'s ``optax.sgd(0.1, momentum=0.9)``
+SGD_MOMENTUM = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)
+ADAM = functools.partial(torch.optim.Adam, lr=1e-2)
 
 
 class FlaxLayoutMLP(torch.nn.Module):
@@ -80,7 +86,20 @@ ALGORITHMS = {
                     {"compress_inter": "onebit_ef"}, {}),
     "hier_int8": (lambda: bt.GradientAllReduceAlgorithm(hierarchical=True),
                   {"compress_inter": "int8"}, {}),
+    # ZeRO-1: flat, staged (two nodes of two at world 4; one node, so flat,
+    # at world 2), through the int8 ring, clipped; with Adam beside the
+    # replicated Adam it must equal
+    "zero": (lambda: bt.ZeroOptimizerAlgorithm(SGD_MOMENTUM), {}, {}),
+    "zero_hierarchical": (lambda: bt.ZeroOptimizerAlgorithm(SGD_MOMENTUM, hierarchical=True),
+                          {}, {}),
+    "zero_int8": (lambda: bt.ZeroOptimizerAlgorithm(SGD_MOMENTUM), {"compress_intra": "int8"},
+                  {}),
+    "zero_clip": (lambda: bt.ZeroOptimizerAlgorithm(SGD_MOMENTUM, clip_global_norm=0.5), {}, {}),
+    "zero_adam": (lambda: bt.ZeroOptimizerAlgorithm(ADAM), {}, {}),
+    "adam": (bt.GradientAllReduceAlgorithm, {}, {}),
 }
+#: the optimizer of a run that does not own its optimizer, where not SGD
+OPTIMIZERS = {"adam": ADAM}
 
 
 @contextlib.contextmanager
@@ -101,7 +120,7 @@ def _environ(values):
 
 def _trainer(algo, ce, bucket_bytes=None):
     factory, kw, _ = ALGORITHMS[algo]
-    opt = None if algo.startswith("qadam") else SGD
+    opt = None if algo.startswith(("qadam", "zero")) else OPTIMIZERS.get(algo, SGD)
     return bt.BaguaTrainer(ce, opt, factory(), device="cpu", bucket_bytes=bucket_bytes, **kw)
 
 
@@ -142,7 +161,13 @@ def _run(algo, random_init, rank, data, local, ce, steps, params_path):
     out = {prefix + "losses": np.array(losses),
            prefix + "n_buckets": len(trainer.plan.buckets),
            prefix + "ef_norm": -1.0 if ef is None else float(sum(r.abs().sum() for r in ef)),
-           prefix + "ef_finite": ef is None or all(bool(r.isfinite().all()) for r in ef)}
+           prefix + "ef_finite": ef is None or all(bool(r.isfinite().all()) for r in ef),
+           prefix + "padded_numel": sum(b.padded_numel for b in trainer.plan.buckets)}
+    if algo.startswith("zero"):
+        for st in state.opt_state.optimizer.state.values():
+            for key, t in st.items():
+                if t.dim() > 0:
+                    out[f"{prefix}state/{key}"] = out.get(f"{prefix}state/{key}", 0) + t.numel()
     out.update({prefix + n: p.detach().numpy().copy() for n, p in model.named_parameters()})
     return out
 
