@@ -15,9 +15,12 @@ from .algorithms import (  # noqa: F401
     Algorithm,
     AlgorithmContext,
     ByteGradAlgorithm,
+    DecentralizedAlgorithm,
     GradientAllReduceAlgorithm,
+    LowPrecisionDecentralizedAlgorithm,
     QAdamAlgorithm,
     ZeroOptimizerAlgorithm,
+    shift_one_peer,
 )
 from .bucket import BucketPlan, BucketSpec, split_bucket_by_bucket_size  # noqa: F401
 from .communication import (  # noqa: F401

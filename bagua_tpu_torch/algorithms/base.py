@@ -9,8 +9,11 @@ pass and the optimizer step (``process_grads``).  Dense families implement
 error-feedback residual and runs it over every bucket in plan order.  A
 family that owns its optimizer (QAdam, ZeRO) sets ``owns_optimizer`` and
 provides ``init_optimizer_state`` (or, with ``sharded_opt_state``,
-``init_optimizer_state_sharded``) and ``optimizer_update``.  Gradients travel
-between the stages as a ``name -> tensor`` dict.
+``init_optimizer_state_sharded``) and ``optimizer_update``.  The gossip
+families (``decentralized.py``) set ``replicated_params`` False and
+transform the weights instead, before the optimizer step
+(``process_pre_step``) or after it (``process_post_step``).  Gradients and
+weights travel between the stages as ``name -> tensor`` dicts.
 
 The context carries the two tiers of the hierarchical collectives (the
 intra-node and inter-node communicators, ``communication.py``) and their
@@ -189,6 +192,9 @@ class AlgorithmContext:
 class Algorithm:
     """Base algorithm: plain data parallelism hooks; gradients unchanged."""
 
+    #: False for the gossip families, whose weights differ between ranks
+    #: after the first step (every rank still starts from rank 0's)
+    replicated_params: bool = True
     #: True when the algorithm provides its own optimizer update (QAdam, ZeRO)
     owns_optimizer: bool = False
     #: True when each rank keeps only its shard of the optimizer state (ZeRO):
@@ -332,6 +338,19 @@ class Algorithm:
         flats, algo_state = self.compensate_flats(ctx, flats, algo_state)
         reduced = [self.reduce_bucket_grad(ctx, i, f) for i, f in enumerate(flats)]
         return ctx.from_bucket_flats(reduced), algo_state
+
+    def process_pre_step(self, ctx: AlgorithmContext, params, algo_state, step):
+        """Weight transformation after the gradient stage, before the
+        optimizer step (the full-precision gossip exchange).  ``params`` is
+        name -> tensor; returns ``(params, algo_state)``, the trainer copying
+        every returned tensor that is not the module's own parameter into
+        it."""
+        return params, algo_state
+
+    def process_post_step(self, ctx: AlgorithmContext, params, algo_state, step):
+        """Weight transformation after the optimizer step (the low-precision
+        gossip ring), under the same contract as :meth:`process_pre_step`."""
+        return params, algo_state
 
     def init_optimizer_state(self, params: Dict[str, torch.Tensor]):
         """Optimizer state of an ``owns_optimizer`` family."""

@@ -2,9 +2,10 @@
 ``torch.distributed``.
 
 Port of the part of ``bagua_tpu/communication.py`` the trainer and the
-compressed algorithms need: ``ReduceOp``, :func:`init_process_group`, a
-:class:`BaguaCommunicator` over a process group (allreduce, allgather,
-reduce_scatter, alltoall, ppermute, and the ring reduce-scatter / allgather /
+compressed and gossip algorithms need: ``ReduceOp``,
+:func:`init_process_group`, a :class:`BaguaCommunicator` over a process group
+(allreduce, allgather, reduce_scatter, alltoall, ppermute, the pairwise
+``exchange_with_peer``, and the ring reduce-scatter / allgather /
 allreduce with an optional wire codec) and :func:`get_backend`, whose
 :class:`BaguaBackend` holds the global communicator and the two tiers of the
 hierarchical collectives.  NCCL carries the collectives on the card, gloo on
@@ -30,7 +31,7 @@ direction) for the communicator's collectives.  An NCCL group never stages.
 from __future__ import annotations
 
 from enum import IntEnum
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -242,6 +243,27 @@ class BaguaCommunicator:
         if not src:
             out.zero_()
         return self._from_wire(out, x)
+
+    def exchange_with_peer(self, x: torch.Tensor, peer_fn: Callable[[int, int, int], int],
+                           step: int) -> torch.Tensor:
+        """Pairwise send and receive with a step-dependent symmetric pairing
+        (``communication.py:477-520``): ``peer_fn(rank, nranks, step)`` is
+        this step's partner and must be an involution over the ranks
+        (``peer(peer(r)) == r``), as the reference's shift_one exchange is
+        (``decentralized_full_precision_synchronous.rs:79-83``); a rank that
+        is its own partner keeps ``x``.  PyTorch runs eagerly, so this is
+        one ``ppermute`` with this step's pairing: the JAX package's
+        precompiled branch per step of the pairing's period, and its cap on
+        that period, have no counterpart."""
+        n, r = self.nranks(), self.rank()
+        peers = [int(peer_fn(i, n, int(step))) for i in range(n)]
+        for i, p in enumerate(peers):
+            if not 0 <= p < n or peers[p] != i:
+                raise ValueError(f"exchange_with_peer: the pairing {peers} of step {step} "
+                                 f"is not an involution of {n} ranks (rank {i} -> {p})")
+        if peers[r] == r:
+            return x.clone()
+        return self.ppermute(x, [(i, p) for i, p in enumerate(peers) if p != i])
 
     # -- ring collectives -----------------------------------------------------
     #

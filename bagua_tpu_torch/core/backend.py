@@ -3,8 +3,11 @@
 Port of the main path of ``bagua_tpu/core/backend.py``.  One step is: the
 per-rank mean loss, its backward, the gradients flattened into the bucket
 plan's flat buffers, the algorithm's ``process_grads`` (for
-``GradientAllReduceAlgorithm``, one allreduce per bucket), the optimizer
-step on the reduced gradients, and the loss averaged over the ranks.  An
+``GradientAllReduceAlgorithm``, one allreduce per bucket), its
+``process_pre_step`` (the full-precision gossip exchange of the weights), the
+optimizer step on the reduced gradients, its ``process_post_step`` (the
+low-precision gossip ring), and the loss averaged over the ranks.  The weight
+hooks' results are copied into the module's parameters in place.  An
 algorithm that owns its optimizer (QAdam, ZeRO) gets no torch optimizer: its
 ``optimizer_update`` runs after ``process_grads`` (ZeRO's holds its
 collectives, and its state is this rank's shard).  Where a stateful codec
@@ -140,7 +143,8 @@ class BaguaTrainer:
             internode=self.backend.internode_communicator,
             ef_enabled=self._ef_enabled, device=self.device)
         self._params = dict(model.named_parameters())
-        algo_state = algo.init_state(self._ctx, self._params)
+        with torch.no_grad():
+            algo_state = algo.init_state(self._ctx, self._params)
         if algo.owns_optimizer:
             opt_state = (algo.init_optimizer_state_sharded(self._ctx, self._params)
                          if algo.sharded_opt_state else algo.init_optimizer_state(self._params))
@@ -175,6 +179,9 @@ class BaguaTrainer:
                  for n, p in self._params.items()}
         grads, algo_state = algo.process_grads(
             self._ctx, grads, self._params, state.algo_state, state.step)
+        # the gossip exchange: the gradient was taken at the weights from
+        # before it and is applied to the exchanged weights
+        algo_state = self._weight_hook(algo.process_pre_step, algo_state, state.step)
         opt_state = state.opt_state
         if algo.owns_optimizer:
             _, opt_state, algo_state = algo.optimizer_update(
@@ -183,12 +190,28 @@ class BaguaTrainer:
             for n, g in grads.items():
                 self._params[n].grad = g
             optimizer.step()
+        algo_state = self._weight_hook(algo.process_post_step, algo_state, state.step)
         loss = self.comm.allreduce(loss.detach().clone(), ReduceOp.AVG)
         return TrainState(state.step + 1, model, optimizer, algo_state, opt_state), loss
 
     @torch.no_grad()
+    def _weight_hook(self, hook, algo_state, step):
+        """Run a weight hook (``process_pre_step``, ``process_post_step``)
+        outside autograd, copy the weights it returns into the module's
+        parameters in place (the optimizer keys its state by those objects)
+        and return the algorithm state."""
+        params, algo_state = hook(self._ctx, self._params, algo_state, step)
+        for n, t in params.items():
+            p = self._params[n]
+            if t is not p:
+                p.copy_(t)
+        return algo_state
+
+    @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> torch.Tensor:
-        """Forward-only loss averaged over the ranks; the state is untouched."""
+        """Forward-only loss of this rank's weights (the gossip families'
+        differ between ranks) averaged over the ranks; the state is
+        untouched."""
         state.model.eval()
         loss = self.loss_fn(state.model, batch)
         return self.comm.allreduce(loss.detach().clone(), ReduceOp.AVG)

@@ -41,7 +41,10 @@ Phases, in order; any failure exits non-zero before the result line:
    bf16 input, and for K3 a chunk of -0.0 and one holding ±inf and a NaN;
    their times against the plain versions at every size, and each kernel's
    time with a cold L2, beside its bound; K1's times on the embedding
-   bucket's chunk (more than its grid holds in shared memory); the device
+   bucket's chunk (more than its grid holds in shared memory); K1 and K2 on
+   a whole 10 MiB bucket and the whole embedding bucket as one chunk, as
+   the low-precision gossip ring runs them, equal to plain, with their
+   times hot, cold and plain and their bounds; the device
    kernels a call of each runs (K1 and K3 must run one).
 6. sign kernels: the 1-bit codec's compress (K4) and decompress (K5) against
    their plain versions, payload bytes and decoded values exactly equal, the
@@ -106,6 +109,24 @@ Phases, in order; any failure exits non-zero before the result line:
    encode on the scatter hop, one on the gather; AdamW 1e-3, see
    ``ZERO_RUNS``); the same checks, and ZeRO's optimizer state a rank exactly
    half of the replicated run's, its peak memory below it.
+14. decentralized, the gossip families at world size 2, two ranks as in
+   slice 3, on the full BERT-Large with AdamW 1e-4: ``DecentralizedAlgorithm(
+   hierarchical=False, peer_selection_mode="all", track_peer_weights=True)``
+   (no codec), then ``LowPrecisionDecentralizedAlgorithm(hierarchical=False)``
+   (K1 = buckets x steps, a whole bucket one chunk; K2 three times that).
+   Their ranks differ by design, so in place of the parameters' equality:
+   after every step, fingerprints of every bucket show the peer weights
+   equal on both ranks (``all``), or each rank's ``left`` and ``right``
+   replicas equal to its neighbours' ``self`` and its parameters to its own
+   ``self`` (the ring), and the parameters of the ranks differ after the
+   last step; losses equal on the ranks, finite and falling; exact launches;
+   the ring's codec of a middle bucket's and of the embedding bucket's
+   ``diff`` through the kernels equal to the plain codec.
+15. decentralized at 2 x 2, four ranks as two nodes of two on the 4-layer
+   cut: ``shift_one`` over the four ranks (the peer weights equal to those
+   of the step's partner) and ``LowPrecisionDecentralizedAlgorithm(
+   hierarchical=True)`` (the intra-node average, then the ring over the two
+   nodes); the same checks.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -658,28 +679,33 @@ def build_slice(name):
     return model, trainer, state, trainer.shard_batch({"tokens": tokens})
 
 
-def train_steps(trainer, state, batch, tokens_per_step, modules):
+def train_steps(trainer, state, batch, tokens_per_step, modules, after_step=None):
     """``STEPS`` training steps with every launch count of ``modules`` set to
     0 just before and read just after; returns the losses, the launches by
-    kernel, the step statistics and the last state."""
+    kernel, the step statistics and the last state.  ``after_step(state)``
+    runs after each step, outside the steps' times, and launches none of
+    ``modules``' kernels."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in modules:
         mod.reset_launch_counts()
-    losses, stamps = [], [time.perf_counter()]
+    losses, times = [], []
     for _ in range(STEPS):
+        t0 = time.perf_counter()
         state, loss = trainer.train_step(state, batch)
         losses.append(loss.item())   # synchronizes
-        stamps.append(time.perf_counter())
+        times.append(time.perf_counter() - t0)
+        if after_step is not None:
+            after_step(state)
     launches = {k.__name__: k.launches for mod in modules for k in mod.KERNELS}
     # step 1 pays the allocator's and the libraries' warm-up; the rest is
     # one window, so a slow step in it counts in full
-    window_s = stamps[-1] - stamps[1]
+    window_s = sum(times[1:])
     stats = {
         "step_ms": window_s / (STEPS - 1) * 1e3,
         "tokens_s": (STEPS - 1) * tokens_per_step / window_s,
-        "median_ms": statistics.median(b - a for a, b in zip(stamps[1:], stamps[2:])) * 1e3,
-        "first_ms": (stamps[1] - stamps[0]) * 1e3,
+        "median_ms": statistics.median(times[1:]) * 1e3,
+        "first_ms": times[0] * 1e3,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     if not all(math.isfinite(x) for x in losses):
@@ -1103,8 +1129,8 @@ def phase_codec_kernels():
              "bucket chunk 5 MiB": path_m}
     errs = {}
 
-    def check(x, label):
-        finite, outs, e = check_codec(x, n, label)
+    def check(x, label, chunks=n):
+        finite, outs, e = check_codec(x, chunks, label)
         for k, v in e.items():
             errs[k] = max(errs.get(k, 0.0), v)
         return finite, outs
@@ -1173,6 +1199,23 @@ def phase_codec_kernels():
         f"{cuda_ms(k1, 5):.5f} ms, cold L2 {cuda_ms_cold(k1, 5):.5f} ms, bound "
         f"{codec_bound('compress_chunked', n, embed_m)[0]:.5f} ms")
     del x
+    # the low-precision gossip ring compresses a whole bucket as one chunk
+    # (every SM of K1's grid on it): a 10 MiB bucket, and the embedding
+    # bucket, more than the grid holds in shared memory
+    for label, m in {"one-chunk bucket 10 MiB": CODEC_BUCKET_BYTES // 4,
+                     "one-chunk embedding bucket": n * embed_m}.items():
+        x = randn(m)
+        check(x, label, chunks=1)
+        mn, mx, p = cd.compress_chunked(x, 1)
+        fns = {"compress_chunked": (lambda: cd.compress_chunked(x, 1),
+                                    lambda: cd.compress_chunked_plain(x, 1)),
+               "decompress_chunked": (lambda: cd.decompress_chunked(mn, mx, p),
+                                      lambda: cd.decompress_chunked_plain(mn, mx, p))}
+        log(f"codec timing {label} (1 x {m} f32): " + ", ".join(
+            f"{k} {cuda_ms(kern, 10):.5f} ms, cold L2 {cuda_ms_cold(kern, 5):.5f} ms, plain "
+            f"{cuda_ms(plain, 3):.4f} ms, bound {codec_bound(k, 1, m)[0]:.5f} ms"
+            for k, (kern, plain) in fns.items()))
+        del x, mn, mx, p
     # the library yardsticks at the path's chunk: aminmax computes only the
     # reduction half of K1; vector_norm(inf) is K3's whole function
     x = randn(n * path_m)
@@ -1447,12 +1490,29 @@ ZERO_RUNS = (
     ("replicated", None, "gradient_allreduce", {}),
     ("zero_int8", BERT["cut_layers"], "zero", {"compress_intra": "int8", "lr": 1e-3}),
 )
+#: the gossip families at world 2 on the full BERT-Large: (a) full-precision
+#: ``all`` with the peer weights tracked (no codec), (b) the low-precision
+#: ring, flat (a whole bucket one K1 chunk)
+DECENTRALIZED_RUNS = (
+    ("decentralized_all", None, "decentralized_all", {}),
+    ("low_precision", None, "low_precision", {}),
+)
+#: the gossip families at world 4, two nodes of two ranks, on the 4-layer
+#: cut: (a) ``shift_one`` over the four ranks, the partner rotating with the
+#: step, (b) the low-precision ring hierarchical: the intra-node average,
+#: then the ring over the two nodes
+DECENTRALIZED_4_RUNS = (
+    ("shift_one", BERT["cut_layers"], "shift_one", {}),
+    ("low_precision_2x2", BERT["cut_layers"], "low_precision_2x2", {}),
+)
 #: the multi-rank phases: name -> (label, runs, world, intra-node size)
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
     "slice4": ("slice 4", SLICE4_RUNS, CODEC_WORLD, None),
     "slice4_2x2": ("slice 4 (2 x 2)", SLICE4_2X2_RUNS, 4, 2),
     "zero": ("zero", ZERO_RUNS, CODEC_WORLD, None),
+    "decentralized": ("decentralized", DECENTRALIZED_RUNS, CODEC_WORLD, None),
+    "decentralized_4": ("decentralized (2 x 2)", DECENTRALIZED_4_RUNS, 4, 2),
 }
 QADAM_WARMUP = 2
 #: seconds a multi-rank phase may take before its ranks are killed
@@ -1470,6 +1530,12 @@ def _algorithm(name, lr=1e-4):
 
     if name in ("zero", "zero_hierarchical"):
         return bt.ZeroOptimizerAlgorithm(_adamw(lr), hierarchical=name == "zero_hierarchical")
+    if name in ("decentralized_all", "shift_one"):
+        mode = "all" if name == "decentralized_all" else "shift_one"
+        return bt.DecentralizedAlgorithm(hierarchical=False, peer_selection_mode=mode,
+                                         track_peer_weights=True)
+    if name in ("low_precision", "low_precision_2x2"):
+        return bt.LowPrecisionDecentralizedAlgorithm(hierarchical=name == "low_precision_2x2")
     if name == "bytegrad":
         return bt.ByteGradAlgorithm(hierarchical=False)
     if name == "bytegrad_default":
@@ -1491,7 +1557,9 @@ def _want_launches(algo_name, kw, n_layers, n_buckets):
     allreduce's, and ZeRO's: one on the scatter hop, one on the gather); the
     1-bit codec's error-feedback step one K4 and one K5, its ring at n = 2
     two more of each (one hop, then the allgather's encode and the decode of
-    the gathered parts); top-k none."""
+    the gathered parts); the low-precision gossip ring one K1 (the bucket's
+    ``diff`` as one chunk) and three K2 (from the left, from the right, its
+    own); top-k and the full-precision gossip none."""
     from bagua_tpu_torch.ops import codec as cd
 
     want = {k.__name__: 0 for k in cd.KERNELS}
@@ -1503,6 +1571,9 @@ def _want_launches(algo_name, kw, n_layers, n_buckets):
         want["decompress_chunked"] = 2 * n_buckets * codec_steps
     elif algo_name == "bytegrad_default":
         want["compress_chunked"] = want["decompress_chunked"] = 2 * n_buckets * STEPS
+    elif algo_name in ("low_precision", "low_precision_2x2"):
+        want["compress_chunked"] = n_buckets * STEPS
+        want["decompress_chunked"] = 3 * n_buckets * STEPS
     elif codec in ("int8", "fp8_e4m3"):
         want["absmax_chunked"] = 2 * n_buckets * STEPS
     elif codec == "onebit_ef":
@@ -1601,6 +1672,66 @@ def _check_ef_bucket(rank, trainer, state, model, batch, record):
                              f"{i} differs from the plain codec's: {record['ef_bucket']}")
 
 
+def fingerprints(groups):
+    """64-bit fingerprints of lists of f32 flats, computed on their device:
+    the sum, wrapping modulo 2^64, of every element's bits times an odd
+    pseudo-random 64-bit weight of its index (the same weights on every
+    rank, from a seed; made anew each call, so that they hold no memory
+    between calls).  Flats that differ in one element always differ here
+    (the difference of the bits times an odd weight is not a multiple of
+    2^64); more differences collide with a chance of about 2^-64."""
+    flats = [f for fl in groups.values() for f in fl]
+    g = torch.Generator(device=flats[0].device).manual_seed(7)
+    weights = torch.randint(-2 ** 62, 2 ** 62, (max(f.numel() for f in flats),), generator=g,
+                            dtype=torch.int64, device=flats[0].device) | 1
+    return {key: torch.stack([(f.view(torch.int32).long() * weights[:f.numel()]).sum()
+                              for f in fl]).tolist() for key, fl in groups.items()}
+
+
+def _gossip_trace(trainer, model):
+    """``(trace, after_step)``: ``after_step(state)`` appends the
+    fingerprints of every bucket flat of the parameters (``params``) and of
+    the gossip state (``peer_weights``; ``left``, ``right``, ``self``) to
+    ``trace[key]``, one list of buckets a step."""
+    trace = {}
+
+    @torch.no_grad()
+    def after_step(state):
+        flats = {"params": trainer.plan.flatten(dict(model.named_parameters())),
+                 **state.algo_state}
+        for key, fp in fingerprints(flats).items():
+            trace.setdefault(key, []).append(fp)
+
+    return trace, after_step
+
+
+def _check_lowprec_bucket(rank, trainer, state, model, record):
+    """The low-precision ring's compress and decompress through the kernels
+    against the plain codec (CPU tensors take it) on the ``diff`` of the
+    run's last state, in a bucket of the middle and in the embedding bucket
+    (the largest), each one chunk: sidecars, payload bytes and decoded
+    values equal."""
+    from bagua_tpu_torch.compression import compress_chunked, decompress_chunked
+
+    buckets, st = trainer.plan.buckets, state.algo_state
+    with torch.no_grad():
+        params = trainer.plan.flatten(dict(model.named_parameters()))
+    record["plain_buckets"] = []
+    for i in (len(buckets) // 2, max(range(len(buckets)), key=lambda j: buckets[j].padded_numel)):
+        diff = params[i] + st["left"][i] / 3.0 + st["right"][i] / 3.0 - (5.0 / 3.0) * st["self"][i]
+        got = compress_chunked(diff, 1)
+        got = (*got, decompress_chunked(*got))
+        want = compress_chunked(diff.cpu(), 1)
+        want = (*want, decompress_chunked(*want))
+        equal = all(same(a.cpu(), b) for a, b in zip(got, want))
+        record["plain_buckets"].append({"index": i, "numel": diff.numel(), "equal": equal})
+        log(f"[rank {rank}] bucket {i} ({diff.numel()} elements as one chunk) compressed and "
+            f"decoded through the kernels vs the plain codec: {'equal' if equal else 'DIFFERS'}")
+        if not equal:
+            raise AssertionError(f"[rank {rank}] the kernels' codec of bucket {i}'s diff "
+                                 f"differs from the plain codec's")
+
+
 def compressed_run(rank, world, run, device, label):
     """One run of a multi-rank slice on this rank; returns its record."""
     import bagua_tpu_torch as bt
@@ -1621,12 +1752,15 @@ def compressed_run(rank, world, run, device, label):
     tokens = torch.randint(0, cfg.vocab_size, (world * BERT["b"], cfg.max_seq_len + 1),
                            device=device, generator=g)
     batch = trainer.shard_batch({"tokens": tokens[rank * BERT["b"]:(rank + 1) * BERT["b"]]})
+    gossip = not algo.replicated_params
+    trace, after_step = _gossip_trace(trainer, model) if gossip else (None, None)
     staged0 = trainer.host_staged_bytes
     losses, launches, st, state = train_steps(trainer, state, batch,
-                                              BERT["b"] * cfg.max_seq_len, [fa, cd])
+                                              BERT["b"] * cfg.max_seq_len, [fa, cd], after_step)
     staged = trainer.host_staged_bytes - staged0
     n_buckets = len(trainer.plan.buckets)
-    ef = state.algo_state["ef"]["buckets"] if state.algo_state else None
+    ef = (state.algo_state or {}).get("ef")
+    ef = None if ef is None else ef["buckets"]
     opt = state.opt_state.optimizer if algo.sharded_opt_state else state.optimizer
     record = {"name": name, "layers": cfg.n_layers, "buckets": n_buckets,
               "padded_numel": sum(b.padded_numel for b in trainer.plan.buckets),
@@ -1635,7 +1769,11 @@ def compressed_run(rank, world, run, device, label):
               "launches": launches, "stats": st, "host_staged_bytes": staged,
               "ef_norm": None if ef is None else sum(r.abs().sum().item() for r in ef),
               "ef_finite": ef is None or all(bool(r.isfinite().all()) for r in ef),
-              "digests": _flat_digests(trainer, model)}
+              # the gossip families' ranks differ by design: their own gates
+              # read the per-step fingerprints instead
+              "digests": None if gossip else _flat_digests(trainer, model),
+              "fingerprints": trace, "hierarchical": algo.hierarchical,
+              "peer_selection_mode": getattr(algo, "peer_selection_mode", None)}
     record["fwd_bwd_ms"] = fwd_bwd_ms(model, batch)
     log(f"[rank {rank}] {label} {name}: {record['params']} params, {cfg.n_layers} layers, "
         f"{n_buckets} buckets; losses {losses}; residual L1 {record['ef_norm']}")
@@ -1650,6 +1788,8 @@ def compressed_run(rank, world, run, device, label):
         _check_plain_bucket(rank, trainer, model, batch, record)
     if name == "onebit_ef":
         _check_ef_bucket(rank, trainer, state, model, batch, record)
+    if name == "low_precision":
+        _check_lowprec_bucket(rank, trainer, state, model, record)
     return record
 
 
@@ -1676,7 +1816,7 @@ def phase_multi_rank(phase):
     """Start the phase's ranks as processes of this script on the one card and
     check them; fails if any rank fails or the phase outlasts
     ``WORKER_TIMEOUT``."""
-    label, _, world, _ = MULTI_RANK[phase]
+    label, _, world, intra = MULTI_RANK[phase]
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'store')}"
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
@@ -1698,7 +1838,9 @@ def phase_multi_rank(phase):
                 ranks.append(json.load(f))
     for runs in zip(*ranks):
         name = runs[0]["name"]
-        if any(r["digests"] != runs[0]["digests"] for r in runs):
+        if runs[0]["fingerprints"] is not None:
+            check_gossip(label, runs, intra or 1)
+        elif any(r["digests"] != runs[0]["digests"] for r in runs):
             raise AssertionError(f"{label} {name}: parameters differ between the ranks")
         if any(r["losses"] != runs[0]["losses"] for r in runs):
             raise AssertionError(f"{label} {name}: losses differ between the ranks")
@@ -1712,9 +1854,54 @@ def phase_multi_rank(phase):
                 f"optimizer state {rec['opt_state_bytes']} bytes, "
                 f"{rec['buckets']} buckets, launches {rec['launches']}; forward+backward "
                 f"alone (no communication) {rec['fwd_bwd_ms']:.3f} ms")
-        log(f"{label} {name}: parameters bitwise equal on all {world} ranks "
-            f"({len(runs[0]['digests'])} bucket digests)")
+        if runs[0]["digests"] is not None:
+            log(f"{label} {name}: parameters bitwise equal on all {world} ranks "
+                f"({len(runs[0]['digests'])} bucket digests)")
     return {rec["name"]: rec for rec in ranks[0]}
+
+
+def check_gossip(label, runs, intra):
+    """The gossip families' gates on every rank's per-step fingerprints of
+    every bucket.  ``all``: the peer weights equal on every rank after every
+    step; ``shift_one``: rank r's equal those of ``shift_one_peer(r, world,
+    step)``; the low-precision ring: rank r's ``left`` replica equal to its
+    left ring neighbour's ``self``, ``right`` to its right neighbour's, its
+    parameters to its own ``self`` (the ring runs over the inter-node tier
+    where hierarchical: the ranks of r's local index, ``intra`` apart).  In
+    each, the parameters of the first and the last rank differ after the
+    last step (at 2 x 2 the two ranks of a node hold the same average)."""
+    from bagua_tpu_torch.algorithms.decentralized import shift_one_peer
+
+    name, world = runs[0]["name"], len(runs)
+    fp = [r["fingerprints"] for r in runs]
+    mode = runs[0]["peer_selection_mode"]
+    n_buckets = len(fp[0]["params"][0])
+    bad = []
+    for step in range(STEPS):
+        for r in range(world):
+            if mode == "all":
+                pairs = [("peer_weights", r, "peer_weights", 0)]
+            elif mode == "shift_one":
+                pairs = [("peer_weights", r, "peer_weights", shift_one_peer(r, world, step))]
+            else:
+                ring = intra if runs[0]["hierarchical"] else 1
+                n, i, local = world // ring, r // ring, r % ring
+                pairs = [("left", r, "self", ((i - 1) % n) * ring + local),
+                         ("right", r, "self", ((i + 1) % n) * ring + local),
+                         ("params", r, "self", r)]
+            bad += [(step, a, p, b, q) for a, p, b, q in pairs
+                    if fp[p][a][step] != fp[q][b][step]]
+    differ = fp[0]["params"][-1] != fp[-1]["params"][-1]
+    what = {"all": "peer weights equal on every rank",
+            "shift_one": "peer weights equal to those of the step's shift_one partner"}.get(
+        mode, "left == left neighbour's self, right == right neighbour's self, "
+        "params == self")
+    log(f"{label} {name}: {what} after each of the {STEPS} steps in all {n_buckets} buckets "
+        f"on all {world} ranks: {'yes' if not bad else f'NO at {bad[:5]}'}; parameters of "
+        f"ranks 0 and {world - 1} {'differ' if differ else 'EQUAL'} after the last step")
+    if bad or not differ:
+        raise AssertionError(f"{label} {name}: gossip gate failed: mismatches "
+                             f"(step, key, rank, key, rank) {bad[:10]}; ranks differ {differ}")
 
 
 def check_zero(zero):
@@ -1765,7 +1952,20 @@ def main():
     slice3 = timed("slice 3", phase_multi_rank, "slice3")
     slice4 = timed("slice 4", phase_multi_rank, "slice4")
     timed("slice 4 (2 x 2)", phase_multi_rank, "slice4_2x2")
-    check_zero(timed("zero", phase_multi_rank, "zero"))
+    zero = timed("zero", phase_multi_rank, "zero")
+    check_zero(zero)
+    gossip = timed("decentralized", phase_multi_rank, "decentralized")
+    gossip.update(timed("decentralized (2 x 2)", phase_multi_rank, "decentralized_4"))
+    full = zero["replicated"]
+    for name, rec in gossip.items():
+        if rec["params"] != full["params"]:
+            continue
+        log(f"decentralized {name}: peak {rec['stats']['peak_gb']:.3f} GB ("
+            f"{rec['stats']['peak_gb'] - full['stats']['peak_gb']:+.3f} GB against the "
+            f"replicated BERT-Large run of the zero phase, {full['stats']['peak_gb']:.3f}), step "
+            f"{rec['stats']['step_ms']:.3f} ms against its {full['stats']['step_ms']:.3f}, "
+            f"launches K1 {rec['launches']['compress_chunked']} K2 "
+            f"{rec['launches']['decompress_chunked']} in {STEPS} steps")
     log(f"seconds by phase: {seconds}")
     # each kernel's launches come from its own path: flash from slice 1, gmm
     # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8

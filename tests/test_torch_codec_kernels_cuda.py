@@ -12,7 +12,8 @@ K4's payload exactly equal, its scale (a sum taken in another order) within
 5 MiB chunks (the path's), BERT-Large's 62.5 MB embedding chunk (more than
 K1's grid holds in shared memory: the part that does not fit is read again),
 chunks that start off a 16-byte boundary (m = 100003, 5, 4_194_307), one
-chunk and 64 of them.  K3 (one launch whose last block of a chunk writes
+chunk and 64 of them, and a whole 10 MiB bucket and the whole embedding
+bucket as one chunk (the low-precision gossip ring's).  K3 (one launch whose last block of a chunk writes
 its max) also on inputs that start off a 16-byte boundary, -0.0, ±inf with
 a NaN, and 1 to 65535 chunks: equal to its plain version bit for bit.
 """
@@ -50,10 +51,13 @@ def _input(kind, n, m, dtype):
 
 
 EMBED_M = 30522 * 1024 // 2   # BERT-Large's embedding bucket, one of two chunks
+#: the low-precision gossip ring's chunks: a whole bucket, the embedding's
+#: (30528 x 1024) and a 10 MiB one
+EMBED_BUCKET = 30528 * 1024
 CASES = [("normal", 2, 32768), ("normal", 2, 1310720), ("normal", 4, 100003),
          ("normal", 1, 5), ("normal", 3, 4_194_307), ("constant", 2, 4099),
          ("inf", 2, 50001), ("nan", 2, 50001), ("normal", 2, EMBED_M), ("normal", 64, 4099),
-         ("normal", 1, 2621440)]
+         ("normal", 1, 2621440), ("normal", 1, EMBED_BUCKET)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -117,7 +121,8 @@ def test_codec_kernels_count_launches_and_reject_bad_input(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n,m", [(2, 32768), (2, 1310720), (2, EMBED_M), (64, 4099)])
+@pytest.mark.parametrize("n,m", [(2, 32768), (2, 1310720), (2, EMBED_M), (64, 4099),
+                                 (1, 2621440), (1, EMBED_BUCKET)])
 def test_compress_kernels_are_one_launch(card, n, m, dtype):
     # K1, K3 and K4 each run one device kernel a call: no second pass, no
     # memset

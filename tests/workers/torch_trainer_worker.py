@@ -1,6 +1,7 @@
 """One rank of the port's gloo runs (tests/test_torch_trainer.py,
 tests/test_torch_compressed.py, tests/test_torch_onebit.py,
-tests/test_torch_hierarchical.py).
+tests/test_torch_hierarchical.py, tests/test_torch_zero.py,
+tests/test_torch_decentralized.py).
 
     python torch_trainer_worker.py RANK WORLD INIT_METHOD DATA_NPZ OUT_NPZ STEPS [ALGOS [PARAMS_NPZ]]
 
@@ -17,8 +18,11 @@ trainer's; keys prefixed ``<algo>/``, with the L1 norm of this rank's
 error-feedback residual (``ef_norm``, -1 when there is none) and whether it
 is finite, the plan's padded element count (``padded_numel``) and, for the
 ZeRO runs, the elements of each of this rank's optimizer state tensors by
-name (``state/<name>``).  The tiers' size is ``LOCAL_WORLD_SIZE`` (else the
-world).
+name (``state/<name>``); for the gossip families, whose weights differ
+between ranks, the parameters and the algorithm state after every step
+(``trace/<name>``, ``trace/params`` in bucket order, ``trace/peer_weights``,
+``trace/left`` ...) and the codec calls (``codec_calls``).  The tiers' size
+is ``LOCAL_WORLD_SIZE`` (else the world).
 Imports only torch, numpy and the port.
 """
 
@@ -97,6 +101,27 @@ ALGORITHMS = {
     "zero_clip": (lambda: bt.ZeroOptimizerAlgorithm(SGD_MOMENTUM, clip_global_norm=0.5), {}, {}),
     "zero_adam": (lambda: bt.ZeroOptimizerAlgorithm(ADAM), {}, {}),
     "adam": (bt.GradientAllReduceAlgorithm, {}, {}),
+    # the gossip families: flat, every interval 1 or 2, the peer weights
+    # tracked; hierarchical (one node at world 2, two nodes of two at world
+    # 4); the default constructors
+    "dec_all": (lambda: bt.DecentralizedAlgorithm(hierarchical=False,
+                                                  track_peer_weights=True), {}, {}),
+    "dec_all_i2": (lambda: bt.DecentralizedAlgorithm(
+        hierarchical=False, communication_interval=2, track_peer_weights=True), {}, {}),
+    "dec_shift_one": (lambda: bt.DecentralizedAlgorithm(
+        hierarchical=False, peer_selection_mode="shift_one", track_peer_weights=True), {}, {}),
+    "dec_shift_one_i2": (lambda: bt.DecentralizedAlgorithm(
+        hierarchical=False, peer_selection_mode="shift_one", communication_interval=2,
+        track_peer_weights=True), {}, {}),
+    "dec_hier": (lambda: bt.DecentralizedAlgorithm(hierarchical=True, track_peer_weights=True),
+                 {}, {}),
+    "dec_hier_shift_one": (lambda: bt.DecentralizedAlgorithm(
+        hierarchical=True, peer_selection_mode="shift_one", track_peer_weights=True), {}, {}),
+    "dec_default": (bt.DecentralizedAlgorithm, {}, {}),
+    "lowprec": (lambda: bt.LowPrecisionDecentralizedAlgorithm(hierarchical=False), {}, {}),
+    "lowprec_i2": (lambda: bt.LowPrecisionDecentralizedAlgorithm(
+        hierarchical=False, communication_interval=2), {}, {}),
+    "lowprec_default": (bt.LowPrecisionDecentralizedAlgorithm, {}, {}),
 }
 #: the optimizer of a run that does not own its optimizer, where not SGD
 OPTIMIZERS = {"adam": ADAM}
@@ -153,11 +178,17 @@ def _run(algo, random_init, rank, data, local, ce, steps, params_path):
         trainer, prefix = _trainer(algo, ce), f"{algo}/"
     state = trainer.init(model)   # every rank starts from rank 0's weights
     batch = trainer.shard_batch(local)
-    losses = []
-    for _ in range(steps):
-        state, loss = trainer.train_step(state, batch)
-        losses.append(loss.item())
-    ef = state.algo_state["ef"]["buckets"] if state.algo_state else None
+    losses, trace = [], {}
+    gossip = not trainer.algorithm.replicated_params
+    codec = _CodecCalls() if gossip else contextlib.nullcontext()
+    with codec:
+        for _ in range(steps):
+            state, loss = trainer.train_step(state, batch)
+            losses.append(loss.item())
+            if gossip:
+                _trace_step(trace, trainer, model, state.algo_state)
+    ef = (state.algo_state or {}).get("ef")
+    ef = None if ef is None else ef["buckets"]
     out = {prefix + "losses": np.array(losses),
            prefix + "n_buckets": len(trainer.plan.buckets),
            prefix + "ef_norm": -1.0 if ef is None else float(sum(r.abs().sum() for r in ef)),
@@ -169,7 +200,49 @@ def _run(algo, random_init, rank, data, local, ce, steps, params_path):
                 if t.dim() > 0:
                     out[f"{prefix}state/{key}"] = out.get(f"{prefix}state/{key}", 0) + t.numel()
     out.update({prefix + n: p.detach().numpy().copy() for n, p in model.named_parameters()})
+    if gossip:
+        out[prefix + "codec_calls"] = codec.calls
+        out[prefix + "eval_loss"] = trainer.eval_step(state, batch).item()
+        out.update({f"{prefix}trace/{k}": np.stack(v) for k, v in trace.items()})
     return out
+
+
+class _CodecCalls:
+    """Counts the MinMaxUInt8 compress and decompress calls the gossip
+    families make while entered (on the CPU the codec takes its plain
+    version, which no launch count sees)."""
+
+    def __enter__(self):
+        from bagua_tpu_torch.algorithms import decentralized
+
+        self.calls, self._module = 0, decentralized
+        self._saved = (decentralized.compress_chunked, decentralized.decompress_chunked)
+
+        def counted(fn):
+            def call(*args):
+                self.calls += 1
+                return fn(*args)
+            return call
+
+        decentralized.compress_chunked, decentralized.decompress_chunked = map(
+            counted, self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        self._module.compress_chunked, self._module.decompress_chunked = self._saved
+
+
+def _trace_step(trace, trainer, model, algo_state):
+    """Append this step's parameters, by name and as their bucket flats
+    (``params``), and the gossip state's flats (``peer_weights``, the
+    ``left``/``right``/``self`` replicas) to ``trace``; each bucket list
+    concatenated."""
+    named = {n: p.detach() for n, p in model.named_parameters()}
+    items = list(named.items()) + [("params", trainer.plan.flatten(named))]
+    items += list((algo_state or {}).items())
+    items = [(k, torch.cat(v) if isinstance(v, list) else v) for k, v in items]
+    for key, t in items:
+        trace.setdefault(key, []).append(t.numpy().copy())
 
 
 if __name__ == "__main__":
