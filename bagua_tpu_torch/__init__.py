@@ -14,6 +14,7 @@ from . import env  # noqa: F401
 from .algorithms import (  # noqa: F401
     Algorithm,
     AlgorithmContext,
+    AsyncModelAverageAlgorithm,
     ByteGradAlgorithm,
     DecentralizedAlgorithm,
     GradientAllReduceAlgorithm,
@@ -24,11 +25,17 @@ from .algorithms import (  # noqa: F401
 )
 from .bucket import BucketPlan, BucketSpec, split_bucket_by_bucket_size  # noqa: F401
 from .communication import (  # noqa: F401
+    BaguaAborted,
     BaguaBackend,
     BaguaCommunicator,
     ReduceOp,
+    abort,
+    barrier,
+    check_abort,
     get_backend,
     init_process_group,
+    is_aborted,
+    reset_abort,
 )
 from .core.backend import BaguaTrainer, TrainState  # noqa: F401
 from .define import TensorDeclaration, TensorDtype  # noqa: F401

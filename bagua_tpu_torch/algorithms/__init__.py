@@ -1,3 +1,4 @@
+from .async_model_average import AsyncModelAverageAlgorithm  # noqa: F401
 from .base import Algorithm, AlgorithmContext  # noqa: F401
 from .bytegrad import ByteGradAlgorithm  # noqa: F401
 from .decentralized import (  # noqa: F401

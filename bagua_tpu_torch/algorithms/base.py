@@ -13,7 +13,9 @@ provides ``init_optimizer_state`` (or, with ``sharded_opt_state``,
 families (``decentralized.py``) set ``replicated_params`` False and
 transform the weights instead, before the optimizer step
 (``process_pre_step``) or after it (``process_post_step``).  Gradients and
-weights travel between the stages as ``name -> tensor`` dicts.
+weights travel between the stages as ``name -> tensor`` dicts.  Async model
+average works between steps, in the host-side hook ``host_pre_step``, on
+process groups of its own (``communicators``).
 
 The context carries the two tiers of the hierarchical collectives (the
 intra-node and inter-node communicators, ``communication.py``) and their
@@ -351,6 +353,26 @@ class Algorithm:
         """Weight transformation after the optimizer step (the low-precision
         gossip ring), under the same contract as :meth:`process_pre_step`."""
         return params, algo_state
+
+    def host_pre_step(self, trainer, state):
+        """Host-side hook at the top of every ``BaguaTrainer.train_step``,
+        under ``torch.no_grad()``: the boundary between steps where async
+        model average swaps weights (the reference's weight lock,
+        ``async_model_average.py:156-168``).  A hook that changes the
+        weights writes them into the module's parameters in place; returns
+        the state."""
+        return state
+
+    def on_restore(self, trainer) -> None:
+        """Host-side hook after a checkpoint restore: an algorithm whose
+        host-side schedule belongs to the run before it (async model
+        average's round in flight, anchor and period) resets it here."""
+        return None
+
+    def communicators(self) -> List[BaguaCommunicator]:
+        """The communicators of the algorithm's own process groups, whose
+        host-staged bytes the trainer counts beside its own."""
+        return []
 
     def init_optimizer_state(self, params: Dict[str, torch.Tensor]):
         """Optimizer state of an ``owns_optimizer`` family."""

@@ -2,14 +2,16 @@
 ``torch.distributed``.
 
 Port of the part of ``bagua_tpu/communication.py`` the trainer and the
-compressed and gossip algorithms need: ``ReduceOp``,
-:func:`init_process_group`, a :class:`BaguaCommunicator` over a process group
-(allreduce, allgather, reduce_scatter, alltoall, ppermute, the pairwise
-``exchange_with_peer``, and the ring reduce-scatter / allgather /
-allreduce with an optional wire codec) and :func:`get_backend`, whose
-:class:`BaguaBackend` holds the global communicator and the two tiers of the
-hierarchical collectives.  NCCL carries the collectives on the card, gloo on
-the CPU.  Even at world size 1 every bucket goes through a real
+algorithm families need: ``ReduceOp``, :func:`init_process_group`, a
+:class:`BaguaCommunicator` over a process group (allreduce of every
+``ReduceOp``, allgather, reduce_scatter and alltoall along any axis,
+ppermute, the pairwise ``exchange_with_peer``, barrier, the ring
+reduce-scatter / allgather / allreduce with an optional wire codec),
+:func:`get_backend`, whose :class:`BaguaBackend` holds the global
+communicator and the two tiers of the hierarchical collectives, the
+module-level :func:`barrier` and the process-wide abort flag
+(:func:`abort`, :func:`check_abort`).  NCCL carries the collectives on the
+card, gloo on the CPU.  Even at world size 1 every bucket goes through a real
 ``all_reduce``.
 
 Tiers.  The JAX package splits its device mesh into an ``intra`` axis
@@ -30,6 +32,9 @@ direction) for the communicator's collectives.  An NCCL group never stages.
 
 from __future__ import annotations
 
+import functools
+import logging
+import threading
 from enum import IntEnum
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -38,6 +43,9 @@ import torch.distributed as dist
 
 from . import env
 from .device import resolve_device
+from .telemetry import counters
+
+logger = logging.getLogger(__name__)
 
 
 # Numbering matches the reference (and hence Aluminum's ReductionOperator).
@@ -51,6 +59,17 @@ class ReduceOp(IntEnum):
     BXOR = 9
     AVG = 10
 
+
+#: the reductions the process groups carry themselves (AVG is a SUM then a
+#: division: gloo has no AVG)
+_DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.AVG: dist.ReduceOp.SUM,
+             ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT, ReduceOp.MIN: dist.ReduceOp.MIN,
+             ReduceOp.MAX: dist.ReduceOp.MAX}
+#: the bitwise reductions: gloo's own op, and the local fold of the gathered
+#: operands where the group has none (NCCL)
+_BITWISE_OPS = {ReduceOp.BOR: (dist.ReduceOp.BOR, torch.bitwise_or),
+                ReduceOp.BAND: (dist.ReduceOp.BAND, torch.bitwise_and),
+                ReduceOp.BXOR: (dist.ReduceOp.BXOR, torch.bitwise_xor)}
 
 #: payload types no collective backend is relied on to carry; they move as
 #: bytes (every collective that carries them only moves data)
@@ -69,6 +88,53 @@ _reduce_scatter_flat = (getattr(dist, "reduce_scatter_single", None)
 #: the flat ring, ``LINK_DCN`` the inter-node tier
 LINK_ICI = "ici"
 LINK_DCN = "dcn"
+
+
+# -- the abort flag (``bagua_tpu/communication.py:64-121``) --------------------
+#
+# A process-wide flag: once raised, the trainer refuses new steps
+# (:func:`check_abort` at the top of ``train_step``) and async model averaging
+# stops launching rounds.  PyTorch cannot cancel a collective in flight
+# either, so a raised flag stops new work only.
+
+_ABORT_EVENT = threading.Event()
+_ABORT_REASON: Optional[str] = None
+
+
+class BaguaAborted(RuntimeError):
+    """Raised by :func:`check_abort` after :func:`abort` was called."""
+
+
+def abort(reason: str = "user abort") -> None:
+    """Flag every communicator as aborted: collectives in flight finish, no
+    new communication is started."""
+    global _ABORT_REASON
+    # the Event is the synchronization point: the reason is written before
+    # set(), and check_abort falls back to "aborted" on a torn read
+    _ABORT_REASON = reason
+    _ABORT_EVENT.set()
+    counters.incr("comm/aborts")
+    logger.error("bagua_tpu_torch: communication aborted: %s", reason)
+
+
+def is_aborted() -> bool:
+    return _ABORT_EVENT.is_set()
+
+
+def check_abort() -> None:
+    """Raise :class:`BaguaAborted` if :func:`abort` has been called."""
+    if _ABORT_EVENT.is_set():
+        raise BaguaAborted(_ABORT_REASON or "aborted")
+
+
+def reset_abort() -> None:
+    """Clear the abort flag (the recovery path once the cause is handled)."""
+    global _ABORT_REASON
+    was_aborted = _ABORT_EVENT.is_set()
+    _ABORT_REASON = None
+    _ABORT_EVENT.clear()
+    if was_aborted:
+        counters.incr("comm/abort_resets")
 
 
 def init_process_group(
@@ -166,73 +232,119 @@ class BaguaCommunicator:
 
     # -- collectives ---------------------------------------------------------
 
-    def allreduce(self, x: torch.Tensor, op: ReduceOp = ReduceOp.AVG) -> torch.Tensor:
-        """Sum (SUM) or mean (AVG) of ``x`` over the ranks, reduced in place
-        in ``x``'s storage and returned.  AVG is a sum then a division,
-        since gloo has no AVG."""
-        if op not in (ReduceOp.SUM, ReduceOp.AVG):
-            raise NotImplementedError(f"allreduce supports SUM and AVG, not {op!r}")
+    def _count_allreduce_staging(self, x: torch.Tensor) -> None:
         if self.stages_cuda and x.is_cuda:
-            # gloo copies the operand to the host and the sum back
+            # gloo copies the operand to the host and the result back
             self.host_staged_bytes += 2 * x.numel() * x.element_size()
-        dist.all_reduce(x, dist.ReduceOp.SUM, group=self.group)
+
+    def allreduce(self, x: torch.Tensor, op: ReduceOp = ReduceOp.AVG) -> torch.Tensor:
+        """The reduction of ``x`` over the ranks by ``op``, in place in
+        ``x``'s storage, returned.  AVG is a sum then a division, since gloo
+        has no AVG.  The bitwise ops (BOR, BAND, BXOR) take integer and bool
+        tensors only; gloo reduces them itself, NCCL, which has no bitwise
+        reductions, gathers the operands and folds them locally in rank
+        order (JAX's form for its rare ops, ``communication.py:176-186``)."""
+        if op in _BITWISE_OPS:
+            return self._allreduce_bitwise(x, op)
+        if op not in _DIST_OPS:
+            raise ValueError(f"unsupported ReduceOp {op!r}")
+        self._count_allreduce_staging(x)
+        dist.all_reduce(x, _DIST_OPS[op], group=self.group)
         if op == ReduceOp.AVG:
             x.div_(self.nranks())
         return x
 
+    def _allreduce_bitwise(self, x: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+        if x.is_floating_point() or x.is_complex():
+            raise TypeError(f"{op.name} takes integer or bool tensors, got {x.dtype}")
+        dist_op, fold = _BITWISE_OPS[op]
+        if dist.get_backend(self.group) == "gloo":
+            # gloo carries no bool: a bool's byte is 0 or 1, and the bitwise
+            # ops keep it so
+            wire = x.view(torch.uint8) if x.dtype == torch.bool else x
+            self._count_allreduce_staging(wire)
+            dist.all_reduce(wire, dist_op, group=self.group)
+            return x
+        gathered = self.allgather(x, tiled=False)
+        return x.copy_(functools.reduce(fold, gathered.unbind(0)))
+
+    def allreduce_start(self, x: torch.Tensor):
+        """Start the sum of ``x`` over the ranks, in place, without waiting:
+        returns the collective's work, which the caller waits on before it
+        reads ``x`` (async model average's round on its own group)."""
+        self._count_allreduce_staging(x)
+        return dist.all_reduce(x, dist.ReduceOp.SUM, group=self.group, async_op=True)
+
+    def barrier(self) -> None:
+        """Block until every rank of the group has reached the barrier."""
+        dist.barrier(group=self.group)
+
     def allgather(self, x: torch.Tensor, axis: int = 0, tiled: bool = True) -> torch.Tensor:
-        """Every rank's ``x`` in rank order: concatenated along dim 0
-        (``tiled``) or stacked on a new leading dim."""
-        if axis != 0:
-            raise NotImplementedError("allgather gathers along dim 0 only")
+        """Every rank's ``x`` in rank order (``lax.all_gather``):
+        concatenated along ``axis`` (``tiled``), or stacked on a new axis at
+        ``axis`` of the result (a negative ``axis`` counts from the end of
+        the result, which has one more dim than ``x``)."""
         n = self.nranks()
+        if tiled:
+            axis = _axis(axis, x.dim())
+            x = x.movedim(axis, 0)
+        else:
+            axis = _axis(axis, x.dim() + 1)
         wire = self._to_wire(x)
         out = self._wire_empty((n * x.shape[0],) + tuple(x.shape[1:]), x)
         _all_gather_flat(out, wire, group=self.group)
         out = self._from_wire(out, x)
-        return out if tiled else out.reshape((n,) + tuple(x.shape))
+        if tiled:
+            return out.movedim(0, axis)
+        return out.reshape((n,) + tuple(x.shape)).movedim(0, axis)
 
     def reduce_scatter(self, x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
                        axis: int = 0) -> torch.Tensor:
-        """This rank's contiguous 1/n slice (along dim 0) of the sum (SUM)
-        or mean (AVG) of ``x`` over the ranks."""
-        if axis != 0:
-            raise NotImplementedError("reduce_scatter scatters along dim 0 only")
+        """This rank's contiguous 1/n block along ``axis`` of the sum (SUM)
+        or mean (AVG) of ``x`` over the ranks (``lax.psum_scatter``,
+        ``tiled=True``)."""
         if op not in (ReduceOp.SUM, ReduceOp.AVG):
             raise ValueError(f"reduce_scatter supports SUM/AVG, got {op}")
         n = self.nranks()
-        if x.shape[0] % n:
-            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over {n} ranks")
+        axis = _axis(axis, x.dim())
+        if x.shape[axis] % n:
+            raise ValueError(f"dim {axis} of {tuple(x.shape)} does not split over {n} ranks")
+        x = x.movedim(axis, 0)
         wire = self._to_wire(x)
         out = self._wire_empty((x.shape[0] // n,) + tuple(x.shape[1:]), x)
         _reduce_scatter_flat(out, wire, group=self.group)
-        out = self._from_wire(out, x)
+        out = self._from_wire(out, x).movedim(0, axis)
         return out / n if op == ReduceOp.AVG else out
 
     def alltoall(self, x: torch.Tensor, split_axis: int = 0,
                  concat_axis: int = 0) -> torch.Tensor:
-        """``x`` is ``[n, ...]``; row ``j`` of the result is row ``r`` of
-        rank ``j``'s ``x`` (r = this rank)."""
-        if split_axis != 0 or concat_axis != 0:
-            raise NotImplementedError("alltoall splits and concatenates along dim 0 only")
-        if x.shape[0] != self.nranks():
-            raise ValueError(f"alltoall needs a leading dim of {self.nranks()}, "
-                             f"got {tuple(x.shape)}")
+        """``lax.all_to_all`` with ``tiled=False``: ``x.shape[split_axis]``
+        is the number of ranks; block ``j`` along it goes to rank ``j``, and
+        the blocks received, in rank order, make a new axis at
+        ``concat_axis`` of the result (which has ``x``'s number of dims)."""
+        n = self.nranks()
+        split_axis, concat_axis = _axis(split_axis, x.dim()), _axis(concat_axis, x.dim())
+        if x.shape[split_axis] != n:
+            raise ValueError(f"alltoall needs dim {split_axis} of {n}, got {tuple(x.shape)}")
+        x = x.movedim(split_axis, 0)
         wire = self._to_wire(x)
         out = torch.empty_like(wire)
         dist.all_to_all_single(out, wire, group=self.group)
-        return self._from_wire(out, x)
+        return self._from_wire(out, x).movedim(0, concat_axis)
 
     def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """``perm`` pairs ``(src, dst)`` of group ranks: this rank sends
         ``x`` to its ``dst`` and returns what its ``src`` sent, zeros if no
-        rank sends to it (``lax.ppermute``'s contract), over
-        ``batch_isend_irecv``."""
+        rank sends to it (``lax.ppermute``'s contract).  A fixed point
+        ``(r, r)`` returns a copy of ``x`` at rank r and sends nothing; the
+        pairs between distinct ranks go over ``batch_isend_irecv``."""
         r = self.rank()
         dst = [d for s, d in perm if s == r]
         src = [s for s, d in perm if d == r]
         if len(dst) > 1 or len(src) > 1:
             raise ValueError(f"perm {perm} sends or receives twice at rank {r}")
+        if src == [r]:
+            return x.clone()
         wire = self._to_wire(x)
         out = self._wire_empty(tuple(x.shape), x)
         ops = [dist.P2POp(dist.isend, wire, self._global_rank(d), self.group) for d in dst]
@@ -379,6 +491,13 @@ class BaguaCommunicator:
         return out[:size] if pad else out
 
 
+def _axis(axis: int, ndim: int) -> int:
+    """``axis`` in ``[0, ndim)``, a negative one counted from the end."""
+    if not -ndim <= axis < ndim:
+        raise ValueError(f"axis {axis} is out of range for {ndim} dims")
+    return axis % ndim
+
+
 def _tier_groups(world: int, rank: int, intra: int):
     """``(intra-node group, inter-node group)`` of this rank.  Every rank
     creates every group, in the same order, as ``new_group`` requires."""
@@ -424,3 +543,9 @@ def get_backend() -> BaguaBackend:
     if _BACKEND is None:
         _BACKEND = BaguaBackend()
     return _BACKEND
+
+
+def barrier(comm: Optional[BaguaCommunicator] = None) -> None:
+    """Block until every rank of ``comm`` (default: the global
+    communicator) has reached the barrier."""
+    (comm or get_backend().global_communicator).barrier()

@@ -1,13 +1,16 @@
 """BaguaTrainer: the data-parallel training step.
 
 Port of the main path of ``bagua_tpu/core/backend.py``.  One step is: the
-per-rank mean loss, its backward, the gradients flattened into the bucket
+abort check, the algorithm's ``host_pre_step`` (async model average's
+boundary, where a round is launched or applied), its ``need_reset`` (QAdam's
+phase switch), the per-rank mean loss, its backward, the gradients flattened into the bucket
 plan's flat buffers, the algorithm's ``process_grads`` (for
 ``GradientAllReduceAlgorithm``, one allreduce per bucket), its
 ``process_pre_step`` (the full-precision gossip exchange of the weights), the
 optimizer step on the reduced gradients, its ``process_post_step`` (the
 low-precision gossip ring), and the loss averaged over the ranks.  The weight
-hooks' results are copied into the module's parameters in place.  An
+hooks' results, and whatever ``host_pre_step`` changes, go into the module's
+parameters in place.  An
 algorithm that owns its optimizer (QAdam, ZeRO) gets no torch optimizer: its
 ``optimizer_update`` runs after ``process_grads`` (ZeRO's holds its
 collectives, and its state is this rank's shard).  Where a stateful codec
@@ -31,7 +34,7 @@ from torch import nn
 from .. import env
 from ..algorithms.base import Algorithm, AlgorithmContext
 from ..bucket import split_bucket_by_bucket_size
-from ..communication import ReduceOp, get_backend
+from ..communication import ReduceOp, check_abort, get_backend
 from ..compression.codecs import validate_codec_policy
 from ..device import resolve_device
 from ..tensor import build_params
@@ -115,8 +118,10 @@ class BaguaTrainer:
     @property
     def host_staged_bytes(self) -> int:
         """Bytes staged through the host for gloo so far, summed over the
-        global and the two tier communicators."""
-        return sum(c.host_staged_bytes for c in self.backend.communicators())
+        global and the two tier communicators and the algorithm's own
+        (async model average's averaging group)."""
+        comms = self.backend.communicators() + self.algorithm.communicators()
+        return sum(c.host_staged_bytes for c in comms)
 
     def _ef_active(self) -> bool:
         """Whether this configuration carries the error-feedback residual in
@@ -165,8 +170,14 @@ class BaguaTrainer:
 
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         """One step; returns the new state and the loss averaged over ranks."""
-        model, optimizer, algo = state.model, state.optimizer, self.algorithm
+        check_abort()   # no new step once a rank flagged an abort
+        algo = self.algorithm
         self._step_counter += 1
+        # the boundary between steps, before the phase switch, as in the
+        # JAX trainer
+        with torch.no_grad():
+            state = algo.host_pre_step(self, state)
+        model, optimizer = state.model, state.optimizer
         # the phase switch (QAdam's warmup boundary) on the trainer's own
         # step count, at the top of the step, as the JAX trainer does
         algo.need_reset(self._step_counter - 1)

@@ -3,8 +3,9 @@
 Port of the part of ``bagua_tpu/env.py`` the port reads: the registry of
 declared ``BAGUA_*`` variables with typed ``env_str``/``env_int``/``env_bool``
 readers, the default bucket size, the per-link codec policy, the stateful
-codecs' knobs (top-k ratio, error-feedback residual), and rank / world size /
-local rank / local world size.
+codecs' knobs (top-k ratio, error-feedback residual), async model average's
+staleness cap, the fault-injection plan, and rank / world size / local rank /
+local world size.
 """
 
 from __future__ import annotations
@@ -57,6 +58,20 @@ _declare("BAGUA_EF_RESIDUAL", "enum", "on",
          "quantization error into the next step's gradient; `off` lets the "
          "codec ride without it (biased sign or sparse SGD, a convergence "
          "control).  Set before the trainer is built.", choices=("on", "off"))
+
+
+_declare("BAGUA_FAULT_PLAN", "str", "",
+         "Deterministic fault-injection plan (JSON list of specs: point, "
+         "kind, step/op trigger, count, seed) armed at the first fault-point "
+         "query; drills and tests only, never production.  The port reaches "
+         "async.partition.  See bagua_tpu_torch.faults.inject.")
+_declare("BAGUA_ASYNC_MAX_STALENESS", "int", "4",
+         "Bounded-staleness cap of async model average: when any rank's "
+         "applied-round count reaches this many rounds behind the launched "
+         "count (async.partition drops stall it), that negotiated boundary "
+         "forces a synchronous catch-up average that leaves every rank's "
+         "weights bitwise equal, so the lag never exceeds the cap.  0 "
+         "disables the bound.")
 
 
 def _raw(name: str) -> Optional[str]:
@@ -181,3 +196,13 @@ def is_ef_residual_disabled() -> bool:
     their residual."""
     return env_enum("BAGUA_EF_RESIDUAL") == "off"
 
+
+def get_fault_plan_raw() -> Optional[str]:
+    """The raw JSON fault-injection plan (None when unset); parsed by
+    :mod:`bagua_tpu_torch.faults.inject`."""
+    return _raw("BAGUA_FAULT_PLAN")
+
+
+def get_async_max_staleness() -> int:
+    """Bounded-staleness cap of async model average (0: unbounded)."""
+    return env_int("BAGUA_ASYNC_MAX_STALENESS")

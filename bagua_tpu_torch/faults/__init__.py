@@ -1,0 +1,16 @@
+"""Deterministic fault injection: named points inside the real code paths.
+
+Port of ``bagua_tpu/faults``: the seeded plan machinery
+(:mod:`bagua_tpu_torch.faults.inject`) and the one point the port reaches so
+far, ``async.partition`` (async model average's negotiated boundary).
+"""
+
+from .inject import (  # noqa: F401
+    FAULT_POINTS,
+    FaultPlan,
+    FaultSpec,
+    clear_plan,
+    fault_scope,
+    get_plan,
+    set_plan,
+)

@@ -63,7 +63,10 @@ Phases, in order; any failure exits non-zero before the result line:
    bf16, one with d_model 128 in f32 and one with d_model 128 in f16 each
    take one forward and backward through the gmm kernels, against the same
    layer with the dense reference gmm.
-8. slice 1: the long-context TransformerLM (``bench_longctx``'s widths,
+8. slice 1: every ``ReduceOp`` through the communicator over NCCL at world
+   1 (f32; int32 for the bitwise ops, which take NCCL's gather path), each
+   equal to its operand, nothing staged; then the long-context
+   TransformerLM (``bench_longctx``'s widths,
    random weights from a seed) trained for 10 steps by ``BaguaTrainer`` with
    ``GradientAllReduceAlgorithm`` over NCCL; losses must be finite and
    falling, every flash kernel must have launched ``n_layers * steps`` times,
@@ -127,6 +130,23 @@ Phases, in order; any failure exits non-zero before the result line:
    of the step's partner) and ``LowPrecisionDecentralizedAlgorithm(
    hierarchical=True)`` (the intra-node average, then the ring over the two
    nodes); the same checks.
+16. async, async model average at world size 2, two ranks as in slice 3:
+   the full BERT-Large with the bench's ``AsyncModelAverageAlgorithm(
+   sync_interval_ms=100)``, AdamW 1e-4, then on the 4-layer cut a pinned
+   period of 2 after 2 warmup steps with ``async.partition`` armed on rank 1
+   alone (staleness cap 2), and a period of 1 with an abort from rank 0 and
+   a resume from rank 1.  Gates: the same period, launches, catch-ups and
+   status after every step on both ranks; a round applied inside the full
+   run's window; the ranks' parameters differ after the window and are
+   bitwise equal after ``barrier`` and ``sync_for_checkpoint``; staged
+   bytes exactly two f32 copies of the weights a round, warmup step or
+   catch-up plus the losses; the partition run's catch-up at the same step
+   on both ranks, bitwise equal right after it, its lag within the cap; the
+   abort run's status turning at the same steps on both ranks; losses
+   finite and falling; exact flash launches, no codec.  Prints the agreed
+   period, the rounds, the step times against the replicated and ``all``
+   gossip runs of the same call, the peak, and how long each apply waited
+   for its round against a round's whole time alone.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -706,6 +726,7 @@ def train_steps(trainer, state, batch, tokens_per_step, modules, after_step=None
         "tokens_s": (STEPS - 1) * tokens_per_step / window_s,
         "median_ms": statistics.median(times[1:]) * 1e3,
         "first_ms": times[0] * 1e3,
+        "times_ms": [t * 1e3 for t in times],
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     if not all(math.isfinite(x) for x in losses):
@@ -723,12 +744,39 @@ def log_steps(name, losses, launches, st):
         f"launches {launches}")
 
 
+def check_reductions():
+    """Every ``ReduceOp`` through the global communicator on the card: NCCL at
+    world 1, where each reduction of one rank is its operand, bit for bit
+    (AVG divides by 1).  SUM, AVG, MIN, MAX and PRODUCT on f32 run NCCL's own
+    reductions; BOR, BAND and BXOR on int32 its gather, then the local fold
+    (NCCL has no bitwise reductions).  Nothing stages through the host."""
+    import bagua_tpu_torch as bt
+
+    comm = bt.get_backend().global_communicator
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(1 << 20, device="cuda", generator=g)
+    i = torch.randint(0, 2 ** 30, (1 << 20,), device="cuda", dtype=torch.int32, generator=g)
+    bitwise = (bt.ReduceOp.BOR, bt.ReduceOp.BAND, bt.ReduceOp.BXOR)
+    staged0 = comm.host_staged_bytes
+    results = {}
+    for op in bt.ReduceOp:
+        src = i if op in bitwise else x
+        results[op.name] = torch.equal(comm.allreduce(src.clone(), op), src)
+    staged = comm.host_staged_bytes - staged0
+    log(f"reductions on {torch.distributed.get_backend()} at world "
+        f"{comm.nranks()} (f32, int32 for the bitwise ops, 2^20 elements): {results}, "
+        f"staged {staged} bytes")
+    if not all(results.values()) or staged:
+        raise AssertionError(f"reductions on the card: {results}, staged {staged}")
+
+
 def phase_slice():
     """The port's first path: BaguaTrainer over the long-context LM."""
     import bagua_tpu_torch as bt
     from bagua_tpu_torch.ops import flash_attention as fa
 
     bt.init_process_group()
+    check_reductions()
     model, trainer, state, batch = build_slice("longctx")
     cfg, tokens = model.cfg, batch["tokens"]
     n_params = sum(p.numel() for p in model.parameters())
@@ -1505,6 +1553,18 @@ DECENTRALIZED_4_RUNS = (
     ("shift_one", BERT["cut_layers"], "shift_one", {}),
     ("low_precision_2x2", BERT["cut_layers"], "low_precision_2x2", {}),
 )
+#: async model average at world 2: (a) the full BERT-Large with the bench's
+#: ``AsyncModelAverageAlgorithm(sync_interval_ms=100)`` (``bench.py:88``); on
+#: the 4-layer cut, (b) a pinned period of 2 after 2 warmup steps with
+#: ``async.partition`` armed on rank 1 alone under a staleness cap of 2, and
+#: (c) a period of 1, rank 0 aborting after step ``ASYNC_ABORT_AFTER`` and
+#: rank 1 resuming after step ``ASYNC_RESUME_AFTER``
+ASYNC_RUNS = (
+    ("async", None, "async", {}),
+    ("async_partition", BERT["cut_layers"], "async_partition", {}),
+    ("async_abort", BERT["cut_layers"], "async_abort", {}),
+)
+ASYNC_ABORT_AFTER, ASYNC_RESUME_AFTER = 3, 6
 #: the multi-rank phases: name -> (label, runs, world, intra-node size)
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
@@ -1513,6 +1573,7 @@ MULTI_RANK = {
     "zero": ("zero", ZERO_RUNS, CODEC_WORLD, None),
     "decentralized": ("decentralized", DECENTRALIZED_RUNS, CODEC_WORLD, None),
     "decentralized_4": ("decentralized (2 x 2)", DECENTRALIZED_4_RUNS, 4, 2),
+    "async": ("async", ASYNC_RUNS, CODEC_WORLD, None),
 }
 QADAM_WARMUP = 2
 #: seconds a multi-rank phase may take before its ranks are killed
@@ -1536,6 +1597,13 @@ def _algorithm(name, lr=1e-4):
                                          track_peer_weights=True)
     if name in ("low_precision", "low_precision_2x2"):
         return bt.LowPrecisionDecentralizedAlgorithm(hierarchical=name == "low_precision_2x2")
+    if name == "async":
+        return bt.AsyncModelAverageAlgorithm(sync_interval_ms=100)
+    if name == "async_partition":
+        return bt.AsyncModelAverageAlgorithm(warmup_steps=2, period_steps=2,
+                                             max_staleness_rounds=2)
+    if name == "async_abort":
+        return bt.AsyncModelAverageAlgorithm(period_steps=1)
     if name == "bytegrad":
         return bt.ByteGradAlgorithm(hierarchical=False)
     if name == "bytegrad_default":
@@ -1732,11 +1800,10 @@ def _check_lowprec_bucket(rank, trainer, state, model, record):
                                  f"differs from the plain codec's")
 
 
-def compressed_run(rank, world, run, device, label):
-    """One run of a multi-rank slice on this rank; returns its record."""
+def _build_run(rank, world, run, device):
+    """A run's BERT-Large (or its cut), algorithm, trainer, initial state and
+    this rank's batch; returns them with the run's trainer keywords."""
     import bagua_tpu_torch as bt
-    from bagua_tpu_torch.ops import codec as cd
-    from bagua_tpu_torch.ops import flash_attention as fa
 
     name, layers, algo_name, kw = run
     kw = dict(kw)
@@ -1752,6 +1819,16 @@ def compressed_run(rank, world, run, device, label):
     tokens = torch.randint(0, cfg.vocab_size, (world * BERT["b"], cfg.max_seq_len + 1),
                            device=device, generator=g)
     batch = trainer.shard_batch({"tokens": tokens[rank * BERT["b"]:(rank + 1) * BERT["b"]]})
+    return cfg, model, algo, trainer, state, batch, kw
+
+
+def compressed_run(rank, world, run, device, label):
+    """One run of a multi-rank slice on this rank; returns its record."""
+    from bagua_tpu_torch.ops import codec as cd
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    name, _, algo_name, _ = run
+    cfg, model, algo, trainer, state, batch, kw = _build_run(rank, world, run, device)
     gossip = not algo.replicated_params
     trace, after_step = _gossip_trace(trainer, model) if gossip else (None, None)
     staged0 = trainer.host_staged_bytes
@@ -1793,6 +1870,102 @@ def compressed_run(rank, world, run, device, label):
     return record
 
 
+def async_run(rank, world, run, device, label):
+    """One run of the async phase on this rank; returns its record.  After
+    every step (outside the step times) it records the rounds launched and
+    applied, the catch-ups, the negotiated status and how long the step's
+    apply waited for its round (``async/round_wait_s``); rank 0 aborts and
+    rank 1 resumes in the abort run, and ``async.partition`` is armed on
+    rank 1 alone in the partition run.  After the window: each bucket's
+    digest, the algorithm's ``barrier``, a timed round alone (every
+    bucket's sum started at once and waited for, nothing else running), a
+    timed ``sync_for_checkpoint`` (one blocking average of every bucket) and
+    the digests again; the ranks pass a barrier before each timing.  Each
+    catch-up of the staleness bound records the digests right after it."""
+    import contextlib
+
+    from bagua_tpu_torch.communication import barrier
+    from bagua_tpu_torch.faults.inject import FaultSpec, fault_scope
+    from bagua_tpu_torch.ops import codec as cd
+    from bagua_tpu_torch.ops import flash_attention as fa
+    from bagua_tpu_torch.telemetry import counters
+
+    name, _, algo_name, _ = run
+    cfg, model, algo, trainer, state, batch, kw = _build_run(rank, world, run, device)
+    per_step = {k: [] for k in ("launched", "applied", "catchups", "status", "wait_s")}
+    catchups = []
+    catchup_sync = algo._catchup_sync
+
+    def spy(tr, step, reason):
+        catchup_sync(tr, step, reason)
+        # the checkpoint's catch-up is timed below, and its digests follow it
+        catchups.append({"step": step, "reason": reason, "digests": (
+            _flat_digests(trainer, model) if reason == "staleness" else None)})
+
+    algo._catchup_sync = spy
+    waited = [counters.get("async/round_wait_s")]
+
+    def after_step(state):
+        step = len(per_step["status"]) + 1
+        per_step["launched"].append(algo._rounds_launched)
+        per_step["applied"].append(algo._rounds_applied)
+        per_step["catchups"].append(len(catchups))
+        per_step["status"].append(algo._status)
+        wait = counters.get("async/round_wait_s")
+        per_step["wait_s"].append(wait - waited[0])
+        waited[0] = wait
+        if name == "async_abort" and rank == 0 and step == ASYNC_ABORT_AFTER:
+            algo.abort()
+        if name == "async_abort" and rank == 1 and step == ASYNC_RESUME_AFTER:
+            algo.resume()
+
+    scope = (fault_scope(FaultSpec("async.partition", count=-1))
+             if name == "async_partition" and rank == 1 else contextlib.nullcontext())
+    staged0 = trainer.host_staged_bytes
+    with scope:
+        losses, launches, st, state = train_steps(
+            trainer, state, batch, BERT["b"] * cfg.max_seq_len, [fa, cd], after_step)
+    staged = trainer.host_staged_bytes - staged0
+    n_buckets = len(trainer.plan.buckets)
+    padded_numel = sum(b.padded_numel for b in trainer.plan.buckets)
+    digests_window = _flat_digests(trainer, model)
+    algo.barrier(trainer, state)
+    # a round alone: the sum of every bucket's copy started at once, as a
+    # launch does, and waited for at once, nothing else running
+    with torch.no_grad():
+        flats = trainer.plan.flatten(trainer._params)
+    barrier()   # the ranks start each timed average together
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for work in [algo._avg_comm.allreduce_start(f) for f in flats]:
+        work.wait()
+    torch.cuda.synchronize(device)
+    round_ms = (time.perf_counter() - t0) * 1e3
+    del flats
+    barrier()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    algo.sync_for_checkpoint(trainer, state)
+    torch.cuda.synchronize(device)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    record = {"name": name, "layers": cfg.n_layers, "buckets": n_buckets,
+              "padded_numel": padded_numel, "params": sum(p.numel() for p in model.parameters()),
+              "opt_state_bytes": optimizer_state_bytes(state.optimizer), "losses": losses,
+              "launches": launches, "stats": st, "host_staged_bytes": staged,
+              "warmup_steps": algo.warmup_steps, "per_step": per_step, "catchups": catchups,
+              "period": algo._period, "agreed_dt": algo._agreed_dt,
+              "max_staleness_rounds": algo.max_staleness_rounds, "sync_ms": sync_ms,
+              "round_ms": round_ms,
+              "digests_window": digests_window, "digests": _flat_digests(trainer, model),
+              "fingerprints": None, "fwd_bwd_ms": fwd_bwd_ms(model, batch)}
+    log(f"[rank {rank}] {label} {name}: {record['params']} params, {cfg.n_layers} layers, "
+        f"{n_buckets} buckets; losses {losses}; per step {per_step}")
+    want = _want_launches(algo_name, kw, cfg.n_layers, n_buckets)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
+    return record
+
+
 def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     """One rank of a multi-rank phase of ``MULTI_RANK``: every run, records
     to ``out_path`` as JSON."""
@@ -1804,7 +1977,8 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
                           backend="gloo", intra_size=intra)
     records = []
     for run in runs:
-        records.append(compressed_run(rank, world, run, device, label))
+        records.append((async_run if phase == "async" else compressed_run)(
+            rank, world, run, device, label))
         if device.type == "cuda":
             torch.cuda.empty_cache()
     with open(out_path, "w") as f:
@@ -1815,7 +1989,7 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
 def phase_multi_rank(phase):
     """Start the phase's ranks as processes of this script on the one card and
     check them; fails if any rank fails or the phase outlasts
-    ``WORKER_TIMEOUT``."""
+    ``WORKER_TIMEOUT``.  Returns every rank's record by run name."""
     label, _, world, intra = MULTI_RANK[phase]
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'store')}"
@@ -1857,7 +2031,7 @@ def phase_multi_rank(phase):
         if runs[0]["digests"] is not None:
             log(f"{label} {name}: parameters bitwise equal on all {world} ranks "
                 f"({len(runs[0]['digests'])} bucket digests)")
-    return {rec["name"]: rec for rec in ranks[0]}
+    return {runs[0]["name"]: list(runs) for runs in zip(*ranks)}
 
 
 def check_gossip(label, runs, intra):
@@ -1902,6 +2076,87 @@ def check_gossip(label, runs, intra):
     if bad or not differ:
         raise AssertionError(f"{label} {name}: gossip gate failed: mismatches "
                              f"(step, key, rank, key, rank) {bad[:10]}; ranks differ {differ}")
+
+
+def check_async(runs, replicated, gossip):
+    """The async phase's gates on every rank's record: the same period,
+    launches, catch-ups and status after every step on both ranks (applies
+    are local: a partitioned rank drops its rounds);
+    the ranks' parameters differ after the window and are bitwise equal
+    after ``barrier`` and ``sync_for_checkpoint``; the staged bytes exactly
+    two copies (to the host and back) of the f32 weights a round, a warmup
+    step or a catch-up, plus 8 bytes a step for the loss.  The full run must
+    have launched and applied a round inside the window; the partition run
+    catches up at the same step on both ranks, bitwise equal right after it,
+    its lag within the cap; the abort run's status turns at the same step on
+    both ranks.  Logs each run's schedule, step times and waits beside the
+    replicated and ``all`` gossip runs of BERT-Large from the same call."""
+    for name, recs in runs.items():
+        r0 = recs[0]
+        ps = [r["per_step"] for r in recs]
+        for key in ("launched", "catchups", "status"):
+            if any(p[key] != ps[0][key] for p in ps):
+                raise AssertionError(f"async {name}: {key} differs between the ranks: "
+                                     f"{[p[key] for p in ps]}")
+        if any(r["period"] != r0["period"] for r in recs):
+            raise AssertionError(f"async {name}: periods {[r['period'] for r in recs]}")
+        if r0["digests_window"] == recs[-1]["digests_window"]:
+            raise AssertionError(f"async {name}: the ranks' parameters are equal after the "
+                                 f"window")
+        launched, applied = ps[0]["launched"][-1], ps[0]["applied"][-1]
+        warm = min(r0["warmup_steps"], STEPS)
+        for r, rec in enumerate(recs):
+            want = ((launched + warm + len([c for c in rec["catchups"]
+                                             if c["reason"] == "staleness"]))
+                    * 2 * 4 * rec["padded_numel"] + STEPS * 8)
+            if rec["host_staged_bytes"] != want:
+                raise AssertionError(f"async {name} rank {r}: staged {rec['host_staged_bytes']} "
+                                     f"bytes, expected {want}")
+        waits = [[round(w * 1e3, 3) for w in p["wait_s"]] for p in ps]
+        st = r0["stats"]
+        log(f"async {name}: period {r0['period']} steps (agreed step time "
+            f"{None if r0['agreed_dt'] is None else round(r0['agreed_dt'] * 1e3, 3)} ms), "
+            f"{launched} rounds launched and {applied} applied in {STEPS} steps (launched "
+            f"after each step {ps[0]['launched']}, status {ps[0]['status']}); step "
+            f"{st['step_ms']:.3f} ms (median {st['median_ms']:.3f}), {st['tokens_s']:.1f} "
+            f"tokens/s, peak {st['peak_gb']:.3f} GB; staged {r0['host_staged_bytes']} bytes "
+            f"(exact); wait in work.wait() after each step (ms, rank by rank) {waits}; "
+            f"a round alone {r0['round_ms']:.3f} ms; one blocking average of every bucket "
+            f"(sync_for_checkpoint) {r0['sync_ms']:.3f} ms; digests equal on both ranks "
+            f"after it")
+        if name == "async":
+            if not (applied >= 1 and r0["period"] is not None):
+                raise AssertionError(f"async: no round applied in the window ({applied})")
+            times = [round(t, 3) for t in r0["stats"]["times_ms"]]
+            log(f"async: step times (ms) {times}; peak {st['peak_gb']:.3f} GB against the "
+                f"replicated run's {replicated['stats']['peak_gb']:.3f} "
+                f"({st['peak_gb'] - replicated['stats']['peak_gb']:+.3f}); step "
+                f"{st['step_ms']:.3f} ms (median {st['median_ms']:.3f}) against the replicated "
+                f"run's {replicated['stats']['step_ms']:.3f} (median "
+                f"{replicated['stats']['median_ms']:.3f}) and decentralized all's "
+                f"{gossip['stats']['step_ms']:.3f} (median {gossip['stats']['median_ms']:.3f}); "
+                f"{st['tokens_s']:.1f} tokens/s against {replicated['stats']['tokens_s']:.1f} "
+                f"and {gossip['stats']['tokens_s']:.1f}; forward+backward alone "
+                f"{r0['fwd_bwd_ms']:.3f} ms")
+        if name == "async_partition":
+            steps = [[c["step"] for c in r["catchups"] if c["reason"] == "staleness"]
+                     for r in recs]
+            lag = max(a - b for a, b in zip(ps[0]["launched"], ps[-1]["applied"]))
+            equal = all(c["digests"] == recs[0]["catchups"][i]["digests"]
+                        for r in recs for i, c in enumerate(r["catchups"]))
+            log(f"async_partition: catch-ups at steps {steps} (rank by rank), digests equal "
+                f"right after each: {equal}; largest lag {lag} (cap "
+                f"{r0['max_staleness_rounds']})")
+            if not (steps[0] and all(s == steps[0] for s in steps) and equal
+                    and lag <= r0["max_staleness_rounds"]):
+                raise AssertionError(f"async_partition: catch-ups {steps}, equal {equal}, "
+                                     f"lag {lag}")
+        if name == "async_abort":
+            status = ps[0]["status"]
+            want = ([0] * ASYNC_ABORT_AFTER + [1] * (ASYNC_RESUME_AFTER - ASYNC_ABORT_AFTER)
+                    + [0] * (STEPS - ASYNC_RESUME_AFTER))
+            if status != want:
+                raise AssertionError(f"async_abort: status {status}, expected {want}")
 
 
 def check_zero(zero):
@@ -1953,11 +2208,13 @@ def main():
     slice4 = timed("slice 4", phase_multi_rank, "slice4")
     timed("slice 4 (2 x 2)", phase_multi_rank, "slice4_2x2")
     zero = timed("zero", phase_multi_rank, "zero")
-    check_zero(zero)
+    check_zero({name: recs[0] for name, recs in zero.items()})
     gossip = timed("decentralized", phase_multi_rank, "decentralized")
     gossip.update(timed("decentralized (2 x 2)", phase_multi_rank, "decentralized_4"))
-    full = zero["replicated"]
-    for name, rec in gossip.items():
+    full = zero["replicated"][0]
+    async_runs = timed("async", phase_multi_rank, "async")
+    check_async(async_runs, full, gossip["decentralized_all"][0])
+    for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
             continue
         log(f"decentralized {name}: peak {rec['stats']['peak_gb']:.3f} GB ("
@@ -1971,11 +2228,11 @@ def main():
     # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8
     # ring, K4 and K5 from slice 4's main path (the other slices checked the
     # flash counts too, and slice 4's 2 x 2 runs K1, K2, K4 and K5)
-    own = {"compress_chunked": slice3["bytegrad"]["launches"],
-           "decompress_chunked": slice3["bytegrad"]["launches"],
-           "absmax_chunked": slice3["int8"]["launches"],
-           "sign_compress_chunked": slice4["onebit_ef"]["launches"],
-           "sign_decompress_chunked": slice4["onebit_ef"]["launches"]}
+    own = {"compress_chunked": slice3["bytegrad"][0]["launches"],
+           "decompress_chunked": slice3["bytegrad"][0]["launches"],
+           "absmax_chunked": slice3["int8"][0]["launches"],
+           "sign_compress_chunked": slice4["onebit_ef"][0]["launches"],
+           "sign_decompress_chunked": slice4["onebit_ef"][0]["launches"]}
     for name, row in rows.items():
         row["launches"] = (own[name][name] if name in own else launches[name]
                            if name in launches else launches_moe[name])
