@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from ..bucket import BucketPlan
+from ..bucket import BucketPlan, relayout_flats
 from ..communication import LINK_DCN, LINK_ICI, BaguaCommunicator, ReduceOp
 from ..compression.codecs import get_codec
 from ..define import TensorDeclaration
@@ -68,13 +68,31 @@ class AlgorithmContext:
     ef_enabled: bool = False
     #: where the algorithm's state lives
     device: Optional[torch.device] = None
+    #: the flat-resident layout: params, gradients and optimizer state are
+    #: one flat a bucket across steps, and the stages get those flats
+    flat_resident: bool = False
 
-    def bucket_flats(self, tensors: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
-        """One flat buffer per bucket from tensors by name."""
+    def bucket_flats(self, tensors) -> List[torch.Tensor]:
+        """One flat buffer per bucket: under the resident layout the flats
+        the stage was given, with no copy (``base.py:139-147``); else new
+        flats from tensors by name."""
+        if self.flat_resident:
+            return list(tensors)
         return self.plan.flatten(tensors)
 
-    def from_bucket_flats(self, flats) -> Dict[str, torch.Tensor]:
-        """Inverse of :meth:`bucket_flats`: views into the flats, by name."""
+    def bucket_flat_copies(self, tensors) -> List[torch.Tensor]:
+        """Like :meth:`bucket_flats`, but flats of their own in either
+        layout: state a stage keeps across steps (the gossip families'
+        replicas) must not share the resident flats' storage."""
+        if self.flat_resident:
+            return [f.clone() for f in tensors]
+        return self.plan.flatten(tensors)
+
+    def from_bucket_flats(self, flats):
+        """Inverse of :meth:`bucket_flats`: the flats themselves (resident),
+        or views into them by name."""
+        if self.flat_resident:
+            return tuple(flats)
         return self.plan.unflatten(flats)
 
     def codec_for(self, link_class: str, family_default=None):
@@ -219,6 +237,19 @@ class Algorithm:
     #: it in; an error-feedback codec forced onto another family rides
     #: without it, with a warning
     supports_ef_state: bool = False
+    #: True when the trainer may keep params, gradients and optimizer state
+    #: as resident bucket flats (every stage goes through
+    #: ``AlgorithmContext.bucket_flats``/``from_bucket_flats``)
+    supports_flat_resident: bool = False
+    #: whether ``flat_resident="auto"`` may pick the resident layout for
+    #: this family (``on`` always does): the JAX package's values, measured
+    #: on its own hardware (``BENCH_FLAT.json``)
+    flat_resident_auto: bool = True
+    #: True when the family's reduced gradients are the same on every rank
+    #: (a plain summed or averaged bucket reduction), so the guard's verdict
+    #: on them needs no collective of its own; the others' verdict is taken
+    #: on the updated parameters
+    grad_health_replicated: bool = False
 
     def need_reset(self, step: int) -> bool:
         """Host-side, at the top of every step (``step`` counts the
@@ -362,6 +393,23 @@ class Algorithm:
         weights writes them into the module's parameters in place; returns
         the state."""
         return state
+
+    def relayout_algo_state(self, old_plan: BucketPlan, new_plan: BucketPlan, algo_state):
+        """``algo_state`` moved from ``old_plan``'s buckets onto
+        ``new_plan``'s when the trainer re-buckets (``base.py:783-800``):
+        the error-feedback residual ``{"ef": ...}`` through
+        :func:`~bagua_tpu_torch.bucket.relayout_flats`; a family whose own
+        state holds bucket flats overrides this."""
+        if algo_state is None:
+            return None
+        if isinstance(algo_state, dict) and set(algo_state) == {"ef"}:
+            flats = relayout_flats(old_plan, new_plan, list(algo_state["ef"]["buckets"]))
+            # the residual is f32 whatever the bucket's dtype the segments
+            # went through (exact for f32 plans)
+            return {"ef": {"buckets": tuple(f.float() for f in flats)}}
+        raise NotImplementedError(
+            f"{type(self).__name__} carries algorithm state but does not implement "
+            "relayout_algo_state; re-bucketing it would orphan that state")
 
     def on_restore(self, trainer) -> None:
         """Host-side hook after a checkpoint restore: an algorithm whose

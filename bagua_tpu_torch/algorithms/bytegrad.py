@@ -32,6 +32,7 @@ class ByteGradAlgorithm(Algorithm):
     #: the inter-node stage carries a residual when ``compress_inter`` names a
     #: stateful codec; the flat scatter-gather never does
     supports_ef_state = True
+    supports_flat_resident = True
 
     def __init__(self, hierarchical: bool = True, average: bool = True):
         """

@@ -36,6 +36,7 @@ from typing import Any
 
 import torch
 
+from ..bucket import relayout_flats
 from ..communication import ReduceOp
 from ..compression import compress_chunked, decompress_chunked
 from .base import Algorithm, AlgorithmContext
@@ -78,6 +79,7 @@ class DecentralizedAlgorithm(Algorithm):
     """
 
     replicated_params = False
+    supports_flat_resident = True
 
     def __init__(self, hierarchical: bool = True, peer_selection_mode: str = "all",
                  communication_interval: int = 1, track_peer_weights: bool = False):
@@ -95,7 +97,12 @@ class DecentralizedAlgorithm(Algorithm):
     def init_state(self, ctx: AlgorithmContext, params) -> Any:
         if not self.track_peer_weights:
             return None
-        return {"peer_weights": ctx.bucket_flats(params)}
+        return {"peer_weights": ctx.bucket_flat_copies(params)}
+
+    def relayout_algo_state(self, old_plan, new_plan, algo_state):
+        if algo_state is None:
+            return None
+        return {"peer_weights": relayout_flats(old_plan, new_plan, algo_state["peer_weights"])}
 
     def _exchange(self, ctx: AlgorithmContext, flat: torch.Tensor, step: int) -> torch.Tensor:
         intra, gossip = _gossip_tiers(ctx, self.hierarchical)
@@ -134,6 +141,7 @@ class LowPrecisionDecentralizedAlgorithm(Algorithm):
     """
 
     replicated_params = False
+    supports_flat_resident = True
 
     def __init__(self, hierarchical: bool = True, communication_interval: int = 1):
         if communication_interval < 1:
@@ -146,9 +154,15 @@ class LowPrecisionDecentralizedAlgorithm(Algorithm):
         """The three replicas of every bucket, copies of the weights every
         rank starts from (the reference's ``_init_states``,
         ``decentralized.py:154-165``)."""
-        flats = ctx.bucket_flats(params)
+        flats = ctx.bucket_flat_copies(params)
         return {"left": flats, "right": [f.clone() for f in flats],
                 "self": [f.clone() for f in flats]}
+
+    def relayout_algo_state(self, old_plan, new_plan, algo_state):
+        if algo_state is None:
+            return None
+        return {key: relayout_flats(old_plan, new_plan, algo_state[key])
+                for key in ("left", "right", "self")}
 
     def _ring_step(self, ctx: AlgorithmContext, x, left, right, mine):
         """One compressed ring exchange of one bucket; updates the replicas

@@ -23,6 +23,10 @@ class GradientAllReduceAlgorithm(Algorithm):
     name = "gradient_allreduce"
     #: the per-bucket reduction carries the residual of a stateful codec
     supports_ef_state = True
+    supports_flat_resident = True
+    #: the reduced buckets are the same on every rank: the guard's verdict
+    #: rides them with no collective of its own
+    grad_health_replicated = True
 
     def __init__(
         self,

@@ -17,13 +17,14 @@ Port of ``bagua_tpu/algorithms/q_adam.py``.  Two phases, switched by
   refuse; the port's tiers have no such axis, so it is left out.
 
 The algorithm owns its optimizer, so the trainer builds no torch optimizer
-for it.  The moments are dicts of tensors by parameter name; the update runs
-in place on the parameters.
+for it.  The moments are laid out as the parameters the trainer hands over:
+dicts of tensors by parameter name, or, under the flat-resident layout, one
+flat a bucket; the update runs in place on the parameters.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
@@ -33,8 +34,21 @@ from .base import Algorithm, AlgorithmContext
 
 
 class QAdamOptState(NamedTuple):
-    exp_avg: Dict[str, torch.Tensor]
-    exp_avg_sq: Dict[str, torch.Tensor]
+    exp_avg: Any
+    exp_avg_sq: Any
+
+
+def _keys(tensors):
+    """The keys of tensors by name (a dict) or of one flat a bucket (a
+    tuple or list)."""
+    return tensors.keys() if isinstance(tensors, dict) else range(len(tensors))
+
+
+def _like(tensors, fn):
+    """``fn`` of each tensor, laid out as ``tensors`` (a dict or a tuple)."""
+    if isinstance(tensors, dict):
+        return {n: fn(t) for n, t in tensors.items()}
+    return tuple(fn(t) for t in tensors)
 
 
 class QAdamAlgorithm(Algorithm):
@@ -46,6 +60,7 @@ class QAdamAlgorithm(Algorithm):
     #: flat scatter-gather
     wire_codec_dcn = "minmax_uint8"
     wire_codec_flat = "minmax_uint8"
+    supports_flat_resident = True
 
     def __init__(
         self,
@@ -89,8 +104,8 @@ class QAdamAlgorithm(Algorithm):
     # ---- optimizer -----------------------------------------------------------
 
     def init_optimizer_state(self, params):
-        return QAdamOptState(exp_avg={n: torch.zeros_like(p) for n, p in params.items()},
-                             exp_avg_sq={n: torch.zeros_like(p) for n, p in params.items()})
+        return QAdamOptState(exp_avg=_like(params, torch.zeros_like),
+                             exp_avg_sq=_like(params, torch.zeros_like))
 
     def _communicate_momentum(self, ctx: AlgorithmContext, exp_avg):
         two_level = self.hierarchical and ctx.two_tier()
@@ -116,18 +131,21 @@ class QAdamAlgorithm(Algorithm):
         beta1, beta2 = self.betas
         # the reference's QAdamOptimizer.step counts from 1
         step_id = step + 1
-        exp_avg = {n: m.mul_(beta1).add_(grads[n] * (1.0 - beta1))
-                   for n, m in opt_state.exp_avg.items()}
+        keys = _keys(params)
+        for n in keys:
+            opt_state.exp_avg[n].mul_(beta1).add_(grads[n] * (1.0 - beta1))
+        exp_avg = opt_state.exp_avg
         if self._compressed:
             # second moment frozen; momentum averaged through the codec
             exp_avg = self._communicate_momentum(ctx, exp_avg)
-            exp_avg_sq = opt_state.exp_avg_sq
         else:
-            exp_avg_sq = {n: v.mul_(beta2).add_(grads[n] * grads[n] * (1.0 - beta2))
-                          for n, v in opt_state.exp_avg_sq.items()}
+            for n in keys:
+                opt_state.exp_avg_sq[n].mul_(beta2).add_(grads[n] * grads[n] * (1.0 - beta2))
+        exp_avg_sq = opt_state.exp_avg_sq
         bias1 = 1.0 - beta1 ** step_id
         bias2 = 1.0 - beta2 ** step_id
-        for n, p in params.items():
+        for n in keys:
+            p = params[n]
             denom = exp_avg_sq[n].sqrt().div_(bias2 ** 0.5).add_(self.eps)
             decay = p * (self.lr * self.weight_decay) if self.weight_decay else None
             p.sub_(exp_avg[n] / denom * (self.lr / bias1))

@@ -21,13 +21,16 @@ intra-node ranks only (replicated across nodes), and the gather is
 intra-node.  On one node the flag takes the flat path, as the other
 families' does.
 
-The parameters stay in the module (the JAX trainer's flat residency is not
-ported): each step copies this rank's chunk of the current parameters into
-the chunk tensors (as JAX re-reads it from the replicated flat, ``:377``; a
-codec's gather is lossy, so a chunk kept across steps would leave the JAX
-trajectory) and writes the gathered flats back into the parameters in place.
-The leaf layout's model-parallel ("local") leaves are not ported (the port has
-no tensor, pipeline or expert parallelism).
+Under the flat-resident layout the chunk tensors are views of the trainer's
+parameter flats, so the optimizer steps this rank's chunk of the parameters
+in place and no second copy of it is kept; the allgather's result is then
+written back into the flats.  Under the leaf layout the chunk tensors are
+copies: each step copies this rank's chunk of the current parameters into
+them (as JAX re-reads it from the replicated flat, ``:377``; a codec's gather
+is lossy, so a chunk kept across steps would leave the JAX trajectory) and
+writes the gathered flats back into the parameters in place.  The leaf
+layout's model-parallel ("local") leaves are not ported (the port has no
+tensor, pipeline or expert parallelism).
 
 The optimizer must be elementwise (Adam, AdamW, SGD, RMSprop, ...): each rank
 updates its own chunk alone, so an update that couples elements (a
@@ -78,6 +81,7 @@ class ZeroOptimizerAlgorithm(Algorithm):
     sharded_opt_state = True
     #: every bucket splits into equal rank chunks
     align_to_world = True
+    supports_flat_resident = True
 
     def __init__(
         self,
@@ -150,10 +154,13 @@ class ZeroOptimizerAlgorithm(Algorithm):
 
     def init_optimizer_state_sharded(self, ctx: AlgorithmContext, params) -> ZeroOptState:
         """One chunk tensor per bucket, holding this rank's chunk of the
-        parameters, and the optimizer over them."""
+        parameters (a view of the resident parameter flat, else a copy),
+        and the optimizer over them."""
         with torch.no_grad():
-            chunks = tuple(self._my_chunk(ctx, f).clone() for f in ctx.bucket_flats(params))
-        return ZeroOptState(chunks, self.optimizer(list(chunks)))
+            chunks = [self._my_chunk(ctx, f) for f in ctx.bucket_flats(params)]
+            if not ctx.flat_resident:
+                chunks = [c.clone() for c in chunks]
+        return ZeroOptState(tuple(chunks), self.optimizer(chunks))
 
     @torch.no_grad()
     def optimizer_update(self, ctx: AlgorithmContext, params, grads, opt_state: ZeroOptState,
@@ -169,8 +176,10 @@ class ZeroOptimizerAlgorithm(Algorithm):
             scale = torch.clamp(torch.full_like(gnorm, self.clip_global_norm) / (gnorm + 1e-12),
                                 max=1.0)
             gchunks = [g * scale.to(g.dtype) for g in gchunks]
-        for chunk, pflat, g in zip(opt_state.chunks, ctx.bucket_flats(params), gchunks):
-            chunk.copy_(self._my_chunk(ctx, pflat))
+        pflats = ctx.bucket_flats(params)
+        for chunk, pflat, g in zip(opt_state.chunks, pflats, gchunks):
+            if not ctx.flat_resident:   # resident: the chunk is that view
+                chunk.copy_(self._my_chunk(ctx, pflat))
             chunk.grad = g
         opt_state.optimizer.step()
         del gchunks   # no gradient chunk outlives the step
@@ -179,6 +188,10 @@ class ZeroOptimizerAlgorithm(Algorithm):
             chunk.grad = None
             flats.append(ctx.bucket_allgather(chunk) if shard is ctx.comm
                          else ctx.tier_allgather(chunk))
+        if ctx.flat_resident:
+            for pflat, value in zip(pflats, flats):
+                pflat.copy_(value)
+            return params, opt_state, algo_state
         for name, value in ctx.from_bucket_flats(flats).items():
             params[name].copy_(value)
         return params, opt_state, algo_state

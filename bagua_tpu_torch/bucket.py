@@ -6,6 +6,13 @@ partition.  Each bucket is one contiguous flat tensor, so one collective
 moves it (the reference's ``_flatten_``), padded with zeros to a multiple of
 its ``alignment`` (the compressed algorithms align to the world size, so
 every rank owns an equal chunk).
+
+The flat-resident layout keeps the training state in such flats across
+steps: :meth:`BucketPlan.flatten` allocates the parameters' flats,
+:meth:`BucketSpec.zeros` a gradient flat, :meth:`BucketSpec.views` and
+:meth:`BucketPlan.unflatten` hand out views into them, and
+:func:`relayout_flats` moves flats from one plan onto another when the
+buckets change.
 """
 
 from __future__ import annotations
@@ -70,12 +77,29 @@ class BucketSpec:
             off += t.numel
         return offs
 
+    def signature(self) -> Tuple:
+        return (self.name, self.alignment,
+                tuple((t.name, t.shape, str(t.dtype)) for t in self.tensors))
+
+    def zeros(self, device) -> torch.Tensor:
+        """A zero flat of this bucket (``padded_numel`` elements of its
+        dtype), the resident layout's gradient buffer."""
+        return torch.zeros(self.padded_numel, dtype=self.dtype, device=device)
+
+    def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Each tensor of the bucket as a view into ``flat``, by name."""
+        return {t.name: flat[off:off + t.numel].view(t.shape)
+                for t, off in zip(self.tensors, self.offsets())}
+
 
 @dataclass(frozen=True)
 class BucketPlan:
     """A full partition of the registered tensors into buckets."""
 
     buckets: Tuple[BucketSpec, ...]
+
+    def signature(self) -> Tuple:
+        return tuple(b.signature() for b in self.buckets)
 
     @property
     def tensor_names(self) -> List[str]:
@@ -126,6 +150,41 @@ class BucketPlan:
         bucket's flat buffer (a bucket holds one dtype)."""
         named = {}
         for b, flat in zip(self.buckets, flats):
-            for t, off in zip(b.tensors, b.offsets()):
-                named[t.name] = flat[off:off + t.numel].view(t.shape)
+            named.update(b.views(flat))
         return named
+
+
+def relayout_flats(old_plan: BucketPlan, new_plan: BucketPlan,
+                   flats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Move flat bucket buffers from ``old_plan``'s layout onto
+    ``new_plan``'s without going through the tensors' shapes
+    (``bucket.py:219-270``): each tensor's 1-D segment is sliced out of the
+    old flats and copied into new ones, the old padding dropped and the new
+    padding zero.  Segments slice along the last axis, so flats with leading
+    axes move the same way.  Both plans must hold the same tensors at the
+    same sizes."""
+    segments: Dict[str, torch.Tensor] = {}
+    for b, flat in zip(old_plan.buckets, flats):
+        for t, off in zip(b.tensors, b.offsets()):
+            segments[t.name] = flat[..., off:off + t.numel]
+    missing = [t.name for b in new_plan.buckets for t in b.tensors if t.name not in segments]
+    if missing:
+        raise ValueError(f"relayout_flats: old plan misses tensors {sorted(missing)}")
+    resized = {t.name: (segments[t.name].shape[-1], t.numel)
+               for b in new_plan.buckets for t in b.tensors
+               if segments[t.name].shape[-1] != t.numel}
+    if resized:
+        # a silently shifted offset would corrupt every later tensor of the
+        # bucket (with equal total lengths, without any error at all)
+        raise ValueError(
+            "relayout_flats: tensor sizes differ between plans — the flat buffers "
+            "cannot be re-laid-out (model edit between save and restore?): "
+            + ", ".join(f"{n}: {a} -> {b} elems" for n, (a, b) in sorted(resized.items())))
+    out: List[torch.Tensor] = []
+    for b in new_plan.buckets:
+        first = segments[b.tensors[0].name]
+        flat = first.new_zeros(first.shape[:-1] + (b.padded_numel,), dtype=b.dtype)
+        for t, off in zip(b.tensors, b.offsets()):
+            flat[..., off:off + t.numel].copy_(segments[t.name])
+        out.append(flat)
+    return out

@@ -3,9 +3,9 @@
 Port of the part of ``bagua_tpu/env.py`` the port reads: the registry of
 declared ``BAGUA_*`` variables with typed ``env_str``/``env_int``/``env_bool``
 readers, the default bucket size, the per-link codec policy, the stateful
-codecs' knobs (top-k ratio, error-feedback residual), async model average's
-staleness cap, the fault-injection plan, and rank / world size / local rank /
-local world size.
+codecs' knobs (top-k ratio, error-feedback residual), the flat-resident
+layout, the gradient-health guard, async model average's staleness cap, the
+fault-injection plan, and rank / world size / local rank / local world size.
 """
 
 from __future__ import annotations
@@ -59,12 +59,24 @@ _declare("BAGUA_EF_RESIDUAL", "enum", "on",
          "codec ride without it (biased sign or sparse SGD, a convergence "
          "control).  Set before the trainer is built.", choices=("on", "off"))
 
-
+_declare("BAGUA_FLAT_RESIDENT", "enum", "auto",
+         "Flat-resident training state: keep params/grads/optimizer state "
+         "as bucket-flat buffers across steps (`on`), keep the per-parameter "
+         "layout (`off`), or engage it wherever the algorithm family "
+         "supports it and the optimizer is elementwise (`auto`).",
+         choices=("auto", "on", "off"))
+_declare("BAGUA_GRAD_GUARD", "enum", "off",
+         "Gradient-health sentinel policy: per-bucket isfinite checks on "
+         "every step's gradients.  `warn` logs unhealthy steps, `skip` "
+         "rewinds them (params/optimizer state untouched) and escalates to "
+         "abort after a consecutive-skip budget, `abort` raises the comm "
+         "abort flag on the first unhealthy step.",
+         choices=("off", "warn", "skip", "abort"))
 _declare("BAGUA_FAULT_PLAN", "str", "",
          "Deterministic fault-injection plan (JSON list of specs: point, "
          "kind, step/op trigger, count, seed) armed at the first fault-point "
          "query; drills and tests only, never production.  The port reaches "
-         "async.partition.  See bagua_tpu_torch.faults.inject.")
+         "async.partition and grad.poison.  See bagua_tpu_torch.faults.inject.")
 _declare("BAGUA_ASYNC_MAX_STALENESS", "int", "4",
          "Bounded-staleness cap of async model average: when any rank's "
          "applied-round count reaches this many rounds behind the launched "
@@ -195,6 +207,19 @@ def is_ef_residual_disabled() -> bool:
     """True when ``BAGUA_EF_RESIDUAL=off``: the stateful codecs ride without
     their residual."""
     return env_enum("BAGUA_EF_RESIDUAL") == "off"
+
+
+def get_flat_resident_mode() -> str:
+    """Flat-resident training state: ``auto`` (default: engage wherever the
+    algorithm family supports it), ``on``, or ``off`` (the per-parameter
+    layout)."""
+    return env_enum("BAGUA_FLAT_RESIDENT")
+
+
+def get_grad_guard_mode() -> str:
+    """Gradient-health sentinel policy: ``off`` (default), ``warn``,
+    ``skip`` (rewind unhealthy steps), or ``abort``."""
+    return env_enum("BAGUA_GRAD_GUARD")
 
 
 def get_fault_plan_raw() -> Optional[str]:

@@ -1,8 +1,9 @@
 """Deterministic fault injection: named points inside the real code paths.
 
 Port of ``bagua_tpu/faults``: the seeded plan machinery
-(:mod:`bagua_tpu_torch.faults.inject`) and the one point the port reaches so
-far, ``async.partition`` (async model average's negotiated boundary).
+(:mod:`bagua_tpu_torch.faults.inject`) and the two points the port reaches so
+far, ``async.partition`` (async model average's negotiated boundary) and
+``grad.poison`` (the trainer's accumulated gradient).
 """
 
 from .inject import (  # noqa: F401

@@ -1,9 +1,10 @@
 """Seeded fault-injection registry.
 
 Port of the plan machinery of ``bagua_tpu/faults/inject.py`` (``:82-400``)
-and of its ``async.partition`` hook (``:542-551``).  A plan is a list of
-:class:`FaultSpec` armed from ``BAGUA_FAULT_PLAN`` (a JSON list of specs, so
-a test can arm a fault in one rank's environment only) or in code
+and of its ``async.partition`` (``:542-551``) and ``grad.poison`` hooks.  A
+plan is a list of :class:`FaultSpec` armed from ``BAGUA_FAULT_PLAN`` (a JSON
+list of specs, so a test can arm a fault in one rank's environment only) or in
+code
 (:func:`fault_scope`, :func:`set_plan`).  Triggers are step numbers or op
 counts, so a run with faults repeats exactly.  Every armed, fired and
 recovered event counts in :data:`bagua_tpu_torch.telemetry.counters` under
@@ -19,6 +20,15 @@ rank still takes part in the negotiation and the averaging collective (every
 rank must run the same collectives in the same order), but never applies the
 round launched at the fired boundary, so its applied-round count stalls and
 the bounded-staleness tracker must force a catch-up average.
+
+``grad.poison``: the trainer writes NaN (or inf) into the first element of a
+bucket's accumulated gradient before any communication.  It is keyed on
+``TrainState.step``, not on a call counter, with the JAX package's window
+semantics (its fault is traced into the compiled step): ``step=K`` fires
+exactly at step K, ``step=None`` on the first ``count`` steps (every step
+when ``count < 0``).  The trainer reads the armed specs with
+:func:`armed_traced_specs` and counts each fire with
+:func:`note_traced_fire`.
 """
 
 from __future__ import annotations
@@ -171,9 +181,22 @@ class FaultPlan:
                        fire_no, "inf" if fired.count < 0 else fired.count)
         return fired
 
+    def note_traced_fire(self, spec: FaultSpec) -> None:
+        """Count a fire of a step-keyed point the trainer applies itself
+        (``grad.poison``), which :meth:`should_fire` does not see."""
+        with self._lock:
+            for i, s in enumerate(self.specs):
+                if s is spec:
+                    self._fires[i] += 1
+        counters.incr(f"faults/{spec.point}/fired")
+        logger.warning("fault injection: %s fired in-step (kind=%s)", spec.point, spec.kind)
+
     def fired(self, point: str) -> bool:
         with self._lock:
             return any(self._fires[i] > 0 for i, s in enumerate(self.specs) if s.point == point)
+
+    def armed_specs(self, point: str) -> Tuple[FaultSpec, ...]:
+        return tuple(s for s in self.specs if s.point == point)
 
 
 # -- the process's plan ---------------------------------------------------------
@@ -261,6 +284,19 @@ def record_recovery(point: str) -> None:
     plan = _PLAN
     if plan is not None and plan.fired(point):
         counters.incr(f"faults/{point}/recovered")
+
+
+def armed_traced_specs(point: str) -> Tuple[FaultSpec, ...]:
+    """The armed specs of a point the trainer applies on its own step
+    number (``grad.poison``), whatever their fire counts."""
+    plan = get_plan()
+    return plan.armed_specs(point) if plan is not None else ()
+
+
+def note_traced_fire(spec: FaultSpec) -> None:
+    plan = _PLAN
+    if plan is not None:
+        plan.note_traced_fire(spec)
 
 
 def maybe_drop_negotiation_round() -> bool:

@@ -16,6 +16,11 @@ with an ``mlp_factory`` module such as ``MoEMLP``, which flax names
 ``BucketPlan.build`` buckets them, exactly as the JAX trainer does.  Weights
 follow torch's layouts (``Linear`` is ``[out, in]``); ``models.convert`` maps
 flax params onto them.
+
+``remat`` recomputes each block in the backward (``utils.remat_wrap`` with
+``remat_policy``), as the JAX model does (``transformer.py:395-398``); the
+blocks stay the same modules, so the parameter names and their order do not
+change.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..utils import remat_wrap
 
 
 @dataclass(frozen=True)
@@ -42,6 +48,11 @@ class TransformerConfig:
     max_seq_len: int = 1024
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = False
+    #: rematerialization policy when ``remat`` is on: None = recompute the
+    #: whole block (lowest memory), "dots" = save every matmul output,
+    #: "dots_no_batch" = save matmul outputs without batch dims
+    remat_policy: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
@@ -198,7 +209,8 @@ class TransformerLM(nn.Module):
         x = self.embed(tokens).to(cfg.dtype)
         x = x + self.pos_embed.weight[:s].to(cfg.dtype)
         for i in range(cfg.n_layers):
-            x = getattr(self, f"block_{i}")(x)
+            block = getattr(self, f"block_{i}")
+            x = (remat_wrap(block, cfg.remat_policy) if cfg.remat else block)(x)
         return self.lm_head(self.final_norm(x)).float()
 
 

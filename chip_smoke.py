@@ -77,7 +77,15 @@ Phases, in order; any failure exits non-zero before the result line:
    load-balancing loss; losses finite and falling, exact launch counts of
    the gmm and flash kernels, and the logits on a short input against the
    plain gmm and plain attention.
-10. slice 3: compressed data parallelism at world size 2.  The script starts
+10. remat: slices 1 and 2 again from the same weights, batch and optimizer,
+   each under its bench's rematerialization (slice 1 ``dots_no_batch``,
+   slice 2 whole blocks): exact launches (the flash forward twice a layer,
+   the gmm forward twice more a MoE layer), losses finite and falling, the
+   first loss bitwise equal to the run just before without remat, the
+   parameters' updates after 10 steps within the bf16 tolerance of it (the
+   log says whether bitwise), the peak below it; the step time, the peak and
+   each kernel's device time a step beside it.
+11. slice 3: compressed data parallelism at world size 2.  The script starts
    itself twice as worker processes, two ranks on the one card, whose
    collectives go over gloo through host memory (NCCL refuses two ranks on
    one device).  Each rank trains BERT-Large (``bench_bert``: 24 layers,
@@ -90,7 +98,7 @@ Phases, in order; any failure exits non-zero before the result line:
    kernels equal byte for byte to the same collective through the plain
    codec.  Each run prints its step time, the bytes staged through the host
    and the time of a forward and backward alone.
-11. slice 4, the 1-bit and top-k codecs with the error-feedback residual, two
+12. slice 4, the 1-bit and top-k codecs with the error-feedback residual, two
    ranks as in slice 3: the main path is the README quick start with
    ``GradientAllReduceAlgorithm()`` and ``compress_intra="onebit_ef"`` on the
    full BERT-Large, AdamW 1e-4, 10 steps; then ``compress_intra="topk"`` on
@@ -98,21 +106,21 @@ Phases, in order; any failure exits non-zero before the result line:
    residual finite and nonzero, parameters bitwise equal on both ranks, and
    the error-feedback step of the largest bucket through the kernels against
    the plain codec (payload equal, residual within 1e-5 of the scale).
-12. slice 4 at 2 x 2: four ranks of this script on the card, two nodes of two
+13. slice 4 at 2 x 2: four ranks of this script on the card, two nodes of two
    (``intra_size=2``), on the 4-layer cut: ``GradientAllReduceAlgorithm(
    hierarchical=True)`` with ``compress_inter="onebit_ef"`` (K4 = K5 = 3 x
    buckets x steps) and ``ByteGradAlgorithm()`` at its default two-level form
    (K1 = K2 = 2 x buckets x steps), and staged ZeRO
    (``ZeroOptimizerAlgorithm(hierarchical=True)``, AdamW 1e-4; no codec);
    the same checks.
-13. zero, ZeRO-1 at world size 2, two ranks as in slice 3: the full
+14. zero, ZeRO-1 at world size 2, two ranks as in slice 3: the full
    BERT-Large with ``ZeroOptimizerAlgorithm`` over AdamW 1e-4 beside the
    replicated ``GradientAllReduceAlgorithm`` with the same AdamW, then the
    4-layer cut with ``compress_intra="int8"`` (K3 = 2 x buckets x steps: one
    encode on the scatter hop, one on the gather; AdamW 1e-3, see
    ``ZERO_RUNS``); the same checks, and ZeRO's optimizer state a rank exactly
    half of the replicated run's, its peak memory below it.
-14. decentralized, the gossip families at world size 2, two ranks as in
+15. decentralized, the gossip families at world size 2, two ranks as in
    slice 3, on the full BERT-Large with AdamW 1e-4: ``DecentralizedAlgorithm(
    hierarchical=False, peer_selection_mode="all", track_peer_weights=True)``
    (no codec), then ``LowPrecisionDecentralizedAlgorithm(hierarchical=False)``
@@ -125,12 +133,12 @@ Phases, in order; any failure exits non-zero before the result line:
    last step; losses equal on the ranks, finite and falling; exact launches;
    the ring's codec of a middle bucket's and of the embedding bucket's
    ``diff`` through the kernels equal to the plain codec.
-15. decentralized at 2 x 2, four ranks as two nodes of two on the 4-layer
+16. decentralized at 2 x 2, four ranks as two nodes of two on the 4-layer
    cut: ``shift_one`` over the four ranks (the peer weights equal to those
    of the step's partner) and ``LowPrecisionDecentralizedAlgorithm(
    hierarchical=True)`` (the intra-node average, then the ring over the two
    nodes); the same checks.
-16. async, async model average at world size 2, two ranks as in slice 3:
+17. async, async model average at world size 2, two ranks as in slice 3:
    the full BERT-Large with the bench's ``AsyncModelAverageAlgorithm(
    sync_interval_ms=100)``, AdamW 1e-4, then on the 4-layer cut a pinned
    period of 2 after 2 warmup steps with ``async.partition`` armed on rank 1
@@ -147,6 +155,20 @@ Phases, in order; any failure exits non-zero before the result line:
    period, the rounds, the step times against the replicated and ``all``
    gossip runs of the same call, the peak, and how long each apply waited
    for its round against a round's whole time alone.
+18. features, the trainer's step features at world size 2, two ranks as in
+   slice 3: the full BERT-Large ZeRO over AdamW 1e-4 on the leaf layout
+   (``flat_resident="off"``, 5 steps), its per-step bucket fingerprints equal
+   to the zero phase's ZeRO run (resident by default) and its peak at least
+   0.9 GB above; the full BERT-Large with ``GradientAllReduceAlgorithm``,
+   ``accum_steps=2`` and ``grad_guard="skip"`` (5 steps), its losses within 1e-2 of the
+   zero phase's replicated run and every verdict healthy; on the cut, the
+   1-bit ring under the guard with ``grad.poison`` at step 4 of 10 against a
+   clean run of 9 (parameters and residual bitwise equal, after two clean
+   runs shown bitwise equal; one skip), and a rebucket from 10 MiB to 2 MiB
+   buckets after step 5, full precision (parameters bitwise equal to the run
+   without it, AdamW's state on the new plan) and under the 1-bit ring (the
+   residual on the new plan).  Every earlier phase runs on the default
+   ``flat_resident="auto"`` layout, which each log line names.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -653,37 +675,39 @@ def phase_kernels():
     return rows
 
 
-def slice_model(name, attn_fn=None, gmm_fn=None):
+def slice_model(name, attn_fn=None, gmm_fn=None, remat=False, remat_policy=None):
     """The model of slice ``name``, weights from seed 0: ``"longctx"`` the
     long-context LM of ``bench_longctx``, ``"moe"`` the dropless MoE LM of
     ``bench_moe_longseq`` (a ``MoEMLP`` in every odd layer).  ``attn_fn`` and
     ``gmm_fn`` replace the attention and the grouped matmul (for example with
-    their plain versions)."""
+    their plain versions); ``remat`` and ``remat_policy`` are the model's
+    rematerialization knobs."""
     from bagua_tpu_torch.model_parallel.moe import MoEMLP
     from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
+    knobs = dict(remat=remat, remat_policy=remat_policy)
     if name == "moe":
         cfg = TransformerConfig(vocab_size=32768, d_model=MOE["d_model"], n_heads=MOE["h"],
-                                n_layers=4, d_ff=MOE["d_ff"], max_seq_len=MOE["s"])
+                                n_layers=4, d_ff=MOE["d_ff"], max_seq_len=MOE["s"], **knobs)
         moe = lambda: MoEMLP(MOE["experts"], cfg.d_ff, d_model=cfg.d_model, k=MOE["k"],
                              dropless=True, gmm_fn=gmm_fn)
         factory = lambda i: moe if i % 2 == 1 else None
     else:
         cfg = TransformerConfig(vocab_size=32768, d_model=MAIN["h"] * MAIN["d"],
                                 n_heads=MAIN["h"], n_layers=4, d_ff=4096,
-                                max_seq_len=MAIN["s"])
+                                max_seq_len=MAIN["s"], **knobs)
         factory = None
     return TransformerLM(cfg, seed=0, attn_fn=attn_fn, mlp_factory=factory)
 
 
-def build_slice(name):
-    """Slice ``name``'s model, its ``BaguaTrainer`` (GradientAllReduce; AdamW
-    for ``"longctx"``, Adam and the load-balancing loss for ``"moe"``), the
-    initial state and one fixed random batch (seed 1).  Needs the process
-    group."""
+def build_slice(name, remat=False, remat_policy=None):
+    """Slice ``name``'s model (with the given rematerialization), its
+    ``BaguaTrainer`` (GradientAllReduce; AdamW for ``"longctx"``, Adam and the
+    load-balancing loss for ``"moe"``), the initial state and one fixed random
+    batch (seed 1).  Needs the process group."""
     import bagua_tpu_torch as bt
 
-    model = slice_model(name)
+    model = slice_model(name, remat=remat, remat_policy=remat_policy)
     if name == "moe":
         loss_fn, batch_size = bt.moe_lm_loss_fn(aux_loss_weight=0.01), MOE["b"]
         opt = functools.partial(torch.optim.Adam, lr=1e-4)
@@ -699,8 +723,8 @@ def build_slice(name):
     return model, trainer, state, trainer.shard_batch({"tokens": tokens})
 
 
-def train_steps(trainer, state, batch, tokens_per_step, modules, after_step=None):
-    """``STEPS`` training steps with every launch count of ``modules`` set to
+def train_steps(trainer, state, batch, tokens_per_step, modules, after_step=None, steps=STEPS):
+    """``steps`` training steps with every launch count of ``modules`` set to
     0 just before and read just after; returns the losses, the launches by
     kernel, the step statistics and the last state.  ``after_step(state)``
     runs after each step, outside the steps' times, and launches none of
@@ -710,7 +734,7 @@ def train_steps(trainer, state, batch, tokens_per_step, modules, after_step=None
     for mod in modules:
         mod.reset_launch_counts()
     losses, times = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, loss = trainer.train_step(state, batch)
         losses.append(loss.item())   # synchronizes
@@ -722,12 +746,13 @@ def train_steps(trainer, state, batch, tokens_per_step, modules, after_step=None
     # one window, so a slow step in it counts in full
     window_s = sum(times[1:])
     stats = {
-        "step_ms": window_s / (STEPS - 1) * 1e3,
-        "tokens_s": (STEPS - 1) * tokens_per_step / window_s,
+        "step_ms": window_s / (steps - 1) * 1e3,
+        "tokens_s": (steps - 1) * tokens_per_step / window_s,
         "median_ms": statistics.median(times[1:]) * 1e3,
         "first_ms": times[0] * 1e3,
         "times_ms": [t * 1e3 for t in times],
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "layout": "resident" if trainer._flat_resident else "leaf",
     }
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -738,10 +763,10 @@ def train_steps(trainer, state, batch, tokens_per_step, modules, after_step=None
 
 def log_steps(name, losses, launches, st):
     log(f"{name} losses: {losses}")
-    log(f"{name}: step {st['step_ms']:.3f} ms (steps 2-{STEPS} as one window; median "
+    log(f"{name}: step {st['step_ms']:.3f} ms (steps 2-{len(losses)} as one window; median "
         f"step {st['median_ms']:.3f} ms; first {st['first_ms']:.3f} ms), "
-        f"{st['tokens_s']:.1f} tokens/s, peak memory {st['peak_gb']:.3f} GB, "
-        f"launches {launches}")
+        f"{st['tokens_s']:.1f} tokens/s, peak memory {st['peak_gb']:.3f} GB ({st['layout']} "
+        f"layout), launches {launches}")
 
 
 def check_reductions():
@@ -783,12 +808,15 @@ def phase_slice():
     log(f"slice: {n_params} params in {len(trainer.plan.buckets)} buckets, "
         f"world {trainer.world_size} over {torch.distributed.get_backend()}")
 
-    losses, launches, st, _ = train_steps(trainer, state, batch,
-                                          MAIN["b"] * cfg.max_seq_len, [fa])
+    losses, launches, st, state = train_steps(trainer, state, batch,
+                                              MAIN["b"] * cfg.max_seq_len, [fa])
     log_steps("slice", losses, launches, st)
     want = cfg.n_layers * STEPS
     if any(n != want for n in launches.values()):
         raise AssertionError(f"kernel launches {launches}, expected {want} each")
+    # what the remat phase holds its run against: the losses, the peak, the
+    # parameters after the steps and (last) the kernels' device time of one more
+    base = {"losses": losses, "stats": st, "params": _params_on_host(model)}
 
     # the model's logits on a short input against the plain attention path
     plain = slice_model("longctx", attn_fn=lambda q, k, v, dtype:
@@ -802,7 +830,8 @@ def phase_slice():
     if not (torch.isfinite(got).all() and got.shape == (1, 512, cfg.vocab_size)
             and err <= 5e-2):
         raise AssertionError(f"logits disagree with the plain path: {err}")
-    return launches
+    base["kernel_ms"] = kernel_step_ms(trainer, state, batch)
+    return launches, base
 
 
 # ---------------------------------------------------------------------------
@@ -1034,9 +1063,10 @@ def phase_slice_moe():
     log(f"slice 2: {n_params} params in {len(trainer.plan.buckets)} buckets, "
         f"world {trainer.world_size} over {torch.distributed.get_backend()}")
 
-    losses, launches, st, _ = train_steps(trainer, state, batch,
-                                          MOE["b"] * cfg.max_seq_len, [fa, gm])
+    losses, launches, st, state = train_steps(trainer, state, batch,
+                                              MOE["b"] * cfg.max_seq_len, [fa, gm])
     log_steps("slice 2", losses, launches, st)
+    base = {"losses": losses, "stats": st, "params": _params_on_host(model)}
     n_moe = cfg.n_layers // 2
     # the rows each expert gets on the training batch after the steps: the
     # skew the gmm kernels meet on this path
@@ -1098,7 +1128,117 @@ def phase_slice_moe():
             and err <= 5e-2 and len(agree) == n_moe and min(agree) >= 0.95):
         raise AssertionError(f"logits disagree with the plain path: {err}, routing "
                              f"agreement {agree}")
-    return launches, st
+    base["kernel_ms"] = kernel_step_ms(trainer, state, batch)
+    return launches, st, base
+
+
+# ---------------------------------------------------------------------------
+# remat: slices 1 and 2 under their benches' rematerialization
+# ---------------------------------------------------------------------------
+
+#: the flash and gmm kernels by their device names (profiler events)
+KERNEL_NAMES = re.compile(r"(?<![A-Za-z0-9_])(fwd|dkv|dq|gmm_drhs|gmm)_"
+                          r"(?:wgmma_narrow_|wgmma_|wide_|f32_)?kernel")
+KERNEL_OF = {"fwd": "flash_fwd", "dkv": "flash_bwd_dkv", "dq": "flash_bwd_dq",
+             "gmm": "grouped_matmul", "gmm_drhs": "grouped_matmul_drhs"}
+#: slice -> remat policy, as its bench sets it: ``bench_longctx`` saves the
+#: matmuls without batch dimensions (``bench.py:586-590``),
+#: ``bench_moe_longseq`` recomputes whole blocks at seq 4096 (``bench.py:294``)
+REMAT = {"longctx": "dots_no_batch", "moe": None}
+
+
+def _params_on_host(model):
+    return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def kernel_step_ms(trainer, state, batch):
+    """Device milliseconds of each flash and gmm kernel in one training step
+    (one profiler window over the step); the step's state is dropped."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        _, loss = trainer.train_step(state, batch)
+        loss.item()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = KERNEL_NAMES.search(e.name)
+            if m:
+                key = KERNEL_OF[m.group(1)]
+                out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def phase_remat(bases):
+    """Slices 1 and 2 again, each under its bench's remat (``REMAT``), from
+    the same weights, batch and optimizer, against the run without remat of
+    the same call (``bases``): exact launches (every block's forward runs
+    twice, so the flash forward launches ``2 * n_layers`` a step and the gmm
+    forward of a MoE layer four times, its backward ones as before), losses
+    finite and falling, the first step's loss bitwise equal, the parameters'
+    updates within the bf16 tolerance of the kernels' checks (``TOL``; the
+    log says whether bitwise), and the peak below.  Prints step time, peak and
+    the kernels' device time a step beside the run without remat."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.ops import flash_attention as fa
+    from bagua_tpu_torch.ops import gmm as gm
+
+    bt.init_process_group()
+    out = {}
+    for name, base in bases.items():
+        model, trainer, state, batch = build_slice(name, remat=True, remat_policy=REMAT[name])
+        cfg = model.cfg
+        p0 = _params_on_host(model)
+        tokens = (MOE["b"] if name == "moe" else MAIN["b"]) * cfg.max_seq_len
+        losses, launches, st, state = train_steps(trainer, state, batch, tokens,
+                                                  [fa, gm] if name == "moe" else [fa])
+        label = f"remat {name} (policy {REMAT[name]})"
+        log_steps(label, losses, launches, st)
+        layer_steps = cfg.n_layers * STEPS
+        want = {"flash_fwd": 2 * layer_steps, "flash_bwd_dkv": layer_steps,
+                "flash_bwd_dq": layer_steps}
+        if name == "moe":
+            n_moe = cfg.n_layers // 2
+            # 2 forward, 2 again in the recompute, 2 d_lhs; d_rhs unchanged
+            want.update({"grouped_matmul": 6 * n_moe * STEPS,
+                         "grouped_matmul_drhs": 2 * n_moe * STEPS})
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected {want}")
+        params = _params_on_host(model)
+        bitwise = all(torch.equal(params[n], base["params"][n]) for n in params)
+        upd = torch.cat([(params[n] - p0[n]).reshape(-1) for n in params])
+        base_upd = torch.cat([(base["params"][n] - p0[n]).reshape(-1) for n in params])
+        err = rel_err(upd, base_upd)
+        del params, upd, base_upd, p0
+        kernel_ms = kernel_step_ms(trainer, state, batch)
+        bst = base["stats"]
+        log(f"{label}: first loss {losses[0]!r} against {base['losses'][0]!r} without remat "
+            f"({'bitwise equal' if losses[0] == base['losses'][0] else 'DIFFERENT'}); "
+            f"parameters after {STEPS} steps {'bitwise equal to' if bitwise else 'differ from'} "
+            f"the run without remat, updates within {err:.3g} of its largest; step "
+            f"{st['step_ms']:.3f} ms against {bst['step_ms']:.3f} ms "
+            f"({st['step_ms'] / bst['step_ms'] - 1:+.2%}), peak {st['peak_gb']:.3f} GB against "
+            f"{bst['peak_gb']:.3f} GB ({st['peak_gb'] - bst['peak_gb']:+.3f} GB); kernels' "
+            f"device ms a step {json.dumps({k: round(v, 4) for k, v in kernel_ms.items()})} "
+            f"against {json.dumps({k: round(v, 4) for k, v in base['kernel_ms'].items()})}")
+        if not (losses[0] == base["losses"][0] and err <= TOL[torch.bfloat16]
+                and st["peak_gb"] < bst["peak_gb"]):
+            raise AssertionError(f"{label}: first loss {losses[0]} vs {base['losses'][0]}, "
+                                 f"update error {err}, peak {st['peak_gb']} vs {bst['peak_gb']}")
+        out[name] = {"launches": launches, "stats": st, "bitwise": bitwise, "update_err": err,
+                     "kernel_ms": kernel_ms}
+        del model, trainer, state, batch
+        release()
+    return out
+
+
+def release():
+    """Free what the last phase or run left (objects in reference cycles
+    included) and return the cached blocks to the card, so that the next
+    run's peak counts its own memory only."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1565,6 +1705,43 @@ ASYNC_RUNS = (
     ("async_abort", BERT["cut_layers"], "async_abort", {}),
 )
 ASYNC_ABORT_AFTER, ASYNC_RESUME_AFTER = 3, 6
+#: the trainer's step features at world 2: (a) the full BERT-Large ZeRO on the
+#: leaf layout, beside the zero phase's ZeRO, which the default makes
+#: resident; (b) the full BERT-Large with GradientAllReduce, two microbatches
+#: of 4 of a rank's 8 rows and the guard on ``skip``, no fault; on the 4-layer
+#: cut, (c) the 1-bit ring under the guard: two clean runs of
+#: ``POISON_STEPS - 1`` steps and one of ``POISON_STEPS`` with ``grad.poison``
+#: at step ``POISON_AT``; (d) full precision, resident, without and with a
+#: rebucket from 10 MiB to ``REBUCKET_BYTES`` buckets after step
+#: ``REBUCKET_AFTER``, then the same rebucket under the 1-bit ring.  The two
+#: full BERT-Large runs take ``FULL_STEPS`` steps, held against the first
+#: steps of the zero phase's runs (each costs 2-6 s a step through gloo)
+FULL_STEPS = 5
+POISON_AT, POISON_STEPS = 4, STEPS
+REBUCKET_AFTER, REBUCKET_BYTES = 5, 2 * 1024 ** 2
+FEATURES_RUNS = (
+    ("zero_leaf", None, "zero", {"flat_resident": "off", "steps": FULL_STEPS}),
+    ("accum_guard", None, "gradient_allreduce",
+     {"accum_steps": 2, "grad_guard": "skip", "steps": FULL_STEPS}),
+    ("onebit_clean", BERT["cut_layers"], "gradient_allreduce",
+     {"compress_intra": "onebit_ef", "grad_guard": "skip", "steps": POISON_STEPS - 1}),
+    ("onebit_clean_again", BERT["cut_layers"], "gradient_allreduce",
+     {"compress_intra": "onebit_ef", "grad_guard": "skip", "steps": POISON_STEPS - 1}),
+    ("onebit_poison", BERT["cut_layers"], "gradient_allreduce",
+     {"compress_intra": "onebit_ef", "grad_guard": "skip", "poison": POISON_AT,
+      "steps": POISON_STEPS}),
+    ("no_rebucket", BERT["cut_layers"], "gradient_allreduce", {}),
+    ("rebucket", BERT["cut_layers"], "gradient_allreduce", {"rebucket": True}),
+    ("onebit_rebucket", BERT["cut_layers"], "gradient_allreduce",
+     {"compress_intra": "onebit_ef", "rebucket": True}),
+)
+#: the least drop of the peak from the leaf layout to the resident one, ZeRO
+#: on the full BERT-Large (GB): the chunk copy a rank (0.931 GB) that the
+#: resident layout does without
+RESIDENT_PEAK_DROP_GB = 0.9
+#: the features runs' tolerance of the accumulated losses against the
+#: replicated run of the zero phase (relative, every step)
+ACCUM_LOSS_RTOL = 1e-2
 #: the multi-rank phases: name -> (label, runs, world, intra-node size)
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
@@ -1574,6 +1751,7 @@ MULTI_RANK = {
     "decentralized": ("decentralized", DECENTRALIZED_RUNS, CODEC_WORLD, None),
     "decentralized_4": ("decentralized (2 x 2)", DECENTRALIZED_4_RUNS, 4, 2),
     "async": ("async", ASYNC_RUNS, CODEC_WORLD, None),
+    "features": ("features", FEATURES_RUNS, CODEC_WORLD, None),
 }
 QADAM_WARMUP = 2
 #: seconds a multi-rank phase may take before its ranks are killed
@@ -1831,6 +2009,10 @@ def compressed_run(rank, world, run, device, label):
     cfg, model, algo, trainer, state, batch, kw = _build_run(rank, world, run, device)
     gossip = not algo.replicated_params
     trace, after_step = _gossip_trace(trainer, model) if gossip else (None, None)
+    param_fps = []
+    if name == "zero":   # the features phase holds its leaf-layout run against these
+        def after_step(state):
+            param_fps.append(param_fingerprints(trainer, model))
     staged0 = trainer.host_staged_bytes
     losses, launches, st, state = train_steps(trainer, state, batch,
                                               BERT["b"] * cfg.max_seq_len, [fa, cd], after_step)
@@ -1850,7 +2032,8 @@ def compressed_run(rank, world, run, device, label):
               # read the per-step fingerprints instead
               "digests": None if gossip else _flat_digests(trainer, model),
               "fingerprints": trace, "hierarchical": algo.hierarchical,
-              "peer_selection_mode": getattr(algo, "peer_selection_mode", None)}
+              "peer_selection_mode": getattr(algo, "peer_selection_mode", None),
+              "param_fingerprints": param_fps}
     record["fwd_bwd_ms"] = fwd_bwd_ms(model, batch)
     log(f"[rank {rank}] {label} {name}: {record['params']} params, {cfg.n_layers} layers, "
         f"{n_buckets} buckets; losses {losses}; residual L1 {record['ef_norm']}")
@@ -1966,6 +2149,158 @@ def async_run(rank, world, run, device, label):
     return record
 
 
+def param_fingerprints(trainer, model, chunk=1 << 22):
+    """One 64-bit fingerprint a bucket of the parameters, whatever their
+    layout: the sum, wrapping modulo 2^64, over the bucket's tensors of each
+    element's f32 bits times an odd pseudo-random weight drawn from the
+    tensor's name and the element's index, in chunks of ``chunk`` elements
+    (so that it holds no copy of a bucket; computed on the tensors'
+    device).  A difference in one element always shows (as in
+    :func:`fingerprints`)."""
+    import zlib
+
+    params = dict(model.named_parameters())
+    out = []
+    with torch.no_grad():
+        for b in trainer.plan.buckets:
+            total = torch.zeros((), dtype=torch.int64, device=params[b.tensors[0].name].device)
+            for t in b.tensors:
+                flat = params[t.name].detach().reshape(-1).view(torch.int32)
+                for c, start in enumerate(range(0, flat.numel(), chunk)):
+                    part = flat[start:start + chunk]
+                    g = torch.Generator(device=part.device).manual_seed(
+                        zlib.crc32(t.name.encode()) * 1009 + c)
+                    w = torch.randint(-2 ** 62, 2 ** 62, (part.numel(),), generator=g,
+                                      dtype=torch.int64, device=part.device) | 1
+                    total += (part.long() * w).sum()
+            out.append(total.item())
+    return out
+
+
+def features_run(rank, world, run, device, label):
+    """One run of the features phase on this rank (``FEATURES_RUNS``);
+    returns its record.  After every step (outside the step times) it takes
+    the guard's verdict, the parameters' fingerprints (``zero_leaf``) and
+    the rebucket (after step ``REBUCKET_AFTER``).  The cut's runs keep their
+    final parameters (and residual) in this process, so that the later runs
+    are compared with them here: ``onebit_clean_again`` and
+    ``onebit_poison`` with ``onebit_clean``, ``rebucket`` with
+    ``no_rebucket``.  ``accum_guard`` times the guard's own work (the
+    verdict on the reduced gradient flats and its host read) after the
+    run."""
+    import contextlib
+
+    from bagua_tpu_torch.bucket import split_bucket_by_bucket_size
+    from bagua_tpu_torch.faults.inject import FaultSpec, fault_scope
+    from bagua_tpu_torch.ops import codec as cd
+    from bagua_tpu_torch.ops import flash_attention as fa
+    from bagua_tpu_torch.telemetry import counters
+
+    name, layers, algo_name, kw = run
+    kw = dict(kw)
+    steps, poison = kw.pop("steps", STEPS), kw.pop("poison", None)
+    rebucket = kw.pop("rebucket", False)
+    cfg, model, algo, trainer, state, batch, kw = _build_run(
+        rank, world, (name, layers, algo_name, kw), device)
+    healthy, param_fps, buckets_per_step = [], [], []
+
+    def after_step(state):
+        buckets_per_step.append(len(trainer.plan.buckets))
+        if trainer.grad_guard != "off":
+            healthy.append(trainer.step_metrics["grad_healthy"].item())
+        if name == "zero_leaf":
+            param_fps.append(param_fingerprints(trainer, model))
+        if rebucket and len(buckets_per_step) == REBUCKET_AFTER:
+            decls = [t.declaration() for b in trainer.plan.buckets for t in b.tensors]
+            trainer.rebucket(split_bucket_by_bucket_size(decls, REBUCKET_BYTES))
+
+    scope = (fault_scope(FaultSpec("grad.poison", step=poison)) if poison is not None
+             else contextlib.nullcontext())
+    before = counters.snapshot()
+    staged0 = trainer.host_staged_bytes
+    with scope:
+        losses, launches, st, state = train_steps(
+            trainer, state, batch, BERT["b"] * cfg.max_seq_len, [fa, cd], after_step, steps)
+        trainer.flush_grad_health()
+    staged = trainer.host_staged_bytes - staged0
+    guard_ms = None
+    if name == "accum_guard":
+        # the guard's own work on the last step's reduced gradient flats,
+        # both ranks at once after a barrier, as in a step
+        grads = trainer._stage_grads()
+        times = []
+        for _ in range(5):
+            torch.distributed.barrier()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            trainer._healthy(trainer._grad_health_vec(grads))
+            times.append(time.perf_counter() - t0)
+        guard_ms = statistics.median(times) * 1e3
+        del grads
+    ef = (state.algo_state or {}).get("ef")
+    ef = None if ef is None else list(ef["buckets"])
+    opt = state.opt_state.optimizer if algo.sharded_opt_state else state.optimizer
+    record = {"name": name, "layers": cfg.n_layers, "buckets": len(trainer.plan.buckets),
+              "padded_numel": sum(b.padded_numel for b in trainer.plan.buckets),
+              "opt_state_bytes": optimizer_state_bytes(opt),
+              "params": sum(p.numel() for p in model.parameters()), "losses": losses,
+              "launches": launches, "stats": st, "host_staged_bytes": staged,
+              "digests": _flat_digests(trainer, model), "fingerprints": None,
+              "healthy": healthy, "param_fingerprints": param_fps,
+              "counters": {k: counters.get(k) - before.get(k, 0) for k in (
+                  "grad_guard/skipped_steps", "grad_guard/unhealthy_steps",
+                  "faults/grad.poison/fired")},
+              "ef_sizes": None if ef is None else [r.numel() for r in ef],
+              "ef_finite": ef is None or all(bool(r.isfinite().all()) for r in ef),
+              "ef_norm": None if ef is None else sum(r.abs().sum().item() for r in ef),
+              "plan_sizes": [b.padded_numel for b in trainer.plan.buckets],
+              "guard_ms": guard_ms}
+    if rebucket and trainer._flat_resident:
+        # AdamW's state is keyed by the new plan's flats and shaped like them
+        group = opt.param_groups[0]["params"]
+        record["opt_on_new_plan"] = (
+            len(group) == len(trainer._flats)
+            and all(a is b for a, b in zip(group, trainer._flats))
+            and all(opt.state[f]["exp_avg"].shape == opt.state[f]["exp_avg_sq"].shape
+                    == (b.padded_numel,) for f, b in zip(trainer._flats, trainer.plan.buckets)))
+    keep = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    keep_ef = None if ef is None else [r.cpu() for r in ef]
+    against = {"onebit_clean_again": "onebit_clean", "onebit_poison": "onebit_clean",
+               "rebucket": "no_rebucket"}.get(name)
+    if against is not None:
+        other, other_ef = _FEATURES_KEPT[against]
+        diff = max((keep[n] - other[n]).abs().max().item() for n in keep)
+        record["against"] = {
+            "run": against, "params_equal": all(torch.equal(keep[n], other[n]) for n in keep),
+            "params_max_abs": diff,
+            "ef_equal": None if keep_ef is None else all(
+                torch.equal(a, b) for a, b in zip(keep_ef, other_ef)),
+            "ef_max_abs": None if keep_ef is None else max(
+                (a - b).abs().max().item() for a, b in zip(keep_ef, other_ef))}
+    _FEATURES_KEPT[name] = (keep, keep_ef)
+    record["fwd_bwd_ms"] = fwd_bwd_ms(model, batch)
+    log(f"[rank {rank}] {label} {name}: {record['params']} params, {cfg.n_layers} layers, "
+        f"{record['buckets']} buckets ({st['layout']} layout); losses {losses}; healthy "
+        f"{healthy}; counters {record['counters']}; against {record.get('against')}")
+    accum = trainer.accum_steps
+    want = {k.__name__: 0 for k in cd.KERNELS}
+    want.update({k: cfg.n_layers * steps * accum
+                 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
+    if kw.get("compress_intra") == "onebit_ef":
+        # the error-feedback step and the ring at n = 2: 3 K4 and 3 K5 a
+        # bucket and step, on the plan each step ran
+        want["sign_compress_chunked"] = want["sign_decompress_chunked"] = 3 * sum(
+            buckets_per_step)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
+    return record
+
+
+#: a features run's final parameters and residual on the host, by run name,
+#: for the runs after it in the same rank process
+_FEATURES_KEPT = {}
+
+
 def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     """One rank of a multi-rank phase of ``MULTI_RANK``: every run, records
     to ``out_path`` as JSON."""
@@ -1977,10 +2312,10 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
                           backend="gloo", intra_size=intra)
     records = []
     for run in runs:
-        records.append((async_run if phase == "async" else compressed_run)(
-            rank, world, run, device, label))
+        run_fn = {"async": async_run, "features": features_run}.get(phase, compressed_run)
+        records.append(run_fn(rank, world, run, device, label))
         if device.type == "cuda":
-            torch.cuda.empty_cache()
+            release()
     with open(out_path, "w") as f:
         json.dump(records, f)
     torch.distributed.destroy_process_group()
@@ -2023,8 +2358,9 @@ def phase_multi_rank(phase):
             log(f"{label} {name} rank {r} (gloo through host memory, {world} ranks on one "
                 f"card): step {st['step_ms']:.3f} ms (steps 2-{STEPS} as one window; median "
                 f"{st['median_ms']:.3f} ms; first {st['first_ms']:.3f} ms), "
-                f"{st['tokens_s']:.1f} tokens/s, peak memory {st['peak_gb']:.3f} GB, "
-                f"host-staged {rec['host_staged_bytes']} bytes in {STEPS} steps, "
+                f"{st['tokens_s']:.1f} tokens/s, peak memory {st['peak_gb']:.3f} GB "
+                f"({st['layout']} layout), host-staged {rec['host_staged_bytes']} bytes in "
+                f"{len(rec['losses'])} steps, "
                 f"optimizer state {rec['opt_state_bytes']} bytes, "
                 f"{rec['buckets']} buckets, launches {rec['launches']}; forward+backward "
                 f"alone (no communication) {rec['fwd_bwd_ms']:.3f} ms")
@@ -2178,6 +2514,78 @@ def check_zero(zero):
                              f"{full['opt_state_bytes']}, {full['stats']['peak_gb']}")
 
 
+def check_features(feat, zero):
+    """The features phase's gates on every rank's record (see
+    ``FEATURES_RUNS``): (a) the leaf-layout ZeRO's per-step fingerprints of
+    every bucket equal to the resident ZeRO's of the zero phase over its first
+    ``FULL_STEPS`` steps on each rank (one chunk update in either layout), and
+    the resident peak at least ``RESIDENT_PEAK_DROP_GB`` below; (b) the
+    accumulated, guarded losses within ``ACCUM_LOSS_RTOL`` of the zero phase's
+    replicated run at every step, every verdict healthy; (c) the two clean 1-bit runs bitwise equal, and then the
+    poisoned run's parameters and residual bitwise equal to the clean run's
+    (else within ten times the clean runs' own difference), one skipped step
+    and one fire on each rank; (d) the rebucketed run's parameters bitwise
+    equal to the run without it, AdamW's state on the new plan, and the 1-bit
+    residual carried onto the new plan, finite and nonzero."""
+    ranks = range(len(feat["zero_leaf"]))
+    leaf, res = feat["zero_leaf"], zero["zero"]
+    fp_equal = all(leaf[r]["param_fingerprints"] == res[r]["param_fingerprints"][:FULL_STEPS]
+                   for r in ranks)
+    drop = [leaf[r]["stats"]["peak_gb"] - res[r]["stats"]["peak_gb"] for r in ranks]
+    log(f"features (a): ZeRO on BERT-Large, leaf layout peak "
+        f"{[round(r['stats']['peak_gb'], 3) for r in leaf]} GB and step "
+        f"{[round(r['stats']['step_ms'], 3) for r in leaf]} ms against the zero phase's "
+        f"resident run's {[round(r['stats']['peak_gb'], 3) for r in res]} GB and "
+        f"{[round(r['stats']['step_ms'], 3) for r in res]} ms (rank by rank; drop "
+        f"{[round(d, 3) for d in drop]} GB); per-step bucket fingerprints "
+        f"{'equal' if fp_equal else 'DIFFER'} over {len(leaf[0]['param_fingerprints'])} steps")
+    if not (fp_equal and len(leaf[0]["param_fingerprints"]) == FULL_STEPS
+            and min(drop) >= RESIDENT_PEAK_DROP_GB):
+        raise AssertionError(f"features (a): fingerprints equal {fp_equal}, peak drop {drop}")
+    acc, rep = feat["accum_guard"][0], zero["replicated"][0]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(acc["losses"], rep["losses"]))
+    st = acc["stats"]
+    log(f"features (b): GradientAllReduce on BERT-Large, 2 microbatches of 4, guard skip: "
+        f"losses within {gap:.3g} of the replicated run's; verdicts {acc['healthy']}; step "
+        f"{st['step_ms']:.3f} ms (median {st['median_ms']:.3f}) against the replicated run's "
+        f"{rep['stats']['step_ms']:.3f}, peak {st['peak_gb']:.3f} GB ({st['layout']} layout) "
+        f"against {rep['stats']['peak_gb']:.3f} GB; the guard's verdict and host read "
+        f"{acc['guard_ms']:.3f} ms, {acc['guard_ms'] / st['step_ms']:.3%} of the step")
+    if not (gap <= ACCUM_LOSS_RTOL and acc["healthy"] == [1.0] * FULL_STEPS
+            and len(acc["losses"]) == FULL_STEPS):
+        raise AssertionError(f"features (b): loss gap {gap}, verdicts {acc['healthy']}")
+    for r in ranks:
+        again, poisoned = feat["onebit_clean_again"][r], feat["onebit_poison"][r]
+        exact = again["against"]["params_equal"] and again["against"]["ef_equal"]
+        tol = 10 * max(again["against"]["params_max_abs"], again["against"]["ef_max_abs"])
+        got = poisoned["against"]
+        same = (got["params_equal"] and got["ef_equal"] if exact else
+                max(got["params_max_abs"], got["ef_max_abs"]) <= tol)
+        log(f"features (c) rank {r}: two clean 1-bit runs "
+            f"{'bitwise equal' if exact else 'DIFFER'} "
+            f"({again['against']}); the run poisoned at step {POISON_AT} against the clean run "
+            f"of {POISON_STEPS - 1} steps: {got}; counters {poisoned['counters']}; verdicts "
+            f"{poisoned['healthy']}")
+        if not (same and poisoned["counters"]["grad_guard/skipped_steps"] == 1
+                and poisoned["counters"]["faults/grad.poison/fired"] == 1
+                and poisoned["healthy"][POISON_AT] == 0.0 and poisoned["ef_finite"]):
+            raise AssertionError(f"features (c) rank {r}: {got}, {poisoned['counters']}")
+        reb, onebit = feat["rebucket"][r], feat["onebit_rebucket"][r]
+        log(f"features (d) rank {r}: rebucket after step {REBUCKET_AFTER} to "
+            f"{len(reb['plan_sizes'])} buckets: parameters against the run without it "
+            f"{reb['against']}; AdamW on the new plan {reb['opt_on_new_plan']}; the 1-bit run's "
+            f"residual on {onebit['ef_sizes'] == onebit['plan_sizes']} the new plan "
+            f"({len(onebit['plan_sizes'])} buckets), L1 {onebit['ef_norm']}, finite "
+            f"{onebit['ef_finite']}; steps {reb['stats']['step_ms']:.3f} ms and "
+            f"{onebit['stats']['step_ms']:.3f} ms")
+        if not (reb["against"]["params_equal"] and reb["opt_on_new_plan"]
+                and len(reb["plan_sizes"]) > len(feat["no_rebucket"][r]["plan_sizes"])
+                and onebit["ef_sizes"] == onebit["plan_sizes"] and onebit["ef_finite"]
+                and onebit["ef_norm"] > 0):
+            raise AssertionError(f"features (d) rank {r}: {reb['against']}, "
+                                 f"{reb['opt_on_new_plan']}, {onebit['ef_sizes']}")
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--worker"]:
@@ -2199,11 +2607,14 @@ def main():
     rows.update(timed("codec kernels", phase_codec_kernels))
     rows.update(timed("sign kernels", phase_sign_kernels))
     timed("narrow shapes", phase_narrow_shapes)
-    launches = timed("slice 1", phase_slice)
-    launches_moe, _ = timed("slice 2", phase_slice_moe)
+    launches, base = timed("slice 1", phase_slice)
+    release()
+    launches_moe, _, base_moe = timed("slice 2", phase_slice_moe)
+    release()
+    timed("remat", phase_remat, {"longctx": base, "moe": base_moe})
+    del base, base_moe
     torch.distributed.destroy_process_group()
-    gc.collect()
-    torch.cuda.empty_cache()   # the ranks of slices 3 and 4 share this card
+    release()   # the ranks of slices 3 and 4 share this card
     slice3 = timed("slice 3", phase_multi_rank, "slice3")
     slice4 = timed("slice 4", phase_multi_rank, "slice4")
     timed("slice 4 (2 x 2)", phase_multi_rank, "slice4_2x2")
@@ -2214,6 +2625,8 @@ def main():
     full = zero["replicated"][0]
     async_runs = timed("async", phase_multi_rank, "async")
     check_async(async_runs, full, gossip["decentralized_all"][0])
+    features = timed("features", phase_multi_rank, "features")
+    check_features(features, zero)
     for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
             continue
