@@ -30,12 +30,23 @@ from .communication import (  # noqa: F401
     BaguaCommunicator,
     ReduceOp,
     abort,
+    allgather,
+    allreduce,
+    allreduce_inplace,
+    alltoall,
+    alltoall_v,
     barrier,
+    broadcast,
     check_abort,
+    gather,
     get_backend,
     init_process_group,
     is_aborted,
+    reduce,
+    reduce_scatter,
     reset_abort,
+    scatter,
+    send_recv,
 )
 from .core.backend import BaguaTrainer, TrainState  # noqa: F401
 from .define import TensorDeclaration, TensorDtype  # noqa: F401

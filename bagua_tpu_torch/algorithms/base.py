@@ -6,7 +6,11 @@ tensors to communicate and their buckets (``init_tensors``,
 pass and the optimizer step (``process_grads``).  Dense families implement
 ``reduce_bucket_grad`` for one bucket's flat gradient and alias
 ``process_grads`` to ``process_grads_bucketed``, which folds in the
-error-feedback residual and runs it over every bucket in plan order.  A
+error-feedback residual, runs it over every bucket in launch order and
+hands the results to ``grads_from_reduced``.  Those that set
+``supports_overlap`` let the trainer's overlap scheduler call
+``reduce_bucket_grad`` from the backward instead, bucket by bucket as each
+gradient finalizes (``core/backend.py``).  A
 family that owns its optimizer (QAdam, ZeRO) sets ``owns_optimizer`` and
 provides ``init_optimizer_state`` (or, with ``sharded_opt_state``,
 ``init_optimizer_state_sharded``) and ``optimizer_update``.  The gossip
@@ -18,11 +22,15 @@ average works between steps, in the host-side hook ``host_pre_step``, on
 process groups of its own (``communicators``).
 
 The context carries the two tiers of the hierarchical collectives (the
-intra-node and inter-node communicators, ``communication.py``) and their
-codec policy, and composes the two-level allreduce from them: an intra-node
-reduce-scatter, the inter-node allreduce of the ``1 / intra`` shard (through
-the compressed ring where a codec resolves), an intra-node allgather.  The
-JAX package's chunked rings of its overlap scheduler are not ported.
+intra-node and inter-node communicators, ``communication.py``), their codec
+policy and, under the overlap scheduler, their ring chunk targets, and
+composes the two-level allreduce from them: an intra-node reduce-scatter,
+the inter-node allreduce of the ``1 / intra`` shard (through the compressed
+ring where a codec resolves), an intra-node allgather; each stage rides the
+chunked ring where a chunk target sizes it to more than one sub-ring.  It
+also holds the byte accounting of a bucket's collective by tier
+(``bucket_tier_bytes``) and the scheduler's launch order
+(``bucket_launch_order``).
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from ..bucket import BucketPlan, relayout_flats
-from ..communication import LINK_DCN, LINK_ICI, BaguaCommunicator, ReduceOp
+from ..communication import LINK_DCN, LINK_ICI, BaguaCommunicator, ReduceOp, ring_chunks_for
 from ..compression.codecs import get_codec
 from ..define import TensorDeclaration
 from ..tensor import NamedParam
@@ -71,6 +79,16 @@ class AlgorithmContext:
     #: the flat-resident layout: params, gradients and optimizer state are
     #: one flat a bucket across steps, and the stages get those flats
     flat_resident: bool = False
+    #: the overlap scheduler is active: each bucket's collective is issued
+    #: from the backward through :meth:`Algorithm.reduce_bucket_grad`
+    overlap: bool = False
+    #: target bytes a rank of one ring sub-collective (None: one collective
+    #: a bucket); the fallback of the two tier targets below
+    overlap_chunk_bytes: Optional[int] = None
+    #: the tier targets: the intra-node tier and the flat ring, and the
+    #: inter-node tier, which a larger target suits (None: the fallback)
+    intra_chunk_bytes: Optional[int] = None
+    inter_chunk_bytes: Optional[int] = None
 
     def bucket_flats(self, tensors) -> List[torch.Tensor]:
         """One flat buffer per bucket: under the resident layout the flats
@@ -132,42 +150,74 @@ class AlgorithmContext:
             and self.world_size == self.internode.nranks() * self.intranode.nranks()
         )
 
+    def chunk_bytes_for(self, link_class: str) -> Optional[int]:
+        """The ring chunk target of one link class: the tier's own where
+        set, else :attr:`overlap_chunk_bytes` (``base.py:189-196``)."""
+        tier = self.inter_chunk_bytes if link_class == LINK_DCN else self.intra_chunk_bytes
+        return tier if tier else self.overlap_chunk_bytes
+
+    def _comm_chunks(self, comm: BaguaCommunicator, numel: int, itemsize: int,
+                     link_class: str) -> int:
+        """Sub-rings of one collective over ``comm`` (1: one collective).
+        The one gate of every bucket collective, flat and tiered, so that the
+        ring never applies to one half of a scatter/gather pair alone."""
+        target = self.chunk_bytes_for(link_class)
+        if not target or comm.nranks() <= 1:
+            return 1
+        return ring_chunks_for(numel, itemsize, comm.nranks(), target, link_class)
+
+    def _ring_chunks(self, numel: int, itemsize: int) -> int:
+        """The chunk gate of the flat (whole world) path."""
+        return self._comm_chunks(self.comm, numel, itemsize, LINK_ICI)
+
     def tier_reduce_scatter(self, flat, op: ReduceOp, codec=None):
         """Intra-node reduce-scatter of ``flat``: this rank's contiguous
         ``1 / intra`` chunk, through the compressed ring where the intra-node
-        policy resolves a codec (``codec`` is the family default)."""
+        policy resolves a codec (``codec`` is the family default), through
+        the chunked ring where the intra-node target sizes more than one
+        sub-ring."""
         codec = self.codec_for(LINK_ICI, codec)
-        if codec is not None:
-            return self.intranode.ring_reduce_scatter(flat, op, codec=codec)
+        k = self._comm_chunks(self.intranode, flat.shape[0], flat.element_size(), LINK_ICI)
+        if codec is not None or k > 1:
+            return self.intranode.ring_reduce_scatter(flat, op, num_chunks=k, codec=codec)
         return self.intranode.reduce_scatter(flat, op)
 
     def tier_allreduce(self, chunk, op: ReduceOp, codec=None):
         """Inter-node allreduce of this rank's shard, the only stage whose
         bytes cross nodes and so the one the codec policy compresses: with a
-        resolved codec it rides the compressed ring."""
+        resolved codec it rides the compressed ring, sized against the
+        inter-node chunk target."""
         codec = self.codec_for(LINK_DCN, codec)
-        if codec is not None:
-            return self.internode.ring_allreduce(chunk, op, codec=codec)
+        k = self._comm_chunks(self.internode, chunk.shape[0], chunk.element_size(), LINK_DCN)
+        if codec is not None or k > 1:
+            return self.internode.ring_allreduce(chunk, op, num_chunks=k, codec=codec)
         return self.internode.allreduce(chunk, op)
 
     def tier_allgather(self, chunk, codec=None):
-        """Intra-node allgather of this rank's chunk back to the full flat."""
+        """Intra-node allgather of this rank's chunk back to the full flat,
+        under the same gate as :meth:`tier_reduce_scatter` (sized on the
+        full flat the chunk tiles), so that the pair keeps one layout."""
         codec = self.codec_for(LINK_ICI, codec)
-        if codec is not None:
-            return self.intranode.ring_allgather(chunk, codec=codec)
+        k = self._comm_chunks(self.intranode, chunk.shape[0] * self.intranode.nranks(),
+                              chunk.element_size(), LINK_ICI)
+        if codec is not None or k > 1:
+            return self.intranode.ring_allgather(chunk, num_chunks=k, codec=codec)
         return self.intranode.allgather(chunk, axis=0, tiled=True)
 
     def two_level_allreduce(self, flat, op: ReduceOp):
         """Intra-node reduce-scatter, inter-node allreduce of the ``1 /
-        intra`` shard, intra-node allgather.  A flat the intra-node tier does
-        not divide is zero-padded and sliced back.  AVG divides once, by the
-        world, after the summing stages, as the flat allreduce does, so only
-        the order of the sum differs from it.  The inter-node stage is
-        compressed only where ``compress_inter`` names a codec."""
+        intra`` shard, intra-node allgather.  A flat that does not split
+        into ``intra`` rank blocks of the intra-node tier's sub-rings is
+        zero-padded and sliced back.  AVG divides once, by the world, after
+        the summing stages, as the flat allreduce does, so only the order of
+        the sum differs from it.  The inter-node stage is compressed only
+        where ``compress_inter`` names a codec."""
         if op not in (ReduceOp.SUM, ReduceOp.AVG):
             raise ValueError(f"two_level_allreduce supports SUM/AVG, got {op}")
         size = flat.shape[0]
-        pad = (-size) % self.intranode.nranks()
+        n_intra = self.intranode.nranks()
+        ki = self._comm_chunks(self.intranode, size, flat.element_size(), LINK_ICI)
+        pad = (-size) % (n_intra * ki)
         if pad:
             flat = torch.cat([flat, flat.new_zeros(pad)])
         chunk = self.tier_reduce_scatter(flat, ReduceOp.SUM)
@@ -180,33 +230,106 @@ class AlgorithmContext:
     def bucket_reduce_scatter(self, flat: torch.Tensor, op: ReduceOp) -> torch.Tensor:
         """One bucket's reduce-scatter, ZeRO's gradient half (``base.py:352-367``):
         this rank's contiguous ``1 / world`` slice, through the flat ring
-        with the forced flat codec where one resolves, else one
-        reduce-scatter."""
+        where the forced flat codec resolves or the chunk target sizes more
+        than one sub-ring, else one reduce-scatter (the same layout)."""
         codec = self.flat_ring_codec()
-        if codec is not None:
-            return self.comm.ring_reduce_scatter(flat, op, codec=codec)
+        k = self._ring_chunks(flat.shape[0], flat.element_size())
+        if codec is not None or k > 1:
+            return self.comm.ring_reduce_scatter(flat, op, num_chunks=k, codec=codec)
         return self.comm.reduce_scatter(flat, op)
 
     def bucket_allgather(self, chunk: torch.Tensor) -> torch.Tensor:
         """The inverse of :meth:`bucket_reduce_scatter`, ZeRO's
         re-replication (``base.py:369-381``): every rank's chunk in rank
-        order, through the same ring and codec."""
+        order, under the same gate (sized on the full flat the chunk
+        tiles)."""
         codec = self.flat_ring_codec()
-        if codec is not None:
-            return self.comm.ring_allgather(chunk, codec=codec)
+        k = self._ring_chunks(chunk.shape[0] * self.comm.nranks(), chunk.element_size())
+        if codec is not None or k > 1:
+            return self.comm.ring_allgather(chunk, num_chunks=k, codec=codec)
         return self.comm.allgather(chunk, axis=0, tiled=True)
 
     def bucket_allreduce(self, flat: torch.Tensor, op: ReduceOp,
                          hierarchical: bool = False) -> torch.Tensor:
         """One bucket's allreduce (``base.py:325-350``): the two-level form
         where ``hierarchical`` and the tiers allow it; else the flat ring
-        with the forced flat codec where one resolves; else one allreduce."""
+        with the forced flat codec where one resolves, or chunked where the
+        target sizes more than one sub-ring and the call is not
+        hierarchical; else one allreduce."""
         if hierarchical and self.two_tier():
             return self.two_level_allreduce(flat, op)
         codec = self.flat_ring_codec()
-        if codec is not None:
-            return self.comm.ring_allreduce(flat, op, codec=codec)
+        k = self._ring_chunks(flat.shape[0], flat.element_size())
+        if codec is not None or (k > 1 and not hierarchical):
+            return self.comm.ring_allreduce(flat, op, num_chunks=k, codec=codec)
         return self.comm.allreduce(flat, op)
+
+    # -- byte accounting and the launch order -----------------------------
+
+    @staticmethod
+    def _wire_bytes(numel: int, itemsize: int, codec_name) -> int:
+        """Wire bytes of one ``numel``-element operand under a codec name
+        (None: full precision)."""
+        if codec_name is None:
+            return int(numel) * int(itemsize)
+        return get_codec(codec_name).wire_bytes(int(numel))
+
+    def bucket_tier_bytes(self, index: int, hierarchical: bool = True, dcn_codec=None,
+                          flat_codec=None) -> dict:
+        """Bytes on the wire of one bucket's gradient collective by tier
+        (``base.py:385-484``), in the ring model: a tier's allreduce moves
+        ``2 (n - 1) / n`` of its operand, a scatter or gather half ``(n - 1)
+        / n``.  ``dcn_bytes`` crosses nodes: 0 without tiers; on tiers with
+        ``hierarchical=False`` the bytes the flat collective sends across
+        them.  ``dcn_codec`` and ``flat_codec`` are the family's wire codecs
+        (``Algorithm.wire_codec_dcn``, ``wire_codec_flat``); the tier knobs
+        override them through :meth:`codec_for`, exactly as the collectives
+        resolve them, so compressed bytes are reported where a codec rides
+        the tier."""
+        b = self.plan.buckets[index]
+        itemsize = b.dtype.itemsize
+        numel = int(b.padded_numel)
+        nbytes = numel * itemsize
+        if flat_codec is not None:
+            # a family's own flat pipeline compresses unless the knob forces
+            # "off" (a forced name keeps its one wire format)
+            resolved_flat = flat_codec if self.codec_for(LINK_ICI, flat_codec) is not None else None
+        else:
+            resolved_flat = self.flat_ring_codec()
+        if not self.two_tier():
+            return {"tier": "flat", "bytes": nbytes,
+                    "ici_bytes": self._wire_bytes(numel, itemsize, resolved_flat),
+                    "dcn_bytes": 0, "dcn_codec": None, "flat_codec": resolved_flat}
+        ni, ne = self.intranode.nranks(), self.internode.nranks()
+        if not hierarchical:
+            wire = self._wire_bytes(numel, itemsize, resolved_flat)
+            return {"tier": "flat", "bytes": nbytes, "ici_bytes": wire,
+                    "dcn_bytes": int(2 * wire * (ne - 1) // ne), "dcn_codec": resolved_flat,
+                    "flat_codec": resolved_flat}
+        resolved_dcn = self.codec_for(LINK_DCN, dcn_codec)
+        ici_wire = self._wire_bytes(numel, itemsize, self.codec_for(LINK_ICI, None))
+        # full precision: the shard in bytes; a codec's payload is per
+        # element, so its shard is counted in elements
+        dcn_wire = (-(-numel * itemsize // ni) if resolved_dcn is None
+                    else self._wire_bytes(-(-numel // ni), itemsize, resolved_dcn))
+        return {"tier": "two_level", "bytes": nbytes,
+                "ici_bytes": int(2 * ici_wire * (ni - 1) // ni),
+                "dcn_bytes": int(2 * dcn_wire * (ne - 1) // ne),
+                "dcn_codec": resolved_dcn, "flat_codec": None}
+
+    def bucket_launch_order(self, hierarchical: bool, dcn_codec=None) -> List[int]:
+        """The order the overlap scheduler issues the buckets' collectives in
+        (``base.py:486-505``): on two tiers with the hierarchical path under
+        the scheduler, the buckets by their inter-node bytes, most first
+        (stable), so that the slow link is busy through the whole backward;
+        else the plan's order.  Results are assembled in plan order, so the
+        order changes no number."""
+        n = len(self.plan.buckets)
+        if not (self.overlap and hierarchical and self.two_tier()):
+            return list(range(n))
+        dcn = [self.bucket_tier_bytes(i, hierarchical, dcn_codec=dcn_codec)["dcn_bytes"]
+               for i in range(n)]
+        return sorted(range(n), key=lambda i: -dcn[i])
 
 
 class Algorithm:
@@ -237,6 +360,17 @@ class Algorithm:
     #: it in; an error-feedback codec forced onto another family rides
     #: without it, with a warning
     supports_ef_state: bool = False
+    #: the overlap contract: the trainer's overlap scheduler may call
+    #: :meth:`reduce_bucket_grad` once a bucket, from the backward, as each
+    #: bucket's gradient finalizes, and hand the results to
+    #: :meth:`grads_from_reduced` in place of :meth:`process_grads`.
+    #: Families whose communication is not a map over the buckets (the
+    #: gossip exchanges, QAdam's momentum pipeline) keep False
+    supports_overlap: bool = False
+    #: whether ``overlap="auto"`` may pick the overlap path for this family
+    #: (``on`` always does): the JAX package's values, measured on its own
+    #: hardware (``BENCH_OVERLAP.json``)
+    overlap_auto: bool = True
     #: True when the trainer may keep params, gradients and optimizer state
     #: as resident bucket flats (every stage goes through
     #: ``AlgorithmContext.bucket_flats``/``from_bucket_flats``)
@@ -340,17 +474,29 @@ class Algorithm:
         keep the new quantization error (``base.py:708-731``): ``c = g + r``;
         the wire carries ``encode(c)``; ``r' = c - decode(encode(c))``.
         Identity when no EF codec is active."""
+        out = [self.compensate_flat(ctx, i, f, algo_state) for i, f in enumerate(flats)]
+        return [f for f, _ in out], self.with_residuals(algo_state, [r for _, r in out])
+
+    def compensate_flat(self, ctx: AlgorithmContext, index: int, flat, algo_state):
+        """:meth:`compensate_flats` for bucket ``index`` alone, as the overlap
+        scheduler runs it from the backward: ``(c, r')``, ``(flat, None)``
+        when no EF codec is active.  Nothing is changed in place, so a
+        rewound step keeps the residual it started from."""
         codec = self.ef_codec(ctx)
         ef = algo_state.get("ef") if isinstance(algo_state, dict) else None
         if codec is None or ef is None:
-            return flats, algo_state
-        out, residuals = [], []
-        for flat, res in zip(flats, ef["buckets"]):
-            c = flat.float() + res
-            dec = codec.decode(codec.encode(c[None]), c.shape[0])[0]
-            residuals.append(c - dec)
-            out.append(c.to(flat.dtype))
-        return out, {**algo_state, "ef": {"buckets": tuple(residuals)}}
+            return flat, None
+        c = flat.float() + ef["buckets"][index]
+        dec = codec.decode(codec.encode(c[None]), c.shape[0])[0]
+        return c.to(flat.dtype), c - dec
+
+    @staticmethod
+    def with_residuals(algo_state, residuals):
+        """``algo_state`` with the new residuals of :meth:`compensate_flat`
+        (unchanged where it returned None)."""
+        if not residuals or residuals[0] is None:
+            return algo_state
+        return {**algo_state, "ef": {"buckets": tuple(residuals)}}
 
     def process_grads(self, ctx: AlgorithmContext, grads, params, algo_state, step):
         """Gradient communication stage, after the full backward."""
@@ -358,19 +504,33 @@ class Algorithm:
 
     def reduce_bucket_grad(self, ctx: AlgorithmContext, index: int,
                            flat: torch.Tensor) -> torch.Tensor:
-        """Communicate one bucket's flat gradient; returns the reduced flat."""
+        """Communicate one bucket's final flat gradient; returns the reduced
+        flat (dense families) or this rank's chunk of it (ZeRO).  Under the
+        overlap scheduler it runs on the trainer's comm worker thread and
+        comm stream."""
         raise NotImplementedError(
             f"{type(self).__name__} does not implement reduce_bucket_grad")
 
+    def grads_from_reduced(self, ctx: AlgorithmContext, reduced, grads, algo_state, step):
+        """The gradients after communication, from the per-bucket results of
+        :meth:`reduce_bucket_grad` in plan order (``base.py:752-759``): the
+        reduced flats (resident), or views into them by name."""
+        return ctx.from_bucket_flats(reduced), algo_state
+
     def process_grads_bucketed(self, ctx: AlgorithmContext, grads, params,
                                algo_state, step):
-        """Flatten the gradients per bucket, fold in the error-feedback
-        residual, reduce each bucket with :meth:`reduce_bucket_grad` in plan
-        order, and hand back views into the reduced flats by name."""
+        """The serialized communication of the ``supports_overlap`` families
+        (``base.py:761-781``): flatten the gradients per bucket, fold in the
+        error-feedback residual, issue :meth:`reduce_bucket_grad` in
+        :meth:`AlgorithmContext.bucket_launch_order` and assemble the results
+        in plan order through :meth:`grads_from_reduced`: the overlap
+        scheduler's per-bucket reduction, issued after the whole backward."""
         flats = ctx.bucket_flats(grads)
         flats, algo_state = self.compensate_flats(ctx, flats, algo_state)
-        reduced = [self.reduce_bucket_grad(ctx, i, f) for i, f in enumerate(flats)]
-        return ctx.from_bucket_flats(reduced), algo_state
+        reduced: List[Optional[torch.Tensor]] = [None] * len(flats)
+        for i in ctx.bucket_launch_order(self.hierarchical, dcn_codec=self.wire_codec_dcn):
+            reduced[i] = self.reduce_bucket_grad(ctx, i, flats[i])
+        return self.grads_from_reduced(ctx, reduced, grads, algo_state, step)
 
     def process_pre_step(self, ctx: AlgorithmContext, params, algo_state, step):
         """Weight transformation after the gradient stage, before the

@@ -13,6 +13,9 @@ size, and per bucket either
   (K1 and K2) over the whole world.
 
 A single rank has no wire: the flat is returned untouched and no codec runs.
+The whole per-bucket codec pipeline is the overlap contract: under the
+overlap scheduler (``overlap="on"``) K1 and K2 run from the backward, on the
+trainer's comm stream.
 """
 
 from __future__ import annotations
@@ -33,6 +36,11 @@ class ByteGradAlgorithm(Algorithm):
     #: stateful codec; the flat scatter-gather never does
     supports_ef_state = True
     supports_flat_resident = True
+    supports_overlap = True
+    #: the JAX package measured the overlap no faster for the codec pipeline
+    #: (``BENCH_OVERLAP.json``, 0.69-0.95x on its CPU simulation), so
+    #: ``auto`` keeps ByteGrad serialized; ``overlap="on"`` opts in
+    overlap_auto = False
 
     def __init__(self, hierarchical: bool = True, average: bool = True):
         """

@@ -5,8 +5,10 @@ bucket, averaged (or summed) over the ranks, through
 ``AlgorithmContext.bucket_allreduce``: the two-level form with
 ``hierarchical=True`` where the tiers allow it (a codec forced with
 ``compress_inter`` rides its inter-node ring), the compressed flat ring with
-a codec forced by ``compress_intra``.  A stateful codec (``onebit_ef``,
-``topk``) carries the error-feedback residual.
+a codec forced by ``compress_intra``, chunked into sub-rings where the
+overlap scheduler sets a chunk target.  A stateful codec (``onebit_ef``,
+``topk``) carries the error-feedback residual.  The per-bucket allreduce is
+the overlap contract: under the scheduler it runs from the backward.
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ class GradientAllReduceAlgorithm(Algorithm):
     #: the per-bucket reduction carries the residual of a stateful codec
     supports_ef_state = True
     supports_flat_resident = True
+    supports_overlap = True
+    #: ``auto`` overlaps (with accumulation or a chunk target), as measured
+    #: in the JAX package's record
+    overlap_auto = True
     #: the reduced buckets are the same on every rank: the guard's verdict
     #: rides them with no collective of its own
     grad_health_replicated = True

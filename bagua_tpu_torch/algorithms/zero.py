@@ -32,6 +32,11 @@ writes the gathered flats back into the parameters in place.  The leaf
 layout's model-parallel ("local") leaves are not ported (the port has no
 tensor, pipeline or expert parallelism).
 
+The per-bucket reduce-scatter is the overlap contract, on the resident layout
+only: under the overlap scheduler ``reduce_bucket_grad`` issues it from the
+backward, ``grads_from_reduced`` wraps the chunks in :class:`ReducedChunks`,
+and ``optimizer_update`` takes them in place of its own reduce-scatter.
+
 The optimizer must be elementwise (Adam, AdamW, SGD, RMSprop, ...): each rank
 updates its own chunk alone, so an update that couples elements (a
 global-norm clip inside the optimizer) would train on per-chunk norms.  The
@@ -60,6 +65,13 @@ class ZeroOptState(NamedTuple):
     optimizer: torch.optim.Optimizer
 
 
+class ReducedChunks(NamedTuple):
+    """The gradient chunks the overlap scheduler already reduced, one a
+    bucket: what ``optimizer_update`` takes in place of the gradients."""
+
+    chunks: Tuple[torch.Tensor, ...]
+
+
 class ZeroOptimizerAlgorithm(Algorithm):
     """ZeRO stage 1: replicated parameters, sharded optimizer state,
     reduce-scatter gradient averaging.
@@ -82,6 +94,11 @@ class ZeroOptimizerAlgorithm(Algorithm):
     #: every bucket splits into equal rank chunks
     align_to_world = True
     supports_flat_resident = True
+    #: on the resident layout only (the trainer's gate)
+    supports_overlap = True
+    #: the JAX package measured ZeRO slower under the overlap (0.9x on its
+    #: CPU simulation, ``BENCH_OVERLAP.json``): ``auto`` keeps it serialized
+    overlap_auto = False
 
     def __init__(
         self,
@@ -150,6 +167,17 @@ class ZeroOptimizerAlgorithm(Algorithm):
             return ctx.bucket_reduce_scatter(flat, ReduceOp.AVG)
         return ctx.tier_allreduce(ctx.tier_reduce_scatter(flat, ReduceOp.AVG), ReduceOp.AVG)
 
+    # ---- overlap contract ---------------------------------------------------
+
+    def reduce_bucket_grad(self, ctx: AlgorithmContext, index: int, flat):
+        """One bucket's communication: the averaging reduce-scatter; returns
+        this rank's chunk."""
+        return self._avg_scatter(ctx, flat)
+
+    def grads_from_reduced(self, ctx: AlgorithmContext, reduced, grads, algo_state, step):
+        """The reduced chunks, for ``optimizer_update`` (``zero.py:240-250``)."""
+        return ReducedChunks(tuple(reduced)), algo_state
+
     # ---- optimizer ----------------------------------------------------------
 
     def init_optimizer_state_sharded(self, ctx: AlgorithmContext, params) -> ZeroOptState:
@@ -166,7 +194,11 @@ class ZeroOptimizerAlgorithm(Algorithm):
     def optimizer_update(self, ctx: AlgorithmContext, params, grads, opt_state: ZeroOptState,
                          algo_state, step):
         shard = self._shard_comm(ctx)
-        gchunks = [self._avg_scatter(ctx, f) for f in ctx.bucket_flats(grads)]
+        if isinstance(grads, ReducedChunks):
+            # the overlap scheduler issued the reduce-scatters from the backward
+            gchunks = list(grads.chunks)
+        else:
+            gchunks = [self._avg_scatter(ctx, f) for f in ctx.bucket_flats(grads)]
         if self.clip_global_norm is not None:
             # the chunks over the shard ranks tile every flat once (staged:
             # replicated across nodes, so the intra-node sum is the whole

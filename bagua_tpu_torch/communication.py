@@ -1,18 +1,24 @@
 """Process group, collectives and the ring collectives over
 ``torch.distributed``.
 
-Port of the part of ``bagua_tpu/communication.py`` the trainer and the
-algorithm families need: ``ReduceOp``, :func:`init_process_group`, a
-:class:`BaguaCommunicator` over a process group (allreduce of every
-``ReduceOp``, allgather, reduce_scatter and alltoall along any axis,
-ppermute, the pairwise ``exchange_with_peer``, barrier, the ring
-reduce-scatter / allgather / allreduce with an optional wire codec),
+Port of ``bagua_tpu/communication.py``: ``ReduceOp``,
+:func:`init_process_group`, a :class:`BaguaCommunicator` over a process group
+(allreduce of every ``ReduceOp``, allgather, reduce_scatter and alltoall
+along any axis, the ragged ``alltoall_v``, broadcast, ppermute, the pairwise
+``exchange_with_peer``, barrier, the ring reduce-scatter / allgather /
+allreduce, chunked into independent sub-rings and with an optional wire
+codec), the chunk sizing of the overlap scheduler (:func:`ring_chunks_for`),
 :func:`get_backend`, whose :class:`BaguaBackend` holds the global
-communicator and the two tiers of the hierarchical collectives, the
-module-level :func:`barrier` and the process-wide abort flag
+communicator and the two tiers of the hierarchical collectives, the eager
+collective API (:func:`allreduce`, :func:`allgather`, ...,
+:func:`send_recv`, :func:`barrier`) and the process-wide abort flag
 (:func:`abort`, :func:`check_abort`).  NCCL carries the collectives on the
 card, gloo on the CPU.  Even at world size 1 every bucket goes through a real
 ``all_reduce``.
+
+The eager API takes this process's own rank's tensor and returns its own
+result: the JAX package's calls take a leading rank axis, because one process
+holds every rank there.
 
 Tiers.  The JAX package splits its device mesh into an ``intra`` axis
 (slice-local ICI) and an ``inter`` axis (cross-slice DCN,
@@ -25,9 +31,16 @@ gloo takes CUDA tensors for ``all_reduce`` and ``broadcast`` only.  On a gloo
 group (which a caller may pick for CUDA tensors, for example to run two
 ranks on one card, where NCCL refuses a second rank on the same device) the
 other collectives copy a CUDA operand to the host, run there and copy the
-result back; gloo's own CUDA ``all_reduce`` does the same inside gloo.
-``BaguaCommunicator.host_staged_bytes`` counts the bytes of both (each
-direction) for the communicator's collectives.  An NCCL group never stages.
+result back; gloo's own CUDA ``all_reduce`` and ``broadcast`` do the same
+inside gloo.  ``BaguaCommunicator.host_staged_bytes`` counts the bytes of
+both (each direction) for the communicator's collectives.  An NCCL group
+never stages.  The port's staging goes through pinned host buffers that the
+communicator keeps from call to call (one a shape, dtype and role), with
+non-blocking copies on the current stream: the copy to the host is waited
+for through an event before gloo reads the buffer, and the copy back is
+ordered by an event that the next user of the buffer waits for.  The
+current stream is the caller's, so the overlap scheduler's comm stream
+stages on its own stream.
 """
 
 from __future__ import annotations
@@ -36,7 +49,7 @@ import functools
 import logging
 import threading
 from enum import IntEnum
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -182,6 +195,37 @@ def init_process_group(
     return _BACKEND
 
 
+class _HostBuffers:
+    """Pinned host buffers of one communicator, one a (shape, dtype, role),
+    kept from call to call.  A buffer that a copy back to the card still
+    reads carries that copy's event; handing the buffer out again waits for
+    it.  One thread at a time uses a communicator (the overlap scheduler's
+    comm worker holds it through the backward, the main thread otherwise),
+    so the dicts need no lock."""
+
+    def __init__(self):
+        self._bufs: Dict[tuple, torch.Tensor] = {}
+        #: data pointer of a buffer -> the event of the last copy reading it
+        self._pending: Dict[int, torch.cuda.Event] = {}
+
+    def get(self, shape, dtype, role: str) -> torch.Tensor:
+        key = (tuple(shape), dtype, role)
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = self._bufs[key] = torch.empty(key[0], dtype=dtype, pin_memory=True)
+        done = self._pending.pop(buf.data_ptr(), None)
+        if done is not None:
+            done.synchronize()
+        return buf
+
+    def read_by_device(self, buf: torch.Tensor) -> None:
+        """Note that a copy enqueued on the current stream reads ``buf`` (one
+        of these buffers)."""
+        done = torch.cuda.Event()
+        done.record()
+        self._pending[buf.data_ptr()] = done
+
+
 class BaguaCommunicator:
     """The ranks of one process group (``None``: the default group, every
     rank).  ``nranks`` and ``rank`` count within the group."""
@@ -190,8 +234,9 @@ class BaguaCommunicator:
         self.group = group
         self.stages_cuda = dist.get_backend(group) == "gloo"
         #: bytes of CUDA operands copied to and from the host for gloo (by
-        #: this port or inside gloo's all_reduce)
+        #: this port or inside gloo's all_reduce and broadcast)
         self.host_staged_bytes = 0
+        self._host = _HostBuffers()
 
     def nranks(self) -> int:
         return dist.get_world_size(self.group)
@@ -206,28 +251,44 @@ class BaguaCommunicator:
 
     # -- host staging for gloo ----------------------------------------------
 
-    def _to_wire(self, x: torch.Tensor) -> torch.Tensor:
+    def _to_wire(self, x: torch.Tensor, role: str = "send") -> torch.Tensor:
         """The contiguous tensor a data-moving collective sends for ``x``:
-        bytes for the types in ``_BYTE_VIEW_DTYPES``, a host copy for a CUDA
-        tensor on a gloo group."""
+        bytes for the types in ``_BYTE_VIEW_DTYPES``, and for a CUDA tensor
+        on a gloo group its copy in the pinned buffer of ``role``, complete
+        when this returns."""
         x = x.contiguous()
         if x.dtype in _BYTE_VIEW_DTYPES:
             x = x.view(torch.uint8)
         if self.stages_cuda and x.is_cuda:
             self.host_staged_bytes += x.numel() * x.element_size()
-            x = x.cpu()
+            buf = self._host.get(x.shape, x.dtype, role)
+            buf.copy_(x, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+            copied.synchronize()   # gloo reads the buffer on the host
+            x = buf
         return x
 
-    def _wire_empty(self, shape, like: torch.Tensor) -> torch.Tensor:
+    def _wire_empty(self, shape, like: torch.Tensor, role: str = "recv") -> torch.Tensor:
+        """The tensor a collective receives into for an operand like
+        ``like``: for a CUDA tensor on a gloo group the pinned buffer of
+        ``role``."""
         dtype = torch.uint8 if like.dtype in _BYTE_VIEW_DTYPES else like.dtype
+        if self.stages_cuda and like.is_cuda:
+            return self._host.get(shape, dtype, role)
         device = "cpu" if self.stages_cuda else like.device
         return torch.empty(shape, dtype=dtype, device=device)
 
     def _from_wire(self, y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        """Inverse of :meth:`_to_wire` for a received tensor."""
+        """Inverse of :meth:`_to_wire` for a received tensor: a staged one
+        comes back to ``like``'s device by a copy on the current stream,
+        which the buffer's next user waits for."""
         if y.device != like.device:
             self.host_staged_bytes += y.numel() * y.element_size()
-            y = y.to(like.device)
+            out = torch.empty(y.shape, dtype=y.dtype, device=like.device)
+            out.copy_(y, non_blocking=True)
+            self._host.read_by_device(y)
+            y = out
         return y.view(like.dtype) if like.dtype in _BYTE_VIEW_DTYPES else y
 
     # -- collectives ---------------------------------------------------------
@@ -328,7 +389,7 @@ class BaguaCommunicator:
             raise ValueError(f"alltoall needs dim {split_axis} of {n}, got {tuple(x.shape)}")
         x = x.movedim(split_axis, 0)
         wire = self._to_wire(x)
-        out = torch.empty_like(wire)
+        out = self._wire_empty(tuple(x.shape), x)
         dist.all_to_all_single(out, wire, group=self.group)
         return self._from_wire(out, x).movedim(0, concat_axis)
 
@@ -377,13 +438,61 @@ class BaguaCommunicator:
             return x.clone()
         return self.ppermute(x, [(i, p) for i, p in enumerate(peers) if p != i])
 
+    def alltoall_v(self, x: torch.Tensor, output: torch.Tensor, input_offsets: Sequence[int],
+                   send_sizes: Sequence[int], output_offsets: Sequence[int],
+                   recv_sizes: Sequence[int]) -> torch.Tensor:
+        """Ragged all-to-all (the reference's ``alltoall_v``,
+        ``communicators/mod.rs:632-676``; ``lax.ragged_all_to_all``): this
+        rank sends ``x[input_offsets[i]:input_offsets[i] + send_sizes[i]]``
+        (along dim 0) to rank ``i``, where it lands at ``output_offsets[i]``
+        of rank ``i``'s output, and receives ``recv_sizes[j]`` rows from
+        each rank ``j``.  Returns a copy of ``output`` (which gives the
+        capacity, the type and the rows nothing lands on) with the received
+        rows in place.  The landing offsets are the senders', so they cross
+        the group in one alltoall of ``n`` integers before the data."""
+        n = self.nranks()
+        for name, v in (("input_offsets", input_offsets), ("send_sizes", send_sizes),
+                        ("output_offsets", output_offsets), ("recv_sizes", recv_sizes)):
+            if len(v) != n:
+                raise ValueError(f"alltoall_v: {name} needs {n} entries, got {len(v)}")
+        send_sizes, recv_sizes = [int(v) for v in send_sizes], [int(v) for v in recv_sizes]
+        send = torch.cat([x[int(o):int(o) + s] for o, s in zip(input_offsets, send_sizes)])
+        offsets = torch.tensor([[int(o)] for o in output_offsets], dtype=torch.int64,
+                               device=x.device)
+        lands = self.alltoall(offsets).reshape(n).tolist()
+        wire = self._to_wire(send)
+        recv = self._wire_empty((sum(recv_sizes),) + tuple(x.shape[1:]), x)
+        dist.all_to_all_single(recv, wire, output_split_sizes=recv_sizes,
+                               input_split_sizes=send_sizes, group=self.group)
+        recv = self._from_wire(recv, x)
+        out = output.clone()
+        start = 0
+        for land, size in zip(lands, recv_sizes):
+            if land < 0 or land + size > out.shape[0]:
+                raise ValueError(f"alltoall_v: {size} rows at offset {land} overflow an "
+                                 f"output of {out.shape[0]}")
+            out[land:land + size] = recv[start:start + size]
+            start += size
+        return out
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Group rank ``src``'s ``x`` on every rank, as a new tensor (the
+        reference's broadcast, ``communication.py:270-300``)."""
+        out = x.detach().clone()
+        if x.dtype in _BYTE_VIEW_DTYPES:
+            out = out.view(torch.uint8)
+        self._count_allreduce_staging(out)
+        dist.broadcast(out, self._global_rank(src), group=self.group)
+        return out.view(x.dtype)
+
     # -- ring collectives -----------------------------------------------------
     #
     # The ring forms decompose a collective into ``ppermute`` hops and local
-    # adds (``:233-457``).  The JAX package also splits a ring into
-    # independent sub-collectives when the overlap scheduler sets a chunk
-    # size; that scheduler is not ported, so every ring here is one.  Rank r
-    # owns the r-th contiguous slice, as ``reduce_scatter`` does.
+    # adds (``:233-457``); rank r owns the r-th contiguous slice, as
+    # ``reduce_scatter`` does.  ``num_chunks`` (the overlap scheduler's
+    # sizing, :func:`ring_chunks_for`) splits a ring into that many
+    # independent sub-rings, each over one slice of every rank block, whose
+    # results are re-interleaved into the same contiguous layout.
     # ``codec=`` quantizes on the hop: every reduce-scatter hop carries the
     # codec's payload and f32 sidecar, the receiver decodes and adds its own
     # block in f32, and the allgather phase encodes each rank's finished
@@ -400,6 +509,18 @@ class BaguaCommunicator:
             raise ValueError(f"{tuple(x.shape)} does not split into {n} blocks")
         blocks = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
         return lambda i: blocks[i % n]
+
+    def _ring_chunk_views(self, x: torch.Tensor, num_chunks: int, n: int) -> List[torch.Tensor]:
+        """Flat ``x`` as ``num_chunks`` independent sub-buffers (``:349-357``):
+        sub-buffer j is every rank block's j-th slice, in rank order
+        (``x.reshape(n, k, -1)[:, j]``), so that each rank's sub-results
+        concatenate into its contiguous block."""
+        m = x.shape[0] // n
+        if x.shape[0] % n or m % num_chunks:
+            raise ValueError(f"{x.shape[0]} elements do not split into {n} rank blocks of "
+                             f"{num_chunks} chunks")
+        view = x.reshape(n, num_chunks, m // num_chunks)
+        return [view[:, j].reshape(-1) for j in range(num_chunks)]
 
     def _ring_reduce_scatter_1(self, x, op: ReduceOp, codec=None):
         """One ring: rank r ends with the reduction of every rank's r-th
@@ -444,6 +565,13 @@ class BaguaCommunicator:
         return codec.decode(tuple(stacked), x.shape[0]).reshape(-1)
 
     @staticmethod
+    def _interleave(outs: List[torch.Tensor], n: int) -> torch.Tensor:
+        """The sub-rings' gathered results (each ``[n * mk]`` in rank order)
+        back in the flat's element order."""
+        mk = outs[0].shape[0] // n
+        return torch.stack([o.reshape(n, mk) for o in outs], dim=1).reshape(-1)
+
+    @staticmethod
     def _resolve_codec(codec):
         if codec is None:
             return None
@@ -451,41 +579,60 @@ class BaguaCommunicator:
 
         return resolve_codec(codec)
 
-    def ring_reduce_scatter(self, x, op: ReduceOp = ReduceOp.SUM, codec=None):
-        """Ring reduce-scatter of flat ``x`` (``numel % nranks == 0``): this
-        rank's contiguous slice.  With ``codec`` the f32 accumulation is cast
-        back to ``x``'s dtype.  A single rank falls back to
-        :meth:`reduce_scatter` (no wire to compress)."""
+    def ring_reduce_scatter(self, x, op: ReduceOp = ReduceOp.SUM, num_chunks: int = 1,
+                            codec=None):
+        """Ring reduce-scatter of flat ``x`` (``numel % nranks == 0``, and
+        ``num_chunks`` divides the rank block): this rank's contiguous
+        slice, as :meth:`reduce_scatter` gives it.  With ``codec`` the f32
+        accumulation is cast back to ``x``'s dtype.  A single rank falls
+        back to :meth:`reduce_scatter` (no wire to compress)."""
         codec = self._resolve_codec(codec)
         if not self._ring_valid():
             return self.reduce_scatter(x, op)
-        out = self._ring_reduce_scatter_1(x, op, codec)
+        parts = ([x] if num_chunks <= 1
+                 else self._ring_chunk_views(x, num_chunks, self.nranks()))
+        outs = [self._ring_reduce_scatter_1(p, op, codec) for p in parts]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
         return out.to(x.dtype) if codec is not None else out
 
-    def ring_allgather(self, x, codec=None):
+    def ring_allgather(self, x, num_chunks: int = 1, codec=None):
         """Ring all-gather of this rank's flat chunk, the inverse of
-        :meth:`ring_reduce_scatter` (``[m] -> [nranks * m]``).  ``codec``
-        encodes the chunk once; every receiver decodes the same payload."""
+        :meth:`ring_reduce_scatter` (``[m] -> [nranks * m]`` in rank order;
+        ``num_chunks`` divides ``m``).  ``codec`` encodes the chunk once;
+        every receiver decodes the same payload."""
         codec = self._resolve_codec(codec)
         if not self._ring_valid():
             return self.allgather(x, axis=0, tiled=True)
-        out = self._ring_allgather_1(x, codec)
+        if num_chunks <= 1:
+            out = self._ring_allgather_1(x, codec)
+        else:
+            if x.shape[0] % num_chunks:
+                raise ValueError(f"{x.shape[0]} elements do not split into {num_chunks} chunks")
+            subs = x.reshape(num_chunks, -1)
+            out = self._interleave([self._ring_allgather_1(subs[j], codec)
+                                    for j in range(num_chunks)], self.nranks())
         return out.to(x.dtype) if codec is not None else out
 
-    def ring_allreduce(self, x, op: ReduceOp = ReduceOp.AVG, codec=None):
-        """Ring allreduce: a reduce-scatter ring then an all-gather ring.  A
-        buffer that does not split evenly is zero-padded (sound for SUM/AVG)
-        and sliced back.  With ``codec`` the hops carry encoded partial sums,
+    def ring_allreduce(self, x, op: ReduceOp = ReduceOp.AVG, num_chunks: int = 1, codec=None):
+        """Ring allreduce: a reduce-scatter ring then an all-gather ring, in
+        ``num_chunks`` independent sub-rings.  A buffer that does not split
+        into ``nranks * num_chunks`` is zero-padded (sound for SUM/AVG) and
+        sliced back.  With ``codec`` the hops carry encoded partial sums,
         the finished chunk (already divided for AVG) is encoded once and
         forwarded unchanged."""
         codec = self._resolve_codec(codec)
         if not self._ring_valid():
             return self.allreduce(x, op)
-        size = x.shape[0]
-        pad = (-size) % self.nranks()
+        n, size = self.nranks(), x.shape[0]
+        pad = (-size) % (n * max(1, num_chunks))
         if pad:
             x = torch.cat([x, x.new_zeros(pad)])
-        out = self._ring_allgather_1(self._ring_reduce_scatter_1(x, op, codec), codec)
+        if num_chunks <= 1:
+            out = self._ring_allgather_1(self._ring_reduce_scatter_1(x, op, codec), codec)
+        else:
+            out = self._interleave([
+                self._ring_allgather_1(self._ring_reduce_scatter_1(p, op, codec), codec)
+                for p in self._ring_chunk_views(x, num_chunks, n)], n)
         if codec is not None:
             out = out.to(x.dtype)
         return out[:size] if pad else out
@@ -496,6 +643,44 @@ def _axis(axis: int, ndim: int) -> int:
     if not -ndim <= axis < ndim:
         raise ValueError(f"axis {axis} is out of range for {ndim} dims")
     return axis % ndim
+
+
+#: the cap on a chunked ring's sub-collectives (:func:`ring_chunks_for`)
+MAX_RING_CHUNKS = env.get_max_ring_chunks()
+
+
+def largest_divisor_leq(m: int, k: int) -> int:
+    """The largest divisor of ``m`` that is at most ``k`` (``m, k >= 1``),
+    by enumerating divisors up to ``sqrt(m)``."""
+    if k >= m:
+        return m
+    best, i = 1, 1
+    while i * i <= m:
+        if m % i == 0:
+            for d in (i, m // i):
+                if best < d <= k:
+                    best = d
+        i += 1
+    return best
+
+
+def ring_chunks_for(numel: int, itemsize: int, nranks: int,
+                    chunk_bytes: Union[None, int, Dict[str, int]],
+                    link_class: str = LINK_ICI) -> int:
+    """The overlap scheduler's sizing of a chunked ring (``:548-588``): the
+    number of independent sub-rings such that each carries about
+    ``chunk_bytes`` of this rank's block a hop (the block after the ring's
+    padding, ``ceil(numel / nranks)``), capped at :data:`MAX_RING_CHUNKS`
+    and cut to a divisor of the block; 1 is one ring.  ``chunk_bytes`` is
+    one target for every link, or ``{link_class: bytes}``, where a class it
+    does not name is not chunked."""
+    if isinstance(chunk_bytes, dict):
+        chunk_bytes = chunk_bytes.get(link_class) or 0
+    if not chunk_bytes or nranks <= 1:
+        return 1
+    m = -(-numel // nranks)
+    k = max(1, int(round(m * itemsize / chunk_bytes)))
+    return largest_divisor_leq(m, min(k, m, MAX_RING_CHUNKS))
 
 
 def _tier_groups(world: int, rank: int, intra: int):
@@ -545,7 +730,140 @@ def get_backend() -> BaguaBackend:
     return _BACKEND
 
 
+# -- the eager collective API (``communication.py:864-1053``) -----------------
+#
+# Each call checks the abort flag first (an aborted process starts no new
+# collective), takes this process's own rank's tensor and returns its own
+# result.  The JAX package fences these calls with its hang watchdog; the
+# port has no watchdog yet.
+
+
+def _comm_for(comm: Optional[BaguaCommunicator]) -> BaguaCommunicator:
+    check_abort()
+    return comm if comm is not None else get_backend().global_communicator
+
+
+def allreduce(send: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
+              comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
+    """The reduction of every rank's ``send`` by ``op``, as a new tensor
+    (the reference's ``communication.py:427-495``)."""
+    return _comm_for(comm).allreduce(send.detach().clone(), op)
+
+
+def allreduce_inplace(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
+                      comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
+    """:func:`allreduce` into ``tensor``'s own storage; returns it."""
+    return _comm_for(comm).allreduce(tensor, op)
+
+
+def allgather(send: torch.Tensor, comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
+    """Every rank's ``send`` concatenated along dim 0 in rank order
+    (``communication.py:498-560``)."""
+    return _comm_for(comm).allgather(send, axis=0, tiled=True)
+
+
+def reduce_scatter(send: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+                   comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
+    """This rank's contiguous ``1 / nranks`` block along dim 0 of the SUM or
+    AVG of every rank's ``send``."""
+    return _comm_for(comm).reduce_scatter(send, op, axis=0)
+
+
+def alltoall(send: torch.Tensor, comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
+    """``send``'s dim 0 cut into ``nranks`` equal blocks, block j to rank j;
+    the blocks received, in rank order, concatenated along dim 0."""
+    c = _comm_for(comm)
+    n = c.nranks()
+    if send.shape[0] % n:
+        raise ValueError(f"alltoall: dim 0 of {tuple(send.shape)} does not split over {n} ranks")
+    blocks = send.reshape((n, send.shape[0] // n) + tuple(send.shape[1:]))
+    return c.alltoall(blocks).reshape(send.shape)
+
+
+def alltoall_v(send: torch.Tensor, send_counts, output_size: Optional[int] = None,
+               comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
+    """Ragged all-to-all (the reference's ``alltoall_v``).  ``send`` packs
+    this rank's outgoing rows along dim 0, those for rank 0 first;
+    ``send_counts`` is the static ``[nranks, nranks]`` matrix of every
+    rank's counts, ``send_counts[r][d]`` rows from rank r to rank d.
+    Returns the rows received from ranks 0, 1, ... packed along dim 0 and
+    zero-padded to ``output_size`` rows (default: the largest receive total
+    of any rank, one shape on every rank as in the JAX package)."""
+    c = _comm_for(comm)
+    n, r = c.nranks(), c.rank()
+    counts = [[int(v) for v in row] for row in send_counts]
+    if len(counts) != n or any(len(row) != n for row in counts):
+        raise ValueError(f"send_counts must be [{n}, {n}], got {send_counts!r}")
+    if any(v < 0 for row in counts for v in row):
+        raise ValueError(f"send_counts must be non-negative, got {send_counts!r}")
+    need = max(sum(counts[s][d] for s in range(n)) for d in range(n))
+    out_size = need if output_size is None else int(output_size)
+    if out_size < need:
+        raise ValueError(f"output_size {out_size} < the largest receive total {need}")
+    if send.shape[0] < sum(counts[r]):
+        raise ValueError(f"alltoall_v: rank {r} sends {sum(counts[r])} rows of a "
+                         f"{send.shape[0]}-row tensor")
+    input_offsets = [sum(counts[r][:d]) for d in range(n)]
+    # where this rank's rows land in rank d's output: after those of ranks < r
+    output_offsets = [sum(counts[s][d] for s in range(r)) for d in range(n)]
+    output = send.new_zeros((out_size,) + tuple(send.shape[1:]))
+    return c.alltoall_v(send, output, input_offsets, counts[r], output_offsets,
+                        [counts[s][r] for s in range(n)])
+
+
+def broadcast(tensor: torch.Tensor, src: int = 0,
+              comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
+    """Rank ``src``'s ``tensor`` on every rank, as a new tensor."""
+    return _comm_for(comm).broadcast(tensor, src)
+
+
+def reduce(send: torch.Tensor, dst: int, op: ReduceOp = ReduceOp.SUM,
+           comm: Optional[BaguaCommunicator] = None,
+           recv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reduction of every rank's ``send`` on rank ``dst``; the other ranks
+    get ``recv`` back (the reference writes only ``dst``'s receive buffer,
+    ``communication.py:331-375``), or zeros."""
+    c = _comm_for(comm)
+    red = c.allreduce(send.detach().clone(), op)
+    if c.rank() == dst:
+        return red
+    return recv if recv is not None else torch.zeros_like(red)
+
+
+def gather(send: torch.Tensor, dst: int, comm: Optional[BaguaCommunicator] = None,
+           recv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every rank's ``send`` concatenated along dim 0 on rank ``dst``; the
+    other ranks get ``recv`` back (``communication.py:576-614``), or
+    zeros."""
+    c = _comm_for(comm)
+    full = c.allgather(send, axis=0, tiled=True)
+    if c.rank() == dst:
+        return full
+    return recv if recv is not None else torch.zeros_like(full)
+
+
+def scatter(send: torch.Tensor, src: int, comm: Optional[BaguaCommunicator] = None
+            ) -> torch.Tensor:
+    """Block r along dim 0 of rank ``src``'s ``send`` (``nranks`` equal
+    blocks) on rank r.  Every rank passes a tensor of ``send``'s shape."""
+    c = _comm_for(comm)
+    n = c.nranks()
+    if send.shape[0] % n:
+        raise ValueError(f"scatter: dim 0 of {tuple(send.shape)} does not split over {n} ranks")
+    full = c.broadcast(send, src)
+    return full.reshape((n, send.shape[0] // n) + tuple(send.shape[1:]))[c.rank()]
+
+
+def send_recv(send: torch.Tensor, peer_perm: Sequence[Tuple[int, int]],
+              comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
+    """Point-to-point exchange as a permutation of ``(src, dst)`` pairs
+    (the reference's send/recv, ``communication.py:233-267``): what this
+    rank's ``src`` sent, zeros if none."""
+    perm = [(int(a), int(b)) for a, b in peer_perm]
+    return _comm_for(comm).ppermute(send, perm)
+
+
 def barrier(comm: Optional[BaguaCommunicator] = None) -> None:
     """Block until every rank of ``comm`` (default: the global
     communicator) has reached the barrier."""
-    (comm or get_backend().global_communicator).barrier()
+    _comm_for(comm).barrier()

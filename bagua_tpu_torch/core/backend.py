@@ -7,7 +7,9 @@ is launched or applied), its ``need_reset`` (QAdam's phase switch), the
 per-rank mean loss and its backward (``accum_steps`` microbatches, their
 losses and gradients summed in order and divided by ``accum_steps``), an
 armed ``grad.poison`` fault, the algorithm's ``process_grads`` (for
-``GradientAllReduceAlgorithm``, one allreduce per bucket), its
+``GradientAllReduceAlgorithm``, one allreduce per bucket; under the overlap
+scheduler the same per-bucket collectives issued from the backward, below),
+its
 ``process_pre_step`` (the full-precision gossip exchange of the weights), the
 optimizer step on the reduced gradients, its ``process_post_step`` (the
 low-precision gossip ring), the gradient-health verdict, and the loss
@@ -32,6 +34,23 @@ hook on each parameter) and let go at the start of the next step, so that
 the gradients grow bucket by bucket through the backward as the leaf
 layout's do, rather than all being held from its start.
 
+The overlap scheduler (``overlap``, ``core/overlap.py``) moves the
+communication of the families that support it (``Algorithm.supports_overlap``)
+into the backward.  On the resident layout a hook on every parameter marks a
+bucket ready during the last microbatch's backward once all of its gradients
+have accumulated; the bucket's flat is then divided by ``accum_steps``,
+poisoned where ``grad.poison`` fires on it, compensated with the bucket's
+error-feedback residual, and handed to the trainer's comm worker, which runs
+the family's ``reduce_bucket_grad`` on its own stream while the backward goes
+on.  A bucket the backward never reached goes after the backward, with its
+zero flat.  The main thread waits for every bucket before the guard, the
+optimizer and the loss allreduce, and hands the results to the family's
+``grads_from_reduced``.  On the leaf layout the scheduler runs
+``process_grads_bucketed`` after the backward.  Once a trainer, after its
+first overlapped step, the plan is rebucketed in the order the hooks saw the
+gradients arrive (rank 0's order, on every rank), so that the first bucket
+issued is the first one finished.
+
 PyTorch runs eagerly, so there is no compiled-step cache; the state is the
 module and the optimizer, updated in place, rather than an immutable pytree.
 """
@@ -55,6 +74,7 @@ from ..algorithms.base import Algorithm, AlgorithmContext
 from ..bucket import BucketPlan, relayout_flats, split_bucket_by_bucket_size
 from ..communication import ReduceOp, abort, check_abort, get_backend
 from ..compression.codecs import validate_codec_policy
+from .overlap import CommWorker, OverlapStep
 from ..device import resolve_device
 from ..faults import inject as _inject
 from ..telemetry import counters
@@ -198,6 +218,25 @@ class BaguaTrainer:
             step or at :meth:`flush_grad_health`.
         grad_guard_budget: consecutive skipped steps before ``skip``
             escalates to an abort.
+        overlap: the overlap scheduler (default env ``BAGUA_OVERLAP``,
+            ``auto``): ``on`` issues each bucket's collective from the
+            backward (the module description above) for every family that
+            supports it (``Algorithm.supports_overlap``; ZeRO on the
+            resident layout only), ``off`` keeps the serialized step,
+            ``auto`` overlaps where the family's ``overlap_auto`` agrees and
+            there is something to overlap: ``accum_steps > 1`` or a ring
+            chunk target.  Families outside the contract never overlap.
+        overlap_chunk_bytes: target bytes a rank of one ring sub-collective
+            under the scheduler (default env ``BAGUA_OVERLAP_CHUNK_BYTES``,
+            0: one collective a bucket); the bucket collectives then ride
+            the chunked rings sized by
+            :func:`~bagua_tpu_torch.communication.ring_chunks_for`.
+        overlap_chunk_bytes_intra: the target of the intra-node tier and the
+            flat ring (default env ``BAGUA_OVERLAP_CHUNK_BYTES_INTRA``, 0:
+            ``overlap_chunk_bytes``).
+        overlap_chunk_bytes_inter: the target of the inter-node tier
+            (default env ``BAGUA_OVERLAP_CHUNK_BYTES_INTER``, 0:
+            ``overlap_chunk_bytes``).
     """
 
     def __init__(
@@ -213,6 +252,10 @@ class BaguaTrainer:
         flat_resident: Optional[str] = None,
         grad_guard: Optional[str] = None,
         grad_guard_budget: int = 3,
+        overlap: Optional[str] = None,
+        overlap_chunk_bytes: Optional[int] = None,
+        overlap_chunk_bytes_intra: Optional[int] = None,
+        overlap_chunk_bytes_inter: Optional[int] = None,
     ):
         self.loss_fn = loss_fn
         self.optimizer_factory = optimizer_factory
@@ -251,6 +294,32 @@ class BaguaTrainer:
         if grad_guard_budget < 1:
             raise ValueError(f"grad_guard_budget must be >= 1, got {grad_guard_budget}")
         self.grad_guard_budget = int(grad_guard_budget)
+        self.overlap = (overlap or env.get_overlap_mode()).strip().lower()
+        if self.overlap not in ("auto", "on", "off"):
+            raise ValueError(f"overlap must be auto|on|off, got {overlap!r}")
+        chunks = {}
+        for name, value, default in (
+                ("overlap_chunk_bytes", overlap_chunk_bytes, env.get_overlap_chunk_bytes),
+                ("overlap_chunk_bytes_intra", overlap_chunk_bytes_intra,
+                 env.get_overlap_chunk_bytes_intra),
+                ("overlap_chunk_bytes_inter", overlap_chunk_bytes_inter,
+                 env.get_overlap_chunk_bytes_inter)):
+            chunks[name] = int(default() if value is None else value)
+            if chunks[name] < 0:
+                raise ValueError(f"{name} must be >= 0, got {chunks[name]}")
+        self.overlap_chunk_bytes = chunks["overlap_chunk_bytes"]
+        self.overlap_chunk_bytes_intra = chunks["overlap_chunk_bytes_intra"]
+        self.overlap_chunk_bytes_inter = chunks["overlap_chunk_bytes_inter"]
+        #: the comm worker of the overlap scheduler (made at the first
+        #: overlapped step), the hooks that drive it, the schedule of the
+        #: backward in flight, and whether the readiness rebucket was done
+        self._worker: Optional[CommWorker] = None
+        self._overlap_hooks: list = []
+        self._live_step: Optional[OverlapStep] = None
+        #: the parameter names in the order their gradients arrived, recorded
+        #: in the first overlapped step for the readiness rebucket
+        self._grad_order: Optional[List[str]] = None
+        self._overlap_ordered = False
         self._guard_skips = 0
         #: monotonic count of guard rewinds (never reset): async model
         #: average compares it across a round's flight to veto applying the
@@ -293,6 +362,43 @@ class BaguaTrainer:
         """Whether this configuration carries the error-feedback residual in
         ``algo_state``."""
         return self._ctx is not None and self.algorithm.ef_codec(self._ctx) is not None
+
+    # ---- overlap gate ----------------------------------------------------
+
+    def _make_ctx(self, plan: BucketPlan, overlap: bool) -> AlgorithmContext:
+        """The algorithm context of ``plan`` (``backend.py:633-650``): the
+        chunk targets only under the overlap scheduler."""
+        return AlgorithmContext(
+            comm=self.comm, plan=plan, world_size=self.world_size,
+            intra_codec=self.compress_intra, inter_codec=self.compress_inter,
+            intranode=self.backend.intranode_communicator,
+            internode=self.backend.internode_communicator,
+            ef_enabled=self._ef_enabled, device=self.device,
+            flat_resident=self._flat_resident, overlap=overlap,
+            overlap_chunk_bytes=(self.overlap_chunk_bytes or None) if overlap else None,
+            intra_chunk_bytes=(self.overlap_chunk_bytes_intra or None) if overlap else None,
+            inter_chunk_bytes=(self.overlap_chunk_bytes_inter or None) if overlap else None)
+
+    def _overlap_active(self) -> bool:
+        """The overlap gate (``backend.py:715-755``): never for a family
+        outside the contract, nor for a sharded-state family on the leaf
+        layout (its communication runs inside ``optimizer_update`` there);
+        explicit ``on``/``off`` win; ``auto`` overlaps where the family's
+        ``overlap_auto`` agrees and there is an accumulation to overlap or a
+        chunk target set."""
+        algo = self.algorithm
+        if not algo.supports_overlap:
+            return False
+        if algo.sharded_opt_state and not self._flat_resident:
+            return False
+        if self.overlap != "auto":
+            return self.overlap == "on"
+        return algo.overlap_auto and (self.accum_steps > 1 or self._any_chunk_bytes())
+
+    def _any_chunk_bytes(self) -> bool:
+        """Whether any ring chunk target is set: each opts into the rings."""
+        return bool(self.overlap_chunk_bytes or self.overlap_chunk_bytes_intra
+                    or self.overlap_chunk_bytes_inter)
 
     # ---- layout ----------------------------------------------------------
 
@@ -386,17 +492,19 @@ class BaguaTrainer:
         plan = algo.tensors_to_buckets(
             split_bucket_by_bucket_size(decls, self.bucket_bytes), named, self.world_size)
         self._flat_resident = self._resolve_flat_resident()
-        self._ctx = AlgorithmContext(
-            comm=self.comm, plan=plan, world_size=self.world_size,
-            intra_codec=self.compress_intra, inter_codec=self.compress_inter,
-            intranode=self.backend.intranode_communicator,
-            internode=self.backend.internode_communicator,
-            ef_enabled=self._ef_enabled, device=self.device,
-            flat_resident=self._flat_resident)
+        self._ctx = self._make_ctx(plan, self._overlap_active())
         self._params = dict(model.named_parameters())
         if self._flat_resident:
             with torch.no_grad():
                 self._lay_out(plan, plan.flatten(self._params))
+        for handle in self._overlap_hooks:
+            handle.remove()
+        self._overlap_hooks = []
+        if self._ctx.overlap:
+            self._overlap_hooks = [
+                p.register_post_accumulate_grad_hook(
+                    functools.partial(_grad_accumulated, weakref.ref(self), name))
+                for name, p in self._params.items()]
         params = self._stage_params()
         with torch.no_grad():
             algo_state = algo.init_state(self._ctx, params)
@@ -438,31 +546,109 @@ class BaguaTrainer:
         parts = {k: torch.chunk(x, accum, dim=0) for k, x in batch.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
 
-    def _forward_backward(self, model: nn.Module, batch) -> torch.Tensor:
+    def _forward_backward(self, model: nn.Module, batch,
+                          overlap_step: Optional[OverlapStep] = None) -> torch.Tensor:
         """The loss of this rank's batch and its gradients in the
         parameters' ``.grad`` (resident: accumulated in place into the
         gradient flats, allocated as the backward reaches them), summed over
-        the microbatches in order and divided by ``accum_steps``."""
+        the microbatches in order and divided by ``accum_steps``.  With
+        ``overlap_step`` the last microbatch's backward drives it through the
+        hooks, and the division is the scheduler's, bucket by bucket (the
+        same arithmetic).  In the first overlapped step that may rebucket,
+        the hooks also record the order the gradients arrive in."""
         for p in self._params.values():
             p.grad = None
         if self._flat_resident:
             self._grad_flats = [None] * len(self._grad_flats)
         loss = None
-        for mb in self._microbatches(batch):
+        mbs = self._microbatches(batch)
+        observe = (self._ctx.overlap and not self._overlap_ordered
+                   and not self.algorithm.sharded_opt_state)
+        for k, mb in enumerate(mbs):
             mb_loss = self.loss_fn(model, mb)
-            mb_loss.backward()
+            if k == len(mbs) - 1:
+                self._live_step = overlap_step
+                self._grad_order = [] if observe else None
+            try:
+                mb_loss.backward()
+            finally:
+                self._live_step = None
             loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
         if self._flat_resident and not self._grad_views_checked:
             self._check_grad_views()
         if self.accum_steps > 1:
             loss = loss / self.accum_steps
-            with torch.no_grad():
-                grads = (self._grad_flats if self._flat_resident else
-                         [p.grad for p in self._params.values()])
-                for g in grads:
-                    if g is not None:
-                        g.div_(self.accum_steps)
+            if overlap_step is None:
+                with torch.no_grad():
+                    grads = (self._grad_flats if self._flat_resident else
+                             [p.grad for p in self._params.values()])
+                    for g in grads:
+                        if g is not None:
+                            g.div_(self.accum_steps)
         return loss
+
+    @torch.no_grad()
+    def _finalize_bucket(self, fires, algo_state, residuals, i: int) -> torch.Tensor:
+        """Bucket ``i``'s flat as the overlap scheduler sends it, from the
+        backward: its gradient flat (zero where the backward never reached
+        it) divided by ``accum_steps``, an armed ``grad.poison`` on it, then
+        folded with its error-feedback residual, whose new value goes to
+        ``residuals[i]``: the serialized step's order, one bucket at a
+        time."""
+        flat = self._grad_flats[i]
+        if flat is None:
+            flat = self._alloc_grad_flat(i)
+        if self.accum_steps > 1:
+            flat.div_(self.accum_steps)
+        for spec in fires:
+            b, bad = self._poison_target(spec)
+            if b == i:
+                flat[0] = bad
+        flat, residuals[i] = self.algorithm.compensate_flat(self._ctx, i, flat, algo_state)
+        return flat
+
+    def _comm_worker(self) -> CommWorker:
+        if self._worker is None:
+            self._worker = CommWorker(self.device)
+            weakref.finalize(self, self._worker.close)
+        return self._worker
+
+    def _overlap_step(self, state: TrainState, fires):
+        """The schedule of this step's backward (resident layout), and the
+        list its buckets' new error-feedback residuals go to."""
+        algo, ctx = self.algorithm, self._ctx
+        residuals: List[Optional[torch.Tensor]] = [None] * len(self.plan.buckets)
+        order = ctx.bucket_launch_order(algo.hierarchical, dcn_codec=algo.wire_codec_dcn)
+        step = OverlapStep(
+            self._comm_worker(), self.plan, order,
+            functools.partial(self._finalize_bucket, fires, state.algo_state, residuals),
+            functools.partial(algo.reduce_bucket_grad, ctx))
+        return step, residuals
+
+    def _wait_overlap(self, step: OverlapStep) -> List[torch.Tensor]:
+        """The main thread's wait after the backward: every bucket's result,
+        the worker's failure raised here, and no step once aborted."""
+        reduced = step.wait()
+        check_abort()
+        return reduced
+
+    def _rebucket_by_readiness(self, order: List[str]) -> None:
+        """Rebucket the plan in the order its gradients arrived
+        (``backend.py:757-781``), rank 0's order on every rank, so that
+        every rank keeps one plan; tensors that got no gradient keep their
+        plan order at the end.  The migration runs at the next step."""
+        names = self.plan.tensor_names
+        index = {n: i for i, n in enumerate(names)}
+        seen = [index[n] for n in dict.fromkeys(order)]
+        perm = seen + [i for i in range(len(names)) if i not in set(seen)]
+        perm = self.comm.broadcast(torch.tensor(perm, dtype=torch.int64, device=self.device),
+                                   0).tolist()
+        decls = {p.name: p.declaration() for p in self._named_params}
+        before = len(self.plan.buckets)
+        self.rebucket(split_bucket_by_bucket_size([decls[names[i]] for i in perm],
+                                                  self.bucket_bytes))
+        logger.info("overlap: rebucketed %d tensors by gradient readiness (%d -> %d buckets)",
+                    len(names), before, len(self.plan.buckets))
 
     def _check_grad_views(self) -> None:
         """After the first backward: every gradient of a bucket the backward
@@ -502,17 +688,34 @@ class BaguaTrainer:
         fires = [s for s in poison if self._poison_fires(s, state.step)]
         for spec in fires:
             _inject.note_traced_fire(spec)
-        loss = self._forward_backward(model, batch)
-        grads = self._stage_grads()
-        if fires:
-            # into the accumulated gradient, before any communication, so
-            # the verdict sees what the collectives would spread
-            self._apply_grad_poison(grads, fires)
         params = self._stage_params()
         replicated_health = algo.grad_health_replicated
-        snapshot = (self._snapshot(state) if guard == "skip" and not replicated_health
-                    else None)
-        grads, algo_state = algo.process_grads(ctx, grads, params, state.algo_state, state.step)
+        if ctx.overlap and self._flat_resident:
+            overlap_step, residuals = self._overlap_step(state, fires)
+            try:
+                loss = self._forward_backward(model, batch, overlap_step)
+                overlap_step.submit_pending()
+            except BaseException as e:   # re-raised once the worker is idle
+                overlap_step.abandon(e)
+                raise
+            reduced = self._wait_overlap(overlap_step)
+            grads = self._stage_grads()
+            snapshot = (self._snapshot(state) if guard == "skip" and not replicated_health
+                        else None)
+            algo_state = algo.with_residuals(state.algo_state, residuals)
+            grads, algo_state = algo.grads_from_reduced(ctx, reduced, grads, algo_state,
+                                                        state.step)
+        else:
+            loss = self._forward_backward(model, batch)
+            grads = self._stage_grads()
+            if fires:
+                # into the accumulated gradient, before any communication, so
+                # the verdict sees what the collectives would spread
+                self._apply_grad_poison(grads, fires)
+            snapshot = (self._snapshot(state) if guard == "skip" and not replicated_health
+                        else None)
+            process = algo.process_grads_bucketed if ctx.overlap else algo.process_grads
+            grads, algo_state = process(ctx, grads, params, state.algo_state, state.step)
         opt_state, health, rewind = state.opt_state, None, False
         if guard != "off" and replicated_health:
             # the reduced buckets are the same on every rank and a non-finite
@@ -547,6 +750,10 @@ class BaguaTrainer:
         if health is not None:
             self.step_metrics = {"grad_healthy": health.min(), "grad_health_buckets": health}
             self._note_step_health(health)
+        if self._grad_order is not None:
+            order, self._grad_order = self._grad_order, None
+            self._overlap_ordered = True
+            self._rebucket_by_readiness(order)
         return TrainState(state.step + 1, model, optimizer, algo_state, opt_state), loss
 
     def _optimizer_step(self, optimizer, grads) -> None:
@@ -606,14 +813,17 @@ class BaguaTrainer:
     def _apply_grad_poison(self, grads, specs) -> None:
         """``grad.poison``: the first element of the target bucket's
         gradient becomes NaN (or inf) (``backend.py:1288-1322``)."""
-        buckets = self.plan.buckets
         for spec in specs:
-            bad = float("nan") if spec.kind == "nan" else float("inf")
-            b = spec.bucket % max(1, len(buckets))
+            b, bad = self._poison_target(spec)
             if self._flat_resident:
                 grads[b][0] = bad
             else:
-                grads[buckets[b].tensors[0].name].view(-1)[0] = bad
+                grads[self.plan.buckets[b].tensors[0].name].view(-1)[0] = bad
+
+    def _poison_target(self, spec) -> Tuple[int, float]:
+        """The bucket a ``grad.poison`` spec hits and the value it writes."""
+        return (spec.bucket % max(1, len(self.plan.buckets)),
+                float("nan") if spec.kind == "nan" else float("inf"))
 
     @torch.no_grad()
     def _grad_health_vec(self, tensors) -> torch.Tensor:
@@ -795,6 +1005,21 @@ def _grad_ready(trainer_ref, i: int, grad) -> None:
     trainer = trainer_ref()
     if trainer is not None and trainer._grad_flats[i] is None:
         trainer._alloc_grad_flat(i)
+
+
+def _grad_accumulated(trainer_ref, name: str, param) -> None:
+    """Hook on parameter ``name``, run after autograd accumulated its
+    gradient (on the card, in autograd's backward thread): in the last
+    microbatch of an overlapped step it records the arrival and hands it to
+    the step's schedule.  It holds the trainer weakly, as
+    :func:`_grad_ready` does."""
+    trainer = trainer_ref()
+    if trainer is None:
+        return
+    if trainer._grad_order is not None:
+        trainer._grad_order.append(name)
+    if trainer._live_step is not None:
+        trainer._live_step.on_grad(name)
 
 
 def _relayout_container(obj, old_plan: BucketPlan, new_plan: BucketPlan):

@@ -2,7 +2,8 @@
 
 Port of the part of ``bagua_tpu/env.py`` the port reads: the registry of
 declared ``BAGUA_*`` variables with typed ``env_str``/``env_int``/``env_bool``
-readers, the default bucket size, the per-link codec policy, the stateful
+readers, the default bucket size, the overlap scheduler's gate and its ring
+chunk targets (and their cap), the per-link codec policy, the stateful
 codecs' knobs (top-k ratio, error-feedback residual), the flat-resident
 layout, the gradient-health guard, async model average's staleness cap, the
 fault-injection plan, and rank / world size / local rank / local world size.
@@ -34,6 +35,28 @@ def _declare(name: str, type: str, default: str, doc: str,
 
 _declare("BAGUA_DEFAULT_BUCKET_SIZE", "int", str(10 * 1024 ** 2),
          "Default communication bucket size in bytes (reference env.py:50-57).")
+_declare("BAGUA_OVERLAP", "enum", "auto",
+         "Overlap scheduler: launch each bucket's gradient collective from the "
+         "backward, on a comm stream, as the bucket's gradient finalizes "
+         "(`on`), keep the serialized step (`off`), or overlap where the "
+         "family's measured record says so and there is something to "
+         "overlap (`auto`: accumulation, or a ring chunk target set).",
+         choices=("auto", "on", "off"))
+_declare("BAGUA_OVERLAP_CHUNK_BYTES", "int", "0",
+         "Target bytes a rank of one independent ring sub-collective under the "
+         "overlap scheduler; 0 keeps one collective a bucket.")
+_declare("BAGUA_OVERLAP_CHUNK_BYTES_INTRA", "int", "0",
+         "Ring chunk target of the intra-node tier of the two-level "
+         "collectives (and of the flat ring); 0 falls back to "
+         "BAGUA_OVERLAP_CHUNK_BYTES.")
+_declare("BAGUA_OVERLAP_CHUNK_BYTES_INTER", "int", "0",
+         "Ring chunk target of the inter-node tier of the two-level "
+         "collectives (size it above the intra-node one: a chunk that "
+         "amortizes a fast hop is too small for a slow one); 0 falls back "
+         "to BAGUA_OVERLAP_CHUNK_BYTES.")
+_declare("BAGUA_MAX_RING_CHUNKS", "int", "32",
+         "Cap on the independent sub-collectives of one chunked ring "
+         "collective (each is 2(n-1) point-to-point hops a bucket).")
 _declare("BAGUA_COMPRESS_INTRA", "str", "auto",
          "Per-link codec policy of the intra-node tier and the flat ring: "
          "`auto` (default) keeps it full precision; `off` forces full "
@@ -184,6 +207,34 @@ def get_local_world_size() -> Optional[int]:
 def get_default_bucket_size() -> int:
     """Default bucket size in bytes; 10 MiB like the reference."""
     return env_int("BAGUA_DEFAULT_BUCKET_SIZE")
+
+
+def get_overlap_mode() -> str:
+    """Overlap scheduler gate: ``auto`` (default), ``on`` or ``off``."""
+    return env_enum("BAGUA_OVERLAP")
+
+
+def get_overlap_chunk_bytes() -> int:
+    """Target bytes a rank of one ring sub-collective under the overlap
+    scheduler; 0 (default) keeps one collective a bucket."""
+    return env_int("BAGUA_OVERLAP_CHUNK_BYTES")
+
+
+def get_overlap_chunk_bytes_intra() -> int:
+    """Ring chunk target of the intra-node tier and the flat ring; 0
+    (default) falls back to :func:`get_overlap_chunk_bytes`."""
+    return env_int("BAGUA_OVERLAP_CHUNK_BYTES_INTRA")
+
+
+def get_overlap_chunk_bytes_inter() -> int:
+    """Ring chunk target of the inter-node tier; 0 (default) falls back to
+    :func:`get_overlap_chunk_bytes`."""
+    return env_int("BAGUA_OVERLAP_CHUNK_BYTES_INTER")
+
+
+def get_max_ring_chunks() -> int:
+    """Cap on a chunked ring's sub-collectives (default 32)."""
+    return env_int("BAGUA_MAX_RING_CHUNKS")
 
 
 def get_compress_intra() -> str:

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -172,15 +173,31 @@ def _check_input(x, n_chunks: int) -> int:
     return x.numel() // n_chunks
 
 
+# Threads and streams.  The overlap scheduler launches codecs from three
+# threads at once: the main thread, autograd's backward thread (the
+# error-feedback compensation of a finalized bucket, on the backward's
+# stream) and the trainer's comm worker (the rings and ByteGrad's pipeline,
+# on its comm stream).  Every launch counter is bumped under ``_COUNT_LOCK``,
+# so that none is lost.  K3 and K4 keep per-chunk tickets (and K3 a max word
+# a chunk) in the library's device memory, so two of their launches must not
+# run at once: ``_launch_ordered`` makes each K3 or K4 launch wait for the
+# last one made on another stream of the device, and holds ``_ORDER_LOCK``
+# from that wait to the end of the launch's enqueue, so that the event it
+# waits for is recorded after the launch before it.
+_COUNT_LOCK = threading.Lock()
+_ORDER_LOCK = threading.Lock()
+#: device -> the stream of the last K3 or K4 launch (under ``_ORDER_LOCK``)
 _last_stream = {}
 
 
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def _order_streams(device) -> None:
-    """Order a K3 or K4 launch after the last one made on another stream of
-    the same device: K3 and K4 keep per-chunk tickets (and K3 a max word a
-    chunk) in the library's device memory, so two launches must not run at
-    once.  The port launches codecs on the current stream only, where this
-    records nothing."""
+    """Make the current stream wait for the last K3 or K4 launch when that
+    was made on another stream of ``device``; call under ``_ORDER_LOCK``."""
     stream = torch.cuda.current_stream(device)
     last = _last_stream.get(device)
     if last is not None and last != stream:
@@ -188,6 +205,15 @@ def _order_streams(device) -> None:
         done.record(last)
         stream.wait_event(done)
     _last_stream[device] = stream
+
+
+def _launch_ordered(wrapper, fn, *args) -> None:
+    """Launch K3 or K4 (``fn``, the bound launcher of ``wrapper``) on the
+    current stream, after the last launch of either on another stream."""
+    with _ORDER_LOCK:
+        _order_streams(torch.cuda.current_stream().device)
+        _build.launch(fn, *args)
+    _count(wrapper)
 
 
 @functools.lru_cache(maxsize=None)
@@ -212,7 +238,7 @@ def compress_chunked(x, n_chunks: int):
     _build.launch(_lib().bagua_minmax_compress, x.data_ptr(), int(x.dtype == torch.bfloat16),
                   n_chunks, m, partials.data_ptr(), partials.shape[0], mn.data_ptr(),
                   mx.data_ptr(), payload.data_ptr())
-    compress_chunked.launches += 1
+    _count(compress_chunked)
     return mn, mx, payload
 
 
@@ -237,7 +263,7 @@ def decompress_chunked(mn, mx, payload):
     out = torch.empty(n * m, dtype=torch.float32, device=payload.device)
     _build.launch(_lib().bagua_minmax_decompress, mn.data_ptr(), mx.data_ptr(),
                   payload.data_ptr(), n, m, tile, tiles, out.data_ptr())
-    decompress_chunked.launches += 1
+    _count(decompress_chunked)
     return out
 
 
@@ -248,10 +274,8 @@ def absmax_chunked(x, n_chunks: int):
         return absmax_chunked_plain(x, n_chunks)
     m = _check_input(x, n_chunks)
     out = torch.empty(n_chunks, dtype=torch.float32, device=x.device)
-    _order_streams(x.device)
-    _build.launch(_lib().bagua_absmax, x.data_ptr(), int(x.dtype == torch.bfloat16),
-                  n_chunks, m, out.data_ptr())
-    absmax_chunked.launches += 1
+    _launch_ordered(absmax_chunked, _lib().bagua_absmax, x.data_ptr(),
+                    int(x.dtype == torch.bfloat16), n_chunks, m, out.data_ptr())
     return out
 
 
@@ -293,11 +317,9 @@ def sign_compress_chunked(x, n_chunks: int):
     partials = torch.empty((n_chunks, tiles), dtype=torch.float32, device=dev)
     scale = torch.empty(n_chunks, dtype=torch.float32, device=dev)
     payload = torch.empty((n_chunks, nbytes), dtype=torch.uint8, device=dev)
-    _order_streams(dev)
-    _build.launch(_lib().bagua_sign_compress, x.data_ptr(), int(x.dtype == torch.bfloat16),
-                  n_chunks, m, nbytes, tile, tiles, partials.data_ptr(), scale.data_ptr(),
-                  payload.data_ptr())
-    sign_compress_chunked.launches += 1
+    _launch_ordered(sign_compress_chunked, _lib().bagua_sign_compress, x.data_ptr(),
+                    int(x.dtype == torch.bfloat16), n_chunks, m, nbytes, tile, tiles,
+                    partials.data_ptr(), scale.data_ptr(), payload.data_ptr())
     return scale, payload
 
 
@@ -322,7 +344,7 @@ def sign_decompress_chunked(scale, payload):
     out = torch.empty((n, 8 * nbytes), dtype=torch.float32, device=payload.device)
     _build.launch(_lib().bagua_sign_decompress, scale.data_ptr(), payload.data_ptr(), n,
                   nbytes, tile, tiles, out.data_ptr())
-    sign_decompress_chunked.launches += 1
+    _count(sign_decompress_chunked)
     return out
 
 
@@ -333,5 +355,6 @@ for _k in KERNELS:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            k.launches = 0

@@ -51,9 +51,14 @@
 // Library state.  K3 and K4 keep a ticket counter a chunk (and K3 a max word
 // a chunk) in this library's device memory; every launch leaves them at zero.
 // Two launches of one of them running at once (on two streams) would share
-// them, so their wrappers (ops/codec.py) order K3 and K4 launches made on
-// different streams of one device; the port itself launches codecs on the
-// current stream only (no module makes a torch.cuda.Stream).
+// them.  The port does launch codecs on several streams: the trainer's
+// overlap scheduler runs the rings and ByteGrad's pipeline on its comm
+// stream, from its comm worker thread, while the error-feedback compensation
+// runs on the backward's stream, from autograd's thread.  So the wrappers
+// (ops/codec.py) order every K3 and K4 launch after the last one made on
+// another stream of the device, under a lock held until the launch is
+// enqueued.  K1 (one cooperative grid), K2 and K5 keep no state between
+// launches and may run on several streams at once.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -65,7 +65,9 @@ Phases, in order; any failure exits non-zero before the result line:
    layer with the dense reference gmm.
 8. slice 1: every ``ReduceOp`` through the communicator over NCCL at world
    1 (f32; int32 for the bitwise ops, which take NCCL's gather path), each
-   equal to its operand, nothing staged; then the long-context
+   equal to its operand, nothing staged; every eager collective
+   (``eager_checks``) equal to plain torch, and refused after an abort; then
+   the long-context
    TransformerLM (``bench_longctx``'s widths,
    random weights from a seed) trained for 10 steps by ``BaguaTrainer`` with
    ``GradientAllReduceAlgorithm`` over NCCL; losses must be finite and
@@ -89,7 +91,7 @@ Phases, in order; any failure exits non-zero before the result line:
    itself twice as worker processes, two ranks on the one card, whose
    collectives go over gloo through host memory (NCCL refuses two ranks on
    one device).  Each rank trains BERT-Large (``bench_bert``: 24 layers,
-   seq 384, batch 8 per rank, AdamW 1e-4) for 10 steps with
+   seq 384, batch 8 per rank, AdamW 1e-4) for 5 steps (``FULL_STEPS``) with
    ``ByteGradAlgorithm``, then a 4-layer cut of it with
    ``GradientAllReduceAlgorithm`` and ``compress_intra`` ``int8`` and
    ``fp8_e4m3``, and with ``QAdamAlgorithm(warmup_steps=2, lr=1e-5)``; losses finite
@@ -101,7 +103,7 @@ Phases, in order; any failure exits non-zero before the result line:
 12. slice 4, the 1-bit and top-k codecs with the error-feedback residual, two
    ranks as in slice 3: the main path is the README quick start with
    ``GradientAllReduceAlgorithm()`` and ``compress_intra="onebit_ef"`` on the
-   full BERT-Large, AdamW 1e-4, 10 steps; then ``compress_intra="topk"`` on
+   full BERT-Large, AdamW 1e-4, 5 steps; then ``compress_intra="topk"`` on
    the 4-layer cut.  Launches exact (K4 = K5 = 3 x buckets x steps), the
    residual finite and nonzero, parameters bitwise equal on both ranks, and
    the error-feedback step of the largest bucket through the kernels against
@@ -169,6 +171,23 @@ Phases, in order; any failure exits non-zero before the result line:
    without it, AdamW's state on the new plan) and under the 1-bit ring (the
    residual on the new plan).  Every earlier phase runs on the default
    ``flat_resident="auto"`` layout, which each log line names.
+19. overlap, the overlap scheduler at world size 2, two ranks as in slice 3
+   (``OVERLAP_RUNS``): (a) the full BERT-Large with GradientAllReduce, AdamW
+   1e-4, ``accum_steps=2``, ``overlap`` off then on (5 steps each): parameters
+   bitwise equal after every step; the backward's time, the communication's
+   and the wait after the backward a step, and the share of the serialized
+   communication the overlap hides; (b) ByteGrad with ``overlap="on"`` (5
+   steps): every K1 and K2 launch made on the comm stream by the comm worker
+   (99 and 198 a step), one real K1 call of the last step equal to plain,
+   parameters bitwise equal to the serialized run on the same plan; K1's
+   device intervals against the backward's kernels in one profiled step; (c)
+   ZeRO with ``overlap="on"`` (5 steps): per-step fingerprints equal to the
+   zero phase's serialized run, its state exactly half the replicated run's,
+   its peak no higher; on the 4-layer cut, (d) the chunked ring
+   (``overlap_chunk_bytes`` 1 MiB) within 1e-5 of the fused allreduce's
+   losses, and the int8 (K3) and 1-bit (K4, K5) chunked rings with exact
+   launches and the first sub-chunk encode of their last step on the comm
+   worker equal to plain; (e) every eager collective on card tensors.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -802,6 +821,7 @@ def phase_slice():
 
     bt.init_process_group()
     check_reductions()
+    eager_checks(0, 1, torch.device("cuda"), "slice 1")
     model, trainer, state, batch = build_slice("longctx")
     cfg, tokens = model.cfg, batch["tokens"]
     n_params = sum(p.numel() for p in model.parameters())
@@ -1642,28 +1662,36 @@ def phase_narrow_shapes():
 # gloo
 # ---------------------------------------------------------------------------
 
+#: steps of the multi-rank runs (a step costs 0.2-6 s through gloo on the
+#: shared card); QAdam's run keeps ``STEPS`` for its warmup, the async and
+#: features phases' cut runs for their schedules
+FULL_STEPS = 5
 #: (name, layers, algorithm, BaguaTrainer keywords).  Slice 3: (a) ByteGrad on
 #: the full BERT-Large, (b) the forced int8 and fp8 rings and (c) QAdam on a
 #: 4-layer cut of it
 SLICE3_RUNS = (
-    ("bytegrad", None, "bytegrad", {}),
-    ("int8", BERT["cut_layers"], "gradient_allreduce", {"compress_intra": "int8"}),
-    ("fp8_e4m3", BERT["cut_layers"], "gradient_allreduce", {"compress_intra": "fp8_e4m3"}),
+    ("bytegrad", None, "bytegrad", {"steps": FULL_STEPS}),
+    ("int8", BERT["cut_layers"], "gradient_allreduce",
+     {"compress_intra": "int8", "steps": FULL_STEPS}),
+    ("fp8_e4m3", BERT["cut_layers"], "gradient_allreduce",
+     {"compress_intra": "fp8_e4m3", "steps": FULL_STEPS}),
     ("qadam", BERT["cut_layers"], "qadam", {}),
 )
 #: slice 4 at world 2: (a) the main path, the README quick start with the
 #: 1-bit codec on the full BERT-Large, (b) top-k (1%) on the 4-layer cut
 SLICE4_RUNS = (
-    ("onebit_ef", None, "gradient_allreduce", {"compress_intra": "onebit_ef"}),
-    ("topk", BERT["cut_layers"], "gradient_allreduce", {"compress_intra": "topk"}),
+    ("onebit_ef", None, "gradient_allreduce", {"compress_intra": "onebit_ef", "steps": FULL_STEPS}),
+    ("topk", BERT["cut_layers"], "gradient_allreduce",
+     {"compress_intra": "topk", "steps": FULL_STEPS}),
 )
 #: slice 4 at world 4, two nodes of two ranks, on the 4-layer cut: (a) the
 #: two-level allreduce with the 1-bit codec on the inter-node tier, (b)
 #: ByteGrad at its default hierarchical=True (MinMaxUInt8 on that tier)
 SLICE4_2X2_RUNS = (
-    ("hier_onebit_ef", BERT["cut_layers"], "hierarchical", {"compress_inter": "onebit_ef"}),
-    ("bytegrad_2x2", BERT["cut_layers"], "bytegrad_default", {}),
-    ("zero_2x2", BERT["cut_layers"], "zero_hierarchical", {}),
+    ("hier_onebit_ef", BERT["cut_layers"], "hierarchical",
+     {"compress_inter": "onebit_ef", "steps": FULL_STEPS}),
+    ("bytegrad_2x2", BERT["cut_layers"], "bytegrad_default", {"steps": FULL_STEPS}),
+    ("zero_2x2", BERT["cut_layers"], "zero_hierarchical", {"steps": FULL_STEPS}),
 )
 #: ZeRO-1 at world 2: (a) the full BERT-Large, its optimizer state sharded,
 #: beside (b) the replicated run it must halve that state of; (c) the 4-layer
@@ -1674,24 +1702,24 @@ SLICE4_2X2_RUNS = (
 #: shares the chunk), so at 1e-4 the decoded parameters would not move, in
 #: the JAX package's ZeRO as in the port
 ZERO_RUNS = (
-    ("zero", None, "zero", {}),
-    ("replicated", None, "gradient_allreduce", {}),
+    ("zero", None, "zero", {"steps": FULL_STEPS}),
+    ("replicated", None, "gradient_allreduce", {"steps": FULL_STEPS}),
     ("zero_int8", BERT["cut_layers"], "zero", {"compress_intra": "int8", "lr": 1e-3}),
 )
 #: the gossip families at world 2 on the full BERT-Large: (a) full-precision
 #: ``all`` with the peer weights tracked (no codec), (b) the low-precision
 #: ring, flat (a whole bucket one K1 chunk)
 DECENTRALIZED_RUNS = (
-    ("decentralized_all", None, "decentralized_all", {}),
-    ("low_precision", None, "low_precision", {}),
+    ("decentralized_all", None, "decentralized_all", {"steps": FULL_STEPS}),
+    ("low_precision", None, "low_precision", {"steps": FULL_STEPS}),
 )
 #: the gossip families at world 4, two nodes of two ranks, on the 4-layer
 #: cut: (a) ``shift_one`` over the four ranks, the partner rotating with the
 #: step, (b) the low-precision ring hierarchical: the intra-node average,
 #: then the ring over the two nodes
 DECENTRALIZED_4_RUNS = (
-    ("shift_one", BERT["cut_layers"], "shift_one", {}),
-    ("low_precision_2x2", BERT["cut_layers"], "low_precision_2x2", {}),
+    ("shift_one", BERT["cut_layers"], "shift_one", {"steps": FULL_STEPS}),
+    ("low_precision_2x2", BERT["cut_layers"], "low_precision_2x2", {"steps": FULL_STEPS}),
 )
 #: async model average at world 2: (a) the full BERT-Large with the bench's
 #: ``AsyncModelAverageAlgorithm(sync_interval_ms=100)`` (``bench.py:88``); on
@@ -1716,7 +1744,6 @@ ASYNC_ABORT_AFTER, ASYNC_RESUME_AFTER = 3, 6
 #: ``REBUCKET_AFTER``, then the same rebucket under the 1-bit ring.  The two
 #: full BERT-Large runs take ``FULL_STEPS`` steps, held against the first
 #: steps of the zero phase's runs (each costs 2-6 s a step through gloo)
-FULL_STEPS = 5
 POISON_AT, POISON_STEPS = 4, STEPS
 REBUCKET_AFTER, REBUCKET_BYTES = 5, 2 * 1024 ** 2
 FEATURES_RUNS = (
@@ -1735,6 +1762,40 @@ FEATURES_RUNS = (
     ("onebit_rebucket", BERT["cut_layers"], "gradient_allreduce",
      {"compress_intra": "onebit_ef", "rebucket": True}),
 )
+#: the overlap phase at world 2 (``OVERLAP_RUNS``): (a) the full BERT-Large
+#: with GradientAllReduce, two microbatches of 4, serialized then overlapped;
+#: (b) ByteGrad overlapped, then serialized on the overlapped run's plan (the
+#: readiness rebucket moves the codec's chunks, so a bitwise comparison needs
+#: one plan); (c) ZeRO overlapped, against the zero phase's serialized run;
+#: on the 4-layer cut, (d) the fused allreduce, then the chunked rings of
+#: ``OVERLAP_CHUNK_BYTES`` sub-rings in full precision, under int8 (K3) and
+#: under the 1-bit codec (K4, K5); (e) every eager collective on card tensors
+OVERLAP_CHUNK_BYTES = 1 << 20
+OVERLAP_RUNS = (
+    ("ga_serial", None, "gradient_allreduce",
+     {"accum_steps": 2, "overlap": "off", "steps": FULL_STEPS}),
+    ("ga_overlap", None, "gradient_allreduce",
+     {"accum_steps": 2, "overlap": "on", "steps": FULL_STEPS}),
+    ("bytegrad_overlap", None, "bytegrad", {"overlap": "on", "steps": FULL_STEPS}),
+    ("bytegrad_serial", None, "bytegrad",
+     {"overlap": "off", "steps": FULL_STEPS, "plan_of": "bytegrad_overlap"}),
+    ("zero_overlap", None, "zero", {"overlap": "on", "steps": FULL_STEPS}),
+    ("ring_fused", BERT["cut_layers"], "gradient_allreduce",
+     {"overlap": "off", "steps": FULL_STEPS}),
+    ("ring_chunked", BERT["cut_layers"], "gradient_allreduce",
+     {"overlap": "on", "overlap_chunk_bytes": OVERLAP_CHUNK_BYTES, "steps": FULL_STEPS}),
+    ("ring_int8", BERT["cut_layers"], "gradient_allreduce",
+     {"overlap": "on", "overlap_chunk_bytes": OVERLAP_CHUNK_BYTES, "compress_intra": "int8",
+      "steps": FULL_STEPS}),
+    ("ring_onebit", BERT["cut_layers"], "gradient_allreduce",
+     {"overlap": "on", "overlap_chunk_bytes": OVERLAP_CHUNK_BYTES,
+      "compress_intra": "onebit_ef", "steps": FULL_STEPS}),
+    ("eager", None, "eager", {}),
+)
+#: the chunked ring's losses against the fused allreduce's (relative, every
+#: step): at world 2 a sub-ring adds the same two values, so they agree
+#: exactly; more ranks would add them in another order
+RING_LOSS_RTOL = 1e-5
 #: the least drop of the peak from the leaf layout to the resident one, ZeRO
 #: on the full BERT-Large (GB): the chunk copy a rank (0.931 GB) that the
 #: resident layout does without
@@ -1752,6 +1813,7 @@ MULTI_RANK = {
     "decentralized_4": ("decentralized (2 x 2)", DECENTRALIZED_4_RUNS, 4, 2),
     "async": ("async", ASYNC_RUNS, CODEC_WORLD, None),
     "features": ("features", FEATURES_RUNS, CODEC_WORLD, None),
+    "overlap": ("overlap", OVERLAP_RUNS, CODEC_WORLD, None),
 }
 QADAM_WARMUP = 2
 #: seconds a multi-rank phase may take before its ranks are killed
@@ -1795,8 +1857,8 @@ def _algorithm(name, lr=1e-4):
     return bt.GradientAllReduceAlgorithm(hierarchical=name == "hierarchical")
 
 
-def _want_launches(algo_name, kw, n_layers, n_buckets):
-    """Each codec and flash kernel's launches in ``STEPS`` steps.  Per bucket
+def _want_launches(algo_name, kw, n_layers, n_buckets, steps=STEPS):
+    """Each codec and flash kernel's launches in ``steps`` steps.  Per bucket
     and step: ByteGrad's and QAdam's scatter-gather one K1 and two K2; the
     two-level ByteGrad's inter-node ring at n = 2 one hop and the allgather's
     encode, two K1 and two K2; the int8/fp8 rings at world 2 two K3 (the
@@ -1809,21 +1871,21 @@ def _want_launches(algo_name, kw, n_layers, n_buckets):
     from bagua_tpu_torch.ops import codec as cd
 
     want = {k.__name__: 0 for k in cd.KERNELS}
-    want.update({k: n_layers * STEPS for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
+    want.update({k: n_layers * steps for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
     codec = kw.get("compress_intra") or kw.get("compress_inter")
     if algo_name in ("bytegrad", "qadam"):
-        codec_steps = STEPS - QADAM_WARMUP if algo_name == "qadam" else STEPS
+        codec_steps = steps - QADAM_WARMUP if algo_name == "qadam" else steps
         want["compress_chunked"] = n_buckets * codec_steps
         want["decompress_chunked"] = 2 * n_buckets * codec_steps
     elif algo_name == "bytegrad_default":
-        want["compress_chunked"] = want["decompress_chunked"] = 2 * n_buckets * STEPS
+        want["compress_chunked"] = want["decompress_chunked"] = 2 * n_buckets * steps
     elif algo_name in ("low_precision", "low_precision_2x2"):
-        want["compress_chunked"] = n_buckets * STEPS
-        want["decompress_chunked"] = 3 * n_buckets * STEPS
+        want["compress_chunked"] = n_buckets * steps
+        want["decompress_chunked"] = 3 * n_buckets * steps
     elif codec in ("int8", "fp8_e4m3"):
-        want["absmax_chunked"] = 2 * n_buckets * STEPS
+        want["absmax_chunked"] = 2 * n_buckets * steps
     elif codec == "onebit_ef":
-        want["sign_compress_chunked"] = want["sign_decompress_chunked"] = 3 * n_buckets * STEPS
+        want["sign_compress_chunked"] = want["sign_decompress_chunked"] = 3 * n_buckets * steps
     return want
 
 
@@ -2005,8 +2067,11 @@ def compressed_run(rank, world, run, device, label):
     from bagua_tpu_torch.ops import codec as cd
     from bagua_tpu_torch.ops import flash_attention as fa
 
-    name, _, algo_name, _ = run
-    cfg, model, algo, trainer, state, batch, kw = _build_run(rank, world, run, device)
+    name, layers, algo_name, kw = run
+    kw = dict(kw)
+    steps = kw.pop("steps", STEPS)
+    cfg, model, algo, trainer, state, batch, kw = _build_run(
+        rank, world, (name, layers, algo_name, kw), device)
     gossip = not algo.replicated_params
     trace, after_step = _gossip_trace(trainer, model) if gossip else (None, None)
     param_fps = []
@@ -2015,7 +2080,8 @@ def compressed_run(rank, world, run, device, label):
             param_fps.append(param_fingerprints(trainer, model))
     staged0 = trainer.host_staged_bytes
     losses, launches, st, state = train_steps(trainer, state, batch,
-                                              BERT["b"] * cfg.max_seq_len, [fa, cd], after_step)
+                                              BERT["b"] * cfg.max_seq_len, [fa, cd], after_step,
+                                              steps)
     staged = trainer.host_staged_bytes - staged0
     n_buckets = len(trainer.plan.buckets)
     ef = (state.algo_state or {}).get("ef")
@@ -2037,7 +2103,7 @@ def compressed_run(rank, world, run, device, label):
     record["fwd_bwd_ms"] = fwd_bwd_ms(model, batch)
     log(f"[rank {rank}] {label} {name}: {record['params']} params, {cfg.n_layers} layers, "
         f"{n_buckets} buckets; losses {losses}; residual L1 {record['ef_norm']}")
-    want = _want_launches(algo_name, kw, cfg.n_layers, n_buckets)
+    want = _want_launches(algo_name, kw, cfg.n_layers, n_buckets, steps)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
     if trainer._ef_active() != (ef is not None) or not record["ef_finite"] or \
@@ -2299,6 +2365,332 @@ def features_run(rank, world, run, device, label):
 #: a features run's final parameters and residual on the host, by run name,
 #: for the runs after it in the same rank process
 _FEATURES_KEPT = {}
+#: an overlap run's plan (its buckets' tensor names) by run name, for the
+#: serialized run held against it on the same plan
+_OVERLAP_PLANS = {}
+
+
+def _stage_timers(trainer):
+    """Host milliseconds of each step's backward (to the end of the main
+    stream's work) and of its communication stage: ``process_grads``
+    (serialized), or the main thread's wait for the buckets after the
+    backward (overlapped), each to the end of the main stream's work, which
+    then follows the comm stream's.  Wraps the trainer's own methods."""
+    times = {"backward_ms": [], "comm_ms": []}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.current_stream().synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    trainer._forward_backward = timed("backward_ms", trainer._forward_backward)
+    if trainer._ctx.overlap:
+        trainer._wait_overlap = timed("comm_ms", trainer._wait_overlap)
+    else:
+        algo = trainer.algorithm
+        algo.process_grads = timed("comm_ms", functools.partial(type(algo).process_grads, algo))
+    return times
+
+
+def _tap_launches(taps):
+    """Record every kernel launch as (launcher, stream handle, thread name);
+    returns the undo."""
+    import threading
+
+    from bagua_tpu_torch.ops import _build
+
+    orig = _build.launch
+
+    def launch(fn, *args):
+        taps.append((fn.__name__, torch.cuda.current_stream().cuda_stream,
+                     threading.current_thread().name))
+        return orig(fn, *args)
+
+    _build.launch = launch
+    return lambda: setattr(_build, "launch", orig)
+
+
+def _capture(obj, attr, armed, store):
+    """Wrap ``obj.attr`` so that its first call while ``armed()`` stores
+    copies of its tensor arguments and outputs in ``store`` (on the calling
+    stream, after the call); returns the undo."""
+    orig, own = getattr(obj, attr), attr in vars(obj)
+
+    def wrapper(*args):
+        out = orig(*args)
+        if armed() and not store:
+            outs = out if isinstance(out, tuple) else (out,)
+            store["args"] = [a.detach().clone() if torch.is_tensor(a) else a for a in args]
+            store["outs"] = [o.detach().clone() for o in outs]
+        return out
+
+    setattr(obj, attr, wrapper)
+    return lambda: setattr(obj, attr, orig) if own else delattr(obj, attr)
+
+
+def _captured_against_plain(store, fn, label, rank, scale_rtol=None):
+    """The captured kernel call's outputs against ``fn`` on the captured
+    inputs moved to the host (the plain version): byte for byte, except a
+    first output (K4's scale, a sum in another order) within ``scale_rtol``
+    where given."""
+    torch.cuda.synchronize()
+    if not store:
+        raise AssertionError(f"[rank {rank}] {label}: no call was captured in the run")
+    args = [a.cpu() if torch.is_tensor(a) else a for a in store["args"]]
+    want = fn(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    got = [g.cpu() for g in store["outs"]]
+    checks = [same(g, w) for g, w in zip(got, want)]
+    scale_err = None
+    if scale_rtol is not None:
+        scale_err = ((got[0] - want[0]).abs() / want[0].abs().clamp_min(1e-30)).max().item()
+        checks[0] = scale_err <= scale_rtol
+    equal = len(want) == len(got) and all(checks)
+    numel = store["args"][0].numel()
+    log(f"[rank {rank}] {label}: a call of {numel} elements from the run, through the "
+        f"kernels vs plain: {'equal' if equal else 'DIFFERS'} (outputs {checks}"
+        + (f", scale within {scale_err:.3g} relative)" if scale_err is not None else ")"))
+    if not equal:
+        raise AssertionError(f"[rank {rank}] {label}: the kernels' output differs from plain")
+    return {"numel": numel, "equal": equal, "scale_err": scale_err}
+
+
+def k1_beside_backward(trainer, state, batch):
+    """One more ByteGrad step under a profiler window: K1's launches on the
+    comm stream against the flash backward kernels on the main stream, as
+    device intervals: how many K1 ran while a K6b or K6c kernel did, and
+    while any kernel of another stream did, K1's device ms, and the span of
+    the backward's flash kernels.  The step's state is dropped."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        _, loss = trainer.train_step(state, batch)
+        loss.item()
+        torch.cuda.synchronize()
+    k1, bwd, other = [], [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith("Mem"):
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "minmax_compress" in e.name:
+            k1.append(span)
+            k1_stream = e.device_resource_id
+            continue
+        other.append((span, e.device_resource_id))
+        m = KERNEL_NAMES.search(e.name)
+        if m and m.group(1) in ("dkv", "dq"):
+            bwd.append(span)
+    beside = sum(any(s < be and bs < e for bs, be in bwd) for s, e in k1)
+    # any kernel of another stream (the backward's GEMMs and elementwise work)
+    beside_any = sum(any(s < be and bs < e for (bs, be), sid in other if sid != k1_stream)
+                     for s, e in k1) if k1 else 0
+    first_k1 = min(s for s, _ in k1) if k1 else None
+    return {"k1_launches": len(k1), "k1_beside_backward": beside,
+            "k1_beside_any_other_stream": beside_any,
+            "k1_ms": sum(e - s for s, e in k1) / 1e3,
+            "k1_median_us": statistics.median(e - s for s, e in k1) if k1 else None,
+            "backward_kernels": len(bwd),
+            "backward_span_ms": (max(e for _, e in bwd) - min(s for s, _ in bwd)) / 1e3
+            if bwd else None,
+            "k1_before_backward_end": sum(s < max(e for _, e in bwd) for s, _ in k1)
+            if bwd else None,
+            "first_k1_after_backward_start_ms": (first_k1 - min(s for s, _ in bwd)) / 1e3
+            if bwd and k1 else None}
+
+
+def _ring_ks(trainer):
+    """The sub-rings of each bucket's allreduce under the trainer's plan."""
+    ctx = trainer._ctx
+    return [ctx._ring_chunks(b.padded_numel, b.dtype.itemsize) for b in trainer.plan.buckets]
+
+
+def overlap_run(rank, world, run, device, label):
+    """One run of the overlap phase on this rank (``OVERLAP_RUNS``);
+    returns its record: the losses, launches and statistics, the per-step
+    parameter fingerprints, the backward's and the communication's times a
+    step (``_stage_timers``), the stream and thread of every codec launch,
+    and the checks of the kernels' output from the run against plain."""
+    import threading
+
+    from bagua_tpu_torch.bucket import split_bucket_by_bucket_size
+    from bagua_tpu_torch.compression import get_codec, minmax_uint8
+    from bagua_tpu_torch.ops import codec as cd
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    name, layers, algo_name, kw = run
+    if algo_name == "eager":
+        return eager_checks(rank, world, device, label)
+    kw = dict(kw)
+    steps, plan_of = kw.pop("steps", STEPS), kw.pop("plan_of", None)
+    cfg, model, algo, trainer, state, batch, kw = _build_run(
+        rank, world, (name, layers, algo_name, kw), device)
+    times = _stage_timers(trainer)
+    param_fps, buckets_per_step, ks_per_step = [], [], [_ring_ks(trainer)]
+    plan_names = None if plan_of is None else _OVERLAP_PLANS[plan_of]
+
+    def after_step(state):
+        buckets_per_step.append(len(trainer.plan.buckets))
+        param_fps.append(param_fingerprints(trainer, model))
+        if plan_names is not None and len(buckets_per_step) == 1:
+            decls = {p.name: p.declaration() for p in trainer._named_params}
+            trainer.rebucket([[decls[n] for n in b] for b in plan_names])
+        ks_per_step.append(_ring_ks(trainer))
+
+    last = {"step": False}
+    store, undo = {}, []
+    if name == "bytegrad_overlap":
+        # one real bucket's K1 call of the last step, from the comm stream
+        undo.append(_capture(minmax_uint8, "compress_chunked", lambda: last["step"], store))
+    codec_name = kw.get("compress_intra")
+    if codec_name is not None:
+        # the first encode of the last step on the comm worker: a sub-ring's
+        # (the error-feedback step encodes whole buckets on the backward's)
+        undo.append(_capture(get_codec(codec_name), "encode", lambda: last["step"] and (
+            threading.current_thread().name == "bagua-comm-worker"), store))
+    taps = []
+    undo.append(_tap_launches(taps))
+
+    def arm_last(state):
+        after_step(state)
+        last["step"] = len(buckets_per_step) == steps - 1
+
+    staged0 = trainer.host_staged_bytes
+    try:
+        losses, launches, st, state = train_steps(
+            trainer, state, batch, BERT["b"] * cfg.max_seq_len, [fa, cd], arm_last, steps)
+    finally:
+        for u in undo:
+            u()
+    staged = trainer.host_staged_bytes - staged0
+    times = {k: list(v) for k, v in times.items()}   # the run's steps alone
+    overlapped = trainer._ctx.overlap
+    worker = trainer._worker
+    comm_stream = None if worker is None or worker.stream is None else worker.stream.cuda_stream
+    codec_taps = {}
+    for fn_name, stream, thread in taps:
+        if fn_name.startswith(("bagua_minmax", "bagua_absmax", "bagua_sign")):
+            where = ("comm stream" if stream == comm_stream else "other stream") + \
+                f", {'comm worker' if thread == 'bagua-comm-worker' else 'thread ' + thread}"
+            codec_taps.setdefault(fn_name, {}).setdefault(where, 0)
+            codec_taps[fn_name][where] += 1
+    opt = state.opt_state.optimizer if algo.sharded_opt_state else state.optimizer
+    record = {"name": name, "layers": cfg.n_layers, "buckets": len(trainer.plan.buckets),
+              "padded_numel": sum(b.padded_numel for b in trainer.plan.buckets),
+              "opt_state_bytes": optimizer_state_bytes(opt),
+              "params": sum(p.numel() for p in model.parameters()), "losses": losses,
+              "launches": launches, "stats": st, "host_staged_bytes": staged,
+              "digests": _flat_digests(trainer, model), "fingerprints": None,
+              "param_fingerprints": param_fps, "overlap": overlapped,
+              "times": times, "codec_launches": codec_taps,
+              "plan_sizes": [b.padded_numel for b in trainer.plan.buckets],
+              "buckets_per_step": buckets_per_step, "ks_per_step": ks_per_step[:steps],
+              "threads": sorted({t.name for t in threading.enumerate()})}
+    if overlapped:
+        _OVERLAP_PLANS[name] = [[t.name for t in b.tensors] for b in trainer.plan.buckets]
+    if name == "bytegrad_overlap":
+        record["k1_payload"] = _captured_against_plain(
+            store, lambda x, n: cd.compress_chunked(x, n), "ByteGrad's K1 in the overlapped "
+            "step", rank)
+        record["k1_beside_backward"] = (k1_beside_backward(trainer, state, batch)
+                                        if device.type == "cuda" else None)
+        log(f"[rank {rank}] {label} {name}: K1 beside the backward: "
+            f"{record['k1_beside_backward']}")
+    if codec_name is not None:
+        record["sub_chunk"] = _captured_against_plain(
+            store, get_codec(codec_name).encode, f"the {codec_name} ring's first encode of "
+            "the last step on the comm worker (a real sub-chunk)", rank,
+            SIGN_RTOL if codec_name == "onebit_ef" else None)
+    record["fwd_bwd_ms"] = fwd_bwd_ms(model, batch)
+    log(f"[rank {rank}] {label} {name}: {record['params']} params, {cfg.n_layers} layers, "
+        f"{record['buckets']} buckets (per step {buckets_per_step}), overlap {overlapped}; "
+        f"losses {losses}; backward ms {[round(t, 3) for t in times['backward_ms']]}; "
+        f"communication ms {[round(t, 3) for t in times['comm_ms']]}; codec launches "
+        f"{codec_taps}")
+    accum = trainer.accum_steps
+    want = {k.__name__: 0 for k in cd.KERNELS}
+    want.update({k: cfg.n_layers * steps * accum
+                 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
+    # each step on the plan it ran: the first on the initial one, a readiness
+    # rebucket after it
+    ks = ks_per_step[:steps]
+    if algo_name == "bytegrad":
+        want["compress_chunked"] = sum(len(k) for k in ks)
+        want["decompress_chunked"] = 2 * sum(len(k) for k in ks)
+    if codec_name == "int8":
+        # one encode on the reduce-scatter hop, one on the gather, a sub-ring
+        want["absmax_chunked"] = 2 * sum(sum(k) for k in ks)
+    if codec_name == "onebit_ef":
+        # the error-feedback step of each bucket, then 2 encodes and 2
+        # decodes a sub-ring
+        want["sign_compress_chunked"] = want["sign_decompress_chunked"] = sum(
+            len(k) + 2 * sum(k) for k in ks)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
+    return record
+
+
+def eager_checks(rank, world, device, label, comm=None):
+    """Every eager collective of ``bagua_tpu_torch`` on card tensors, each
+    against a plain torch computation on every rank's inputs (drawn from one
+    seed on the host, so that each rank knows them all): exact, since two
+    ranks' sums take either order exactly.  Then an abort makes a dispatch
+    raise, and a reset lets the next one through.  Returns the record."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.communication import BaguaAborted
+
+    g = torch.Generator().manual_seed(11)
+    xs = torch.randn((world, 4 * world, 6), generator=g)
+    mine = xs[rank].to(device)
+    blocks = xs.reshape(world, world, 4, 6)   # [src, dst, rows, 6]
+    # ragged counts: rank s sends (s + d) % 3 + 1 rows to rank d
+    counts = [[(s + d) % 3 + 1 for d in range(world)] for s in range(world)]
+    need = max(sum(counts[s][d] for s in range(world)) for d in range(world))
+    ragged_want = torch.zeros((need, 6))
+    pos = 0
+    for s in range(world):
+        start = sum(counts[s][:rank])
+        ragged_want[pos:pos + counts[s][rank]] = xs[s][start:start + counts[s][rank]]
+        pos += counts[s][rank]
+    inplace = mine.clone()
+    got = {
+        "allreduce_avg": (bt.allreduce(mine), xs.sum(0) / world),
+        "allreduce_inplace_sum": (bt.allreduce_inplace(inplace, bt.ReduceOp.SUM), xs.sum(0)),
+        "allgather": (bt.allgather(mine), xs.reshape(-1, 6)),
+        "reduce_scatter_sum": (bt.reduce_scatter(mine, bt.ReduceOp.SUM),
+                               xs.sum(0).reshape(world, 4, 6)[rank]),
+        "alltoall": (bt.alltoall(mine), blocks[:, rank].reshape(-1, 6)),
+        "alltoall_v": (bt.alltoall_v(mine, counts), ragged_want),
+        "broadcast": (bt.broadcast(mine, src=world - 1), xs[world - 1]),
+        "reduce_max": (bt.reduce(mine, dst=0, op=bt.ReduceOp.MAX),
+                       xs.max(0).values if rank == 0 else torch.zeros_like(xs[0])),
+        "gather": (bt.gather(mine, dst=world - 1),
+                   xs.reshape(-1, 6) if rank == world - 1 else torch.zeros(4 * world * world, 6)),
+        "scatter": (bt.scatter(mine, src=0), xs[0].reshape(world, 4, 6)[rank]),
+        "send_recv": (bt.send_recv(mine, [(i, (i + 1) % world) for i in range(world)]),
+                      xs[(rank - 1) % world]),
+    }
+    results = {op: bool(g.device.type == device.type and same(g.cpu(), w))
+               for op, (g, w) in got.items()}
+    results["allreduce_inplace_in_place"] = got["allreduce_inplace_sum"][0] is inplace
+    bt.abort("chip smoke: an eager dispatch after an abort")
+    try:
+        bt.allreduce(mine)
+        results["refused_after_abort"] = False
+    except BaguaAborted:
+        results["refused_after_abort"] = True
+    finally:
+        bt.reset_abort()
+    results["after_reset"] = bool(same(bt.allreduce(mine).cpu(), xs.sum(0) / world))
+    backend = torch.distributed.get_backend()
+    log(f"[rank {rank}] {label} eager collectives at world {world} over {backend} on card "
+        f"tensors against plain torch: {results}")
+    if not all(results.values()):
+        raise AssertionError(f"[rank {rank}] eager collectives: {results}")
+    return {"name": "eager", "kind": "eager", "results": results, "backend": backend}
 
 
 def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
@@ -2312,7 +2704,8 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
                           backend="gloo", intra_size=intra)
     records = []
     for run in runs:
-        run_fn = {"async": async_run, "features": features_run}.get(phase, compressed_run)
+        run_fn = {"async": async_run, "features": features_run,
+                  "overlap": overlap_run}.get(phase, compressed_run)
         records.append(run_fn(rank, world, run, device, label))
         if device.type == "cuda":
             release()
@@ -2347,6 +2740,8 @@ def phase_multi_rank(phase):
                 ranks.append(json.load(f))
     for runs in zip(*ranks):
         name = runs[0]["name"]
+        if runs[0].get("kind") == "eager":
+            continue
         if runs[0]["fingerprints"] is not None:
             check_gossip(label, runs, intra or 1)
         elif any(r["digests"] != runs[0]["digests"] for r in runs):
@@ -2356,7 +2751,8 @@ def phase_multi_rank(phase):
         for r, rec in enumerate(runs):
             st = rec["stats"]
             log(f"{label} {name} rank {r} (gloo through host memory, {world} ranks on one "
-                f"card): step {st['step_ms']:.3f} ms (steps 2-{STEPS} as one window; median "
+                f"card): step {st['step_ms']:.3f} ms (steps 2-{len(rec['losses'])} as one "
+                f"window; median "
                 f"{st['median_ms']:.3f} ms; first {st['first_ms']:.3f} ms), "
                 f"{st['tokens_s']:.1f} tokens/s, peak memory {st['peak_gb']:.3f} GB "
                 f"({st['layout']} layout), host-staged {rec['host_staged_bytes']} bytes in "
@@ -2385,9 +2781,9 @@ def check_gossip(label, runs, intra):
     name, world = runs[0]["name"], len(runs)
     fp = [r["fingerprints"] for r in runs]
     mode = runs[0]["peer_selection_mode"]
-    n_buckets = len(fp[0]["params"][0])
+    n_buckets, steps = len(fp[0]["params"][0]), len(fp[0]["params"])
     bad = []
-    for step in range(STEPS):
+    for step in range(steps):
         for r in range(world):
             if mode == "all":
                 pairs = [("peer_weights", r, "peer_weights", 0)]
@@ -2406,7 +2802,7 @@ def check_gossip(label, runs, intra):
             "shift_one": "peer weights equal to those of the step's shift_one partner"}.get(
         mode, "left == left neighbour's self, right == right neighbour's self, "
         "params == self")
-    log(f"{label} {name}: {what} after each of the {STEPS} steps in all {n_buckets} buckets "
+    log(f"{label} {name}: {what} after each of the {steps} steps in all {n_buckets} buckets "
         f"on all {world} ranks: {'yes' if not bad else f'NO at {bad[:5]}'}; parameters of "
         f"ranks 0 and {world - 1} {'differ' if differ else 'EQUAL'} after the last step")
     if bad or not differ:
@@ -2586,6 +2982,88 @@ def check_features(feat, zero):
                                  f"{reb['opt_on_new_plan']}, {onebit['ef_sizes']}")
 
 
+def _fp_total(fps):
+    """A step's fingerprint of all parameters whatever the plan: the sum of
+    its buckets' fingerprints modulo 2^64 (each a wrapping sum over its
+    tensors' elements)."""
+    return sum(fps) % 2 ** 64
+
+
+def check_overlap(ov, zero):
+    """The overlap phase's gates on every rank's record (``OVERLAP_RUNS``):
+    (a) the overlapped GradientAllReduce's parameters bitwise equal to the
+    serialized run's after every step; (b) every K1 and K2 launch of the
+    overlapped ByteGrad made on the comm stream by the comm worker, its
+    parameters bitwise equal to the serialized run on the same plan after
+    every step; (c) the overlapped ZeRO's per-step fingerprints equal to the
+    zero phase's serialized run's, its state exactly ``1 / world`` of the
+    replicated run's, its peak no higher than the serialized run's; (d) the
+    chunked ring's losses within ``RING_LOSS_RTOL`` of the fused run's.
+    Launches, the captured kernel calls against plain and the eager
+    collectives were checked in the ranks.  Logs the step times, the wait
+    after the backward and the share of the serialized communication that
+    the overlap hides."""
+    ranks = range(len(ov["ga_serial"]))
+    totals = {name: [[_fp_total(fp) for fp in ov[name][r]["param_fingerprints"]] for r in ranks]
+              for name in ov if ov[name][0].get("kind") != "eager"}
+    for a, b in (("ga_overlap", "ga_serial"), ("bytegrad_overlap", "bytegrad_serial")):
+        equal = totals[a] == totals[b] and len(totals[a][0]) == FULL_STEPS
+        log(f"overlap: {a} against {b}: parameters after every step "
+            f"{'bitwise equal' if equal else 'DIFFER'} ({totals[a][0]} / {totals[b][0]})")
+        if not equal:
+            raise AssertionError(f"overlap: {a}'s parameters differ from {b}'s")
+    for name in ("ga_serial", "ga_overlap", "bytegrad_overlap", "bytegrad_serial", "zero_overlap",
+                 "ring_fused", "ring_chunked", "ring_int8", "ring_onebit"):
+        for r in ranks:
+            rec = ov[name][r]
+            t = rec["times"]
+            log(f"overlap {name} rank {r}: step {rec['stats']['step_ms']:.3f} ms (median "
+                f"{rec['stats']['median_ms']:.3f}), backward to the end of the main stream "
+                f"{statistics.median(t['backward_ms'][1:]):.3f} ms, "
+                f"{'wait after the backward' if rec['overlap'] else 'communication'} "
+                f"{statistics.median(t['comm_ms'][1:]):.3f} ms (medians of steps 2-"
+                f"{len(t['comm_ms'])}), forward+backward alone {rec['fwd_bwd_ms']:.3f} ms, "
+                f"peak {rec['stats']['peak_gb']:.3f} GB, staged {rec['host_staged_bytes']} bytes")
+    for a, b in (("ga_overlap", "ga_serial"), ("bytegrad_overlap", "bytegrad_serial")):
+        for r in ranks:
+            wait = statistics.median(ov[a][r]["times"]["comm_ms"][1:])
+            comm = statistics.median(ov[b][r]["times"]["comm_ms"][1:])
+            log(f"overlap: {a} rank {r}: the wait after the backward {wait:.3f} ms against "
+                f"{b}'s communication {comm:.3f} ms: {1 - wait / comm:.2%} of it hidden; step "
+                f"{ov[a][r]['stats']['step_ms']:.3f} ms against {ov[b][r]['stats']['step_ms']:.3f}")
+    for r in ranks:
+        taps = ov["bytegrad_overlap"][r]["codec_launches"]
+        n = sum(len(k) for k in ov["bytegrad_overlap"][r]["ks_per_step"])
+        log(f"overlap: bytegrad_overlap rank {r}: codec launches by stream and thread {taps}")
+        if not (taps.get("bagua_minmax_compress") == {"comm stream, comm worker": n}
+                and taps.get("bagua_minmax_decompress") == {"comm stream, comm worker": 2 * n}):
+            raise AssertionError(f"overlap: ByteGrad's K1/K2 launches {taps}, expected {n} and "
+                                 f"{2 * n} on the comm stream")
+    z, ser, rep = ov["zero_overlap"], zero["zero"], zero["replicated"]
+    for r in ranks:
+        want = [_fp_total(fp) for fp in ser[r]["param_fingerprints"][:FULL_STEPS]]
+        ok = (totals["zero_overlap"][r] == want
+              and CODEC_WORLD * z[r]["opt_state_bytes"] == rep[r]["opt_state_bytes"]
+              and z[r]["padded_numel"] == rep[r]["params"]
+              and z[r]["stats"]["peak_gb"] <= ser[r]["stats"]["peak_gb"])
+        log(f"overlap: zero_overlap rank {r}: per-step fingerprints "
+            f"{'equal' if totals['zero_overlap'][r] == want else 'DIFFER'} to the zero phase's "
+            f"serialized run; optimizer state {z[r]['opt_state_bytes']} bytes against the "
+            f"replicated {rep[r]['opt_state_bytes']}; peak {z[r]['stats']['peak_gb']:.3f} GB "
+            f"against the serialized {ser[r]['stats']['peak_gb']:.3f} GB; step "
+            f"{z[r]['stats']['step_ms']:.3f} ms against {ser[r]['stats']['step_ms']:.3f}")
+        if not ok:
+            raise AssertionError(f"overlap: ZeRO rank {r} fails its gates")
+    fused, chunked = ov["ring_fused"][0]["losses"], ov["ring_chunked"][0]["losses"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(chunked, fused))
+    log(f"overlap (d): the chunked ring ({OVERLAP_CHUNK_BYTES} bytes a sub-ring; sub-rings a "
+        f"bucket {ov['ring_chunked'][0]['ks_per_step'][-1]}) against the fused allreduce: losses "
+        f"within {gap:.3g} ({chunked} / {fused}); int8 sub-chunk "
+        f"{ov['ring_int8'][0]['sub_chunk']}, 1-bit sub-chunk {ov['ring_onebit'][0]['sub_chunk']}")
+    if gap > RING_LOSS_RTOL:
+        raise AssertionError(f"overlap: the chunked ring's losses are {gap} from the fused run's")
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--worker"]:
@@ -2627,6 +3105,8 @@ def main():
     check_async(async_runs, full, gossip["decentralized_all"][0])
     features = timed("features", phase_multi_rank, "features")
     check_features(features, zero)
+    overlap = timed("overlap", phase_multi_rank, "overlap")
+    check_overlap(overlap, zero)
     for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
             continue
@@ -2635,7 +3115,7 @@ def main():
             f"replicated BERT-Large run of the zero phase, {full['stats']['peak_gb']:.3f}), step "
             f"{rec['stats']['step_ms']:.3f} ms against its {full['stats']['step_ms']:.3f}, "
             f"launches K1 {rec['launches']['compress_chunked']} K2 "
-            f"{rec['launches']['decompress_chunked']} in {STEPS} steps")
+            f"{rec['launches']['decompress_chunked']} in {len(rec['losses'])} steps")
     log(f"seconds by phase: {seconds}")
     # each kernel's launches come from its own path: flash from slice 1, gmm
     # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8

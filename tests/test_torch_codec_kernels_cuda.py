@@ -15,7 +15,9 @@ chunks that start off a 16-byte boundary (m = 100003, 5, 4_194_307), one
 chunk and 64 of them, and a whole 10 MiB bucket and the whole embedding
 bucket as one chunk (the low-precision gossip ring's).  K3 (one launch whose last block of a chunk writes
 its max) also on inputs that start off a 16-byte boundary, -0.0, ±inf with
-a NaN, and 1 to 65535 chunks: equal to its plain version bit for bit.
+a NaN, and 1 to 65535 chunks: equal to its plain version bit for bit.  K3 and
+K4 launched at once from two threads, each on its own stream (the overlap
+scheduler's setting), equal to plain, with every launch counted.
 """
 
 import pytest
@@ -206,3 +208,53 @@ def test_two_streams_alternating(card):
         assert torch.equal(sp, psp)
         torch.testing.assert_close(scale, pscale, rtol=1e-6, atol=0)
         assert _same(am, pam)
+
+
+def test_two_threads_on_two_streams(card):
+    # the overlap scheduler's setting: K3 and K4 launched at once from two
+    # threads, each on a stream of its own (the comm worker's rings and the
+    # backward's error-feedback step), with the interpreter switching threads
+    # often.  Every result equals the plain version's, and no launch goes
+    # uncounted.
+    import sys
+    import threading
+
+    n, m, calls = 2, 1310720, 20
+    xs = [_input("normal", n, m + 7 * i, torch.float32) for i in range(2)]
+    want = [(cd.absmax_chunked_plain(x, n), cd.sign_compress_chunked_plain(x, n)) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    errors = []
+    torch.cuda.synchronize()
+    before = (cd.absmax_chunked.launches, cd.sign_compress_chunked.launches)
+
+    def work(i):
+        try:
+            torch.cuda.set_device(xs[i].device)
+            with torch.cuda.stream(streams[i]):
+                for _ in range(calls):
+                    got[i].append((cd.absmax_chunked(xs[i], n), cd.sign_compress_chunked(xs[i], n)))
+        except Exception as e:   # raised below, on the test's thread
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    assert (cd.absmax_chunked.launches - before[0],
+            cd.sign_compress_chunked.launches - before[1]) == (2 * calls, 2 * calls)
+    for i in range(2):
+        pam, (pscale, psp) = want[i]
+        assert len(got[i]) == calls
+        for am, (scale, sp) in got[i]:
+            assert _same(am, pam)
+            assert torch.equal(sp, psp)
+            torch.testing.assert_close(scale, pscale, rtol=1e-6, atol=0)

@@ -12,7 +12,8 @@ comma-separated ``RUNS``.  A run is ``BASE[:OPTION...]``: ``BASE`` a name of
 (``flat_resident="off"``), ``on`` (``"on"``), ``guard`` (``grad_guard=
 "skip"``), ``poison=K`` (``grad.poison`` armed in code at step K),
 ``steps=N`` (else ``STEPS``), ``rebucket=K`` (re-bucket to 64-byte buckets
-before step K).  A ``grad.poison`` plan in ``BAGUA_FAULT_PLAN`` arms it where
+before step K), ``overlap=on|off|auto`` (the overlap scheduler), ``chunk=B``
+(``overlap_chunk_bytes``), ``bucket=B`` (``bucket_bytes``).  A ``grad.poison`` plan in ``BAGUA_FAULT_PLAN`` arms it where
 the spawner set it.  Keys of ``OUT_NPZ``, under ``<run>/``: the losses, the
 final parameters by name, whether the layout was resident, the plan's bucket
 sizes (``padded``), the error-feedback residual (``ef``, its buckets
@@ -21,7 +22,10 @@ element counts of the optimizer state tensors shaped like a flat
 (``opt_sizes``), the guard counters' and async counters' deltas
 (``counter/<name>``), the trainer's ``_guard_rewinds_total``, and for the
 gossip families the parameter flats and the peer weights after every step
-(``trace/params``, ``trace/peer_weights``, buckets concatenated).
+(``trace/params``, ``trace/peer_weights``, buckets concatenated), the final
+plan's tensor names a bucket (``plan``, one ``,``-joined string a bucket),
+whether the overlap scheduler ran (``overlapped``) and whether it rebucketed
+by readiness (``ordered``).
 Imports only torch, numpy and the port.
 """
 
@@ -55,6 +59,9 @@ BASES = {
     "zero_adam": (lambda: bt.ZeroOptimizerAlgorithm(ADAM), None, {}),
     "qadam": (lambda: bt.QAdamAlgorithm(warmup_steps=2, lr=1e-2, hierarchical=False), None, {}),
     "bytegrad": (lambda: bt.ByteGradAlgorithm(hierarchical=False), SGD, {}),
+    # the two-level forms where LOCAL_WORLD_SIZE makes two nodes
+    "ga_hier": (lambda: bt.GradientAllReduceAlgorithm(hierarchical=True), SGD, {}),
+    "bytegrad_hier": (bt.ByteGradAlgorithm, SGD, {}),
     "dec_all": (lambda: bt.DecentralizedAlgorithm(hierarchical=False, track_peer_weights=True),
                 SGD, {}),
     "lowprec": (lambda: bt.LowPrecisionDecentralizedAlgorithm(hierarchical=False), SGD, {}),
@@ -80,6 +87,10 @@ def parse(run, steps):
             cfg["kw"]["flat_resident"] = "off" if key == "leaf" else "on"
         elif key == "guard":
             cfg["kw"]["grad_guard"] = "skip"
+        elif key == "overlap":
+            cfg["kw"]["overlap"] = value
+        elif key in ("chunk", "bucket"):
+            cfg["kw"]["overlap_chunk_bytes" if key == "chunk" else "bucket_bytes"] = int(value)
         elif key in ("poison", "steps", "rebucket"):
             cfg[key] = int(value)
         else:
@@ -132,7 +143,9 @@ def run_one(run, steps, batch, params_path):
            "padded": np.array([b.padded_numel for b in trainer.plan.buckets]),
            "ef": torch.cat(ef).numpy() if ef else np.zeros(0, np.float32),
            "ef_sizes": np.array([r.numel() for r in ef]), "opt_sizes": np.array(opt_sizes),
-           "rewinds_total": trainer._guard_rewinds_total}
+           "rewinds_total": trainer._guard_rewinds_total,
+           "plan": np.array([",".join(t.name for t in b.tensors) for b in trainer.plan.buckets]),
+           "overlapped": trainer._ctx.overlap, "ordered": trainer._overlap_ordered}
     out.update({f"counter/{c}": counters.get(c) - before.get(c, 0) for c in COUNTERS})
     out.update({n: p.detach().numpy().copy() for n, p in model.named_parameters()})
     out.update({f"trace/{k}": np.stack(v) for k, v in trace.items()})
