@@ -24,6 +24,12 @@ from .algorithms import (  # noqa: F401
     shift_one_peer,
 )
 from .bucket import BucketPlan, BucketSpec, split_bucket_by_bucket_size  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    BaguaCheckpointManager,
+    CheckpointIntegrityError,
+    compute_state_digest,
+    flush_all_checkpoints,
+)
 from .communication import (  # noqa: F401
     BaguaAborted,
     BaguaBackend,

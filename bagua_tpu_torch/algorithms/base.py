@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from ..checkpoint import apply_tree, check_tree, to_tree
 from ..bucket import BucketPlan, relayout_flats
 from ..communication import LINK_DCN, LINK_ICI, BaguaCommunicator, ReduceOp, ring_chunks_for
 from ..compression.codecs import get_codec
@@ -576,6 +577,29 @@ class Algorithm:
         host-side schedule belongs to the run before it (async model
         average's round in flight, anchor and period) resets it here."""
         return None
+
+    # -- checkpoints ----------------------------------------------------------
+
+    def opt_shard_ranks(self, ctx: AlgorithmContext) -> int:
+        """The ranks a ``sharded_opt_state`` family's optimizer state is
+        sharded over (the checkpoint metadata's ``opt_shards``)."""
+        raise NotImplementedError("only algorithms with sharded_opt_state=True")
+
+    def checkpoint_opt_state(self, opt_state):
+        """The optimizer state of an ``owns_optimizer`` family as a
+        checkpoint tree (tensors, numbers, dicts, lists); the trainer saves
+        it per rank for a ``sharded_opt_state`` family, once otherwise."""
+        return to_tree(opt_state)
+
+    def check_opt_state(self, opt_state, tree) -> None:
+        """Raise ``CheckpointIntegrityError`` unless ``tree`` (from
+        :meth:`checkpoint_opt_state`) fits the live ``opt_state``."""
+        check_tree(opt_state, tree, "['opt_state']")
+
+    def restore_opt_state(self, opt_state, tree):
+        """Copy a checked ``tree`` into the live ``opt_state`` in place;
+        returns the optimizer state."""
+        return apply_tree(opt_state, tree)
 
     def communicators(self) -> List[BaguaCommunicator]:
         """The communicators of the algorithm's own process groups, whose

@@ -52,6 +52,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..checkpoint import check_optimizer_state_tree, load_optimizer_state_tree, optimizer_state_tree
 from ..communication import ReduceOp
 from .base import Algorithm, AlgorithmContext
 
@@ -166,6 +167,42 @@ class ZeroOptimizerAlgorithm(Algorithm):
         if not self._staged(ctx):
             return ctx.bucket_reduce_scatter(flat, ReduceOp.AVG)
         return ctx.tier_allreduce(ctx.tier_reduce_scatter(flat, ReduceOp.AVG), ReduceOp.AVG)
+
+    # ---- checkpoints --------------------------------------------------------
+
+    def opt_shard_ranks(self, ctx: AlgorithmContext) -> int:
+        return self._shard_comm(ctx).nranks()
+
+    @staticmethod
+    def _chunk_keys(opt_state: ZeroOptState):
+        return [str(i) for i in range(len(opt_state.chunks))]
+
+    def checkpoint_opt_state(self, opt_state: ZeroOptState):
+        """This rank's shard: the optimizer's state over its chunk of each
+        bucket (the chunks themselves are the parameters', which the
+        checkpoint holds already)."""
+        return {"optimizer": optimizer_state_tree(opt_state.optimizer,
+                                                  self._chunk_keys(opt_state))}
+
+    def check_opt_state(self, opt_state: ZeroOptState, tree) -> None:
+        from ..checkpoint import CheckpointIntegrityError
+
+        if not isinstance(tree, dict) or "optimizer" not in tree:
+            raise CheckpointIntegrityError("checkpoint holds no ZeRO optimizer shard")
+        check_optimizer_state_tree(opt_state.optimizer, tree["optimizer"],
+                                   self._chunk_keys(opt_state), "['opt_state']")
+        for k, st in tree["optimizer"]["state"].items():
+            chunk = opt_state.chunks[int(k)]
+            for name, v in st.items():
+                if torch.is_tensor(v) and v.dim() and v.shape != chunk.shape:
+                    raise CheckpointIntegrityError(
+                        f"ZeRO shard {k} holds {name} of shape {tuple(v.shape)}, the live chunk "
+                        f"{tuple(chunk.shape)}")
+
+    def restore_opt_state(self, opt_state: ZeroOptState, tree):
+        load_optimizer_state_tree(opt_state.optimizer, tree["optimizer"],
+                                  self._chunk_keys(opt_state))
+        return opt_state
 
     # ---- overlap contract ---------------------------------------------------
 

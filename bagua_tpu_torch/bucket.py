@@ -12,7 +12,10 @@ steps: :meth:`BucketPlan.flatten` allocates the parameters' flats,
 :meth:`BucketSpec.zeros` a gradient flat, :meth:`BucketSpec.views` and
 :meth:`BucketPlan.unflatten` hand out views into them, and
 :func:`relayout_flats` moves flats from one plan onto another when the
-buckets change.
+buckets change.  :meth:`BucketPlan.layout_descriptor` describes a plan in the
+JSON form of the JAX package's (``bucket.py:174-220``), dtype names included,
+so that a checkpoint's sidecar rebuilds the plan it was saved under
+(:meth:`BucketPlan.from_layout_descriptor`) in either package.
 """
 
 from __future__ import annotations
@@ -24,6 +27,29 @@ import torch
 
 from .define import TensorDeclaration, TensorDtype
 from .tensor import NamedParam
+
+#: torch dtype <-> the numpy name the JAX package writes in a layout
+#: descriptor (``np.dtype(...).name``)
+_DTYPE_NAMES = {
+    torch.float32: "float32",
+    torch.float16: "float16",
+    torch.bfloat16: "bfloat16",
+    torch.float64: "float64",
+    torch.uint8: "uint8",
+    torch.int8: "int8",
+    torch.int32: "int32",
+    torch.int64: "int64",
+}
+_DTYPES_BY_NAME = {v: k for k, v in _DTYPE_NAMES.items()}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The numpy name of a torch dtype (``torch.float32`` -> ``float32``),
+    as the JAX package names dtypes in descriptors and signatures."""
+    try:
+        return _DTYPE_NAMES[dtype]
+    except KeyError:
+        raise ValueError(f"no layout-descriptor name for dtype {dtype}") from None
 
 
 def split_bucket_by_bucket_size(
@@ -86,6 +112,16 @@ class BucketSpec:
         dtype), the resident layout's gradient buffer."""
         return torch.zeros(self.padded_numel, dtype=self.dtype, device=device)
 
+    def flatten_of(self, named: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """A new flat of this bucket from its tensors by name, the pad tail
+        zero."""
+        t0 = named[self.tensors[0].name]
+        flat = torch.empty(self.padded_numel, dtype=self.dtype, device=t0.device)
+        for t, off in zip(self.tensors, self.offsets()):
+            flat[off:off + t.numel].copy_(named[t.name].reshape(-1))
+        flat[self.numel:].zero_()
+        return flat
+
     def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Each tensor of the bucket as a view into ``flat``, by name."""
         return {t.name: flat[off:off + t.numel].view(t.shape)
@@ -135,15 +171,7 @@ class BucketPlan:
     def flatten(self, named: Mapping[str, torch.Tensor]) -> List[torch.Tensor]:
         """Tensors by name -> one new contiguous flat buffer per bucket, its
         pad tail zero (a codec's per-chunk min/max reads it)."""
-        flats = []
-        for b in self.buckets:
-            t0 = named[b.tensors[0].name]
-            flat = torch.empty(b.padded_numel, dtype=b.dtype, device=t0.device)
-            for t, off in zip(b.tensors, b.offsets()):
-                flat[off:off + t.numel].copy_(named[t.name].reshape(-1))
-            flat[b.numel:].zero_()
-            flats.append(flat)
-        return flats
+        return [b.flatten_of(named) for b in self.buckets]
 
     def unflatten(self, flats: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Inverse of :meth:`flatten`: each tensor is a view into its
@@ -152,6 +180,48 @@ class BucketPlan:
         for b, flat in zip(self.buckets, flats):
             named.update(b.views(flat))
         return named
+
+    def portable_signature(self) -> Tuple:
+        """:meth:`signature` with numpy dtype names: the JAX package's
+        ``BucketPlan.signature()`` of the same plan, which its checkpoint
+        ``plan_signature`` hashes."""
+        return tuple((b.name, b.alignment,
+                      tuple((t.name, tuple(int(d) for d in t.shape), dtype_name(t.dtype))
+                            for t in b.tensors))
+                     for b in self.buckets)
+
+    # ---- layout portability ------------------------------------------
+
+    def layout_descriptor(self) -> List[dict]:
+        """JSON description of the flat layout, per bucket its
+        ``alignment`` and its tensors' ``name``, ``shape`` and ``dtype`` in
+        order: enough to rebuild the plan (:meth:`from_layout_descriptor`)
+        without the model.  Checkpoint sidecars carry it, so that a
+        flat-resident checkpoint restores under another plan."""
+        return [
+            {
+                "alignment": int(b.alignment),
+                "tensors": [
+                    {"name": t.name, "shape": [int(d) for d in t.shape],
+                     "dtype": dtype_name(t.dtype)}
+                    for t in b.tensors
+                ],
+            }
+            for b in self.buckets
+        ]
+
+    @staticmethod
+    def from_layout_descriptor(desc: Sequence[dict]) -> "BucketPlan":
+        """The plan of a :meth:`layout_descriptor` (the JAX package's
+        included); buckets are named by their index, as a plan names them."""
+        return BucketPlan(buckets=tuple(
+            BucketSpec(
+                name=str(i),
+                tensors=tuple(NamedParam(t["name"], tuple(int(d) for d in t["shape"]),
+                                         _DTYPES_BY_NAME[t["dtype"]])
+                              for t in b["tensors"]),
+                alignment=int(b["alignment"]))
+            for i, b in enumerate(desc)))
 
 
 def relayout_flats(old_plan: BucketPlan, new_plan: BucketPlan,

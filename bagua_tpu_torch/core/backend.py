@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import logging
 import weakref
 from dataclasses import dataclass
@@ -72,6 +73,10 @@ from torch import nn
 from .. import env
 from ..algorithms.base import Algorithm, AlgorithmContext
 from ..bucket import BucketPlan, relayout_flats, split_bucket_by_bucket_size
+from ..checkpoint import (CheckpointIntegrityError, RankedState, apply_tree,
+                          check_optimizer_state_tree, check_train_state, check_tree,
+                          compute_state_digest, copy_tree, load_optimizer_state_tree,
+                          optimizer_state_tree, restore_train_state, to_tree)
 from ..communication import ReduceOp, abort, check_abort, get_backend
 from ..compression.codecs import validate_codec_policy
 from .overlap import CommWorker, OverlapStep
@@ -957,11 +962,10 @@ class BaguaTrainer:
                         len(old_plan.buckets), len(new_plan.buckets))
             opt_state = state.opt_state
             if self._flat_resident:
-                old_flats = self._flats
                 self._lay_out(new_plan, relayout_flats(old_plan, new_plan,
-                                                       [f.data for f in old_flats]))
+                                                       [f.data for f in self._flats]))
                 if state.optimizer is not None:
-                    self._relayout_optimizer(state.optimizer, old_flats, old_plan, new_plan)
+                    self._relayout_optimizer(state.optimizer, old_plan)
                 opt_state = _relayout_container(opt_state, old_plan, new_plan)
             algo_state = self.algorithm.relayout_algo_state(old_plan, new_plan,
                                                             state.algo_state)
@@ -969,30 +973,404 @@ class BaguaTrainer:
 
         return migrate
 
-    def _relayout_optimizer(self, opt, old_flats, old_plan, new_plan) -> None:
+    def _relayout_optimizer(self, opt, old_plan: BucketPlan) -> None:
         """Move a torch optimizer from the old parameter flats onto the new
-        ones: its parameter group, and its state, keyed by the flat objects:
-        every tensor shaped like its flat (AdamW's moments) through
-        ``relayout_flats``, anything else (the step count) copied."""
+        ones (``self._flats``): its state through the parameters' names, as a
+        restore across plans moves it (:meth:`_convert_optimizer`), and its
+        one parameter group."""
         if len(opt.param_groups) != 1:
             raise ValueError("rebucket under flat_resident needs an optimizer with one "
                              f"parameter group, got {len(opt.param_groups)}")
-        old = [opt.state.get(f, {}) for f in old_flats]
-        new: List[dict] = [{} for _ in new_plan.buckets]
-        for key in sorted({k for st in old for k in st}):
-            values = [st.get(key) for st in old]
-            if all(torch.is_tensor(v) and v.shape == (b.padded_numel,)
-                   for v, b in zip(values, old_plan.buckets)):
-                for st, v in zip(new, relayout_flats(old_plan, new_plan, values)):
-                    st[key] = v
-            else:
-                for st in new:
-                    st[key] = values[0].clone() if torch.is_tensor(values[0]) else values[0]
-        opt.state.clear()
-        for f, st in zip(self._flats, new):
-            if st:
-                opt.state[f] = st
+        tree = optimizer_state_tree(opt, [str(i) for i in range(len(old_plan.buckets))])
         opt.param_groups[0]["params"] = list(self._flats)
+        load_optimizer_state_tree(opt, self._convert_optimizer(tree, "flat", old_plan),
+                                  self._param_keys())
+
+    # ---- checkpointing ---------------------------------------------------
+
+    def checkpoint_layout_metadata(self) -> dict:
+        """Layout descriptor stored beside this trainer's checkpoints (the
+        ``metadata=`` of :meth:`BaguaCheckpointManager.save`), with the JAX
+        package's keys and values (``backend.py:3219-3280``): ``layout``
+        (``flat`` or ``leaf``), ``plan_signature`` (a hash of the bucket
+        plan, equal to the JAX package's for the same named tensors),
+        ``world_size``, ``bucket_bytes``, ``plan_dependent`` (flat layouts'
+        shapes depend on the plan), ``stacked`` (per-rank state), and where
+        they apply ``flat_layout`` (the plan's layout descriptor),
+        ``opt_shards`` (the ranks ZeRO's optimizer state is sharded over: the
+        intra-node ones when staged) and ``ef`` (the error-feedback
+        residual's world and plan)."""
+        if self._ctx is None:
+            raise RuntimeError("checkpoint_layout_metadata() needs the bucket plan — call "
+                               "trainer.init(model) first")
+        algo, plan = self.algorithm, self.plan
+        meta = {
+            "layout": "flat" if self._flat_resident else "leaf",
+            "plan_signature": hashlib.blake2b(repr(plan.portable_signature()).encode(),
+                                              digest_size=8).hexdigest(),
+            "world_size": int(self.comm.nranks()),
+            "bucket_bytes": int(self.bucket_bytes),
+            "plan_dependent": bool(self._flat_resident),
+            "stacked": not algo.replicated_params,
+        }
+        if self._flat_resident:
+            meta["flat_layout"] = plan.layout_descriptor()
+        if algo.sharded_opt_state:
+            meta["opt_shards"] = int(algo.opt_shard_ranks(self._ctx))
+        if self._ef_active():
+            meta["ef"] = {"world": int(self.comm.nranks()),
+                          "flat_layout": plan.layout_descriptor()}
+        return meta
+
+    def _require_no_pending_migration(self, what: str) -> None:
+        """Between a :meth:`rebucket` and the next step the state still lies
+        in the old plan's buffers while the plan is the new one: a sidecar
+        written then would describe the wrong layout."""
+        if self._pending_state_migration is not None:
+            raise RuntimeError(
+                f"{what} with a state migration pending (a rebucket queued a layout "
+                "change): run one train_step first so the resident state is migrated to "
+                "the new bucket plan")
+
+    def _param_keys(self) -> List[str]:
+        """The names of the live torch optimizer's parameters, in its order:
+        bucket indices (resident) or parameter names (leaf)."""
+        if self._flat_resident:
+            return [str(i) for i in range(len(self._flats))]
+        return list(self._params)
+
+    def _checkpoint_state(self, state: TrainState) -> RankedState:
+        """The state a checkpoint holds, split into the part every rank
+        shares (written once) and this rank's own: the parameters (the
+        bucket flats, or the tensors by name), the optimizer's state by
+        parameter key, the algorithm's optimizer state and algorithm state.
+        Parameters and optimizer state are per rank where the family's
+        weights differ between ranks (gossip, async); a sharded optimizer
+        state (ZeRO) and the algorithm state (the error-feedback residual,
+        peer weights, replicas) always are."""
+        algo = self.algorithm
+        params = ({"flats": list(self._flats)} if self._flat_resident else dict(self._params))
+        optimizer = (None if state.optimizer is None
+                     else optimizer_state_tree(state.optimizer, self._param_keys()))
+        shared = {"step": int(state.step)}
+        own = {"algo_state": to_tree(state.algo_state)}
+        (shared if algo.replicated_params else own).update(params=params, optimizer=optimizer)
+        opt_state = algo.checkpoint_opt_state(state.opt_state)
+        if algo.sharded_opt_state or not algo.replicated_params:
+            own["opt_state"] = opt_state
+        else:
+            shared["opt_state"] = opt_state
+        return RankedState(shared, own)
+
+    def save_checkpoint(self, manager, step: int, state: TrainState) -> bool:
+        """Save ``state`` with this trainer's layout sidecar: a checkpoint
+        saved here restores through :meth:`restore_checkpoint` into any
+        compatible trainer layout (flat or leaf, same plan or not).  Call it
+        on every rank."""
+        self._require_no_pending_migration("save_checkpoint")
+        return manager.save(int(step), self._checkpoint_state(state),
+                            metadata=self.checkpoint_layout_metadata())
+
+    def restore_checkpoint(self, manager, state_like: TrainState, step: Optional[int] = None):
+        """Restore ``step`` (default: the newest verified) into this
+        trainer's layout (``backend.py:3307-3356``), converting through the
+        saved sidecar where the layouts differ:
+
+        - same layout, and for flat the same plan and world: direct;
+        - flat checkpoint -> flat trainer under another plan or world: the
+          parameters and optimizer state moved flat to flat
+          (:func:`~bagua_tpu_torch.bucket.relayout_flats`);
+        - flat checkpoint -> leaf trainer: the tensors rebuilt from the
+          sidecar's ``flat_layout``;
+        - leaf checkpoint -> flat trainer: the tensors flattened into the
+          live plan.
+
+        The error-feedback residual is kept at the same plan, relaid out
+        across plans, zero-initialized (loudly) from a checkpoint without
+        one, dropped (loudly) by a trainer without one and zero-reset across
+        a world resize.  ZeRO's sharded optimizer state stays plan-locked: a
+        cross-plan restore raises the manager's layout error.  Per-rank leaf
+        state (async model average) restores at another world size only
+        when every saved rank's state is bitwise equal
+        (``sync_for_checkpoint`` before the save); the other per-rank
+        conversions need the saved plan and world.
+
+        Everything is loaded, verified and converted before anything is
+        written; then the values are copied in place into the module's
+        parameters (or the resident flats, whose views survive) and the
+        optimizer's state, and the algorithm's :meth:`on_restore` runs.
+        Call it on every rank.  Returns ``(step, state)``."""
+        if self._ctx is None:
+            raise RuntimeError("restore_checkpoint() needs the bucket plan — call "
+                               "trainer.init(model) first")
+        self._require_no_pending_migration("restore_checkpoint")
+        manager._ensure_active_manager()
+        manager.wait()
+
+        def one(s):
+            return self._load_checkpoint_at(manager, state_like, s)
+
+        if step is not None:
+            s, finish = manager._restore_explicit(int(step), one, comm=self.comm)
+        else:
+            # integrity fallback: a corrupted newest step degrades to the
+            # previous verified one on every rank
+            s, finish = manager._restore_newest_verified(one, comm=self.comm)
+        state = finish()
+        self.algorithm.on_restore(self)
+        return s, state
+
+    def _load_checkpoint_at(self, manager, state_like: TrainState, step: int):
+        """Load, verify and convert ``step`` into the live layout; ``(step,
+        finish)`` where ``finish()`` copies it into the live state."""
+        algo = self.algorithm
+        saved = manager.read_layout(step)
+        expected = self.checkpoint_layout_metadata()
+        saved_layout = (manager._normalize_layout(saved) or {}).get("layout")
+        same_plan = saved is not None and saved.get("plan_signature") == expected["plan_signature"]
+        saved_world = (saved or {}).get("world_size")
+        stacked = not algo.replicated_params
+        convert = None
+        if (stacked and not self._flat_resident and saved_layout == "leaf" and saved_world
+                and int(saved_world) != self.comm.nranks()):
+            tree = self._load_stacked_resized(manager, step, saved, int(saved_world))
+        else:
+            direct = (saved is None or (saved_layout == expected["layout"]
+                                        and (saved_layout == "leaf" or same_plan))
+                      or saved_layout not in ("flat", "leaf") or algo.sharded_opt_state
+                      or stacked or saved.get("stacked")
+                      or (saved_layout == "flat" and "flat_layout" not in saved))
+            if direct:
+                manager._check_layout(saved, expected)
+            else:
+                convert = (saved_layout, (BucketPlan.from_layout_descriptor(saved["flat_layout"])
+                                          if saved_layout == "flat" else None))
+            manifest, shared, parts = manager._load_step(step, saved)
+            own = parts.get(self.comm.rank())
+            if manifest["kind"] == "train_state":
+                # saved by the manager alone (``mgr.save(step, state)``)
+                check_train_state(state_like, own)
+                return step, functools.partial(restore_train_state, state_like, own)
+            tree = dict(shared or {})
+            tree.update(own or {})
+        if convert is not None:
+            tree = self._convert_layout(tree, *convert)
+            logger.info("restore_checkpoint: converted step %s from %s layout to %s", step,
+                        saved_layout, expected["layout"])
+        tree["algo_state"] = self._ef_restore_adapter(state_like, saved,
+                                                      tree.get("algo_state"))
+        self._check_restored(state_like, tree)
+        return step, functools.partial(self._apply_restored, state_like, tree)
+
+    def _load_stacked_resized(self, manager, step: int, saved: dict, saved_world: int) -> dict:
+        """Per-rank leaf state across a world resize (``backend.py:3625-3713``):
+        every saved rank's part is loaded and must be bitwise equal to rank
+        0's (``AsyncModelAverageAlgorithm.sync_for_checkpoint`` before the
+        save); rank 0's is then every live rank's."""
+        _, shared, parts = manager._load_step(step, saved, all_ranks=True)
+        first = compute_state_digest(parts[0])["digest"]
+        for r in range(1, saved_world):
+            if compute_state_digest(parts[r])["digest"] != first:
+                raise ValueError(
+                    f"stacked checkpoint step {step} (world {saved_world}) has DIVERGENT "
+                    "per-rank rows — it cannot restore onto a resized world "
+                    f"({self.comm.nranks()} ranks).  Save resize-portable async checkpoints "
+                    "via algorithm.sync_for_checkpoint(trainer, state) (a blocking "
+                    "synchronous model average) right before save_checkpoint, or restore at "
+                    "the original world size.")
+        counters.incr("ckpt/stacked_resize_restores")
+        logger.info("restore_checkpoint: re-tiled stacked step %s from world %d onto world %d "
+                    "(rank rows verified bit-identical)", step, saved_world, self.comm.nranks())
+        tree = dict(shared or {})
+        tree.update(parts[0])
+        return tree
+
+    def _convert_layout(self, tree: dict, saved_layout: str,
+                        old_plan: Optional[BucketPlan]) -> dict:
+        """A replicated family's checkpoint tree moved from the saved layout
+        (``flat`` under ``old_plan``, or ``leaf``) onto the live one: the
+        parameters, the optimizer's state, and every part of the
+        algorithm's optimizer state laid out like the parameters (QAdam's
+        moments).  The algorithm state (the residual) is the adapter's."""
+        plan = self.plan
+        names = [t.name for b in plan.buckets for t in b.tensors]
+        if tree.get("optimizer") is not None and len(tree["optimizer"]["groups"]) > 1:
+            want = "off" if saved_layout == "leaf" else "on"
+            raise ValueError(
+                "restore_checkpoint cannot convert across layouts or plans for an optimizer of "
+                f"{len(tree['optimizer']['groups'])} parameter groups: the flat layout steps "
+                "one group over the bucket flats, so the groups have no flat mirror.  Restore "
+                f"into a trainer with the checkpoint's own layout (flat_resident='{want}') and "
+                "bucket plan.")
+
+        def to_named(x):
+            if saved_layout == "leaf":
+                return dict(x)
+            return {n: v.clone() for n, v in old_plan.unflatten(list(x)).items()}
+
+        def from_named(named):
+            if not self._flat_resident:
+                return named
+            return plan.flatten(named)
+
+        def is_param_like(x):
+            if saved_layout == "leaf":
+                return isinstance(x, dict) and set(x) == set(names)
+            return (isinstance(x, (list, tuple)) and len(x) == len(old_plan.buckets)
+                    and all(isinstance(t, torch.Tensor) and t.shape == (b.padded_numel,)
+                            for t, b in zip(x, old_plan.buckets)))
+
+        def walk(x):
+            if is_param_like(x):
+                return from_named(to_named(x))
+            if isinstance(x, dict):
+                return {k: walk(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(walk(v) for v in x)
+            return x
+
+        out = dict(tree)
+        params = tree["params"]
+        named = to_named(params["flats"] if saved_layout == "flat" else params)
+        out["params"] = {"flats": plan.flatten(named)} if self._flat_resident else named
+        if tree.get("optimizer") is not None:
+            out["optimizer"] = self._convert_optimizer(tree["optimizer"], saved_layout, old_plan)
+        if tree.get("opt_state") is not None:
+            out["opt_state"] = walk(tree["opt_state"])
+        return out
+
+    def _convert_optimizer(self, opt_tree: dict, saved_layout: str,
+                           old_plan: Optional[BucketPlan]) -> dict:
+        """An optimizer state tree (:func:`optimizer_state_tree`) moved from
+        the saved layout onto the live one, through the state by parameter
+        name: a tensor shaped like its parameter (AdamW's moments) is sliced
+        or flattened, anything else (the step count) taken from the first
+        parameter of the bucket."""
+        named: Dict[str, dict] = {}
+        if saved_layout == "leaf":
+            named = {n: dict(st) for n, st in opt_tree["state"].items()}
+        else:
+            for i, b in enumerate(old_plan.buckets):
+                st = opt_tree["state"].get(str(i))
+                if st is None:
+                    continue
+                for t, off in zip(b.tensors, b.offsets()):
+                    named[t.name] = {
+                        k: (v[off:off + t.numel].reshape(t.shape).clone()
+                            if torch.is_tensor(v) and v.shape == (b.padded_numel,)
+                            else (v.clone() if torch.is_tensor(v) else v))
+                        for k, v in st.items()}
+        keys = self._param_keys()
+        hyper = opt_tree["groups"][0]["hyper"]
+        if not self._flat_resident:
+            return {"groups": [{"hyper": hyper, "params": keys}],
+                    "state": {n: named[n] for n in keys if n in named}}
+        state = {}
+        for i, b in enumerate(self.plan.buckets):
+            sts = [named.get(t.name) for t in b.tensors]
+            if sts[0] is None:
+                continue
+            st = {}
+            for k, v0 in sts[0].items():
+                if torch.is_tensor(v0) and all(
+                        torch.is_tensor(s[k]) and s[k].shape == t.shape
+                        for s, t in zip(sts, b.tensors)):
+                    st[k] = b.flatten_of({t.name: s[k] for s, t in zip(sts, b.tensors)})
+                else:
+                    st[k] = v0
+            state[str(i)] = st
+        return {"groups": [{"hyper": hyper, "params": keys}], "state": state}
+
+    def _ef_restore_adapter(self, state_like: TrainState, saved: Optional[dict], restored):
+        """The error-feedback residual of a restore (``backend.py:3372-3475``):
+        ``restored`` (the checkpoint's algorithm state) moved into the live
+        trainer's.  Kept at the same plan and world; relaid out across plans;
+        zero from a checkpoint without one (saved before the codec was
+        enabled); dropped where the live trainer carries none; zero across a
+        world resize, whose ranks' residuals have no meaning in the new
+        world.  Unchanged when neither side carries one, or the checkpoint
+        has no sidecar."""
+        a = state_like.algo_state
+        has_live = isinstance(a, dict) and "ef" in a
+        saved_ef = (saved or {}).get("ef")
+        if saved is None or (not has_live and saved_ef is None):
+            return restored
+        if not has_live:
+            if isinstance(restored, dict) and "ef" in restored:
+                logger.warning(
+                    "restore_checkpoint: discarding the checkpoint's error-feedback residual — "
+                    "no stateful codec is active in this trainer (compress knobs / "
+                    "BAGUA_EF_RESIDUAL).  Re-enable the codec policy before restoring to keep "
+                    "the accumulated error.")
+                rest = {k: v for k, v in restored.items() if k != "ef"}
+                return rest or None
+            return restored
+        zeros = {"buckets": tuple(torch.zeros_like(b) for b in a["ef"]["buckets"])}
+        merged = dict(restored) if isinstance(restored, dict) else {}
+        if saved_ef is None:
+            logger.warning(
+                "restore_checkpoint: checkpoint carries no error-feedback residual (saved "
+                "before the stateful codec was enabled): starting from ZERO residuals — "
+                "convergence-neutral, the error feedback re-warms within a few steps")
+            merged["ef"] = zeros
+            return merged
+        live_world = int(self.comm.nranks())
+        if int(saved_ef["world"]) != live_world:
+            logger.warning(
+                "restore_checkpoint: error-feedback residual was saved at world_size=%d, "
+                "trainer runs %d (elastic resize): zero-resetting the residual — "
+                "convergence-neutral, the error feedback re-warms within a few steps",
+                int(saved_ef["world"]), live_world)
+            merged["ef"] = zeros
+            return merged
+        ef_plan = BucketPlan.from_layout_descriptor(saved_ef["flat_layout"])
+        if ef_plan.signature() != self.plan.signature():
+            logger.info("restore_checkpoint: relaying out the error-feedback residual %d -> %d "
+                        "buckets", len(ef_plan.buckets), len(self.plan.buckets))
+            merged["ef"] = self.algorithm.relayout_algo_state(
+                ef_plan, self.plan, {"ef": merged["ef"]})["ef"]
+        return merged
+
+    def _check_restored(self, state_like: TrainState, tree: dict) -> None:
+        """Raise :class:`CheckpointIntegrityError` unless the converted
+        ``tree`` fits the live state (structure and shapes), before any rank
+        writes anything."""
+        for key in ("step", "params", "algo_state"):
+            if key not in tree:
+                raise CheckpointIntegrityError(f"checkpoint misses the {key!r} part")
+        live_params = ({"flats": list(self._flats)} if self._flat_resident
+                       else dict(self._params))
+        check_tree(live_params, tree["params"], "['params']")
+        if state_like.optimizer is not None:
+            check_optimizer_state_tree(state_like.optimizer, tree.get("optimizer"),
+                                       self._param_keys(), "['optimizer']")
+        self.algorithm.check_opt_state(state_like.opt_state, tree.get("opt_state"))
+
+    @torch.no_grad()
+    def _apply_restored(self, state_like: TrainState, tree: dict) -> TrainState:
+        """Copy a checked tree into the live state in place: the parameters
+        (or the resident flats), the optimizer's state through its
+        ``load_state_dict``, the algorithm's optimizer state; the algorithm
+        state is copied in place where it has the live structure."""
+        if self._flat_resident:
+            for f, v in zip(self._flats, tree["params"]["flats"]):
+                f.copy_(v)
+        else:
+            for n, v in tree["params"].items():
+                self._params[n].copy_(v)
+        if state_like.optimizer is not None:
+            load_optimizer_state_tree(state_like.optimizer, tree["optimizer"],
+                                      self._param_keys())
+        opt_state = self.algorithm.restore_opt_state(state_like.opt_state, tree.get("opt_state"))
+        saved_algo = tree["algo_state"]
+        try:
+            check_tree(state_like.algo_state, saved_algo)
+            algo_state = apply_tree(state_like.algo_state, saved_algo)
+        except CheckpointIntegrityError:
+            algo_state = copy_tree(saved_algo, device=self.device)
+        return dataclasses.replace(state_like, step=int(tree["step"]), opt_state=opt_state,
+                                   algo_state=algo_state)
+
 
 
 def _grad_ready(trainer_ref, i: int, grad) -> None:

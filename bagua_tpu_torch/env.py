@@ -6,7 +6,8 @@ readers, the default bucket size, the overlap scheduler's gate and its ring
 chunk targets (and their cap), the per-link codec policy, the stateful
 codecs' knobs (top-k ratio, error-feedback residual), the flat-resident
 layout, the gradient-health guard, async model average's staleness cap, the
-fault-injection plan, and rank / world size / local rank / local world size.
+fault-injection plan, the checkpoint storage quarantine, and rank / world
+size / local rank / local world size.
 """
 
 from __future__ import annotations
@@ -99,7 +100,14 @@ _declare("BAGUA_FAULT_PLAN", "str", "",
          "Deterministic fault-injection plan (JSON list of specs: point, "
          "kind, step/op trigger, count, seed) armed at the first fault-point "
          "query; drills and tests only, never production.  The port reaches "
-         "async.partition and grad.poison.  See bagua_tpu_torch.faults.inject.")
+         "async.partition, grad.poison, ckpt.write and ckpt.sidecar.  See "
+         "bagua_tpu_torch.faults.inject.")
+_declare("BAGUA_CKPT_QUARANTINED_PATHS", "str", "",
+         "Newline-separated checkpoint directories under storage "
+         "quarantine (newline, not os.pathsep — ':' appears inside "
+         "gs://-style URIs): BaguaCheckpointManager redirects saves for "
+         "them to a `<dir>.redirect` sibling while restores keep walking "
+         "the verified pre-quarantine history.")
 _declare("BAGUA_ASYNC_MAX_STALENESS", "int", "4",
          "Bounded-staleness cap of async model average: when any rank's "
          "applied-round count reaches this many rounds behind the launched "
@@ -282,3 +290,13 @@ def get_fault_plan_raw() -> Optional[str]:
 def get_async_max_staleness() -> int:
     """Bounded-staleness cap of async model average (0: unbounded)."""
     return env_int("BAGUA_ASYNC_MAX_STALENESS")
+
+
+def get_ckpt_quarantined_paths() -> list:
+    """Checkpoint directories under storage quarantine (possibly []).
+    Newline-separated: ``os.pathsep`` is ``:`` on POSIX and would split
+    ``gs://``-style URI directories apart."""
+    raw = _raw("BAGUA_CKPT_QUARANTINED_PATHS")
+    if not raw:
+        return []
+    return [p.strip() for p in raw.splitlines() if p.strip()]

@@ -1,7 +1,8 @@
 """Seeded fault-injection registry.
 
 Port of the plan machinery of ``bagua_tpu/faults/inject.py`` (``:82-400``)
-and of its ``async.partition`` (``:542-551``) and ``grad.poison`` hooks.  A
+and of its ``async.partition`` (``:542-551``), ``grad.poison``, ``ckpt.write``
+and ``ckpt.sidecar`` (``:434-475``, ``:554-570``) hooks.  A
 plan is a list of :class:`FaultSpec` armed from ``BAGUA_FAULT_PLAN`` (a JSON
 list of specs, so a test can arm a fault in one rank's environment only) or in
 code
@@ -21,6 +22,14 @@ rank must run the same collectives in the same order), but never applies the
 round launched at the fired boundary, so its applied-round count stalls and
 the bounded-staleness tracker must force a catch-up average.
 
+``ckpt.write``: once a checkpoint step is durable, its largest data file is
+corrupted (``corrupt`` flips 64 seeded bytes, ``torn`` truncates it to half,
+the crash mid-write).  The port writes one data file a rank, and each rank
+corrupts only its own (``rank=``), so a fault armed on one rank models that
+rank's storage rotting.  The fire is consumed only where a file exists.
+``ckpt.sidecar``: the just-written layout sidecar is torn (``truncate``) or
+replaced by garbage (``corrupt``).
+
 ``grad.poison``: the trainer writes NaN (or inf) into the first element of a
 bucket's accumulated gradient before any communication.  It is keyed on
 ``TrainState.step``, not on a call counter, with the JAX package's window
@@ -35,6 +44,8 @@ from __future__ import annotations
 
 import json
 import logging
+import os
+import random
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -303,3 +314,75 @@ def maybe_drop_negotiation_round() -> bool:
     """``async.partition`` hook (async model average's boundary): True when
     this rank is partitioned out of the round launched at this boundary."""
     return should_fire("async.partition") is not None
+
+
+def maybe_corrupt_checkpoint(directory, step: int, rank: Optional[int] = None) -> bool:
+    """``ckpt.write`` hook: after the checkpoint of ``step`` became durable,
+    corrupt its largest data file deterministically (``corrupt`` flips seeded
+    bytes; ``torn`` truncates it to half).  With ``rank``, only that rank's
+    own files (``rank{r}.*``) are candidates.  Returns True when a corruption
+    was applied."""
+    plan = get_plan()
+    if plan is None or not plan.armed_specs("ckpt.write"):
+        return False
+    # enumerate before consuming the fire: a fire counted on a step whose
+    # files are gone would exhaust a single-shot spec without any damage
+    root = os.path.join(str(directory), str(int(step)))
+    candidates = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if rank is not None and not f.startswith(f"rank{int(rank)}."):
+                continue
+            p = os.path.join(dirpath, f)
+            try:
+                size = os.path.getsize(p)
+            except OSError:
+                continue
+            if size > 0:
+                candidates.append((size, p))
+    if not candidates:
+        logger.warning("ckpt.write injection: no files under %s; fire not consumed", root)
+        return False
+    spec = should_fire("ckpt.write", step=int(step))
+    if spec is None:
+        return False
+    # the largest file holds the tensors: corrupting it makes the step
+    # unreadable or fail its digest
+    candidates.sort(key=lambda t: (-t[0], t[1]))
+    size, target = candidates[0]
+    if spec.kind == "torn":
+        with open(target, "r+b") as f:
+            f.truncate(max(1, size // 2))
+        logger.warning("ckpt.write injection: tore %s to %d bytes", target, max(1, size // 2))
+        return True
+    # the JAX package's seeded flips, made in place (a rank's file may hold
+    # gigabytes)
+    rng = random.Random(spec.seed)
+    n = min(64, size)
+    with open(target, "r+b") as f:
+        for _ in range(n):
+            pos = rng.randrange(size)
+            f.seek(pos)
+            b = f.read(1)[0]
+            f.seek(pos)
+            f.write(bytes([b ^ 0xFF]))
+    logger.warning("ckpt.write injection: flipped %d bytes in %s", n, target)
+    return True
+
+
+def maybe_corrupt_sidecar(path, step: int) -> bool:
+    """``ckpt.sidecar`` hook: corrupt the just-written layout sidecar
+    (``truncate`` leaves torn JSON; ``corrupt`` replaces it with garbage)."""
+    spec = should_fire("ckpt.sidecar", step=int(step))
+    if spec is None:
+        return False
+    try:
+        text = path.read_text()
+    except OSError:
+        return False
+    if spec.kind == "truncate":
+        path.write_text(text[: max(1, len(text) // 2)])
+    else:
+        path.write_text("\x00not json\x00")
+    logger.warning("ckpt.sidecar injection: %s %s", spec.kind, path)
+    return True

@@ -188,6 +188,26 @@ Phases, in order; any failure exits non-zero before the result line:
    losses, and the int8 (K3) and 1-bit (K4, K5) chunked rings with exact
    launches and the first sub-chunk encode of their last step on the comm
    worker equal to plain; (e) every eager collective on card tensors.
+20. checkpoint (``resume_check``): each run trains 4 steps uninterrupted, then
+   again with an async save after step 2 and one step while it is in flight,
+   then a fresh trainer and manager restore the newest verified step and
+   train the rest; the restored step, the losses and the digest of the whole
+   final state (parameters, optimizer state, the algorithm's state) must equal
+   the uninterrupted run's bitwise, and the kernels' launches after the
+   restore those of two of its steps.  (a) runs after ``remat``: slice 1's
+   long-context LM at world 1 over NCCL (the flash kernels), a torn step 4
+   saved after the resume point, so that the restore falls back to step 2.
+   The multi-rank phase, after ``overlap``, two ranks as in slice 3: (b) the
+   1-bit ring with its residual on the full BERT-Large (K4, K5), step 4's part
+   of rank 1 alone corrupted, both ranks falling back to step 2; on the cut,
+   (c) ZeRO, the low-precision ring (K1, K2; peer replicas a rank) and async
+   model average after ``sync_for_checkpoint``, and a resident
+   GradientAllReduce checkpoint restored into the leaf layout with the saved
+   parameters bitwise.  Prints the free space where it writes (a temporary
+   directory, deleted after), and for each run and rank the save's stall (the
+   snapshot), the time until it is durable, its digest time, the restore's
+   time, the bytes on disk and the step with the save in flight against the
+   same step without one, beside the card's name and power limit.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -1844,6 +1864,8 @@ def _algorithm(name, lr=1e-4):
                                              max_staleness_rounds=2)
     if name == "async_abort":
         return bt.AsyncModelAverageAlgorithm(period_steps=1)
+    if name == "async_ckpt":
+        return bt.AsyncModelAverageAlgorithm(warmup_steps=1, period_steps=1)
     if name == "bytegrad":
         return bt.ByteGradAlgorithm(hierarchical=False)
     if name == "bytegrad_default":
@@ -2693,6 +2715,282 @@ def eager_checks(rank, world, device, label, comm=None):
     return {"name": "eager", "kind": "eager", "results": results, "backend": backend}
 
 
+# ---------------------------------------------------------------------------
+# checkpoint: save, restore and resume around the kernels
+# ---------------------------------------------------------------------------
+
+#: steps of a checkpoint run, and the step its save follows
+CKPT_STEPS, CKPT_SAVE_AT = 4, 2
+#: the multi-rank checkpoint runs at world 2: (b) the 1-bit ring (K4, K5) with
+#: its residual on the full BERT-Large, its newest save corrupted on rank 1;
+#: on the 4-layer cut, (c) ZeRO, the low-precision ring (K1, K2) with its
+#: replicas, async model average after ``sync_for_checkpoint``, and a flat
+#: GradientAllReduce checkpoint restored into a leaf trainer
+CKPT_RUNS = (
+    ("ckpt_onebit", None, "gradient_allreduce", {"compress_intra": "onebit_ef"}),
+    ("ckpt_zero", BERT["cut_layers"], "zero", {}),
+    ("ckpt_lowprec", BERT["cut_layers"], "low_precision", {}),
+    ("ckpt_async", BERT["cut_layers"], "async_ckpt", {}),
+    ("ckpt_flat_to_leaf", BERT["cut_layers"], "gradient_allreduce", {}),
+)
+MULTI_RANK["checkpoint"] = ("checkpoint", CKPT_RUNS, CODEC_WORLD, None)
+#: where this process's checkpoint runs write: a directory under the phase's
+#: temporary directory, deleted when the phase ends
+_CKPT_DIR = {}
+
+
+def state_digest(trainer, state) -> str:
+    """sha256 of everything a checkpoint of ``state`` holds: parameters,
+    optimizer state, the algorithm's optimizer and algorithm state, step."""
+    from bagua_tpu_torch.checkpoint import compute_state_digest
+
+    torch.cuda.synchronize()
+    return compute_state_digest(trainer._checkpoint_state(state))["digest"]
+
+
+def _prepare_save(trainer, state):
+    """Right before a save: async model average's blocking average (the
+    resize-portable protocol); nothing for the other families."""
+    sync = getattr(trainer.algorithm, "sync_for_checkpoint", None)
+    return sync(trainer, state) if sync is not None else state
+
+
+def _timed_steps(trainer, state, batch, n):
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        losses.append(loss.item())   # synchronizes
+        times.append(time.perf_counter() - t0)
+    return state, losses, times
+
+
+def _free_gb(path) -> float:
+    import shutil
+
+    return shutil.disk_usage(path).free / 1e9
+
+
+def resume_check(label, build, modules, directory, second_save=False, fault=None, rank=0):
+    """The checkpoint gate of one path: an uninterrupted run of
+    ``CKPT_STEPS`` steps against a run of ``CKPT_SAVE_AT`` steps, an async
+    save, one step while it is in flight (before ``wait()``: the snapshot
+    must hold the state at the save), the rest of the steps, with
+    ``second_save`` a save of step ``CKPT_STEPS`` damaged by ``fault`` (armed
+    on the ranks that pass it), then a fresh trainer and manager restoring
+    the newest verified step, which must be ``CKPT_SAVE_AT`` (after one
+    fallback where the newest was damaged), and running the rest.
+    ``build()`` returns ``(trainer, state, batch)``.  Gates: the restored
+    step and fallbacks, the final state's digest (parameters, optimizer
+    state, the algorithm's state) and the resumed losses bitwise the
+    uninterrupted run's, and the launches of ``modules``' kernels after the
+    restore those of as many steps of the uninterrupted run.  Returns the
+    record, with the save's and the restore's times."""
+    import contextlib
+
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.faults.inject import fault_scope
+    from bagua_tpu_torch.telemetry import counters
+
+    trainer, state, batch = build()
+    for mod in modules:
+        mod.reset_launch_counts()
+    state, head_u, times_u = _timed_steps(trainer, state, batch, CKPT_SAVE_AT)
+    state = _prepare_save(trainer, state)
+    trainer.algorithm.on_restore(trainer)   # what the restore below does
+    state, tail_u, t = _timed_steps(trainer, state, batch, CKPT_STEPS - CKPT_SAVE_AT)
+    times_u += t
+    launches_u = {k.__name__: k.launches for mod in modules for k in mod.KERNELS}
+    want = state_digest(trainer, state)
+    del trainer, state, batch
+    release()
+
+    trainer, state, batch = build()
+    state, head, _ = _timed_steps(trainer, state, batch, CKPT_SAVE_AT)
+    state = _prepare_save(trainer, state)
+    mgr = bt.BaguaCheckpointManager(directory, max_to_keep=2, async_save=True)
+    t0 = time.perf_counter()
+    if not trainer.save_checkpoint(mgr, CKPT_SAVE_AT, state):
+        raise AssertionError(f"checkpoint {label}: the save of step {CKPT_SAVE_AT} was skipped")
+    save_call_s = time.perf_counter() - t0
+    first = dict(mgr.last_save)
+    state, _, t_flight = _timed_steps(trainer, state, batch, 1)
+    t0 = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t0
+    first.update(mgr.last_save)
+    state, _, _ = _timed_steps(trainer, state, batch, CKPT_STEPS - CKPT_SAVE_AT - 1)
+    second = {}
+    if second_save:
+        with (fault_scope(fault) if fault is not None else contextlib.nullcontext()):
+            if not trainer.save_checkpoint(mgr, CKPT_STEPS, state):
+                raise AssertionError(f"checkpoint {label}: the save of step {CKPT_STEPS} was skipped")
+            mgr.wait()   # durable: an armed fault lands here
+        second = dict(mgr.last_save)
+    mgr.close()
+    del trainer, state, batch, mgr
+    release()
+
+    trainer, state, batch = build()
+    for mod in modules:
+        mod.reset_launch_counts()
+    before = counters.snapshot()
+    mgr = bt.BaguaCheckpointManager(directory, max_to_keep=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, state = trainer.restore_checkpoint(mgr, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    fallbacks = counters.get("ckpt/fallback_restores") - before.get("ckpt/fallback_restores", 0)
+    state, tail, _ = _timed_steps(trainer, state, batch, CKPT_STEPS - CKPT_SAVE_AT)
+    launches = {k.__name__: k.launches for mod in modules for k in mod.KERNELS}
+    got = state_digest(trainer, state)
+    mgr.close()
+    record = {"name": label, "kind": "checkpoint", "step": step, "fallbacks": fallbacks,
+              "losses_u": head_u + tail_u, "losses": head + tail, "digest_equal": got == want,
+              "launches_u": launches_u, "launches_resumed": launches,
+              "stall_s": first["stall_s"], "save_call_s": save_call_s,
+              "durable_s": first["durable_s"], "digest_s": first["digest_s"],
+              "wait_s": wait_s, "bytes": first["bytes"],
+              "second_stall_s": second.get("stall_s"),
+              "second_durable_s": second.get("durable_s"),
+              "restore_s": restore_s, "step_ms_in_flight": t_flight[0] * 1e3,
+              "step_ms_same_step_u": times_u[CKPT_SAVE_AT] * 1e3}
+    second_txt = ("" if not second else
+                  f" (the second save: stall {second['stall_s'] * 1e3:.1f} ms, durable after "
+                  f"{second['durable_s']:.3f} s)")
+    log(f"[rank {rank}] checkpoint {label}: restored step {step} after {fallbacks} "
+        f"fallback(s); losses {head + tail} against {head_u + tail_u}; final state digest "
+        f"equal {got == want}; save stall {first['stall_s'] * 1e3:.1f} ms{second_txt}, save() "
+        f"{save_call_s * 1e3:.1f} ms, durable after {first['durable_s']:.3f} s, digest "
+        f"{first['digest_s']:.3f} s, wait() {wait_s:.3f} s, restore {restore_s:.3f} s, "
+        f"{first['bytes']} bytes on disk for this rank; the step with the save in flight "
+        f"{t_flight[0] * 1e3:.1f} ms against {times_u[CKPT_SAVE_AT] * 1e3:.1f} ms without; "
+        f"launches {launches_u} uninterrupted, {launches} after the restore")
+    if step != CKPT_SAVE_AT or fallbacks != int(second_save):
+        raise AssertionError(f"checkpoint {label}: restored step {step} after {fallbacks} "
+                             f"fallbacks, expected step {CKPT_SAVE_AT} after {int(second_save)}")
+    if head + tail != head_u + tail_u or got != want:
+        raise AssertionError(f"checkpoint {label}: the resumed run is not the uninterrupted "
+                             f"one (losses {head + tail} against {head_u + tail_u}, final "
+                             f"state digest equal {got == want})")
+    half = {k: v * (CKPT_STEPS - CKPT_SAVE_AT) // CKPT_STEPS for k, v in launches_u.items()}
+    if torch.cuda.is_available() and (launches != half or not any(launches_u.values())):
+        raise AssertionError(f"checkpoint {label}: launches {launches} after the restore, "
+                             f"{launches_u} in the uninterrupted run")
+    return record
+
+
+def flat_to_leaf_check(rank, build, directory):
+    """A flat-resident checkpoint of the replicated family restored into a
+    leaf trainer (``flat_resident="off"``): the parameters right after the
+    restore bitwise those of the flat run at its save, then two finite
+    steps.  ``build(**kw)`` returns ``(trainer, state, batch)``."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.checkpoint import compute_state_digest
+
+    def params(state):
+        torch.cuda.synchronize()
+        return compute_state_digest({n: p.detach() for n, p in
+                                     state.model.named_parameters()})["digest"]
+
+    trainer, state, batch = build()
+    flat = trainer._flat_resident
+    state, _, _ = _timed_steps(trainer, state, batch, CKPT_SAVE_AT)
+    mgr = bt.BaguaCheckpointManager(directory, async_save=False)
+    if not trainer.save_checkpoint(mgr, CKPT_SAVE_AT, state):
+        raise AssertionError("checkpoint flat -> leaf: the save was skipped")
+    want = params(state)
+    del trainer, state, batch
+    release()
+    trainer, state, batch = build(flat_resident="off")
+    step, state = trainer.restore_checkpoint(mgr, state)
+    got = params(state)
+    state, losses, _ = _timed_steps(trainer, state, batch, 2)
+    mgr.close()
+    log(f"[rank {rank}] checkpoint flat -> leaf: a {'resident' if flat else 'leaf'} "
+        f"checkpoint restored at step {step} into the "
+        f"{'resident' if trainer._flat_resident else 'leaf'} layout, parameters equal to the "
+        f"saved run's {got == want}, then losses {losses}")
+    if (not flat or step != CKPT_SAVE_AT or trainer._flat_resident or got != want
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"checkpoint flat -> leaf: step {step}, parameters equal "
+                             f"{got == want}, losses {losses}")
+    return {"name": "ckpt_flat_to_leaf", "kind": "checkpoint", "step": step,
+            "params_equal": got == want, "losses": losses}
+
+
+def checkpoint_run(rank, world, run, device, label):
+    """One run of the checkpoint phase on this rank (``CKPT_RUNS``)."""
+    from bagua_tpu_torch.faults.inject import FaultSpec
+    from bagua_tpu_torch.ops import codec as cd
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    name = run[0]
+    directory = os.path.join(_CKPT_DIR["root"], name)
+    if rank == 0:
+        os.makedirs(_CKPT_DIR["root"], exist_ok=True)
+        log(f"checkpoint {name}: {_free_gb(_CKPT_DIR['root']):.1f} GB free under "
+            f"{_CKPT_DIR['root']}")
+
+    def build(**extra):
+        spec = (run[0], run[1], run[2], {**run[3], **extra})
+        _, _, _, trainer, state, batch, _ = _build_run(rank, world, spec, device)
+        return trainer, state, batch
+
+    if name == "ckpt_flat_to_leaf":
+        return flat_to_leaf_check(rank, build, directory)
+    onebit = name == "ckpt_onebit"
+    # (b): the newest save corrupted on rank 1 alone
+    fault = (FaultSpec("ckpt.write", step=CKPT_STEPS, kind="corrupt", seed=5)
+             if onebit and rank == 1 else None)
+    return resume_check(name, build, [fa, cd], directory, second_save=onebit, fault=fault,
+                        rank=rank)
+
+
+def phase_checkpoint():
+    """(a): slice 1's long-context LM at world 1 over NCCL through the flash
+    kernels, its newest step torn (``resume_check``)."""
+    from bagua_tpu_torch.faults.inject import FaultSpec
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    with tempfile.TemporaryDirectory(prefix="bagua_ckpt_") as tmp:
+        log(f"checkpoint: {_free_gb(tmp):.1f} GB free under {tmp}")
+
+        def build():
+            _, trainer, state, batch = build_slice("longctx")
+            return trainer, state, batch
+
+        record = resume_check("slice 1 (long-context LM, world 1, NCCL)", build, [fa],
+                              os.path.join(tmp, "a"), second_save=True,
+                              fault=FaultSpec("ckpt.write", step=CKPT_STEPS, kind="torn"))
+    release()
+    return record
+
+
+def check_checkpoint(card, single, multi):
+    """The checkpoint phase's gates across the ranks (the same restored
+    step, the same losses), and its numbers beside the card's name and
+    power limit."""
+    for name, recs in multi.items():
+        if any(r["step"] != recs[0]["step"] for r in recs):
+            raise AssertionError(f"checkpoint {name}: the ranks restored different steps "
+                                 f"{[r['step'] for r in recs]}")
+        if any(r["losses"] != recs[0]["losses"] for r in recs):
+            raise AssertionError(f"checkpoint {name}: losses differ between the ranks")
+    rows = [("(a) " + single["name"], [single])] + [
+        (f"({'b' if name == 'ckpt_onebit' else 'c'}) {name}", recs)
+        for name, recs in multi.items() if "stall_s" in recs[0]]
+    for label, recs in rows:
+        for r, rec in enumerate(recs):
+            log(f"checkpoint {label} rank {r} on {card}: save stall {rec['stall_s'] * 1e3:.3f} "
+                f"ms, durable after {rec['durable_s'] * 1e3:.3f} ms, digest "
+                f"{rec['digest_s'] * 1e3:.3f} ms, restore {rec['restore_s'] * 1e3:.3f} ms, "
+                f"{rec['bytes']} bytes on disk; step with the save in flight "
+                f"{rec['step_ms_in_flight']:.3f} ms against {rec['step_ms_same_step_u']:.3f} "
+                f"ms without")
+
+
 def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     """One rank of a multi-rank phase of ``MULTI_RANK``: every run, records
     to ``out_path`` as JSON."""
@@ -2702,10 +3000,11 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     device = torch.device(device)
     bt.init_process_group(init_method, world_size=world, rank=rank, device=device,
                           backend="gloo", intra_size=intra)
+    _CKPT_DIR["root"] = os.path.join(os.path.dirname(os.path.abspath(out_path)), "ckpt")
     records = []
     for run in runs:
-        run_fn = {"async": async_run, "features": features_run,
-                  "overlap": overlap_run}.get(phase, compressed_run)
+        run_fn = {"async": async_run, "features": features_run, "overlap": overlap_run,
+                  "checkpoint": checkpoint_run}.get(phase, compressed_run)
         records.append(run_fn(rank, world, run, device, label))
         if device.type == "cuda":
             release()
@@ -2740,7 +3039,7 @@ def phase_multi_rank(phase):
                 ranks.append(json.load(f))
     for runs in zip(*ranks):
         name = runs[0]["name"]
-        if runs[0].get("kind") == "eager":
+        if runs[0].get("kind") in ("eager", "checkpoint"):
             continue
         if runs[0]["fingerprints"] is not None:
             check_gossip(label, runs, intra or 1)
@@ -3070,6 +3369,7 @@ def main():
         phase, rank, init, out = sys.argv[2:6]
         multi_rank_worker(phase, int(rank), init, out)
         return
+    script_t0 = time.perf_counter()
     seconds = {}
 
     def timed(name, fn, *args):
@@ -3091,6 +3391,7 @@ def main():
     release()
     timed("remat", phase_remat, {"longctx": base, "moe": base_moe})
     del base, base_moe
+    ckpt_single = timed("checkpoint (a)", phase_checkpoint)
     torch.distributed.destroy_process_group()
     release()   # the ranks of slices 3 and 4 share this card
     slice3 = timed("slice 3", phase_multi_rank, "slice3")
@@ -3107,6 +3408,8 @@ def main():
     check_features(features, zero)
     overlap = timed("overlap", phase_multi_rank, "overlap")
     check_overlap(overlap, zero)
+    ckpt_multi = timed("checkpoint (b, c)", phase_multi_rank, "checkpoint")
+    check_checkpoint(card, ckpt_single, ckpt_multi)
     for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
             continue
@@ -3116,7 +3419,8 @@ def main():
             f"{rec['stats']['step_ms']:.3f} ms against its {full['stats']['step_ms']:.3f}, "
             f"launches K1 {rec['launches']['compress_chunked']} K2 "
             f"{rec['launches']['decompress_chunked']} in {len(rec['losses'])} steps")
-    log(f"seconds by phase: {seconds}")
+    log(f"seconds by phase: {seconds}; the script's total "
+        f"{time.perf_counter() - script_t0:.1f} s")
     # each kernel's launches come from its own path: flash from slice 1, gmm
     # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8
     # ring, K4 and K5 from slice 4's main path (the other slices checked the

@@ -21,6 +21,14 @@ many CPU devices, its parameters stacked ``[world, ...]``.
   abort and resume, a pinned period's exact rounds, no rounds at world 1,
   periodic recalibration, the staleness bound with bitwise-equal ranks after
   each catch-up, a cap of 0, the knob's validation.
+- Mirrors of ``tests/test_async_model_average.py:294-415``, through
+  ``tests/workers/torch_checkpoint_worker.py``: a restore resets the
+  negotiated schedule (no round in flight, no period, no anchor, the round
+  counts from zero) and training goes on to a new period; a world-2
+  checkpoint saved after ``sync_for_checkpoint`` restores at world 1 (this
+  process) and 4 through the resize path, every rank on the saved
+  parameters, and resumes; one saved without it (divergent ranks) refuses
+  the resize restore.
 - What one JAX process cannot show: ``async.partition`` armed on rank 1
   alone (through ``BAGUA_FAULT_PLAN``), where the catch-up fires at the same
   boundary on every rank; the acceptance run of
@@ -387,3 +395,73 @@ def test_skewed_hosts_abort_and_resume_from_rank_zero(tmp_path_factory):
         losses = o["family/trace/losses"]
         assert np.isfinite(losses).all()
         assert np.mean(losses[-4:]) < np.mean(losses[:4]), losses
+
+
+# ---------------------------------------------------------------------------
+# checkpoint restore (tests/test_async_model_average.py:294-415)
+# ---------------------------------------------------------------------------
+
+_CKPT = {}
+
+
+def _ckpt_runs(tmp_path_factory):
+    from workers import torch_checkpoint_worker as worker
+
+    if not _CKPT:
+        tmp = tmp_path_factory.mktemp("async_ckpt")
+        root = tmp / "ck"
+        _CKPT["two"] = worker.spawn(2, ["reset:async:7", "save:async:7",
+                                        "nosync:async_nosync:4"], tmp, root)
+        _CKPT["four"] = worker.spawn(4, ["load:async:7", "load:async_nosync:4"], tmp, root)
+        _CKPT["root"] = root
+    return _CKPT
+
+
+def _golden_world1(tmp_path):
+    from test_torch_checkpoint import _golden
+
+    bt.init_process_group(device="cpu")
+    return _golden(tmp_path)
+
+
+def test_restore_resets_async_schedule(tmp_path_factory):
+    for out in _ckpt_runs(tmp_path_factory)["two"]:
+        rec = out["reset:async:7"]
+        assert rec["step"] == 7
+        assert rec["before"]["period"] is not None
+        assert rec["after"] == {"pending": False, "period": None, "anchor": None,
+                                "launched": 0, "applied": 0}
+        assert rec["later"]["period"] is not None
+        assert np.isfinite(rec["losses"]).all()
+
+
+def test_async_elastic_world_resize_restore(tmp_path_factory, tmp_path):
+    from workers import torch_checkpoint_worker as worker
+
+    runs = _ckpt_runs(tmp_path_factory)
+    saved = runs["two"][0]["save:async:7"]
+    assert runs["two"][1]["save:async:7"]["digest"] == saved["digest"]
+    for out in runs["four"]:
+        rec = out["load:async:7"]
+        assert rec["step"] == 7 and rec["resized"] == 1
+        assert rec["params_digest"] == saved["digest"]
+        assert np.isfinite(rec["losses"]).all()
+    params_path, batch = _golden_world1(tmp_path)
+    rec = worker.run_load("async", 7, batch, params_path, str(runs["root"]), "async")
+    assert rec["step"] == 7 and rec["resized"] == 1
+    assert rec["params_digest"] == saved["digest"]
+    assert np.isfinite(rec["losses"]).all()
+
+
+def test_async_resize_restore_divergent_rows_raise(tmp_path_factory, tmp_path):
+    from workers import torch_checkpoint_worker as worker
+
+    runs = _ckpt_runs(tmp_path_factory)
+    two = runs["two"]
+    assert two[0]["nosync:async_nosync:4"]["digest"] != two[1]["nosync:async_nosync:4"]["digest"]
+    for out in runs["four"]:
+        assert "DIVERGENT per-rank rows" in out["load:async_nosync:4"]["error"]
+    params_path, batch = _golden_world1(tmp_path)
+    rec = worker.run_load("async_nosync", 1, batch, params_path, str(runs["root"]),
+                          "async_nosync")
+    assert "DIVERGENT per-rank rows" in rec["error"]
