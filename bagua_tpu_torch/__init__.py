@@ -62,8 +62,22 @@ from .models.transformer import (  # noqa: F401
     TransformerLM,
     bert_large_config,
     lm_loss_fn,
+    sp_lm_loss_fn,
 )
-from .model_parallel.moe import MoEMLP, moe_lm_loss_fn  # noqa: F401
+from .model_parallel.moe import (  # noqa: F401
+    MoEMLP,
+    globalize_expert_params,
+    moe_lm_loss_fn,
+)
 from .ops.flash_attention import flash_attention, reference_attention  # noqa: F401
 from .ops.gmm import gmm  # noqa: F401
+from .parallel import (  # noqa: F401
+    build_mesh,
+    get_global_mesh,
+    hierarchical_mesh,
+    make_ring_attention,
+    make_ulysses_attention,
+    mesh_axis_size,
+    set_global_mesh,
+)
 from .tensor import NamedParam, build_params  # noqa: F401

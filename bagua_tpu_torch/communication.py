@@ -438,6 +438,24 @@ class BaguaCommunicator:
             return x.clone()
         return self.ppermute(x, [(i, p) for i, p in enumerate(peers) if p != i])
 
+    def alltoall_packed(self, x: torch.Tensor, send_sizes: Sequence[int],
+                        recv_sizes: Sequence[int]) -> torch.Tensor:
+        """Exact-count all-to-all with packed rows: ``x`` holds this rank's
+        outgoing rows packed by destination (``send_sizes[i]`` rows for rank
+        ``i``, rank 0's first); returns the ``recv_sizes[j]`` rows from each
+        rank ``j``, packed in source rank order.  The sizes are host
+        integers, and ``recv_sizes`` must be what the peers send."""
+        n = self.nranks()
+        for name, v in (("send_sizes", send_sizes), ("recv_sizes", recv_sizes)):
+            if len(v) != n:
+                raise ValueError(f"alltoall_packed: {name} needs {n} entries, got {len(v)}")
+        send_sizes, recv_sizes = [int(v) for v in send_sizes], [int(v) for v in recv_sizes]
+        wire = self._to_wire(x[:sum(send_sizes)])
+        recv = self._wire_empty((sum(recv_sizes),) + tuple(x.shape[1:]), x)
+        dist.all_to_all_single(recv, wire, output_split_sizes=recv_sizes,
+                               input_split_sizes=send_sizes, group=self.group)
+        return self._from_wire(recv, x)
+
     def alltoall_v(self, x: torch.Tensor, output: torch.Tensor, input_offsets: Sequence[int],
                    send_sizes: Sequence[int], output_offsets: Sequence[int],
                    recv_sizes: Sequence[int]) -> torch.Tensor:
@@ -460,11 +478,7 @@ class BaguaCommunicator:
         offsets = torch.tensor([[int(o)] for o in output_offsets], dtype=torch.int64,
                                device=x.device)
         lands = self.alltoall(offsets).reshape(n).tolist()
-        wire = self._to_wire(send)
-        recv = self._wire_empty((sum(recv_sizes),) + tuple(x.shape[1:]), x)
-        dist.all_to_all_single(recv, wire, output_split_sizes=recv_sizes,
-                               input_split_sizes=send_sizes, group=self.group)
-        recv = self._from_wire(recv, x)
+        recv = self.alltoall_packed(send, send_sizes, recv_sizes)
         out = output.clone()
         start = 0
         for land, size in zip(lands, recv_sizes):

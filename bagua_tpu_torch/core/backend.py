@@ -51,6 +51,16 @@ first overlapped step, the plan is rebucketed in the order the hooks saw the
 gradients arrive (rank 0's order, on every rank), so that the first bucket
 issued is the first one finished.
 
+Expert and sequence parallelism (``mesh``, ``expert_axis``, ``seq_axis``;
+``backend.py:336-406``) run their model-side collectives inside the forward
+and backward (``MoEMLP``, ring and Ulysses attention, each over its axis's
+process group of the mesh).  The bucket collectives span ``dp + ep + sp``,
+which is every rank of such a mesh: the global communicator.  The expert
+tables stay out of the bucket plan; after the backward each is divided by
+``ep_size`` (the all-to-all backward already summed every ep peer's
+contribution into the owner's table) and averaged over dp (+ sp) on that
+group's communicator (``backend.py:1532-1546``).
+
 PyTorch runs eagerly, so there is no compiled-step cache; the state is the
 module and the optimizer, updated in place, rather than an immutable pytree.
 """
@@ -82,6 +92,8 @@ from ..compression.codecs import validate_codec_policy
 from .overlap import CommWorker, OverlapStep
 from ..device import resolve_device
 from ..faults import inject as _inject
+from ..model_parallel.moe.layer import is_expert_param
+from ..parallel.mesh import Mesh, get_global_mesh_if_set
 from ..telemetry import counters
 from ..tensor import build_params
 
@@ -242,6 +254,26 @@ class BaguaTrainer:
         overlap_chunk_bytes_inter: the target of the inter-node tier
             (default env ``BAGUA_OVERLAP_CHUNK_BYTES_INTER``, 0:
             ``overlap_chunk_bytes``).
+        mesh: the :class:`~bagua_tpu_torch.parallel.mesh.Mesh` of named rank
+            axes (default: the global mesh where one is set, else the 1-D
+            ``dp`` layout of every rank, with no groups of its own).
+        dp_axes: the data-parallel axes (default: the mesh's ``dp``,
+            ``inter`` and ``intra`` axes that are neither ``expert_axis``
+            nor ``seq_axis``; the first axis where there is none and no
+            model axis is given).
+        expert_axis: the mesh axis of expert parallelism (MoE).  The expert
+            tables leave the bucket plan and are averaged over the dp (+ sp)
+            axes after a ``1 / ep_size`` rescale; the batch is split over dp
+            x ep.  The layout stays the leaf one and the error-feedback
+            residual is off, as in the JAX package.
+        expert_params: which parameters are expert tables: a ``name ->
+            bool`` callable or a collection of names (default: the exact
+            names ``MoEMLP`` creates, ``is_expert_param``).
+        expert_keyword: deprecated substring marking (warns).
+        seq_axis: the mesh axis of sequence parallelism (ring attention,
+            Ulysses).  Ranks along it take the same batch (each cuts its
+            chunk, see ``sp_lm_loss_fn``) and the bucket collectives span
+            it, which turns their partial gradients into the whole one.
     """
 
     def __init__(
@@ -261,6 +293,12 @@ class BaguaTrainer:
         overlap_chunk_bytes: Optional[int] = None,
         overlap_chunk_bytes_intra: Optional[int] = None,
         overlap_chunk_bytes_inter: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
+        dp_axes: Optional[Tuple[str, ...]] = None,
+        expert_axis: Optional[str] = None,
+        expert_params=None,
+        expert_keyword: Optional[str] = None,
+        seq_axis: Optional[str] = None,
     ):
         self.loss_fn = loss_fn
         self.optimizer_factory = optimizer_factory
@@ -271,6 +309,7 @@ class BaguaTrainer:
         self.backend = get_backend()
         self.comm = self.backend.global_communicator
         self.world_size = self.comm.nranks()
+        self._setup_mesh(mesh, dp_axes, expert_axis, expert_params, expert_keyword, seq_axis)
         self.compress_intra = validate_codec_policy(
             env.get_compress_intra() if compress_intra is None else compress_intra,
             "compress_intra")
@@ -279,7 +318,7 @@ class BaguaTrainer:
             "compress_inter")
         #: whether the error-feedback residual may be carried; whether it is
         #: is the algorithm's call (``Algorithm.ef_codec``)
-        self._ef_enabled = not env.is_ef_residual_disabled()
+        self._ef_enabled = not env.is_ef_residual_disabled() and self.expert_axis is None
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.accum_steps = int(accum_steps)
@@ -351,6 +390,114 @@ class BaguaTrainer:
         #: train_step calls on this trainer, the counter ``need_reset`` reads
         self._step_counter = 0
 
+    def _setup_mesh(self, mesh, dp_axes, expert_axis, expert_params, expert_keyword,
+                    seq_axis) -> None:
+        """The mesh and its axes' roles, with the JAX trainer's checks
+        (``backend.py:336-406``)."""
+        algo = self.algorithm
+        self._expert_comm, self._ep_size = None, 1
+        self.mesh = mesh if mesh is not None else get_global_mesh_if_set()
+        axis_names = self.mesh.axis_names if self.mesh is not None else ("dp",)
+        # fail fast on typo'd axis names: silently nulling them would put the
+        # expert tables into the dense plan and corrupt MoE training
+        for label, ax in (("expert_axis", expert_axis), ("seq_axis", seq_axis)):
+            if ax is not None and ax not in axis_names:
+                raise ValueError(f"{label}={ax!r} is not a mesh axis (mesh axes: {axis_names})")
+        self.expert_axis, self.seq_axis = expert_axis, seq_axis
+        self._expert_filter = self._make_expert_filter(expert_params, expert_keyword)
+        if dp_axes is None:
+            dp_axes = tuple(a for a in axis_names if a in ("dp", "inter", "intra")
+                            and a not in (expert_axis, seq_axis))
+            if not dp_axes and expert_axis is None and seq_axis is None:
+                dp_axes = (axis_names[0],)
+        self.dp_axes = tuple(dp_axes)
+        self.comm_axes = self.dp_axes
+        if expert_axis is None and seq_axis is None:
+            return
+        if not algo.replicated_params:
+            raise NotImplementedError(
+                "expert/sequence parallelism with gossip (per-rank-weight) algorithms is not "
+                "supported yet")
+        roadmap = "(ROADMAP.md, Queue 1 item 5)"
+        if getattr(algo, "hierarchical", False):
+            raise NotImplementedError(
+                f"{type(algo).__name__}(hierarchical=True) on a mesh with an expert or sequence "
+                f"axis is not ported yet {roadmap}: pass hierarchical=False")
+        if expert_axis is not None and algo.owns_optimizer:
+            raise NotImplementedError(
+                f"{type(algo).__name__} with expert_axis is not ported yet {roadmap}: its "
+                "optimizer state covers the bucket plan, which the expert tables leave; use "
+                "GradientAllReduceAlgorithm or ByteGradAlgorithm with a torch optimizer")
+        self.comm_axes = self.dp_axes + tuple(a for a in (expert_axis, seq_axis) if a)
+        left = [a for a in axis_names if a not in self.comm_axes and self.mesh.shape[a] > 1]
+        if left:
+            raise NotImplementedError(
+                f"mesh axes {left} are neither data, expert nor sequence axes: tensor and "
+                f"pipeline parallelism are not ported yet {roadmap}")
+        if expert_axis is not None:
+            self._ep_size = self.mesh.shape[expert_axis]
+            expert_dp = self.dp_axes + ((seq_axis,) if seq_axis else ())
+            self._expert_comm = self.mesh.comm(expert_dp) if expert_dp else None
+
+    @staticmethod
+    def _make_expert_filter(expert_params, expert_keyword):
+        """``backend.py:784-806``: a name filter, a collection of names, the
+        deprecated keyword, or the exact names ``MoEMLP`` creates."""
+        if expert_params is not None and expert_keyword is not None:
+            raise ValueError("pass expert_params OR expert_keyword, not both")
+        if expert_keyword is not None:
+            import warnings
+
+            warnings.warn("expert_keyword substring matching is deprecated; pass "
+                          "expert_params (a name filter or collection of names)",
+                          DeprecationWarning, stacklevel=4)
+            return lambda name: expert_keyword in name
+        if expert_params is None:
+            return is_expert_param
+        if callable(expert_params):
+            return expert_params
+        names = frozenset(expert_params)
+        return lambda name: name in names
+
+    def _is_expert_name(self, name: str) -> bool:
+        return self.expert_axis is not None and self._expert_filter(name)
+
+    def _expert_names(self) -> List[str]:
+        return [n for n in self._params if self._is_expert_name(n)]
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's slice of the global batch: its index along dp x ep
+        (the ranks of one sequence-parallel group share it)."""
+        if self.expert_axis is None and self.seq_axis is None:
+            return self.comm.rank()
+        return self.mesh.index(self.dp_axes + ((self.expert_axis,) if self.expert_axis else ()))
+
+    @property
+    def data_world(self) -> int:
+        """The number of distinct batch slices: the size of dp x ep."""
+        if self.expert_axis is None and self.seq_axis is None:
+            return self.world_size
+        return self.mesh.size_of(self.dp_axes + ((self.expert_axis,) if self.expert_axis else ()))
+
+    @torch.no_grad()
+    def _expert_grads(self) -> Dict[str, torch.Tensor]:
+        """The expert tables' gradients: divided by ``ep_size``, averaged
+        over dp (+ sp) in one allreduce of their concatenation."""
+        names = self._expert_names()
+        if not names:
+            return {}
+        grads = [(self._params[n].grad if self._params[n].grad is not None
+                  else torch.zeros_like(self._params[n])) for n in names]
+        flat = torch.cat([g.reshape(-1) for g in grads]) / self._ep_size
+        if self._expert_comm is not None:
+            flat = self._expert_comm.allreduce(flat, ReduceOp.AVG)
+        out, off = {}, 0
+        for n, g in zip(names, grads):
+            out[n] = flat[off:off + g.numel()].view_as(g)
+            off += g.numel()
+        return out
+
     @property
     def plan(self) -> BucketPlan:
         return self._ctx.plan
@@ -361,6 +508,8 @@ class BaguaTrainer:
         global and the two tier communicators and the algorithm's own
         (async model average's averaging group)."""
         comms = self.backend.communicators() + self.algorithm.communicators()
+        if self.mesh is not None:
+            comms += [c for c in self.mesh.communicators() if all(c is not d for d in comms)]
         return sum(c.host_staged_bytes for c in comms)
 
     def _ef_active(self) -> bool:
@@ -408,10 +557,12 @@ class BaguaTrainer:
     # ---- layout ----------------------------------------------------------
 
     def _flat_supported(self) -> bool:
-        """Whether the resident layout can hold this configuration: the
-        family implements it (the port has no model-parallel axes, whose
-        sharded leaves would live outside the bucket plan)."""
-        return self.algorithm.supports_flat_resident
+        """Whether the resident layout can hold this configuration
+        (``backend.py:659-668``): the family implements it and every
+        parameter is in the bucket plan, which the expert tables leave (so
+        expert parallelism keeps the leaf layout; sequence parallelism does
+        not change the plan)."""
+        return self.algorithm.supports_flat_resident and self.expert_axis is None
 
     def _resolve_flat_resident(self) -> bool:
         """The layout of this ``init()`` (``backend.py:671-707``): explicit
@@ -487,18 +638,25 @@ class BaguaTrainer:
         leaves) and build the optimizer (or the algorithm's optimizer
         state)."""
         model.to(self.device)
+        self._params = dict(model.named_parameters())
+        experts = set(self._expert_names())
         with torch.no_grad():
-            for p in model.parameters():
-                dist.broadcast(p.data, src=0)
+            for n, p in self._params.items():
+                if n not in experts:
+                    dist.broadcast(p.data, src=0)
+                elif self._expert_comm is not None:
+                    # an ep shard's tables: the same on its dp (+ sp) replicas
+                    c = self._expert_comm
+                    dist.broadcast(p.data, src=c._global_rank(0), group=c.group)
         algo = self.algorithm
-        named = algo.init_tensors(build_params(model))
+        # the expert tables stay out of the bucket plan (``backend.py:843-850``)
+        named = [p for p in algo.init_tensors(build_params(model)) if p.name not in experts]
         self._named_params = named
         decls = [p.declaration() for p in named]
         plan = algo.tensors_to_buckets(
             split_bucket_by_bucket_size(decls, self.bucket_bytes), named, self.world_size)
         self._flat_resident = self._resolve_flat_resident()
         self._ctx = self._make_ctx(plan, self._overlap_active())
-        self._params = dict(model.named_parameters())
         if self._flat_resident:
             with torch.no_grad():
                 self._lay_out(plan, plan.flatten(self._params))
@@ -509,7 +667,7 @@ class BaguaTrainer:
             self._overlap_hooks = [
                 p.register_post_accumulate_grad_hook(
                     functools.partial(_grad_accumulated, weakref.ref(self), name))
-                for name, p in self._params.items()]
+                for name, p in self._params.items() if name not in experts]
         params = self._stage_params()
         with torch.no_grad():
             algo_state = algo.init_state(self._ctx, params)
@@ -521,21 +679,41 @@ class BaguaTrainer:
                                            else model.parameters())
         return TrainState(0, model, optimizer, algo_state)
 
-    def shard_batch(self, local_batch: Mapping) -> dict:
+    def shard_batch(self, local_batch: Mapping, global_batch: bool = False) -> dict:
         """This rank's batch on the trainer's device.  Each rank feeds its
         own slice of the global batch, as each reference rank feeds its own
-        DataLoader split."""
+        DataLoader split.  With ``global_batch`` the mapping holds the whole
+        global batch and this rank's slice along dim 0 is taken: slice
+        :attr:`data_rank` of :attr:`data_world` (``backend.py:3159-3161``:
+        the data rank is the index along dp x ep, and the ranks of one
+        sequence-parallel group take the same slice)."""
         def put(x):
             if not isinstance(x, torch.Tensor):
                 x = torch.tensor(np.asarray(x))
+            if global_batch:
+                n, r = self.data_world, self.data_rank
+                if x.shape[0] % n:
+                    raise ValueError(f"global batch of {x.shape[0]} rows does not split over "
+                                     f"{n} data ranks")
+                rows = x.shape[0] // n
+                x = x[r * rows:(r + 1) * rows]
             return x.to(self.device, non_blocking=True)
 
         return {k: put(v) for k, v in local_batch.items()}
 
     def unstack_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
         """The parameters by name as tensors of their own (for eval,
-        checkpoints, user code), whatever the layout: this rank's copy."""
-        return {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        checkpoints, user code), whatever the layout: this rank's copy, with
+        the expert tables gathered over the expert axis into their global
+        ``[n_experts, ...]`` shape (``backend.py:3714-3748``; collective
+        under expert parallelism)."""
+        out = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        if self.expert_axis is not None:
+            comm = self.mesh.comm(self.expert_axis)
+            for n in self._expert_names():
+                if comm is not None:
+                    out[n] = comm.allgather(out[n], axis=0, tiled=True)
+        return out
 
     # ---- step ------------------------------------------------------------
 
@@ -694,7 +872,9 @@ class BaguaTrainer:
         for spec in fires:
             _inject.note_traced_fire(spec)
         params = self._stage_params()
-        replicated_health = algo.grad_health_replicated
+        # under expert parallelism the expert tables differ between ranks:
+        # the verdict is then taken on the updated parameters, MIN over all
+        replicated_health = algo.grad_health_replicated and self.expert_axis is None
         if ctx.overlap and self._flat_resident:
             overlap_step, residuals = self._overlap_step(state, fires)
             try:
@@ -721,6 +901,8 @@ class BaguaTrainer:
                         else None)
             process = algo.process_grads_bucketed if ctx.overlap else algo.process_grads
             grads, algo_state = process(ctx, grads, params, state.algo_state, state.step)
+        if self.expert_axis is not None:
+            grads = {**grads, **self._expert_grads()}
         opt_state, health, rewind = state.opt_state, None, False
         if guard != "off" and replicated_health:
             # the reduced buckets are the same on every rank and a non-finite
@@ -838,6 +1020,11 @@ class BaguaTrainer:
         if isinstance(tensors, dict):
             flags = [torch.stack([torch.isfinite(tensors[t.name]).all() for t in b.tensors]).all()
                      for b in self.plan.buckets]
+            # the tensors outside the plan (expert tables) share one last slot
+            extras = [torch.isfinite(tensors[n]).all() for n in self._expert_names()
+                      if n in tensors]
+            if extras:
+                flags.append(torch.stack(extras).all())
         else:
             flags = [torch.isfinite(f).all() for f in tensors]
         return torch.stack(flags).float()
@@ -998,8 +1185,9 @@ class BaguaTrainer:
         shapes depend on the plan), ``stacked`` (per-rank state), and where
         they apply ``flat_layout`` (the plan's layout descriptor),
         ``opt_shards`` (the ranks ZeRO's optimizer state is sharded over: the
-        intra-node ones when staged) and ``ef`` (the error-feedback
-        residual's world and plan)."""
+        intra-node ones when staged), ``ef`` (the error-feedback residual's
+        world and plan) and, under expert or sequence parallelism, ``mesh``
+        (the mesh's axis sizes; the JAX package records no mesh)."""
         if self._ctx is None:
             raise RuntimeError("checkpoint_layout_metadata() needs the bucket plan — call "
                                "trainer.init(model) first")
@@ -1020,6 +1208,10 @@ class BaguaTrainer:
         if self._ef_active():
             meta["ef"] = {"world": int(self.comm.nranks()),
                           "flat_layout": plan.layout_descriptor()}
+        if self.expert_axis is not None or self.seq_axis is not None:
+            meta["mesh"] = {a: int(n) for a, n in self.mesh.shape.items()}
+        if self.expert_axis is not None:
+            meta["expert_axis"] = self.expert_axis
         return meta
 
     def _require_no_pending_migration(self, what: str) -> None:
@@ -1045,15 +1237,23 @@ class BaguaTrainer:
         bucket flats, or the tensors by name), the optimizer's state by
         parameter key, the algorithm's optimizer state and algorithm state.
         Parameters and optimizer state are per rank where the family's
-        weights differ between ranks (gossip, async); a sharded optimizer
-        state (ZeRO) and the algorithm state (the error-feedback residual,
-        peer weights, replicas) always are."""
+        weights differ between ranks (gossip, async), and so are the expert
+        tables and their optimizer state under expert parallelism; a sharded
+        optimizer state (ZeRO) and the algorithm state (the error-feedback
+        residual, peer weights, replicas) always are."""
         algo = self.algorithm
         params = ({"flats": list(self._flats)} if self._flat_resident else dict(self._params))
         optimizer = (None if state.optimizer is None
                      else optimizer_state_tree(state.optimizer, self._param_keys()))
         shared = {"step": int(state.step)}
         own = {"algo_state": to_tree(state.algo_state)}
+        experts = self._expert_names()
+        if experts:
+            # an ep shard's tables and their optimizer state are its own
+            own["expert_params"] = {n: params.pop(n) for n in experts}
+            if optimizer is not None:
+                own["expert_optimizer"] = {n: optimizer["state"].pop(n) for n in experts
+                                           if n in optimizer["state"]}
         (shared if algo.replicated_params else own).update(params=params, optimizer=optimizer)
         opt_state = algo.checkpoint_opt_state(state.opt_state)
         if algo.sharded_opt_state or not algo.replicated_params:
@@ -1126,6 +1326,7 @@ class BaguaTrainer:
         algo = self.algorithm
         saved = manager.read_layout(step)
         expected = self.checkpoint_layout_metadata()
+        self._check_mesh(step, saved, expected)
         saved_layout = (manager._normalize_layout(saved) or {}).get("layout")
         same_plan = saved is not None and saved.get("plan_signature") == expected["plan_signature"]
         saved_world = (saved or {}).get("world_size")
@@ -1153,6 +1354,7 @@ class BaguaTrainer:
                 return step, functools.partial(restore_train_state, state_like, own)
             tree = dict(shared or {})
             tree.update(own or {})
+            _merge_expert_parts(tree)
         if convert is not None:
             tree = self._convert_layout(tree, *convert)
             logger.info("restore_checkpoint: converted step %s from %s layout to %s", step,
@@ -1161,6 +1363,21 @@ class BaguaTrainer:
                                                       tree.get("algo_state"))
         self._check_restored(state_like, tree)
         return step, functools.partial(self._apply_restored, state_like, tree)
+
+    def _check_mesh(self, step: int, saved: Optional[dict], expected: dict) -> None:
+        """A checkpoint of expert-sharded state restores only at its own
+        expert-axis size: another one re-slices every expert table, which is
+        not ported yet."""
+        saved_mesh, live_mesh = (saved or {}).get("mesh"), expected.get("mesh")
+        saved_axis = (saved or {}).get("expert_axis")
+        if saved is None or saved_mesh == live_mesh or not (saved_axis or self.expert_axis):
+            return
+        raise ValueError(
+            f"checkpoint step {step} was saved on the mesh {saved_mesh} (expert axis "
+            f"{saved_axis!r}), this trainer runs {live_mesh} (expert axis "
+            f"{self.expert_axis!r}): a restore across expert-parallel meshes would re-slice "
+            "every expert table and is not ported yet (ROADMAP.md, Queue 1 item 5).  Restore "
+            "on the saved mesh.")
 
     def _load_stacked_resized(self, manager, step: int, saved: dict, saved_world: int) -> dict:
         """Per-rank leaf state across a world resize (``backend.py:3625-3713``):
@@ -1398,6 +1615,19 @@ def _grad_accumulated(trainer_ref, name: str, param) -> None:
         trainer._grad_order.append(name)
     if trainer._live_step is not None:
         trainer._live_step.on_grad(name)
+
+
+def _merge_expert_parts(tree: dict) -> None:
+    """Put a rank's own expert tables and their optimizer state (saved apart
+    from the shared parameters) back into the tree's ``params`` and
+    ``optimizer``, in place."""
+    expert_params = tree.pop("expert_params", None)
+    expert_opt = tree.pop("expert_optimizer", None)
+    if expert_params:
+        tree["params"] = {**tree["params"], **expert_params}
+    if expert_opt and tree.get("optimizer") is not None:
+        tree["optimizer"] = {**tree["optimizer"],
+                             "state": {**tree["optimizer"]["state"], **expert_opt}}
 
 
 def _relayout_container(obj, old_plan: BucketPlan, new_plan: BucketPlan):

@@ -1,1 +1,2 @@
-"""Model parallelism: so far the Mixture-of-Experts layer, on one shard."""
+"""Model parallelism: the Mixture-of-Experts layer, expert-parallel over a
+mesh axis."""

@@ -21,6 +21,13 @@ flax params onto them.
 ``remat_policy``), as the JAX model does (``transformer.py:395-398``); the
 blocks stay the same modules, so the parameter names and their order do not
 change.
+
+``sp_axis`` makes the model sequence-parallel (``transformer.py:380-383``):
+each rank holds the chunk at its coordinate on that axis of the global mesh
+(:mod:`bagua_tpu_torch.parallel.mesh`), adds the position rows of that
+chunk, and attends over the whole sequence through an ``attn_fn`` of
+:mod:`bagua_tpu_torch.parallel` (ring or Ulysses); :func:`sp_lm_loss_fn`
+cuts each rank's chunk and targets out of the whole batch.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..parallel.mesh import get_global_mesh_if_set
 from ..utils import remat_wrap
 
 
@@ -53,6 +61,10 @@ class TransformerConfig:
     #: whole block (lowest memory), "dots" = save every matmul output,
     #: "dots_no_batch" = save matmul outputs without batch dims
     remat_policy: Optional[str] = None
+    #: sequence-parallel mesh axis: when set and in the global mesh, each
+    #: rank holds a contiguous chunk of the sequence and its position rows
+    #: start at its coordinate on the axis times the local length
+    sp_axis: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
@@ -206,12 +218,22 @@ class TransformerLM(nn.Module):
     def forward(self, tokens):
         cfg = self.cfg
         s = tokens.shape[1]
+        start = sp_rank(cfg.sp_axis) * s
         x = self.embed(tokens).to(cfg.dtype)
-        x = x + self.pos_embed.weight[:s].to(cfg.dtype)
+        x = x + self.pos_embed.weight[start:start + s].to(cfg.dtype)
         for i in range(cfg.n_layers):
             block = getattr(self, f"block_{i}")
             x = (remat_wrap(block, cfg.remat_policy) if cfg.remat else block)(x)
         return self.lm_head(self.final_norm(x)).float()
+
+
+def sp_rank(sp_axis: Optional[str]) -> int:
+    """This rank's coordinate on the sequence-parallel axis of the global
+    mesh; 0 without the axis (or without a mesh), as JAX's unbound axis."""
+    mesh = get_global_mesh_if_set()
+    if sp_axis is None or mesh is None or sp_axis not in mesh.shape:
+        return 0
+    return mesh.coords[sp_axis]
 
 
 def lm_loss_fn(model: TransformerLM, batch) -> torch.Tensor:
@@ -220,3 +242,26 @@ def lm_loss_fn(model: TransformerLM, batch) -> torch.Tensor:
     logits = model(tokens[:, :-1])
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            tokens[:, 1:].reshape(-1).long())
+
+
+def sp_lm_loss_fn(sp_size: int, sp_axis: str = "sp") -> Callable:
+    """Sequence-parallel next-token loss (``transformer.py:465-486``):
+    ``batch["tokens"]`` is the WHOLE ``[batch, seq + 1]`` array, the same on
+    every rank of the ``sp_axis``; each rank cuts its contiguous chunk of
+    ``seq / sp_size`` inputs and their targets, runs the model on them and
+    returns the mean loss of its targets.  The trainer's loss average over
+    the ranks is the mean of the whole sequence, the chunks being equal."""
+
+    def loss_fn(model, batch):
+        tokens = batch["tokens"]
+        seq = tokens.shape[1] - 1
+        if seq % sp_size:
+            raise ValueError(f"sequence {seq} does not split over sp_size {sp_size}")
+        s_local = seq // sp_size
+        start = sp_rank(sp_axis) * s_local
+        logits = model(tokens[:, start:start + s_local])
+        targets = tokens[:, start + 1:start + 1 + s_local]
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1).long())
+
+    return loss_fn

@@ -208,6 +208,35 @@ Phases, in order; any failure exits non-zero before the result line:
    snapshot), the time until it is durable, its digest time, the restore's
    time, the bytes on disk and the step with the save in flight against the
    same step without one, beside the card's name and power limit.
+21. model_parallel, expert and sequence parallelism at world size 2, two ranks
+   as in slice 3, one spawn (``MP_RUNS``).  (a) Slice 2's MoE LM at full width
+   expert-parallel over the mesh ``{"ep": 2}`` (4 experts and 8 rows a rank,
+   ``expert_axis="ep"``, Adam 1e-4, ``FULL_STEPS`` steps), from the world-1
+   model's weights, first with the dense-slot exchange, then with the
+   exact-count one: exact launches (K7a ``4 n_moe`` and K7b ``2 n_moe`` a
+   step, each flash kernel ``n_layers``), the dense parameters bitwise equal
+   on both ranks, the two forms bitwise equal (losses, dense and expert
+   parameters), every step's loss within ``MP_LOSS_RTOL`` of slice 2's model
+   at world 1 on the global batch of 16 (run at the end of slice 2's phase,
+   alone); on a cut (``MP_CUT``: d_model 128, f32, SGD 0.1) one step equal to
+   the world-1 step within ``MP_CUT_RTOL`` of every parameter, a check that
+   a missing ``1 / ep`` rescale would fail.  (b) Slice 1's LM at full width
+   sequence-parallel over ``{"sp": 2}``: the attention alone (ring with the
+   flash kernels, ring's plain loop, Ulysses), outputs and q/k/v gradients
+   gathered over sp against world-1 ``flash_attention``; on a cut
+   (``SP_CUT``: d_model 256, f32, SGD 0.1) one ring step and one Ulysses step
+   equal to the world-1 step within ``MP_CUT_RTOL`` of every parameter, a
+   check that a control run at position offset 0 fails; then
+   ``sp_lm_loss_fn`` with the ring and with Ulysses, ``FULL_STEPS`` AdamW
+   steps each: exact launches (ring ``n_layers * sp`` of each flash kernel a
+   step, Ulysses ``n_layers``), dense parameters bitwise equal on both ranks,
+   losses within ``MP_LOSS_RTOL`` of slice 1's.  Prints step times, peaks,
+   the bytes staged a step (the mesh axis's collectives apart) and, in an
+   EP step of its own, the time in the exchange; K7a/K7b at the EP rank's
+   shapes held against their plain versions (``GMM_TOL``, ``GMM_DRHS_TOL``)
+   and timed beside them, ``torch._grouped_mm`` and their bounds.  The kernel phase also holds K6a-c non-causal with a random
+   nonzero ``dlse`` at the ring's per-rank shape (b·h 32, s 2048) and times
+   them beside SDPA's ``is_causal=False``.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -247,6 +276,8 @@ WIDE = dict(bh=4)
 SQUAD_TINY = dict(vocab_size=1024, d_model=128, n_heads=4, n_layers=4, d_ff=512,
                   max_seq_len=384)
 CODEC_WORLD = 2
+#: the model_parallel phase's ranks (one mesh axis of 2)
+MP_WORLD = 2
 CODEC_BUCKET_BYTES = 10 * 1024 ** 2
 STEPS = 10
 # flash: bf16 and f16 round P and dS at other places than the plain versions
@@ -406,15 +437,20 @@ def _inputs(bh, s, d, dtype, seed):
             for _ in range(4)]
 
 
-def check_kernels(bh, s, d, dtype, causal, seed=0):
+def check_kernels(bh, s, d, dtype, causal, seed=0, dlse=False):
     """Every kernel against its plain version on one input; returns the
-    inputs and the absolute errors by kernel."""
+    inputs and the absolute errors by kernel.  ``dlse``: a random nonzero
+    logsumexp cotangent enters the backward's row statistic (``delta -
+    dlse``), as ring attention's merge makes it."""
     from bagua_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = _inputs(bh, s, d, dtype, seed)
     o, lse = fa.flash_fwd(q, k, v, causal)
     po, plse = fa.fwd_plain(q, k, v, causal)
     delta = (do.float() * po.float()).sum(dim=-1)
+    if dlse:
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        delta = delta - torch.randn(bh, s, device="cuda", generator=g)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, plse, delta, causal)
     pdk, pdv = fa.dkv_plain(q, k, v, do, plse, delta, causal)
     dq = fa.flash_bwd_dq(q, k, v, do, plse, delta, causal)
@@ -422,7 +458,8 @@ def check_kernels(bh, s, d, dtype, causal, seed=0):
     torch.cuda.synchronize()
     rel = {"o": rel_err(o, po), "lse": rel_err(lse, plse), "dk": rel_err(dk, pdk),
            "dv": rel_err(dv, pdv), "dq": rel_err(dq, pdq)}
-    log(f"kernels bh={bh} s={s} d={d} {dtype} causal={causal}: "
+    log(f"kernels bh={bh} s={s} d={d} {dtype} causal={causal}"
+        + (" with dlse" if dlse else "") + ": "
         + ", ".join(f"{n} {e:.3g}" for n, e in rel.items()))
     bad = {n: e for n, e in rel.items() if not e <= TOL[dtype]}
     if bad:
@@ -547,6 +584,36 @@ def bound(name, bh, s, d, dtype, causal):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def check_ring_shape():
+    """The kernels as ring attention runs them off the diagonal: non-causal,
+    with a random nonzero logsumexp cotangent, at the ring's per-rank shape
+    (slice 1's batch 2 and 16 heads of 64 over half its sequence: b·h 32, s
+    2048), against their plain versions; each kernel's time beside its bound
+    and SDPA's with ``is_causal=False`` (its forward; its whole backward
+    against dK/dV and dQ).  Returns the absolute errors."""
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    b, h, d, s = MAIN["b"], MAIN["h"], MAIN["d"], MAIN["s"] // MP_WORLD
+    bh = b * h
+    (q, k, v, do, lse, delta), errs = check_kernels(bh, s, d, torch.bfloat16, False, seed=30,
+                                                   dlse=True)
+    ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, False)),
+          "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, False)),
+          "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, False))}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, do))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q4, k4, v4))
+    out = sdpa(qg, kg, vg, is_causal=False)
+    sdpa_fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=False))
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True))
+    log(f"ring shape bh={bh} s={s} d={d} bf16 non-causal with dlse: "
+        + ", ".join(f"{n} {t:.4f} ms (bound {bound(n, bh, s, d, torch.bfloat16, False)[0]:.4f}, "
+                    f"{bound(n, bh, s, d, torch.bfloat16, False)[1]})" for n, t in ms.items())
+        + f"; sdpa is_causal=False forward {sdpa_fwd:.4f} ms, backward {sdpa_bwd:.4f} ms "
+        f"(flash dK/dV + dQ {ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f})")
+    return errs
+
+
 def time_wide_head(bh, s, d):
     """The wide kernels' times at a head above 256 (bf16, causal), each
     beside its bound, and SDPA's forward and forward + backward on the same
@@ -612,6 +679,8 @@ def phase_kernels():
     (q, k, v, do, lse, delta), errs = check_kernels(bh, s, d, torch.bfloat16, True)
     errs = {n: max(e, errs_moe[n], errs_bert[n]) for n, e in errs.items()}
     check_backward_edges()
+    ring_errs = check_ring_shape()
+    errs = {n: max(e, ring_errs[n]) for n, e in errs.items()}
 
     ms = {
         "flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, True)),
@@ -714,27 +783,33 @@ def phase_kernels():
     return rows
 
 
-def slice_model(name, attn_fn=None, gmm_fn=None, remat=False, remat_policy=None):
+def slice_model(name, attn_fn=None, gmm_fn=None, remat=False, remat_policy=None, ep_size=1,
+                use_ragged=False, sp_axis=None, **widths):
     """The model of slice ``name``, weights from seed 0: ``"longctx"`` the
     long-context LM of ``bench_longctx``, ``"moe"`` the dropless MoE LM of
     ``bench_moe_longseq`` (a ``MoEMLP`` in every odd layer).  ``attn_fn`` and
     ``gmm_fn`` replace the attention and the grouped matmul (for example with
     their plain versions); ``remat`` and ``remat_policy`` are the model's
-    rematerialization knobs."""
+    rematerialization knobs; ``ep_size`` and ``use_ragged`` the MoE layers'
+    expert parallelism and exchange form (over the global mesh's ``ep``
+    axis), ``sp_axis`` the sequence-parallel axis; ``widths`` replace the
+    configuration's (the cuts)."""
     from bagua_tpu_torch.model_parallel.moe import MoEMLP
     from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
-    knobs = dict(remat=remat, remat_policy=remat_policy)
+    knobs = dict(remat=remat, remat_policy=remat_policy, sp_axis=sp_axis)
     if name == "moe":
-        cfg = TransformerConfig(vocab_size=32768, d_model=MOE["d_model"], n_heads=MOE["h"],
-                                n_layers=4, d_ff=MOE["d_ff"], max_seq_len=MOE["s"], **knobs)
+        cfg = TransformerConfig(**{**dict(vocab_size=32768, d_model=MOE["d_model"],
+                                          n_heads=MOE["h"], n_layers=4, d_ff=MOE["d_ff"],
+                                          max_seq_len=MOE["s"]), **widths}, **knobs)
         moe = lambda: MoEMLP(MOE["experts"], cfg.d_ff, d_model=cfg.d_model, k=MOE["k"],
-                             dropless=True, gmm_fn=gmm_fn)
+                             dropless=True, gmm_fn=gmm_fn, ep_size=ep_size,
+                             use_ragged=use_ragged, dtype=cfg.dtype)
         factory = lambda i: moe if i % 2 == 1 else None
     else:
-        cfg = TransformerConfig(vocab_size=32768, d_model=MAIN["h"] * MAIN["d"],
-                                n_heads=MAIN["h"], n_layers=4, d_ff=4096,
-                                max_seq_len=MAIN["s"], **knobs)
+        cfg = TransformerConfig(**{**dict(vocab_size=32768, d_model=MAIN["h"] * MAIN["d"],
+                                          n_heads=MAIN["h"], n_layers=4, d_ff=4096,
+                                          max_seq_len=MAIN["s"]), **widths}, **knobs)
         factory = None
     return TransformerLM(cfg, seed=0, attn_fn=attn_fn, mlp_factory=factory)
 
@@ -1169,7 +1244,42 @@ def phase_slice_moe():
         raise AssertionError(f"logits disagree with the plain path: {err}, routing "
                              f"agreement {agree}")
     base["kernel_ms"] = kernel_step_ms(trainer, state, batch)
+    del model, trainer, state, batch, plain
+    release()
+    base["ep_reference"] = ep_reference()
     return launches, st, base
+
+
+def ep_batch(device, rows=None, seq=None):
+    """The expert-parallel runs' global batch (seed 1): ``MOE["b"]`` rows a
+    rank, ``8 * n_dev`` as ``bench_moe_longseq``, of ``MOE["s"]`` tokens
+    and a target (``rows`` and ``seq`` for the cut)."""
+    rows, seq = rows or MP_WORLD * MOE["b"], seq or MOE["s"]
+    g = torch.Generator(device=device).manual_seed(1)
+    return torch.randint(0, 32768, (rows, seq + 1), device=device, generator=g)
+
+
+def ep_reference():
+    """Slice 2's model at world 1 on the expert-parallel runs' global batch
+    (16 rows), Adam 1e-4, ``FULL_STEPS`` steps: the losses the
+    ``model_parallel`` phase's EP runs are held to.  Run alone, before the
+    ranks start (about 35 GB)."""
+    import bagua_tpu_torch as bt
+
+    model = slice_model("moe")
+    trainer = bt.BaguaTrainer(bt.moe_lm_loss_fn(aux_loss_weight=0.01),
+                              functools.partial(torch.optim.Adam, lr=1e-4),
+                              bt.GradientAllReduceAlgorithm(hierarchical=False))
+    state = trainer.init(model)
+    batch = trainer.shard_batch({"tokens": ep_batch(trainer.device)})
+    losses, _, st, _ = train_steps(trainer, state, batch, MP_WORLD * MOE["b"] * MOE["s"], [],
+                                   steps=FULL_STEPS)
+    log(f"model_parallel reference: slice 2's model at world 1 on the global batch of "
+        f"{MP_WORLD * MOE['b']}: losses {losses}, step {st['median_ms']:.3f} ms (median), peak "
+        f"{st['peak_gb']:.3f} GB")
+    del model, trainer, state, batch
+    release()
+    return losses
 
 
 # ---------------------------------------------------------------------------
@@ -1823,6 +1933,33 @@ RESIDENT_PEAK_DROP_GB = 0.9
 #: the features runs' tolerance of the accumulated losses against the
 #: replicated run of the zero phase (relative, every step)
 ACCUM_LOSS_RTOL = 1e-2
+#: the model_parallel phase at world 2, both ranks on the card over gloo, one
+#: spawn: (a) expert parallelism on slice 2's model at full width, mesh
+#: ``{"ep": 2}``, 4 experts and 8 rows a rank, the dense-slot exchange then
+#: the exact-count one, and on a cut (d_model 128, f32) one SGD step against
+#: the world-1 step; (b) sequence parallelism on slice 1's model at full
+#: width, mesh ``{"sp": 2}``, the attention alone against world-1 flash, then
+#: the ring (flash) and Ulysses runs
+MP_RUNS = (
+    ("ep_dense", None, "ep", {"use_ragged": False}),
+    ("ep_ragged", None, "ep", {"use_ragged": True}),
+    ("ep_cut", None, "ep_cut", {}),
+    ("sp_attention", None, "sp_attention", {}),
+    ("sp_cut", None, "sp_cut", {}),
+    ("sp_ring", None, "sp", {"attn": "ring"}),
+    ("sp_ulysses", None, "sp", {"attn": "ulysses"}),
+)
+#: the rescale gate's cut of slice 2: d_model 128 (8 heads of 16), f32, seq
+#: 512, 4 rows a rank, SGD 0.1; its tolerance (relative, every parameter)
+MP_CUT = dict(d_model=128, d_ff=512, max_seq_len=512, dtype=torch.float32)
+MP_CUT_ROWS, MP_CUT_RTOL = 4, 1e-5
+#: the sequence-parallel gate's cut of slice 1: d_model 256 (4 heads of 64),
+#: f32, seq 512, slice 1's 2 rows, SGD 0.1; held to ``MP_CUT_RTOL``
+SP_CUT = dict(d_model=256, n_heads=4, d_ff=1024, max_seq_len=512, dtype=torch.float32)
+#: the expert- and sequence-parallel losses against the world-1 ones
+#: (relative, every step): bf16 runs over other batch splits and kernels.
+#: (on the H100 the gaps were 3.45e-5 for EP and 1.45e-4 for SP)
+MP_LOSS_RTOL = 1e-3
 #: the multi-rank phases: name -> (label, runs, world, intra-node size)
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
@@ -1834,6 +1971,7 @@ MULTI_RANK = {
     "async": ("async", ASYNC_RUNS, CODEC_WORLD, None),
     "features": ("features", FEATURES_RUNS, CODEC_WORLD, None),
     "overlap": ("overlap", OVERLAP_RUNS, CODEC_WORLD, None),
+    "model_parallel": ("model_parallel", MP_RUNS, MP_WORLD, None),
 }
 QADAM_WARMUP = 2
 #: seconds a multi-rank phase may take before its ranks are killed
@@ -2991,6 +3129,399 @@ def check_checkpoint(card, single, multi):
                 f"ms without")
 
 
+# ---------------------------------------------------------------------------
+# model_parallel: expert and sequence parallelism (MP_RUNS)
+# ---------------------------------------------------------------------------
+
+_MP_MESHES = {}
+
+
+def _mp_mesh(axis):
+    """The phase's mesh over its two ranks, ``{"ep": 2}`` or ``{"sp": 2}``,
+    built at first use (collective: every rank runs the runs in one order)
+    and set as the global mesh."""
+    import bagua_tpu_torch as bt
+
+    if axis not in _MP_MESHES:
+        _MP_MESHES[axis] = bt.build_mesh({axis: MP_WORLD})
+    bt.set_global_mesh(_MP_MESHES[axis])
+    return _MP_MESHES[axis]
+
+
+def _exchange_timer(comm):
+    """Host milliseconds in ``comm``'s all-to-alls (each to the end of the
+    device's work before and after it): wraps the communicator's methods;
+    returns the list the times go to and the undo.  The synchronizations
+    slow the step, so only a step of its own runs under it."""
+    spent = []
+    orig = comm.alltoall, comm.alltoall_packed
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    comm.alltoall, comm.alltoall_packed = timed(comm.alltoall), timed(comm.alltoall_packed)
+
+    def undo():
+        comm.alltoall, comm.alltoall_packed = orig
+
+    return spent, undo
+
+
+def _expert_digest(model):
+    import hashlib
+
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        if "expert_" in n:
+            h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _full_weights(name, **kw):
+    """A world-1 model's weights (seed 0): what the sharded runs start from."""
+    model = slice_model(name, **kw)
+    sd = {n: t.clone() for n, t in model.state_dict().items()}
+    del model
+    return sd
+
+
+def ep_run(rank, world, name, device, label, use_ragged):
+    """Slice 2's model at full width, expert-parallel over ``{"ep": 2}``
+    (4 experts and 8 rows a rank), from the world-1 model's weights:
+    ``FULL_STEPS`` Adam 1e-4 steps in one exchange form (the losses, the
+    parameters and the step times), then one step more with the exchange
+    timed (``_exchange_timer``)."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.model_parallel.moe import MoEMLP, shard_expert_state
+    from bagua_tpu_torch.ops import flash_attention as fa
+    from bagua_tpu_torch.ops import gmm as gm
+
+    mesh = _mp_mesh("ep")
+    model = slice_model("moe", ep_size=world, use_ragged=use_ragged)
+    model.load_state_dict(shard_expert_state(_full_weights("moe"), model))
+    trainer = bt.BaguaTrainer(bt.moe_lm_loss_fn(aux_loss_weight=0.01),
+                              functools.partial(torch.optim.Adam, lr=1e-4),
+                              bt.GradientAllReduceAlgorithm(hierarchical=False), device=device,
+                              mesh=mesh, expert_axis="ep")
+    state = trainer.init(model)
+    batch = trainer.shard_batch({"tokens": ep_batch(device)}, global_batch=True)
+    comm = mesh.comm("ep")
+    # the grouped products' shapes of the first MoE layer's first forward
+    shapes = []
+    layer = next(m for m in model.modules() if isinstance(m, MoEMLP))
+    inner = layer.gmm_fn
+
+    def record_shape(lhs, rhs, sizes):
+        if len(shapes) < 2:
+            shapes.append({"rows": lhs.shape[0], "m": rhs.shape[1], "n": rhs.shape[2],
+                           "sizes": sizes.tolist()})
+        return inner(lhs, rhs, sizes)
+
+    layer.gmm_fn = record_shape
+    exch0, staged0 = comm.host_staged_bytes, trainer.host_staged_bytes
+    losses, launches, st, state = train_steps(trainer, state, batch, MOE["b"] * MOE["s"],
+                                              [fa, gm], steps=FULL_STEPS)
+    exch_bytes = (comm.host_staged_bytes - exch0) / FULL_STEPS
+    staged_bytes = (trainer.host_staged_bytes - staged0) / FULL_STEPS
+    digests, expert_digest = _flat_digests(trainer, model), _expert_digest(model)
+    spent, undo = _exchange_timer(comm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = trainer.train_step(state, batch)
+    loss.item()
+    timed_ms = (time.perf_counter() - t0) * 1e3
+    undo()
+    cfg, n_moe = model.cfg, model.cfg.n_layers // 2
+    want = {"flash_fwd": cfg.n_layers * FULL_STEPS, "flash_bwd_dkv": cfg.n_layers * FULL_STEPS,
+            "flash_bwd_dq": cfg.n_layers * FULL_STEPS,
+            "grouped_matmul": 4 * n_moe * FULL_STEPS,
+            "grouped_matmul_drhs": 2 * n_moe * FULL_STEPS}
+    if launches != want:
+        raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
+    record = {"name": name, "kind": "model_parallel", "losses": losses, "launches": launches,
+              "stats": st, "digests": digests, "expert_digest": expert_digest,
+              "layout": st["layout"], "exchange_bytes_step": exch_bytes,
+              "staged_bytes_step": staged_bytes, "exchange_ms_step": sum(spent),
+              "exchange_calls_step": len(spent), "timed_step_ms": timed_ms, "shapes": shapes}
+    log(f"[rank {rank}] {label} {name}: losses {losses}; launches {launches}")
+    return record
+
+
+def ep_cut_run(rank, world, name, device, label):
+    """The rescale gate: on the cut (``MP_CUT``: f32, SGD 0.1, no
+    load-balancing term, which is not linear in the batch), one
+    expert-parallel step equals one world-1 step on the global batch within
+    ``MP_CUT_RTOL`` of every parameter.  A missing ``1 / ep`` rescale would
+    double every expert table's update, which Adam would hide."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.model_parallel.moe import shard_expert_state
+
+    mesh = _mp_mesh("ep")
+    tokens = ep_batch(device, rows=world * MP_CUT_ROWS, seq=MP_CUT["max_seq_len"])
+    loss_fn = bt.moe_lm_loss_fn(aux_loss_weight=0.0)
+    full = slice_model("moe", **MP_CUT)
+    before = {n: p.detach().clone() for n, p in full.named_parameters()}
+    loss_fn(full, {"tokens": tokens}).backward()
+    with torch.no_grad():
+        want = {n: p - 0.1 * p.grad for n, p in full.named_parameters()}
+    del full
+    model = slice_model("moe", ep_size=world, **MP_CUT)
+    model.load_state_dict(shard_expert_state(before, model))
+    trainer = bt.BaguaTrainer(loss_fn, functools.partial(torch.optim.SGD, lr=0.1),
+                              bt.GradientAllReduceAlgorithm(hierarchical=False), device=device,
+                              mesh=mesh, expert_axis="ep")
+    state = trainer.init(model)
+    batch = trainer.shard_batch({"tokens": tokens}, global_batch=True)
+    state, _ = trainer.train_step(state, batch)
+    got = trainer.unstack_params(state)
+    err = {n: rel_err(got[n], want[n]) for n in want}
+    upd = {n: rel_err(got[n] - before[n], want[n] - before[n]) for n in want}
+    # what the gate would see without the rescale: every expert update doubled
+    doubled = max(rel_err(2 * got[n] - before[n], want[n]) for n in want if "expert_" in n)
+    worst = max(err, key=err.get)
+    log(f"[rank {rank}] {label} {name}: one SGD step at ep {world} against world 1 on the "
+        f"global batch: largest parameter error {err[worst]:.3g} ({worst}), largest update "
+        f"error {max(upd.values()):.3g}; with the expert updates doubled (no 1/ep rescale) "
+        f"the largest parameter error would be {doubled:.3g}")
+    if not (err[worst] <= MP_CUT_RTOL < doubled):
+        raise AssertionError(f"[rank {rank}] {name}: the expert-parallel SGD step differs "
+                             f"from world 1 ({err}), or the gate could not see a missing "
+                             f"rescale ({doubled})")
+    return {"name": name, "kind": "model_parallel", "param_err": err[worst],
+            "update_err": max(upd.values()), "doubled_err": doubled}
+
+
+def sp_attention_check(rank, world, name, device, label):
+    """The attention alone at slice 1's shape (b 2, seq 4096, 16 heads of
+    64, bf16), sharded over ``{"sp": 2}``: ring (flash), ring (the plain
+    loop) and Ulysses outputs and q/k/v gradients, gathered over sp, against
+    world-1 ``flash_attention`` on the whole sequence (``TOL``)."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    mesh = _mp_mesh("sp")
+    comm = mesh.comm("sp")
+    b, S, h, d = MAIN["b"], MAIN["s"], MAIN["h"], MAIN["d"]
+    s = S // world
+    g = torch.Generator(device=device).manual_seed(40)
+    q, k, v, do = (torch.randn(b, S, h, d, device=device, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    full = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref_out = fa.flash_attention(*full, torch.bfloat16)
+    ref = [ref_out.detach()] + list(torch.autograd.grad(ref_out, full, do))
+    part = slice(rank * s, (rank + 1) * s)
+    errs = {}
+    for kind, attn in (("ring", bt.make_ring_attention(world)),
+                       ("ring_plain", bt.make_ring_attention(world, use_flash="never")),
+                       ("ulysses", bt.make_ulysses_attention(world))):
+        mine = [x[:, part].contiguous().requires_grad_() for x in (q, k, v)]
+        out = attn(*mine, torch.bfloat16)
+        grads = torch.autograd.grad(out, mine, do[:, part].contiguous())
+        got = [comm.allgather(t.detach().contiguous(), axis=1) for t in (out, *grads)]
+        errs[kind] = {n: rel_err(a, w) for n, a, w in zip(("out", "dq", "dk", "dv"), got, ref)}
+        del mine, out, grads, got
+    log(f"[rank {rank}] {label} attention alone b={b} seq {S} over sp {world}, against world-1 "
+        f"flash: " + "; ".join(f"{k} " + ", ".join(f"{n} {e:.3g}" for n, e in v.items())
+                               for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if max(v.values()) > TOL[torch.bfloat16]}
+    if bad:
+        raise AssertionError(f"[rank {rank}] sequence-parallel attention disagrees with world-1 "
+                             f"flash: {bad} (tolerance {TOL[torch.bfloat16]})")
+    return {"name": name, "kind": "model_parallel", "errs": errs}
+
+
+def sp_cut_run(rank, world, name, device, label):
+    """The sequence-parallel counterpart of the rescale gate: on a cut of
+    slice 1 (``SP_CUT``: f32, SGD 0.1), one step with ring (flash) attention
+    and one with Ulysses equal one world-1 step on the whole sequence within
+    ``MP_CUT_RTOL`` of every parameter.  The control, the ring run with the
+    model's position offset left at 0 (``sp_axis`` None: every shard at
+    positions from 0), must fail that tolerance: the gate sees a wrong
+    offset, which a loss at random init hides."""
+    import bagua_tpu_torch as bt
+
+    mesh = _mp_mesh("sp")
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, 32768, (MAIN["b"], SP_CUT["max_seq_len"] + 1), device=device,
+                           generator=g)
+    full = slice_model("longctx", **SP_CUT)
+    before = {n: p.detach().clone() for n, p in full.named_parameters()}
+    bt.lm_loss_fn(full, {"tokens": tokens}).backward()
+    with torch.no_grad():
+        want = {n: p - 0.1 * p.grad for n, p in full.named_parameters()}
+    del full
+    errs = {}
+    for kind, attn, sp_axis in (("ring", bt.make_ring_attention(world), "sp"),
+                                ("ulysses", bt.make_ulysses_attention(world), "sp"),
+                                ("control: ring at offset 0", bt.make_ring_attention(world),
+                                 None)):
+        model = slice_model("longctx", attn_fn=attn, sp_axis=sp_axis, **SP_CUT)
+        model.load_state_dict(before)
+        trainer = bt.BaguaTrainer(bt.sp_lm_loss_fn(world),
+                                  functools.partial(torch.optim.SGD, lr=0.1),
+                                  bt.GradientAllReduceAlgorithm(hierarchical=False),
+                                  device=device, mesh=mesh, seq_axis="sp")
+        state = trainer.init(model)
+        batch = trainer.shard_batch({"tokens": tokens}, global_batch=True)
+        state, _ = trainer.train_step(state, batch)
+        got = trainer.unstack_params(state)
+        err = {n: rel_err(got[n], want[n]) for n in want}
+        worst = max(err, key=err.get)
+        errs[kind] = (err[worst], worst)
+        del model, trainer, state, got
+    control = errs.pop("control: ring at offset 0")
+    log(f"[rank {rank}] {label} {name}: one SGD step at sp {world} against world 1 on the "
+        f"whole sequence, largest parameter error: "
+        + ", ".join(f"{k} {e:.3g} ({n})" for k, (e, n) in errs.items())
+        + f"; the control (ring, position offset 0) {control[0]:.3g} ({control[1]})")
+    if not (max(e for e, _ in errs.values()) <= MP_CUT_RTOL < control[0]):
+        raise AssertionError(f"[rank {rank}] {name}: the sequence-parallel SGD step differs "
+                             f"from world 1 ({errs}), or the gate could not see a wrong "
+                             f"position offset ({control})")
+    return {"name": name, "kind": "model_parallel",
+            "param_err": {k: e for k, (e, _) in errs.items()}, "control_err": control[0]}
+
+
+def sp_run(rank, world, name, device, label, attn):
+    """Slice 1's model at full width, sequence-parallel over ``{"sp": 2}``
+    with ring (flash) or Ulysses attention: ``FULL_STEPS`` AdamW steps of
+    ``sp_lm_loss_fn`` on slice 1's batch, the same on both ranks."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    mesh = _mp_mesh("sp")
+    attn_fn = (bt.make_ring_attention(world) if attn == "ring"
+               else bt.make_ulysses_attention(world))
+    model = slice_model("longctx", attn_fn=attn_fn, sp_axis="sp")
+    opt = functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    trainer = bt.BaguaTrainer(bt.sp_lm_loss_fn(world), opt,
+                              bt.GradientAllReduceAlgorithm(hierarchical=False), device=device,
+                              mesh=mesh, seq_axis="sp")
+    state = trainer.init(model)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, model.cfg.vocab_size, (MAIN["b"], MAIN["s"] + 1), device=device,
+                           generator=g)
+    batch = trainer.shard_batch({"tokens": tokens}, global_batch=True)
+    comm = mesh.comm("sp")
+    exch0, staged0 = comm.host_staged_bytes, trainer.host_staged_bytes
+    losses, launches, st, state = train_steps(trainer, state, batch, MAIN["b"] * MAIN["s"],
+                                              [fa], steps=FULL_STEPS)
+    per_step = model.cfg.n_layers * (world if attn == "ring" else 1) * FULL_STEPS
+    want = {k.__name__: per_step for k in fa.KERNELS}
+    if launches != want:
+        raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
+    log(f"[rank {rank}] {label} {name}: losses {losses}; launches {launches}")
+    return {"name": name, "kind": "model_parallel", "losses": losses, "launches": launches,
+            "stats": st, "digests": _flat_digests(trainer, model), "layout": st["layout"],
+            "exchange_bytes_step": (comm.host_staged_bytes - exch0) / FULL_STEPS,
+            "staged_bytes_step": (trainer.host_staged_bytes - staged0) / FULL_STEPS}
+
+
+def model_parallel_run(rank, world, run, device, label):
+    """One run of the model_parallel phase on this rank; returns its record."""
+    name, _, kind, kw = run
+    fn = {"ep": ep_run, "ep_cut": ep_cut_run, "sp_attention": sp_attention_check,
+          "sp_cut": sp_cut_run, "sp": sp_run}[kind]
+    return fn(rank, world, name, device, label, **kw)
+
+
+def time_ep_gmm(shapes):
+    """K7a and K7b at the expert-parallel rank's shapes (the first MoE
+    layer's two products, in each exchange form: the dense-slot form's rows
+    past the last group included), each held against its plain version on
+    the same inputs (``check_gmm``: ``GMM_TOL``, ``GMM_DRHS_TOL``), then
+    timed beside the plain versions, their bounds (the routed rows only) and
+    ``torch._grouped_mm`` on the routed rows, on the card alone.  Returns
+    each kernel's largest absolute error at these shapes."""
+    from bagua_tpu_torch.ops import gmm as gm
+
+    errs = {"grouped_matmul": 0.0, "grouped_matmul_drhs": 0.0}
+    for form, products in shapes.items():
+        for sh in products:
+            rows, m, n, sizes = sh["rows"], sh["m"], sh["n"], sh["sizes"]
+            routed = sum(sizes)
+            lhs, rhs, gout = _gmm_inputs(rows, m, n, len(sizes), seed=m + n)
+            got = check_gmm(lhs, rhs, gout, sizes, f"at the EP rank's shape, {form} exchange, "
+                            f"rows {rows} (routed {routed}) ({m}, {n})")
+            errs = {k: max(e, got[k]) for k, e in errs.items()}
+            sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            offs = torch.cumsum(sz, 0, dtype=torch.int32)
+            k7a = cuda_ms(lambda: gm.grouped_matmul(lhs, rhs, sz))
+            k7b = cuda_ms(lambda: gm.grouped_matmul_drhs(lhs, gout, sz, len(sizes)))
+            plain_a = cuda_ms(lambda: gm.grouped_matmul_plain(lhs, rhs, sz), 3)
+            plain_b = cuda_ms(lambda: gm.grouped_matmul_drhs_plain(lhs, gout, sz, len(sizes)), 3)
+            try:
+                lib_a = cuda_ms(lambda: torch._grouped_mm(lhs[:routed], rhs, offs=offs))
+                lib_b = cuda_ms(lambda: torch._grouped_mm(lhs[:routed].t(), gout[:routed],
+                                                          offs=offs))
+            except (RuntimeError, AttributeError, TypeError):
+                lib_a = lib_b = None
+            ba, bb = gmm_bound("grouped_matmul", routed, m, n, len(sizes)), \
+                gmm_bound("grouped_matmul_drhs", routed, m, n, len(sizes))
+            log(f"model_parallel gmm at the EP rank's shape, {form} exchange, rows {rows} "
+                f"(routed {routed}, sizes {sizes}) ({m}, {n}): grouped_matmul {k7a:.4f} ms "
+                f"(plain {plain_a:.4f}, bound {ba[0]:.4f}, {ba[1]}), grouped_matmul_drhs "
+                f"{k7b:.4f} ms (plain {plain_b:.4f}, bound {bb[0]:.4f}, {bb[1]}); "
+                f"torch._grouped_mm on the routed rows "
+                + ("refused" if lib_a is None else f"{lib_a:.4f} and {lib_b:.4f} ms"))
+            del lhs, rhs, gout
+    log(f"model_parallel gmm at the EP rank's shapes: largest absolute errors {errs}")
+    return errs
+
+
+def check_model_parallel(card, mp, slice1_losses, ep_losses):
+    """The phase's gates across ranks and against the world-1 runs: the
+    dense parameters bitwise equal on both ranks; the two exchange forms'
+    losses and parameters bitwise equal on each rank; each step's loss
+    within ``MP_LOSS_RTOL`` of the world-1 run's (slice 2's model on the
+    global batch; slice 1's losses); then prints the runs' numbers beside the
+    card and checks K7a/K7b at the EP rank's shapes (``time_ep_gmm``, whose
+    errors it returns)."""
+    for name in ("ep_dense", "ep_ragged", "sp_ring", "sp_ulysses"):
+        recs = mp[name]
+        if any(r["digests"] != recs[0]["digests"] for r in recs):
+            raise AssertionError(f"model_parallel {name}: dense parameters differ between ranks")
+        if any(r["losses"] != recs[0]["losses"] for r in recs):
+            raise AssertionError(f"model_parallel {name}: losses differ between ranks")
+        want = ep_losses if name.startswith("ep") else slice1_losses[:FULL_STEPS]
+        gap = [abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"], want)]
+        log(f"model_parallel {name}: losses {recs[0]['losses']} against world 1 {want}: "
+            f"largest relative gap {max(gap):.3g}")
+        if not max(gap) <= MP_LOSS_RTOL:
+            raise AssertionError(f"model_parallel {name}: losses off the world-1 run's by "
+                                 f"{gap} (tolerance {MP_LOSS_RTOL})")
+        for r, rec in enumerate(recs):
+            st = rec["stats"]
+            log(f"model_parallel {name} rank {r} ({card}; gloo through host memory, "
+                f"{MP_WORLD} ranks on one card): median step {st['median_ms']:.3f} ms (steps "
+                f"2-{FULL_STEPS}), {st['tokens_s']:.1f} tokens/s, peak {st['peak_gb']:.3f} GB "
+                f"({rec['layout']} layout), host-staged {rec['staged_bytes_step']:.0f} bytes a "
+                f"step, of them the mesh axis's collectives {rec['exchange_bytes_step']:.0f}"
+                + (f"; in a step of its own with the exchange timed (a synchronization "
+                   f"before and after each of its {rec['exchange_calls_step']} all-to-alls): "
+                   f"{rec['exchange_ms_step']:.3f} ms in the exchange of a "
+                   f"{rec['timed_step_ms']:.3f} ms step" if "exchange_ms_step" in rec else ""))
+    for r, (a, b) in enumerate(zip(mp["ep_dense"], mp["ep_ragged"])):
+        same = (a["losses"] == b["losses"] and a["digests"] == b["digests"]
+                and a["expert_digest"] == b["expert_digest"])
+        log(f"model_parallel rank {r}: dense-slot and exact-count exchanges "
+            f"{'bitwise equal' if same else 'DIFFER'} (losses, dense and expert parameters)")
+        if not same:
+            raise AssertionError(f"model_parallel rank {r}: the two exchange forms differ: "
+                                 f"{a['losses']} against {b['losses']}")
+    shapes = {"dense-slot": mp["ep_dense"][0]["shapes"],
+              "exact-count": mp["ep_ragged"][0]["shapes"]}
+    return time_ep_gmm(shapes)
+
+
 def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     """One rank of a multi-rank phase of ``MULTI_RANK``: every run, records
     to ``out_path`` as JSON."""
@@ -3004,7 +3535,8 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     records = []
     for run in runs:
         run_fn = {"async": async_run, "features": features_run, "overlap": overlap_run,
-                  "checkpoint": checkpoint_run}.get(phase, compressed_run)
+                  "checkpoint": checkpoint_run,
+                  "model_parallel": model_parallel_run}.get(phase, compressed_run)
         records.append(run_fn(rank, world, run, device, label))
         if device.type == "cuda":
             release()
@@ -3039,7 +3571,7 @@ def phase_multi_rank(phase):
                 ranks.append(json.load(f))
     for runs in zip(*ranks):
         name = runs[0]["name"]
-        if runs[0].get("kind") in ("eager", "checkpoint"):
+        if runs[0].get("kind") in ("eager", "checkpoint", "model_parallel"):
             continue
         if runs[0]["fingerprints"] is not None:
             check_gossip(label, runs, intra or 1)
@@ -3390,6 +3922,7 @@ def main():
     launches_moe, _, base_moe = timed("slice 2", phase_slice_moe)
     release()
     timed("remat", phase_remat, {"longctx": base, "moe": base_moe})
+    slice1_losses, ep_losses = base["losses"], base_moe["ep_reference"]
     del base, base_moe
     ckpt_single = timed("checkpoint (a)", phase_checkpoint)
     torch.distributed.destroy_process_group()
@@ -3410,6 +3943,9 @@ def main():
     check_overlap(overlap, zero)
     ckpt_multi = timed("checkpoint (b, c)", phase_multi_rank, "checkpoint")
     check_checkpoint(card, ckpt_single, ckpt_multi)
+    mp = timed("model_parallel", phase_multi_rank, "model_parallel")
+    for name, err in check_model_parallel(card, mp, slice1_losses, ep_losses).items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
             continue

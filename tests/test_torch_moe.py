@@ -185,10 +185,22 @@ def test_expert_param_names_and_ep_not_ported():
     for name in ("block_1.mlp.expert_wi", "['block_1']['MoEMLP_0']['expert_wo']",
                  "expert_wi_extra", "block_1.mlp.router.weight", "a/expert_wo"):
         assert is_expert_param(name) == jis_expert_param(name), name
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
+    # expert parallelism runs over a mesh axis: without a mesh the layer says
+    # how to set one (tests/test_torch_expert_parallel.py runs it on gloo ranks)
+    from bagua_tpu_torch.parallel.mesh import set_global_mesh
+
+    set_global_mesh(None)
+    with pytest.raises(ValueError, match=r"axis 'ep' of size 2, but no mesh is set.*"
+                                         r"set_global_mesh"):
         MoEMLP(8, 32, d_model=16, ep_size=2)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        globalize_expert_params({}, None, ep_size=2)
+    with pytest.raises(ValueError, match="must split over ep_size"):
+        MoEMLP(8, 32, d_model=16, ep_size=3)
+    # one shard: globalize_expert_params leaves every table as it is
+    layer = MoEMLP(8, 32, d_model=16)
+    before = {n: p.clone() for n, p in layer.state_dict().items()}
+    globalize_expert_params(layer, torch.Generator().manual_seed(0))
+    for n, p in layer.state_dict().items():
+        assert torch.equal(p, before[n]), n
 
 
 # ---------------------------------------------------------------------------
