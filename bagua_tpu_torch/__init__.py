@@ -63,6 +63,7 @@ from .models.transformer import (  # noqa: F401
     bert_large_config,
     lm_loss_fn,
     sp_lm_loss_fn,
+    tp_param_dim,
 )
 from .model_parallel.moe import (  # noqa: F401
     MoEMLP,
@@ -72,12 +73,16 @@ from .model_parallel.moe import (  # noqa: F401
 from .ops.flash_attention import flash_attention, reference_attention  # noqa: F401
 from .ops.gmm import gmm  # noqa: F401
 from .parallel import (  # noqa: F401
+    PipelinedTransformerLM,
     build_mesh,
     get_global_mesh,
+    globalize_pp_params,
+    globalize_tp_params,
     hierarchical_mesh,
     make_ring_attention,
     make_ulysses_attention,
     mesh_axis_size,
+    pp_lm_loss_fn,
     set_global_mesh,
 )
 from .tensor import NamedParam, build_params  # noqa: F401

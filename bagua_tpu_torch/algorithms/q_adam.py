@@ -19,7 +19,11 @@ Port of ``bagua_tpu/algorithms/q_adam.py``.  Two phases, switched by
 The algorithm owns its optimizer, so the trainer builds no torch optimizer
 for it.  The moments are laid out as the parameters the trainer hands over:
 dicts of tensors by parameter name, or, under the flat-resident layout, one
-flat a bucket; the update runs in place on the parameters.
+flat a bucket; the update runs in place on the parameters.  Under tensor or
+pipeline parallelism the moments cover every leaf, the sharded ("local")
+ones outside the bucket plan included: their gradients come from the
+trainer already averaged over dp, and the compressed phase communicates the
+plan's momentum alone, keeping theirs.
 """
 
 from __future__ import annotations
@@ -124,7 +128,9 @@ class QAdamAlgorithm(Algorithm):
             else:
                 f = compressed_scatter_gather_allreduce(ctx.comm, f, average=True)
             out.append(f)
-        return ctx.from_bucket_flats(out)
+        out = ctx.from_bucket_flats(out)
+        # the leaves outside the plan keep their own momentum
+        return {**exp_avg, **out} if isinstance(exp_avg, dict) else out
 
     @torch.no_grad()
     def optimizer_update(self, ctx, params, grads, opt_state: QAdamOptState, algo_state, step):

@@ -28,9 +28,15 @@ written back into the flats.  Under the leaf layout the chunk tensors are
 copies: each step copies this rank's chunk of the current parameters into
 them (as JAX re-reads it from the replicated flat, ``:377``; a codec's gather
 is lossy, so a chunk kept across steps would leave the JAX trajectory) and
-writes the gathered flats back into the parameters in place.  The leaf
-layout's model-parallel ("local") leaves are not ported (the port has no
-tensor, pipeline or expert parallelism).
+writes the gathered flats back into the parameters in place.  Under tensor
+or pipeline parallelism the leaf layout's model-parallel ("local") leaves,
+which stay out of the bucket plan, take the replicated path (``zero.py:
+240-351``): a second optimizer of the same factory over the module's local
+parameters themselves, stepped on their gradients, which the trainer has
+averaged over dp.  The expert tables of expert parallelism are not ported
+here (the trainer refuses ZeRO with ``expert_axis``), nor is clipping with
+local leaves, whose norm would need every model-parallel axis (JAX raises
+too).
 
 The per-bucket reduce-scatter is the overlap contract, on the resident layout
 only: under the overlap scheduler ``reduce_bucket_grad`` issues it from the
@@ -60,10 +66,13 @@ from .base import Algorithm, AlgorithmContext
 class ZeroOptState(NamedTuple):
     """This rank's optimizer state: its chunk of every bucket's flat (the
     optimizer's parameters) and the optimizer, whose state is therefore this
-    rank's shard."""
+    rank's shard; the local leaves' names and their optimizer (None without
+    local leaves)."""
 
     chunks: Tuple[torch.Tensor, ...]
     optimizer: torch.optim.Optimizer
+    local_names: Tuple[str, ...] = ()
+    local: Optional[torch.optim.Optimizer] = None
 
 
 class ReducedChunks(NamedTuple):
@@ -180,9 +189,13 @@ class ZeroOptimizerAlgorithm(Algorithm):
     def checkpoint_opt_state(self, opt_state: ZeroOptState):
         """This rank's shard: the optimizer's state over its chunk of each
         bucket (the chunks themselves are the parameters', which the
-        checkpoint holds already)."""
-        return {"optimizer": optimizer_state_tree(opt_state.optimizer,
+        checkpoint holds already), and the local leaves' optimizer state by
+        name."""
+        tree = {"optimizer": optimizer_state_tree(opt_state.optimizer,
                                                   self._chunk_keys(opt_state))}
+        if opt_state.local is not None:
+            tree["local"] = optimizer_state_tree(opt_state.local, list(opt_state.local_names))
+        return tree
 
     def check_opt_state(self, opt_state: ZeroOptState, tree) -> None:
         from ..checkpoint import CheckpointIntegrityError
@@ -198,10 +211,19 @@ class ZeroOptimizerAlgorithm(Algorithm):
                     raise CheckpointIntegrityError(
                         f"ZeRO shard {k} holds {name} of shape {tuple(v.shape)}, the live chunk "
                         f"{tuple(chunk.shape)}")
+        if (opt_state.local is None) != ("local" not in tree):
+            raise CheckpointIntegrityError("the checkpoint's local leaves' ZeRO state does not "
+                                           "match the live trainer's")
+        if opt_state.local is not None:
+            check_optimizer_state_tree(opt_state.local, tree["local"],
+                                       list(opt_state.local_names), "['opt_state']['local']")
 
     def restore_opt_state(self, opt_state: ZeroOptState, tree):
         load_optimizer_state_tree(opt_state.optimizer, tree["optimizer"],
                                   self._chunk_keys(opt_state))
+        if opt_state.local is not None:
+            load_optimizer_state_tree(opt_state.local, tree["local"],
+                                      list(opt_state.local_names))
         return opt_state
 
     # ---- overlap contract ---------------------------------------------------
@@ -220,17 +242,25 @@ class ZeroOptimizerAlgorithm(Algorithm):
     def init_optimizer_state_sharded(self, ctx: AlgorithmContext, params) -> ZeroOptState:
         """One chunk tensor per bucket, holding this rank's chunk of the
         parameters (a view of the resident parameter flat, else a copy),
-        and the optimizer over them."""
+        and the optimizer over them; on the leaf layout, a second optimizer
+        over the local leaves outside the plan, if any."""
         with torch.no_grad():
             chunks = [self._my_chunk(ctx, f) for f in ctx.bucket_flats(params)]
             if not ctx.flat_resident:
                 chunks = [c.clone() for c in chunks]
-        return ZeroOptState(tuple(chunks), self.optimizer(chunks))
+        local = () if ctx.flat_resident else _local_names(ctx, params)
+        return ZeroOptState(tuple(chunks), self.optimizer(chunks), local,
+                            self.optimizer([params[n] for n in local]) if local else None)
 
     @torch.no_grad()
     def optimizer_update(self, ctx: AlgorithmContext, params, grads, opt_state: ZeroOptState,
                          algo_state, step):
         shard = self._shard_comm(ctx)
+        if self.clip_global_norm is not None and opt_state.local_names:
+            # the local slices live on model-parallel axes outside the
+            # shard ranks, whose norm this one allreduce would miss
+            raise NotImplementedError(
+                "clip_global_norm with model-parallel (tp/pp/expert) leaves is not supported")
         if isinstance(grads, ReducedChunks):
             # the overlap scheduler issued the reduce-scatters from the backward
             gchunks = list(grads.chunks)
@@ -263,4 +293,19 @@ class ZeroOptimizerAlgorithm(Algorithm):
             return params, opt_state, algo_state
         for name, value in ctx.from_bucket_flats(flats).items():
             params[name].copy_(value)
+        if opt_state.local is not None:
+            # the replicated path: the module's own local leaves, stepped on
+            # their dp-averaged gradients
+            for n in opt_state.local_names:
+                params[n].grad = grads[n]
+            opt_state.local.step()
+            for n in opt_state.local_names:
+                params[n].grad = None
         return params, opt_state, algo_state
+
+
+def _local_names(ctx: AlgorithmContext, params) -> Tuple[str, ...]:
+    """The parameters outside the bucket plan (the model-parallel leaves),
+    in the trainer's order."""
+    planned = set(ctx.plan.tensor_names)
+    return tuple(n for n in params if n not in planned)

@@ -652,6 +652,53 @@ class BaguaCommunicator:
         return out[:size] if pad else out
 
 
+class SelfCommunicator(BaguaCommunicator):
+    """The group of this rank alone, with no process group: what the
+    trainer reduces its buckets over where its comm axes hold one rank (a
+    mesh of a tensor-parallel axis only, JAX's empty axis tuple).  Every
+    collective returns this rank's own operand (a new tensor where the
+    group's collective returns one) and moves no byte."""
+
+    def __init__(self):
+        self.group = None
+        self.stages_cuda = False
+        self.host_staged_bytes = 0
+
+    def nranks(self) -> int:
+        return 1
+
+    def rank(self) -> int:
+        return 0
+
+    def _global_rank(self, r: int) -> int:
+        return dist.get_rank() if dist.is_initialized() else 0
+
+    def allreduce(self, x: torch.Tensor, op: ReduceOp = ReduceOp.AVG) -> torch.Tensor:
+        return x
+
+    def barrier(self) -> None:
+        return None
+
+    def allgather(self, x: torch.Tensor, axis: int = 0, tiled: bool = True) -> torch.Tensor:
+        return x.clone() if tiled else x.unsqueeze(_axis(axis, x.dim() + 1)).clone()
+
+    def reduce_scatter(self, x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+                       axis: int = 0) -> torch.Tensor:
+        return x.clone()
+
+    def alltoall(self, x: torch.Tensor, split_axis: int = 0,
+                 concat_axis: int = 0) -> torch.Tensor:
+        if x.shape[_axis(split_axis, x.dim())] != 1:
+            raise ValueError(f"alltoall needs dim {split_axis} of 1, got {tuple(x.shape)}")
+        return x.movedim(split_axis, 0).movedim(0, concat_axis).clone()
+
+    def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        return x.clone() if (0, 0) in [tuple(p) for p in perm] else torch.zeros_like(x)
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        return x.detach().clone()
+
+
 def _axis(axis: int, ndim: int) -> int:
     """``axis`` in ``[0, ndim)``, a negative one counted from the end."""
     if not -ndim <= axis < ndim:

@@ -51,15 +51,23 @@ first overlapped step, the plan is rebucketed in the order the hooks saw the
 gradients arrive (rank 0's order, on every rank), so that the first bucket
 issued is the first one finished.
 
-Expert and sequence parallelism (``mesh``, ``expert_axis``, ``seq_axis``;
-``backend.py:336-406``) run their model-side collectives inside the forward
-and backward (``MoEMLP``, ring and Ulysses attention, each over its axis's
-process group of the mesh).  The bucket collectives span ``dp + ep + sp``,
-which is every rank of such a mesh: the global communicator.  The expert
-tables stay out of the bucket plan; after the backward each is divided by
-``ep_size`` (the all-to-all backward already summed every ep peer's
-contribution into the owner's table) and averaged over dp (+ sp) on that
-group's communicator (``backend.py:1532-1546``).
+Expert, sequence, tensor and pipeline parallelism (``mesh``,
+``expert_axis``, ``seq_axis``, ``tp_axis``, ``pp_axis``;
+``backend.py:336-404``) run their model-side collectives inside the forward
+and backward (``MoEMLP``, ring and Ulysses attention, the tensor-parallel
+conjugates, the pipeline's transfers, each over its axis's process group of
+the mesh).  The bucket collectives span the comm axes ``dp + ep + sp + pp``
+(``backend.py:393-404``): the global communicator where they cover the mesh,
+else the communicator of their sub-world (``Mesh.comm``), a rank alone on a
+tensor-parallel-only mesh.  The leaves that differ between ranks stay out of
+the bucket plan: the expert tables, divided by ``ep_size`` (the all-to-all
+backward already summed every ep peer's contribution into the owner's
+table), and the tensor- and pipeline-sharded leaves, complete on their
+shard, are averaged over dp (+ sp) after the backward, on that group's
+communicator (``backend.py:1532-1562``).  Under pipeline parallelism the
+replicated leaves' gradients are partial on each stage; they are multiplied
+by ``pp_size`` before the bucket reduction, whose average over a world that
+spans pp is then their sum (``backend.py:1456-1465``).
 
 PyTorch runs eagerly, so there is no compiled-step cache; the state is the
 module and the optimizer, updated in place, rather than an immutable pytree.
@@ -87,7 +95,7 @@ from ..checkpoint import (CheckpointIntegrityError, RankedState, apply_tree,
                           check_optimizer_state_tree, check_train_state, check_tree,
                           compute_state_digest, copy_tree, load_optimizer_state_tree,
                           optimizer_state_tree, restore_train_state, to_tree)
-from ..communication import ReduceOp, abort, check_abort, get_backend
+from ..communication import ReduceOp, SelfCommunicator, abort, check_abort, get_backend
 from ..compression.codecs import validate_codec_policy
 from .overlap import CommWorker, OverlapStep
 from ..device import resolve_device
@@ -98,6 +106,9 @@ from ..telemetry import counters
 from ..tensor import build_params
 
 logger = logging.getLogger(__name__)
+
+#: where ROADMAP.md files what expert, tensor and pipeline parallelism left
+ROADMAP_ITEM = "(ROADMAP.md, Queue 1 item 1)"
 
 #: the flat-safety probe's verdict by optimizer factory (hashable factories
 #: only), so that repeated trainers over one factory pay it once
@@ -274,6 +285,29 @@ class BaguaTrainer:
             Ulysses).  Ranks along it take the same batch (each cuts its
             chunk, see ``sp_lm_loss_fn``) and the bucket collectives span
             it, which turns their partial gradients into the whole one.
+        tp_axis: the mesh axis of tensor parallelism (``TransformerConfig(
+            tp_axis=, tp_size=)``).  The tensor-parallel leaves (each rank's
+            slice) leave the bucket plan and are averaged over dp (+ sp);
+            the replicated leaves' gradients are whole and the same on the
+            tp ranks (the model's conjugates), so the bucket collectives do
+            not span tp, and the batch is not split over it.
+        tp_param_dim: ``name -> dim`` of a parameter's GLOBAL tensor sharded
+            over ``tp_axis`` (None: replicated); default the transformer's
+            table, ``models.transformer.tp_param_dim``.
+        pp_axis: the mesh axis of pipeline parallelism
+            (``PipelinedTransformerLM``).  The stage-stacked leaves leave
+            the plan as the tp slices do; the replicated ones (embedding,
+            position table, final norm, head) get partial gradients on each
+            stage, multiplied by ``pp_size`` before the bucket collectives,
+            which span pp.  With ``tp_axis`` as well (3-D parallelism) a
+            stacked tensor-parallel leaf carries both placements, its tp dim
+            shifted past the stage dim.  Both axes keep the leaf layout and
+            turn the error-feedback residual off, refuse ``expert_axis`` and
+            the gossip families, and take the flat path of a hierarchical
+            family, as the JAX package does.
+        pp_param_dim: ``name -> dim`` of the stage stacking (0 for the
+            pipeline's ``blocks`` leaves); default
+            ``parallel.pipeline.pp_param_dim``.
     """
 
     def __init__(
@@ -299,6 +333,10 @@ class BaguaTrainer:
         expert_params=None,
         expert_keyword: Optional[str] = None,
         seq_axis: Optional[str] = None,
+        tp_axis: Optional[str] = None,
+        tp_param_dim: Optional[Callable[[str], Optional[int]]] = None,
+        pp_axis: Optional[str] = None,
+        pp_param_dim: Optional[Callable[[str], Optional[int]]] = None,
     ):
         self.loss_fn = loss_fn
         self.optimizer_factory = optimizer_factory
@@ -307,9 +345,11 @@ class BaguaTrainer:
         self.bucket_bytes = (env.get_default_bucket_size()
                              if bucket_bytes is None else bucket_bytes)
         self.backend = get_backend()
-        self.comm = self.backend.global_communicator
+        self._setup_mesh(mesh, dp_axes, expert_axis, expert_params, expert_keyword, seq_axis,
+                         tp_axis, tp_param_dim, pp_axis, pp_param_dim)
+        #: the bucket collectives' communicator: the comm axes' world
+        self.comm = self._comm_over(self.comm_axes)
         self.world_size = self.comm.nranks()
-        self._setup_mesh(mesh, dp_axes, expert_axis, expert_params, expert_keyword, seq_axis)
         self.compress_intra = validate_codec_policy(
             env.get_compress_intra() if compress_intra is None else compress_intra,
             "compress_intra")
@@ -318,7 +358,8 @@ class BaguaTrainer:
             "compress_inter")
         #: whether the error-feedback residual may be carried; whether it is
         #: is the algorithm's call (``Algorithm.ef_codec``)
-        self._ef_enabled = not env.is_ef_residual_disabled() and self.expert_axis is None
+        self._ef_enabled = (not env.is_ef_residual_disabled() and self.expert_axis is None
+                            and self._shard_axis is None)
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.accum_steps = int(accum_steps)
@@ -330,8 +371,9 @@ class BaguaTrainer:
             # never a silent fallback
             raise ValueError(
                 f"flat_resident='on' is not supported here: {type(algorithm).__name__} "
-                f"(supports_flat_resident={algorithm.supports_flat_resident}); use "
-                "flat_resident='auto' or 'off'")
+                f"(supports_flat_resident={algorithm.supports_flat_resident}) with tp/pp "
+                f"axis={self._shard_axis!r}, expert axis={self.expert_axis!r}: model-parallel "
+                "leaves live outside the bucket plan; use flat_resident='auto' or 'off'")
         self.grad_guard = (grad_guard or env.get_grad_guard_mode()).strip().lower()
         if self.grad_guard not in ("off", "warn", "skip", "abort"):
             raise ValueError(f"grad_guard must be off|warn|skip|abort, got {grad_guard!r}")
@@ -391,53 +433,114 @@ class BaguaTrainer:
         self._step_counter = 0
 
     def _setup_mesh(self, mesh, dp_axes, expert_axis, expert_params, expert_keyword,
-                    seq_axis) -> None:
+                    seq_axis, tp_axis, tp_param_dim, pp_axis, pp_param_dim) -> None:
         """The mesh and its axes' roles, with the JAX trainer's checks
-        (``backend.py:336-406``)."""
+        (``backend.py:336-404``)."""
         algo = self.algorithm
-        self._expert_comm, self._ep_size = None, 1
+        self._replica_comm, self._ep_size, self._pp_size = None, 1, 1
         self.mesh = mesh if mesh is not None else get_global_mesh_if_set()
         axis_names = self.mesh.axis_names if self.mesh is not None else ("dp",)
         # fail fast on typo'd axis names: silently nulling them would put the
         # expert tables into the dense plan and corrupt MoE training
-        for label, ax in (("expert_axis", expert_axis), ("seq_axis", seq_axis)):
+        for label, ax in (("expert_axis", expert_axis), ("seq_axis", seq_axis),
+                          ("tp_axis", tp_axis), ("pp_axis", pp_axis)):
             if ax is not None and ax not in axis_names:
                 raise ValueError(f"{label}={ax!r} is not a mesh axis (mesh axes: {axis_names})")
+        if tp_axis is not None or pp_axis is not None:
+            label = "tp_axis" if tp_axis is not None else "pp_axis"
+            if expert_axis is not None:
+                raise NotImplementedError(f"combining {label} with expert_axis is not supported yet")
+            if not algo.replicated_params:
+                raise NotImplementedError(f"{label} requires a replicated-params algorithm "
+                                          "(gossip state is per-rank)")
         self.expert_axis, self.seq_axis = expert_axis, seq_axis
+        self.tp_axis, self.pp_axis = tp_axis, pp_axis
+        if tp_param_dim is None and tp_axis is not None:
+            from ..models.transformer import tp_param_dim
+        if pp_param_dim is None and pp_axis is not None:
+            from ..parallel.pipeline import pp_param_dim
+        self._tp_param_dim, self._pp_param_dim = tp_param_dim, pp_param_dim
         self._expert_filter = self._make_expert_filter(expert_params, expert_keyword)
+        model_axes = (expert_axis, seq_axis, tp_axis, pp_axis)
         if dp_axes is None:
             dp_axes = tuple(a for a in axis_names if a in ("dp", "inter", "intra")
-                            and a not in (expert_axis, seq_axis))
-            if not dp_axes and expert_axis is None and seq_axis is None:
+                            and a not in model_axes)
+            if not dp_axes and all(a is None for a in model_axes):
                 dp_axes = (axis_names[0],)
         self.dp_axes = tuple(dp_axes)
-        self.comm_axes = self.dp_axes
-        if expert_axis is None and seq_axis is None:
+        # the batch is split over dp and ep; sp's partial gradients and pp's
+        # prescaled partial ones are summed by spanning their axes
+        self.comm_axes = self.dp_axes + tuple(a for a in (expert_axis, seq_axis, pp_axis) if a)
+        if all(a is None for a in model_axes):
             return
-        if not algo.replicated_params:
+        if (expert_axis is not None or seq_axis is not None) and not algo.replicated_params:
             raise NotImplementedError(
                 "expert/sequence parallelism with gossip (per-rank-weight) algorithms is not "
                 "supported yet")
-        roadmap = "(ROADMAP.md, Queue 1 item 5)"
-        if getattr(algo, "hierarchical", False):
-            raise NotImplementedError(
-                f"{type(algo).__name__}(hierarchical=True) on a mesh with an expert or sequence "
-                f"axis is not ported yet {roadmap}: pass hierarchical=False")
+        if expert_axis is not None or seq_axis is not None:
+            if getattr(algo, "hierarchical", False):
+                raise NotImplementedError(
+                    f"{type(algo).__name__}(hierarchical=True) on a mesh with an expert or "
+                    f"sequence axis is not ported yet {ROADMAP_ITEM}: pass hierarchical=False")
         if expert_axis is not None and algo.owns_optimizer:
             raise NotImplementedError(
-                f"{type(algo).__name__} with expert_axis is not ported yet {roadmap}: its "
+                f"{type(algo).__name__} with expert_axis is not ported yet {ROADMAP_ITEM}: its "
                 "optimizer state covers the bucket plan, which the expert tables leave; use "
                 "GradientAllReduceAlgorithm or ByteGradAlgorithm with a torch optimizer")
-        self.comm_axes = self.dp_axes + tuple(a for a in (expert_axis, seq_axis) if a)
-        left = [a for a in axis_names if a not in self.comm_axes and self.mesh.shape[a] > 1]
+        if (algo.sharded_opt_state and getattr(algo, "hierarchical", False)
+                and self._shard_axis is not None
+                and self.mesh.size_of(self.comm_axes) == self.mesh.size_of(
+                    [a for a in ("inter", "intra") if a in self.mesh.shape])
+                and all(self.mesh.shape.get(a, 1) > 1 for a in ("inter", "intra"))):
+            # the staged form's collectives span exactly inter x intra
+            raise NotImplementedError(
+                "hierarchical ZeRO supports the flat-resident (pure-dp) layout only; drop "
+                "hierarchical=True when composing with tp/pp/expert axes")
+        left = [a for a in axis_names
+                if a not in self.comm_axes + (tp_axis,) and self.mesh.shape[a] > 1]
         if left:
             raise NotImplementedError(
-                f"mesh axes {left} are neither data, expert nor sequence axes: tensor and "
-                f"pipeline parallelism are not ported yet {roadmap}")
+                f"mesh axes {left} are none of the data, expert, sequence, tensor and pipeline "
+                "axes the trainer was given")
+        replica = self.dp_axes + ((seq_axis,) if seq_axis else ())
+        self._replica_comm = self.mesh.comm(replica) if replica else None
         if expert_axis is not None:
             self._ep_size = self.mesh.shape[expert_axis]
-            expert_dp = self.dp_axes + ((seq_axis,) if seq_axis else ())
-            self._expert_comm = self.mesh.comm(expert_dp) if expert_dp else None
+        if pp_axis is not None:
+            self._pp_size = self.mesh.shape[pp_axis]
+
+    def _comm_over(self, axes):
+        """The communicator of the ranks along ``axes``: the global one where
+        they cover every mesh axis of more than one rank (or there is no
+        mesh), else their group's, or this rank alone."""
+        mesh = self.mesh
+        if mesh is None or all(a in axes for a in mesh.axis_names if mesh.shape[a] > 1):
+            return self.backend.global_communicator
+        return mesh.comm(axes) or SelfCommunicator()
+
+    @property
+    def _shard_axis(self) -> Optional[str]:
+        """The model-parallel axis (tp, else pp) where one is given: its
+        leaves leave the bucket plan."""
+        return self.tp_axis if self.tp_axis is not None else self.pp_axis
+
+    def _shard_entries(self, name: str) -> Tuple[Tuple[int, str], ...]:
+        """``((dim, axis), ...)``: the placements of a parameter
+        (``backend.py:814-841``): the stage stacking at its dim, the tp slice
+        at its dim, shifted one right past a stage dim (3-D parallelism)."""
+        entries = []
+        if self.pp_axis is not None:
+            d = self._pp_param_dim(name)
+            if d is not None:
+                entries.append((d, self.pp_axis))
+        if self.tp_axis is not None:
+            d = self._tp_param_dim(name)
+            if d is not None:
+                entries.append((d + (1 if entries else 0), self.tp_axis))
+        return tuple(entries)
+
+    def _is_sharded(self, name: str) -> bool:
+        return bool(self._shard_entries(name))
 
     @staticmethod
     def _make_expert_filter(expert_params, expert_keyword):
@@ -465,33 +568,45 @@ class BaguaTrainer:
     def _expert_names(self) -> List[str]:
         return [n for n in self._params if self._is_expert_name(n)]
 
+    def _local_names(self) -> List[str]:
+        """The parameters outside the bucket plan, which differ between
+        ranks (the JAX package's "local" leaves): the expert tables and the
+        tensor- and pipeline-sharded leaves."""
+        return [n for n in self._params if self._is_expert_name(n) or self._is_sharded(n)]
+
     @property
     def data_rank(self) -> int:
         """This rank's slice of the global batch: its index along dp x ep
-        (the ranks of one sequence-parallel group share it)."""
-        if self.expert_axis is None and self.seq_axis is None:
+        (the ranks of one sequence-, tensor- or pipeline-parallel group
+        share it)."""
+        if self.mesh is None or all(a is None for a in (self.expert_axis, self.seq_axis,
+                                                        self.tp_axis, self.pp_axis)):
             return self.comm.rank()
         return self.mesh.index(self.dp_axes + ((self.expert_axis,) if self.expert_axis else ()))
 
     @property
     def data_world(self) -> int:
         """The number of distinct batch slices: the size of dp x ep."""
-        if self.expert_axis is None and self.seq_axis is None:
+        if self.mesh is None or all(a is None for a in (self.expert_axis, self.seq_axis,
+                                                        self.tp_axis, self.pp_axis)):
             return self.world_size
         return self.mesh.size_of(self.dp_axes + ((self.expert_axis,) if self.expert_axis else ()))
 
     @torch.no_grad()
-    def _expert_grads(self) -> Dict[str, torch.Tensor]:
-        """The expert tables' gradients: divided by ``ep_size``, averaged
-        over dp (+ sp) in one allreduce of their concatenation."""
-        names = self._expert_names()
+    def _local_grads(self) -> Dict[str, torch.Tensor]:
+        """The gradients of the leaves outside the plan, averaged over dp
+        (+ sp) in one allreduce of their concatenation: an expert table's
+        divided by ``ep_size`` first, a tensor- or pipeline-sharded leaf's as
+        it is (complete on its shard)."""
+        names = self._local_names()
         if not names:
             return {}
         grads = [(self._params[n].grad if self._params[n].grad is not None
                   else torch.zeros_like(self._params[n])) for n in names]
-        flat = torch.cat([g.reshape(-1) for g in grads]) / self._ep_size
-        if self._expert_comm is not None:
-            flat = self._expert_comm.allreduce(flat, ReduceOp.AVG)
+        flat = torch.cat([g.reshape(-1) / (self._ep_size if self._is_expert_name(n) else 1)
+                          for n, g in zip(names, grads)])
+        if self._replica_comm is not None:
+            flat = self._replica_comm.allreduce(flat, ReduceOp.AVG)
         out, off = {}, 0
         for n, g in zip(names, grads):
             out[n] = flat[off:off + g.numel()].view_as(g)
@@ -521,12 +636,16 @@ class BaguaTrainer:
 
     def _make_ctx(self, plan: BucketPlan, overlap: bool) -> AlgorithmContext:
         """The algorithm context of ``plan`` (``backend.py:633-650``): the
-        chunk targets only under the overlap scheduler."""
+        chunk targets only under the overlap scheduler; the backend's tiers
+        only where the buckets reduce over the whole world (a sub-world's
+        ranks are not tiled by them, so its hierarchical families take the
+        flat path, as JAX's do on a mesh without inter and intra axes)."""
+        whole = self.comm is self.backend.global_communicator
         return AlgorithmContext(
             comm=self.comm, plan=plan, world_size=self.world_size,
             intra_codec=self.compress_intra, inter_codec=self.compress_inter,
-            intranode=self.backend.intranode_communicator,
-            internode=self.backend.internode_communicator,
+            intranode=self.backend.intranode_communicator if whole else None,
+            internode=self.backend.internode_communicator if whole else None,
             ef_enabled=self._ef_enabled, device=self.device,
             flat_resident=self._flat_resident, overlap=overlap,
             overlap_chunk_bytes=(self.overlap_chunk_bytes or None) if overlap else None,
@@ -559,10 +678,11 @@ class BaguaTrainer:
     def _flat_supported(self) -> bool:
         """Whether the resident layout can hold this configuration
         (``backend.py:659-668``): the family implements it and every
-        parameter is in the bucket plan, which the expert tables leave (so
-        expert parallelism keeps the leaf layout; sequence parallelism does
-        not change the plan)."""
-        return self.algorithm.supports_flat_resident and self.expert_axis is None
+        parameter is in the bucket plan, which the expert tables and the
+        tensor- and pipeline-sharded leaves leave (so those keep the leaf
+        layout; sequence parallelism does not change the plan)."""
+        return (self.algorithm.supports_flat_resident and self.expert_axis is None
+                and self._shard_axis is None)
 
     def _resolve_flat_resident(self) -> bool:
         """The layout of this ``init()`` (``backend.py:671-707``): explicit
@@ -634,23 +754,25 @@ class BaguaTrainer:
 
     def init(self, model: nn.Module) -> TrainState:
         """Move ``model`` to the trainer's device, give every rank rank 0's
-        weights, build the bucket plan, lay the state out (resident flats or
-        leaves) and build the optimizer (or the algorithm's optimizer
-        state)."""
+        weights (a leaf outside the plan: the first rank's of the ranks that
+        hold the same slice), build the bucket plan, lay the state out
+        (resident flats or leaves) and build the optimizer (or the
+        algorithm's optimizer state)."""
         model.to(self.device)
         self._params = dict(model.named_parameters())
-        experts = set(self._expert_names())
+        local = set(self._local_names())
         with torch.no_grad():
             for n, p in self._params.items():
-                if n not in experts:
+                if n not in local:
                     dist.broadcast(p.data, src=0)
-                elif self._expert_comm is not None:
-                    # an ep shard's tables: the same on its dp (+ sp) replicas
-                    c = self._expert_comm
+                elif self._replica_comm is not None:
+                    # an expert, tensor or pipeline shard: the same on its
+                    # dp (+ sp) replicas
+                    c = self._replica_comm
                     dist.broadcast(p.data, src=c._global_rank(0), group=c.group)
         algo = self.algorithm
-        # the expert tables stay out of the bucket plan (``backend.py:843-850``)
-        named = [p for p in algo.init_tensors(build_params(model)) if p.name not in experts]
+        # the local leaves stay out of the bucket plan (``backend.py:843-856``)
+        named = [p for p in algo.init_tensors(build_params(model)) if p.name not in local]
         self._named_params = named
         decls = [p.declaration() for p in named]
         plan = algo.tensors_to_buckets(
@@ -667,7 +789,7 @@ class BaguaTrainer:
             self._overlap_hooks = [
                 p.register_post_accumulate_grad_hook(
                     functools.partial(_grad_accumulated, weakref.ref(self), name))
-                for name, p in self._params.items() if name not in experts]
+                for name, p in self._params.items() if name not in local]
         params = self._stage_params()
         with torch.no_grad():
             algo_state = algo.init_state(self._ctx, params)
@@ -705,14 +827,17 @@ class BaguaTrainer:
         """The parameters by name as tensors of their own (for eval,
         checkpoints, user code), whatever the layout: this rank's copy, with
         the expert tables gathered over the expert axis into their global
-        ``[n_experts, ...]`` shape (``backend.py:3714-3748``; collective
-        under expert parallelism)."""
+        ``[n_experts, ...]`` shape (``backend.py:3714-3748``) and every
+        tensor- or pipeline-sharded leaf over its axes into its global shape
+        (collective under model parallelism)."""
         out = {n: p.detach().clone() for n, p in state.model.named_parameters()}
-        if self.expert_axis is not None:
-            comm = self.mesh.comm(self.expert_axis)
-            for n in self._expert_names():
+        for n in self._local_names():
+            entries = (((0, self.expert_axis),) if self._is_expert_name(n)
+                       else self._shard_entries(n))
+            for dim, axis in entries:
+                comm = self.mesh.comm(axis)
                 if comm is not None:
-                    out[n] = comm.allgather(out[n], axis=0, tiled=True)
+                    out[n] = comm.allgather(out[n], axis=dim, tiled=True)
         return out
 
     # ---- step ------------------------------------------------------------
@@ -872,9 +997,10 @@ class BaguaTrainer:
         for spec in fires:
             _inject.note_traced_fire(spec)
         params = self._stage_params()
-        # under expert parallelism the expert tables differ between ranks:
-        # the verdict is then taken on the updated parameters, MIN over all
-        replicated_health = algo.grad_health_replicated and self.expert_axis is None
+        # under model parallelism the local leaves differ between ranks: the
+        # verdict is then taken on the updated parameters, MIN over all
+        replicated_health = (algo.grad_health_replicated and self.expert_axis is None
+                             and self._shard_axis is None)
         if ctx.overlap and self._flat_resident:
             overlap_step, residuals = self._overlap_step(state, fires)
             try:
@@ -897,12 +1023,14 @@ class BaguaTrainer:
                 # into the accumulated gradient, before any communication, so
                 # the verdict sees what the collectives would spread
                 self._apply_grad_poison(grads, fires)
+            if self._pp_size > 1:
+                self._prescale_partial_grads(grads)
             snapshot = (self._snapshot(state) if guard == "skip" and not replicated_health
                         else None)
             process = algo.process_grads_bucketed if ctx.overlap else algo.process_grads
             grads, algo_state = process(ctx, grads, params, state.algo_state, state.step)
-        if self.expert_axis is not None:
-            grads = {**grads, **self._expert_grads()}
+        if self.expert_axis is not None or self._shard_axis is not None:
+            grads = {**grads, **self._local_grads()}
         opt_state, health, rewind = state.opt_state, None, False
         if guard != "off" and replicated_health:
             # the reduced buckets are the same on every rank and a non-finite
@@ -927,7 +1055,8 @@ class BaguaTrainer:
                 # gossip families, whose ranks each rewind their own weights
                 health = self._grad_health_vec(self._stage_params())
                 if algo.replicated_params:
-                    health = self.comm.allreduce(health, ReduceOp.MIN)
+                    # every mesh axis (``mp_health``, ``backend.py:1345-1354``)
+                    health = self.backend.global_communicator.allreduce(health, ReduceOp.MIN)
                 if snapshot is not None and not self._healthy(health):
                     self._restore(snapshot)
                     rewind = True
@@ -942,6 +1071,16 @@ class BaguaTrainer:
             self._overlap_ordered = True
             self._rebucket_by_readiness(order)
         return TrainState(state.step + 1, model, optimizer, algo_state, opt_state), loss
+
+    @torch.no_grad()
+    def _prescale_partial_grads(self, grads) -> None:
+        """Multiply the replicated leaves' gradients by ``pp_size``, in
+        place (``backend.py:1456-1465``): each stage's is partial, and the
+        bucket collectives' average over a world that spans pp becomes their
+        sum."""
+        for n, g in grads.items():
+            if not self._is_sharded(n):
+                g.mul_(self._pp_size)
 
     def _optimizer_step(self, optimizer, grads) -> None:
         """The torch optimizer's step on the reduced gradients: each
@@ -1020,8 +1159,9 @@ class BaguaTrainer:
         if isinstance(tensors, dict):
             flags = [torch.stack([torch.isfinite(tensors[t.name]).all() for t in b.tensors]).all()
                      for b in self.plan.buckets]
-            # the tensors outside the plan (expert tables) share one last slot
-            extras = [torch.isfinite(tensors[n]).all() for n in self._expert_names()
+            # the tensors outside the plan (expert tables, tensor- and
+            # pipeline-sharded leaves) share one last slot
+            extras = [torch.isfinite(tensors[n]).all() for n in self._local_names()
                       if n in tensors]
             if extras:
                 flags.append(torch.stack(extras).all())
@@ -1186,8 +1326,10 @@ class BaguaTrainer:
         they apply ``flat_layout`` (the plan's layout descriptor),
         ``opt_shards`` (the ranks ZeRO's optimizer state is sharded over: the
         intra-node ones when staged), ``ef`` (the error-feedback residual's
-        world and plan) and, under expert or sequence parallelism, ``mesh``
-        (the mesh's axis sizes; the JAX package records no mesh)."""
+        world and plan) and, under expert, sequence, tensor or pipeline
+        parallelism, ``mesh`` (the mesh's axis sizes; the JAX package records
+        no mesh) and the model axes (``expert_axis``, ``tp_axis``,
+        ``pp_axis``).  ``world_size`` is the comm axes' world, as JAX's."""
         if self._ctx is None:
             raise RuntimeError("checkpoint_layout_metadata() needs the bucket plan — call "
                                "trainer.init(model) first")
@@ -1208,10 +1350,12 @@ class BaguaTrainer:
         if self._ef_active():
             meta["ef"] = {"world": int(self.comm.nranks()),
                           "flat_layout": plan.layout_descriptor()}
-        if self.expert_axis is not None or self.seq_axis is not None:
+        if any(a is not None for a in (self.expert_axis, self.seq_axis, self.tp_axis,
+                                       self.pp_axis)):
             meta["mesh"] = {a: int(n) for a, n in self.mesh.shape.items()}
-        if self.expert_axis is not None:
-            meta["expert_axis"] = self.expert_axis
+        for key in ("expert_axis", "tp_axis", "pp_axis"):
+            if getattr(self, key) is not None:
+                meta[key] = getattr(self, key)
         return meta
 
     def _require_no_pending_migration(self, what: str) -> None:
@@ -1237,26 +1381,28 @@ class BaguaTrainer:
         bucket flats, or the tensors by name), the optimizer's state by
         parameter key, the algorithm's optimizer state and algorithm state.
         Parameters and optimizer state are per rank where the family's
-        weights differ between ranks (gossip, async), and so are the expert
-        tables and their optimizer state under expert parallelism; a sharded
-        optimizer state (ZeRO) and the algorithm state (the error-feedback
-        residual, peer weights, replicas) always are."""
+        weights differ between ranks (gossip, async), and so are the local
+        leaves (expert tables, tensor- and pipeline-sharded leaves) and their
+        optimizer state; the algorithm's optimizer state is per rank where it
+        is sharded (ZeRO) or covers local leaves (QAdam's moments under
+        tensor or pipeline parallelism), and the algorithm state (the
+        error-feedback residual, peer weights, replicas) always is."""
         algo = self.algorithm
         params = ({"flats": list(self._flats)} if self._flat_resident else dict(self._params))
         optimizer = (None if state.optimizer is None
                      else optimizer_state_tree(state.optimizer, self._param_keys()))
         shared = {"step": int(state.step)}
         own = {"algo_state": to_tree(state.algo_state)}
-        experts = self._expert_names()
-        if experts:
-            # an ep shard's tables and their optimizer state are its own
-            own["expert_params"] = {n: params.pop(n) for n in experts}
+        local = self._local_names()
+        if local:
+            # a shard's own leaves and their optimizer state
+            own["local_params"] = {n: params.pop(n) for n in local}
             if optimizer is not None:
-                own["expert_optimizer"] = {n: optimizer["state"].pop(n) for n in experts
-                                           if n in optimizer["state"]}
+                own["local_optimizer"] = {n: optimizer["state"].pop(n) for n in local
+                                          if n in optimizer["state"]}
         (shared if algo.replicated_params else own).update(params=params, optimizer=optimizer)
         opt_state = algo.checkpoint_opt_state(state.opt_state)
-        if algo.sharded_opt_state or not algo.replicated_params:
+        if algo.sharded_opt_state or not algo.replicated_params or local:
             own["opt_state"] = opt_state
         else:
             shared["opt_state"] = opt_state
@@ -1311,11 +1457,13 @@ class BaguaTrainer:
             return self._load_checkpoint_at(manager, state_like, s)
 
         if step is not None:
-            s, finish = manager._restore_explicit(int(step), one, comm=self.comm)
+            s, finish = manager._restore_explicit(int(step), one,
+                                                  comm=self.backend.global_communicator)
         else:
             # integrity fallback: a corrupted newest step degrades to the
             # previous verified one on every rank
-            s, finish = manager._restore_newest_verified(one, comm=self.comm)
+            s, finish = manager._restore_newest_verified(
+                one, comm=self.backend.global_communicator)
         state = finish()
         self.algorithm.on_restore(self)
         return s, state
@@ -1347,14 +1495,14 @@ class BaguaTrainer:
                 convert = (saved_layout, (BucketPlan.from_layout_descriptor(saved["flat_layout"])
                                           if saved_layout == "flat" else None))
             manifest, shared, parts = manager._load_step(step, saved)
-            own = parts.get(self.comm.rank())
+            own = parts.get(dist.get_rank())
             if manifest["kind"] == "train_state":
                 # saved by the manager alone (``mgr.save(step, state)``)
                 check_train_state(state_like, own)
                 return step, functools.partial(restore_train_state, state_like, own)
             tree = dict(shared or {})
             tree.update(own or {})
-            _merge_expert_parts(tree)
+            _merge_local_parts(tree)
         if convert is not None:
             tree = self._convert_layout(tree, *convert)
             logger.info("restore_checkpoint: converted step %s from %s layout to %s", step,
@@ -1365,19 +1513,24 @@ class BaguaTrainer:
         return step, functools.partial(self._apply_restored, state_like, tree)
 
     def _check_mesh(self, step: int, saved: Optional[dict], expected: dict) -> None:
-        """A checkpoint of expert-sharded state restores only at its own
-        expert-axis size: another one re-slices every expert table, which is
-        not ported yet."""
+        """A checkpoint of model-sharded state restores only on its own mesh:
+        another expert-, tensor- or pipeline-axis size re-slices every local
+        leaf, which is not ported yet."""
         saved_mesh, live_mesh = (saved or {}).get("mesh"), expected.get("mesh")
-        saved_axis = (saved or {}).get("expert_axis")
-        if saved is None or saved_mesh == live_mesh or not (saved_axis or self.expert_axis):
+        axes = ("expert_axis", "tp_axis", "pp_axis")
+        saved_axes = {k: (saved or {}).get(k) for k in axes}
+        live_axes = {k: getattr(self, k) for k in axes}
+        if (saved is None or saved_mesh == live_mesh
+                or not any(list(saved_axes.values()) + list(live_axes.values()))):
             return
+        what = ("expert-parallel" if saved_axes["expert_axis"] or self.expert_axis
+                else "tensor- or pipeline-parallel")
         raise ValueError(
-            f"checkpoint step {step} was saved on the mesh {saved_mesh} (expert axis "
-            f"{saved_axis!r}), this trainer runs {live_mesh} (expert axis "
-            f"{self.expert_axis!r}): a restore across expert-parallel meshes would re-slice "
-            "every expert table and is not ported yet (ROADMAP.md, Queue 1 item 5).  Restore "
-            "on the saved mesh.")
+            f"checkpoint step {step} was saved on the mesh {saved_mesh} (model axes "
+            f"{ {k: v for k, v in saved_axes.items() if v} }), this trainer runs {live_mesh} "
+            f"(model axes { {k: v for k, v in live_axes.items() if v} }): a restore across "
+            f"{what} meshes would re-slice every sharded leaf and is not ported yet "
+            f"{ROADMAP_ITEM}.  Restore on the saved mesh.")
 
     def _load_stacked_resized(self, manager, step: int, saved: dict, saved_world: int) -> dict:
         """Per-rank leaf state across a world resize (``backend.py:3625-3713``):
@@ -1617,17 +1770,17 @@ def _grad_accumulated(trainer_ref, name: str, param) -> None:
         trainer._live_step.on_grad(name)
 
 
-def _merge_expert_parts(tree: dict) -> None:
-    """Put a rank's own expert tables and their optimizer state (saved apart
+def _merge_local_parts(tree: dict) -> None:
+    """Put a rank's own local leaves and their optimizer state (saved apart
     from the shared parameters) back into the tree's ``params`` and
     ``optimizer``, in place."""
-    expert_params = tree.pop("expert_params", None)
-    expert_opt = tree.pop("expert_optimizer", None)
-    if expert_params:
-        tree["params"] = {**tree["params"], **expert_params}
-    if expert_opt and tree.get("optimizer") is not None:
+    local_params = tree.pop("local_params", None)
+    local_opt = tree.pop("local_optimizer", None)
+    if local_params:
+        tree["params"] = {**tree["params"], **local_params}
+    if local_opt and tree.get("optimizer") is not None:
         tree["optimizer"] = {**tree["optimizer"],
-                             "state": {**tree["optimizer"]["state"], **expert_opt}}
+                             "state": {**tree["optimizer"]["state"], **local_opt}}
 
 
 def _relayout_container(obj, old_plan: BucketPlan, new_plan: BucketPlan):

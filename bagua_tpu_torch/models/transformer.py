@@ -28,6 +28,15 @@ each rank holds the chunk at its coordinate on that axis of the global mesh
 chunk, and attends over the whole sequence through an ``attn_fn`` of
 :mod:`bagua_tpu_torch.parallel` (ring or Ulysses); :func:`sp_lm_loss_fn`
 cuts each rank's chunk and targets out of the whole batch.
+
+``tp_axis`` and ``tp_size`` make it tensor-parallel (``transformer.py:
+137-176, 295-317``, :mod:`bagua_tpu_torch.parallel.tensor_parallel`): each
+rank's attention holds ``n_heads / tp_size`` heads and its MLP ``d_ff /
+tp_size`` rows, ``tp_gather_grad`` goes before the column-parallel products
+and ``tp_reduce`` after the row-parallel ones, over that axis of the global
+mesh.  The parameter names and their order do not change; only the widths
+do.  Where the JAX package runs the local widths without a collective
+outside ``shard_map``, the port's forward needs the mesh axis.
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
-from ..parallel.mesh import get_global_mesh_if_set
+from ..parallel.mesh import get_global_mesh_if_set, require_axis
+from ..parallel.tensor_parallel import tp_gather_grad, tp_reduce
 from ..utils import remat_wrap
 
 
@@ -65,6 +75,11 @@ class TransformerConfig:
     #: rank holds a contiguous chunk of the sequence and its position rows
     #: start at its coordinate on the axis times the local length
     sp_axis: Optional[str] = None
+    #: tensor-parallel mesh axis (Megatron): attention heads and MLP width
+    #: are sharded ``tp_size`` ways, each rank holding its LOCAL slices;
+    #: ``n_heads`` and ``d_ff`` must divide by ``tp_size``
+    tp_axis: Optional[str] = None
+    tp_size: int = 1
 
     @property
     def head_dim(self) -> int:
@@ -115,6 +130,20 @@ class PosEmbed(nn.Module):
             torch.empty(cfg.max_seq_len, cfg.d_model, dtype=cfg.param_dtype))
 
 
+def tp_comm(cfg: TransformerConfig):
+    """The communicator of the tensor-parallel axis, or None without one
+    (``_tp_active``, ``transformer.py:137``)."""
+    if cfg.tp_axis is None or cfg.tp_size == 1:
+        return None
+    return require_axis(cfg.tp_axis, cfg.tp_size, "tensor parallelism").comm(cfg.tp_axis)
+
+
+def _local(total: int, cfg: TransformerConfig, what: str) -> int:
+    if total % cfg.tp_size:
+        raise ValueError(f"{what} {total} does not split over tp_size {cfg.tp_size}")
+    return total // cfg.tp_size
+
+
 def causal_attention(q, k, v, dtype):
     """Causal attention; ``q/k/v`` ``[batch, seq, heads, head_dim]``."""
     return flash_attention(q, k, v, dtype, causal=True)
@@ -125,7 +154,9 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.attn_fn = attn_fn or causal_attention
-        hd = cfg.n_heads * cfg.head_dim
+        #: this rank's heads
+        self.n_heads = _local(cfg.n_heads, cfg, "n_heads")
+        hd = self.n_heads * cfg.head_dim
         # registration order k, o, q, v: the JAX flatten order
         self.k = Dense(cfg.d_model, hd, cfg)
         self.o = Dense(hd, cfg.d_model, cfg)
@@ -134,21 +165,28 @@ class Attention(nn.Module):
 
     def forward(self, x):
         b, s, _ = x.shape
-        h, d = self.cfg.n_heads, self.cfg.head_dim
+        h, d = self.n_heads, self.cfg.head_dim
+        comm = tp_comm(self.cfg)
+        x = tp_gather_grad(x, comm)
         q, k, v = (proj(x).view(b, s, h, d) for proj in (self.q, self.k, self.v))
         o = self.attn_fn(q, k, v, self.cfg.dtype)
-        return self.o(o.reshape(b, s, h * d))
+        # the row-parallel product's partial sums
+        return tp_reduce(self.o(o.reshape(b, s, h * d)), comm)
 
 
 class MLPBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.wi_gate = Dense(cfg.d_model, cfg.d_ff, cfg)
-        self.wi_up = Dense(cfg.d_model, cfg.d_ff, cfg)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, cfg)
+        self.cfg = cfg
+        d_ff = _local(cfg.d_ff, cfg, "d_ff")
+        self.wi_gate = Dense(cfg.d_model, d_ff, cfg)
+        self.wi_up = Dense(cfg.d_model, d_ff, cfg)
+        self.wo = Dense(d_ff, cfg.d_model, cfg)
 
     def forward(self, x):
-        return self.wo(F.silu(self.wi_gate(x)) * self.wi_up(x))
+        comm = tp_comm(self.cfg)
+        x = tp_gather_grad(x, comm)
+        return tp_reduce(self.wo(F.silu(self.wi_gate(x)) * self.wi_up(x)), comm)
 
 
 class Block(nn.Module):
@@ -225,6 +263,44 @@ class TransformerLM(nn.Module):
             block = getattr(self, f"block_{i}")
             x = (remat_wrap(block, cfg.remat_policy) if cfg.remat else block)(x)
         return self.lm_head(self.final_norm(x)).float()
+
+
+#: port parameter-name suffix -> (the dim of the GLOBAL weight sharded over
+#: tp, its contracting dims) for the trainer's placements and the global
+#: redraw (``transformer.py:419-447`` in torch's ``[out, in]`` layouts): the
+#: column-parallel weights shard their output rows (``h * d`` or ``d_ff``),
+#: the row-parallel ones their input columns; every product contracts dim 1.
+#: A head's rows or columns are one contiguous block, as JAX splits its
+#: heads dim.
+_TP_DIMS = {
+    "attn.q.weight": (0, (1,)),
+    "attn.k.weight": (0, (1,)),
+    "attn.v.weight": (0, (1,)),
+    "attn.o.weight": (1, (1,)),
+    "mlp.wi_gate.weight": (0, (1,)),
+    "mlp.wi_up.weight": (0, (1,)),
+    "mlp.wo.weight": (1, (1,)),
+}
+
+
+def _tp_entry(name: str):
+    for suffix, entry in _TP_DIMS.items():
+        if name == suffix or name.endswith("." + suffix):
+            return entry
+    return None
+
+
+def tp_param_dim(name: str) -> Optional[int]:
+    """The tensor-parallel dim of a :class:`TransformerLM` parameter (None:
+    replicated)."""
+    entry = _tp_entry(name)
+    return None if entry is None else entry[0]
+
+
+def tp_param_fan_in_dims(name: str):
+    """The contracting dims of a tensor-parallel weight (for the redraw)."""
+    entry = _tp_entry(name)
+    return None if entry is None else entry[1]
 
 
 def sp_rank(sp_axis: Optional[str]) -> int:

@@ -237,6 +237,27 @@ Phases, in order; any failure exits non-zero before the result line:
    and timed beside them, ``torch._grouped_mm`` and their bounds.  The kernel phase also holds K6a-c non-causal with a random
    nonzero ``dlse`` at the ring's per-rank shape (b·h 32, s 2048) and times
    them beside SDPA's ``is_causal=False``.
+22. tensor_pipeline, tensor and pipeline parallelism, two ranks as in slice 3,
+   one spawn (``TPP_RUNS``), then four (``TPP4_RUNS``).  Slice 1's LM at full
+   width from slice 1's world-1 weights (each rank's slice cut by
+   ``models.convert.shard_state_dict``), AdamW 1e-4, ``FULL_STEPS`` steps on
+   slice 1's batch: (a) over ``{"tp": 2}`` (8 heads and d_ff 2048 a rank, no
+   bucket collective: a tp-only mesh has no comm axis), launches exact (each
+   flash kernel ``n_layers`` a step); (b) ``PipelinedTransformerLM`` over
+   ``{"pp": 2}`` with ``PP_MICRO`` microbatches of one row, launches exact
+   with the bubble ticks (``n_layers / pp`` a tick over ``PP_MICRO + pp - 1``
+   ticks a step); each with its losses within ``MP_LOSS_RTOL`` of slice 1's,
+   its dense parameters bitwise equal on both ranks and its sharded ones
+   different.  Then one SGD step on a cut of slice 1 (``SP_CUT``: f32,
+   d_model 256, 4 heads, seq 512) against world 1 within ``MP_CUT_RTOL`` of
+   every parameter at tp 2 (control: ``tp_reduce`` with an allreduce
+   backward), pp 2 (control: no ``pp_size`` prescale) and, as four ranks, pp
+   2 x tp 2 (control: no prescale), whose state after the step is saved, one
+   step more taken and resumed bitwise from the save.  Prints the step times,
+   peaks and the bytes staged a step (the axis's collectives and the bucket
+   collectives apart).  The kernel phase holds K6a-c at the tp and pp rank's
+   shape (b·h 16, s 4096, d 64, causal) against plain and times them hot and
+   cold beside their bounds and SDPA.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -614,6 +635,41 @@ def check_ring_shape():
     return errs
 
 
+def check_tp_shape():
+    """The kernels at the tensor- and pipeline-parallel ranks' shape, b·h
+    16 (a tp rank's 8 heads of slice 1's 2 rows; a pp microbatch's one row
+    of 16 heads), s 4096, d 64, bf16, causal, against their plain versions;
+    each kernel's time hot and cold beside its plain version's and its
+    bound, and SDPA's forward and whole backward.  Returns the absolute
+    errors."""
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    b, h, d, s = MAIN["b"], MAIN["h"] // 2, MAIN["d"], MAIN["s"]
+    bh = b * h
+    (q, k, v, do, lse, delta), errs = check_kernels(bh, s, d, torch.bfloat16, True, seed=50)
+    fns = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, True),
+           "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+           "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True)}
+    ms = {n: cuda_ms(fn) for n, fn in fns.items()}
+    cold = {n: cuda_ms_cold(fn) for n, fn in fns.items()}
+    plain = {"flash_fwd": cuda_ms(lambda: fa.fwd_plain(q, k, v, True), 3),
+             "flash_bwd_dkv": cuda_ms(lambda: fa.dkv_plain(q, k, v, do, lse, delta, True), 3),
+             "flash_bwd_dq": cuda_ms(lambda: fa.dq_plain(q, k, v, do, lse, delta, True), 3)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, do))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q4, k4, v4))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    sdpa_fwd = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True))
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True))
+    log(f"tp/pp rank shape bh={bh} s={s} d={d} bf16 causal: "
+        + ", ".join(f"{n} {t:.4f} ms (cold {cold[n]:.4f}; plain {plain[n]:.4f}; bound "
+                    f"{bound(n, bh, s, d, torch.bfloat16, True)[0]:.4f}, "
+                    f"{bound(n, bh, s, d, torch.bfloat16, True)[1]})" for n, t in ms.items())
+        + f"; sdpa forward {sdpa_fwd:.4f} ms, backward {sdpa_bwd:.4f} ms "
+        f"(flash dK/dV + dQ {ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f})")
+    return errs
+
+
 def time_wide_head(bh, s, d):
     """The wide kernels' times at a head above 256 (bf16, causal), each
     beside its bound, and SDPA's forward and forward + backward on the same
@@ -679,8 +735,8 @@ def phase_kernels():
     (q, k, v, do, lse, delta), errs = check_kernels(bh, s, d, torch.bfloat16, True)
     errs = {n: max(e, errs_moe[n], errs_bert[n]) for n, e in errs.items()}
     check_backward_edges()
-    ring_errs = check_ring_shape()
-    errs = {n: max(e, ring_errs[n]) for n, e in errs.items()}
+    ring_errs, tp_errs = check_ring_shape(), check_tp_shape()
+    errs = {n: max(e, ring_errs[n], tp_errs[n]) for n, e in errs.items()}
 
     ms = {
         "flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, True)),
@@ -783,34 +839,40 @@ def phase_kernels():
     return rows
 
 
-def slice_model(name, attn_fn=None, gmm_fn=None, remat=False, remat_policy=None, ep_size=1,
-                use_ragged=False, sp_axis=None, **widths):
-    """The model of slice ``name``, weights from seed 0: ``"longctx"`` the
-    long-context LM of ``bench_longctx``, ``"moe"`` the dropless MoE LM of
-    ``bench_moe_longseq`` (a ``MoEMLP`` in every odd layer).  ``attn_fn`` and
-    ``gmm_fn`` replace the attention and the grouped matmul (for example with
-    their plain versions); ``remat`` and ``remat_policy`` are the model's
-    rematerialization knobs; ``ep_size`` and ``use_ragged`` the MoE layers'
-    expert parallelism and exchange form (over the global mesh's ``ep``
-    axis), ``sp_axis`` the sequence-parallel axis; ``widths`` replace the
-    configuration's (the cuts)."""
-    from bagua_tpu_torch.model_parallel.moe import MoEMLP
-    from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+def slice_config(name, **widths):
+    """Slice ``name``'s ``TransformerConfig``: ``"longctx"`` the long-context
+    LM of ``bench_longctx``, ``"moe"`` the dropless MoE LM of
+    ``bench_moe_longseq``; ``widths`` replace its fields (the cuts, the
+    rematerialization and model-parallel knobs)."""
+    from bagua_tpu_torch.models.transformer import TransformerConfig
 
-    knobs = dict(remat=remat, remat_policy=remat_policy, sp_axis=sp_axis)
     if name == "moe":
-        cfg = TransformerConfig(**{**dict(vocab_size=32768, d_model=MOE["d_model"],
-                                          n_heads=MOE["h"], n_layers=4, d_ff=MOE["d_ff"],
-                                          max_seq_len=MOE["s"]), **widths}, **knobs)
+        base = dict(vocab_size=32768, d_model=MOE["d_model"], n_heads=MOE["h"], n_layers=4,
+                    d_ff=MOE["d_ff"], max_seq_len=MOE["s"])
+    else:
+        base = dict(vocab_size=32768, d_model=MAIN["h"] * MAIN["d"], n_heads=MAIN["h"],
+                    n_layers=4, d_ff=4096, max_seq_len=MAIN["s"])
+    return TransformerConfig(**{**base, **widths})
+
+
+def slice_model(name, attn_fn=None, gmm_fn=None, ep_size=1, use_ragged=False, **widths):
+    """The model of slice ``name`` (:func:`slice_config`), weights from seed
+    0: for ``"moe"`` a ``MoEMLP`` in every odd layer.  ``attn_fn`` and
+    ``gmm_fn`` replace the attention and the grouped matmul (for example with
+    their plain versions); ``ep_size`` and ``use_ragged`` are the MoE layers'
+    expert parallelism and exchange form (over the global mesh's ``ep``
+    axis); ``widths`` replace the configuration's fields (the cuts,
+    ``remat``, ``remat_policy``, ``sp_axis``, ``tp_axis``/``tp_size``)."""
+    from bagua_tpu_torch.model_parallel.moe import MoEMLP
+    from bagua_tpu_torch.models.transformer import TransformerLM
+
+    cfg = slice_config(name, **widths)
+    factory = None
+    if name == "moe":
         moe = lambda: MoEMLP(MOE["experts"], cfg.d_ff, d_model=cfg.d_model, k=MOE["k"],
                              dropless=True, gmm_fn=gmm_fn, ep_size=ep_size,
                              use_ragged=use_ragged, dtype=cfg.dtype)
         factory = lambda i: moe if i % 2 == 1 else None
-    else:
-        cfg = TransformerConfig(**{**dict(vocab_size=32768, d_model=MAIN["h"] * MAIN["d"],
-                                          n_heads=MAIN["h"], n_layers=4, d_ff=4096,
-                                          max_seq_len=MAIN["s"]), **widths}, **knobs)
-        factory = None
     return TransformerLM(cfg, seed=0, attn_fn=attn_fn, mlp_factory=factory)
 
 
@@ -1301,18 +1363,21 @@ def _params_on_host(model):
     return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
 
 
-def kernel_step_ms(trainer, state, batch):
+def kernel_step_ms(trainer, state, batch, total=False):
     """Device milliseconds of each flash and gmm kernel in one training step
-    (one profiler window over the step); the step's state is dropped."""
+    (one profiler window over the step), with ``total`` also every device
+    kernel's under ``"all kernels"``; the step's state is dropped."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         _, loss = trainer.train_step(state, batch)
         loss.item()
         torch.cuda.synchronize()
-    out = {}
+    out = {"all kernels": 0.0} if total else {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            if total:
+                out["all kernels"] += e.time_range.elapsed_us() / 1e3
             m = KERNEL_NAMES.search(e.name)
             if m:
                 key = KERNEL_OF[m.group(1)]
@@ -1960,6 +2025,22 @@ SP_CUT = dict(d_model=256, n_heads=4, d_ff=1024, max_seq_len=512, dtype=torch.fl
 #: (relative, every step): bf16 runs over other batch splits and kernels.
 #: (on the H100 the gaps were 3.45e-5 for EP and 1.45e-4 for SP)
 MP_LOSS_RTOL = 1e-3
+#: the tensor_pipeline phase, two ranks on the card over gloo, one spawn:
+#: slice 1's model at full width over ``{"tp": 2}`` (8 heads and d_ff 2048
+#: a rank) and over ``{"pp": 2}`` (2 layers a stage, ``PP_MICRO``
+#: microbatches of one row), ``FULL_STEPS`` AdamW steps each, from slice
+#: 1's world-1 weights; then one SGD step on ``SP_CUT`` at tp 2 and at pp 2
+#: against world 1, each with a control that must fail
+TPP_RUNS = (
+    ("tp_full", None, "full", {"axes": {"tp": 2}}),
+    ("pp_full", None, "full", {"axes": {"pp": 2}}),
+    ("tp_cut", None, "cut", {"axes": {"tp": 2}}),
+    ("pp_cut", None, "cut", {"axes": {"pp": 2}}),
+)
+#: the 3-D cut, pp 2 x tp 2 on four ranks (dp 1), with its control and a
+#: checkpoint resumed after its first step
+TPP4_RUNS = (("cut_3d", None, "cut", {"axes": {"pp": 2, "tp": 2}, "ckpt": True}),)
+PP_MICRO = 2
 #: the multi-rank phases: name -> (label, runs, world, intra-node size)
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
@@ -1972,6 +2053,8 @@ MULTI_RANK = {
     "features": ("features", FEATURES_RUNS, CODEC_WORLD, None),
     "overlap": ("overlap", OVERLAP_RUNS, CODEC_WORLD, None),
     "model_parallel": ("model_parallel", MP_RUNS, MP_WORLD, None),
+    "tensor_pipeline": ("tensor_pipeline", TPP_RUNS, 2, None),
+    "tensor_pipeline_4": ("tensor_pipeline (pp 2 x tp 2)", TPP4_RUNS, 4, None),
 }
 QADAM_WARMUP = 2
 #: seconds a multi-rank phase may take before its ranks are killed
@@ -3136,16 +3219,19 @@ def check_checkpoint(card, single, multi):
 _MP_MESHES = {}
 
 
-def _mp_mesh(axis):
-    """The phase's mesh over its two ranks, ``{"ep": 2}`` or ``{"sp": 2}``,
-    built at first use (collective: every rank runs the runs in one order)
-    and set as the global mesh."""
+def _mp_mesh(axes):
+    """A multi-rank phase's mesh: ``{axes: MP_WORLD}`` for an axis name
+    (``"ep"``, ``"sp"``), else the axis sizes ``axes`` (``{"tp": 2}``,
+    ``{"pp": 2, "tp": 2}``); built at first use (collective: every rank runs
+    the runs in one order) and set as the global mesh."""
     import bagua_tpu_torch as bt
 
-    if axis not in _MP_MESHES:
-        _MP_MESHES[axis] = bt.build_mesh({axis: MP_WORLD})
-    bt.set_global_mesh(_MP_MESHES[axis])
-    return _MP_MESHES[axis]
+    sizes = {axes: MP_WORLD} if isinstance(axes, str) else dict(axes)
+    key = tuple(sizes.items())
+    if key not in _MP_MESHES:
+        _MP_MESHES[key] = bt.build_mesh(sizes)
+    bt.set_global_mesh(_MP_MESHES[key])
+    return _MP_MESHES[key]
 
 
 def _exchange_timer(comm):
@@ -3522,6 +3608,253 @@ def check_model_parallel(card, mp, slice1_losses, ep_losses):
     return time_ep_gmm(shapes)
 
 
+# ---------------------------------------------------------------------------
+# tensor_pipeline: tensor and pipeline parallelism on slice 1's model
+# ---------------------------------------------------------------------------
+
+def tpp_model(axes, **widths):
+    """Slice 1's model (``widths`` replacing its configuration's) on the
+    mesh ``axes``: a ``TransformerLM`` holding ``n_heads / tp`` heads and
+    ``d_ff / tp`` rows, or with a ``pp`` axis a ``PipelinedTransformerLM``
+    holding ``n_layers / pp`` stacked layers, ``PP_MICRO`` microbatches.
+    Random weights (seed 0): the caller loads slice 1's."""
+    import bagua_tpu_torch as bt
+
+    tp, pp = axes.get("tp", 1), axes.get("pp", 1)
+    cfg = slice_config("longctx", **widths, tp_axis="tp" if tp > 1 else None, tp_size=tp)
+    if pp > 1:
+        return bt.PipelinedTransformerLM(cfg, pp, n_microbatches=PP_MICRO, seed=0)
+    return bt.TransformerLM(cfg, seed=0)
+
+
+def _tpp_trainer(axes, model, optimizer, device):
+    import bagua_tpu_torch as bt
+
+    kw = {f"{a}_axis": a for a in ("tp", "pp") if axes.get(a, 1) > 1}
+    loss_fn = bt.pp_lm_loss_fn if "pp" in axes else bt.lm_loss_fn
+    return bt.BaguaTrainer(loss_fn, optimizer, bt.GradientAllReduceAlgorithm(hierarchical=False),
+                           device=device, mesh=_mp_mesh(axes), **kw)
+
+
+def _sharded_digest(trainer, model):
+    """sha256 of every tensor- or pipeline-sharded leaf of this rank."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        if trainer._is_sharded(n):
+            h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tpp_full_run(rank, world, name, device, label, axes):
+    """Slice 1's model at full width over ``axes`` from slice 1's world-1
+    weights (each rank's slice cut by ``shard_state_dict``): ``FULL_STEPS``
+    AdamW 1e-4 steps on slice 1's batch (both ranks the whole batch: there
+    is no data axis).  Launches exact: each flash kernel ``n_layers`` a step
+    at tp (a rank's 8 heads, b·h 16), ``n_layers / pp`` a tick over
+    ``PP_MICRO + pp - 1`` ticks at pp (bubble ticks included; a
+    microbatch's one row, b·h 16).  Records the losses, the digests of the
+    dense and the sharded leaves, the step times, the peak and the bytes
+    staged a step: the mesh axis's collectives (tp's activation allreduces,
+    pp's hops) and the bucket collectives apart."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.models.convert import shard_state_dict
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    mesh = _mp_mesh(axes)
+    model = tpp_model(axes)
+    model.load_state_dict(shard_state_dict(_full_weights("longctx"), model))
+    trainer = _tpp_trainer(axes, model, _adamw(), device)
+    state = trainer.init(model)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, model.cfg.vocab_size, (MAIN["b"], MAIN["s"] + 1), device=device,
+                           generator=g)
+    batch = trainer.shard_batch({"tokens": tokens}, global_batch=True)
+    axis = "pp" if "pp" in axes else "tp"
+    comm, buckets = mesh.comm(axis), trainer.backend.global_communicator
+    axis0, buckets0, staged0 = (comm.host_staged_bytes, buckets.host_staged_bytes,
+                                trainer.host_staged_bytes)
+    losses, launches, st, state = train_steps(trainer, state, batch, MAIN["b"] * MAIN["s"],
+                                              [fa], steps=FULL_STEPS)
+    cfg = model.cfg
+    per_step = (cfg.n_layers if axis == "tp"
+                else cfg.n_layers // axes["pp"] * (PP_MICRO + axes["pp"] - 1))
+    want = {k.__name__: per_step * FULL_STEPS for k in fa.KERNELS}
+    if launches != want:
+        raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
+    log(f"[rank {rank}] {label} {name}: losses {losses}; launches {launches}")
+    record = {"name": name, "kind": "tensor_pipeline", "losses": losses, "launches": launches,
+              "stats": st, "digests": _flat_digests(trainer, model), "layout": st["layout"],
+              "sharded_digest": _sharded_digest(trainer, model),
+              "plan": trainer.plan.tensor_names, "world": trainer.world_size,
+              "axis_bytes_step": (comm.host_staged_bytes - axis0) / FULL_STEPS,
+              "bucket_bytes_step": (buckets.host_staged_bytes - buckets0) / FULL_STEPS,
+              "staged_bytes_step": (trainer.host_staged_bytes - staged0) / FULL_STEPS}
+    # one step more under the profiler: this rank's device kernel time
+    record["kernel_ms"] = kernel_step_ms(trainer, state, batch, total=True)
+    return record
+
+
+class _AllReduceBothWays(torch.autograd.Function):
+    """The tensor-parallel cut's control: the row-parallel sum as a raw
+    allreduce, whose backward is an allreduce too (each block's cotangent
+    scaled by tp)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        import bagua_tpu_torch as bt
+
+        ctx.comm = comm
+        return comm.allreduce(x.clone(), bt.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import bagua_tpu_torch as bt
+
+        return ctx.comm.allreduce(grad.clone(), bt.ReduceOp.SUM), None
+
+
+def tpp_cut_run(rank, world, name, device, label, axes, ckpt=False):
+    """One SGD step (0.1) on a cut of slice 1 (``SP_CUT``: f32, d_model 256,
+    4 heads, seq 512, slice 1's 2 rows) over ``axes`` against the world-1
+    step on the whole batch, within ``MP_CUT_RTOL`` of every parameter; its
+    control must fail that tolerance: under tp ``tp_reduce`` as an allreduce
+    with an allreduce backward, under pp the dense gradients without the
+    ``pp_size`` prescale.  With ``ckpt`` the step's state is saved, one more
+    step taken, and a fresh trainer restoring the save and taking that step
+    must end bitwise equal."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.models import transformer as tm
+    from bagua_tpu_torch.models.convert import shard_state_dict, stack_blocks
+
+    _mp_mesh(axes)
+    cfg = slice_config("longctx", **SP_CUT)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (MAIN["b"], cfg.max_seq_len + 1), device=device,
+                           generator=g)
+    full = slice_model("longctx", **SP_CUT)
+    before = {n: p.detach().clone() for n, p in full.named_parameters()}
+    bt.lm_loss_fn(full, {"tokens": tokens}).backward()
+    with torch.no_grad():
+        want = {n: p - 0.1 * p.grad for n, p in full.named_parameters()}
+    del full
+    if "pp" in axes:
+        want = stack_blocks(want, cfg.n_layers)
+    sgd = functools.partial(torch.optim.SGD, lr=0.1)
+
+    def fresh():
+        model = tpp_model(axes, **SP_CUT)
+        model.load_state_dict(shard_state_dict(before, model))
+        trainer = _tpp_trainer(axes, model, sgd, device)
+        return model, trainer, trainer.init(model)
+
+    errs, record = {}, {"name": name, "kind": "tensor_pipeline"}
+    tp_reduce = tm.tp_reduce
+    for kind in ("step", "control"):
+        model, trainer, state = fresh()
+        if kind == "control" and "pp" in axes:
+            trainer._prescale_partial_grads = lambda grads: None
+        elif kind == "control":
+            tm.tp_reduce = _AllReduceBothWays.apply
+        batch = trainer.shard_batch({"tokens": tokens}, global_batch=True)
+        try:
+            state, _ = trainer.train_step(state, batch)
+        finally:
+            tm.tp_reduce = tp_reduce
+        got = trainer.unstack_params(state)
+        err = {n: rel_err(got[n], want[n]) for n in want}
+        worst = max(err, key=err.get)
+        errs[kind] = (err[worst], worst)
+        if ckpt and kind == "step":
+            record["resume_bitwise"] = _tpp_resume(trainer, state, batch, fresh)
+        del model, trainer, state, got
+    control = "no pp_size prescale" if "pp" in axes else "tp_reduce with an allreduce backward"
+    log(f"[rank {rank}] {label} {name}: one SGD step over {axes} against world 1 on the whole "
+        f"batch, largest parameter error {errs['step'][0]:.3g} ({errs['step'][1]}); the "
+        f"control ({control}) {errs['control'][0]:.3g} ({errs['control'][1]})"
+        + (f"; resumed from a checkpoint after step 1: "
+           f"{'bitwise' if record['resume_bitwise'] else 'DIFFERS'}" if ckpt else ""))
+    if not errs["step"][0] <= MP_CUT_RTOL < errs["control"][0]:
+        raise AssertionError(f"[rank {rank}] {name}: the step differs from world 1 ({errs}), or "
+                             f"the gate could not see the control")
+    if ckpt and not record["resume_bitwise"]:
+        raise AssertionError(f"[rank {rank}] {name}: the resumed step differs")
+    record.update(param_err=errs["step"][0], control_err=errs["control"][0], control=control)
+    return record
+
+
+def _tpp_resume(trainer, state, batch, fresh):
+    """Save ``state`` (after its first step), take one step more; a fresh
+    trainer restores the save and takes the same step: bitwise equal
+    parameters and loss."""
+    import bagua_tpu_torch as bt
+
+    directory = os.path.join(_CKPT_DIR["root"], "tpp")
+    mgr = bt.BaguaCheckpointManager(directory, async_save=False)
+    trainer.save_checkpoint(mgr, 1, state)
+    mgr.wait()
+    state, loss = trainer.train_step(state, batch)
+    want = trainer.unstack_params(state)
+    _, trainer2, state2 = fresh()
+    step, state2 = trainer2.restore_checkpoint(mgr, state2)
+    state2, loss2 = trainer2.train_step(state2, batch)
+    got = trainer2.unstack_params(state2)
+    mgr.close()
+    return bool(step == 1 and loss.item() == loss2.item()
+                and all(torch.equal(got[n], want[n]) for n in want))
+
+
+def tensor_pipeline_run(rank, world, run, device, label):
+    """One run of the tensor_pipeline phases on this rank; returns its
+    record."""
+    name, _, kind, kw = run
+    return {"full": tpp_full_run, "cut": tpp_cut_run}[kind](rank, world, name, device, label,
+                                                            **kw)
+
+
+def check_tensor_pipeline(card, tpp, tpp4, slice1_losses):
+    """The phase's gates across ranks and against slice 1: each full-width
+    run's losses equal on both ranks and within ``MP_LOSS_RTOL`` of slice
+    1's world-1 losses, its dense leaves bitwise equal on both ranks, its
+    sharded leaves different (each rank its own slice); prints the runs'
+    steps, bytes and peaks and the cuts' errors beside the card."""
+    for name in ("tp_full", "pp_full"):
+        recs = tpp[name]
+        if any(r["digests"] != recs[0]["digests"] or r["losses"] != recs[0]["losses"]
+               for r in recs):
+            raise AssertionError(f"tensor_pipeline {name}: dense parameters or losses differ "
+                                 "between ranks")
+        if len({r["sharded_digest"] for r in recs}) != len(recs):
+            raise AssertionError(f"tensor_pipeline {name}: two ranks hold the same slice")
+        want = slice1_losses[:FULL_STEPS]
+        gap = [abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"], want)]
+        log(f"tensor_pipeline {name}: losses {recs[0]['losses']} against world 1 {want}: "
+            f"largest relative gap {max(gap):.3g}; dense parameters bitwise equal on both "
+            f"ranks, sharded ones different; plan {len(recs[0]['plan'])} tensors over a world "
+            f"of {recs[0]['world']}")
+        if not max(gap) <= MP_LOSS_RTOL:
+            raise AssertionError(f"tensor_pipeline {name}: losses off slice 1's by {gap} "
+                                 f"(tolerance {MP_LOSS_RTOL})")
+        for r, rec in enumerate(recs):
+            st = rec["stats"]
+            log(f"tensor_pipeline {name} rank {r} ({card}; gloo through host memory, 2 ranks "
+                f"on one card): median step {st['median_ms']:.3f} ms (steps 2-{FULL_STEPS}), "
+                f"{st['tokens_s']:.1f} tokens/s, peak {st['peak_gb']:.3f} GB "
+                f"({rec['layout']} layout), host-staged {rec['staged_bytes_step']:.0f} bytes a "
+                f"step: the axis's collectives {rec['axis_bytes_step']:.0f}, the bucket "
+                f"collectives {rec['bucket_bytes_step']:.0f}; one profiled step's device ms "
+                f"{json.dumps({k: round(v, 3) for k, v in rec['kernel_ms'].items()})}")
+    for name, recs in list(tpp.items()) + list(tpp4.items()):
+        if "param_err" in recs[0]:
+            log(f"tensor_pipeline {name} ({card}): one SGD step against world 1, largest "
+                f"parameter error {max(r['param_err'] for r in recs):.3g} (tolerance "
+                f"{MP_CUT_RTOL}); the control ({recs[0]['control']}) "
+                f"{min(r['control_err'] for r in recs):.3g}"
+                + ("; the checkpoint resumed bitwise on every rank"
+                   if "resume_bitwise" in recs[0] else ""))
+
+
 def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     """One rank of a multi-rank phase of ``MULTI_RANK``: every run, records
     to ``out_path`` as JSON."""
@@ -3535,8 +3868,9 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     records = []
     for run in runs:
         run_fn = {"async": async_run, "features": features_run, "overlap": overlap_run,
-                  "checkpoint": checkpoint_run,
-                  "model_parallel": model_parallel_run}.get(phase, compressed_run)
+                  "checkpoint": checkpoint_run, "model_parallel": model_parallel_run,
+                  "tensor_pipeline": tensor_pipeline_run,
+                  "tensor_pipeline_4": tensor_pipeline_run}.get(phase, compressed_run)
         records.append(run_fn(rank, world, run, device, label))
         if device.type == "cuda":
             release()
@@ -3571,7 +3905,7 @@ def phase_multi_rank(phase):
                 ranks.append(json.load(f))
     for runs in zip(*ranks):
         name = runs[0]["name"]
-        if runs[0].get("kind") in ("eager", "checkpoint", "model_parallel"):
+        if runs[0].get("kind") in ("eager", "checkpoint", "model_parallel", "tensor_pipeline"):
             continue
         if runs[0]["fingerprints"] is not None:
             check_gossip(label, runs, intra or 1)
@@ -3946,6 +4280,9 @@ def main():
     mp = timed("model_parallel", phase_multi_rank, "model_parallel")
     for name, err in check_model_parallel(card, mp, slice1_losses, ep_losses).items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    tpp = timed("tensor_pipeline", phase_multi_rank, "tensor_pipeline")
+    tpp4 = timed("tensor_pipeline (pp 2 x tp 2)", phase_multi_rank, "tensor_pipeline_4")
+    check_tensor_pipeline(card, tpp, tpp4, slice1_losses)
     for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
             continue
