@@ -57,7 +57,10 @@ from .communication import (  # noqa: F401
 from .core.backend import BaguaTrainer, TrainState  # noqa: F401
 from .define import TensorDeclaration, TensorDtype  # noqa: F401
 from .env import get_local_rank, get_rank, get_world_size  # noqa: F401
+from .models.generate import decode_model, generate, generate_tp  # noqa: F401
 from .models.transformer import (  # noqa: F401
+    KVCache,
+    PagedKVCache,
     TransformerConfig,
     TransformerLM,
     bert_large_config,

@@ -13,15 +13,17 @@ Port of ``bagua_tpu/algorithms/q_adam.py``.  Two phases, switched by
   across nodes, K1 and K2 unless ``compress_inter`` names another codec, an
   intra-node allgather), else the 8-bit compressed scatter-gather over the
   whole world.  The JAX package's third form, the "legacy Leader"
-  (``q_adam.py:133-160``), runs only where an extra mesh axis makes the tiers
-  refuse; the port's tiers have no such axis, so it is left out.
+  (``q_adam.py:133-160``), runs where an ep or sp axis folded into the comm
+  axes makes the tiers refuse: it averages over ``inter x intra`` alone, so
+  the ranks of that axis keep different momenta.  The port takes the flat
+  form there, as the other families do (ROADMAP.md, Queue 3).
 
 The algorithm owns its optimizer, so the trainer builds no torch optimizer
 for it.  The moments are laid out as the parameters the trainer hands over:
 dicts of tensors by parameter name, or, under the flat-resident layout, one
-flat a bucket; the update runs in place on the parameters.  Under tensor or
-pipeline parallelism the moments cover every leaf, the sharded ("local")
-ones outside the bucket plan included: their gradients come from the
+flat a bucket; the update runs in place on the parameters.  Under expert,
+tensor or pipeline parallelism the moments cover every leaf, the expert
+tables and sharded ("local") leaves outside the bucket plan included: their gradients come from the
 trainer already averaged over dp, and the compressed phase communicates the
 plan's momentum alone, keeping theirs.
 """

@@ -28,14 +28,14 @@ written back into the flats.  Under the leaf layout the chunk tensors are
 copies: each step copies this rank's chunk of the current parameters into
 them (as JAX re-reads it from the replicated flat, ``:377``; a codec's gather
 is lossy, so a chunk kept across steps would leave the JAX trajectory) and
-writes the gathered flats back into the parameters in place.  Under tensor
-or pipeline parallelism the leaf layout's model-parallel ("local") leaves,
-which stay out of the bucket plan, take the replicated path (``zero.py:
-240-351``): a second optimizer of the same factory over the module's local
-parameters themselves, stepped on their gradients, which the trainer has
-averaged over dp.  The expert tables of expert parallelism are not ported
-here (the trainer refuses ZeRO with ``expert_axis``), nor is clipping with
-local leaves, whose norm would need every model-parallel axis (JAX raises
+writes the gathered flats back into the parameters in place.  Under expert,
+tensor or pipeline parallelism the leaf layout's model-parallel ("local")
+leaves, which stay out of the bucket plan (the expert tables, the tp and pp
+shards), take the replicated path (``zero.py:240-351``): a second optimizer
+of the same factory over the module's local parameters themselves, stepped
+on their gradients, which the trainer has averaged over dp (an expert
+table's after its ``1 / ep_size`` rescale).  Clipping with local leaves is
+not ported: its norm would need every model-parallel axis (JAX raises
 too).
 
 The per-bucket reduce-scatter is the overlap contract, on the resident layout

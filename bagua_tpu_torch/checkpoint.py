@@ -49,7 +49,7 @@ import threading
 import time
 import weakref
 from pathlib import Path
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -961,16 +961,17 @@ class BaguaCheckpointManager:
             counters.incr("ckpt/verified_restores")
         return payload
 
-    def _load_step(self, step: int, sidecar: Optional[dict], all_ranks: bool = False):
+    def _load_step(self, step: int, sidecar: Optional[dict],
+                   ranks: Optional[Iterable[int]] = None):
         """``(manifest, shared, parts)``: the step's manifest, the shared
         part (rank 0's file) and the per-rank parts by saved rank: this
-        rank's own (None past the saved world), or every saved rank's with
-        ``all_ranks``.  Every part this rank reads past rank 0's shared one
-        is verified here."""
+        rank's own (None past the saved world), or those of the saved
+        ``ranks``.  Every part this rank reads past rank 0's shared one is
+        verified here."""
         manifest = self._manifest(step)
         rank = _rank_world()[0]
         world = int(manifest["world"])
-        wanted = range(world) if all_ranks else ([rank] if rank < world else [])
+        wanted = list(ranks) if ranks is not None else ([rank] if rank < world else [])
         loaded = {r: self._load_part(step, r, sidecar) for r in wanted}
         shared = None
         if manifest["kind"] == "ranked":

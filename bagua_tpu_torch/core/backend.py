@@ -107,9 +107,6 @@ from ..tensor import build_params
 
 logger = logging.getLogger(__name__)
 
-#: where ROADMAP.md files what expert, tensor and pipeline parallelism left
-ROADMAP_ITEM = "(ROADMAP.md, Queue 1 item 1)"
-
 #: the flat-safety probe's verdict by optimizer factory (hashable factories
 #: only), so that repeated trainers over one factory pay it once
 _FLAT_SAFE_MEMO: Dict[Any, bool] = {}
@@ -276,7 +273,11 @@ class BaguaTrainer:
             tables leave the bucket plan and are averaged over the dp (+ sp)
             axes after a ``1 / ep_size`` rescale; the batch is split over dp
             x ep.  The layout stays the leaf one and the error-feedback
-            residual is off, as in the JAX package.
+            residual is off, as in the JAX package.  ZeRO's and QAdam's
+            optimizer state covers the expert tables as local leaves
+            (``zero.py:245-351``); the ep axis folded into the comm axes
+            leaves the tiers untiled, so ``hierarchical=True`` takes the flat
+            path, as it does under ``seq_axis``.
         expert_params: which parameters are expert tables: a ``name ->
             bool`` callable or a collection of names (default: the exact
             names ``MoEMLP`` creates, ``is_expert_param``).
@@ -290,7 +291,11 @@ class BaguaTrainer:
             slice) leave the bucket plan and are averaged over dp (+ sp);
             the replicated leaves' gradients are whole and the same on the
             tp ranks (the model's conjugates), so the bucket collectives do
-            not span tp, and the batch is not split over it.
+            not span tp, and the batch is not split over it.  Where the
+            comm axes are the mesh's ``inter`` and ``intra`` axes, a
+            hierarchical family runs the two-level form within each tp
+            coordinate (hierarchical ZeRO refuses the leaf layout there, as
+            in the JAX package).
         tp_param_dim: ``name -> dim`` of a parameter's GLOBAL tensor sharded
             over ``tp_axis`` (None: replicated); default the transformer's
             table, ``models.transformer.tp_param_dim``.
@@ -303,8 +308,8 @@ class BaguaTrainer:
             stacked tensor-parallel leaf carries both placements, its tp dim
             shifted past the stage dim.  Both axes keep the leaf layout and
             turn the error-feedback residual off, refuse ``expert_axis`` and
-            the gossip families, and take the flat path of a hierarchical
-            family, as the JAX package does.
+            the gossip families, as the JAX package does; pp in the comm
+            axes sends a hierarchical family down the flat path.
         pp_param_dim: ``name -> dim`` of the stage stacking (0 for the
             pipeline's ``blocks`` leaves); default
             ``parallel.pipeline.pp_param_dim``.
@@ -477,16 +482,6 @@ class BaguaTrainer:
             raise NotImplementedError(
                 "expert/sequence parallelism with gossip (per-rank-weight) algorithms is not "
                 "supported yet")
-        if expert_axis is not None or seq_axis is not None:
-            if getattr(algo, "hierarchical", False):
-                raise NotImplementedError(
-                    f"{type(algo).__name__}(hierarchical=True) on a mesh with an expert or "
-                    f"sequence axis is not ported yet {ROADMAP_ITEM}: pass hierarchical=False")
-        if expert_axis is not None and algo.owns_optimizer:
-            raise NotImplementedError(
-                f"{type(algo).__name__} with expert_axis is not ported yet {ROADMAP_ITEM}: its "
-                "optimizer state covers the bucket plan, which the expert tables leave; use "
-                "GradientAllReduceAlgorithm or ByteGradAlgorithm with a torch optimizer")
         if (algo.sharded_opt_state and getattr(algo, "hierarchical", False)
                 and self._shard_axis is not None
                 and self.mesh.size_of(self.comm_axes) == self.mesh.size_of(
@@ -634,18 +629,35 @@ class BaguaTrainer:
 
     # ---- overlap gate ----------------------------------------------------
 
+    def _tiers(self):
+        """``(intranode, internode)``, the tier communicators of the
+        algorithm context (``backend.py:491-493``).  Without a model axis,
+        the backend's tiers where the buckets reduce over the whole world,
+        else none.  On a model-parallel mesh, the mesh's own ``intra`` and
+        ``inter`` axes, each within this rank's coordinates on the other
+        axes (none without both axes).  They tile the bucket world only
+        where the comm axes are exactly ``inter`` and ``intra`` (a tp mesh):
+        an ep, sp or pp axis folded into the comm axes leaves
+        ``two_tier()`` false, and a hierarchical family takes the flat
+        path, as in the JAX package (``base.py:174-187``)."""
+        if all(a is None for a in (self.expert_axis, self.seq_axis, self.tp_axis,
+                                   self.pp_axis)):
+            if self.comm is not self.backend.global_communicator:
+                return None, None
+            return self.backend.intranode_communicator, self.backend.internode_communicator
+        if not all(a in self.mesh.shape for a in ("inter", "intra")):
+            return None, None
+        return self.mesh.comm(("intra",)), self.mesh.comm(("inter",))
+
     def _make_ctx(self, plan: BucketPlan, overlap: bool) -> AlgorithmContext:
         """The algorithm context of ``plan`` (``backend.py:633-650``): the
-        chunk targets only under the overlap scheduler; the backend's tiers
-        only where the buckets reduce over the whole world (a sub-world's
-        ranks are not tiled by them, so its hierarchical families take the
-        flat path, as JAX's do on a mesh without inter and intra axes)."""
-        whole = self.comm is self.backend.global_communicator
+        chunk targets only under the overlap scheduler; the tiers of
+        :meth:`_tiers`."""
+        intranode, internode = self._tiers()
         return AlgorithmContext(
             comm=self.comm, plan=plan, world_size=self.world_size,
             intra_codec=self.compress_intra, inter_codec=self.compress_inter,
-            intranode=self.backend.intranode_communicator if whole else None,
-            internode=self.backend.internode_communicator if whole else None,
+            intranode=intranode, internode=internode,
             ef_enabled=self._ef_enabled, device=self.device,
             flat_resident=self._flat_resident, overlap=overlap,
             overlap_chunk_bytes=(self.overlap_chunk_bytes or None) if overlap else None,
@@ -832,9 +844,7 @@ class BaguaTrainer:
         (collective under model parallelism)."""
         out = {n: p.detach().clone() for n, p in state.model.named_parameters()}
         for n in self._local_names():
-            entries = (((0, self.expert_axis),) if self._is_expert_name(n)
-                       else self._shard_entries(n))
-            for dim, axis in entries:
+            for dim, axis in self._placements(n):
                 comm = self.mesh.comm(axis)
                 if comm is not None:
                     out[n] = comm.allgather(out[n], axis=dim, tiled=True)
@@ -1356,7 +1366,17 @@ class BaguaTrainer:
         for key in ("expert_axis", "tp_axis", "pp_axis"):
             if getattr(self, key) is not None:
                 meta[key] = getattr(self, key)
+        local = self._local_names()
+        if local:
+            meta["local_dims"] = {n: [list(e) for e in self._placements(n)] for n in local}
         return meta
+
+    def _placements(self, name: str) -> Tuple[Tuple[int, str], ...]:
+        """``((dim, axis), ...)``: where a local leaf's GLOBAL tensor is cut
+        (an expert table along dim 0 over the expert axis)."""
+        if self._is_expert_name(name):
+            return ((0, self.expert_axis),)
+        return self._shard_entries(name)
 
     def _require_no_pending_migration(self, what: str) -> None:
         """Between a :meth:`rebucket` and the next step the state still lies
@@ -1474,7 +1494,12 @@ class BaguaTrainer:
         algo = self.algorithm
         saved = manager.read_layout(step)
         expected = self.checkpoint_layout_metadata()
-        self._check_mesh(step, saved, expected)
+        if self._check_mesh(step, saved, expected):
+            tree = self._load_across_meshes(manager, step, saved)
+            tree["algo_state"] = self._ef_restore_adapter(state_like, saved,
+                                                          tree.get("algo_state"))
+            self._check_restored(state_like, tree)
+            return step, functools.partial(self._apply_restored, state_like, tree)
         saved_layout = (manager._normalize_layout(saved) or {}).get("layout")
         same_plan = saved is not None and saved.get("plan_signature") == expected["plan_signature"]
         saved_world = (saved or {}).get("world_size")
@@ -1512,32 +1537,138 @@ class BaguaTrainer:
         self._check_restored(state_like, tree)
         return step, functools.partial(self._apply_restored, state_like, tree)
 
-    def _check_mesh(self, step: int, saved: Optional[dict], expected: dict) -> None:
-        """A checkpoint of model-sharded state restores only on its own mesh:
-        another expert-, tensor- or pipeline-axis size re-slices every local
-        leaf, which is not ported yet."""
+    def _check_mesh(self, step: int, saved: Optional[dict], expected: dict) -> bool:
+        """Whether ``step`` was saved on another model-parallel mesh, and
+        must be re-sliced (:meth:`_load_across_meshes`).  The JAX package
+        restores its GLOBAL arrays onto the live shardings
+        (``checkpoint.py:702-760``), so it completes such a restore wherever
+        the global shapes agree: across tp and pp sizes, and across dp.
+        A checkpoint saved with no model axis holds every leaf whole.  Its
+        expert tables are stacked by ep rank, so another ep size fails
+        there, and raises here; so does ZeRO, whose chunks follow the comm
+        world (JAX's restore fails on their shapes too), a family whose
+        weights are each rank's own, or a checkpoint with model axes that
+        does not record its leaves' placements.  Each error names both
+        meshes."""
         saved_mesh, live_mesh = (saved or {}).get("mesh"), expected.get("mesh")
         axes = ("expert_axis", "tp_axis", "pp_axis")
-        saved_axes = {k: (saved or {}).get(k) for k in axes}
-        live_axes = {k: getattr(self, k) for k in axes}
-        if (saved is None or saved_mesh == live_mesh
-                or not any(list(saved_axes.values()) + list(live_axes.values()))):
-            return
-        what = ("expert-parallel" if saved_axes["expert_axis"] or self.expert_axis
-                else "tensor- or pipeline-parallel")
+        saved_axes = {k: v for k, v in ((k, (saved or {}).get(k)) for k in axes) if v}
+        live_axes = {k: v for k, v in ((k, getattr(self, k)) for k in axes) if v}
+        if saved is None or saved_mesh == live_mesh or not (saved_axes or live_axes):
+            return False
+        reason = None
+        ep = lambda mesh, ax: int((mesh or {}).get(ax, 1)) if ax else 1
+        if ep(saved_mesh, saved_axes.get("expert_axis")) != ep(live_mesh, self.expert_axis):
+            reason = ("another expert-parallel size changes the per-rank expert stacks, which "
+                      "the JAX package does not restore either")
+        elif self.algorithm.sharded_opt_state:
+            reason = (f"{type(self.algorithm).__name__}'s optimizer state is sharded over the "
+                      "comm world, whose chunks change with the mesh, as the JAX package's do")
+        elif not self.algorithm.replicated_params:
+            reason = f"{type(self.algorithm).__name__}'s weights are each rank's own"
+        elif saved_axes and (saved.get("layout") != "leaf" or "local_dims" not in saved):
+            reason = "the checkpoint records no placements of its sharded leaves"
+        if reason is None:
+            return True
+        saved_text = saved_mesh or f"of world {saved.get('world_size')} (no mesh recorded)"
+        live_text = live_mesh or f"of world {self.comm.nranks()} (no mesh)"
         raise ValueError(
-            f"checkpoint step {step} was saved on the mesh {saved_mesh} (model axes "
-            f"{ {k: v for k, v in saved_axes.items() if v} }), this trainer runs {live_mesh} "
-            f"(model axes { {k: v for k, v in live_axes.items() if v} }): a restore across "
-            f"{what} meshes would re-slice every sharded leaf and is not ported yet "
-            f"{ROADMAP_ITEM}.  Restore on the saved mesh.")
+            f"checkpoint step {step} was saved on the mesh {saved_text} (model axes "
+            f"{saved_axes}), this trainer runs {live_text} (model axes {live_axes}): "
+            f"{reason}.  Restore on the saved mesh.")
+
+    def _load_across_meshes(self, manager, step: int, saved: dict) -> dict:
+        """A checkpoint of a replicated family saved on another mesh, on
+        this one.  Each leaf the saved trainer kept local, and each state
+        tensor kept for it by name (the torch optimizer's, QAdam's moments),
+        is put together into its GLOBAL tensor from the saved ranks of the
+        first replica (coordinate 0 on every axis it is not cut over), so
+        only rank 0's part and theirs are read; the other leaves were saved
+        whole.  The tree is laid out as the live trainer's state
+        (:meth:`_convert_layout`), and every tensor kept by the name of a
+        live local leaf is then cut to this rank's slice."""
+        placements = {n: [(int(d), a) for d, a in e]
+                      for n, e in saved.get("local_dims", {}).items()}
+        holders: Dict[str, Dict[tuple, int]] = {}
+        if placements:
+            saved_mesh = Mesh({a: int(n) for a, n in saved["mesh"].items()}, 0)
+            coords = [dict(zip(saved_mesh.axis_names, (int(c) for c in np.unravel_index(
+                r, saved_mesh.ranks.shape)))) for r in range(saved_mesh.size)]
+            # name -> {its coordinates on the axes it is cut over: saved rank}
+            holders = {n: {tuple(coords[r][a] for _, a in e): r for r in range(saved_mesh.size)
+                           if not any(coords[r][a] for a in saved_mesh.axis_names
+                                      if a not in [ax for _, ax in e])}
+                       for n, e in placements.items()}
+        wanted = sorted({0}.union(*(h.values() for h in holders.values())))
+        _, shared, parts = manager._load_step(step, saved, ranks=wanted)
+
+        def whole(name, pieces):
+            return _put_together({k: pieces[r] for k, r in holders[name].items()},
+                                 placements[name], saved_mesh.shape)
+
+        def merge(trees, name=None):
+            """``trees`` (saved rank -> the same subtree) as one tree: a
+            tensor kept under a local leaf's name put together, the rest
+            rank 0's."""
+            first = trees[0]
+            if isinstance(first, dict):
+                return {k: merge({r: t[k] for r, t in trees.items()},
+                                 k if k in placements else name) for k in first}
+            if isinstance(first, (list, tuple)):
+                return type(first)(merge({r: t[i] for r, t in trees.items()}, name)
+                                   for i in range(len(first)))
+            return whole(name, trees) if name and torch.is_tensor(first) and first.dim() else first
+
+        tree = dict(shared or {})
+        tree.update({k: v for k, v in parts[0].items()
+                     if k not in ("local_params", "local_optimizer")})
+        if placements:
+            params = dict(tree["params"])
+            params.update(merge({r: p["local_params"] for r, p in parts.items()}))
+            tree["params"] = params
+            if tree.get("optimizer") is not None:
+                # a local leaf's moments are shaped like its slice; its step
+                # count is rank 0's
+                state = dict(tree["optimizer"]["state"])
+                state.update(merge({r: p.get("local_optimizer", {}) for r, p in parts.items()}))
+                tree["optimizer"] = {**tree["optimizer"], "state": state}
+            if tree.get("opt_state") is not None:
+                tree["opt_state"] = merge({r: p["opt_state"] for r, p in parts.items()})
+        saved_layout = saved.get("layout", "leaf")
+        tree = self._convert_layout(tree, saved_layout, (
+            BucketPlan.from_layout_descriptor(saved["flat_layout"])
+            if saved_layout == "flat" else None))
+        live_local = set(self._local_names())
+
+        def cut(x, name=None):
+            if isinstance(x, dict):
+                return {k: cut(v, k if k in live_local else name) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(cut(v, name) for v in x)
+            return self._live_slice(name, x) if name and torch.is_tensor(x) and x.dim() else x
+
+        for key in ("params", "optimizer", "opt_state"):
+            if tree.get(key) is not None:
+                tree[key] = cut(tree[key])
+        logger.info("restore_checkpoint: re-sliced step %s from the mesh %s onto %s", step,
+                    saved.get("mesh"), {a: int(n) for a, n in self.mesh.shape.items()}
+                    if self.mesh is not None else None)
+        return tree
+
+    def _live_slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the GLOBAL tensor ``t`` of a local leaf."""
+        for dim, axis in self._placements(name):
+            n = self.mesh.shape[axis]
+            size = t.shape[dim] // n
+            t = t.narrow(dim, self.mesh.coords[axis] * size, size)
+        return t.clone()
 
     def _load_stacked_resized(self, manager, step: int, saved: dict, saved_world: int) -> dict:
         """Per-rank leaf state across a world resize (``backend.py:3625-3713``):
         every saved rank's part is loaded and must be bitwise equal to rank
         0's (``AsyncModelAverageAlgorithm.sync_for_checkpoint`` before the
         save); rank 0's is then every live rank's."""
-        _, shared, parts = manager._load_step(step, saved, all_ranks=True)
+        _, shared, parts = manager._load_step(step, saved, ranks=range(saved_world))
         first = compute_state_digest(parts[0])["digest"]
         for r in range(1, saved_world):
             if compute_state_digest(parts[r])["digest"] != first:
@@ -1768,6 +1899,18 @@ def _grad_accumulated(trainer_ref, name: str, param) -> None:
         trainer._grad_order.append(name)
     if trainer._live_step is not None:
         trainer._live_step.on_grad(name)
+
+
+def _put_together(pieces: Dict[tuple, torch.Tensor], entries, sizes) -> torch.Tensor:
+    """The GLOBAL tensor of the blocks ``pieces`` (keyed by the coordinates
+    on the axes of ``entries``, in order), each ``(dim, axis)`` of
+    ``entries`` concatenated along its dim."""
+    if not entries:
+        return pieces[()]
+    (dim, axis), rest = entries[0], entries[1:]
+    return torch.cat([_put_together({k[1:]: v for k, v in pieces.items() if k[0] == c},
+                                    rest, sizes)
+                      for c in range(int(sizes[axis]))], dim=dim)
 
 
 def _merge_local_parts(tree: dict) -> None:

@@ -18,6 +18,12 @@ tensor-parallel leaf's block along its tp dim, a pipeline stage's layers (a
 ``blocks`` first).  :func:`params_from_jax` converts and then cuts;
 :func:`params_to_jax` carries the port's GLOBAL tensors (the trainer's
 ``unstack_params``) back into a flax tree.
+
+A decode-mode model has the training model's parameters, so both functions
+take its params unchanged.  :func:`cache_from_jax` turns the JAX package's
+``"cache"`` collection (the dense tables and counters, or the page pools)
+into the port's cache object, whose tables have the same
+``[b, max_seq_len, h, d]`` and ``[num_pages, page_size, h, d]`` layouts.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from torch import nn
 from ..model_parallel.moe.layer import ep_local_slice, sharded_expert_tables
 from ..parallel.pipeline import PipelinedTransformerLM, pp_param_dim
 from ..parallel.tensor_parallel import axis_rank, tp_slice
-from .transformer import tp_param_dim
+from .transformer import KVCache, PagedKVCache, tp_param_dim
 
 
 def torch_name(jax_name: str) -> str:
@@ -163,3 +169,21 @@ def params_to_jax(named: Mapping[str, torch.Tensor], template: Mapping) -> dict:
         return out
 
     return walk(template, "")
+
+
+def cache_from_jax(np_cache: Mapping, model: nn.Module):
+    """The port's decode cache from the JAX package's ``"cache"`` collection
+    of a decode-mode ``TransformerLM`` (nested dicts of arrays): a
+    :class:`KVCache` from each layer's ``cached_key``/``cached_value`` and
+    the position counter ``pos_index``, or, for a paged config, a
+    :class:`PagedKVCache` from each layer's ``pool_key``/``pool_value``; on
+    the model's device, in ``cfg.dtype``."""
+    cfg = model.cfg
+    device = model.embed.weight.device
+    attn = [np_cache[f"block_{i}"]["attn"] for i in range(cfg.n_layers)]
+    put = lambda a: torch.tensor(np.asarray(a, np.float32)).to(device=device, dtype=cfg.dtype)
+    if cfg.page_size > 0:
+        return PagedKVCache([put(a["pool_key"]) for a in attn],
+                            [put(a["pool_value"]) for a in attn], page_size=cfg.page_size)
+    return KVCache([put(a["cached_key"]) for a in attn], [put(a["cached_value"]) for a in attn],
+                   index=int(np.asarray(np_cache["pos_index"])))

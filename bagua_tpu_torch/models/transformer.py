@@ -37,13 +37,27 @@ and ``tp_reduce`` after the row-parallel ones, over that axis of the global
 mesh.  The parameter names and their order do not change; only the widths
 do.  Where the JAX package runs the local widths without a collective
 outside ``shard_map``, the port's forward needs the mesh axis.
+
+``decode`` is the KV-cache decode mode (``transformer.py:179-293``, run by
+:mod:`~bagua_tpu_torch.models.generate`).  Where flax keeps the cache in a
+mutable ``"cache"`` collection, the port passes a cache object to
+``forward`` and updates it in place: :meth:`TransformerLM.init_cache` makes a
+:class:`KVCache` (one dense ``[b, max_seq_len, h, d]`` key and value table a
+layer, and the position counter) or, with ``page_size > 0``, a
+:class:`PagedKVCache` (one ``[num_pages, page_size, h, d]`` pool a layer,
+addressed through the ``slots`` argument).  Both attend with two plain
+products against the whole ``max_seq_len`` under a mask, scores in f32, as
+the JAX package does outside any Pallas kernel; a paged step computes the
+same expression on the same values as the dense one, so the two are bitwise
+equal.  Under ``tp_size > 1`` each rank caches its own heads and the
+conjugates reduce the partial outputs as in training.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, List, Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -80,6 +94,17 @@ class TransformerConfig:
     #: ``n_heads`` and ``d_ff`` must divide by ``tp_size``
     tp_axis: Optional[str] = None
     tp_size: int = 1
+    #: autoregressive decode mode: ``forward`` takes one token a call with
+    #: the cache of :meth:`TransformerLM.init_cache` (a decode config does
+    #: not train)
+    decode: bool = False
+    #: paged decode: each layer keeps a pool ``[num_pages, page_size, h, d]``
+    #: shared by the slots of the ``slots`` argument; ``page_size`` divides
+    #: ``max_seq_len``; 0 keeps the dense cache
+    page_size: int = 0
+    #: pool capacity in pages a layer; pages ``ZERO_PAGE`` and ``TRASH_PAGE``
+    #: are reserved
+    num_pages: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -149,6 +174,54 @@ def causal_attention(q, k, v, dtype):
     return flash_attention(q, k, v, dtype, causal=True)
 
 
+#: reserved page ids of the paged decode pool (``transformer.py:132-134``):
+#: ZERO_PAGE is never written (an unallocated block-table entry gathers
+#: zeros), TRASH_PAGE takes the writes of inactive slots
+ZERO_PAGE = 0
+TRASH_PAGE = 1
+RESERVED_PAGES = 2
+
+
+@dataclass
+class KVCache:
+    """The dense decode cache: ``keys[i]``/``values[i]`` the
+    ``[b, max_seq_len, h, d]`` tables of layer ``i`` in ``cfg.dtype`` (this
+    rank's heads), ``index`` the positions cached so far (JAX's
+    ``cache_index``/``pos_index``)."""
+
+    keys: List[torch.Tensor]
+    values: List[torch.Tensor]
+    index: int = 0
+
+
+@dataclass
+class PagedKVCache:
+    """The paged decode cache: ``keys[i]``/``values[i]`` the
+    ``[num_pages, page_size, h, d]`` pools of layer ``i`` (JAX's
+    ``pool_key``/``pool_value``).  The positions live in the ``slots``
+    argument of each call."""
+
+    keys: List[torch.Tensor]
+    values: List[torch.Tensor]
+    page_size: int = 0
+
+
+Cache = Union[KVCache, PagedKVCache]
+
+
+def _cached_attend(q, keys, values, positions, dtype):
+    """``q`` ``[b, s, h, d]`` against the cached ``keys``/``values``
+    ``[b, S, h, d]``: f32 scores, a query at position ``positions[b, i]``
+    sees the keys at or before it, softmax in f32, weights cast to
+    ``dtype`` (``transformer.py:209-218, 281-293``)."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), keys.float()) / math.sqrt(d)
+    mask = torch.arange(keys.shape[1], device=q.device)[None, None, :] <= positions[:, :, None]
+    scores = scores.masked_fill(~mask[:, None], -1e30)
+    weights = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, values.to(dtype))
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None):
         super().__init__()
@@ -163,15 +236,63 @@ class Attention(nn.Module):
         self.q = Dense(cfg.d_model, hd, cfg)
         self.v = Dense(cfg.d_model, hd, cfg)
 
-    def forward(self, x):
+    def forward(self, x, cache: Optional[Cache] = None, layer: int = 0,
+                slots: Optional[Mapping[str, torch.Tensor]] = None):
         b, s, _ = x.shape
         h, d = self.n_heads, self.cfg.head_dim
         comm = tp_comm(self.cfg)
         x = tp_gather_grad(x, comm)
         q, k, v = (proj(x).view(b, s, h, d) for proj in (self.q, self.k, self.v))
-        o = self.attn_fn(q, k, v, self.cfg.dtype)
+        if isinstance(cache, PagedKVCache):
+            o = self._paged_decode_attend(q, k, v, cache, layer, slots)
+        elif cache is not None:
+            o = self._decode_attend(q, k, v, cache, layer)
+        else:
+            o = self.attn_fn(q, k, v, self.cfg.dtype)
         # the row-parallel product's partial sums
         return tp_reduce(self.o(o.reshape(b, s, h * d)), comm)
+
+    def _decode_attend(self, q, k, v, cache: KVCache, layer: int):
+        """One token against layer ``layer``'s dense cache
+        (``transformer.py:179-218``): its key and value land at
+        ``cache.index`` and it attends to the positions up to it."""
+        dtype = self.cfg.dtype
+        if q.shape[1] != 1:
+            raise ValueError(f"decode consumes one token per call, got {q.shape[1]}")
+        idx = cache.index
+        keys, values = cache.keys[layer], cache.values[layer]
+        if idx >= keys.shape[1]:
+            raise ValueError(f"the decode cache is full: position {idx} of max_seq_len "
+                             f"{keys.shape[1]}")
+        keys[:, idx] = k[:, 0].to(dtype)
+        values[:, idx] = v[:, 0].to(dtype)
+        positions = torch.full((q.shape[0], 1), idx, device=q.device, dtype=torch.long)
+        return _cached_attend(q, keys, values, positions, dtype)
+
+    def _paged_decode_attend(self, q, k, v, cache: PagedKVCache, layer: int, slots):
+        """``s`` tokens of each slot against layer ``layer``'s page pool
+        (``transformer.py:220-293``).  ``slots`` holds ``block_table``
+        ``[b, max_seq_len // page_size]`` (the page of each logical page of
+        each slot; unallocated entries are ``ZERO_PAGE``), ``lengths``
+        ``[b]`` (the positions cached per slot: this call writes
+        ``lengths .. lengths + s - 1``) and ``active`` ``[b]`` (an inactive
+        slot writes ``TRASH_PAGE``).  Each slot's pages are gathered back
+        into position order, the dense cache's values."""
+        dtype, page = self.cfg.dtype, cache.page_size
+        b, s, h, d = q.shape
+        lengths, table, active = slots["lengths"], slots["block_table"].long(), slots["active"]
+        positions = lengths.long()[:, None] + torch.arange(s, device=q.device)[None, :]
+        dest = torch.gather(table, 1, positions // page)
+        dest = torch.where(active.bool()[:, None], dest, torch.full_like(dest, TRASH_PAGE))
+        offsets = positions % page
+        pool_k, pool_v = cache.keys[layer], cache.values[layer]
+        pool_k[dest, offsets] = k.to(dtype)
+        pool_v[dest, offsets] = v.to(dtype)
+
+        def view(pool):
+            return pool[table].reshape(b, table.shape[1] * page, h, d)
+
+        return _cached_attend(q, view(pool_k), view(pool_v), positions, dtype)
 
 
 class MLPBlock(nn.Module):
@@ -205,8 +326,8 @@ class Block(nn.Module):
             self.mlp = MLPBlock(cfg)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg)
 
-    def forward(self, x):
-        x = x + self.attn(self.attn_norm(x))
+    def forward(self, x, cache: Optional[Cache] = None, layer: int = 0, slots=None):
+        x = x + self.attn(self.attn_norm(x), cache, layer, slots)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -253,15 +374,63 @@ class TransformerLM(nn.Module):
                                   generator=generator)
         self.pos_embed.weight.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, tokens):
+    def init_cache(self, batch_size: int) -> Cache:
+        """A zero decode cache for ``batch_size`` rows (a paged config's pool
+        has no rows: its slots come with each call), on the model's device,
+        in ``cfg.dtype``, with this rank's heads."""
         cfg = self.cfg
+        if not cfg.decode:
+            raise ValueError("init_cache needs a decode-mode model: call decode_model(model) "
+                             "(bagua_tpu_torch.models.generate) first")
+        h, d = _local(cfg.n_heads, cfg, "n_heads"), cfg.head_dim
+        device = self.embed.weight.device
+        if cfg.page_size > 0:
+            if cfg.max_seq_len % cfg.page_size:
+                raise ValueError(f"page_size {cfg.page_size} does not divide max_seq_len "
+                                 f"{cfg.max_seq_len}")
+            if cfg.num_pages <= RESERVED_PAGES:
+                raise ValueError(f"num_pages {cfg.num_pages} leaves no page beside the "
+                                 f"{RESERVED_PAGES} reserved ones")
+            shape = (cfg.num_pages, cfg.page_size, h, d)
+        else:
+            shape = (batch_size, cfg.max_seq_len, h, d)
+        tables = [[torch.zeros(shape, dtype=cfg.dtype, device=device)
+                   for _ in range(cfg.n_layers)] for _ in range(2)]
+        if cfg.page_size > 0:
+            return PagedKVCache(*tables, page_size=cfg.page_size)
+        return KVCache(*tables)
+
+    def forward(self, tokens, cache: Optional[Cache] = None,
+                slots: Optional[Mapping[str, torch.Tensor]] = None):
+        cfg = self.cfg
+        paged = cfg.decode and cfg.page_size > 0
+        if slots is not None and not paged:
+            raise ValueError("`slots` is only meaningful for paged decode configs "
+                             "(decode=True, page_size > 0)")
+        if (cache is not None) != cfg.decode:
+            raise ValueError("a decode-mode model (cfg.decode) takes the cache of init_cache, "
+                             "a training-mode one takes none")
         s = tokens.shape[1]
-        start = sp_rank(cfg.sp_axis) * s
         x = self.embed(tokens).to(cfg.dtype)
-        x = x + self.pos_embed.weight[start:start + s].to(cfg.dtype)
+        if paged:
+            if slots is None:
+                raise ValueError("paged decode (page_size > 0) needs the `slots` call "
+                                 "argument (block_table / lengths / active)")
+            # every slot at its own position (``transformer.py:337-351``)
+            pos_ids = (slots["lengths"].long()[:, None]
+                       + torch.arange(s, device=tokens.device)[None, :])
+            x = x + self.pos_embed.weight[pos_ids].to(cfg.dtype)
+        else:
+            start = cache.index if cfg.decode else sp_rank(cfg.sp_axis) * s
+            x = x + self.pos_embed.weight[start:start + s].to(cfg.dtype)
         for i in range(cfg.n_layers):
             block = getattr(self, f"block_{i}")
-            x = (remat_wrap(block, cfg.remat_policy) if cfg.remat else block)(x)
+            if cache is not None:
+                x = block(x, cache, i, slots)
+            else:
+                x = (remat_wrap(block, cfg.remat_policy) if cfg.remat else block)(x)
+        if cfg.decode and not paged:
+            cache.index += s
         return self.lm_head(self.final_norm(x)).float()
 
 

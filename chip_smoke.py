@@ -197,11 +197,19 @@ Phases, in order; any failure exits non-zero before the result line:
    restore those of two of its steps.  (a) runs after ``remat``: slice 1's
    long-context LM at world 1 over NCCL (the flash kernels), a torn step 4
    saved after the resume point, so that the restore falls back to step 2.
-   The multi-rank phase, after ``overlap``, two ranks as in slice 3: (b) the
-   1-bit ring with its residual on the full BERT-Large (K4, K5), step 4's part
-   of rank 1 alone corrupted, both ranks falling back to step 2; on the cut,
-   (c) ZeRO, the low-precision ring (K1, K2; peer replicas a rank) and async
-   model average after ``sync_for_checkpoint``, and a resident
+   Then generate (``phase_generate``), still at world 1: slice 1's LM at
+   full width (weights of seed 0) decodes the first 512 tokens of slice 1's
+   batch (2 rows) and 256 greedy tokens through ``generate`` (the dense KV
+   cache) and through the page pool (64 positions a page): paged tokens and
+   logits bitwise equal to dense, every step's logits within 5e-2 of the
+   training forward's (K6a) on prompt and generated tokens, each greedy
+   token equal to that forward's argmax wherever its top-2 margin exceeds
+   the gate, no flash launch in the decode loops; ms a step and tokens/s.
+   The multi-rank phase, after ``overlap``, two ranks as in slice 3, on the
+   4-layer cut: (b) the 1-bit ring with its residual (K4, K5), step 4's part
+   of rank 1 alone corrupted, both ranks falling back to step 2; (c) ZeRO,
+   the low-precision ring (K1, K2; peer replicas a rank) and async model
+   average after ``sync_for_checkpoint``, and a resident
    GradientAllReduce checkpoint restored into the leaf layout with the saved
    parameters bitwise.  Prints the free space where it writes (a temporary
    directory, deleted after), and for each run and rank the save's stall (the
@@ -220,7 +228,13 @@ Phases, in order; any failure exits non-zero before the result line:
    at world 1 on the global batch of 16 (run at the end of slice 2's phase,
    alone); on a cut (``MP_CUT``: d_model 128, f32, SGD 0.1) one step equal to
    the world-1 step within ``MP_CUT_RTOL`` of every parameter, a check that
-   a missing ``1 / ep`` rescale would fail.  (b) Slice 1's LM at full width
+   a missing ``1 / ep`` rescale would fail; then the dense-slot run again
+   under ZeRO over the same Adam (the expert tables' state local: the dense
+   state a rank exactly half of the replicated run's, losses within
+   ``MP_LOSS_RTOL`` of it) and under QAdam through its switch (two warmup
+   steps, lr 1e-5: K1 and K2 launched exactly as the compressed phase's
+   buckets say), launches exact and dense parameters bitwise equal on both
+   ranks.  (b) Slice 1's LM at full width
    sequence-parallel over ``{"sp": 2}``: the attention alone (ring with the
    flash kernels, ring's plain loop, Ulysses), outputs and q/k/v gradients
    gathered over sp against world-1 ``flash_attention``; on a cut
@@ -253,7 +267,13 @@ Phases, in order; any failure exits non-zero before the result line:
    every parameter at tp 2 (control: ``tp_reduce`` with an allreduce
    backward), pp 2 (control: no ``pp_size`` prescale) and, as four ranks, pp
    2 x tp 2 (control: no prescale), whose state after the step is saved, one
-   step more taken and resumed bitwise from the save.  Prints the step times,
+   step more taken and resumed bitwise from the save.  At tp 2,
+   ``generate_tp`` of slice 1's LM at full width from its world-1 weights on
+   the generate phase's prompt: tokens and logits bitwise equal on both
+   ranks, logits within 5e-2 of the generate phase's; and a restore across
+   meshes that the JAX package completes, on the cut: saved over
+   ``{"tp": 2}`` after 2 AdamW steps, restored over ``{"dp": 2}``, 2 steps
+   there within ``MP_CUT_RTOL`` of the straight run's.  Prints the step times,
    peaks and the bytes staged a step (the axis's collectives and the bucket
    collectives apart).  The kernel phase holds K6a-c at the tp and pp rank's
    shape (b·h 16, s 4096, d 64, causal) against plain and times them hot and
@@ -274,6 +294,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1009,6 +1030,89 @@ def phase_slice():
         raise AssertionError(f"logits disagree with the plain path: {err}")
     base["kernel_ms"] = kernel_step_ms(trainer, state, batch)
     return launches, base
+
+
+# ---------------------------------------------------------------------------
+# generate: KV-cache decoding of slice 1's LM, dense and paged
+# ---------------------------------------------------------------------------
+
+
+def phase_generate(card):
+    """KV-cache decoding of slice 1's LM at full width (world 1, weights of
+    seed 0): the first ``GEN_PROMPT`` tokens of slice 1's batch (2 rows),
+    then ``GEN_NEW`` greedy tokens, through ``generate`` (the dense cache)
+    and through the page pool of its paged twin (``GEN_PAGE`` positions a
+    page, the same modules and parameters).  Gates: the paged tokens and
+    logits bitwise equal to the dense ones; every step's logits within ``GEN_LOGITS_RTOL`` of the training forward's (K6a) on the
+    prompt and the generated tokens; each greedy token equal to that
+    forward's argmax wherever its top-2 margin exceeds the gate (relative to
+    the largest logit); no flash launch in the decode loops, one a layer in
+    the forward.  Prints tokens/s and ms a step beside the card.  Leaves
+    the prompt, tokens and logits at ``GEN_REF_ENV`` for ``tp_generate``."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.models.transformer import RESERVED_PAGES
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    model = slice_model("longctx")
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (MAIN["b"], cfg.max_seq_len + 1),
+                           device="cuda", generator=g)
+    prompt = tokens[:, :GEN_PROMPT]
+    steps = GEN_PROMPT + GEN_NEW - 1
+    b = prompt.shape[0]
+    need = -(-steps // GEN_PAGE)
+    paged = bt.decode_model(model, page_size=GEN_PAGE, num_pages=RESERVED_PAGES + b * need)
+    out = {}
+    for label, twin in (("dense", model), ("paged", paged)):
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks, logits = bt.generate(twin, prompt, GEN_NEW, return_logits=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in fa.KERNELS}
+        out[label] = {"tokens": toks, "logits": logits, "seconds": seconds,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"generate {label} ({card}): {steps} decode steps ({GEN_PROMPT} prompt tokens fed "
+            f"one a step, then {GEN_NEW} greedy) of {b} rows in {seconds:.3f} s: "
+            f"{seconds / steps * 1e3:.3f} ms a step, {b * steps / seconds:.1f} tokens/s "
+            f"({b * GEN_NEW / seconds:.1f} generated tokens/s), peak "
+            f"{out[label]['peak_gb']:.3f} GB; flash launches {launches}")
+        if any(launches.values()):
+            raise AssertionError(f"generate {label}: the decode loop launched {launches}")
+    dense, pg = out["dense"], out["paged"]
+    bitwise = torch.equal(dense["tokens"], pg["tokens"]) and torch.equal(dense["logits"],
+                                                                          pg["logits"])
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        seq = torch.cat([prompt, dense["tokens"]], dim=1)[:, :-1]
+        forward = model(seq)
+    launches = {k.__name__: k.launches for k in fa.KERNELS}
+    err = rel_err(dense["logits"], forward)
+    gate = GEN_LOGITS_RTOL * forward.abs().max().item()
+    tail = forward[:, GEN_PROMPT - 1:]
+    top2 = tail.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > gate
+    agree = (tail.argmax(-1) == dense["tokens"])
+    log(f"generate: paged decode {'bitwise equal to' if bitwise else 'DIFFERS from'} dense "
+        f"(tokens and logits); decode logits within {err:.3g} of the training forward's "
+        f"(gate {GEN_LOGITS_RTOL}; forward launches {launches}); the greedy token equals the "
+        f"forward's argmax at {int((agree & sure).sum())} of the {int(sure.sum())} positions "
+        f"whose top-2 margin exceeds {gate:.3g} ({int(agree.sum())} of {agree.numel()} in all)")
+    want = {k.__name__: 0 for k in fa.KERNELS}
+    want["flash_fwd"] = cfg.n_layers
+    if not (bitwise and err <= GEN_LOGITS_RTOL and bool(agree[sure].all())
+            and launches == want and bool(torch.isfinite(dense["logits"]).all())):
+        raise AssertionError(f"generate: paged bitwise {bitwise}, logits error {err}, "
+                             f"disagreements {int((~agree & sure).sum())}, launches {launches}")
+    path = os.path.join(tempfile.mkdtemp(), "generate_ref.pt")
+    torch.save({"prompt": prompt.cpu(), "tokens": dense["tokens"].cpu(),
+                "logits": dense["logits"].cpu()}, path)
+    os.environ[GEN_REF_ENV] = path
+    del model, paged, out, dense, pg, forward
+    release()
 
 
 # ---------------------------------------------------------------------------
@@ -2008,6 +2112,8 @@ ACCUM_LOSS_RTOL = 1e-2
 MP_RUNS = (
     ("ep_dense", None, "ep", {"use_ragged": False}),
     ("ep_ragged", None, "ep", {"use_ragged": True}),
+    ("ep_zero", None, "ep", {"use_ragged": False, "algo": "zero"}),
+    ("ep_qadam", None, "ep", {"use_ragged": False, "algo": "qadam"}),
     ("ep_cut", None, "ep_cut", {}),
     ("sp_attention", None, "sp_attention", {}),
     ("sp_cut", None, "sp_cut", {}),
@@ -2036,6 +2142,8 @@ TPP_RUNS = (
     ("pp_full", None, "full", {"axes": {"pp": 2}}),
     ("tp_cut", None, "cut", {"axes": {"tp": 2}}),
     ("pp_cut", None, "cut", {"axes": {"pp": 2}}),
+    ("tp_generate", None, "generate", {}),
+    ("tp_remesh", None, "remesh", {}),
 )
 #: the 3-D cut, pp 2 x tp 2 on four ranks (dp 1), with its control and a
 #: checkpoint resumed after its first step
@@ -2057,6 +2165,16 @@ MULTI_RANK = {
     "tensor_pipeline_4": ("tensor_pipeline (pp 2 x tp 2)", TPP4_RUNS, 4, None),
 }
 QADAM_WARMUP = 2
+#: the generate phase: slice 1's LM, a prompt of its batch's first
+#: ``GEN_PROMPT`` tokens, ``GEN_NEW`` greedy tokens, dense and paged
+#: (``GEN_PAGE`` positions a page)
+GEN_PROMPT, GEN_NEW, GEN_PAGE = 512, 256, 64
+#: the generate phase's logits gate: slice 1's logits gate (relative to the
+#: largest logit), between the decode logits and the training forward's
+GEN_LOGITS_RTOL = 5e-2
+#: where the generate phase leaves its tokens and logits for the
+#: tensor-parallel decode run (a file in the phase's temporary directory)
+GEN_REF_ENV = "CHIP_SMOKE_GENERATE_REF"
 #: seconds a multi-rank phase may take before its ranks are killed
 WORKER_TIMEOUT = 420
 
@@ -2942,13 +3060,14 @@ def eager_checks(rank, world, device, label, comm=None):
 
 #: steps of a checkpoint run, and the step its save follows
 CKPT_STEPS, CKPT_SAVE_AT = 4, 2
-#: the multi-rank checkpoint runs at world 2: (b) the 1-bit ring (K4, K5) with
-#: its residual on the full BERT-Large, its newest save corrupted on rank 1;
-#: on the 4-layer cut, (c) ZeRO, the low-precision ring (K1, K2) with its
-#: replicas, async model average after ``sync_for_checkpoint``, and a flat
+#: the multi-rank checkpoint runs at world 2, on the 4-layer cut (the full
+#: BERT-Large's 7.5 GB saves and 14 s restores leave the script too close to
+#: its time limit): (b) the 1-bit ring (K4, K5) with its residual, its newest
+#: save corrupted on rank 1; (c) ZeRO, the low-precision ring (K1, K2) with
+#: its replicas, async model average after ``sync_for_checkpoint``, and a flat
 #: GradientAllReduce checkpoint restored into a leaf trainer
 CKPT_RUNS = (
-    ("ckpt_onebit", None, "gradient_allreduce", {"compress_intra": "onebit_ef"}),
+    ("ckpt_onebit", BERT["cut_layers"], "gradient_allreduce", {"compress_intra": "onebit_ef"}),
     ("ckpt_zero", BERT["cut_layers"], "zero", {}),
     ("ckpt_lowprec", BERT["cut_layers"], "low_precision", {}),
     ("ckpt_async", BERT["cut_layers"], "async_ckpt", {}),
@@ -3278,24 +3397,64 @@ def _full_weights(name, **kw):
     return sd
 
 
-def ep_run(rank, world, name, device, label, use_ragged):
+def _ep_algorithm(algo):
+    """An expert-parallel run's algorithm and torch optimizer: the
+    replicated Adam 1e-4 (``ga``), ZeRO over that Adam, or QAdam through its
+    switch (``_algorithm("qadam")``: two warmup steps, lr 1e-5)."""
+    import bagua_tpu_torch as bt
+
+    adam = functools.partial(torch.optim.Adam, lr=1e-4)
+    if algo == "zero":
+        return bt.ZeroOptimizerAlgorithm(adam), None
+    if algo == "qadam":
+        return _algorithm("qadam"), None
+    return bt.GradientAllReduceAlgorithm(hierarchical=False), adam
+
+
+def _opt_state_split(trainer, state):
+    """This rank's optimizer-state bytes of the dense leaves and of the
+    expert tables (the moments; step counts left out): ZeRO's chunk
+    optimizer and its local one, QAdam's moments, or the torch optimizer's
+    state by parameter."""
+    from bagua_tpu_torch.algorithms.zero import ZeroOptState
+
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts
+                            if torch.is_tensor(t) and t.dim())
+    opt = state.opt_state
+    if isinstance(opt, ZeroOptState):
+        return (nbytes(v for st in opt.optimizer.state.values() for v in st.values()),
+                nbytes(v for st in opt.local.state.values() for v in st.values()))
+    params = dict(state.model.named_parameters())
+    if opt is not None:   # QAdam's moments by name
+        by_name = {n: (opt.exp_avg[n], opt.exp_avg_sq[n]) for n in params}
+    else:
+        by_name = {n: tuple(state.optimizer.state.get(p, {}).values())
+                   for n, p in params.items()}
+    expert = set(trainer._expert_names())
+    return (nbytes(t for n, ts in by_name.items() if n not in expert for t in ts),
+            nbytes(t for n, ts in by_name.items() if n in expert for t in ts))
+
+
+def ep_run(rank, world, name, device, label, use_ragged, algo="ga"):
     """Slice 2's model at full width, expert-parallel over ``{"ep": 2}``
     (4 experts and 8 rows a rank), from the world-1 model's weights:
-    ``FULL_STEPS`` Adam 1e-4 steps in one exchange form (the losses, the
-    parameters and the step times), then one step more with the exchange
+    ``FULL_STEPS`` steps in one exchange form (the losses, the parameters,
+    the optimizer state's bytes and the step times) of Adam 1e-4 replicated
+    (``ga``), ZeRO over it, or QAdam through its switch (K1 and K2 counted
+    too); the replicated runs then take one step more with the exchange
     timed (``_exchange_timer``)."""
     import bagua_tpu_torch as bt
     from bagua_tpu_torch.model_parallel.moe import MoEMLP, shard_expert_state
+    from bagua_tpu_torch.ops import codec as cd
     from bagua_tpu_torch.ops import flash_attention as fa
     from bagua_tpu_torch.ops import gmm as gm
 
     mesh = _mp_mesh("ep")
     model = slice_model("moe", ep_size=world, use_ragged=use_ragged)
     model.load_state_dict(shard_expert_state(_full_weights("moe"), model))
-    trainer = bt.BaguaTrainer(bt.moe_lm_loss_fn(aux_loss_weight=0.01),
-                              functools.partial(torch.optim.Adam, lr=1e-4),
-                              bt.GradientAllReduceAlgorithm(hierarchical=False), device=device,
-                              mesh=mesh, expert_axis="ep")
+    algorithm, optimizer = _ep_algorithm(algo)
+    trainer = bt.BaguaTrainer(bt.moe_lm_loss_fn(aux_loss_weight=0.01), optimizer, algorithm,
+                              device=device, mesh=mesh, expert_axis="ep")
     state = trainer.init(model)
     batch = trainer.shard_batch({"tokens": ep_batch(device)}, global_batch=True)
     comm = mesh.comm("ep")
@@ -3313,30 +3472,44 @@ def ep_run(rank, world, name, device, label, use_ragged):
     layer.gmm_fn = record_shape
     exch0, staged0 = comm.host_staged_bytes, trainer.host_staged_bytes
     losses, launches, st, state = train_steps(trainer, state, batch, MOE["b"] * MOE["s"],
-                                              [fa, gm], steps=FULL_STEPS)
+                                              [fa, gm, cd], steps=FULL_STEPS)
     exch_bytes = (comm.host_staged_bytes - exch0) / FULL_STEPS
     staged_bytes = (trainer.host_staged_bytes - staged0) / FULL_STEPS
     digests, expert_digest = _flat_digests(trainer, model), _expert_digest(model)
-    spent, undo = _exchange_timer(comm)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, loss = trainer.train_step(state, batch)
-    loss.item()
-    timed_ms = (time.perf_counter() - t0) * 1e3
-    undo()
+    dense_opt_bytes, expert_opt_bytes = _opt_state_split(trainer, state)
     cfg, n_moe = model.cfg, model.cfg.n_layers // 2
-    want = {"flash_fwd": cfg.n_layers * FULL_STEPS, "flash_bwd_dkv": cfg.n_layers * FULL_STEPS,
-            "flash_bwd_dq": cfg.n_layers * FULL_STEPS,
-            "grouped_matmul": 4 * n_moe * FULL_STEPS,
-            "grouped_matmul_drhs": 2 * n_moe * FULL_STEPS}
+    n_buckets = len(trainer.plan.buckets)
+    want = {k.__name__: 0 for k in cd.KERNELS}
+    if algo == "qadam":
+        codec_steps = FULL_STEPS - QADAM_WARMUP
+        want.update(compress_chunked=n_buckets * codec_steps,
+                    decompress_chunked=2 * n_buckets * codec_steps)
+    want.update({"flash_fwd": cfg.n_layers * FULL_STEPS,
+                 "flash_bwd_dkv": cfg.n_layers * FULL_STEPS,
+                 "flash_bwd_dq": cfg.n_layers * FULL_STEPS,
+                 "grouped_matmul": 4 * n_moe * FULL_STEPS,
+                 "grouped_matmul_drhs": 2 * n_moe * FULL_STEPS})
     if launches != want:
         raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
     record = {"name": name, "kind": "model_parallel", "losses": losses, "launches": launches,
               "stats": st, "digests": digests, "expert_digest": expert_digest,
               "layout": st["layout"], "exchange_bytes_step": exch_bytes,
-              "staged_bytes_step": staged_bytes, "exchange_ms_step": sum(spent),
-              "exchange_calls_step": len(spent), "timed_step_ms": timed_ms, "shapes": shapes}
-    log(f"[rank {rank}] {label} {name}: losses {losses}; launches {launches}")
+              "staged_bytes_step": staged_bytes, "shapes": shapes, "algo": algo,
+              "dense_opt_bytes": dense_opt_bytes, "expert_opt_bytes": expert_opt_bytes,
+              "plan_numel": sum(b.padded_numel for b in trainer.plan.buckets),
+              "dense_numel": sum(t.numel for b in trainer.plan.buckets for t in b.tensors),
+              "buckets": n_buckets}
+    if algo == "ga":
+        spent, undo = _exchange_timer(comm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        loss.item()
+        record.update(exchange_ms_step=sum(spent), exchange_calls_step=len(spent),
+                      timed_step_ms=(time.perf_counter() - t0) * 1e3)
+        undo()
+    log(f"[rank {rank}] {label} {name}: losses {losses}; launches {launches}; optimizer "
+        f"state {dense_opt_bytes} bytes dense, {expert_opt_bytes} bytes expert tables")
     return record
 
 
@@ -3563,6 +3736,45 @@ def time_ep_gmm(shapes):
     return errs
 
 
+def check_ep_optimizers(card, mp):
+    """ZeRO and QAdam at ep 2: the dense parameters bitwise equal on both
+    ranks; ZeRO's losses within ``MP_LOSS_RTOL`` of the replicated EP run's
+    (ZeRO over Adam is Adam), its dense optimizer state a rank exactly half
+    of that run's (the plan's alignment pad aside), its expert tables' state
+    the same; QAdam's losses finite (its launches of K1/K2, exact as the
+    compressed phase's buckets say, were held in the run)."""
+    full = mp["ep_dense"][0]
+    for name in ("ep_zero", "ep_qadam"):
+        recs = mp[name]
+        if any(r["digests"] != recs[0]["digests"] or r["losses"] != recs[0]["losses"]
+               for r in recs):
+            raise AssertionError(f"model_parallel {name}: dense parameters or losses differ "
+                                 "between ranks")
+        if not all(math.isfinite(x) for x in recs[0]["losses"]):
+            raise AssertionError(f"model_parallel {name}: non-finite loss {recs[0]['losses']}")
+        for r, rec in enumerate(recs):
+            st = rec["stats"]
+            log(f"model_parallel {name} rank {r} ({card}; gloo through host memory, "
+                f"{MP_WORLD} ranks on one card): losses {rec['losses']}, median step "
+                f"{st['median_ms']:.3f} ms (steps 2-{FULL_STEPS}), {st['tokens_s']:.1f} "
+                f"tokens/s, peak {st['peak_gb']:.3f} GB, optimizer state "
+                f"{rec['dense_opt_bytes']} bytes dense ({rec['buckets']} buckets) and "
+                f"{rec['expert_opt_bytes']} bytes expert tables against the replicated run's "
+                f"{full['dense_opt_bytes']} and {full['expert_opt_bytes']}; host-staged "
+                f"{rec['staged_bytes_step']:.0f} bytes a step; launches {rec['launches']}")
+    zero = mp["ep_zero"][0]
+    gap = [abs(a - b) / abs(b) for a, b in zip(zero["losses"], full["losses"])]
+    pad = zero["plan_numel"] - zero["dense_numel"]
+    half = all(r["dense_opt_bytes"] * MP_WORLD == full["dense_opt_bytes"] + 8 * pad
+               and r["expert_opt_bytes"] == full["expert_opt_bytes"] for r in mp["ep_zero"])
+    log(f"model_parallel ep_zero: losses within {max(gap):.3g} of the replicated EP run's; "
+        f"dense optimizer state a rank {zero['dense_opt_bytes']} bytes, "
+        f"{'exactly' if half else 'NOT'} half of the replicated {full['dense_opt_bytes']} "
+        f"with the {pad}-element alignment pad")
+    if not (max(gap) <= MP_LOSS_RTOL and half):
+        raise AssertionError(f"model_parallel ep_zero: loss gap {gap}, half {half}")
+
+
 def check_model_parallel(card, mp, slice1_losses, ep_losses):
     """The phase's gates across ranks and against the world-1 runs: the
     dense parameters bitwise equal on both ranks; the two exchange forms'
@@ -3595,6 +3807,7 @@ def check_model_parallel(card, mp, slice1_losses, ep_losses):
                    f"before and after each of its {rec['exchange_calls_step']} all-to-alls): "
                    f"{rec['exchange_ms_step']:.3f} ms in the exchange of a "
                    f"{rec['timed_step_ms']:.3f} ms step" if "exchange_ms_step" in rec else ""))
+    check_ep_optimizers(card, mp)
     for r, (a, b) in enumerate(zip(mp["ep_dense"], mp["ep_ragged"])):
         same = (a["losses"] == b["losses"] and a["digests"] == b["digests"]
                 and a["expert_digest"] == b["expert_digest"])
@@ -3805,12 +4018,153 @@ def _tpp_resume(trainer, state, batch, fresh):
                 and all(torch.equal(got[n], want[n]) for n in want))
 
 
+def tpp_generate_run(rank, world, name, device, label):
+    """``generate_tp`` of slice 1's LM at full width over ``{"tp": 2}``
+    from slice 1's world-1 weights (GLOBAL, each rank slicing its heads and
+    rows), on the generate phase's prompt and budget: the tokens and the
+    logits of both ranks against the generate phase's (``GEN_REF_ENV``)."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    ref = torch.load(os.environ[GEN_REF_ENV])
+    mesh = _mp_mesh({"tp": 2})
+    model = tpp_model({"tp": 2})
+    weights = _full_weights("longctx")
+    prompt = ref["prompt"].to(device)
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = bt.generate_tp(model, weights, prompt, GEN_NEW, mesh, return_logits=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in fa.KERNELS}
+    steps = GEN_PROMPT + GEN_NEW - 1
+    # a bf16 near tie can send the greedy chains apart: the logits compare
+    # on the steps fed the same tokens (the prompt and the generated tokens
+    # up to the first that differs, whose step must be such a tie)
+    want, got = ref["logits"], logits.cpu()
+    errs, ties = [], []
+    for r in range(prompt.shape[0]):
+        differ = (toks[r].cpu() != ref["tokens"][r]).nonzero()
+        j = int(differ[0]) if differ.numel() else GEN_NEW
+        fed = GEN_PROMPT + min(j, GEN_NEW - 1)
+        errs.append(rel_err(got[r, :fed], want[r, :fed]))
+        if j < GEN_NEW:
+            step = GEN_PROMPT - 1 + j
+            top2 = want[r, step].topk(2).values
+            ties.append({"row": r, "token": j, "margin": float(top2[0] - top2[1]),
+                         "gap": abs_err(got[r, step], want[r, step])})
+    record = {"name": name, "kind": "tensor_pipeline", "tokens": toks.cpu().tolist(),
+              "logits_digest": _digest(logits), "logits_rel_err": max(errs), "ties": ties,
+              "same_tokens_as_dense": not ties, "seconds": seconds,
+              "ms_step": seconds / steps * 1e3, "tokens_s": prompt.shape[0] * steps / seconds,
+              "launches": launches}
+    log(f"[rank {rank}] {label} {name}: {steps} decode steps in {seconds:.3f} s, logits "
+        f"within {max(errs):.3g} of the dense decode's on the steps fed the same tokens; "
+        f"greedy tokens {'equal to the dense decode' if not ties else 'part at ' + str(ties)}")
+    return record
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def tpp_remesh_run(rank, world, name, device, label):
+    """A restore across meshes that the JAX package completes (its case
+    ``{dp 2, tp 4} -> {dp 4, tp 2}`` cut to two ranks): on the cut
+    (``SP_CUT``, AdamW 1e-4, slice 1's 2 rows), 4 steps straight over
+    ``{"tp": 2}``, against 2 steps there, a save, and a trainer over
+    ``{"dp": 2}`` (whole heads, every leaf in the plan) restoring it and
+    taking 2 more: those losses within ``MP_CUT_RTOL`` of the straight
+    run's."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.models.convert import shard_state_dict
+
+    cfg = slice_config("longctx", **SP_CUT)
+    g = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (MAIN["b"], cfg.max_seq_len + 1), device=device,
+                           generator=g)
+    weights = _full_weights("longctx", **SP_CUT)
+
+    def fresh(axes):
+        model = tpp_model(axes, **SP_CUT)
+        model.load_state_dict(shard_state_dict(weights, model))
+        trainer = _tpp_trainer(axes, model, _adamw(), device)
+        state = trainer.init(model)
+        return trainer, state, trainer.shard_batch({"tokens": tokens}, global_batch=True)
+
+    def steps(trainer, state, batch, n):
+        losses = []
+        for _ in range(n):
+            state, loss = trainer.train_step(state, batch)
+            losses.append(loss.item())
+        return state, losses
+
+    trainer, state, batch = fresh({"tp": 2})
+    _, straight = steps(trainer, state, batch, 4)
+    trainer, state, batch = fresh({"tp": 2})
+    state, first = steps(trainer, state, batch, 2)
+    directory = os.path.join(_CKPT_DIR["root"], "remesh")
+    mgr = bt.BaguaCheckpointManager(directory, async_save=False)
+    trainer.save_checkpoint(mgr, 2, state)
+    mgr.wait()
+    trainer, state, batch = fresh({"dp": 2})
+    t0 = time.perf_counter()
+    step, state = trainer.restore_checkpoint(mgr, state)
+    restore_s = time.perf_counter() - t0
+    _, rest = steps(trainer, state, batch, 2)
+    mgr.close()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(rest, straight[2:]))
+    log(f"[rank {rank}] {label} {name}: saved over {{'tp': 2}} after 2 steps, restored over "
+        f"{{'dp': 2}} in {restore_s:.3f} s and 2 steps taken: losses {rest} against the "
+        f"straight run's {straight[2:]}, largest relative gap {gap:.3g}")
+    if not (step == 2 and gap <= MP_CUT_RTOL):
+        raise AssertionError(f"[rank {rank}] {name}: restored step {step}, losses {rest} "
+                             f"against {straight[2:]}")
+    return {"name": name, "kind": "tensor_pipeline", "straight": straight,
+            "resumed": first + rest, "remesh_gap": gap, "restore_s": restore_s}
+
+
 def tensor_pipeline_run(rank, world, run, device, label):
     """One run of the tensor_pipeline phases on this rank; returns its
     record."""
     name, _, kind, kw = run
-    return {"full": tpp_full_run, "cut": tpp_cut_run}[kind](rank, world, name, device, label,
-                                                            **kw)
+    return {"full": tpp_full_run, "cut": tpp_cut_run, "generate": tpp_generate_run,
+            "remesh": tpp_remesh_run}[kind](rank, world, name, device, label, **kw)
+
+
+def check_tp_generate_remesh(card, tpp):
+    """``tp_generate``: tokens and logits bitwise equal on both ranks, the
+    logits within ``GEN_LOGITS_RTOL`` of the generate phase's dense decode;
+    ``tp_remesh`` (its gate held in the run): prints its gap and restore."""
+    gen = tpp["tp_generate"]
+    same = all(r["tokens"] == gen[0]["tokens"] and r["logits_digest"] == gen[0]["logits_digest"]
+               for r in gen)
+    worst = max(r["logits_rel_err"] for r in gen)
+    ties = gen[0]["ties"]
+    # where the chains part, the dense decode's top-2 margin is within twice
+    # the two decodes' gap at that step: a tie the bf16 sums may break
+    # either way
+    tied = all(t["margin"] <= 2 * t["gap"] for t in ties)
+    log(f"tensor_pipeline tp_generate ({card}; gloo through host memory, 2 ranks on one "
+        f"card): tokens and logits {'bitwise equal' if same else 'DIFFERENT'} on both ranks, "
+        f"logits within {worst:.3g} of the dense decode's on the steps fed the same tokens "
+        f"(gate {GEN_LOGITS_RTOL}); greedy tokens "
+        + ("equal to the dense decode's" if not ties else
+           f"part from the dense decode's at {ties} (each a near tie: "
+           f"{'yes' if tied else 'NO'})")
+        + f"; {gen[0]['ms_step']:.3f} ms a decode step, {gen[0]['tokens_s']:.1f} tokens/s "
+        f"(rank 0; rank 1 {gen[1]['ms_step']:.3f} ms); flash launches {gen[0]['launches']}")
+    if not (same and worst <= GEN_LOGITS_RTOL and tied
+            and not any(gen[0]["launches"].values())):
+        raise AssertionError(f"tensor_pipeline tp_generate: ranks equal {same}, logits error "
+                             f"{worst}, ties {ties}")
+    rem = tpp["tp_remesh"]
+    log(f"tensor_pipeline tp_remesh ({card}): restored across meshes, largest loss gap "
+        f"{max(r['remesh_gap'] for r in rem):.3g} (tolerance {MP_CUT_RTOL}), restore "
+        f"{max(r['restore_s'] for r in rem):.3f} s")
 
 
 def check_tensor_pipeline(card, tpp, tpp4, slice1_losses):
@@ -3845,6 +4199,7 @@ def check_tensor_pipeline(card, tpp, tpp4, slice1_losses):
                 f"step: the axis's collectives {rec['axis_bytes_step']:.0f}, the bucket "
                 f"collectives {rec['bucket_bytes_step']:.0f}; one profiled step's device ms "
                 f"{json.dumps({k: round(v, 3) for k, v in rec['kernel_ms'].items()})}")
+    check_tp_generate_remesh(card, tpp)
     for name, recs in list(tpp.items()) + list(tpp4.items()):
         if "param_err" in recs[0]:
             log(f"tensor_pipeline {name} ({card}): one SGD step against world 1, largest "
@@ -4259,6 +4614,7 @@ def main():
     slice1_losses, ep_losses = base["losses"], base_moe["ep_reference"]
     del base, base_moe
     ckpt_single = timed("checkpoint (a)", phase_checkpoint)
+    timed("generate", phase_generate, card)
     torch.distributed.destroy_process_group()
     release()   # the ranks of slices 3 and 4 share this card
     slice3 = timed("slice 3", phase_multi_rank, "slice3")
@@ -4283,6 +4639,7 @@ def main():
     tpp = timed("tensor_pipeline", phase_multi_rank, "tensor_pipeline")
     tpp4 = timed("tensor_pipeline (pp 2 x tp 2)", phase_multi_rank, "tensor_pipeline_4")
     check_tensor_pipeline(card, tpp, tpp4, slice1_losses)
+    shutil.rmtree(os.path.dirname(os.environ.pop(GEN_REF_ENV)), ignore_errors=True)
     for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
             continue

@@ -259,13 +259,14 @@ def test_3d_checkpoint_roundtrip(tmp_path_factory):
     actionable error."""
     outs = _runs(8, tmp_path_factory)
     straight, _ = _jax_train("ckpt3d", steps=4)
-    _assert_resumed(outs, "ckpt3d", straight, {"dp": 2, "pp": 2, "tp": 2}, refused=True)
+    _assert_resumed(outs, "ckpt3d", straight, {"dp": 2, "pp": 2, "tp": 2}, remeshed=True)
 
 
-def _assert_resumed(outs, case, want_straight, mesh, refused=False):
+def _assert_resumed(outs, case, want_straight, mesh, remeshed=False):
     """Resumed bitwise, one file a rank, the sidecar's mesh and axes, and
-    (``refused``) the restore onto another mesh refused, naming the
-    roadmap item that would port it."""
+    (``remeshed``) the restore onto another mesh re-sliced: its two steps
+    continue the straight run (tests/test_torch_checkpoint_meshes.py holds
+    such restores against the JAX package's)."""
     for o in outs:
         np.testing.assert_array_equal(o[f"{case}/resumed"], o[f"{case}/straight"])
         np.testing.assert_allclose(o[f"{case}/resumed"][2:], o[f"{case}/straight"][2:],
@@ -279,9 +280,10 @@ def _assert_resumed(outs, case, want_straight, mesh, refused=False):
         assert meta["world_size"] == mesh["dp"] * mesh.get("pp", 1)
         for axis in ("tp", "pp"):
             assert meta.get(f"{axis}_axis") == (axis if axis in mesh else None)
-        err = str(o[f"{case}/error"])
-        if refused:
-            assert "tensor- or pipeline-parallel meshes" in err and "Queue 1 item 1" in err, err
+        if remeshed:
+            assert str(o[f"{case}/error"]) == "", str(o[f"{case}/error"])
+            np.testing.assert_allclose(o[f"{case}/other_losses"], o[f"{case}/straight"][2:],
+                                       rtol=TRAJ_RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +309,7 @@ def test_tp_qadam_trains_through_phase_switch(tmp_path_factory):
 def test_save_restore_tp_sharded_state(tmp_path_factory):
     outs = _runs(8, tmp_path_factory)
     straight, _ = _jax_train("tpckpt", steps=4)
-    _assert_resumed(outs, "tpckpt", straight, {"dp": 2, "tp": 4}, refused=True)
+    _assert_resumed(outs, "tpckpt", straight, {"dp": 2, "tp": 4}, remeshed=True)
 
 
 # ---------------------------------------------------------------------------

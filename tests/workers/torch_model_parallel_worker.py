@@ -20,13 +20,17 @@ made with the JAX package), and writes its outputs under ``<check>/`` in
   ``BaguaTrainer(expert_axis="ep")`` on ``{"ep": WORLD}``, loss the mean
   squared error to ``sgd/y``; the global parameters after it;
 - ``lm:ALGO:AXES`` (``AXES`` like ``dp2ep2``, ``ep2``, ``dp2sp2``;
-  ``ALGO`` ga|bytegrad; ``ATTN`` ring|ringplain|ulysses under sp): three
-  Adam steps (lr ``LR``) of the small LM of the test (MoE in odd layers
-  under ep; ring or Ulysses attention under sp) through the trainer;
-  losses, ``unstack_params`` and the layout;
-- ``ckpt``: the dp2ep2 MoE LM: 4 steps straight, against 2 steps, a save,
-  and a fresh trainer restoring it and taking 2 more (losses and parameters
-  bitwise), then a restore into an ``{"ep": WORLD}`` trainer (its error);
+  ``ALGO`` ga|bytegrad|zero|qadam; ``ATTN`` ring|ringplain|ulysses under
+  sp): three Adam steps (lr ``LR``; ZeRO over Adam at ``LR``; QAdam at
+  ``QADAM`` through its switch after two warmup steps) of the small LM of
+  the test (MoE in odd layers under ep; ring or Ulysses attention under sp)
+  through the trainer; losses, ``unstack_params``, the layout and the
+  optimizer state's bytes (ZeRO's chunks, its local optimizer's);
+- ``ckpt[:ALGO]``: the dp2ep2 MoE LM: 4 steps straight, against 2 steps, a
+  save, and a fresh trainer restoring it and taking 2 more (losses and
+  parameters bitwise; QAdam in its warmup phase, since a restored trainer
+  counts its steps anew); with ``ga`` (the default) then a restore into an
+  ``{"ep": WORLD}`` trainer (its error);
 - ``attn:KIND`` (``ring``, ``ringplain``, ``ulysses``): ``attn/q,k,v``
   ``[b, S, h, d]`` sharded over ``{"sp": WORLD}`` along S; the output and
   the q/k/v gradients of ``sum(out * attn/g)`` of this rank's chunk;
@@ -58,6 +62,8 @@ from bagua_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 #: difference at a near-zero gradient moves a parameter by up to LR
 LR = 1e-4
 STEPS = 3
+#: QAdam's settings: two warmup steps, then the compressed phase
+QADAM = dict(warmup_steps=2, lr=1e-3)
 #: the small LMs of the tests (f32)
 SMALL_EP = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq_len=8)
 SMALL_SP = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq_len=32)
@@ -168,15 +174,33 @@ def _lm(mesh, attn, data, prefix, sp_axis="sp"):
     return model
 
 
-def _lm_trainer(mesh, algo, **kw):
+def _lm_trainer(mesh, algo, qadam=QADAM, **kw):
     if "ep" in mesh.shape:
         loss_fn, axes = bt.moe_lm_loss_fn(), {"expert_axis": "ep"}
     else:
         loss_fn, axes = bt.sp_lm_loss_fn(mesh.shape["sp"]), {"seq_axis": "sp"}
-    algorithm = (bt.ByteGradAlgorithm(hierarchical=False) if algo == "bytegrad"
-                 else bt.GradientAllReduceAlgorithm())
-    return bt.BaguaTrainer(loss_fn, functools.partial(torch.optim.Adam, lr=LR), algorithm,
+    adam = functools.partial(torch.optim.Adam, lr=LR)
+    algorithm = {"bytegrad": lambda: bt.ByteGradAlgorithm(hierarchical=False),
+                 "ga": bt.GradientAllReduceAlgorithm,
+                 "zero": lambda: bt.ZeroOptimizerAlgorithm(adam),
+                 "qadam": lambda: bt.QAdamAlgorithm(**qadam)}[algo]()
+    return bt.BaguaTrainer(loss_fn, None if algorithm.owns_optimizer else adam, algorithm,
                            device="cpu", mesh=mesh, **axes, **kw)
+
+
+def _opt_bytes(trainer, state):
+    """The bytes of the optimizer state this rank holds: ZeRO's chunk
+    optimizer's and its local optimizer's apart, else the torch
+    optimizer's or QAdam's moments."""
+    size = lambda opt: sum(v.numel() * v.element_size() for st in opt.state.values()
+                           for v in st.values() if torch.is_tensor(v) and v.dim())
+    opt = state.opt_state
+    if isinstance(opt, bt.algorithms.zero.ZeroOptState):
+        return np.array([size(opt.optimizer), size(opt.local) if opt.local else 0])
+    if opt is not None:
+        moments = list(opt.exp_avg.values()) + list(opt.exp_avg_sq.values())
+        return np.array([sum(t.numel() * t.element_size() for t in moments), 0])
+    return np.array([size(state.optimizer), 0])
 
 
 def check_lm(rank, world, data, algo, axes, attn="ring"):
@@ -195,17 +219,21 @@ def check_lm(rank, world, data, algo, axes, attn="ring"):
     out.update(losses=np.array(losses), resident=np.array(trainer._flat_resident),
                data_rank=np.array(trainer.data_rank), plan=np.array(
                    ",".join(trainer.plan.tensor_names)),
-               staged=np.array(trainer.host_staged_bytes))
+               staged=np.array(trainer.host_staged_bytes),
+               opt_bytes=_opt_bytes(trainer, state))
     return out
 
 
-def check_ckpt(rank, world, data, directory):
+def check_ckpt(rank, world, data, directory, algo="ga"):
     mesh = _mesh("dp2ep2")
     tokens = data["lmep/tokens"].astype(np.int64)
 
     def fresh():
         model = _lm(mesh, None, data, "lmep/params/")
-        trainer = _lm_trainer(mesh, "ga")
+        # a restored trainer counts its steps from 0, and so switches QAdam's
+        # phase later than the straight run (in both packages): the resume
+        # is held in the warmup phase
+        trainer = _lm_trainer(mesh, algo, qadam={**QADAM, "warmup_steps": 100})
         return trainer, trainer.init(model)
 
     def steps(trainer, state, n):
@@ -230,6 +258,13 @@ def check_ckpt(rank, world, data, directory):
     state, rest = steps(trainer, state, 2)
     got = trainer.unstack_params(state)
     same = all(torch.equal(got[n], want[n]) for n in want)
+    out = {"straight": np.array(straight), "resumed": np.array(first + rest),
+           "step": np.array(step), "same": np.array(same),
+           "mesh": np.array(str(meta.get("mesh"))), "files": np.array(sorted(
+               os.listdir(os.path.join(directory, "2"))))}
+    if algo != "ga":
+        mgr.close()
+        return out
     # another expert-parallel mesh: refused, before anything is written
     mesh4 = _mesh(f"ep{world}")
     cfg = TransformerConfig(**SMALL_EP, dtype=torch.float32)
@@ -244,10 +279,7 @@ def check_ckpt(rank, world, data, directory):
     except ValueError as e:
         error = str(e)
     mgr.close()
-    return {"straight": np.array(straight), "resumed": np.array(first + rest),
-            "step": np.array(step), "same": np.array(same), "error": np.array(error),
-            "mesh": np.array(str(meta.get("mesh"))), "files": np.array(sorted(
-                os.listdir(os.path.join(directory, "2"))))}
+    return {**out, "error": np.array(error)}
 
 
 def check_attn(rank, world, data, kind):
@@ -321,7 +353,7 @@ def main(rank, world, init_method, in_path, out_path, checks):
     for check in checks.split(","):
         name, *args = check.split(":")
         if name == "ckpt":
-            args = [os.path.join(os.path.dirname(out_path), "ckpt")]
+            args = [os.path.join(os.path.dirname(out_path), check.replace(":", "_"))] + args
         torch.manual_seed(0)
         result = CHECKS[name](rank, world, data, *args)
         out.update({f"{check}/{k}": v for k, v in result.items()})
