@@ -197,7 +197,11 @@ class BaguaTrainer:
             flat-resident layout it is given the parameter flats, one
             ``nn.Parameter`` a bucket whose ``.grad`` is the reduced gradient
             flat, so per-parameter groups (a weight decay by name, say) are
-            not available there; use ``flat_resident="off"`` for them.
+            not available there; use ``flat_resident="off"`` for them.  A
+            :func:`~bagua_tpu_torch.contrib.fuse_optimizer` factory is
+            unwrapped there (``backend.py:1063-1069``): the bucket flats
+            already are a fused layout, so its ``fused_inner`` factory steps
+            them (:attr:`opt_factory`); on the leaf layout the wrapper runs.
         algorithm: a :class:`bagua_tpu_torch.algorithms.base.Algorithm`.
         device: where the model and batches live; ``cuda`` by default.
         bucket_bytes: bucket size in bytes (default env
@@ -434,6 +438,9 @@ class BaguaTrainer:
         self._grad_hooks: list = []
         self._grad_views_checked = False
         self._pending_state_migration: Optional[Callable] = None
+        #: the factory :meth:`init` built the optimizer with: a fused
+        #: wrapper's ``fused_inner`` on the resident layout
+        self.opt_factory: Optional[Callable] = None
         #: train_step calls on this trainer, the counter ``need_reset`` reads
         self._step_counter = 0
 
@@ -706,7 +713,7 @@ class BaguaTrainer:
         if self.flat_resident == "off" or (self.flat_resident == "auto" and not (
                 self._flat_supported() and algo.flat_resident_auto)):
             return False
-        safe = algo.owns_optimizer or _optimizer_flattens_safely(self.optimizer_factory)
+        safe = algo.owns_optimizer or _optimizer_flattens_safely(self._flat_opt_factory())
         if self.flat_resident == "on" and not safe:
             raise ValueError(
                 "flat_resident='on' with an optimizer whose update does not commute with "
@@ -718,6 +725,12 @@ class BaguaTrainer:
             logger.info("flat_resident auto: the optimizer's update does not commute with "
                         "flattening (shape-aware?); keeping the leaf layout")
         return safe
+
+    def _flat_opt_factory(self) -> Callable:
+        """The factory that would step the flats: a fused wrapper's inner
+        one (``backend.py:709-713``), else the trainer's."""
+        inner = getattr(self.optimizer_factory, "fused_inner", None)
+        return inner if inner is not None else self.optimizer_factory
 
     @torch.no_grad()
     def _lay_out(self, plan: BucketPlan, flats: List[torch.Tensor]) -> None:
@@ -809,8 +822,9 @@ class BaguaTrainer:
             opt_state = (algo.init_optimizer_state_sharded(self._ctx, params)
                          if algo.sharded_opt_state else algo.init_optimizer_state(params))
             return TrainState(0, model, None, algo_state, opt_state)
-        optimizer = self.optimizer_factory(list(params) if self._flat_resident
-                                           else model.parameters())
+        self.opt_factory = (self._flat_opt_factory() if self._flat_resident
+                            else self.optimizer_factory)
+        optimizer = self.opt_factory(list(params) if self._flat_resident else model.parameters())
         return TrainState(0, model, optimizer, algo_state)
 
     def shard_batch(self, local_batch: Mapping, global_batch: bool = False) -> dict:

@@ -1,14 +1,22 @@
 """Flax params (as numpy arrays) -> the port's ``state_dict``, and back.
 
-Layouts differ in four ways: flax ``Dense`` kernels are ``[in, out]`` and
-torch ``Linear`` weights ``[out, in]``; the attention q/k/v kernels are
+Layouts differ in five ways: flax ``Dense`` kernels are ``[in, out]`` and
+torch ``Linear`` weights ``[out, in]``; flax ``Conv`` kernels are ``[kh, kw,
+in, out]`` and the port's ``[out, in, kh, kw]``; the attention q/k/v kernels are
 ``DenseGeneral`` ``[d_model, heads, head_dim]`` and the ``o`` kernel
 ``[heads, head_dim, d_model]``; a pipeline's stacked block leaves carry a
 leading layer dim (``blocks.block.*`` in flax, ``blocks.*`` in the port,
 each layer laid out as above); and a few leaves are renamed
 (``embed.embedding`` -> ``embed.weight``, ``pos_embed`` ->
 ``pos_embed.weight``, ``*.kernel`` -> ``*.weight``, a block's ``MoEMLP_0``
--> ``mlp``).  The MoE expert tables ``[E, d_in, d_out]`` keep their layout.
+-> ``mlp``, a batch norm's ``scale`` -> ``weight``).  The MoE expert tables
+``[E, d_in, d_out]`` keep their layout.  The vision models keep the flax
+tree's names otherwise (``stem_conv``, ``stage{i}_block{j}.Conv_{k}``,
+``BatchNorm_{k}`` or ``SyncBatchNorm_{k}``, ``proj_conv``, ``proj_norm``,
+``conv{i}``, ``fc1``, ``fc2``, ``head``); VGG's ``fc1`` rows stay in flax's
+NHWC order, the model flattening NHWC.  :func:`batch_stats_from_jax` and
+:func:`batch_stats_to_jax` carry the ``batch_stats`` collection (each
+norm's ``mean`` and ``var``) to the norms' buffers and back.
 
 The JAX package's trainer takes GLOBAL params; a rank's module holds its
 slices.  :func:`shard_state_dict` cuts a rank's slices out of a global port
@@ -41,8 +49,14 @@ from ..parallel.tensor_parallel import axis_rank, tp_slice
 from .transformer import KVCache, PagedKVCache, tp_param_dim
 
 
+#: the batch norms of the vision models, whose ``scale`` is the port's ``weight``
+_NORM_SCALE = re.compile(r"(?:^|.*\.)(?:(?:Sync)?BatchNorm_\d+|stem_norm|proj_norm)\.scale")
+
+
 def torch_name(jax_name: str) -> str:
     """Dotted flax param name -> the port's parameter name."""
+    if _NORM_SCALE.fullmatch(jax_name):
+        return jax_name[: -len("scale")] + "weight"
     jax_name = jax_name.replace(".MoEMLP_0.", ".mlp.")
     if jax_name.startswith("blocks.block."):
         jax_name = "blocks." + jax_name[len("blocks.block."):]
@@ -71,6 +85,8 @@ def _to_torch_layout(arr: np.ndarray, jax_name: str) -> np.ndarray:
         return arr
     lead = arr.shape[:1] if pp_param_dim(jax_name) == 0 else ()
     inner = arr.shape[len(lead):]
+    if not lead and len(inner) == 4:
+        return np.transpose(arr, (3, 2, 0, 1))            # conv [out, in, kh, kw]
     if len(inner) == 3 and jax_name.endswith("attn.o.kernel"):
         arr = arr.reshape(lead + (-1, inner[-1]))        # [h*d, d_model]
     elif len(inner) == 3:
@@ -137,7 +153,7 @@ def params_from_jax(np_params: Mapping, model: nn.Module) -> Dict[str, torch.Ten
     device and dtypes: converted, then cut to this rank's slices
     (:func:`shard_state_dict`).  Raises if a name or shape does not
     match."""
-    own = model.state_dict()
+    own = dict(model.named_parameters())
     flat = {torch_name(n): (n, a) for n, a in _flatten(np_params).items()}
     if set(flat) != set(own):
         raise ValueError(
@@ -163,12 +179,44 @@ def params_to_jax(named: Mapping[str, torch.Tensor], template: Mapping) -> dict:
                 out[key] = walk(val, jax_name + ".")
                 continue
             arr = named[torch_name(jax_name)].detach().cpu().float().numpy()
-            if jax_name.endswith(".kernel"):
+            if jax_name.endswith(".kernel") and arr.ndim == 4:   # a conv's [out, in, kh, kw]
+                arr = np.transpose(arr, (2, 3, 1, 0))
+            elif jax_name.endswith(".kernel"):
                 arr = np.swapaxes(arr, -1, -2).reshape(np.shape(val))
             out[key] = arr
         return out
 
     return walk(template, "")
+
+
+def batch_stats_from_jax(np_stats: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Copy the flax ``batch_stats`` collection (nested dicts of arrays:
+    each norm's ``mean`` and ``var``) into ``model``'s norm buffers of the
+    same names, in place; returns the buffers by name.  Raises if the names
+    differ."""
+    own = dict(model.named_buffers())
+    flat = _flatten(np_stats)
+    if set(flat) != set(own):
+        raise ValueError(
+            f"batch_stats names differ: only in flax {sorted(set(flat) - set(own))}, "
+            f"only in the model {sorted(set(own) - set(flat))}")
+    with torch.no_grad():
+        for name, arr in flat.items():
+            own[name].copy_(torch.from_numpy(np.array(arr, np.float32)))
+    return own
+
+
+def batch_stats_to_jax(model: nn.Module) -> dict:
+    """The norms' ``mean`` and ``var`` buffers of ``model`` as a flax
+    ``batch_stats`` tree (nested dicts of f32 numpy arrays)."""
+    out: dict = {}
+    for name, t in model.named_buffers():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().cpu().float().numpy()
+    return out
 
 
 def cache_from_jax(np_cache: Mapping, model: nn.Module):

@@ -10,13 +10,15 @@ came:
 - :func:`all_to_all` (``lax.all_to_all``): the inverse all-to-all;
 - :func:`ppermute` (``lax.ppermute``): the inverse permutation;
 - :func:`alltoall_v`, the exact-count transfer (``lax.ragged_all_to_all``
-  with packed rows): the reverse transfer with the counts swapped.
+  with packed rows): the reverse transfer with the counts swapped;
+- :func:`pmean` (``lax.pmean``): the mean of the cotangents over the ranks.
 
 Every rank of the group runs the same collectives in the same order, in the
 forward and again, reversed, in the backward; each axis has a process group
 of its own (:class:`~bagua_tpu_torch.parallel.mesh.Mesh`), so they do not
 interleave with the trainer's bucket collectives.  A ``comm`` of None (an
-axis of size 1) makes :func:`all_to_all` and :func:`ppermute` the identity.
+axis of size 1) makes :func:`all_to_all`, :func:`ppermute` and :func:`pmean`
+the identity.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..communication import BaguaCommunicator, _axis
+from ..communication import BaguaCommunicator, ReduceOp, _axis
 
 
 def _all_to_all(x, comm: BaguaCommunicator, split_axis: int, concat_axis: int, tiled: bool):
@@ -113,3 +115,24 @@ def alltoall_v(x: torch.Tensor, comm: BaguaCommunicator, send_counts: Sequence[i
     if x.shape[0] < sum(send):
         raise ValueError(f"alltoall_v sends {sum(send)} rows of a {x.shape[0]}-row tensor")
     return _AllToAllV.apply(x, comm, send, recv)
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.allreduce(x.clone(), ReduceOp.AVG)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.allreduce(g.clone(), ReduceOp.AVG), None
+
+
+def pmean(x: torch.Tensor, comm: Optional[BaguaCommunicator]) -> torch.Tensor:
+    """``lax.pmean`` over ``comm``'s ranks: the mean of every rank's ``x``,
+    the same tensor on every rank.  Its backward is the mean of the ranks'
+    cotangents, ``pmean``'s transpose: summed over the ranks, the gradients
+    of each rank's loss through it are those of the sum of the losses."""
+    if comm is None or comm.nranks() == 1:
+        return x
+    return _PMean.apply(x, comm)

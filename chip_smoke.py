@@ -90,9 +90,12 @@ Phases, in order; any failure exits non-zero before the result line:
 11. slice 3: compressed data parallelism at world size 2.  The script starts
    itself twice as worker processes, two ranks on the one card, whose
    collectives go over gloo through host memory (NCCL refuses two ranks on
-   one device).  Each rank trains BERT-Large (``bench_bert``: 24 layers,
-   seq 384, batch 8 per rank, AdamW 1e-4) for 5 steps (``FULL_STEPS``) with
-   ``ByteGradAlgorithm``, then a 4-layer cut of it with
+   one device; slice 4's runs ride in the same spawn, the decentralized
+   phase's in zero's, decentralized (2 x 2)'s in slice 4 (2 x 2)'s:
+   ``SPAWNS``).  Each rank trains a 4-layer cut of BERT-Large (``bench_bert``:
+   24 layers, seq 384, batch 8 per rank, AdamW 1e-4) for 5 steps
+   (``FULL_STEPS``) with ``ByteGradAlgorithm`` (the overlap phase runs it on
+   the full model), then the cut with
    ``GradientAllReduceAlgorithm`` and ``compress_intra`` ``int8`` and
    ``fp8_e4m3``, and with ``QAdamAlgorithm(warmup_steps=2, lr=1e-5)``; losses finite
    and falling, exact codec and flash launch counts, parameters bitwise
@@ -123,10 +126,11 @@ Phases, in order; any failure exits non-zero before the result line:
    ``ZERO_RUNS``); the same checks, and ZeRO's optimizer state a rank exactly
    half of the replicated run's, its peak memory below it.
 15. decentralized, the gossip families at world size 2, two ranks as in
-   slice 3, on the full BERT-Large with AdamW 1e-4: ``DecentralizedAlgorithm(
-   hierarchical=False, peer_selection_mode="all", track_peer_weights=True)``
-   (no codec), then ``LowPrecisionDecentralizedAlgorithm(hierarchical=False)``
-   (K1 = buckets x steps, a whole bucket one chunk; K2 three times that).
+   slice 3, with AdamW 1e-4: ``DecentralizedAlgorithm(hierarchical=False,
+   peer_selection_mode="all", track_peer_weights=True)`` (no codec) on the
+   full BERT-Large, then ``LowPrecisionDecentralizedAlgorithm(
+   hierarchical=False)`` on the 4-layer cut (K1 = buckets x steps, a whole
+   bucket one chunk; K2 three times that).
    Their ranks differ by design, so in place of the parameters' equality:
    after every step, fingerprints of every bucket show the peer weights
    equal on both ranks (``all``), or each rank's ``left`` and ``right``
@@ -279,6 +283,41 @@ Phases, in order; any failure exits non-zero before the result line:
    shape (b·h 16, s 4096, d 64, causal) against plain and times them hot and
    cold beside their bounds and SDPA.
 
+23. vision, at world 1 over NCCL after ``generate`` (``phase_vision``;
+   weights of seed 0, images N(0, 1) and labels uniform in [0, 1000) of
+   seed 1): (a) ``resnet50-1chip``, ``bench_family``'s ResNet50 (128 images
+   of 224 px f32) with ``SyncBatchNorm`` over the world's ``dp`` axis,
+   ``fuse_optimizer(SGD(0.1, momentum=0.9))`` and GradientAllReduce, 10
+   steps: losses finite and falling, no ported kernel launched, the first
+   step's loss and the logits within the bf16 tolerance of a twin with the
+   local norm; 3 steps of the fused wrapper (leaf layout) and of plain SGD
+   (the default layout) from the same weights with cuDNN deterministic,
+   parameters bitwise equal; the resident layout's unwrapping of
+   ``fused_inner`` printed; one profiled step's device ms by class
+   (convolution, batch norm, optimizer, collectives, elementwise) and a
+   kernels-only step's idle share; (b) ``vgg16-1chip``, ``bench_vgg16``'s
+   VGG16 (256 bf16 images, SGD with momentum 0.9 at ``VISION["vgg_lr"]``,
+   GradientAllReduce flat; cuDNN's autotune on for it alone), 10 steps, the
+   same loss gates.  Each prints its step ms, img/s, peak and model flops a
+   step against the bf16 dense peak.
+24. vision (2 ranks), in the ``tensor_pipeline`` spawn (``VISION_STACK``,
+   ``VISION_CUT``): (c) ``examples/imagenet_resnet.py``'s stack on a
+   one-block cut of ResNet50 (its widths, 1000 classes, 224 px, 16 images a
+   rank): ``CachedDataset(backend="tcp", num_shards=2)`` on the native store
+   server (built with the kernels, required) over 64 counted samples,
+   ``LoadBalancingDistributedSampler`` shards, ``prefetch_to_device``,
+   ``SyncBatchNorm`` over dp, ``ByteGradAlgorithm(hierarchical=False)`` and
+   ``fuse_optimizer(SGD(0.05, momentum=0.9))``, 5 steps
+   (``check_vision_ranks``: losses finite, parameters bitwise equal on both
+   ranks, K1 = buckets x steps and K2 twice that, every SyncBN layer's last
+   batch statistics bitwise equal on both ranks and a local-norm control's
+   different, the shards disjoint and covering the dataset, every sample
+   decoded once, every read after a rank's first pass a hit, the cache's
+   keys the samples drawn); (d) one f32 SGD step of a small cut (16
+   filters, two stages, 32 px, 4 images a rank) with SyncBN within
+   ``MP_CUT_RTOL`` of world 1 on the 8 images, the local norm's control
+   outside it.
+
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  ``build_slice`` holds slices 1 and 2's
@@ -416,15 +455,38 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel source with ``nvcc`` (one process each, all at once)
+    and, beside them, the native store server with the host's C++ compiler
+    (required: a failed build fails the run)."""
+    import threading
+
+    from bagua_tpu_torch.contrib.utils.native_build import ensure_store_server
     from bagua_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    store = {}
+    thread = threading.Thread(target=lambda: store.update(
+        path=_run_caught(ensure_store_server, required=True)))
+    thread.start()
     logs = _build.build_all()
-    log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
+    thread.join()
+    if isinstance(store["path"], Exception):
+        raise store["path"]
+    log(f"build: {sorted(logs)} and the native store server "
+        f"{os.path.relpath(store['path'])} in {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         log(f"  {name}: " + "; ".join(ptxas_usage(text)))
         for warning in sorted({ln.strip() for ln in text.splitlines() if "Performance Loss" in ln}):
             log(f"  {name}: {warning}")
+
+
+def _run_caught(fn, *args, **kwargs):
+    """``fn``'s result, or the exception it raised (for a thread; the
+    caller raises it)."""
+    try:
+        return fn(*args, **kwargs)
+    except Exception as e:   # noqa: BLE001 - raised again on the main thread
+        return e
 
 
 def ptxas_usage(text):
@@ -1113,6 +1175,295 @@ def phase_generate(card):
     os.environ[GEN_REF_ENV] = path
     del model, paged, out, dense, pg, forward
     release()
+
+
+# ---------------------------------------------------------------------------
+# vision: ResNet50 and VGG16 through the trainer at world 1, and their
+# breakdown of a step
+# ---------------------------------------------------------------------------
+
+#: ``bench_family``'s ResNet50 (``bench.py:222-246``: 128 images of 224 px
+#: f32, SGD 0.1 with momentum 0.9) and ``bench_vgg16``'s VGG16
+#: (``bench.py:479-500``: 256 images in bf16, SGD with momentum 0.9).  VGG16
+#: steps at 0.01, not the bench's 0.1: without a norm, 0.1 sends the loss on
+#: N(0, 1) images to NaN within 6 steps (VGG16 at 64 px on the CPU; the JAX
+#: bench feeds zero images, which never move it), and the step time does not
+#: depend on the rate
+VISION = dict(size=224, classes=1000, resnet_batch=128, vgg_batch=256, lr=0.1, vgg_lr=0.01)
+#: steps of the fused-against-unfused pair, each from the same weights
+FUSED_STEPS = 3
+#: a step's device kernels by class: the launching op's name (or an
+#: enclosing range's) decides, in this order; batch norm is every kernel of
+#: a norm module's forward and of the backward nodes its forward made
+CONV_OPS = ("aten::cudnn_convolution", "aten::convolution", "aten::_convolution",
+            "aten::convolution_backward", "aten::conv2d")
+NORM_RANGE = "vision::batch_norm"
+
+
+def vision_batch(n, dtype=torch.float32, size=None, classes=None, device="cuda"):
+    """``n`` images N(0, 1) (NCHW in channels-last memory) and labels
+    uniform in ``[0, classes)``, both from seed 1 (not zeros: zero images
+    make every batch norm degenerate)."""
+    size, classes = size or VISION["size"], classes or VISION["classes"]
+    g = torch.Generator(device=device).manual_seed(1)
+    images = torch.randn((n, size, size, 3), device=device, generator=g).to(dtype)
+    labels = torch.randint(0, classes, (n,), device=device, generator=g)
+    return {"images": images.permute(0, 3, 1, 2), "labels": labels}
+
+
+def model_flops(model, forward, first: str):
+    """The convolutions' and dense layers' flops of one forward (a hook on
+    each ``Conv``/``Dense`` reads its output's shape during ``forward()``)
+    and of a training step: the forward, the weight gradients (as many) and
+    the input gradients of every layer but ``first``, whose input needs
+    none; and ``forward()``'s output."""
+    from bagua_tpu_torch.models.resnet import Conv, Dense
+
+    per = {}
+
+    def hook(name, m, inp, out):
+        fan_in = m.weight[0].numel()
+        per[name] = 2 * out.numel() * fan_in
+
+    handles = [m.register_forward_hook(functools.partial(hook, n))
+               for n, m in model.named_modules() if isinstance(m, (Conv, Dense))]
+    try:
+        out = forward()
+    finally:
+        for h in handles:
+            h.remove()
+    fwd = sum(per.values())
+    return {"forward": fwd, "step": 3 * fwd - per[first]}, out
+
+
+def step_breakdown(trainer, state, batch, norm_type, device_kernels=True):
+    """One training step under ``torch.profiler`` (host ops and device
+    kernels), its device milliseconds by class: ``convolution`` (kernels of
+    the convolution ops and their backward), ``batch norm`` (kernels of
+    every ``norm_type`` module's forward, a profiler range a module, and of
+    the backward nodes made there, matched by autograd sequence number; at
+    world > 1 their allreduce), ``optimizer`` (inside ``Optimizer.step``),
+    ``collectives`` (NCCL kernels: the bucket allreduce), ``elementwise and
+    other``.  With ``device_kernels`` False (the CPU) each leaf op's own
+    host time stands in for its kernels'.  The step's state is dropped."""
+    model = state.model
+    ranges = []
+
+    def enter(m, args):
+        r = torch.autograd.profiler.record_function(NORM_RANGE)
+        r.__enter__()
+        ranges.append(r)
+
+    def leave(m, args, out):
+        ranges.pop().__exit__(None, None, None)
+
+    hooks = [h for m in model.modules() if isinstance(m, norm_type)
+             for h in (m.register_forward_pre_hook(enter), m.register_forward_hook(leave))]
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device_kernels:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            _, loss = trainer.train_step(state, batch)
+            loss.item()
+            if device_kernels:
+                torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    norm_seq = {e.sequence_nr for e in events
+                if e.sequence_nr >= 0 and any(a.name == NORM_RANGE for a in ancestors(e))}
+    out = {k: 0.0 for k in ("convolution", "batch norm", "optimizer", "collectives",
+                            "elementwise and other")}
+    for e in events:
+        if device_kernels:
+            kernels = [(k.name, k.duration / 1e3) for k in e.kernels]
+        else:
+            kernels = [(e.name, e.self_cpu_time_total / 1e3)] if not e.cpu_children else []
+        if not kernels:
+            continue
+        chain = list(ancestors(e))
+        for name, ms in kernels:
+            if "nccl" in name.lower():
+                cls = "collectives"
+            elif any(a.name.startswith("Optimizer.step") for a in chain):
+                cls = "optimizer"
+            elif any(a.name == NORM_RANGE or (a.name.startswith("autograd::engine::evaluate_function")
+                                                and a.sequence_nr in norm_seq) for a in chain):
+                cls = "batch norm"
+            elif any(a.name in CONV_OPS for a in chain):
+                cls = "convolution"
+            else:
+                cls = "elementwise and other"
+            out[cls] += ms
+    return out
+
+
+def busy_share(trainer, state, batch) -> dict:
+    """One step's device kernels alone under ``torch.profiler``: their
+    milliseconds and the union of their intervals over the span from the
+    first kernel's start to the last one's end (the idle share is the
+    rest).  The step's state is dropped."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, loss = trainer.train_step(state, batch)
+        loss.item()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_start, cur_end = 0.0, None, None
+    for s, t in spans:
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = s, t
+        else:
+            cur_end = max(cur_end, t)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    span = spans[-1][1] - spans[0][0] if spans else 0.0
+    return {"kernels_ms": sum(t - s for s, t in spans) / 1e3, "busy_ms": busy / 1e3,
+            "span_ms": span / 1e3, "idle_share": 1.0 - busy / span if span else None}
+
+
+def _renamed(state_dict, old, new):
+    return {re.sub(rf"(^|\.){old}_", rf"\g<1>{new}_", k): v for k, v in state_dict.items()}
+
+
+def vision_run(name, model, loss_fn, opt, algo, batch, card, flops):
+    """``STEPS`` steps of ``model`` by ``BaguaTrainer``: the losses finite
+    and falling, no Pallas-port kernel launched; prints step ms, img/s, the
+    peak and the step's model-flops share of the bf16 dense peak."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.ops import codec as cd
+    from bagua_tpu_torch.ops import flash_attention as fa
+    from bagua_tpu_torch.ops import gmm as gm
+
+    trainer = bt.BaguaTrainer(loss_fn, opt, algo)
+    state = trainer.init(model)
+    batch = trainer.shard_batch(batch)
+    n = batch["labels"].shape[0]
+    losses, launches, st, state = train_steps(trainer, state, batch, n, [cd, fa, gm])
+    share = flops["step"] / (st["step_ms"] / 1e3) / PEAK_BF16_FLOPS
+    log(f"vision {name} ({card}): losses {losses}; step {st['step_ms']:.3f} ms (steps "
+        f"2-{STEPS} as one window; median {st['median_ms']:.3f} ms; first "
+        f"{st['first_ms']:.3f} ms), {st['tokens_s']:.1f} img/s, peak memory "
+        f"{st['peak_gb']:.3f} GB ({st['layout']} layout); model flops a step "
+        f"{flops['step']:.6g} (forward {flops['forward']:.6g}) = {share:.2%} of the bf16 "
+        f"dense peak {PEAK_BF16_FLOPS:.4g} flop/s; launches of the ported kernels {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"vision {name}: the path launched ported kernels {launches}")
+    st["flops_share"] = share
+    return trainer, state, batch, losses, st
+
+
+def phase_vision(card):
+    """(a) ``resnet50-1chip`` and (b) ``vgg16-1chip`` at world 1 over NCCL;
+    see the module docstring."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.contrib import SyncBatchNorm, fuse_optimizer
+    from bagua_tpu_torch.models.resnet import BatchNorm, ResNet50, classification_loss_fn
+    from bagua_tpu_torch.models.vgg import VGG16, vgg_loss_fn
+
+    bt.set_global_mesh(bt.build_mesh({"dp": 1}))
+    # cuDNN's autotune for VGG alone: its convolutions are its step, where
+    # ResNet50's norms take 87% of its device time and the autotune 13 s of
+    # its first step
+    cudnn = torch.backends.cudnn
+    sgd = functools.partial(torch.optim.SGD, lr=VISION["lr"], momentum=0.9)
+    sync = functools.partial(SyncBatchNorm, axis_name="dp")
+    out = {}
+    try:
+        # (a) ResNet50, SyncBN over the world (world 1: the local arithmetic)
+        batch = vision_batch(VISION["resnet_batch"])
+        model = ResNet50(num_classes=VISION["classes"], norm_cls=sync, seed=0)
+        twin = ResNet50(num_classes=VISION["classes"], seed=0)
+        twin.load_state_dict(_renamed(model.state_dict(), "SyncBatchNorm", "BatchNorm"))
+        with torch.no_grad():
+            flops, logits = model_flops(
+                model, lambda: model(batch["images"], update_stats=False), "stem_conv")
+            twin_logits = twin(batch["images"], update_stats=False)
+            twin_loss = classification_loss_fn(twin, batch).item()
+        logits_err = rel_err(logits, twin_logits)
+        del twin, twin_logits, logits
+        fused = fuse_optimizer(sgd)
+        trainer, state, batch, losses, st = vision_run(
+            "resnet50-1chip", model, classification_loss_fn, fused,
+            bt.GradientAllReduceAlgorithm(), batch, card, flops)
+        unwrapped = trainer.opt_factory is fused.fused_inner
+        loss_err = abs(losses[0] - twin_loss) / abs(twin_loss)
+        log(f"vision resnet50-1chip: first loss {losses[0]!r} against {twin_loss!r} of the twin "
+            f"with the local norm (rel err {loss_err:.3g}), logits rel err {logits_err:.3g} "
+            f"(tolerance {TOL[torch.bfloat16]}); the {st['layout']} layout "
+            f"{'unwrapped fused_inner' if unwrapped else 'ran the fused wrapper'}")
+        if not (loss_err <= TOL[torch.bfloat16] and logits_err <= TOL[torch.bfloat16]
+                and unwrapped == trainer._flat_resident):
+            raise AssertionError(f"vision resnet50-1chip: twin loss {loss_err}, logits "
+                                 f"{logits_err}, unwrapped {unwrapped}")
+        busy = busy_share(trainer, state, batch)
+        classes = step_breakdown(trainer, state, batch, SyncBatchNorm)
+        log(f"vision resnet50-1chip ({card}): one profiled step's device ms by class "
+            f"{json.dumps({k: round(v, 3) for k, v in classes.items()})} (host ops recorded); "
+            f"kernels alone: {busy['kernels_ms']:.3f} ms of kernels, busy {busy['busy_ms']:.3f} "
+            f"ms of a {busy['span_ms']:.3f} ms span, idle share {busy['idle_share']:.2%}")
+        out["resnet50"] = dict(st, losses=losses, breakdown=classes, busy=busy,
+                               flops=flops["step"])
+        del model, trainer, state
+        release()
+
+        # fused against unfused: the same weights, FUSED_STEPS steps each,
+        # cuDNN deterministic for this pair alone; the fused wrapper runs on
+        # the leaf layout, the plain optimizer on the default one
+        cudnn.deterministic, cudnn.benchmark = True, False
+        finals = {}
+        for label, opt, layout in (("fused (leaf layout)", fused, "off"),
+                                   ("plain", sgd, None)):
+            m = ResNet50(num_classes=VISION["classes"], norm_cls=sync, seed=0)
+            tr = bt.BaguaTrainer(classification_loss_fn, opt, bt.GradientAllReduceAlgorithm(),
+                                 flat_resident=layout)
+            s = tr.init(m)
+            b = tr.shard_batch(batch)
+            for _ in range(FUSED_STEPS):
+                s, loss = tr.train_step(s, b)
+            loss.item()
+            finals[label] = (type(s.optimizer).__name__, "resident" if tr._flat_resident
+                             else "leaf", _params_on_host(m))
+            del m, tr, s, b
+            release()
+        (fo, fl, fp), (po, pl, pp) = finals.values()
+        bitwise = fp.keys() == pp.keys() and all(torch.equal(fp[k], pp[k]) for k in fp)
+        log(f"vision resnet50-1chip: {FUSED_STEPS} steps of fuse_optimizer(SGD) ({fo} on the "
+            f"{fl} layout) and of plain SGD ({po} on the {pl} layout) from the same weights, "
+            f"cuDNN deterministic: parameters {'bitwise equal' if bitwise else 'DIFFER'}")
+        if not bitwise or fo != "FusedOptimizer":
+            raise AssertionError("vision resnet50-1chip: fused and unfused parameters differ")
+        del finals, fp, pp
+        cudnn.deterministic, cudnn.benchmark = False, True
+
+        # (b) VGG16, bf16 images
+        batch = vision_batch(VISION["vgg_batch"], torch.bfloat16)
+        model = VGG16(num_classes=VISION["classes"], image_size=VISION["size"], seed=0)
+        with torch.no_grad():
+            flops, _ = model_flops(model, lambda: model(batch["images"]), "conv0")
+        trainer, state, batch, losses, st = vision_run(
+            "vgg16-1chip", model, vgg_loss_fn,
+            functools.partial(torch.optim.SGD, lr=VISION["vgg_lr"], momentum=0.9),
+            bt.GradientAllReduceAlgorithm(hierarchical=False), batch, card, flops)
+        out["vgg16"] = dict(st, losses=losses, flops=flops["step"])
+        del model, trainer, state, batch
+    finally:
+        cudnn.deterministic, cudnn.benchmark = False, False
+        bt.set_global_mesh(None)
+    release()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1965,11 +2316,11 @@ def phase_narrow_shapes():
 #: shared card); QAdam's run keeps ``STEPS`` for its warmup, the async and
 #: features phases' cut runs for their schedules
 FULL_STEPS = 5
-#: (name, layers, algorithm, BaguaTrainer keywords).  Slice 3: (a) ByteGrad on
-#: the full BERT-Large, (b) the forced int8 and fp8 rings and (c) QAdam on a
-#: 4-layer cut of it
+#: (name, layers, algorithm, BaguaTrainer keywords).  Slice 3, on a 4-layer
+#: cut of BERT-Large: (a) ByteGrad (the overlap phase runs it on the full
+#: model), (b) the forced int8 and fp8 rings and (c) QAdam
 SLICE3_RUNS = (
-    ("bytegrad", None, "bytegrad", {"steps": FULL_STEPS}),
+    ("bytegrad", BERT["cut_layers"], "bytegrad", {"steps": FULL_STEPS}),
     ("int8", BERT["cut_layers"], "gradient_allreduce",
      {"compress_intra": "int8", "steps": FULL_STEPS}),
     ("fp8_e4m3", BERT["cut_layers"], "gradient_allreduce",
@@ -2005,12 +2356,12 @@ ZERO_RUNS = (
     ("replicated", None, "gradient_allreduce", {"steps": FULL_STEPS}),
     ("zero_int8", BERT["cut_layers"], "zero", {"compress_intra": "int8", "lr": 1e-3}),
 )
-#: the gossip families at world 2 on the full BERT-Large: (a) full-precision
-#: ``all`` with the peer weights tracked (no codec), (b) the low-precision
-#: ring, flat (a whole bucket one K1 chunk)
+#: the gossip families at world 2: (a) full-precision ``all`` with the peer
+#: weights tracked (no codec) on the full BERT-Large, (b) the low-precision
+#: ring, flat (a whole bucket one K1 chunk), on the 4-layer cut
 DECENTRALIZED_RUNS = (
     ("decentralized_all", None, "decentralized_all", {"steps": FULL_STEPS}),
-    ("low_precision", None, "low_precision", {"steps": FULL_STEPS}),
+    ("low_precision", BERT["cut_layers"], "low_precision", {"steps": FULL_STEPS}),
 )
 #: the gossip families at world 4, two nodes of two ranks, on the 4-layer
 #: cut: (a) ``shift_one`` over the four ranks, the partner rotating with the
@@ -2144,6 +2495,8 @@ TPP_RUNS = (
     ("pp_cut", None, "cut", {"axes": {"pp": 2}}),
     ("tp_generate", None, "generate", {}),
     ("tp_remesh", None, "remesh", {}),
+    ("vision_stack", None, "vision_stack", {}),
+    ("vision_cut", None, "vision_cut", {}),
 )
 #: the 3-D cut, pp 2 x tp 2 on four ranks (dp 1), with its control and a
 #: checkpoint resumed after its first step
@@ -2164,6 +2517,11 @@ MULTI_RANK = {
     "tensor_pipeline": ("tensor_pipeline", TPP_RUNS, 2, None),
     "tensor_pipeline_4": ("tensor_pipeline (pp 2 x tp 2)", TPP4_RUNS, 4, None),
 }
+#: phases that run in one spawn, in order (the same world and tiers): a spawn
+#: costs about 10 s (the ranks' start, CUDA and gloo), so the compressed-run
+#: phases ride together
+SPAWNS = {"slice3": ("slice3", "slice4"), "slice4_2x2": ("slice4_2x2", "decentralized_4"),
+          "zero": ("zero", "decentralized")}
 QADAM_WARMUP = 2
 #: the generate phase: slice 1's LM, a prompt of its batch's first
 #: ``GEN_PROMPT`` tokens, ``GEN_NEW`` greedy tokens, dense and paged
@@ -4132,7 +4490,8 @@ def tensor_pipeline_run(rank, world, run, device, label):
     record."""
     name, _, kind, kw = run
     return {"full": tpp_full_run, "cut": tpp_cut_run, "generate": tpp_generate_run,
-            "remesh": tpp_remesh_run}[kind](rank, world, name, device, label, **kw)
+            "remesh": tpp_remesh_run, "vision_stack": vision_stack_run,
+            "vision_cut": vision_cut_run}[kind](rank, world, name, device, label, **kw)
 
 
 def check_tp_generate_remesh(card, tpp):
@@ -4165,6 +4524,258 @@ def check_tp_generate_remesh(card, tpp):
     log(f"tensor_pipeline tp_remesh ({card}): restored across meshes, largest loss gap "
         f"{max(r['remesh_gap'] for r in rem):.3g} (tolerance {MP_CUT_RTOL}), restore "
         f"{max(r['restore_s'] for r in rem):.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# vision (2 ranks): the contrib stack and the SyncBN cut, in the
+# tensor_pipeline spawn
+# ---------------------------------------------------------------------------
+
+#: (c) ``examples/imagenet_resnet.py``'s stack on a one-block cut of ResNet50
+#: (its widths, 1000 classes, 224 px), 16 images a rank drawn from a cached
+#: synthetic dataset of 64 samples, ``FULL_STEPS`` steps
+VISION_STACK = dict(stage_sizes=(1, 1, 1, 1), per_rank=16, samples=64, lr=0.05)
+#: (d) one f32 SGD step of a small cut at world 2 against world 1 (held to
+#: ``MP_CUT_RTOL``)
+VISION_CUT = dict(stage_sizes=(1, 1), num_filters=16, size=32, per_rank=4, lr=0.1)
+
+
+class CountingImages:
+    """ImageNet-shaped samples (HWC f32 N(0, 1) from the index's seed, and a
+    label) whose decodes are counted."""
+
+    def __init__(self, n, size, classes):
+        self.size, self.classes = size, classes
+        self.decodes = [0] * n
+
+    def __len__(self):
+        return len(self.decodes)
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        self.decodes[i] += 1
+        img = np.random.default_rng(i).standard_normal((self.size, self.size, 3), np.float32)
+        return img, i % self.classes
+
+
+def _bn_digests(model, norm_type):
+    """sha256 of every ``norm_type`` layer's last batch mean and variance."""
+    import hashlib
+
+    return {n: hashlib.sha256(torch.cat(m.batch_stats).cpu().numpy().tobytes()).hexdigest()
+            for n, m in model.named_modules() if isinstance(m, norm_type)}
+
+
+def vision_stack_run(rank, world, name, device, label):
+    """(c): ``CachedDataset(backend="tcp", num_shards=2)`` (the native
+    store server) over 64 counted samples, ``LoadBalancingDistributedSampler``
+    shards, batches through ``prefetch_to_device``, ``SyncBatchNorm`` over
+    dp, ByteGrad (K1, K2), ``fuse_optimizer(SGD)``; the record the gates of
+    :func:`check_vision_ranks` read."""
+    import numpy as np
+
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.contrib import (CachedDataset, LoadBalancingDistributedSampler,
+                                         SyncBatchNorm, fuse_optimizer, prefetch_to_device)
+    from bagua_tpu_torch.models.resnet import BatchNorm, ResNet, classification_loss_fn
+    from bagua_tpu_torch.ops import codec as cd
+
+    t0 = time.perf_counter()
+    cfg = VISION_STACK
+    _mp_mesh({"dp": world})
+    data = CountingImages(cfg["samples"], VISION["size"], VISION["classes"])
+    cached = CachedDataset(data, backend="tcp", dataset_name="imagenet", writer_buffer_size=8,
+                           num_shards=2)
+    native = all(s.is_native for s in cached.cache_loader.store._servers)
+    # the sampler reads each sample's complexity from its metadata (a
+    # loader's file sizes), so building it decodes nothing
+    sizes = np.random.default_rng(0).integers(1, 1000, cfg["samples"]).tolist()
+    sampler = LoadBalancingDistributedSampler(sizes, complexity_fn=int, num_replicas=world,
+                                              rank=rank)
+    order, epoch = [], 0
+    while len(order) < FULL_STEPS * cfg["per_rank"]:
+        sampler.set_epoch(epoch)
+        order += list(sampler)
+        epoch += 1
+    order = order[:FULL_STEPS * cfg["per_rank"]]
+    misses = []
+
+    def batches():
+        for s in range(FULL_STEPS):
+            imgs, labels = [], []
+            for i in order[s * cfg["per_rank"]:(s + 1) * cfg["per_rank"]]:
+                before = data.decodes[i]
+                img, lab = cached[i]
+                misses.append(data.decodes[i] > before)
+                imgs.append(img)
+                labels.append(lab)
+            yield {"images": torch.from_numpy(np.stack(imgs)).permute(0, 3, 1, 2),
+                   "labels": torch.tensor(labels)}
+
+    model = ResNet(stage_sizes=cfg["stage_sizes"], num_classes=VISION["classes"],
+                   norm_cls=functools.partial(SyncBatchNorm, axis_name="dp"), device=device,
+                   seed=0)
+    opt = fuse_optimizer(functools.partial(torch.optim.SGD, lr=cfg["lr"], momentum=0.9))
+    trainer = bt.BaguaTrainer(classification_loss_fn, opt, bt.ByteGradAlgorithm(hierarchical=False),
+                              device=device)
+    state = trainer.init(model)
+    cd.reset_launch_counts()
+    staged0 = trainer.host_staged_bytes
+    losses, times, last = [], [], None
+    t_step = time.perf_counter()
+    for batch in prefetch_to_device(batches(), trainer=trainer):
+        state, loss = trainer.train_step(state, batch)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t_step)
+        t_step, last = time.perf_counter(), batch
+    launches = {k.__name__: k.launches for k in cd.KERNELS}
+    bn = _bn_digests(model, SyncBatchNorm)
+    twin = ResNet(stage_sizes=cfg["stage_sizes"], num_classes=VISION["classes"], device=device,
+                  seed=0)
+    twin.load_state_dict(_renamed(model.state_dict(), "SyncBatchNorm", "BatchNorm"))
+    with torch.no_grad():
+        twin(last["images"], update_stats=False)
+    control = _bn_digests(twin, BatchNorm)
+    cached.cache_loader.fetcher.flush_write_map()
+    num_keys = cached.cache_loader.num_keys()
+    cached.cache_loader.store.shutdown()
+    record = {
+        "name": name, "kind": "vision", "losses": losses, "launches": launches,
+        "buckets": len(trainer.plan.buckets), "digests": _flat_digests(trainer, model),
+        "bn": [bn[n] for n in sorted(bn)],
+        "control": [control[n.replace("SyncBatchNorm_", "BatchNorm_")] for n in sorted(bn)],
+        "native": native, "shard": sorted(set(order)), "reads": len(order),
+        "first_pass_misses": sum(misses[:len(set(order))]),
+        "later_misses": sum(misses[len(set(order)):]),
+        "decodes": {str(i): n for i, n in enumerate(data.decodes) if n},
+        "num_keys": num_keys, "step_ms": [t * 1e3 for t in times],
+        "layout": "resident" if trainer._flat_resident else "leaf",
+        "unwrapped": trainer.opt_factory is opt.fused_inner,
+        "staged": trainer.host_staged_bytes - staged0, "seconds": time.perf_counter() - t0}
+    log(f"[rank {rank}] {label} {name}: losses {losses}, launches {launches} "
+        f"({record['buckets']} buckets), cache keys {num_keys}, native store {native}")
+    del model, twin, trainer, state, last
+    return record
+
+
+def vision_cut_run(rank, world, name, device, label):
+    """(d): one f32 SGD step of ``VISION_CUT`` over ``{"dp": world}`` with
+    SyncBN against the world-1 step on the whole batch (every parameter
+    within ``MP_CUT_RTOL``); the control, the local norm at world 2, must
+    miss that gate.  cuDNN's TF32 is off for the run."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.contrib import SyncBatchNorm
+    from bagua_tpu_torch.models.resnet import ResNet, classification_loss_fn
+
+    t0 = time.perf_counter()
+    cfg = VISION_CUT
+    cudnn = torch.backends.cudnn
+    tf32, cudnn.allow_tf32 = cudnn.allow_tf32, False
+    sync = functools.partial(SyncBatchNorm, axis_name="dp")
+
+    def make(norm):
+        return ResNet(stage_sizes=cfg["stage_sizes"], num_filters=cfg["num_filters"],
+                      dtype=torch.float32, norm_dtype=torch.float32, norm_cls=norm,
+                      device=device, seed=0)
+
+    try:
+        batch = vision_batch(world * cfg["per_rank"], size=cfg["size"], device=device)
+        bt.set_global_mesh(None)   # world 1: the whole batch here, the local arithmetic
+        full = make(sync)
+        before = {n: p.detach().clone() for n, p in full.named_parameters()}
+        classification_loss_fn(full, batch).backward()
+        with torch.no_grad():
+            want = {n: p - cfg["lr"] * p.grad for n, p in full.named_parameters()}
+        del full
+        _mp_mesh({"dp": world})
+        errs = {}
+        for kind, norm in (("step", sync), ("control", None)):
+            model = make(norm)
+            own = before if norm else _renamed(before, "SyncBatchNorm", "BatchNorm")
+            model.load_state_dict(own, strict=False)
+            trainer = bt.BaguaTrainer(classification_loss_fn,
+                                      functools.partial(torch.optim.SGD, lr=cfg["lr"]),
+                                      bt.GradientAllReduceAlgorithm(), device=device)
+            state = trainer.init(model)
+            state, _ = trainer.train_step(state, trainer.shard_batch(batch, global_batch=True))
+            got = trainer.unstack_params(state)
+            if norm is None:
+                got = _renamed(got, "BatchNorm", "SyncBatchNorm")
+            err = {n: rel_err(got[n], want[n]) for n in want}
+            worst = max(err, key=err.get)
+            errs[kind] = (err[worst], worst)
+            del model, trainer, state
+    finally:
+        cudnn.allow_tf32 = tf32
+    log(f"[rank {rank}] {label} {name}: one f32 SGD step at world {world} with SyncBN against "
+        f"world 1 on the {world * cfg['per_rank']} images, largest parameter error "
+        f"{errs['step'][0]:.3g} ({errs['step'][1]}); the control (the local norm) "
+        f"{errs['control'][0]:.3g} ({errs['control'][1]})")
+    if not errs["step"][0] <= MP_CUT_RTOL < errs["control"][0]:
+        raise AssertionError(f"[rank {rank}] {name}: the step differs from world 1 ({errs}), or "
+                             f"the gate could not see the control")
+    return {"name": name, "kind": "vision", "cut_err": errs["step"][0],
+            "cut_control_err": errs["control"][0], "seconds": time.perf_counter() - t0}
+
+
+def check_vision_ranks(card, tpp):
+    """(c)'s gates across the ranks: losses finite, parameters bitwise equal,
+    K1 = buckets x steps and K2 twice that on each rank, every SyncBN
+    layer's last batch mean and variance bitwise equal on both ranks and the
+    local-norm control's different, the sampler shards disjoint and covering
+    the dataset, every drawn sample decoded once and every read after a
+    rank's first pass a hit, the cache's keys the distinct samples drawn,
+    the native store server; prints (c)'s and (d)'s results."""
+    recs, cut = tpp["vision_stack"], tpp["vision_cut"]
+    r0 = recs[0]
+    want = {"compress_chunked": r0["buckets"] * FULL_STEPS,
+            "decompress_chunked": 2 * r0["buckets"] * FULL_STEPS}
+    shards = [set(r["shard"]) for r in recs]
+    problems = []
+    if not all(math.isfinite(x) for r in recs for x in r["losses"]):
+        problems.append("non-finite losses")
+    if any(r["digests"] != r0["digests"] for r in recs):
+        problems.append("parameters differ between the ranks")
+    for r, rec in enumerate(recs):
+        got = {k: rec["launches"][k] for k in want}
+        others = {k: v for k, v in rec["launches"].items() if k not in want and v}
+        if got != want or others:
+            problems.append(f"rank {r} launches {rec['launches']}, expected {want}")
+        decoded = {int(i): n for i, n in rec["decodes"].items()}
+        if not (set(decoded) == set(rec["shard"]) and set(decoded.values()) == {1}
+                and rec["later_misses"] == 0 and rec["first_pass_misses"] == len(rec["shard"])
+                and rec["num_keys"] == len(rec["shard"]) and rec["native"]):
+            problems.append(f"rank {r} cache: decodes {rec['decodes']}, misses "
+                            f"{rec['first_pass_misses']} + {rec['later_misses']}, keys "
+                            f"{rec['num_keys']}, native {rec['native']}")
+    if any(r["bn"] != r0["bn"] for r in recs):
+        problems.append("SyncBN batch statistics differ between the ranks")
+    if any(a == b for a, b in zip(r0["control"], recs[1]["control"])):
+        problems.append("the local-norm control's statistics agree between the ranks")
+    if shards[0] & shards[1] or shards[0] | shards[1] != set(range(VISION_STACK["samples"])):
+        problems.append(f"sampler shards overlap or miss samples: {shards}")
+    log(f"vision (2 ranks) (c) {card}: ResNet{VISION_STACK['stage_sizes']} (one block a "
+        f"stage, ResNet50's widths), {VISION_STACK['per_rank']} images a rank, {FULL_STEPS} "
+        f"steps of ByteGrad "
+        f"with SyncBN over dp and fuse_optimizer(SGD) ({r0['layout']} layout, "
+        f"{'fused_inner unwrapped' if r0['unwrapped'] else 'wrapper'}): losses {r0['losses']}; "
+        f"parameters bitwise equal on both ranks; launches K1 "
+        f"{r0['launches']['compress_chunked']}, K2 {r0['launches']['decompress_chunked']} "
+        f"({r0['buckets']} buckets); {len(r0['bn'])} SyncBN layers' last batch statistics "
+        f"bitwise equal on both ranks, the local-norm control's differing in "
+        f"{sum(a != b for a, b in zip(r0['control'], recs[1]['control']))}; shards of "
+        f"{[len(s) for s in shards]} samples, disjoint; each rank decoded each of its samples "
+        f"once in {r0['reads']} reads, cache keys {[r['num_keys'] for r in recs]}, native "
+        f"store {[r['native'] for r in recs]}; step ms (host, rank 0) "
+        f"{[round(t, 3) for t in r0['step_ms']]}; host-staged {r0['staged']} bytes; "
+        f"{r0['seconds']:.1f} s")
+    log(f"vision (2 ranks) (d) {card}: one f32 SGD step at world 2 with SyncBN against world "
+        f"1, largest parameter error {max(r['cut_err'] for r in cut):.3g} (tolerance "
+        f"{MP_CUT_RTOL}); the control (the local norm) "
+        f"{min(r['cut_control_err'] for r in cut):.3g}; {cut[0]['seconds']:.1f} s")
+    if problems:
+        raise AssertionError(f"vision (2 ranks): {problems}")
 
 
 def check_tensor_pipeline(card, tpp, tpp4, slice1_losses):
@@ -4211,33 +4822,40 @@ def check_tensor_pipeline(card, tpp, tpp4, slice1_losses):
 
 
 def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
-    """One rank of a multi-rank phase of ``MULTI_RANK``: every run, records
-    to ``out_path`` as JSON."""
+    """One rank of a multi-rank spawn: every run of the phase of
+    ``MULTI_RANK`` (and of those ``SPAWNS`` joins to it), records to
+    ``out_path`` as JSON."""
     import bagua_tpu_torch as bt
 
-    label, runs, world, intra = MULTI_RANK[phase]
+    _, _, world, intra = MULTI_RANK[phase]
     device = torch.device(device)
     bt.init_process_group(init_method, world_size=world, rank=rank, device=device,
                           backend="gloo", intra_size=intra)
     _CKPT_DIR["root"] = os.path.join(os.path.dirname(os.path.abspath(out_path)), "ckpt")
     records = []
-    for run in runs:
+    for sub in SPAWNS.get(phase, (phase,)):
+        label, runs = MULTI_RANK[sub][:2]
         run_fn = {"async": async_run, "features": features_run, "overlap": overlap_run,
                   "checkpoint": checkpoint_run, "model_parallel": model_parallel_run,
                   "tensor_pipeline": tensor_pipeline_run,
-                  "tensor_pipeline_4": tensor_pipeline_run}.get(phase, compressed_run)
-        records.append(run_fn(rank, world, run, device, label))
-        if device.type == "cuda":
-            release()
+                  "tensor_pipeline_4": tensor_pipeline_run}.get(sub, compressed_run)
+        for run in runs:
+            t0 = time.perf_counter()
+            records.append(run_fn(rank, world, run, device, label))
+            records[-1].setdefault("seconds", time.perf_counter() - t0)
+            records[-1]["label"] = label
+            if device.type == "cuda":
+                release()
     with open(out_path, "w") as f:
         json.dump(records, f)
     torch.distributed.destroy_process_group()
 
 
 def phase_multi_rank(phase):
-    """Start the phase's ranks as processes of this script on the one card and
-    check them; fails if any rank fails or the phase outlasts
-    ``WORKER_TIMEOUT``.  Returns every rank's record by run name."""
+    """Start the phase's ranks (with the phases ``SPAWNS`` joins to it) as
+    processes of this script on the one card and check them; fails if any
+    rank fails or the spawn outlasts ``WORKER_TIMEOUT``.  Returns every
+    rank's record by run name."""
     label, _, world, intra = MULTI_RANK[phase]
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'store')}"
@@ -4259,8 +4877,9 @@ def phase_multi_rank(phase):
             with open(path) as f:
                 ranks.append(json.load(f))
     for runs in zip(*ranks):
-        name = runs[0]["name"]
-        if runs[0].get("kind") in ("eager", "checkpoint", "model_parallel", "tensor_pipeline"):
+        name, label = runs[0]["name"], runs[0]["label"]
+        if runs[0].get("kind") in ("eager", "checkpoint", "model_parallel", "tensor_pipeline",
+                                   "vision"):
             continue
         if runs[0]["fingerprints"] is not None:
             check_gossip(label, runs, intra or 1)
@@ -4279,7 +4898,8 @@ def phase_multi_rank(phase):
                 f"{len(rec['losses'])} steps, "
                 f"optimizer state {rec['opt_state_bytes']} bytes, "
                 f"{rec['buckets']} buckets, launches {rec['launches']}; forward+backward "
-                f"alone (no communication) {rec['fwd_bwd_ms']:.3f} ms")
+                f"alone (no communication) {rec['fwd_bwd_ms']:.3f} ms; the run "
+                f"{rec['seconds']:.1f} s")
         if runs[0]["digests"] is not None:
             log(f"{label} {name}: parameters bitwise equal on all {world} ranks "
                 f"({len(runs[0]['digests'])} bucket digests)")
@@ -4615,15 +5235,16 @@ def main():
     del base, base_moe
     ckpt_single = timed("checkpoint (a)", phase_checkpoint)
     timed("generate", phase_generate, card)
+    timed("vision", phase_vision, card)
     torch.distributed.destroy_process_group()
     release()   # the ranks of slices 3 and 4 share this card
-    slice3 = timed("slice 3", phase_multi_rank, "slice3")
-    slice4 = timed("slice 4", phase_multi_rank, "slice4")
-    timed("slice 4 (2 x 2)", phase_multi_rank, "slice4_2x2")
-    zero = timed("zero", phase_multi_rank, "zero")
+    slice3 = slice4 = timed("slice 3, slice 4", phase_multi_rank, "slice3")
+    four = timed("slice 4 (2 x 2), decentralized (2 x 2)", phase_multi_rank, "slice4_2x2")
+    both = timed("zero, decentralized", phase_multi_rank, "zero")
+    zero = {name: both[name] for name, *_ in ZERO_RUNS}
     check_zero({name: recs[0] for name, recs in zero.items()})
-    gossip = timed("decentralized", phase_multi_rank, "decentralized")
-    gossip.update(timed("decentralized (2 x 2)", phase_multi_rank, "decentralized_4"))
+    gossip = {name: both[name] for name, *_ in DECENTRALIZED_RUNS}
+    gossip.update({name: four[name] for name, *_ in DECENTRALIZED_4_RUNS})
     full = zero["replicated"][0]
     async_runs = timed("async", phase_multi_rank, "async")
     check_async(async_runs, full, gossip["decentralized_all"][0])
@@ -4639,6 +5260,7 @@ def main():
     tpp = timed("tensor_pipeline", phase_multi_rank, "tensor_pipeline")
     tpp4 = timed("tensor_pipeline (pp 2 x tp 2)", phase_multi_rank, "tensor_pipeline_4")
     check_tensor_pipeline(card, tpp, tpp4, slice1_losses)
+    check_vision_ranks(card, tpp)
     shutil.rmtree(os.path.dirname(os.environ.pop(GEN_REF_ENV)), ignore_errors=True)
     for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
