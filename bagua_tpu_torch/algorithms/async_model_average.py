@@ -38,6 +38,14 @@ rewind while the round was in flight) without breaking the schedule.  Each
 rank's applied-round count rides the gather; when the worst rank lags the
 launched count by ``max_staleness_rounds``, every rank agrees on a blocking
 catch-up average that leaves the weights bitwise equal on every rank.
+
+The blocking waits of the schedule (the negotiation gather, the wait for a
+round's collective, the catch-up average) run inside sections of the
+trainer's hang watchdog (the JAX package's ``async_model_average.py:82-114,
+274-291, 372-393``): a peer dying between rounds would otherwise hang the survivors
+where no step's fence is watched.  A dropped round on this rank publishes
+the health beacon (its fenceable event), and an armed ``step.straggle``
+stalls the gated boundaries (the negotiation, the catch-up).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from contextlib import nullcontext
 from typing import Optional
 
 import torch
@@ -68,19 +77,28 @@ _REQ_RESUME = 1
 _REQ_ABORT = 2  # highest: abort wins when both are requested in one round
 
 
-def _negotiate(control: Optional[BaguaCommunicator], payload) -> torch.Tensor:
+def _watched(watchdog, label: str):
+    """A watched section of ``watchdog``, or nothing without one."""
+    return watchdog.watch(label) if watchdog is not None else nullcontext()
+
+
+def _negotiate(control: Optional[BaguaCommunicator], payload, watchdog=None,
+               label: str = "async-negotiate") -> torch.Tensor:
     """Every rank's control vector, ``[ranks, len(payload)]`` f64, gathered
     over the control group (without one, the payload as one row).  Every
-    rank calls it at the same step boundary: the schedule guarantees it."""
+    rank calls it at the same step boundary: the schedule guarantees it.
+    The gather runs inside a section of ``watchdog``."""
     vec = torch.tensor(payload, dtype=torch.float64)
     if control is None:
         return vec[None]
-    return control.allgather(vec, tiled=False)
+    with _watched(watchdog, label):
+        return control.allgather(vec, tiled=False)
 
 
-def _agree_max(control: Optional[BaguaCommunicator], value: float) -> float:
+def _agree_max(control: Optional[BaguaCommunicator], value: float, watchdog=None,
+               label: str = "async-negotiate") -> float:
     """The maximum of a host scalar over the ranks."""
-    return float(_negotiate(control, [float(value)])[:, 0].max())
+    return float(_negotiate(control, [float(value)], watchdog, label)[:, 0].max())
 
 
 def _fence(trainer) -> None:
@@ -111,6 +129,9 @@ class AsyncModelAverageAlgorithm(Algorithm):
 
     name = "async"
     replicated_params = False
+    #: its steps run on stale local weights: a slow peer binds it only at the
+    #: negotiated boundaries (``maybe_straggle`` there)
+    straggler_gates_step = False
 
     def __init__(
         self,
@@ -159,6 +180,8 @@ class AsyncModelAverageAlgorithm(Algorithm):
         self._rounds_dropped = 0
         self._drop_next = False      # async.partition: sit the next apply out
         self._rewinds_at_launch = 0  # the trainer's grad-guard rewinds at launch
+        #: the trainer's hang watchdog (None: off), taken at each boundary
+        self._watchdog = None
         self._lock = threading.Lock()
         # abort()/resume() take their own lock, so that a caller on another
         # thread never waits behind the boundary's gather (under _lock)
@@ -197,11 +220,13 @@ class AsyncModelAverageAlgorithm(Algorithm):
         self._pending = (works, buffers, snapshot)
 
     def _wait(self) -> list:
-        """Wait for the round in flight; returns its summed buffers."""
+        """Wait for the round in flight, inside a section of the trainer's
+        watchdog; returns its summed buffers."""
         works, buffers, _ = self._pending
         t0 = time.monotonic()
-        for work in works:
-            work.wait()
+        with _watched(self._watchdog, "async-drain"):
+            for work in works:
+                work.wait()
         counters.incr("async/round_wait_s", time.monotonic() - t0)
         return buffers
 
@@ -240,6 +265,13 @@ class AsyncModelAverageAlgorithm(Algorithm):
         counters.incr("async/rounds_dropped")
         if health_event:
             counters.incr("async/missed_boundaries")
+            # a missed round is a fenceable health event: the beacon carries
+            # it to the coordinator (the grad guard is the other writer; a
+            # rank dropping rounds with finite gradients would otherwise
+            # never surface)
+            from ..elastic.membership import write_health_beacon
+
+            write_health_beacon()
         logger.warning("async model average: round %d NOT applied on this rank (%s); "
                        "applied %d/%d", self._rounds_launched, why, self._rounds_applied,
                        self._rounds_launched)
@@ -280,8 +312,13 @@ class AsyncModelAverageAlgorithm(Algorithm):
             # every rank drops it: not this rank's fault
             self._drop_pending(f"superseded by catch-up sync ({reason})", health_event=False)
         flats = trainer.plan.flatten(trainer._params)
-        for f in flats:
-            self._avg_comm.allreduce(f, ReduceOp.AVG)
+        # a blocking average over every rank: the one async point a
+        # straggler really gates
+        self._gated_straggle(trainer, "async.catchup")
+        with _watched(self._watchdog, "async-catchup"):
+            for f in flats:
+                self._avg_comm.allreduce(f, ReduceOp.AVG)
+            _fence(trainer)
         for name, avg in trainer.plan.unflatten(flats).items():
             trainer._params[name].copy_(avg)
         self._rounds_applied = self._rounds_launched
@@ -292,6 +329,24 @@ class AsyncModelAverageAlgorithm(Algorithm):
         logger.warning("async model average: synchronous catch-up average at step %d (%s): "
                        "the ranks' weights are bitwise equal after %d round(s)", step, reason,
                        self._rounds_launched)
+
+    def _boundary_base_dt(self, trainer) -> Optional[float]:
+        """The straggle base of the gated boundaries: the agreed (slowest
+        rank's) step time once calibrated, else the trainer's own cadence."""
+        if self._agreed_dt is not None:
+            return self._agreed_dt
+        fn = getattr(trainer, "measured_step_dt", None)
+        return fn() if callable(fn) else None
+
+    def _gated_straggle(self, trainer, sync_point: str) -> None:
+        """An injected ``step.straggle`` stall at a gated boundary, reported
+        to the trainer's cadence, so the sleep does not become the base of
+        the next stall."""
+        slept = _inject.maybe_straggle(sync_point, base_dt=self._boundary_base_dt(trainer))
+        if slept:
+            note = getattr(trainer, "note_injected_stall", None)
+            if callable(note):
+                note(slept)
 
     def _calibrate(self, trainer, step: int) -> None:
         """Agree a period from the slowest rank's step time (in place of the
@@ -311,7 +366,8 @@ class AsyncModelAverageAlgorithm(Algorithm):
             _fence(trainer)
             window = step - self._calib_start
             local_dt = (time.monotonic() - self._calib_t0) / window
-            self._agreed_dt = _agree_max(self._control, local_dt)
+            self._agreed_dt = _agree_max(self._control, local_dt, self._watchdog,
+                                         "async-calibrate")
             self._period = max(1, int(round(self.sync_interval_ms / (self._agreed_dt * 1000.0))))
             self._anchor = step
             self._rounds = 0
@@ -321,6 +377,7 @@ class AsyncModelAverageAlgorithm(Algorithm):
     def host_pre_step(self, trainer, state):
         """The step boundary, where the weights may change (the reference's
         weight lock)."""
+        self._watchdog = getattr(trainer, "_watchdog", None)
         if is_aborted():
             # the global abort flag stops the rounds like a local abort():
             # nothing new is launched and the round in flight is dropped.
@@ -352,13 +409,16 @@ class AsyncModelAverageAlgorithm(Algorithm):
             # between boundaries ran free.  The veto is decided before the
             # gather, so that the negotiated applied count reflects a drop.
             will_drop, drop_reason = self._pending_veto(trainer)
+            # the negotiation waits for every rank: a slow peer gates it
+            self._gated_straggle(trainer, "async.negotiate")
             # read and clear under _req_lock: a request made on another
             # thread during the gather stays for the next boundary
             with self._req_lock:
                 my_req, self._request = self._request, _REQ_NONE
             applied_after = self._rounds_applied + (
                 1 if (self._pending is not None and not will_drop) else 0)
-            gathered = _negotiate(self._control, [float(my_req), float(applied_after)])
+            gathered = _negotiate(self._control, [float(my_req), float(applied_after)],
+                                  self._watchdog)
             req = float(gathered[:, 0].max())
             min_applied = int(gathered[:, 1].min())
             if req >= _REQ_ABORT:
@@ -434,6 +494,7 @@ class AsyncModelAverageAlgorithm(Algorithm):
     def barrier(self, trainer, state):
         """Wait for the round in flight and apply it, under the boundary's
         veto.  Call it on every rank."""
+        self._watchdog = getattr(trainer, "_watchdog", None)
         with self._lock:
             self._drain_pending(trainer)
         return state
@@ -445,6 +506,7 @@ class AsyncModelAverageAlgorithm(Algorithm):
         every rank."""
         if self._avg_comm is None:
             return state
+        self._watchdog = getattr(trainer, "_watchdog", None)
         with self._lock:
             self._drain_pending(trainer)
             self._catchup_sync(trainer, trainer._step_counter, "checkpoint")

@@ -385,6 +385,14 @@ class Algorithm:
     #: on them needs no collective of its own; the others' verdict is taken
     #: on the updated parameters
     grad_health_replicated: bool = False
+    #: True when the family's step synchronizes with every rank (a per-step
+    #: gradient collective), so a slow peer gates the step and the
+    #: ``step.straggle`` fault point dilates each step.  Asynchronous
+    #: families whose steps run on stale local weights set False: a
+    #: straggler binds them only at their own negotiated boundaries, where
+    #: they call :func:`bagua_tpu_torch.faults.inject.maybe_straggle`
+    #: themselves.
+    straggler_gates_step: bool = True
 
     def need_reset(self, step: int) -> bool:
         """Host-side, at the top of every step (``step`` counts the

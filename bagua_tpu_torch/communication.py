@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
 import threading
 from enum import IntEnum
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -55,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from . import env
+from . import watchdog as _watchdog
 from .device import resolve_device
 from .telemetry import counters
 
@@ -147,7 +149,22 @@ def reset_abort() -> None:
     _ABORT_REASON = None
     _ABORT_EVENT.clear()
     if was_aborted:
+        from .faults import inject as _inject
+
         counters.incr("comm/abort_resets")
+        # an injected collective hang that reached the abort and was reset
+        # is a completed recovery
+        _inject.record_recovery("collective.hang")
+
+
+def _launcher_init_method() -> Optional[str]:
+    """The rendezvous the launcher injected (``bagua_tpu_torch.distributed.run``):
+    ``BAGUA_COORDINATOR_ADDR``, else ``MASTER_ADDR:MASTER_PORT``, as a
+    ``tcp://`` init method; None without either."""
+    addr = env.get_coordinator_addr()
+    if addr is None and os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
+        addr = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+    return f"tcp://{addr}" if addr else None
 
 
 def init_process_group(
@@ -166,9 +183,13 @@ def init_process_group(
     gloo for ``cpu``; gloo with ``cuda`` stages what gloo cannot take
     through host memory (see the module docstring).  Without
     ``init_method`` a single process forms a world of 1 from an in-process
-    store (no network); several processes pass ``init_method``
-    (``tcp://host:port``, ``file://path`` or ``env://``) with ``world_size``
-    and ``rank``, which default to ``WORLD_SIZE``/``RANK``.  ``intra_size``
+    store (no network), and a process of a larger world joins the
+    launcher's rendezvous (``BAGUA_COORDINATOR_ADDR``, else
+    ``MASTER_ADDR:MASTER_PORT``, hosted by rank 0); processes started
+    otherwise pass ``init_method`` (``tcp://host:port``, ``file://path`` or
+    ``env://``).  ``world_size`` and ``rank`` default to
+    ``WORLD_SIZE``/``RANK``.  The device is the caller's: the launcher
+    picks none.  ``intra_size``
     is the ranks per node of the two tiers (default ``LOCAL_WORLD_SIZE``,
     else the world size).  Calling it again returns the existing backend.
     """
@@ -181,9 +202,13 @@ def init_process_group(
         if device.type == "cuda":
             torch.cuda.set_device(env.get_local_rank() if device.index is None
                                   else device.index)
+        if init_method is None and world_size != 1:
+            init_method = _launcher_init_method()
+            if init_method is None:
+                raise ValueError(f"world_size {world_size} needs an init_method (or the "
+                                 "launcher's BAGUA_COORDINATOR_ADDR / MASTER_ADDR and "
+                                 "MASTER_PORT)")
         if init_method is None:
-            if world_size != 1:
-                raise ValueError(f"world_size {world_size} needs an init_method")
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1)
         else:
@@ -224,6 +249,25 @@ class _HostBuffers:
         done = torch.cuda.Event()
         done.record()
         self._pending[buf.data_ptr()] = done
+
+
+def _watched(fn):
+    """Run a blocking call of the communicator inside a section of the
+    process's hang watchdog, when it has one.  A gloo collective blocks the
+    calling thread until every peer has joined, so a peer that hangs with
+    its socket open (a deadlock, a stopped process, a partition) keeps the
+    section open past the timeout; an NCCL call returns once enqueued, and
+    the step's event fences its device work."""
+    label = f"comm.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        watchdog = _watchdog.active()
+        if watchdog is None:
+            return fn(self, *args, **kwargs)
+        with watchdog.watch(label):
+            return fn(self, *args, **kwargs)
+    return call
 
 
 class BaguaCommunicator:
@@ -298,6 +342,7 @@ class BaguaCommunicator:
             # gloo copies the operand to the host and the result back
             self.host_staged_bytes += 2 * x.numel() * x.element_size()
 
+    @_watched
     def allreduce(self, x: torch.Tensor, op: ReduceOp = ReduceOp.AVG) -> torch.Tensor:
         """The reduction of ``x`` over the ranks by ``op``, in place in
         ``x``'s storage, returned.  AVG is a sum then a division, since gloo
@@ -336,10 +381,12 @@ class BaguaCommunicator:
         self._count_allreduce_staging(x)
         return dist.all_reduce(x, dist.ReduceOp.SUM, group=self.group, async_op=True)
 
+    @_watched
     def barrier(self) -> None:
         """Block until every rank of the group has reached the barrier."""
         dist.barrier(group=self.group)
 
+    @_watched
     def allgather(self, x: torch.Tensor, axis: int = 0, tiled: bool = True) -> torch.Tensor:
         """Every rank's ``x`` in rank order (``lax.all_gather``):
         concatenated along ``axis`` (``tiled``), or stacked on a new axis at
@@ -359,6 +406,7 @@ class BaguaCommunicator:
             return out.movedim(0, axis)
         return out.reshape((n,) + tuple(x.shape)).movedim(0, axis)
 
+    @_watched
     def reduce_scatter(self, x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
                        axis: int = 0) -> torch.Tensor:
         """This rank's contiguous 1/n block along ``axis`` of the sum (SUM)
@@ -377,6 +425,7 @@ class BaguaCommunicator:
         out = self._from_wire(out, x).movedim(0, axis)
         return out / n if op == ReduceOp.AVG else out
 
+    @_watched
     def alltoall(self, x: torch.Tensor, split_axis: int = 0,
                  concat_axis: int = 0) -> torch.Tensor:
         """``lax.all_to_all`` with ``tiled=False``: ``x.shape[split_axis]``
@@ -393,6 +442,7 @@ class BaguaCommunicator:
         dist.all_to_all_single(out, wire, group=self.group)
         return self._from_wire(out, x).movedim(0, concat_axis)
 
+    @_watched
     def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """``perm`` pairs ``(src, dst)`` of group ranks: this rank sends
         ``x`` to its ``dst`` and returns what its ``src`` sent, zeros if no
@@ -438,6 +488,7 @@ class BaguaCommunicator:
             return x.clone()
         return self.ppermute(x, [(i, p) for i, p in enumerate(peers) if p != i])
 
+    @_watched
     def alltoall_packed(self, x: torch.Tensor, send_sizes: Sequence[int],
                         recv_sizes: Sequence[int]) -> torch.Tensor:
         """Exact-count all-to-all with packed rows: ``x`` holds this rank's
@@ -489,6 +540,7 @@ class BaguaCommunicator:
             start += size
         return out
 
+    @_watched
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Group rank ``src``'s ``x`` on every rank, as a new tensor (the
         reference's broadcast, ``communication.py:270-300``)."""
@@ -795,8 +847,7 @@ def get_backend() -> BaguaBackend:
 #
 # Each call checks the abort flag first (an aborted process starts no new
 # collective), takes this process's own rank's tensor and returns its own
-# result.  The JAX package fences these calls with its hang watchdog; the
-# port has no watchdog yet.
+# result, and is fenced by the global hang watchdog (``_watch_eager``).
 
 
 def _comm_for(comm: Optional[BaguaCommunicator]) -> BaguaCommunicator:
@@ -804,6 +855,34 @@ def _comm_for(comm: Optional[BaguaCommunicator]) -> BaguaCommunicator:
     return comm if comm is not None else get_backend().global_communicator
 
 
+def _watch_eager(fn):
+    """Fence an eager collective with the global hang watchdog
+    (``communication.py:831-855``): the trainer's steps are fenced through
+    ``watch_result``; without this a wedged ``allreduce()`` outside the
+    trainer would hang silently, where the reference's comm monitor covers
+    every scheduled op.  The call runs inside a watched section (a gloo
+    collective blocks the caller), and its result's fence goes to the
+    waiter (an NCCL collective returns before it completes)."""
+    label = f"eager:{fn.__name__}"
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        from .watchdog import get_comm_timeout_s, get_global_watchdog
+
+        timeout = get_comm_timeout_s()
+        if timeout is None:
+            return fn(*args, **kwargs)
+        watchdog = get_global_watchdog(timeout)
+        with watchdog.watch(label):
+            out = fn(*args, **kwargs)
+        if isinstance(out, torch.Tensor):
+            watchdog.watch_result(out, label)
+        return out
+
+    return call
+
+
+@_watch_eager
 def allreduce(send: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
               comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
     """The reduction of every rank's ``send`` by ``op``, as a new tensor
@@ -811,18 +890,21 @@ def allreduce(send: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
     return _comm_for(comm).allreduce(send.detach().clone(), op)
 
 
+@_watch_eager
 def allreduce_inplace(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVG,
                       comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
     """:func:`allreduce` into ``tensor``'s own storage; returns it."""
     return _comm_for(comm).allreduce(tensor, op)
 
 
+@_watch_eager
 def allgather(send: torch.Tensor, comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
     """Every rank's ``send`` concatenated along dim 0 in rank order
     (``communication.py:498-560``)."""
     return _comm_for(comm).allgather(send, axis=0, tiled=True)
 
 
+@_watch_eager
 def reduce_scatter(send: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
                    comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
     """This rank's contiguous ``1 / nranks`` block along dim 0 of the SUM or
@@ -830,6 +912,7 @@ def reduce_scatter(send: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
     return _comm_for(comm).reduce_scatter(send, op, axis=0)
 
 
+@_watch_eager
 def alltoall(send: torch.Tensor, comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
     """``send``'s dim 0 cut into ``nranks`` equal blocks, block j to rank j;
     the blocks received, in rank order, concatenated along dim 0."""
@@ -841,6 +924,7 @@ def alltoall(send: torch.Tensor, comm: Optional[BaguaCommunicator] = None) -> to
     return c.alltoall(blocks).reshape(send.shape)
 
 
+@_watch_eager
 def alltoall_v(send: torch.Tensor, send_counts, output_size: Optional[int] = None,
                comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
     """Ragged all-to-all (the reference's ``alltoall_v``).  ``send`` packs
@@ -872,12 +956,14 @@ def alltoall_v(send: torch.Tensor, send_counts, output_size: Optional[int] = Non
                         [counts[s][r] for s in range(n)])
 
 
+@_watch_eager
 def broadcast(tensor: torch.Tensor, src: int = 0,
               comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
     """Rank ``src``'s ``tensor`` on every rank, as a new tensor."""
     return _comm_for(comm).broadcast(tensor, src)
 
 
+@_watch_eager
 def reduce(send: torch.Tensor, dst: int, op: ReduceOp = ReduceOp.SUM,
            comm: Optional[BaguaCommunicator] = None,
            recv: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -891,6 +977,7 @@ def reduce(send: torch.Tensor, dst: int, op: ReduceOp = ReduceOp.SUM,
     return recv if recv is not None else torch.zeros_like(red)
 
 
+@_watch_eager
 def gather(send: torch.Tensor, dst: int, comm: Optional[BaguaCommunicator] = None,
            recv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every rank's ``send`` concatenated along dim 0 on rank ``dst``; the
@@ -903,6 +990,7 @@ def gather(send: torch.Tensor, dst: int, comm: Optional[BaguaCommunicator] = Non
     return recv if recv is not None else torch.zeros_like(full)
 
 
+@_watch_eager
 def scatter(send: torch.Tensor, src: int, comm: Optional[BaguaCommunicator] = None
             ) -> torch.Tensor:
     """Block r along dim 0 of rank ``src``'s ``send`` (``nranks`` equal
@@ -915,6 +1003,7 @@ def scatter(send: torch.Tensor, src: int, comm: Optional[BaguaCommunicator] = No
     return full.reshape((n, send.shape[0] // n) + tuple(send.shape[1:]))[c.rank()]
 
 
+@_watch_eager
 def send_recv(send: torch.Tensor, peer_perm: Sequence[Tuple[int, int]],
               comm: Optional[BaguaCommunicator] = None) -> torch.Tensor:
     """Point-to-point exchange as a permutation of ``(src, dst)`` pairs
@@ -924,6 +1013,7 @@ def send_recv(send: torch.Tensor, peer_perm: Sequence[Tuple[int, int]],
     return _comm_for(comm).ppermute(send, perm)
 
 
+@_watch_eager
 def barrier(comm: Optional[BaguaCommunicator] = None) -> None:
     """Block until every rank of ``comm`` (default: the global
     communicator) has reached the barrier."""

@@ -79,7 +79,9 @@ import dataclasses
 import functools
 import hashlib
 import logging
+import time
 import weakref
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -443,6 +445,17 @@ class BaguaTrainer:
         self.opt_factory: Optional[Callable] = None
         #: train_step calls on this trainer, the counter ``need_reset`` reads
         self._step_counter = 0
+        #: the host cadence of the steps (``step.straggle``'s base): the
+        #: previous step's entry, its seconds less the injected stalls in it
+        self._last_step_mono: Optional[float] = None
+        self._step_dt: Optional[float] = None
+        self._last_straggle_sleep = 0.0
+        # the hang watchdog (``backend.py:554-557``), on by default: each
+        # step's and eval's result is handed to its waiter thread
+        from ..watchdog import get_comm_timeout_s, get_global_watchdog
+
+        timeout = get_comm_timeout_s()
+        self._watchdog = get_global_watchdog(timeout) if timeout else None
 
     def _setup_mesh(self, mesh, dp_axes, expert_axis, expert_params, expert_keyword,
                     seq_axis, tp_axis, tp_param_dim, pp_axis, pp_param_dim) -> None:
@@ -786,7 +799,10 @@ class BaguaTrainer:
         model.to(self.device)
         self._params = dict(model.named_parameters())
         local = set(self._local_names())
-        with torch.no_grad():
+        # the broadcasts block on gloo until every rank has joined: a rank
+        # that hangs before its own must not hold the others forever
+        watched = self._watchdog.watch("init:broadcast") if self._watchdog else nullcontext()
+        with torch.no_grad(), watched:
             for n, p in self._params.items():
                 if n not in local:
                     dist.broadcast(p.data, src=0)
@@ -998,6 +1014,26 @@ class BaguaTrainer:
                         "flat under flat_resident: something replaced the .grad view")
         self._grad_views_checked = True
 
+    def measured_step_dt(self) -> Optional[float]:
+        """Host cadence of the previous step in seconds, the injected
+        ``step.straggle`` stalls in it subtracted, so a dilation never
+        compounds into its own base (``backend.py:1773-1779``)."""
+        return self._step_dt
+
+    def note_injected_stall(self, seconds: float) -> None:
+        """Record an injected stall inside the current step (an async
+        boundary's ``step.straggle`` sleep), so the next cadence sample
+        subtracts it."""
+        self._last_straggle_sleep += float(seconds)
+
+    def _note_step_cadence(self) -> None:
+        now = time.monotonic()
+        if self._last_step_mono is not None:
+            dt = now - self._last_step_mono - self._last_straggle_sleep
+            if dt > 0:
+                self._step_dt = dt
+        self._last_step_mono = now
+
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         """One step; returns the new state and the loss averaged over ranks."""
         check_abort()   # no new step once a rank flagged an abort
@@ -1007,6 +1043,12 @@ class BaguaTrainer:
             self._pending_state_migration = None
         algo, ctx, guard = self.algorithm, self._ctx, self.grad_guard
         self._step_counter += 1
+        # step.straggle (``backend.py:2069-2077``): a slow peer gates this
+        # step only when the family's step synchronizes with every rank;
+        # async families pay at their own negotiated boundaries
+        self._note_step_cadence()
+        self._last_straggle_sleep = _inject.maybe_straggle(
+            "step", base_dt=self._step_dt, gated=algo.straggler_gates_step)
         # the boundary between steps, before the phase switch, as in the
         # JAX trainer
         with torch.no_grad():
@@ -1094,6 +1136,13 @@ class BaguaTrainer:
             order, self._grad_order = self._grad_order, None
             self._overlap_ordered = True
             self._rebucket_by_readiness(order)
+        if self._watchdog is not None:
+            # the waiter blocks on an event recorded after the step (the
+            # main thread keeps dispatching); a wedged collective or kernel
+            # pins it past the timeout (``backend.py:2152-2159``).  The
+            # step's blocking collectives (gloo's) ran inside the
+            # communicator's own watched sections
+            self._watchdog.watch_result(loss, f"train_step[{self._step_counter}]")
         return TrainState(state.step + 1, model, optimizer, algo_state, opt_state), loss
 
     @torch.no_grad()
@@ -1146,7 +1195,11 @@ class BaguaTrainer:
         untouched."""
         state.model.eval()
         loss = self.loss_fn(state.model, batch)
-        return self.comm.allreduce(loss.detach().clone(), ReduceOp.AVG)
+        loss = self.comm.allreduce(loss.detach().clone(), ReduceOp.AVG)
+        if self._watchdog is not None:
+            # a wedged eval allreduce must pin the waiter, not hang silently
+            self._watchdog.watch_result(loss, "eval_step")
+        return loss
 
     # ---- gradient-health sentinel ----------------------------------------
 
@@ -1279,6 +1332,15 @@ class BaguaTrainer:
                     f"grad guard: {self._guard_skips} consecutive unhealthy steps reached the "
                     f"skip budget ({self.grad_guard_budget}): systematic divergence, not a "
                     "transient bad batch")
+        # the event reaches the elastic coordinator after the policy's
+        # counters, so the payload holds this event's skip or abort: the
+        # launcher's lease heartbeat carries the beacon, and a rank with
+        # repeated non-finite gradients can be fenced (a no-op without the
+        # launcher's BAGUA_ELASTIC_HEALTH_FILE; ``backend.py:2284-2294``).
+        # The JAX package's periodic obs beacon waits for the port's obs plane
+        from ..elastic.membership import write_health_beacon
+
+        write_health_beacon()
         if abort_msg is not None:
             abort(abort_msg)
 

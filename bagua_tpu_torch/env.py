@@ -6,15 +6,19 @@ readers, the default bucket size, the overlap scheduler's gate and its ring
 chunk targets (and their cap), the per-link codec policy, the stateful
 codecs' knobs (top-k ratio, error-feedback residual), the flat-resident
 layout, the gradient-health guard, async model average's staleness cap, the
-fault-injection plan, the checkpoint storage quarantine, and rank / world
-size / local rank / local world size.
+fault-injection plan, the checkpoint storage quarantine, the hang watchdog's
+timeout, the launcher's rendezvous, the elastic membership block and the
+restart store's failover knobs (``bagua_tpu/env.py:124-252, 385``, same names,
+defaults and meanings), the settings of the modules the port does not have
+yet (which its launcher refuses), and rank / world size / local rank / local
+world size.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -100,7 +104,8 @@ _declare("BAGUA_FAULT_PLAN", "str", "",
          "Deterministic fault-injection plan (JSON list of specs: point, "
          "kind, step/op trigger, count, seed) armed at the first fault-point "
          "query; drills and tests only, never production.  The port reaches "
-         "async.partition, grad.poison, ckpt.write and ckpt.sidecar.  See "
+         "every point but podsim.link (the pod simulator is not ported).  "
+         "See "
          "bagua_tpu_torch.faults.inject.")
 _declare("BAGUA_CKPT_QUARANTINED_PATHS", "str", "",
          "Newline-separated checkpoint directories under storage "
@@ -115,6 +120,85 @@ _declare("BAGUA_ASYNC_MAX_STALENESS", "int", "4",
          "forces a synchronous catch-up average that leaves every rank's "
          "weights bitwise equal, so the lag never exceeds the cap.  0 "
          "disables the bound.")
+
+_declare("BAGUA_COORDINATOR_ADDR", "str", "",
+         "host:port of the rendezvous of a multi-process world (injected by "
+         "the launcher; consumed by `init_process_group`).")
+_declare("BAGUA_COMM_TIMEOUT_S", "str", "300",
+         "Hang-watchdog timeout of watched collectives and steps, in seconds; "
+         "``0``/``off``/``false``/``no``/``none``/empty disable the watchdog.")
+# -- elastic membership (injected by the launcher, see distributed/run.py) --
+_declare("BAGUA_ELASTIC", "bool", "0",
+         "Set by the launcher when lease-based elastic membership is on.")
+_declare("BAGUA_ELASTIC_EPOCH", "int", "0",
+         "Rendezvous epoch fencing counter (launcher-injected).")
+_declare("BAGUA_ELASTIC_NODE_ID", "int", "0",
+         "This node's stable identity slot (launcher-injected).")
+_declare("BAGUA_ELASTIC_STORE_ADDR", "str", "",
+         "host:port of the restart TCPStore carrying membership leases.")
+_declare("BAGUA_ELASTIC_MIN_NNODES", "int", "1",
+         "Lower bound of the elastic world size (launcher-injected).")
+_declare("BAGUA_ELASTIC_MAX_NNODES", "int", "",
+         "Upper bound of the elastic world size (launcher-injected); "
+         "defaults to the launched node count when unset.")
+_declare("BAGUA_ELASTIC_JOIN_WINDOW_S", "float", "30",
+         "Seconds a rendezvous round stays open for late joiners.")
+_declare("BAGUA_ELASTIC_LEASE_TTL_S", "float", "15",
+         "Membership lease TTL; an expired lease shrinks the world.")
+_declare("BAGUA_ELASTIC_TELEMETRY_OUT", "str", "",
+         "Path where membership counters + transitions are dumped on exit.")
+_declare("BAGUA_ELASTIC_HEALTH_FILE", "str", "",
+         "Path of this worker's health beacon file (launcher-injected, one "
+         "file per local rank): the worker's gradient-guard / "
+         "async-staleness event counters are published here; the launcher "
+         "merges all local beacons and carries them on its lease heartbeat "
+         "to the coordinator as a health payload.")
+_declare("BAGUA_ELASTIC_FENCE_UNHEALTHY", "int", "0",
+         "Coordinator-side health fence: expel a member whose heartbeat "
+         "health payload reports at least this many unhealthy events "
+         "(non-finite-gradient steps, missed async negotiation "
+         "boundaries).  The fenced node's launcher exits instead of "
+         "rejoining; survivors resize through the normal epoch machinery.  "
+         "0 (default) disables fencing.")
+# -- restart-store replication / coordinator failover --
+_declare("BAGUA_RESTART_STORE_ENDPOINTS", "str", "",
+         "Comma-separated ``host:port`` list (priority order) of replicated "
+         "restart-store endpoints.  Entry 0 is the initial primary; later "
+         "entries are standby followers the primary streams its op log to, "
+         "and the clients fail over to (promoting the first reachable one) "
+         "when the primary dies.  Empty = the single coordinator-hosted "
+         "store.")
+_declare("BAGUA_RESTART_STORE_OP_DEADLINE_S", "float", "45",
+         "Total retry budget (seconds) for one restart-store op across "
+         "reconnects and endpoint failovers; exhausting it raises instead "
+         "of retrying forever inside watchdog sections.  0 disables the "
+         "budget.")
+_declare("BAGUA_RESTART_COORD_LEASE_TTL_S", "float", "5",
+         "Coordinator leadership lease TTL: the active coordinator renews "
+         "a lease key in the (replicated) restart store at TTL/3; a "
+         "standby that sees no renewal for a full TTL on its own clock "
+         "promotes the store and takes the coordinator role over.")
+_declare("BAGUA_RESTART_TAKEOVER_GRACE_S", "float", "0",
+         "Grace window after a coordinator takeover during which member "
+         "leases are re-armed rather than expired (heartbeats queued "
+         "against the dead primary need time to drain to the promoted "
+         "store).  0 = auto: 2x BAGUA_ELASTIC_LEASE_TTL_S.")
+# -- settings of modules the port does not have: read only so that the
+# launcher can refuse them by name rather than run without them --
+_declare("BAGUA_AUTOPILOT", "enum", "off",
+         "Closed-loop fleet autopilot (the JAX package's `autopilot/`).  The "
+         "port has no autopilot: its launcher refuses any value but `off`.",
+         choices=("off", "observe", "act"))
+_declare("BAGUA_OBS_HTTP_PORT", "int", "0",
+         "HTTP status plane port (the JAX package's `obs/http.py`); the "
+         "port's launcher refuses a nonzero value.")
+_declare("BAGUA_OBS_FLEET_OUT", "str", "",
+         "Coordinator-side fleet snapshot path (the JAX package's "
+         "`obs/export.py`); the port's launcher refuses it.")
+_declare("BAGUA_OBS_HISTORIAN", "enum", "off",
+         "Coordinator-side telemetry historian (the JAX package's "
+         "`obs/historian.py`); the port's launcher refuses `on`.",
+         choices=("off", "on"))
 
 
 def _raw(name: str) -> Optional[str]:
@@ -168,6 +252,30 @@ def env_bool(name: str) -> bool:
         return spec.default == "1"
     return v != "0" if spec.default == "1" else v == "1"
 
+
+#: values that read as "disabled" for off-switchable durations
+#: (:func:`env_seconds_or_off`); the empty string counts too
+_OFF_VALUES = ("", "0", "off", "false", "no", "none")
+
+
+def env_seconds_or_off(name: str) -> Optional[float]:
+    """Float seconds with an off switch: ``0``/``off``/``false``/``no``/
+    ``none``/empty mean disabled (None).  An explicitly empty value is off:
+    only an unset variable falls back to the registry default (collapsing
+    ``""`` to the default would silently turn the watchdog back on)."""
+    if name not in ENV_REGISTRY:
+        raise KeyError(f"{name} is not declared in env.ENV_REGISTRY")
+    v = os.environ.get(name)
+    if v is None:
+        v = ENV_REGISTRY[name].default
+    if v.strip().lower() in _OFF_VALUES:
+        return None
+    try:
+        return float(v)
+    except ValueError:
+        raise ValueError(
+            f"{name} must be a number of seconds or one of "
+            f"{'/'.join(repr(x) for x in _OFF_VALUES)}, got {v!r}") from None
 
 def _int_env(name: str, default: int) -> int:
     """Unregistered int read (the launcher's RANK / WORLD_SIZE family)."""
@@ -300,3 +408,86 @@ def get_ckpt_quarantined_paths() -> list:
     if not raw:
         return []
     return [p.strip() for p in raw.splitlines() if p.strip()]
+
+
+def get_coordinator_addr() -> Optional[str]:
+    """The launcher's rendezvous ``host:port`` (None when unset)."""
+    return _raw("BAGUA_COORDINATOR_ADDR")
+
+
+def get_comm_timeout_s() -> Optional[float]:
+    """Hang-watchdog timeout in seconds, or None when disabled."""
+    return env_seconds_or_off("BAGUA_COMM_TIMEOUT_S")
+
+
+def get_elastic_join_window_s() -> float:
+    return env_float("BAGUA_ELASTIC_JOIN_WINDOW_S")
+
+
+def get_elastic_lease_ttl_s() -> float:
+    return env_float("BAGUA_ELASTIC_LEASE_TTL_S")
+
+
+def get_elastic_telemetry_out() -> Optional[str]:
+    return _raw("BAGUA_ELASTIC_TELEMETRY_OUT")
+
+
+def get_elastic_health_file() -> Optional[str]:
+    """This worker's health beacon path (launcher-injected, per local rank);
+    None disables the worker-to-launcher health channel."""
+    return _raw("BAGUA_ELASTIC_HEALTH_FILE")
+
+
+def get_elastic_fence_unhealthy() -> int:
+    """Health-fence threshold (0 = fencing disabled)."""
+    return env_int("BAGUA_ELASTIC_FENCE_UNHEALTHY")
+
+
+def get_elastic_store_addr() -> Optional[str]:
+    return _raw("BAGUA_ELASTIC_STORE_ADDR")
+
+
+def get_elastic_epoch() -> int:
+    return env_int("BAGUA_ELASTIC_EPOCH")
+
+
+def get_elastic_node_id() -> int:
+    return env_int("BAGUA_ELASTIC_NODE_ID")
+
+
+def get_restart_store_endpoints() -> List[str]:
+    """Priority-ordered ``host:port`` endpoints of the replicated restart
+    store; empty list = single-store mode (no replication, no failover)."""
+    raw = _raw("BAGUA_RESTART_STORE_ENDPOINTS") or ""
+    return [part.strip() for part in raw.split(",") if part.strip()]
+
+
+def get_restart_store_op_deadline_s() -> float:
+    return env_float("BAGUA_RESTART_STORE_OP_DEADLINE_S")
+
+
+def get_restart_coord_lease_ttl_s() -> float:
+    return env_float("BAGUA_RESTART_COORD_LEASE_TTL_S")
+
+
+def get_restart_takeover_grace_s() -> float:
+    """Post-takeover lease re-arm grace; 0 = auto (2x the member lease TTL,
+    resolved by the caller, who knows the effective TTL)."""
+    return env_float("BAGUA_RESTART_TAKEOVER_GRACE_S")
+
+
+def get_autopilot_mode() -> str:
+    """``BAGUA_AUTOPILOT``: ``off`` (default), ``observe`` or ``act``."""
+    return env_enum("BAGUA_AUTOPILOT")
+
+
+def get_obs_http_port() -> int:
+    return env_int("BAGUA_OBS_HTTP_PORT")
+
+
+def get_obs_fleet_out() -> Optional[str]:
+    return _raw("BAGUA_OBS_FLEET_OUT")
+
+
+def is_obs_historian_on() -> bool:
+    return env_enum("BAGUA_OBS_HISTORIAN") == "on"

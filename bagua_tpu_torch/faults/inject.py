@@ -1,8 +1,16 @@
 """Seeded fault-injection registry.
 
-Port of the plan machinery of ``bagua_tpu/faults/inject.py`` (``:82-400``)
-and of its ``async.partition`` (``:542-551``), ``grad.poison``, ``ckpt.write``
-and ``ckpt.sidecar`` (``:434-475``, ``:554-570``) hooks.  A
+Port of ``bagua_tpu/faults/inject.py``: the plan machinery (``:82-400``)
+and the hooks of every point but ``podsim.link`` (the pod simulator is not
+ported): ``store.op`` and ``store.failover`` (:func:`maybe_raise_store_error`,
+the restart store's clients), ``elastic.heartbeat``
+(:func:`should_drop_heartbeat`, the lease heartbeat), ``collective.hang``
+(:func:`maybe_hang`, the watchdog's waiter), ``step.straggle``
+(:func:`maybe_straggle`, the trainer's step and async model average's gated
+boundaries), ``async.partition``, ``grad.poison``, ``ckpt.write`` and
+``ckpt.sidecar``.  The JAX package also refreshes a flight-recorder dump at
+every fire (``_note_fire_to_recorder``, ``:124``); the port has no flight
+recorder yet, so a fire is counted and logged only.  A
 plan is a list of :class:`FaultSpec` armed from ``BAGUA_FAULT_PLAN`` (a JSON
 list of specs, so a test can arm a fault in one rank's environment only) or in
 code
@@ -13,8 +21,17 @@ recovered event counts in :data:`bagua_tpu_torch.telemetry.counters` under
 costs one ``None`` check.
 
 ``FAULT_POINTS`` names every point of the JAX package, so that one plan reads
-the same in both; the hooks of the other points come with the modules that
-reach them.
+the same in both.
+
+``store.op``: the next restart-store op raises a retryable
+:class:`InjectedStoreError`.  ``store.failover``: the failover client treats
+its current endpoint as dead before the op.  ``elastic.heartbeat``: the lease
+heartbeat skips beats, so the coordinator expires the lease.
+``collective.hang``: the watchdog's waiter wedges inside its watched section
+for ``duration_s`` (its stop event cuts it short).  ``step.straggle``: the
+caller sleeps ``(factor - 1)`` times the straggler's base step time; the
+straggler's own rank always pays, the others only at gated points (a per-step
+gradient collective, an async boundary).
 
 ``async.partition``: drops a rank from one async-model-average round.  The
 rank still takes part in the negotiation and the averaging collective (every
@@ -47,6 +64,7 @@ import logging
 import os
 import random
 import threading
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -97,14 +115,25 @@ _VALID_KINDS = {
 }
 
 
+class InjectedFault(Exception):
+    """Marker base of every injected failure, so that a defense can tell an
+    injected fault from a real one when it records a recovery."""
+
+
+class InjectedStoreError(InjectedFault, ConnectionError):
+    """An injected store flake: a ``ConnectionError``, so the production
+    retry path catches it as it catches a real transient socket failure."""
+
+
 @dataclass(frozen=True)
 class FaultSpec:
     """One armed fault.  ``step`` triggers step-keyed points (None: any
     step); ``op`` triggers op-count points from that query on (0: the
     first).  ``count`` bounds the fires (-1: unlimited); ``seed`` drives
-    every random choice.  The other fields belong to points whose hooks are
-    not ported yet; they are kept so that a plan reads as in the JAX
-    package."""
+    every random choice.  ``bucket`` is ``grad.poison``'s target bucket,
+    ``duration_s`` ``collective.hang``'s wedge, ``rank``, ``factor`` and
+    ``base_ms`` ``step.straggle``'s slow rank, dilation and base step time
+    (0: the caller's measured step time)."""
 
     point: str
     kind: str = ""
@@ -386,3 +415,76 @@ def maybe_corrupt_sidecar(path, step: int) -> bool:
         path.write_text("\x00not json\x00")
     logger.warning("ckpt.sidecar injection: %s %s", spec.kind, path)
     return True
+
+
+def maybe_raise_store_error(opname: str, point: str = "store.op") -> None:
+    """``store.op`` / ``store.failover`` hook (the restart store's clients):
+    raise a retryable injected flake before the op runs.  ``store.failover``
+    is queried on the op after a reconnect too, so arming it with
+    ``count > 1`` walks the client down the endpoint list."""
+    spec = should_fire(point)
+    if spec is not None:
+        raise InjectedStoreError(f"injected {point} fault on {opname} (seed={spec.seed})")
+
+
+def should_drop_heartbeat() -> bool:
+    """``elastic.heartbeat`` hook (``LeaseHeartbeat``): True skips this
+    tick's beat (``count`` drops in a row starve the lease)."""
+    return should_fire("elastic.heartbeat") is not None
+
+
+def maybe_hang(stop_event: Optional[threading.Event] = None) -> float:
+    """``collective.hang`` hook (the watchdog's waiter): wedge the caller for
+    the spec's duration, or until ``stop_event`` is set.  Returns the
+    seconds asked for (0: no fault)."""
+    spec = should_fire("collective.hang")
+    if spec is None:
+        return 0.0
+    if stop_event is not None:
+        stop_event.wait(spec.duration_s)
+    else:
+        time.sleep(spec.duration_s)
+    return spec.duration_s
+
+
+def straggle_targets_self() -> bool:
+    """Whether an armed ``step.straggle`` spec names this process's rank:
+    its stalls then model a locally slow host (the straggler itself), not a
+    wait on a slow peer."""
+    plan = get_plan()
+    if plan is None:
+        return False
+    this_rank = _env.get_rank()
+    return any(s.rank == this_rank for s in plan.armed_specs("step.straggle"))
+
+
+def maybe_straggle(sync_point: str, base_dt: Optional[float] = None,
+                   gated: bool = True) -> float:
+    """``step.straggle`` hook: stall the caller by ``(factor - 1)`` times the
+    straggler's base step time.  ``gated`` says whether the calling path
+    synchronizes with the straggler (a per-step gradient collective, an
+    async boundary): the straggler's own process always pays, the others
+    only at gated points.  Without a base (no ``base_ms`` and no
+    ``base_dt``) the fire is not consumed.  Returns the seconds slept."""
+    plan = get_plan()
+    if plan is None:
+        return 0.0
+    specs = plan.armed_specs("step.straggle")
+    if not specs:
+        return 0.0
+    this_rank = _env.get_rank()
+    if not any(s.rank == this_rank or gated for s in specs):
+        return 0.0
+    if not base_dt and not any(s.base_ms > 0 for s in specs):
+        logger.warning("step.straggle: no base step time at %s; fire not consumed", sync_point)
+        return 0.0
+    spec = plan.should_fire("step.straggle")
+    if spec is None:
+        return 0.0
+    base = spec.base_ms / 1000.0 if spec.base_ms > 0 else float(base_dt or 0)
+    delay = max(0.0, (spec.factor - 1.0) * base)
+    if delay > 0.0:
+        logger.debug("step.straggle: stalling %s for %.4fs (factor %.1f)", sync_point, delay,
+                     spec.factor)
+        time.sleep(delay)
+    return delay

@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sequential]
 
-Phases, in order; any failure exits non-zero before the result line:
+(``--sequential`` runs the robustness phase's two drills one after the
+other.)  Phases, in order; any failure exits non-zero before the result line:
 
 1. device: a CUDA card is required; prints its name and power limit.
 2. build: compiles every ``bagua_tpu_torch/ops/csrc/*.cu`` with ``nvcc``.
@@ -73,7 +74,7 @@ Phases, in order; any failure exits non-zero before the result line:
    ``GradientAllReduceAlgorithm`` over NCCL; losses must be finite and
    falling, every flash kernel must have launched ``n_layers * steps`` times,
    and the model's logits on a short input must agree with the plain
-   attention.
+   attention; then the step with the hang watchdog on against off.
 9. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
    every odd layer, 8 experts, top-2) trained for 10 steps with Adam and the
    load-balancing loss; losses finite and falling, exact launch counts of
@@ -90,9 +91,10 @@ Phases, in order; any failure exits non-zero before the result line:
 11. slice 3: compressed data parallelism at world size 2.  The script starts
    itself twice as worker processes, two ranks on the one card, whose
    collectives go over gloo through host memory (NCCL refuses two ranks on
-   one device; slice 4's runs ride in the same spawn, the decentralized
-   phase's in zero's, decentralized (2 x 2)'s in slice 4 (2 x 2)'s:
-   ``SPAWNS``).  Each rank trains a 4-layer cut of BERT-Large (``bench_bert``:
+   one device; phases of one world and tiers share a spawn, ``SPAWNS``:
+   slice 3, slice 4, zero and decentralized; slice 4 (2 x 2) and
+   decentralized (2 x 2); async, features, overlap and checkpoint (b, c);
+   model_parallel and tensor_pipeline).  Each rank trains a 4-layer cut of BERT-Large (``bench_bert``:
    24 layers, seq 384, batch 8 per rank, AdamW 1e-4) for 5 steps
    (``FULL_STEPS``) with ``ByteGradAlgorithm`` (the overlap phase runs it on
    the full model), then the cut with
@@ -176,16 +178,17 @@ Phases, in order; any failure exits non-zero before the result line:
    residual on the new plan).  Every earlier phase runs on the default
    ``flat_resident="auto"`` layout, which each log line names.
 19. overlap, the overlap scheduler at world size 2, two ranks as in slice 3
-   (``OVERLAP_RUNS``): (a) the full BERT-Large with GradientAllReduce, AdamW
+   (``OVERLAP_RUNS``): (a) the 4-layer cut with GradientAllReduce, AdamW
    1e-4, ``accum_steps=2``, ``overlap`` off then on (5 steps each): parameters
    bitwise equal after every step; the backward's time, the communication's
    and the wait after the backward a step, and the share of the serialized
-   communication the overlap hides; (b) ByteGrad with ``overlap="on"`` (5
-   steps): every K1 and K2 launch made on the comm stream by the comm worker
-   (99 and 198 a step), one real K1 call of the last step equal to plain,
-   parameters bitwise equal to the serialized run on the same plan; K1's
-   device intervals against the backward's kernels in one profiled step; (c)
-   ZeRO with ``overlap="on"`` (5 steps): per-step fingerprints equal to the
+   communication the overlap hides; (b) the full BERT-Large with ByteGrad
+   and ``overlap="on"`` (5 steps): every K1 and K2 launch made on the comm
+   stream by the comm worker (99 and 198 a step), one real K1 call of the
+   last step equal to plain, parameters bitwise equal to the serialized run
+   on the same plan; K1's device intervals against the backward's kernels in
+   one profiled step; (c) the full BERT-Large with ZeRO and
+   ``overlap="on"`` (5 steps): per-step fingerprints equal to the
    zero phase's serialized run, its state exactly half the replicated run's,
    its peak no higher; on the 4-layer cut, (d) the chunked ring
    (``overlap_chunk_bytes`` 1 MiB) within 1e-5 of the fused allreduce's
@@ -317,6 +320,38 @@ Phases, in order; any failure exits non-zero before the result line:
    filters, two stages, 32 px, 4 images a rank) with SyncBN within
    ``MP_CUT_RTOL`` of world 1 on the 8 images, the local norm's control
    outside it.
+25. robustness (``phase_robustness``), after every multi-rank phase, each run
+   through ``python -m bagua_tpu_torch.distributed.run`` as a subprocess with
+   a free port and a wall-clock bound (``DRILL_BOUND_S``), its worker this
+   script under ``--drill``: (a) ``longctx-watchdog-1chip``, slice 1's LM at
+   full width (``build_slice``, weights of seed 0, batch of seed 1) with
+   ``--nproc_per_node 1 --max_restarts 1`` and ``BAGUA_COMM_TIMEOUT_S=5``
+   for 10 steps with ``BaguaCheckpointManager``: an async save of step 3,
+   then before step 4's forward a real device wedge (``torch.cuda._sleep``
+   of about ``WEDGE_S`` on the step's stream, once: a marker file).  Gates:
+   the launcher exits 0 after exactly one restart; the first worker exits 3
+   from the watchdog with its stacks in the log; the restarted worker
+   resumes from step 3; the losses of steps 0-9 bitwise equal to slice 1's.
+   Prints the seconds from the wedge's enqueue to the worker's exit, from
+   that exit to the restarted worker's first step, the restore, the steps
+   lost and the run.  (b) ``elastic-cut-2to1to2-1chip``: two launchers
+   (``--nnodes 1:2``, lease TTL 3 s, join window 4 s), each worker on
+   ``cuda:0`` over gloo training slice 1's model cut to ``SP_CUT``'s widths
+   with ``ByteGradAlgorithm(hierarchical=False)`` and SGD 0.1 on a fixed
+   global batch split by the world, a save every step; node 1's launcher and
+   worker killed as a process group after 3 world-2 steps, node 0 resuming
+   at world 1, node 1 relaunched as a standby, a coordinated resize back to
+   world 2.  Gates: the worlds run ``[2, 1, 2]``; the launcher's counters
+   ``elastic/lease_expired`` 1 and ``elastic/resizes`` >= 1; both launchers
+   exit 0; every step run twice within ``ELASTIC_RERUN_RTOL`` relative; the
+   last parameters bitwise equal on both ranks; K1 = buckets and K2 = 2 x
+   buckets at every world-2 step of every rank.  Prints the seconds from the
+   kill to the lease's expiry and to the first step at world 1, and from the
+   relaunch to the first step at world 2.  The two drills run at once, one
+   thread each (``--sequential``: one after the other, each drill's times
+   its own).  Slice 1 (phase 8) also times its step with the hang watchdog
+   on (the default) against off, A B B A, ``WATCHDOG_COST_STEPS`` steps a
+   window, and the watchdog's work on the step's host path directly.
 
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -340,7 +375,11 @@ import sys
 import tempfile
 import time
 
-import torch
+_T_IMPORT = time.time()   # before torch: a drill worker's start-up breakdown
+
+import torch  # noqa: E402
+
+_T_TORCH = time.time()
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
@@ -1091,6 +1130,19 @@ def phase_slice():
             and err <= 5e-2):
         raise AssertionError(f"logits disagree with the plain path: {err}")
     base["kernel_ms"] = kernel_step_ms(trainer, state, batch)
+    state, windows = watchdog_cost(trainer, state, batch)
+    on, off = statistics.mean(windows["on"]), statistics.mean(windows["off"])
+    spread = max(abs(w[0] - w[1]) / statistics.mean(w) for w in (windows["on"], windows["off"]))
+    host = windows["host"]
+    host_ms = (host["sections"] * host["section_us"] + host["fence_us"]) / 1e3
+    log(f"slice: the hang watchdog's cost, A B B A ({WATCHDOG_COST_STEPS} steps a window, "
+        f"each ending in loss.item()): on {windows['on'][0]:.3f}, off {windows['off'][0]:.3f}, "
+        f"off {windows['off'][1]:.3f}, on {windows['on'][1]:.3f} ms a step; on {on:.3f} against "
+        f"off {off:.3f} ms ({(on / off - 1) * 100:+.2f}%); two windows of one setting differ "
+        f"by up to {spread * 100:.2f}%; on the host path {host['sections']} watched sections "
+        f"a step at {host['section_us']:.2f} us and one fence at {host['fence_us']:.2f} us: "
+        f"{host_ms:.4f} ms a step, {host_ms / off * 100:.3f}% of it")
+    base["watchdog_ms"] = windows
     return launches, base
 
 
@@ -2412,19 +2464,19 @@ FEATURES_RUNS = (
     ("onebit_rebucket", BERT["cut_layers"], "gradient_allreduce",
      {"compress_intra": "onebit_ef", "rebucket": True}),
 )
-#: the overlap phase at world 2 (``OVERLAP_RUNS``): (a) the full BERT-Large
-#: with GradientAllReduce, two microbatches of 4, serialized then overlapped;
-#: (b) ByteGrad overlapped, then serialized on the overlapped run's plan (the
-#: readiness rebucket moves the codec's chunks, so a bitwise comparison needs
-#: one plan); (c) ZeRO overlapped, against the zero phase's serialized run;
-#: on the 4-layer cut, (d) the fused allreduce, then the chunked rings of
+#: the overlap phase at world 2 (``OVERLAP_RUNS``): on the 4-layer cut, (a)
+#: GradientAllReduce, two microbatches of 4, serialized then overlapped; on
+#: the full BERT-Large, (b) ByteGrad overlapped, then serialized on the
+#: overlapped run's plan (the readiness rebucket moves the codec's chunks, so
+#: a bitwise comparison needs one plan), (c) ZeRO overlapped, against the
+#: zero phase's serialized run; on the cut, (d) the fused allreduce, then the chunked rings of
 #: ``OVERLAP_CHUNK_BYTES`` sub-rings in full precision, under int8 (K3) and
 #: under the 1-bit codec (K4, K5); (e) every eager collective on card tensors
 OVERLAP_CHUNK_BYTES = 1 << 20
 OVERLAP_RUNS = (
-    ("ga_serial", None, "gradient_allreduce",
+    ("ga_serial", BERT["cut_layers"], "gradient_allreduce",
      {"accum_steps": 2, "overlap": "off", "steps": FULL_STEPS}),
-    ("ga_overlap", None, "gradient_allreduce",
+    ("ga_overlap", BERT["cut_layers"], "gradient_allreduce",
      {"accum_steps": 2, "overlap": "on", "steps": FULL_STEPS}),
     ("bytegrad_overlap", None, "bytegrad", {"overlap": "on", "steps": FULL_STEPS}),
     ("bytegrad_serial", None, "bytegrad",
@@ -2518,10 +2570,13 @@ MULTI_RANK = {
     "tensor_pipeline_4": ("tensor_pipeline (pp 2 x tp 2)", TPP4_RUNS, 4, None),
 }
 #: phases that run in one spawn, in order (the same world and tiers): a spawn
-#: costs about 10 s (the ranks' start, CUDA and gloo), so the compressed-run
-#: phases ride together
-SPAWNS = {"slice3": ("slice3", "slice4"), "slice4_2x2": ("slice4_2x2", "decentralized_4"),
-          "zero": ("zero", "decentralized")}
+#: costs 15-20 s (the ranks' start: importing torch, then torch._dynamo at the
+#: first optimizer, 7-8 s each on the card's host; CUDA and gloo), so the
+#: two-rank phases ride in three spawns and the four-rank ones in two
+SPAWNS = {"slice3": ("slice3", "slice4", "zero", "decentralized"),
+          "slice4_2x2": ("slice4_2x2", "decentralized_4"),
+          "async": ("async", "features", "overlap", "checkpoint"),
+          "model_parallel": ("model_parallel", "tensor_pipeline")}
 QADAM_WARMUP = 2
 #: the generate phase: slice 1's LM, a prompt of its batch's first
 #: ``GEN_PROMPT`` tokens, ``GEN_NEW`` greedy tokens, dense and paged
@@ -4863,7 +4918,7 @@ def phase_multi_rank(phase):
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                    "--worker", phase, str(r), init, outs[r]])
                  for r in range(world)]
-        deadline = time.monotonic() + WORKER_TIMEOUT
+        deadline = time.monotonic() + WORKER_TIMEOUT * len(SPAWNS.get(phase, (phase,)))
         try:
             codes = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
         finally:
@@ -5204,11 +5259,471 @@ def check_overlap(ov, zero):
         raise AssertionError(f"overlap: the chunked ring's losses are {gap} from the fused run's")
 
 
+# ---------------------------------------------------------------------------
+# robustness: the watchdog and elastic drills through the port's launcher
+# ---------------------------------------------------------------------------
+
+DRILL_TIMEOUT_S = 5          # BAGUA_COMM_TIMEOUT_S of the watchdog drill
+CYCLES_PER_S = SLEEP_CYCLES / 25e-3   # torch.cuda._sleep's cycles a second, about
+WEDGE_S = 120                # the device wedge: bounded, whatever tears the context down
+WATCHDOG_DRILL = dict(save_at=3, wedge_at=4)
+ELASTIC_DRILL = dict(steps=40, delay_s=0.3, rows=4, lease_ttl=3, join_window=4, kill_after=3)
+ELASTIC_RERUN_RTOL = 1e-5
+DRILL_BOUND_S = 240          # each drill's wall-clock bound
+WATCHDOG_COST_STEPS = 100
+LAUNCHER = [sys.executable, "-m", "bagua_tpu_torch.distributed.run", "--monitor_interval",
+            "0.2"]
+
+
+def watchdog_cost(trainer, state, batch):
+    """Slice 1's step with the hang watchdog on (the default) against off
+    (what ``BAGUA_COMM_TIMEOUT_S=off`` gives a process: no watchdog, neither
+    the trainer's fence nor the communicator's watched sections), A B B A,
+    ``WATCHDOG_COST_STEPS`` steps a window, each step ending in
+    ``loss.item()``.  Returns the state and each window's ms a step."""
+    import bagua_tpu_torch.watchdog as wdmod
+
+    on = trainer._watchdog
+    if on is None or wdmod.active() is not on:
+        raise AssertionError("the hang watchdog is not on by default")
+    windows = {"on": [], "off": []}
+    try:
+        for label in ("on", "off", "off", "on"):
+            trainer._watchdog = wdmod._GLOBAL = on if label == "on" else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(WATCHDOG_COST_STEPS):
+                state, loss = trainer.train_step(state, batch)
+                loss.item()
+            windows[label].append((time.perf_counter() - t0) / WATCHDOG_COST_STEPS * 1e3)
+    finally:
+        trainer._watchdog = wdmod._GLOBAL = on
+    # what the watchdog adds to the step's host path, measured directly: one
+    # watched section a blocking communicator call, one fence a step
+    calls, active = [0], wdmod.active
+
+    def counting():
+        calls[0] += 1
+        return active()
+
+    wdmod.active = counting
+    try:
+        state, loss = trainer.train_step(state, batch)
+        loss.item()
+    finally:
+        wdmod.active = active
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        with on.watch("cost"):
+            pass
+    section_us = (time.perf_counter() - t0) / 10000 * 1e6
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        wdmod._fence_of(loss)
+    fence_us = (time.perf_counter() - t0) / 1000 * 1e6
+    windows["host"] = {"sections": calls[0], "section_us": section_us, "fence_us": fence_us}
+    return state, windows
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _write_json(path, obj) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _startup(rec) -> None:
+    """A drill worker's start-up stamps (wall clock): its exec (from
+    ``/proc``), this script's first line, and ``torch``'s import done."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(ln.split()[1]) for ln in f if ln.startswith("btime"))
+    rec["t_exec"] = boot + start_ticks / os.sysconf("SC_CLK_TCK")
+    rec["t_import"] = _T_IMPORT
+    rec["t_torch"] = _T_TORCH
+
+
+def _startup_line(rec) -> str:
+    stamps = [("exec", "t_exec"), ("script", "t_import"), ("torch imported", "t_torch"),
+              ("process group", "t_pg"), ("model and trainer", "t_model"),
+              ("restore", "t_restore"), ("first step", "first_step_end")]
+    have = [(name, rec[key]) for name, key in stamps if rec.get(key) is not None]
+    return ", ".join(f"{name} +{t - have[0][1]:.2f}" for name, t in have)
+
+
+def drill_watchdog_worker(out_dir):
+    """One attempt of the watchdog drill, a worker of the port's launcher:
+    slice 1's LM at full width (``build_slice``), ``BaguaCheckpointManager``
+    in ``out_dir``, resumed from its newest step if there is one; an async
+    save of step ``save_at``; on the first attempt (a marker file) a real
+    device wedge before step ``wedge_at``'s forward, ``torch.cuda._sleep`` of
+    about ``WEDGE_S`` on the step's stream, which the trainer's watchdog
+    fence must catch.  Records the attempt in ``attempt<k>.json``."""
+    import bagua_tpu_torch as bt
+
+    attempt = len([f for f in os.listdir(out_dir) if f.startswith("attempt")])
+    path = os.path.join(out_dir, f"attempt{attempt}.json")
+    rec = {"attempt": attempt, "start": time.time(), "losses": {}}
+    _startup(rec)
+    bt.init_process_group()
+    rec["t_pg"] = time.time()
+    _, trainer, state, batch = build_slice("longctx")
+    torch.cuda.synchronize()
+    rec["t_model"] = time.time()
+    mgr = bt.BaguaCheckpointManager(os.path.join(out_dir, "ckpt"), async_save=True)
+    rec["resumed_from"] = None
+    if mgr.latest_step() is not None:
+        t0 = time.perf_counter()
+        rec["resumed_from"], state = trainer.restore_checkpoint(mgr, state)
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+        rec["t_restore"] = time.time()
+        log(f"resumed from checkpoint step {rec['resumed_from']}")
+    marker = os.path.join(out_dir, "wedged")
+    while state.step < STEPS:
+        i = state.step
+        if i == WATCHDOG_DRILL["wedge_at"] and not os.path.exists(marker):
+            open(marker, "w").close()
+            torch.cuda.synchronize()
+            rec["wedge_t"] = time.time()
+            _write_json(path, rec)
+            log(f"injecting a device wedge at step {i}: torch.cuda._sleep of {WEDGE_S} s")
+            torch.cuda._sleep(int(WEDGE_S * CYCLES_PER_S))
+        state, loss = trainer.train_step(state, batch)
+        rec["losses"][i] = loss.item()
+        rec.setdefault("first_step_end", time.time())
+        if state.step == WATCHDOG_DRILL["save_at"]:
+            trainer.save_checkpoint(mgr, state.step, state)
+        _write_json(path, rec)
+    mgr.close()
+    rec["end"] = time.time()
+    _write_json(path, rec)
+
+
+def drill_elastic_worker(out_dir):
+    """One attempt of the elastic drill on one node, a worker of the port's
+    launcher: slice 1's model cut to ``SP_CUT``'s widths on ``cuda:0`` over
+    gloo (ranks of several launchers share the card), ByteGrad, SGD 0.1, the
+    global batch (``ELASTIC_DRILL["rows"]`` rows of seed 1) split by the
+    world, resumed from the newest checkpoint, a save every step.  Each step
+    appends its world, node, loss and K1/K2 launches to
+    ``steps_node<id>.jsonl``; the last parameters' digest goes to
+    ``final_node<id>.json``."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.checkpoint import compute_state_digest
+    from bagua_tpu_torch.elastic import ElasticContext
+    from bagua_tpu_torch.ops import codec as cd
+
+    boot = {}
+    _startup(boot)
+    ctx = ElasticContext.from_env()
+    ctx.init_process_group(device="cuda:0", backend="gloo")
+    boot["t_pg"] = time.time()
+    rank, world = bt.get_rank(), bt.get_world_size()
+    log(f"elastic worker: node {ctx.node_id}, rank {rank}, world {world}, epoch {ctx.epoch}")
+    trainer = bt.BaguaTrainer(bt.lm_loss_fn, functools.partial(torch.optim.SGD, lr=0.1),
+                              bt.ByteGradAlgorithm(hierarchical=False), device="cuda:0")
+    state = trainer.init(slice_model("longctx", **SP_CUT))
+    torch.cuda.synchronize()
+    boot["t_model"] = time.time()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 32768, (ELASTIC_DRILL["rows"], SP_CUT["max_seq_len"] + 1),
+                           device="cuda", generator=g)
+    batch = trainer.shard_batch({"tokens": tokens}, global_batch=True)
+    mgr = bt.BaguaCheckpointManager(os.path.join(out_dir, "ckpt"), async_save=True)
+    if mgr.latest_step() is not None:
+        step, state = trainer.restore_checkpoint(mgr, state)
+        boot["t_restore"] = time.time()
+        log(f"resumed from checkpoint step {step}")
+    steps_path = os.path.join(out_dir, f"steps_node{ctx.node_id}.jsonl")
+    while state.step < ELASTIC_DRILL["steps"]:
+        i = state.step
+        cd.reset_launch_counts()
+        state, loss = trainer.train_step(state, batch)
+        rec = {"world": world, "rank": rank, "node": ctx.node_id, "epoch": ctx.epoch,
+               "step": i, "loss": loss.item(), "t": time.time(),
+               "buckets": len(trainer.plan.buckets),
+               "launches": {k.__name__: k.launches for k in cd.KERNELS}}
+        if boot is not None:
+            rec["startup"] = _startup_line({**boot, "first_step_end": rec["t"]})
+            boot = None
+        with open(steps_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        trainer.save_checkpoint(mgr, state.step, state)
+        time.sleep(ELASTIC_DRILL["delay_s"])
+    mgr.close()
+    torch.cuda.synchronize()
+    digest = compute_state_digest({n: p.detach() for n, p in state.model.named_parameters()})
+    _write_json(os.path.join(out_dir, f"final_node{ctx.node_id}.json"),
+                {"digest": digest["digest"], "world": world, "rank": rank})
+    torch.distributed.destroy_process_group()
+
+
+def _log_time(text, needle):
+    """The wall time of the launcher's first log line holding ``needle``."""
+    import datetime
+
+    for line in text.splitlines():
+        if needle in line:
+            stamp = " ".join(line.split()[:2])
+            return datetime.datetime.strptime(stamp, "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    raise AssertionError(f"no launcher line holds {needle!r}")
+
+
+def _drill_env(**extra):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BAGUA_ELASTIC")}
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _wait_bounded(procs, t0, what):
+    """Wait for ``procs`` within ``DRILL_BOUND_S`` of ``t0``; a run past its
+    bound fails the script (its process groups are killed first)."""
+    import signal
+
+    try:
+        return [p.wait(timeout=max(1.0, t0 + DRILL_BOUND_S - time.monotonic())) for p in procs]
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{what} outlasted its {DRILL_BOUND_S} s bound") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def watchdog_drill(card, slice1_losses, tmp):
+    """(a) slice 1's LM at full width wedged on the card, through the
+    launcher: the watchdog's exit 3, one gang restart, the resume from the
+    async save of step ``save_at``, and the resumed losses bitwise equal to
+    slice 1's."""
+    log_path = os.path.join(tmp, "watchdog.log")
+    cmd = LAUNCHER + ["--nproc_per_node", "1", "--max_restarts", "1", "--master_port",
+                      str(_free_port()), os.path.abspath(__file__), "--drill", "watchdog", tmp]
+    t0, wall0 = time.monotonic(), time.time()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                env=_drill_env(BAGUA_COMM_TIMEOUT_S=DRILL_TIMEOUT_S),
+                                start_new_session=True)
+        rc = _wait_bounded([proc], t0, "the watchdog drill")[0]
+    run_s = time.monotonic() - t0
+    text = open(log_path).read()
+    try:
+        first = json.load(open(os.path.join(tmp, "attempt0.json")))
+        second = json.load(open(os.path.join(tmp, "attempt1.json")))
+        restarts = text.count("gang restart")
+        if rc != 0 or restarts != 1 or "worker failed (exit 3); gang restart 1/1" not in text:
+            raise AssertionError(f"the launcher exited {rc} after {restarts} restart(s); the "
+                                 "first worker must exit 3 and be restarted once")
+        if "watchdog: section" not in text or "most recent call first" not in text:
+            raise AssertionError("the first worker's watchdog stacks are not in the log")
+        if second["resumed_from"] != WATCHDOG_DRILL["save_at"]:
+            raise AssertionError(f"resumed from step {second['resumed_from']}, not "
+                                 f"{WATCHDOG_DRILL['save_at']}")
+        got = {int(k): v for k, v in second["losses"].items()}
+        got.update({int(k): v for k, v in first["losses"].items()
+                    if int(k) < WATCHDOG_DRILL["save_at"]})
+        if [got.get(i) for i in range(STEPS)] != slice1_losses:
+            raise AssertionError(f"the drill's losses {got} are not slice 1's {slice1_losses}")
+    except Exception:
+        log(text[-6000:])
+        raise
+    exit_t = _log_time(text, "worker failed (exit 3)")
+    done = [int(k) for k in first["losses"]]
+    lost = max(done) + 1 - second["resumed_from"]
+    res = {"wedge_to_exit_s": exit_t - first["wedge_t"],
+           "exit_to_first_step_s": second["first_step_end"] - exit_t,
+           "restore_s": second["restore_s"], "steps_lost": lost, "run_s": run_s,
+           "launcher_start_to_first_step_s": first["first_step_end"] - wall0}
+    log(f"robustness (a) watchdog drill, longctx-watchdog-1chip ({card}): the launcher exited "
+        f"0 after 1 restart; the first worker exited 3 from the watchdog (stacks in the log) "
+        f"{res['wedge_to_exit_s']:.2f} s after the wedge's enqueue (timeout "
+        f"{DRILL_TIMEOUT_S} s, the monitor's 1 s tick, the flush; seen by the launcher's 0.2 s "
+        f"poll); the restarted worker's first step {res['exit_to_first_step_s']:.2f} s after "
+        f"that exit (respawn, CUDA's start, the kernels' load, the model, the restore of "
+        f"{res['restore_s']:.2f} s); resumed from step {second['resumed_from']}, {lost} "
+        f"completed step(s) lost; steps {WATCHDOG_DRILL['save_at']}-{STEPS - 1} bitwise "
+        f"equal to slice 1's; the run {run_s:.1f} s (the first worker's first step "
+        f"{res['launcher_start_to_first_step_s']:.2f} s after the launch); start-up of the "
+        f"first worker (s from its exec): {_startup_line(first)}; of the restarted one: "
+        f"{_startup_line(second)}")
+    return res
+
+
+def elastic_drill(card, tmp):
+    """(b) 2 -> 1 -> 2 on a cut with ByteGrad: two launchers (``--nnodes
+    1:2``), node 0 hosting the store; node 1's launcher and worker killed as
+    a process group, node 0's coordinator expiring its lease and resuming at
+    world 1, node 1 relaunched as a standby, a coordinated resize to world 2,
+    the run finished."""
+    import signal
+
+    master, coord = _free_port(), _free_port()
+    d = ELASTIC_DRILL
+
+    def launch(node):
+        log_path = os.path.join(tmp, f"node{node}.log")
+        cmd = LAUNCHER + ["--nnodes", "1:2", "--node_rank", str(node), "--nproc_per_node", "1",
+                          "--master_port", str(master), "--restart_coordinator_port",
+                          str(coord), "--max_restarts", "3", "--join_window",
+                          str(d["join_window"]), "--lease_ttl", str(d["lease_ttl"]),
+                          os.path.abspath(__file__), "--drill", "elastic", tmp]
+        env = _drill_env(BAGUA_ELASTIC_TELEMETRY_OUT=os.path.join(tmp, f"telemetry{node}.json"))
+        return subprocess.Popen(cmd, stdout=open(log_path, "a"), stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+
+    def records():
+        out = []
+        for node in (0, 1):
+            path = os.path.join(tmp, f"steps_node{node}.jsonl")
+            if os.path.exists(path):
+                for ln in open(path):
+                    try:
+                        out.append(json.loads(ln))
+                    except ValueError:   # a line still being written
+                        pass
+        return out
+
+    def until(pred, t0, what):
+        while not pred():
+            if time.monotonic() > t0 + DRILL_BOUND_S:
+                raise AssertionError(f"the elastic drill outlasted its bound waiting for {what}")
+            time.sleep(0.05)
+
+    t0 = time.monotonic()
+    procs = [launch(0)]
+    time.sleep(0.5)
+    procs.append(launch(1))
+    try:
+        until(lambda: sum(r["world"] == 2 and r["node"] == 1 for r in records())
+              >= d["kill_after"], t0, "world 2's steps")
+        kill_t = time.time()
+        os.killpg(procs[1].pid, signal.SIGKILL)
+        procs[1].wait()
+        until(lambda: any(r["world"] == 1 for r in records()), t0, "world 1's first step")
+        n2 = sum(r["world"] == 2 for r in records())
+        relaunch_t = time.time()
+        procs[1] = launch(1)
+        until(lambda: sum(r["world"] == 2 for r in records()) > n2, t0, "the resize to world 2")
+        rcs = _wait_bounded(procs, t0, "the elastic drill")
+    except Exception:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+        for node in (0, 1):
+            path = os.path.join(tmp, f"node{node}.log")
+            if os.path.exists(path):
+                log(f"node {node}:\n" + open(path).read()[-4000:])
+        raise
+    run_s = time.monotonic() - t0
+    log0 = open(os.path.join(tmp, "node0.log")).read()
+    recs = records()
+    tel = json.load(open(os.path.join(tmp, "telemetry0.json")))
+    worlds = [t["nnodes"] for t in tel["transitions"]]
+    counts = tel["counters"]
+    finals = [json.load(open(os.path.join(tmp, f"final_node{n}.json"))) for n in (0, 1)]
+    by_step = {}
+    for r in recs:
+        by_step.setdefault(r["step"], []).append(r)
+    rerun = {s: [r["loss"] for r in rs] for s, rs in by_step.items()
+             if len({r["epoch"] for r in rs}) > 1}
+    worst = max((max(abs(x - v[0]) / abs(v[0]) for x in v) for v in rerun.values()),
+                default=None)
+    want = _want_launches("bytegrad", {}, 0, 1, steps=1)
+    bad = [r for r in recs if r["world"] == 2 and (
+        r["launches"]["compress_chunked"] != want["compress_chunked"] * r["buckets"]
+        or r["launches"]["decompress_chunked"] != want["decompress_chunked"] * r["buckets"])]
+    problems = []
+    if rcs != [0, 0]:
+        problems.append(f"the launchers exited {rcs}")
+    if worlds != [2, 1, 2]:
+        problems.append(f"worlds {worlds}")
+    if counts.get("elastic/lease_expired") != 1 or counts.get("elastic/resizes", 0) < 1:
+        problems.append(f"counters {counts}")
+    if not rerun or worst > ELASTIC_RERUN_RTOL:
+        problems.append(f"steps run twice {rerun}")
+    if finals[0]["digest"] != finals[1]["digest"] or finals[0]["world"] != 2:
+        problems.append(f"last parameters {finals}")
+    if bad:
+        problems.append(f"K1/K2 launches at world-2 steps {bad[:2]}")
+    if problems:
+        log(log0[-4000:])
+        raise AssertionError("elastic drill: " + "; ".join(problems))
+    lease_t = _log_time(log0, "(lease_expired from node")
+    first_w1 = min(r["t"] for r in recs if r["world"] == 1)
+    first_w2b = min(r["t"] for r in recs if r["world"] == 2 and r["epoch"] == max(
+        rr["epoch"] for rr in recs))
+    w2 = [r for r in recs if r["world"] == 2]
+    res = {"kill_to_lease_expiry_s": lease_t - kill_t, "kill_to_world1_step_s": first_w1 - kill_t,
+           "relaunch_to_world2_step_s": first_w2b - relaunch_t, "run_s": run_s,
+           "k1": sum(r["launches"]["compress_chunked"] for r in w2),
+           "k2": sum(r["launches"]["decompress_chunked"] for r in w2),
+           "world2_steps": len(w2), "buckets": w2[0]["buckets"]}
+    log(f"robustness (b) elastic drill, elastic-cut-2to1to2-1chip ({card}): worlds {worlds}, "
+        f"counters {counts}; both launchers exited 0; {len(rerun)} step(s) ran twice, largest "
+        f"relative loss difference {worst:.3g}; last parameters bitwise equal on both ranks; "
+        f"K1 {res['k1']} and K2 {res['k2']} in {res['world2_steps']} world-2 step-ranks of "
+        f"{res['buckets']} buckets (K1 = buckets, K2 = 2 x buckets a step); node 1 killed: "
+        f"the lease expired {res['kill_to_lease_expiry_s']:.2f} s later (TTL "
+        f"{d['lease_ttl']} s), the first step at world 1 {res['kill_to_world1_step_s']:.2f} s "
+        f"after the kill; node 1 relaunched: the first step at world 2 "
+        f"{res['relaunch_to_world2_step_s']:.2f} s later; the drill {run_s:.1f} s; each "
+        f"worker's start-up (s from its exec): "
+        + "; ".join(f"epoch {r['epoch']} node {r['node']}: {r['startup']}"
+                    for r in recs if "startup" in r))
+    return res
+
+
+def phase_robustness(card, slice1_losses, sequential=False):
+    """The watchdog drill (a) and the elastic drill (b), each through
+    ``python -m bagua_tpu_torch.distributed.run`` as subprocesses with a free
+    port and a wall-clock bound: at once (one thread each), which keeps the
+    phase near its 100 s share of the script's time, so each one's times
+    hold the other's start-up load; with ``sequential`` (``--sequential``)
+    one after the other, whose times are each drill's own."""
+    import threading
+
+    out, errors = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "a"))
+        os.makedirs(os.path.join(tmp, "b"))
+
+        def drill(name, fn, *args):
+            try:
+                out[name] = fn(*args)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        t = threading.Thread(target=drill, args=("watchdog", watchdog_drill, card,
+                                                  slice1_losses, os.path.join(tmp, "a")))
+        t.start()
+        if sequential:
+            t.join()
+        drill("elastic", elastic_drill, card, os.path.join(tmp, "b"))
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--worker"]:
         phase, rank, init, out = sys.argv[2:6]
         multi_rank_worker(phase, int(rank), init, out)
+        return
+    if sys.argv[1:2] == ["--drill"]:
+        {"watchdog": drill_watchdog_worker, "elastic": drill_elastic_worker}[sys.argv[2]](
+            sys.argv[3])
         return
     script_t0 = time.perf_counter()
     seconds = {}
@@ -5238,29 +5753,31 @@ def main():
     timed("vision", phase_vision, card)
     torch.distributed.destroy_process_group()
     release()   # the ranks of slices 3 and 4 share this card
-    slice3 = slice4 = timed("slice 3, slice 4", phase_multi_rank, "slice3")
+    slice3 = slice4 = both = timed("slice 3, slice 4, zero, decentralized", phase_multi_rank,
+                                   "slice3")
     four = timed("slice 4 (2 x 2), decentralized (2 x 2)", phase_multi_rank, "slice4_2x2")
-    both = timed("zero, decentralized", phase_multi_rank, "zero")
     zero = {name: both[name] for name, *_ in ZERO_RUNS}
     check_zero({name: recs[0] for name, recs in zero.items()})
     gossip = {name: both[name] for name, *_ in DECENTRALIZED_RUNS}
     gossip.update({name: four[name] for name, *_ in DECENTRALIZED_4_RUNS})
     full = zero["replicated"][0]
-    async_runs = timed("async", phase_multi_rank, "async")
-    check_async(async_runs, full, gossip["decentralized_all"][0])
-    features = timed("features", phase_multi_rank, "features")
-    check_features(features, zero)
-    overlap = timed("overlap", phase_multi_rank, "overlap")
-    check_overlap(overlap, zero)
-    ckpt_multi = timed("checkpoint (b, c)", phase_multi_rank, "checkpoint")
-    check_checkpoint(card, ckpt_single, ckpt_multi)
-    mp = timed("model_parallel", phase_multi_rank, "model_parallel")
+    joined = timed("async, features, overlap, checkpoint (b, c)", phase_multi_rank, "async")
+    by_phase = {sub: {name: joined[name] for name, *_ in MULTI_RANK[sub][1]}
+                for sub in SPAWNS["async"]}
+    check_async(by_phase["async"], full, gossip["decentralized_all"][0])
+    check_features(by_phase["features"], zero)
+    check_overlap(by_phase["overlap"], zero)
+    check_checkpoint(card, ckpt_single, by_phase["checkpoint"])
+    del joined, by_phase
+    joined = timed("model_parallel, tensor_pipeline", phase_multi_rank, "model_parallel")
+    mp = {name: joined[name] for name, *_ in MP_RUNS}
     for name, err in check_model_parallel(card, mp, slice1_losses, ep_losses).items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-    tpp = timed("tensor_pipeline", phase_multi_rank, "tensor_pipeline")
+    tpp = {name: joined[name] for name, *_ in TPP_RUNS}
     tpp4 = timed("tensor_pipeline (pp 2 x tp 2)", phase_multi_rank, "tensor_pipeline_4")
     check_tensor_pipeline(card, tpp, tpp4, slice1_losses)
     check_vision_ranks(card, tpp)
+    timed("robustness", phase_robustness, card, slice1_losses, "--sequential" in sys.argv[1:])
     shutil.rmtree(os.path.dirname(os.environ.pop(GEN_REF_ENV)), ignore_errors=True)
     for name, (rec, *_) in gossip.items():
         if rec["params"] != full["params"]:
