@@ -62,6 +62,7 @@ import torch.distributed as dist
 from .. import env
 from ..communication import BaguaCommunicator, ReduceOp, is_aborted
 from ..faults import inject as _inject
+from ..obs.spans import trace_span
 from ..telemetry import counters
 from .base import Algorithm, AlgorithmContext
 
@@ -99,6 +100,15 @@ def _agree_max(control: Optional[BaguaCommunicator], value: float, watchdog=None
                label: str = "async-negotiate") -> float:
     """The maximum of a host scalar over the ranks."""
     return float(_negotiate(control, [float(value)], watchdog, label)[:, 0].max())
+
+
+def _note_collective_phase(trainer, seconds: float) -> None:
+    """Attribute a host-visible synchronization wait (the negotiation
+    gather, the catch-up average) to the anomaly detector's ``collective``
+    phase: these boundaries are where a slow peer gates this rank."""
+    note = getattr(trainer, "note_phase_duration", None)
+    if callable(note):
+        note("collective", seconds)
 
 
 def _fence(trainer) -> None:
@@ -315,10 +325,14 @@ class AsyncModelAverageAlgorithm(Algorithm):
         # a blocking average over every rank: the one async point a
         # straggler really gates
         self._gated_straggle(trainer, "async.catchup")
-        with _watched(self._watchdog, "async-catchup"):
+        t0 = time.monotonic()
+        with trace_span("async/catchup", step=step, reason=reason,
+                        launched=self._rounds_launched, applied=self._rounds_applied), \
+                _watched(self._watchdog, "async-catchup"):
             for f in flats:
                 self._avg_comm.allreduce(f, ReduceOp.AVG)
             _fence(trainer)
+        _note_collective_phase(trainer, time.monotonic() - t0)
         for name, avg in trainer.plan.unflatten(flats).items():
             trainer._params[name].copy_(avg)
         self._rounds_applied = self._rounds_launched
@@ -417,8 +431,14 @@ class AsyncModelAverageAlgorithm(Algorithm):
                 my_req, self._request = self._request, _REQ_NONE
             applied_after = self._rounds_applied + (
                 1 if (self._pending is not None and not will_drop) else 0)
-            gathered = _negotiate(self._control, [float(my_req), float(applied_after)],
-                                  self._watchdog)
+            # the span: the negotiation gather is where a slow peer gates
+            # every rank, so its duration IS the straggler wait
+            t0 = time.monotonic()
+            with trace_span("async/negotiate", step=step, launched=self._rounds_launched,
+                            applied=self._rounds_applied):
+                gathered = _negotiate(self._control, [float(my_req), float(applied_after)],
+                                      self._watchdog)
+            _note_collective_phase(trainer, time.monotonic() - t0)
             req = float(gathered[:, 0].max())
             min_applied = int(gathered[:, 1].min())
             if req >= _REQ_ABORT:

@@ -46,6 +46,9 @@ from ..bucket import BucketPlan, relayout_flats
 from ..communication import LINK_DCN, LINK_ICI, BaguaCommunicator, ReduceOp, ring_chunks_for
 from ..compression.codecs import get_codec
 from ..define import TensorDeclaration
+from ..obs import spans as _obs_spans
+from ..profiling import BUCKET_ANNOTATION
+from ..profiling import annotate as _profile_annotate
 from ..tensor import NamedParam
 
 logger = logging.getLogger(__name__)
@@ -318,6 +321,27 @@ class AlgorithmContext:
                 "dcn_bytes": int(2 * dcn_wire * (ne - 1) // ne),
                 "dcn_codec": resolved_dcn, "flat_codec": None}
 
+    def bucket_span_attrs(self, index: int, hierarchical: bool, dcn_codec=None,
+                          flat_codec=None) -> dict:
+        """The ``trace/bucket_collective`` span's attributes of bucket
+        ``index`` (:meth:`bucket_tier_bytes`: bytes, tier, per-tier wire
+        bytes, codecs), computed once a plan: the eager step opens the span
+        on every call."""
+        cache = self.__dict__.get("_span_attr_cache")
+        if cache is None or cache[0] is not self.plan:
+            cache = (self.plan, {})
+            self.__dict__["_span_attr_cache"] = cache
+        key = (index, hierarchical, dcn_codec, flat_codec)
+        attrs = cache[1].get(key)
+        if attrs is None:
+            t = self.bucket_tier_bytes(index, hierarchical, dcn_codec=dcn_codec,
+                                       flat_codec=flat_codec)
+            attrs = cache[1][key] = {
+                "bytes": t["bytes"], "tier": t["tier"], "ici_bytes": t["ici_bytes"],
+                "dcn_bytes": t["dcn_bytes"], "dcn_codec": t["dcn_codec"],
+                "flat_codec": t["flat_codec"]}
+        return attrs
+
     def bucket_launch_order(self, hierarchical: bool, dcn_codec=None) -> List[int]:
         """The order the overlap scheduler issues the buckets' collectives in
         (``base.py:486-505``): on two tiers with the hierarchical path under
@@ -520,6 +544,25 @@ class Algorithm:
         raise NotImplementedError(
             f"{type(self).__name__} does not implement reduce_bucket_grad")
 
+    def traced_reduce_bucket_grad(self, ctx: AlgorithmContext, index: int,
+                                  flat: torch.Tensor) -> torch.Tensor:
+        """:meth:`reduce_bucket_grad` inside its ``trace/bucket_collective``
+        span (the bucket's bytes, tier and codecs on the wire;
+        ``bagua_tpu/core/backend.py:1507-1520``) and, while a profiler
+        capture is open, its ``bagua/bucket_collective#<i>`` range, which
+        ties the device's communication work to the bucket
+        (:mod:`bagua_tpu_torch.obs.attribution`).  The JAX package opens
+        the span while tracing its overlap path, once a compile; the eager
+        step opens it on every call, in the serialized per-bucket path
+        too."""
+        with _profile_annotate(BUCKET_ANNOTATION + str(index)):
+            if not _obs_spans.enabled():
+                return self.reduce_bucket_grad(ctx, index, flat)
+            attrs = ctx.bucket_span_attrs(index, self.hierarchical, self.wire_codec_dcn,
+                                          self.wire_codec_flat)
+            with _obs_spans.trace_span("trace/bucket_collective", bucket=index, **attrs):
+                return self.reduce_bucket_grad(ctx, index, flat)
+
     def grads_from_reduced(self, ctx: AlgorithmContext, reduced, grads, algo_state, step):
         """The gradients after communication, from the per-bucket results of
         :meth:`reduce_bucket_grad` in plan order (``base.py:752-759``): the
@@ -538,7 +581,7 @@ class Algorithm:
         flats, algo_state = self.compensate_flats(ctx, flats, algo_state)
         reduced: List[Optional[torch.Tensor]] = [None] * len(flats)
         for i in ctx.bucket_launch_order(self.hierarchical, dcn_codec=self.wire_codec_dcn):
-            reduced[i] = self.reduce_bucket_grad(ctx, i, flats[i])
+            reduced[i] = self.traced_reduce_bucket_grad(ctx, i, flats[i])
         return self.grads_from_reduced(ctx, reduced, grads, algo_state, step)
 
     def process_pre_step(self, ctx: AlgorithmContext, params, algo_state, step):

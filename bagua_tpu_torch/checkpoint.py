@@ -535,6 +535,18 @@ class _Save:
         self.digest_s = time.perf_counter() - t0
 
 
+def _note_directory(directory: str) -> None:
+    """Fleet view: the storage path this rank saves to rides the obs
+    summary, so that a quarantine decision can name it
+    (``bagua_tpu/checkpoint.py:245-251``)."""
+    try:
+        from .obs.export import note_ckpt_directory
+
+        note_ckpt_directory(directory)
+    except Exception:  # noqa: BLE001 - obs is never load-bearing here
+        pass
+
+
 class BaguaCheckpointManager:
     """Save and restore training state with retention, async saves and an
     integrity chain (see the module docstring).
@@ -588,6 +600,7 @@ class BaguaCheckpointManager:
         self._pool: Dict[tuple, List[torch.Tensor]] = {}
         self.last_save: Dict[str, float] = {}
         _LIVE_MANAGERS.add(self)
+        _note_directory(self.directory)
 
     # ---- save ----------------------------------------------------------
 
@@ -611,10 +624,17 @@ class BaguaCheckpointManager:
         ``expect_metadata=``.  An async save's sidecar is written once the
         save is durable: at the next proceeding save, :meth:`wait` or
         :meth:`close`."""
+        from .obs.spans import trace_span
+
         self._ensure_active_manager()
         step = int(step)
         if not self._should_save(step):
             return False
+        with trace_span("ckpt/save", step=step, async_save=self._async_save):
+            self._save(step, state, metadata)
+        return True
+
+    def _save(self, step: int, state: Any, metadata: Optional[dict]) -> None:
         # the previous async save is finished before a new one starts
         self._finish_inflight()
         t0 = time.perf_counter()
@@ -644,7 +664,6 @@ class BaguaCheckpointManager:
         else:
             job.run()
             self._finish_inflight()
-        return True
 
     def _snapshot(self, tree, buffers: List[torch.Tensor]):
         """Host copies of every tensor of ``tree``: device tensors into
@@ -776,6 +795,7 @@ class BaguaCheckpointManager:
         self._fallbacks.append(self.directory)
         self.directory = active
         self._last_saved = None
+        _note_directory(self.directory)
 
     @contextlib.contextmanager
     def _using(self, directory: str):
@@ -949,8 +969,11 @@ class BaguaCheckpointManager:
                 f"checkpoint step {step} is unreadable ({type(e).__name__}: {e})") from e
         recorded = (sidecar or {}).get("integrity")
         if verify and self._integrity and recorded:
+            from .obs.spans import trace_span
+
             want = recorded["ranks"][rank] if "ranks" in recorded else recorded
-            actual = compute_state_digest(payload)
+            with trace_span("ckpt/verify", ckpt_step=int(step)):
+                actual = compute_state_digest(payload)
             if actual["digest"] != (want or {}).get("digest"):
                 raise CheckpointIntegrityError(
                     f"checkpoint step {step} content digest mismatch on rank {rank} (saved "
@@ -1037,7 +1060,9 @@ class BaguaCheckpointManager:
         comm = _default_comm() if comm is None else comm
         directory = dict((s, d) for s, d in reversed(self._candidate_steps())).get(
             step, self.directory)
-        with self._using(directory):
+        from .obs.spans import trace_span
+
+        with self._using(directory), trace_span("ckpt/restore", ckpt_step=step):
             result, error = self._attempt(lambda: restore_one(step), comm)
         if error is not None:
             raise error
@@ -1048,6 +1073,7 @@ class BaguaCheckpointManager:
         return the first result of ``restore_one(step)`` that no rank failed
         to verify.  ``BaguaTrainer.restore_checkpoint`` uses it too."""
         from .faults import inject as _inject
+        from .obs.spans import trace_span
         from .telemetry import counters
 
         self._ensure_active_manager()
@@ -1057,7 +1083,7 @@ class BaguaCheckpointManager:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         last_err: Optional[Exception] = None
         for i, (s, d) in enumerate(candidates):
-            with self._using(d):
+            with self._using(d), trace_span("ckpt/restore", ckpt_step=int(s)):
                 result, error = self._attempt(lambda: restore_one(s), comm)
             if error is not None:
                 counters.incr("ckpt/integrity_failures")

@@ -71,6 +71,19 @@ spans pp is then their sum (``backend.py:1456-1465``).
 
 PyTorch runs eagerly, so there is no compiled-step cache; the state is the
 module and the optimizer, updated in place, rather than an immutable pytree.
+
+The observability plane (``BAGUA_OBS``, on by default; ``bagua_tpu_torch.obs``)
+rides the step on the host: the ``step/*`` and ``trace/*`` spans, the
+goodput ledger's windows, the step cadence, ``obs/mfu`` (the model flops
+counted in the first step of each step key, ``obs/flops.py``), the anomaly
+detector, the static footprint and a live memory poll on the beacon's 2 s
+cadence, the ``StepProfiler`` window (``BAGUA_PROFILE_DIR``) and the grad
+guard's flight record.  It adds no device synchronization to the step: the
+parameters are bitwise equal with it on and off.  The JAX package's step
+key names a compiled program; here it is the plan, the algorithm's phase
+and the layout, and the first step of each key is the ``step/build``
+window that the ledger books as ``compile`` (it builds the kernels, imports
+``torch._dynamo`` at the first optimizer and autotunes cuBLAS).
 """
 
 from __future__ import annotations
@@ -103,7 +116,11 @@ from .overlap import CommWorker, OverlapStep
 from ..device import resolve_device
 from ..faults import inject as _inject
 from ..model_parallel.moe.layer import is_expert_param
+from ..obs import flops as _obs_flops
+from ..obs import spans as _obs_spans
+from ..obs.spans import trace_span
 from ..parallel.mesh import Mesh, get_global_mesh_if_set
+from ..profiling import StepProfiler
 from ..telemetry import counters
 from ..tensor import build_params
 
@@ -456,6 +473,56 @@ class BaguaTrainer:
 
         timeout = get_comm_timeout_s()
         self._watchdog = get_global_watchdog(timeout) if timeout else None
+        self._init_obs()
+
+    def _init_obs(self) -> None:
+        """The observability plane's state (``backend.py:560-618``),
+        resolved once: the per-step hooks gate on ``_obs_enabled``, so
+        ``BAGUA_OBS=off`` restores the exact pre-obs host behavior."""
+        self._profiler = StepProfiler.from_env()
+        self._obs_enabled = _obs_spans.enabled()
+        self._last_beacon_write = 0.0
+        #: the goodput ledger (fed from the cadence windows, the span sink,
+        #: stall reports and the grad guard's rewinds), the card's peak
+        #: FLOP/s (None off the listed cards: obs/mfu null-with-rationale)
+        #: and the model flops of a step of the current key
+        self._ledger = None
+        self._peak_flops = None
+        self._device_kind = (torch.cuda.get_device_name(self.device)
+                             if self.device.type == "cuda" else str(self.device))
+        self._mfu_flops: Optional[float] = None
+        self._mfu_noted_unavailable = False
+        #: the current step's window is a build or a state migration: the
+        #: cadence hook books it there, not as productive_step
+        self._ledger_window_class: Optional[str] = None
+        self._footprint_noted = False
+        self._mem_poll_dead = False
+        self._mem_poll_failures = 0
+        #: the step key (the plan object and the algorithm's phase) of the
+        #: last step, and the phase count (``need_reset`` switches)
+        self._step_key: Optional[tuple] = None
+        self._phase = 0
+        self.anomaly_detector = None
+        if self._obs_enabled:
+            from ..obs import export as _obs_export
+            from ..obs import ledger as _obs_ledger
+            from ..obs import recorder as _obs_recorder
+
+            _obs_export.maybe_start_global_exporter(self)
+            _obs_recorder.maybe_install_signal_hook()
+            self._ledger = _obs_ledger.install()
+            self._peak_flops = _obs_ledger.peak_flops_for_device_kind(self._device_kind)
+            if env.get_obs_anomaly_mode() == "on":
+                from ..obs.anomaly import StepAnomalyDetector
+
+                self.anomaly_detector = StepAnomalyDetector()
+        #: host phase durations of the step being driven (dispatch,
+        #: collective, optimizer), harvested when the next cadence sample
+        #: closes its window; a build or migration window is skipped
+        self._phase_durations: Dict[str, float] = {}
+        self._anomaly_skip_window = False
+        #: the model-flops counter of a build step's forward (else None)
+        self._flop_counter = None
 
     def _setup_mesh(self, mesh, dp_axes, expert_axis, expert_params, expert_keyword,
                     seq_axis, tp_axis, tp_param_dim, pp_axis, pp_param_dim) -> None:
@@ -912,8 +979,18 @@ class BaguaTrainer:
         mbs = self._microbatches(batch)
         observe = (self._ctx.overlap and not self._overlap_ordered
                    and not self.algorithm.sharded_opt_state)
+        counter = self._flop_counter
         for k, mb in enumerate(mbs):
-            mb_loss = self.loss_fn(model, mb)
+            if counter is not None:
+                # the model flops of the loss forward only: a rematerialized
+                # forward inside the backward is not counted again
+                counter.enabled = True
+                try:
+                    mb_loss = self.loss_fn(model, mb)
+                finally:
+                    counter.enabled = False
+            else:
+                mb_loss = self.loss_fn(model, mb)
             if k == len(mbs) - 1:
                 self._live_step = overlap_step
                 self._grad_order = [] if observe else None
@@ -970,7 +1047,7 @@ class BaguaTrainer:
         step = OverlapStep(
             self._comm_worker(), self.plan, order,
             functools.partial(self._finalize_bucket, fires, state.algo_state, residuals),
-            functools.partial(algo.reduce_bucket_grad, ctx))
+            functools.partial(algo.traced_reduce_bucket_grad, ctx))
         return step, residuals
 
     def _wait_overlap(self, step: OverlapStep) -> List[torch.Tensor]:
@@ -1023,40 +1100,253 @@ class BaguaTrainer:
     def note_injected_stall(self, seconds: float) -> None:
         """Record an injected stall inside the current step (an async
         boundary's ``step.straggle`` sleep), so the next cadence sample
-        subtracts it."""
+        subtracts it; the ledger books it as ``stall``."""
         self._last_straggle_sleep += float(seconds)
+        self._note_stall_phase(seconds)
+        if self._ledger is not None and seconds > 0:
+            self._ledger.note_class_window("stall", float(seconds))
+
+    def note_phase_duration(self, phase: str, seconds: float) -> None:
+        """Attribute host seconds of the current step to a phase
+        (``dispatch`` / ``collective`` / ``optimizer``) for the anomaly
+        detector's ``straggler_suspect`` breakdown (``backend.py:1789``)."""
+        if self.anomaly_detector is None or seconds <= 0:
+            return
+        self._phase_durations[phase] = self._phase_durations.get(phase, 0.0) + float(seconds)
+
+    def _note_stall_phase(self, seconds: float) -> None:
+        """An injected ``step.straggle`` stall: the straggler's own process
+        is locally slow (``dispatch``), a gated peer is waiting
+        (``collective``)."""
+        if self.anomaly_detector is None or seconds <= 0:
+            return
+        self.note_phase_duration(
+            "dispatch" if _inject.straggle_targets_self() else "collective", seconds)
 
     def _note_step_cadence(self) -> None:
+        """Close the previous step's wall window (``backend.py:1855-1900``):
+        its cadence sample, its ledger window (productive, or the class of
+        a build or migration window), its MFU and its anomaly sample."""
         now = time.monotonic()
         if self._last_step_mono is not None:
-            dt = now - self._last_step_mono - self._last_straggle_sleep
+            raw = now - self._last_step_mono
+            dt = raw - self._last_straggle_sleep
             if dt > 0:
                 self._step_dt = dt
+            window_cls = None
+            if self._ledger is not None and raw > 0:
+                window_cls = self._ledger_window_class or "productive_step"
+                self._ledger_window_class = None
+                self._ledger.note_step_window(self._step_counter - 1, raw, window_cls)
+            if window_cls in (None, "productive_step"):
+                # MFU from productive windows only: a build window's dt
+                # would publish a garbage-low sample
+                self._maybe_note_mfu()
+            if self.anomaly_detector is not None and raw > 0:
+                phases, self._phase_durations = self._phase_durations, {}
+                if self._anomaly_skip_window:
+                    self._anomaly_skip_window = False
+                else:
+                    self.anomaly_detector.observe(self._step_counter - 1, raw, phases)
         self._last_step_mono = now
+        if self._obs_enabled:
+            from ..obs import export as _obs_export
+
+            _obs_export.note_step(self._step_counter, self._step_dt)
+
+    def _maybe_note_mfu(self) -> None:
+        """Per-step MFU gauge: the step's model flops over (measured step
+        cadence x the card's peak FLOP/s); null-with-rationale on a device
+        the peak table does not list, published once
+        (``backend.py:1911-1929``)."""
+        if not self._obs_enabled:
+            return
+        from ..obs import export as _obs_export
+
+        if self._peak_flops is None:
+            if not self._mfu_noted_unavailable:
+                self._mfu_noted_unavailable = True
+                _obs_export.note_mfu({
+                    "available": False,
+                    "rationale": (f"no peak-FLOPS table entry for device {self._device_kind!r} "
+                                  "(the CPU or an unlisted card) — MFU needs the card's "
+                                  "peak as its denominator"),
+                })
+            return
+        if not self._mfu_flops or not self._step_dt:
+            return
+        _obs_export.note_mfu({
+            "available": True,
+            "mfu": round(self._mfu_flops / self._step_dt / self._peak_flops, 4),
+            "flops_per_step": self._mfu_flops,
+            "peak_flops": self._peak_flops,
+            "step_dt": round(self._step_dt, 6),
+        })
+
+    def _note_static_footprint(self, state: TrainState) -> None:
+        """One-shot static footprint of the live training state and the
+        bucket plan (:func:`bagua_tpu_torch.obs.memory.static_footprint`)
+        into the obs summary and the exporter's gauges."""
+        self._footprint_noted = True
+        try:
+            from ..obs import export as _obs_export
+            from ..obs.memory import static_footprint
+
+            _obs_export.note_hbm_footprint(static_footprint(self, state))
+        except Exception as e:  # noqa: BLE001 - accounting must not kill
+            logger.debug("static footprint not computed: %s", e)
+
+    def _maybe_poll_device_memory(self) -> None:
+        """Live allocator poll (peak bytes and headroom gauges), on the
+        beacon's cadence.  A stable unavailable answer (the CPU) stops the
+        polling after publishing its rationale once; transient failures
+        keep polling up to a budget (``backend.py:2010-2047``)."""
+        if self._mem_poll_dead:
+            return
+        try:
+            from ..obs import export as _obs_export
+            from ..obs.memory import live_memory_stats
+
+            record = live_memory_stats(self.device)
+            if record.get("available"):
+                self._mem_poll_failures = 0
+            elif record.get("transient"):
+                self._mem_poll_failures += 1
+                if self._mem_poll_failures >= 5:
+                    self._mem_poll_dead = True
+            else:
+                self._mem_poll_dead = True
+            _obs_export.note_hbm_live(record)
+        except Exception as e:  # noqa: BLE001
+            self._mem_poll_failures += 1
+            if self._mem_poll_failures >= 5:
+                self._mem_poll_dead = True
+            logger.debug("device memory poll failed: %s", e)
+
+    def _note_device_attribution(self, trace_dir: str) -> None:
+        """A ``BAGUA_PROFILE_DIR`` window just closed: attribute its device
+        comm time per bucket (null-with-rationale where the device did no
+        communication work) into the obs summary, in a daemon thread off
+        the step; the launch schedule is read from the ring here."""
+        import threading
+
+        from ..obs.attribution import bucket_launches_from_ring
+
+        launches = bucket_launches_from_ring()
+
+        def parse():
+            try:
+                from ..obs import export as _obs_export
+                from ..obs.attribution import attribute_device_comm
+
+                record = attribute_device_comm(trace_dir, bucket_launches=launches)
+                _obs_export.note_device_attribution(record)
+                if record.get("available"):
+                    logger.info("device attribution: comm %.6fs/step over %s (%s)",
+                                record.get("comm_s_per_step") or 0.0, record.get("transport"),
+                                trace_dir)
+                else:
+                    logger.info("device attribution unavailable: %s", record.get("rationale"))
+            except Exception as e:  # noqa: BLE001
+                logger.warning("device attribution failed: %s", e)
+
+        threading.Thread(target=parse, name="bagua-obs-attribution", daemon=True).start()
 
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         """One step; returns the new state and the loss averaged over ranks."""
         check_abort()   # no new step once a rank flagged an abort
-        if self._pending_state_migration is not None:
-            # a rebucket's migration, applied before the step consumes it
-            state = self._pending_state_migration(state)
-            self._pending_state_migration = None
-        algo, ctx, guard = self.algorithm, self._ctx, self.grad_guard
         self._step_counter += 1
+        if self._obs_enabled:
+            # every span opened while this step is driven (the watchdog
+            # waiter's and the comm worker's too) carries the step number
+            _obs_spans.set_current_step(self._step_counter)
+        if self._profiler is not None:
+            self._profiler.on_step(self._step_counter - 1)
         # step.straggle (``backend.py:2069-2077``): a slow peer gates this
         # step only when the family's step synchronizes with every rank;
         # async families pay at their own negotiated boundaries
         self._note_step_cadence()
+        if self._profiler is not None and self._obs_enabled:
+            closed = self._profiler.consume_closed_dir()
+            if closed:
+                self._note_device_attribution(closed)
+        if self._pending_state_migration is not None:
+            # a rebucket's migration, applied before the step consumes it;
+            # the span feeds the ledger's state_migration class
+            with trace_span("step/state_migration"):
+                state = self._pending_state_migration(state)
+            self._pending_state_migration = None
+            self._anomaly_skip_window = True
+            if self._ledger_window_class is None:
+                self._ledger_window_class = "state_migration"
+        algo, ctx = self.algorithm, self._ctx
         self._last_straggle_sleep = _inject.maybe_straggle(
             "step", base_dt=self._step_dt, gated=algo.straggler_gates_step)
+        self._note_stall_phase(self._last_straggle_sleep)
+        if self._ledger is not None and self._last_straggle_sleep > 0:
+            self._ledger.note_class_window("stall", self._last_straggle_sleep)
         # the boundary between steps, before the phase switch, as in the
         # JAX trainer
         with torch.no_grad():
             state = algo.host_pre_step(self, state)
-        model, optimizer = state.model, state.optimizer
         # the phase switch (QAdam's warmup boundary) on the trainer's own
         # step count, at the top of the step, as the JAX trainer does
-        algo.need_reset(self._step_counter - 1)
+        if algo.need_reset(self._step_counter - 1):
+            self._phase += 1
+        # the first step of a step key (plan, phase) is the port's build:
+        # it runs as any step, but its window is the ledger's compile
+        # class, the anomaly detector skips it, and its forward's model
+        # flops become the MFU numerator of the key
+        key = (ctx.plan, self._phase)
+        build = (self._step_key is None or key[0] is not self._step_key[0]
+                 or key[1] != self._step_key[1])
+        if build:
+            self._step_key = key
+            self._anomaly_skip_window = True
+            self._ledger_window_class = "compile"
+        counter = (_obs_flops.StepFlopCounter(state.model)
+                   if build and self._obs_enabled else None)
+        t0 = time.monotonic()
+        with (trace_span("step/build", phase=self._phase, buckets=len(ctx.plan.buckets),
+                         overlap=ctx.overlap) if build else nullcontext()), \
+                trace_span("step/dispatch"), (counter or nullcontext()):
+            self._flop_counter = counter
+            try:
+                new_state, loss = self._run_step(state, batch)
+            finally:
+                self._flop_counter = None
+        self.note_phase_duration("dispatch", time.monotonic() - t0)
+        if counter is not None:
+            self._mfu_flops = counter.step or None
+        if self._obs_enabled and not self._footprint_noted:
+            # after the first step: a torch optimizer makes its state there
+            self._note_static_footprint(new_state)
+        if self._watchdog is not None:
+            # the waiter blocks on an event recorded after the step (the
+            # main thread keeps dispatching); a wedged collective or kernel
+            # pins it past the timeout (``backend.py:2152-2159``).  The
+            # step's blocking collectives (gloo's) ran inside the
+            # communicator's own watched sections
+            self._watchdog.watch_result(loss, f"train_step[{self._step_counter}]")
+        if self._obs_enabled:
+            # the fleet view's worker half: refresh this rank's beacon and
+            # poll the allocator, throttled to one small file write every
+            # 2 s (``backend.py:2163-2175``); no-op without the launcher's
+            # beacon path
+            now = time.monotonic()
+            if now - self._last_beacon_write > 2.0:
+                self._last_beacon_write = now
+                self._maybe_poll_device_memory()
+                from ..elastic.membership import write_health_beacon
+
+                write_health_beacon()
+        return new_state, loss
+
+    def _run_step(self, state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        """The step's work after the host prologue: forward and backward,
+        the communication, the guard, the optimizer and the loss."""
+        algo, ctx, guard = self.algorithm, self._ctx, self.grad_guard
+        model, optimizer = state.model, state.optimizer
         model.train()
         poison = _inject.armed_traced_specs("grad.poison")
         fires = [s for s in poison if self._poison_fires(s, state.step)]
@@ -1094,7 +1384,9 @@ class BaguaTrainer:
             snapshot = (self._snapshot(state) if guard == "skip" and not replicated_health
                         else None)
             process = algo.process_grads_bucketed if ctx.overlap else algo.process_grads
-            grads, algo_state = process(ctx, grads, params, state.algo_state, state.step)
+            with trace_span("trace/comm_stage", overlap=ctx.overlap,
+                            buckets=len(ctx.plan.buckets)):
+                grads, algo_state = process(ctx, grads, params, state.algo_state, state.step)
         if self.expert_axis is not None or self._shard_axis is not None:
             grads = {**grads, **self._local_grads()}
         opt_state, health, rewind = state.opt_state, None, False
@@ -1108,11 +1400,12 @@ class BaguaTrainer:
             # the gossip exchange: the gradient was taken at the weights
             # from before it and is applied to the exchanged weights
             algo_state = self._weight_hook(algo.process_pre_step, algo_state, state.step)
-            if algo.owns_optimizer:
-                _, opt_state, algo_state = algo.optimizer_update(
-                    ctx, params, grads, opt_state, algo_state, state.step)
-            else:
-                self._optimizer_step(optimizer, grads)
+            with trace_span("trace/optimizer_apply", owned=algo.owns_optimizer):
+                if algo.owns_optimizer:
+                    _, opt_state, algo_state = algo.optimizer_update(
+                        ctx, params, grads, opt_state, algo_state, state.step)
+                else:
+                    self._optimizer_step(optimizer, grads)
             algo_state = self._weight_hook(algo.process_post_step, algo_state, state.step)
             if guard != "off" and not replicated_health:
                 # every elementwise update carries a non-finite gradient into
@@ -1136,13 +1429,6 @@ class BaguaTrainer:
             order, self._grad_order = self._grad_order, None
             self._overlap_ordered = True
             self._rebucket_by_readiness(order)
-        if self._watchdog is not None:
-            # the waiter blocks on an event recorded after the step (the
-            # main thread keeps dispatching); a wedged collective or kernel
-            # pins it past the timeout (``backend.py:2152-2159``).  The
-            # step's blocking collectives (gloo's) ran inside the
-            # communicator's own watched sections
-            self._watchdog.watch_result(loss, f"train_step[{self._step_counter}]")
         return TrainState(state.step + 1, model, optimizer, algo_state, opt_state), loss
 
     @torch.no_grad()
@@ -1298,8 +1584,22 @@ class BaguaTrainer:
 
     def _consume_health(self, step_no: int, health) -> None:
         """The host policy on one step's verdict (``backend.py:2209-2307``):
-        counters, ``warn``, ``abort`` and the skip budget."""
-        hv = health.cpu().numpy()
+        counters, ``warn``, ``abort`` and the skip budget; a rewound step's
+        ledger window moves to ``rewind``, an abort leaves a
+        ``grad_guard_abort`` flight record."""
+        t0 = time.monotonic()
+        with trace_span("step/grad_guard_verdict", step=step_no):
+            hv = health.cpu().numpy()
+        # the readback blocks on the step's update: optimizer-adjacent work
+        self.note_phase_duration("optimizer", time.monotonic() - t0)
+        if self._obs_enabled:
+            # a host-safe mirror of the verdict: the flight recorder
+            # republishes it from abort paths, where touching a device
+            # tensor could hang
+            from ..obs import export as _obs_export
+
+            _obs_export.note_step_metrics({"grad_health_step": step_no,
+                                           "grad_healthy": float(hv.min())})
         if hv.min() > 0.5:
             self._guard_skips = 0
             return
@@ -1320,6 +1620,9 @@ class BaguaTrainer:
             self._guard_skips += 1
             self._guard_rewinds_total += 1
             counters.incr("grad_guard/skipped_steps")
+            if self._ledger is not None:
+                # the step's wall was spent, its update discarded
+                self._ledger.reclassify_step_rewind(step_no)
             _inject.record_recovery("grad.poison")
             logger.warning(
                 "grad guard: step %d produced non-finite gradients (buckets %s): step "
@@ -1336,12 +1639,20 @@ class BaguaTrainer:
         # counters, so the payload holds this event's skip or abort: the
         # launcher's lease heartbeat carries the beacon, and a rank with
         # repeated non-finite gradients can be fenced (a no-op without the
-        # launcher's BAGUA_ELASTIC_HEALTH_FILE; ``backend.py:2284-2294``).
-        # The JAX package's periodic obs beacon waits for the port's obs plane
+        # launcher's BAGUA_ELASTIC_HEALTH_FILE; ``backend.py:2284-2294``)
         from ..elastic.membership import write_health_beacon
 
         write_health_beacon()
         if abort_msg is not None:
+            # flight recorder: the post-mortem names the step and the
+            # buckets before the abort flag stops every control loop
+            from ..obs.recorder import dump_flight_record
+
+            dump_flight_record(
+                "grad_guard_abort", reason=abort_msg,
+                extra={"step": step_no, "unhealthy_buckets": bad,
+                       "policy": self.grad_guard,
+                       "consecutive_skips": self._guard_skips})
             abort(abort_msg)
 
     # ---- rebucketing -----------------------------------------------------

@@ -31,11 +31,13 @@ MIN:MAX``) replace the barrier with the membership subsystem
 nodes, standby joins force coordinated resizes at the restart boundary, and
 epoch-fenced keys keep zombies of an earlier attempt out of the current one.
 
-What waits for the port's observability and control plane is refused by
-name rather than silently skipped: ``BAGUA_AUTOPILOT`` other than ``off``,
-``BAGUA_OBS_HTTP_PORT``, ``BAGUA_OBS_FLEET_OUT`` and ``BAGUA_OBS_HISTORIAN``
-(:func:`refuse_missing_modules`).  The flight-recorder dumps of the JAX
-launcher's fence paths wait for the same plane.
+The coordinator writes the fleet snapshot (``BAGUA_OBS_FLEET_OUT``, every
+member's heartbeat health payload merged into one ``bagua-obs-fleet-v1``
+record), the fence paths leave ``health_fence`` flight records, and every
+rendezvous round is an ``elastic/rendezvous`` span.  What waits for the
+port's fleet and control plane is refused by name rather than silently
+skipped: ``BAGUA_AUTOPILOT`` other than ``off``, ``BAGUA_OBS_HTTP_PORT`` and
+``BAGUA_OBS_HISTORIAN`` (:func:`refuse_missing_modules`).
 """
 
 from __future__ import annotations
@@ -581,9 +583,10 @@ def publish_health_fence(client, epoch: int, tracker, unhealthy) -> str:
     """Convert chronically unhealthy members into the ``health_fenced``
     stop event (the same epoch/resize machinery lease expiry rides).
     Returns the stop reason, which names the fenced nodes and the health
-    payloads that condemned them.  (The JAX package also dumps a flight
-    record here; the port's flight recorder waits for its obs plane.)"""
+    payloads that condemned them, and leaves a ``health_fence`` flight
+    record naming them (``bagua_tpu/distributed/run.py:594-611``)."""
     from ..elastic import membership as mb
+    from ..obs.recorder import dump_flight_record
 
     health = {int(n): tracker.health_of(n) for n in unhealthy}
     reason = (
@@ -595,7 +598,33 @@ def publish_health_fence(client, epoch: int, tracker, unhealthy) -> str:
         epoch, mb.STOP_HEALTH, unhealthy[0], reason,
         rejoin=False, nodes=unhealthy,
     )
+    dump_flight_record(
+        "health_fence", reason=reason,
+        extra={"nodes": [int(n) for n in unhealthy],
+               "health": {str(n): h for n, h in health.items()}},
+    )
     return reason
+
+
+def _maybe_write_fleet_snapshot(spec, tracker) -> Optional[dict]:
+    """Coordinator-side fleet view: merge every member's latest heartbeat
+    health payload into one ``bagua-obs-fleet-v1`` record and write it to
+    ``BAGUA_OBS_FLEET_OUT`` (``bagua_tpu/distributed/run.py:614-660``,
+    without the historian).  Unset: nothing is merged.  Exception-free
+    (None on failure): the caller is the monitor loop."""
+    out = _env.get_obs_fleet_out()
+    if not out:
+        return None
+    try:
+        from ..obs.export import build_fleet_record, write_fleet_snapshot
+
+        record = build_fleet_record(
+            spec.epoch, {nid: tracker.health_of(nid) for nid in spec.ranks})
+        write_fleet_snapshot(out, spec.epoch, record=record)
+        return record
+    except Exception as e:  # noqa: BLE001 - monitoring must not die on obs
+        logger.debug("fleet snapshot not written: %s", e)
+        return None
 
 
 #: settings that need a module the port does not have yet, with the JAX
@@ -607,16 +636,14 @@ _MISSING_MODULES = (
      "the telemetry historian (bagua_tpu/obs/historian.py)"),
     ("BAGUA_OBS_HTTP_PORT", lambda: _env.get_obs_http_port() != 0,
      "the HTTP status plane (bagua_tpu/obs/http.py)"),
-    ("BAGUA_OBS_FLEET_OUT", lambda: bool(_env.get_obs_fleet_out()),
-     "the fleet snapshot (bagua_tpu/obs/export.py)"),
 )
 
 
 def refuse_missing_modules() -> None:
     """Refuse, naming the missing module, every setting that asks for a
-    part of the JAX launcher that waits for the port's observability and
-    control plane: running without it would silently drop what the user
-    asked for."""
+    part of the JAX launcher that waits for the port's fleet and control
+    plane: running without it would silently drop what the user asked
+    for."""
     asked = [(name, module) for name, on, module in _MISSING_MODULES if on()]
     if asked:
         raise SystemExit(
@@ -807,6 +834,7 @@ def monitor_elastic(args, procs, client, spec, coordinator, tracker,
                             mb.STOP_LEASE_EXPIRED, expired[0], reason,
                             rejoin=False, nodes=expired,
                         )
+                    _maybe_write_fleet_snapshot(spec, tracker)
                     unhealthy = tracker.unhealthy_members()
                     if unhealthy:
                         reason = publish_health_fence(
@@ -952,33 +980,37 @@ def run_elastic(args) -> int:
                 is_coord = True
                 coordinator = promotion.coordinator
             try:
-                if is_coord:
-                    spec = coordinator.run_round(epoch, expect=expect)
-                elif promotion is None:
-                    spec = join_round(
-                        client, epoch,
-                        timeout_s=args.restart_barrier_timeout,
-                    )
-                    epoch = spec.epoch
-                else:
-                    # a standby-store host must not sit out the whole
-                    # rendezvous timeout inside join_round: when the
-                    # primary dies mid-rendezvous the watch promotes
-                    # US, and only the promoted node can publish the
-                    # epoch everyone (including us) is waiting for —
-                    # so wait in short slices and surface promotion
-                    deadline = time.monotonic() + \
-                        args.restart_barrier_timeout
-                    while True:
-                        try:
-                            spec = join_round(client, epoch,
-                                              timeout_s=5.0)
-                            break
-                        except RendezvousTimeout:
-                            if promotion.pending or \
-                                    time.monotonic() > deadline:
-                                raise
-                    epoch = spec.epoch
+                from ..obs.spans import trace_span
+
+                with trace_span("elastic/rendezvous", epoch=epoch,
+                                role="coordinator" if is_coord else "member"):
+                    if is_coord:
+                        spec = coordinator.run_round(epoch, expect=expect)
+                    elif promotion is None:
+                        spec = join_round(
+                            client, epoch,
+                            timeout_s=args.restart_barrier_timeout,
+                        )
+                        epoch = spec.epoch
+                    else:
+                        # a standby-store host must not sit out the whole
+                        # rendezvous timeout inside join_round: when the
+                        # primary dies mid-rendezvous the watch promotes
+                        # US, and only the promoted node can publish the
+                        # epoch everyone (including us) is waiting for —
+                        # so wait in short slices and surface promotion
+                        deadline = time.monotonic() + \
+                            args.restart_barrier_timeout
+                        while True:
+                            try:
+                                spec = join_round(client, epoch,
+                                                  timeout_s=5.0)
+                                break
+                            except RendezvousTimeout:
+                                if promotion.pending or \
+                                        time.monotonic() > deadline:
+                                    raise
+                        epoch = spec.epoch
             except ExcludedFromRound as e:
                 logger.warning("%s", e)
                 counters.incr("elastic/excluded")
@@ -1100,9 +1132,16 @@ def run_elastic(args) -> int:
                         "this node was health-fenced at epoch %d (%s); "
                         "exiting", spec.epoch, s.reason,
                     )
-                    # (the JAX launcher dumps this node's flight record
-                    # here; the port's flight recorder waits for its obs
-                    # plane)
+                    # the fenced node's own post-mortem: its launcher
+                    # counters flush through the flight recorder (the
+                    # coordinator already dumped the fencing side)
+                    from ..obs.recorder import dump_flight_record
+
+                    dump_flight_record(
+                        "health_fence",
+                        reason=f"this node fenced: {s.reason}",
+                        extra={"nodes": [int(n) for n in s.nodes]},
+                    )
                     if is_coord:
                         # the membership store lives in this process, so
                         # fencing the coordinator halts the whole job:

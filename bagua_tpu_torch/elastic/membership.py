@@ -2,10 +2,9 @@
 
 Port of ``bagua_tpu/elastic/membership.py`` (``:66-616``): the same key
 schema, the same ``WorldSpec`` JSON and the same heartbeat wire format, so a
-node of either package reads the other's keys.  The JAX package's health
-snapshot also carries the per-rank obs summary under ``obs``; the port has no
-obs plane yet, so its payload is the counters alone (as JAX's is when no obs
-summary exists).
+node of either package reads the other's keys.  The health snapshot carries
+the health counters and, in a training process, the per-rank obs summary
+under ``obs``.
 
 The store (``contrib.utils.tcp_store``) is a plain KV service: no TTLs, no
 deletes, no key scans, no compare-and-swap.  The registry builds leases and
@@ -286,12 +285,23 @@ _HEALTH_COUNTERS = {
 
 
 def local_health_snapshot() -> Optional[dict]:
-    """This process's health payload from the telemetry counters, None when
-    every counter is zero (an idle or healthy process pays no payload
-    bytes).  The JAX package adds the per-rank obs summary under ``obs``;
-    that key waits for the port's obs plane."""
+    """This process's health payload from the telemetry counters — None
+    when every counter is zero AND no obs summary exists, so idle or
+    healthy non-training processes pay no payload bytes.  A training
+    process also carries its per-rank fleet-view summary (``obs``: step,
+    step-dt percentiles, staleness, skip counts;
+    :func:`bagua_tpu_torch.obs.export.local_obs_summary`); the fence scalar
+    (:func:`health_event_count`) ignores it."""
     snap = {k: _counters.get(name) for k, name in _HEALTH_COUNTERS.items()}
     snap = {k: v for k, v in snap.items() if v}
+    try:
+        from ..obs.export import local_obs_summary
+
+        obs = local_obs_summary()
+    except Exception:  # noqa: BLE001 - health snapshots must never die
+        obs = None
+    if obs:
+        snap["obs"] = obs
     return snap or None
 
 

@@ -8,10 +8,11 @@ codecs' knobs (top-k ratio, error-feedback residual), the flat-resident
 layout, the gradient-health guard, async model average's staleness cap, the
 fault-injection plan, the checkpoint storage quarantine, the hang watchdog's
 timeout, the launcher's rendezvous, the elastic membership block and the
-restart store's failover knobs (``bagua_tpu/env.py:124-252, 385``, same names,
-defaults and meanings), the settings of the modules the port does not have
-yet (which its launcher refuses), and rank / world size / local rank / local
-world size.
+restart store's failover knobs, the observability plane (``BAGUA_OBS*`` but
+the HTTP plane's and the historian's), the profiler's window and the serving
+engine (``bagua_tpu/env.py:124-316, 356-385``, same names, defaults and
+meanings), the settings of the modules the port does not have yet (which its
+launcher refuses), and rank / world size / local rank / local world size.
 """
 
 from __future__ import annotations
@@ -183,6 +184,102 @@ _declare("BAGUA_RESTART_TAKEOVER_GRACE_S", "float", "0",
          "leases are re-armed rather than expired (heartbeats queued "
          "against the dead primary need time to drain to the promoted "
          "store).  0 = auto: 2x BAGUA_ELASTIC_LEASE_TTL_S.")
+# -- profiling --
+_declare("BAGUA_PROFILE_DIR", "str", "",
+         "Directory for torch.profiler traces (Chrome JSON); empty disables "
+         "auto-capture.")
+_declare("BAGUA_PROFILE_STEPS", "str", "2:5",
+         "``start:stop`` step window (half-open) for trainer auto-capture.")
+# -- observability plane --
+_declare("BAGUA_OBS", "enum", "on",
+         "Unified observability plane master switch: step-span tracing, the "
+         "crash flight recorder, and the metrics exporter.  Host-side only "
+         "— the plane adds no device synchronization to the step and the "
+         "parameters are bitwise equal in both modes; `off` restores the "
+         "exact pre-obs host behavior.",
+         choices=("on", "off"))
+_declare("BAGUA_OBS_RING", "int", "512",
+         "Span ring-buffer capacity per process; the oldest spans drop "
+         "(drop count retained) so long runs keep a bounded, readable "
+         "tail for the flight recorder.")
+_declare("BAGUA_OBS_DUMP_DIR", "str", "",
+         "Directory for flight-recorder post-mortem dumps (watchdog abort, "
+         "grad-guard escalation, health fence, armed-fault fires, SIGTERM): "
+         "last-N spans + counters snapshot + step metrics, rank-tagged "
+         "JSON.  Empty disables the recorder.")
+_declare("BAGUA_OBS_EXPORT_DIR", "str", "",
+         "Directory the background metrics exporter writes into "
+         "(`metrics.jsonl` one snapshot per line + `metrics.prom` "
+         "Prometheus textfile).  Empty disables the exporter thread.")
+_declare("BAGUA_OBS_EXPORT_INTERVAL_S", "float", "10",
+         "Metrics exporter snapshot period in seconds.")
+_declare("BAGUA_OBS_EXPORT_MAX_BYTES", "int", str(64 * 1024 ** 2),
+         "Size cap for the exporter's append-only `metrics.jsonl`: at the "
+         "cap the file rotates to `metrics.jsonl.1` (replacing the "
+         "previous rotation) so a long run keeps at most two generations "
+         "on disk.  0 disables rotation (unbounded growth).")
+_declare("BAGUA_OBS_FLEET_OUT", "str", "",
+         "Coordinator-side fleet snapshot path: the elastic monitor merges "
+         "every member's heartbeat health payload (per-rank step, "
+         "staleness, skip counts, step-dt percentiles) into one atomic "
+         "JSON.  Empty disables.")
+_declare("BAGUA_OBS_ANOMALY", "enum", "on",
+         "Step-time anomaly detector: rolling median/MAD baseline over "
+         "the raw host step cadence and per-phase durations; anomalies "
+         "count (`obs/step_anomalies`), trigger a throttled flight dump, "
+         "publish a `straggler_suspect` phase breakdown into the health "
+         "beacon, and feed perf hints to the autotune service.  Host-side "
+         "only (no effect on the compiled step); rides the BAGUA_OBS "
+         "master switch.",
+         choices=("on", "off"))
+_declare("BAGUA_OBS_ANOMALY_WINDOW", "int", "64",
+         "Rolling-baseline window (steps) of the step-time anomaly "
+         "detector.")
+_declare("BAGUA_OBS_ANOMALY_WARMUP", "int", "16",
+         "Baseline samples required before the anomaly detector may flag "
+         "(compile steps and cold caches must not poison the yardstick).")
+_declare("BAGUA_OBS_ANOMALY_THRESHOLD", "float", "5.0",
+         "Robust-z threshold (MAD multiples) a step's raw cadence must "
+         "exceed over the rolling median to count as anomalous.")
+_declare("BAGUA_OBS_DUMP_MAX_FILES", "int", "64",
+         "Retention cap for flight-recorder dumps under "
+         "BAGUA_OBS_DUMP_DIR: when a new dump would leave more than this "
+         "many flight_*.json files, the oldest (by mtime) are pruned "
+         "first (counted in obs/flight_dumps_pruned).  Dumps are already "
+         "overwritten per (trigger, fault point, rank, pid), so growth "
+         "comes from restarts minting new pids — a long run with "
+         "recurring throttled faults previously accumulated dumps "
+         "without limit.  0 disables pruning (unbounded).")
+# -- serving plane --
+_declare("BAGUA_SERVE_MAX_SLOTS", "int", "8",
+         "Batch slots of the continuous-batching inference engine: the "
+         "batch dimension of the decode tick.  Requests join/evict "
+         "mid-batch without changing the tick's shape; more slots raise "
+         "throughput at the cost of per-tick latency and pool pressure.")
+_declare("BAGUA_SERVE_PAGE_SIZE", "int", "16",
+         "Tokens per KV-cache page of the serving engine's paged pool; "
+         "must divide the model's max_seq_len.  Smaller pages waste less "
+         "memory on short tails, larger pages gather more contiguously.")
+_declare("BAGUA_SERVE_NUM_PAGES", "int", "0",
+         "Page-pool capacity per layer (including the 2 reserved "
+         "zero/trash pages).  0 (default) auto-sizes to max_slots full-"
+         "length sequences — no preemption pressure; set lower to "
+         "oversubscribe HBM and rely on the queue-then-preempt "
+         "backpressure instead.")
+_declare("BAGUA_SERVE_QUEUE_DEPTH", "int", "256",
+         "Admission-queue depth of the serving engine; submissions beyond "
+         "it raise ServeQueueFull (explicit shed/retry backpressure, "
+         "never an OOM).")
+_declare("BAGUA_SERVE_PREFILL_CHUNK", "int", "8",
+         "Prompt tokens one chunked-prefill call consumes for a single "
+         "slot (at most one such call per scheduler tick, so long prompts "
+         "cannot stall running decodes); 1 disables the chunked program — "
+         "prompts then stream through the batched tick one token per "
+         "tick, generate()-style.")
+_declare("BAGUA_SERVE_TICK_IDLE_S", "float", "0.001",
+         "Scheduler idle-poll granularity in seconds: how long one wait "
+         "slice lasts while the engine is empty and ahead of the next "
+         "trace arrival (the wall it books as batch_formation_idle).")
 # -- settings of modules the port does not have: read only so that the
 # launcher can refuse them by name rather than run without them --
 _declare("BAGUA_AUTOPILOT", "enum", "off",
@@ -192,9 +289,6 @@ _declare("BAGUA_AUTOPILOT", "enum", "off",
 _declare("BAGUA_OBS_HTTP_PORT", "int", "0",
          "HTTP status plane port (the JAX package's `obs/http.py`); the "
          "port's launcher refuses a nonzero value.")
-_declare("BAGUA_OBS_FLEET_OUT", "str", "",
-         "Coordinator-side fleet snapshot path (the JAX package's "
-         "`obs/export.py`); the port's launcher refuses it.")
 _declare("BAGUA_OBS_HISTORIAN", "enum", "off",
          "Coordinator-side telemetry historian (the JAX package's "
          "`obs/historian.py`); the port's launcher refuses `on`.",
@@ -485,8 +579,101 @@ def get_obs_http_port() -> int:
     return env_int("BAGUA_OBS_HTTP_PORT")
 
 
+def get_profile_dir() -> Optional[str]:
+    return _raw("BAGUA_PROFILE_DIR")
+
+
+def get_profile_steps_raw() -> str:
+    """Raw ``start:stop`` window; parsing (and the fallback on malformed
+    values) lives in :func:`bagua_tpu_torch.profiling.profile_steps`."""
+    return env_str("BAGUA_PROFILE_STEPS")
+
+
+def get_obs_mode() -> str:
+    """Observability-plane master switch: ``on`` (default) or ``off``."""
+    return env_enum("BAGUA_OBS")
+
+
+def get_obs_ring_size() -> int:
+    return env_int("BAGUA_OBS_RING")
+
+
+def get_obs_dump_dir() -> Optional[str]:
+    """Flight-recorder dump directory; None disables the recorder."""
+    return _raw("BAGUA_OBS_DUMP_DIR")
+
+
+def get_obs_export_dir() -> Optional[str]:
+    """Metrics-exporter output directory; None disables the exporter."""
+    return _raw("BAGUA_OBS_EXPORT_DIR")
+
+
+def get_obs_export_interval_s() -> float:
+    return env_float("BAGUA_OBS_EXPORT_INTERVAL_S")
+
+
+def get_obs_export_max_bytes() -> int:
+    """metrics.jsonl rotation cap in bytes (0 = unbounded)."""
+    return env_int("BAGUA_OBS_EXPORT_MAX_BYTES")
+
+
 def get_obs_fleet_out() -> Optional[str]:
+    """Coordinator-side fleet snapshot path; None disables."""
     return _raw("BAGUA_OBS_FLEET_OUT")
+
+
+def get_obs_anomaly_mode() -> str:
+    """Step-time anomaly detector switch: ``on`` (default) or ``off``;
+    also off whenever the obs plane itself is off."""
+    return env_enum("BAGUA_OBS_ANOMALY")
+
+
+def get_obs_anomaly_window() -> int:
+    return env_int("BAGUA_OBS_ANOMALY_WINDOW")
+
+
+def get_obs_anomaly_warmup() -> int:
+    return env_int("BAGUA_OBS_ANOMALY_WARMUP")
+
+
+def get_obs_anomaly_threshold() -> float:
+    return env_float("BAGUA_OBS_ANOMALY_THRESHOLD")
+
+
+def get_obs_dump_max_files() -> int:
+    """Flight-dump retention cap (0 = unbounded)."""
+    return env_int("BAGUA_OBS_DUMP_MAX_FILES")
+
+
+def get_serve_max_slots() -> int:
+    """Batch slots of the continuous-batching serving engine."""
+    return env_int("BAGUA_SERVE_MAX_SLOTS")
+
+
+def get_serve_page_size() -> int:
+    """Tokens per KV-cache page of the serving page pool."""
+    return env_int("BAGUA_SERVE_PAGE_SIZE")
+
+
+def get_serve_num_pages() -> int:
+    """Page-pool capacity per layer (0 = auto-size to max_slots
+    full-length sequences)."""
+    return env_int("BAGUA_SERVE_NUM_PAGES")
+
+
+def get_serve_queue_depth() -> int:
+    """Admission-queue depth of the serving engine."""
+    return env_int("BAGUA_SERVE_QUEUE_DEPTH")
+
+
+def get_serve_prefill_chunk() -> int:
+    """Prompt tokens per chunked-prefill call (1 disables chunking)."""
+    return env_int("BAGUA_SERVE_PREFILL_CHUNK")
+
+
+def get_serve_tick_idle_s() -> float:
+    """Scheduler idle-poll granularity in seconds."""
+    return env_float("BAGUA_SERVE_TICK_IDLE_S")
 
 
 def is_obs_historian_on() -> bool:

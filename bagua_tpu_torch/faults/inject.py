@@ -8,9 +8,8 @@ the restart store's clients), ``elastic.heartbeat``
 (:func:`maybe_hang`, the watchdog's waiter), ``step.straggle``
 (:func:`maybe_straggle`, the trainer's step and async model average's gated
 boundaries), ``async.partition``, ``grad.poison``, ``ckpt.write`` and
-``ckpt.sidecar``.  The JAX package also refreshes a flight-recorder dump at
-every fire (``_note_fire_to_recorder``, ``:124``); the port has no flight
-recorder yet, so a fire is counted and logged only.  A
+``ckpt.sidecar``.  Every fire also refreshes a flight-recorder dump naming
+the point (:func:`_note_fire_to_recorder`, as ``bagua_tpu/faults/inject.py:124``).  A
 plan is a list of :class:`FaultSpec` armed from ``BAGUA_FAULT_PLAN`` (a JSON
 list of specs, so a test can arm a fault in one rank's environment only) or in
 code
@@ -113,6 +112,17 @@ _VALID_KINDS = {
     "podsim.link": ("drop", "partition"),
     "store.failover": ("error",),
 }
+
+
+def _note_fire_to_recorder(spec: "FaultSpec") -> None:
+    """Every fire refreshes a flight-recorder dump naming the firing point
+    (lazy import; a recorder failure never blocks an injection)."""
+    try:
+        from ..obs import recorder as _obs_recorder
+
+        _obs_recorder.note_fault_fire(spec.point, spec.kind)
+    except Exception as e:  # noqa: BLE001 - injection must not die on obs
+        logger.debug("fault-fire flight dump skipped: %s", e)
 
 
 class InjectedFault(Exception):
@@ -219,6 +229,7 @@ class FaultPlan:
         counters.incr(f"faults/{point}/fired")
         logger.warning("fault injection: %s fired (kind=%s, fire %d/%s)", point, fired.kind,
                        fire_no, "inf" if fired.count < 0 else fired.count)
+        _note_fire_to_recorder(fired)
         return fired
 
     def note_traced_fire(self, spec: FaultSpec) -> None:
@@ -230,6 +241,7 @@ class FaultPlan:
                     self._fires[i] += 1
         counters.incr(f"faults/{spec.point}/fired")
         logger.warning("fault injection: %s fired in-step (kind=%s)", spec.point, spec.kind)
+        _note_fire_to_recorder(spec)
 
     def fired(self, point: str) -> bool:
         with self._lock:

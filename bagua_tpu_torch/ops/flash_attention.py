@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs import flops as _flops
 from . import _build
 
 NEG_INF = -1e30
@@ -287,6 +288,8 @@ def _flash_lse(q, k, v, causal):
         raise ValueError(f"q/k/v shapes differ: {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, d = q.shape
+    if _flops.counting():   # the trainer's model-flops count (obs/mfu)
+        _flops.note_attention(b, h, s, d, causal, q.requires_grad)
     width = d
     if _kernel_path(q) and d % WIDTH_MULTIPLE:
         _require_taken(d, q.dtype)   # before padding, so that the message has the real head

@@ -38,6 +38,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..obs import flops as _flops
 from . import _build
 
 #: the kernels' d and f are multiples of this (a 16-bit row then starts on a
@@ -268,6 +269,9 @@ def gmm(lhs, rhs, group_sizes):
                          f"{tuple(lhs.shape)} and {tuple(rhs.shape)}")
     group_sizes = group_sizes.to(device=lhs.device, dtype=torch.int32)
     d, f = rhs.shape[1:]
+    if _flops.counting():   # the trainer's model-flops count (obs/mfu)
+        _flops.note(2.0 * lhs.shape[0] * d * f, input_grad=lhs.requires_grad,
+                    weight_grad=rhs.requires_grad)
     if not _kernel_path(lhs) or not (d % WIDTH_MULTIPLE or f % WIDTH_MULTIPLE):
         return _GMM.apply(lhs.contiguous(), rhs, group_sizes)
     _require_taken(d, f, lhs.dtype)   # before padding, so that the message has the real widths

@@ -23,9 +23,11 @@ the process's watchdog (:func:`active`).  A wedged device or a peer that
 hangs with its socket open leaves a section open past the timeout; a monitor
 thread checks every second.
 
-On firing the watchdog raises the cooperative abort flag
-(:func:`bagua_tpu_torch.communication.abort`) so control loops stop, dumps
-every thread's stack to stderr and, with ``action="exit"`` (the default),
+Every watched section is also a ``watchdog/<label>`` span.  On firing the
+watchdog raises the cooperative abort flag
+(:func:`bagua_tpu_torch.communication.abort`) so control loops stop, writes
+a ``watchdog_abort`` flight record (``BAGUA_OBS_DUMP_DIR``), dumps every
+thread's stack to stderr and, with ``action="exit"`` (the default),
 publishes an elastic leave intent, flushes queued async checkpoint saves
 (bounded to 10 s: the port's snapshot is in host memory when ``save``
 returns, so the flush needs no device work queued behind the wedge) and exits
@@ -127,13 +129,17 @@ class HangWatchdog:
     def watch(self, label: str = "comm"):
         # a fresh token a section, not the thread id: an inner (nested) watch
         # keyed by the thread would overwrite the outer entry and its exit
-        # would leave the outer section unwatched.  (The JAX package also
-        # opens a span here; the port's spans wait for its obs plane.)
+        # would leave the outer section unwatched
+        from .obs.spans import trace_span
+
         token = object()
         with self._lock:
             self._active[token] = (label, time.monotonic())
         try:
-            yield
+            # the watched section doubles as a span: a post-mortem's span
+            # tail shows which section the waiter was pinned in
+            with trace_span(f"watchdog/{label}"):
+                yield
         finally:
             with self._lock:
                 self._active.pop(token, None)
@@ -195,9 +201,15 @@ class HangWatchdog:
                         from .communication import abort
 
                         abort(f"watchdog: {label} stuck for {dt:.0f} s")
-                        # the JAX package dumps a flight record here
-                        # (``watchdog_abort``); the port's flight recorder
-                        # waits for its obs plane
+                        # flight recorder: the post-mortem of this hang
+                        # episode, from host state only (span ring,
+                        # counters), so a wedged device cannot block it
+                        from .obs.recorder import dump_flight_record
+
+                        dump_flight_record(
+                            "watchdog_abort",
+                            reason=f"section {label!r} stuck for {dt:.0f} s "
+                                   f"(timeout {self.timeout_s:.0f} s)")
                     # the stacks once an episode, not every tick
                     faulthandler.dump_traceback(file=sys.stderr)
                     self._armed = False

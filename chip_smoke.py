@@ -74,7 +74,17 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    ``GradientAllReduceAlgorithm`` over NCCL; losses must be finite and
    falling, every flash kernel must have launched ``n_layers * steps`` times,
    and the model's logits on a short input must agree with the plain
-   attention; then the step with the hang watchdog on against off.
+   attention; then the step with the hang watchdog on against off.  The
+   observability plane is on (the default): each step's span names (the
+   first a ``step/build``, every later one a dispatch with one
+   ``trace/bucket_collective`` a bucket), the goodput ledger (``compile``,
+   then ``productive_step``), ``obs/mfu`` against the analytic count
+   (``lm_step_flops``) and the allocator poll's peak are gated
+   (``check_slice_obs``).  Then ``obs`` (``phase_obs``): slice 1 by two
+   trainers built with ``BAGUA_OBS`` on and off, ``OBS_STEPS`` steps each,
+   parameters bitwise equal; a ``StepProfiler`` window of steps 2:5 whose
+   Chrome trace names K6a-c ``n_layers`` times a step; the plane's cost, A B
+   B A, and its spans a step times one span's cost.
 9. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
    every odd layer, 8 experts, top-2) trained for 10 steps with Adam and the
    load-balancing loss; losses finite and falling, exact launch counts of
@@ -104,14 +114,18 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    equal on both ranks, and one ByteGrad bucket's reduction through the
    kernels equal byte for byte to the same collective through the plain
    codec.  Each run prints its step time, the bytes staged through the host
-   and the time of a forward and backward alone.
+   and the time of a forward and backward alone.  The ByteGrad run takes one
+   step more under ``profiling.trace``: every bucket's device work is
+   attributed to it (gloo's staging copies beside its codec kernels,
+   ``check_slice3_obs``), and the two ranks' span dumps merge through
+   ``assemble_timeline`` into a trace ``validate_timeline`` accepts.
 12. slice 4, the 1-bit and top-k codecs with the error-feedback residual, two
    ranks as in slice 3: the main path is the README quick start with
    ``GradientAllReduceAlgorithm()`` and ``compress_intra="onebit_ef"`` on the
-   full BERT-Large, AdamW 1e-4, 5 steps; then ``compress_intra="topk"`` on
-   the 4-layer cut.  Launches exact (K4 = K5 = 3 x buckets x steps), the
-   residual finite and nonzero, parameters bitwise equal on both ranks, and
-   the error-feedback step of the largest bucket through the kernels against
+   4-layer cut, AdamW 1e-4, 5 steps; then ``compress_intra="topk"`` on the
+   cut.  Launches exact (K4 = K5 = 3 x buckets x steps), the residual finite
+   and nonzero, parameters bitwise equal on both ranks, and the
+   error-feedback step of the largest bucket through the kernels against
    the plain codec (payload equal, residual within 1e-5 of the scale).
 13. slice 4 at 2 x 2: four ranks of this script on the card, two nodes of two
    (``intra_size=2``), on the 4-layer cut: ``GradientAllReduceAlgorithm(
@@ -129,10 +143,9 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    half of the replicated run's, its peak memory below it.
 15. decentralized, the gossip families at world size 2, two ranks as in
    slice 3, with AdamW 1e-4: ``DecentralizedAlgorithm(hierarchical=False,
-   peer_selection_mode="all", track_peer_weights=True)`` (no codec) on the
-   full BERT-Large, then ``LowPrecisionDecentralizedAlgorithm(
-   hierarchical=False)`` on the 4-layer cut (K1 = buckets x steps, a whole
-   bucket one chunk; K2 three times that).
+   peer_selection_mode="all", track_peer_weights=True)`` (no codec) and
+   ``LowPrecisionDecentralizedAlgorithm(hierarchical=False)`` on the 4-layer
+   cut (K1 = buckets x steps, a whole bucket one chunk; K2 three times that).
    Their ranks differ by design, so in place of the parameters' equality:
    after every step, fingerprints of every bucket show the peer weights
    equal on both ranks (``all``), or each rank's ``left`` and ``right``
@@ -212,6 +225,15 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    training forward's (K6a) on prompt and generated tokens, each greedy
    token equal to that forward's argmax wherever its top-2 margin exceeds
    the gate, no flash launch in the decode loops; ms a step and tokens/s.
+   Then serve (``phase_serve``, ``longctx-serve-1chip``): slice 1's LM saved
+   as a serving artifact and loaded back bitwise, then ``ServeEngine`` (8
+   slots, 64-token pages, 256-token prefill chunks, a pool of 80 pages)
+   over a Poisson-paced trace of 16 requests (``SERVE``): every request
+   completes, requests join running batches and one is preempted and
+   recomputed, no page in use at the end, no flash launch in a tick, the
+   ledger's serving classes fed; 4 requests against ``generate()``
+   (``check_against_generate``); TTFT and TPOT percentiles, tokens/s, the
+   peak, and continuous against static batching on one backlog.
    The multi-rank phase, after ``overlap``, two ranks as in slice 3, on the
    4-layer cut: (b) the 1-bit ring with its residual (K4, K5), step 4's part
    of rank 1 alone corrupted, both ranks falling back to step 2; (c) ZeRO,
@@ -331,7 +353,9 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    of about ``WEDGE_S`` on the step's stream, once: a marker file).  Gates:
    the launcher exits 0 after exactly one restart; the first worker exits 3
    from the watchdog with its stacks in the log; the restarted worker
-   resumes from step 3; the losses of steps 0-9 bitwise equal to slice 1's.
+   resumes from step 3; the losses of steps 0-9 bitwise equal to slice 1's;
+   the first worker's ``watchdog_abort`` flight record (``BAGUA_OBS_DUMP_DIR``)
+   valid, its wedged section among its active spans.
    Prints the seconds from the wedge's enqueue to the worker's exit, from
    that exit to the restarted worker's first step, the restore, the steps
    lost and the run.  (b) ``elastic-cut-2to1to2-1chip``: two launchers
@@ -362,8 +386,10 @@ same ones.
 
 from __future__ import annotations
 
+import collections
 import functools
 import gc
+import glob
 import json
 import math
 import os
@@ -377,6 +403,7 @@ import time
 
 _T_IMPORT = time.time()   # before torch: a drill worker's start-up breakdown
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 _T_TORCH = time.time()
@@ -1107,12 +1134,27 @@ def phase_slice():
     log(f"slice: {n_params} params in {len(trainer.plan.buckets)} buckets, "
         f"world {trainer.world_size} over {torch.distributed.get_backend()}")
 
+    # the observability plane rides the run (on by default): each step's
+    # span names are read after it, outside the step times
+    from bagua_tpu_torch.obs import ledger as obs_ledger
+    from bagua_tpu_torch.obs import spans as obs_spans
+
+    obs_spans.recorder.clear()
+    obs_ledger.ledger.reset()
+    step_spans = []
+
+    def after_step(state):
+        step_spans.append(collections.Counter(
+            sp["name"] for sp in obs_spans.recorder.snapshot()
+            if sp.get("step") == trainer._step_counter))
+
     losses, launches, st, state = train_steps(trainer, state, batch,
-                                              MAIN["b"] * cfg.max_seq_len, [fa])
+                                              MAIN["b"] * cfg.max_seq_len, [fa], after_step)
     log_steps("slice", losses, launches, st)
     want = cfg.n_layers * STEPS
     if any(n != want for n in launches.values()):
         raise AssertionError(f"kernel launches {launches}, expected {want} each")
+    check_slice_obs(trainer, cfg, step_spans)
     # what the remat phase holds its run against: the losses, the peak, the
     # parameters after the steps and (last) the kernels' device time of one more
     base = {"losses": losses, "stats": st, "params": _params_on_host(model)}
@@ -1144,6 +1186,177 @@ def phase_slice():
         f"{host_ms:.4f} ms a step, {host_ms / off * 100:.3f}% of it")
     base["watchdog_ms"] = windows
     return launches, base
+
+
+# ---------------------------------------------------------------------------
+# obs: the observability plane on slice 1's runs
+# ---------------------------------------------------------------------------
+
+#: steps of the obs on/off pair (the StepProfiler window 2:5 closes at step
+#: 6) and of each window of its A B B A host-cost measure
+OBS_STEPS, OBS_COST_STEPS = 6, 20
+OBS_PROFILE_STEPS = (2, 5)
+
+
+def lm_step_flops(cfg, batch: int, seq: int) -> float:
+    """Slice 1's model flops of one training step, counted from the
+    configuration alone: every dense layer (q, k, v, o, the gated MLP's
+    three, the head) ``2 * tokens * fan_in * fan_out`` a forward, causal
+    attention ``4 * b * h * head_dim`` a (query, key) pair it sees
+    (``s (s + 1) / 2`` a head), and a step three forwards (the weight and
+    the input gradients)."""
+    d, f, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    dense = 2 * batch * seq * (L * (4 * d * d + 3 * d * f) + d * v)
+    attention = 4 * batch * cfg.n_heads * cfg.head_dim * (seq * (seq + 1) // 2) * L
+    return 3.0 * (dense + attention)
+
+
+def check_slice_obs(trainer, cfg, step_spans):
+    """Slice 1's run with the obs plane on: the span names of every step
+    (the first the build, every later one a dispatch with one bucket
+    collective a bucket), the ledger's ``compile`` for the first step and
+    ``productive_step`` after it, ``obs/mfu`` against the analytic count,
+    and the live memory poll's peak against ``max_memory_allocated``."""
+    from bagua_tpu_torch.obs import export as obs_export
+    from bagua_tpu_torch.obs import ledger as obs_ledger
+    from bagua_tpu_torch.obs.memory import live_memory_stats
+
+    n = len(trainer.plan.buckets)
+    first, later = step_spans[0], step_spans[1:]
+    bad = [i for i, c in enumerate(later, 2)
+           if c["step/build"] or c["step/dispatch"] != 1 or c["trace/comm_stage"] != 1
+           or c["trace/optimizer_apply"] != 1 or c["trace/bucket_collective"] != n]
+    if first["step/build"] != 1 or first["step/dispatch"] != 1 or bad:
+        raise AssertionError(f"obs: span names per step {step_spans} ({n} buckets; steps {bad})")
+    rep = obs_ledger.ledger.report()
+    if not (rep["classes"]["compile"] > 0 and rep["classes"]["productive_step"] > 0
+            and rep["step_windows"] == STEPS - 1
+            and sum(rep["classes"].values()) <= rep["wall_s"] * 1.01 + 1e-6):
+        raise AssertionError(f"obs: the ledger after slice 1: {rep}")
+    analytic = lm_step_flops(cfg, MAIN["b"], cfg.max_seq_len)
+    mfu = obs_export.last_mfu()
+    want_mfu = (analytic / mfu["step_dt"] / mfu["peak_flops"]) if mfu.get("available") else None
+    live = live_memory_stats()
+    peak = torch.cuda.max_memory_allocated()
+    polled = obs_export.last_hbm_live()
+    log(f"obs, slice 1: spans a step {dict(later[-1])} ({sum(later[-1].values())} spans: the "
+        f"{obs_spans_capacity()}-span ring holds {obs_spans_capacity() // sum(later[-1].values())}"
+        f" steps); step 1 {dict(first)}; ledger {rep['classes']} of wall {rep['wall_s']:.3f} s "
+        f"(goodput {rep['goodput_fraction']}); obs/mfu {mfu} against the analytic "
+        f"{analytic:.6g} flops a step ({want_mfu}); live memory {live}, polled {polled}")
+    if not (mfu.get("available") and mfu["flops_per_step"] == analytic
+            and abs(mfu["mfu"] - want_mfu) <= 1e-4):
+        raise AssertionError(f"obs/mfu {mfu}, analytic flops {analytic}")
+    if not (live.get("available") and live["peak_bytes_in_use"] == peak
+            and polled and polled.get("available")):
+        raise AssertionError(f"live memory {live} against max_memory_allocated {peak}; "
+                             f"polled {polled}")
+
+
+def obs_spans_capacity() -> int:
+    from bagua_tpu_torch import env
+
+    return env.get_obs_ring_size()
+
+
+def phase_obs(card):
+    """Slice 1's LM twice from the same weights and batch, one trainer built
+    with ``BAGUA_OBS`` on (and a ``StepProfiler`` window of steps 2:5 under
+    ``BAGUA_PROFILE_DIR``), one with it off, ``OBS_STEPS`` steps each:
+    parameters bitwise equal; the profile's op profile names K6a-c with
+    ``n_layers`` launches a traced step each; the device attribution of the
+    window.  Then the two trainers alternate, A B B A, ``OBS_COST_STEPS``
+    steps a window (each step ending in ``loss.item()``), for the plane's
+    host cost a step, beside its spans a step times one span's cost."""
+    from bagua_tpu_torch import profiling
+    from bagua_tpu_torch.obs import export as obs_export
+    from bagua_tpu_torch.obs import spans as obs_spans
+    from bagua_tpu_torch.ops import flash_attention as fa
+
+    tmp = tempfile.mkdtemp()
+    runs = {}
+    try:
+        for label in ("on", "off"):
+            obs_spans.set_enabled(label == "on")
+            if label == "on":
+                os.environ["BAGUA_PROFILE_DIR"] = tmp
+                os.environ["BAGUA_PROFILE_STEPS"] = "%d:%d" % OBS_PROFILE_STEPS
+            try:
+                model, trainer, state, batch = build_slice("longctx")
+            finally:
+                os.environ.pop("BAGUA_PROFILE_DIR", None)
+                os.environ.pop("BAGUA_PROFILE_STEPS", None)
+            fa.reset_launch_counts()
+            for _ in range(OBS_STEPS):
+                state, loss = trainer.train_step(state, batch)
+            loss.item()
+            runs[label] = [model, trainer, state, batch]
+        obs_spans.set_enabled(True)
+        on, off = runs["on"], runs["off"]
+        bitwise = all(torch.equal(a, b) for a, b in zip(on[0].parameters(), off[0].parameters()))
+        path = on[1]._profiler.path
+        prof = profiling.parse_trace_op_profile(path)
+        traced = profiling.load_trace(path)["bagua"]["steps"]
+        counts = {}
+        for rec in prof["ops"].values():
+            counts[rec["class"]] = counts.get(rec["class"], 0) + rec["count"]
+        flash = {k: counts.get(k, 0) for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+        want = on[0].cfg.n_layers * traced
+        attribution = None
+        for _ in range(600):   # the attribution thread publishes when done
+            attribution = obs_export.last_device_attribution()
+            if attribution is not None:
+                break
+            time.sleep(0.1)
+        per_bucket = (attribution or {}).get("per_bucket") or []
+        log(f"obs: parameters after {OBS_STEPS} steps with BAGUA_OBS on and off "
+            f"{'bitwise equal' if bitwise else 'DIFFER'}; the StepProfiler window "
+            f"({traced} steps, {os.path.getsize(path) / 1e6:.1f} MB of Chrome trace) names "
+            f"{flash} (want {want} each) among {len(prof['ops'])} kernels, device "
+            f"{prof['total_time_s'] / traced * 1e3:.3f} ms a step by class "
+            f"{ {k: round(v / traced * 1e3, 3) for k, v in sorted(prof['classes'].items())} }; "
+            f"device attribution: available {(attribution or {}).get('available')}, "
+            f"transport {(attribution or {}).get('transport')}, comm "
+            f"{(attribution or {}).get('comm_s_per_step')} s a step over {len(per_bucket)} "
+            f"buckets (first {per_bucket[:2]}), rationale "
+            f"{(attribution or {}).get('rationale')}")
+        if not bitwise or any(n != want for n in flash.values()) or traced != 3 \
+                or attribution is None:
+            raise AssertionError(f"obs on/off bitwise {bitwise}, flash in the profile {flash} "
+                                 f"(want {want}), traced {traced}, attribution {attribution}")
+        windows = {"on": [], "off": []}
+        for label in ("on", "off", "off", "on"):
+            model, trainer, state, batch = runs[label]
+            obs_spans.set_enabled(label == "on")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OBS_COST_STEPS):
+                state, loss = trainer.train_step(state, batch)
+                loss.item()
+            windows[label].append((time.perf_counter() - t0) / OBS_COST_STEPS * 1e3)
+            runs[label][2] = state
+        obs_spans.set_enabled(True)
+        obs_spans.recorder.clear()
+        state, loss = on[1].train_step(runs["on"][2], on[3])
+        loss.item()
+        spans_a_step = len(obs_spans.recorder.snapshot())
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            with obs_spans.trace_span("cost", bucket=1):
+                pass
+        span_us = (time.perf_counter() - t0) / 10000 * 1e6
+        a, b = statistics.mean(windows["on"]), statistics.mean(windows["off"])
+        log(f"obs ({card}): the step with BAGUA_OBS on against off, A B B A "
+            f"({OBS_COST_STEPS} steps a window): on {windows['on'][0]:.3f}, off "
+            f"{windows['off'][0]:.3f}, off {windows['off'][1]:.3f}, on {windows['on'][1]:.3f} ms "
+            f"a step; on {a:.3f} against off {b:.3f} ms ({(a / b - 1) * 100:+.2f}%); on the host "
+            f"path {spans_a_step} spans a step at {span_us:.2f} us: "
+            f"{spans_a_step * span_us / 1e3:.4f} ms a step")
+    finally:
+        obs_spans.set_enabled(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        runs.clear()
+        release()
 
 
 # ---------------------------------------------------------------------------
@@ -1227,6 +1440,239 @@ def phase_generate(card):
     os.environ[GEN_REF_ENV] = path
     del model, paged, out, dense, pg, forward
     release()
+
+
+# ---------------------------------------------------------------------------
+# serve: the continuous-batching engine over slice 1's LM
+# ---------------------------------------------------------------------------
+
+#: the serve phase (``longctx-serve-1chip``): slice 1's LM at full width
+#: behind ``ServeEngine`` with ``slots`` batch slots, ``page``-token pages and
+#: ``chunk``-token prefill chunks; a Poisson-paced trace of ``requests``
+#: requests (mean gap ``gap_s``; prompt and output lengths uniform in the
+#: ranges; token ids, lengths and gaps from ``seed``); a pool of ``pages``
+#: pages beside the reserved ones, fewer than the slots' full demand, so that
+#: the engine must preempt; ``compare`` requests held against ``generate()``
+SERVE = dict(requests=16, prompt=(128, 1024), new=(32, 256), slots=8, page=64, chunk=256,
+             gap_s=0.05, pages=80, seed=0, compare=4)
+
+
+def serve_trace(vocab, n=None, gap_s=None, seed=None):
+    """``(arrival_s, prompt, max_new)`` of the serve phase's trace."""
+    n = SERVE["requests"] if n is None else n
+    rng = np.random.RandomState(SERVE["seed"] if seed is None else seed)
+    gaps = rng.exponential(SERVE["gap_s"] if gap_s is None else gap_s, size=n)
+    out, t = [], 0.0
+    for i in range(n):
+        t += float(gaps[i])
+        plen = int(rng.randint(SERVE["prompt"][0], SERVE["prompt"][1] + 1))
+        new = int(rng.randint(SERVE["new"][0], SERVE["new"][1] + 1))
+        out.append((t, rng.randint(0, vocab, size=plen).astype(np.int32), new))
+    return out
+
+
+def _percentiles(xs):
+    xs = sorted(xs)
+    return {f"p{q}": xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+            for q in (50, 90, 99)}
+
+
+def check_against_generate(model, req, gate=None):
+    """One served request against ``generate()`` on its prompt: the tokens
+    equal up to the first position where they part, the logits of every
+    compared position within ``gate`` of generate's (relative to its
+    largest logit), and a parted token accepted only where generate's top-2
+    margin there is within twice the two logit sets' gap (a near tie the two
+    differently shaped products round apart; the chains differ after it).
+    Returns ``(positions equal, parted at, logits error)``."""
+    import bagua_tpu_torch as bt
+
+    gate = GEN_LOGITS_RTOL if gate is None else gate
+    p = len(req.prompt)
+    toks, logits = bt.generate(model, req.prompt[None], req.max_new_tokens, return_logits=True)
+    ref_toks, ref = toks[0].tolist(), logits[0, p - 1:]
+    got = torch.stack(req.logits)
+    parted = next((i for i, (a, b) in enumerate(zip(req.output, ref_toks)) if a != b), None)
+    upto = len(ref_toks) if parted is None else parted + 1
+    gap = (got[:upto] - ref[:upto]).abs().max().item()
+    err = gap / ref[:upto].abs().max().item()
+    if err > gate:
+        raise AssertionError(f"serve request {req.rid}: logits {err} from generate's")
+    if parted is not None:
+        row = ref[parted]
+        margin = (row[ref_toks[parted]] - row[req.output[parted]]).item()
+        if margin > 2 * gap:
+            raise AssertionError(f"serve request {req.rid}: token {parted} parts from "
+                                 f"generate's with a margin {margin} over the gap {gap}")
+    return upto if parted is None else parted, parted, err
+
+
+#: ticks of the serve phase's profiled window, after as many warm-up ticks
+SERVE_PROFILE_TICKS = 30
+
+
+def serve_tick_breakdown(model, trace, card):
+    """Where a tick's time goes: ``SERVE["slots"]`` requests of the trace as
+    one backlog, ``SERVE_PROFILE_TICKS`` warm-up ticks, then as many under
+    ``profiling.trace``: the host's ms a tick against the device's busy ms
+    (the union of its kernels' intervals) and its kernel ms by class."""
+    from bagua_tpu_torch import profiling
+    from bagua_tpu_torch.serve import ServeConfig, ServeEngine
+
+    eng = ServeEngine(model, None, ServeConfig(
+        max_slots=SERVE["slots"], page_size=SERVE["page"],
+        num_pages=2 + SERVE["slots"] * (model.cfg.max_seq_len // SERVE["page"]),
+        queue_depth=256, prefill_chunk=SERVE["chunk"], tick_idle_s=0.001))
+    for _, prompt, new in trace[:SERVE["slots"]]:
+        eng.submit(prompt, new)
+    for _ in range(SERVE_PROFILE_TICKS):
+        eng.step()
+    tmp = tempfile.mkdtemp()
+    try:
+        torch.cuda.synchronize()
+        with profiling.trace(tmp, steps=SERVE_PROFILE_TICKS) as holder:
+            t0 = time.perf_counter()
+            for _ in range(SERVE_PROFILE_TICKS):
+                eng.step()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / SERVE_PROFILE_TICKS * 1e3
+        tr = profiling.load_trace(holder["path"])
+        ops = profiling.parse_trace_op_profile(tr) or {"classes": {}, "total_time_s": 0.0}
+        spans = sorted((e["t0_s"], e["t0_s"] + e["dur_s"]) for e in profiling.device_events(tr))
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        n = SERVE_PROFILE_TICKS
+        log(f"serve ticks ({card}): {n} ticks of {SERVE['slots']} slots profiled (CPU and CUDA "
+            f"activities): {host_ms:.3f} ms a tick on the host clock; device busy "
+            f"{busy / n * 1e3:.3f} ms a tick, kernels {ops['total_time_s'] / n * 1e3:.3f} ms "
+            f"by class { {k: round(v / n * 1e3, 3) for k, v in sorted(ops['classes'].items())} }; "
+            f"{len(spans) // n} device events a tick")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del eng
+        release()
+
+
+def phase_serve(card):
+    """``longctx-serve-1chip``: slice 1's LM at full width (weights of seed 0)
+    published with ``save_serving_artifact`` and loaded back with
+    ``load_serving_params`` (bitwise), then served by ``ServeEngine`` over the
+    paged pool on a Poisson-paced trace (``SERVE``).  Gates: every request
+    completes; at least one joins a running batch and one is preempted and
+    recomputed; no page in use at the end; ``SERVE["compare"]`` requests (the
+    preempted one among them) against ``generate()``
+    (:func:`check_against_generate`); the ledger's ``weight_load``,
+    ``prefill``, ``decode`` and ``batch_formation_idle`` fed and their sum
+    not above the wall; no flash launch in the ticks.  Prints TTFT and TPOT
+    percentiles, tokens/s and the peak, where a tick's time goes
+    (:func:`serve_tick_breakdown`), and (no gate) continuous against static
+    batching on one backlog of the same requests."""
+    from bagua_tpu_torch.obs import ledger as obs_ledger
+    from bagua_tpu_torch.ops import flash_attention as fa
+    from bagua_tpu_torch.serve import (ServeConfig, ServeEngine, load_serving_params,
+                                       save_serving_artifact)
+
+    model = slice_model("longctx")
+    cfg = model.cfg
+    tmp = tempfile.mkdtemp()
+    try:
+        obs_ledger.ledger.reset()
+        t0 = time.perf_counter()
+        save_serving_artifact(tmp, model, step=1)
+        step, params = load_serving_params(tmp, model)
+        load_s = time.perf_counter() - t0
+        if step != 1 or any(not torch.equal(params[n], p) for n, p in model.named_parameters()):
+            raise AssertionError("serve: the artifact did not round-trip bitwise")
+        del params
+        conf = ServeConfig(max_slots=SERVE["slots"], page_size=SERVE["page"],
+                           num_pages=2 + SERVE["pages"], queue_depth=256,
+                           prefill_chunk=SERVE["chunk"], tick_idle_s=0.001)
+        engine = ServeEngine(model, None, conf, record_logits=True)
+        joined = []
+        admit = engine._admit
+
+        def watched_admit():
+            running = {r.rid for r in engine._slot_req if r is not None}
+            admit()
+            if running:
+                joined.extend(r.rid for r in engine._slot_req
+                              if r is not None and r.rid not in running)
+
+        engine._admit = watched_admit
+        trace = serve_trace(cfg.vocab_size)
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = engine.run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        flash = {k.__name__: k.launches for k in fa.KERNELS}
+        rep = obs_ledger.ledger.report()
+        done = sorted(done, key=lambda r: r.rid)
+        out_tokens = sum(len(r.output) for r in done)
+        preempted = [r for r in done if r.preemptions]
+        ttft = _percentiles([r.ttft_s * 1e3 for r in done])
+        tpot = _percentiles([r.tpot_s * 1e3 for r in done if r.tpot_s is not None])
+        log(f"serve longctx-serve-1chip ({card}): {len(done)} of {len(trace)} requests in "
+            f"{wall:.3f} s (the trace's last arrival at {trace[-1][0]:.3f} s), "
+            f"{engine._ticks} ticks, {out_tokens} output tokens: {out_tokens / wall:.1f} "
+            f"tokens/s; TTFT ms {ttft}, TPOT ms {tpot}; peak {peak:.3f} GB; joined mid-batch "
+            f"{sorted(set(joined))}; preempted {[(r.rid, r.preemptions) for r in preempted]}; "
+            f"pages in use at the end {engine.pool.pages_in_use}; flash launches {flash}; "
+            f"ledger {rep['classes']} of wall {rep['wall_s']:.3f} s; the artifact's save and "
+            f"load {load_s:.3f} s")
+        classes = rep["classes"]
+        if not (len(done) == len(trace) and all(len(r.output) == n for r, (_, _, n)
+                                                 in zip(done, trace))
+                and joined and preempted and engine.pool.pages_in_use == 0
+                and not any(flash.values())
+                and all(classes[c] > 0 for c in ("weight_load", "prefill", "decode",
+                                                 "batch_formation_idle"))
+                and sum(classes.values()) <= rep["wall_s"] * 1.01 + 1e-6):
+            raise AssertionError("serve: the engine's gates failed (see the line above)")
+        # the preempted request and the shortest others against generate()
+        chosen = [preempted[0]] + sorted(
+            (r for r in done if r is not preempted[0]),
+            key=lambda r: len(r.prompt) + r.max_new_tokens)[:SERVE["compare"] - 1]
+        for r in chosen:
+            equal, parted, err = check_against_generate(model, r)
+            log(f"serve request {r.rid} (prompt {len(r.prompt)}, {r.max_new_tokens} new, "
+                f"preempted {r.preemptions}x) against generate(): {equal} tokens equal"
+                f"{'' if parted is None else f', parted at {parted} (a near tie)'}, logits "
+                f"within {err:.3g} (gate {GEN_LOGITS_RTOL})")
+        del engine, done, chosen, preempted
+        release()
+        serve_tick_breakdown(model, trace, card)
+        # continuous against static batching on one backlog (no gate)
+        backlog = [(0.0, p, n) for _, p, n in trace]
+        pair = {}
+        for mode in ("continuous", "static"):
+            eng = ServeEngine(model, None, ServeConfig(
+                max_slots=SERVE["slots"], page_size=SERVE["page"],
+                num_pages=2 + SERVE["slots"] * (cfg.max_seq_len // SERVE["page"]), queue_depth=256,
+                prefill_chunk=SERVE["chunk"], tick_idle_s=0.001),
+                continuous=mode == "continuous")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = eng.run(backlog)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            pair[mode] = sum(len(r.output) for r in got) / secs
+            log(f"serve backlog of {len(backlog)} requests, {mode} batching ({card}): "
+                f"{secs:.3f} s, {pair[mode]:.1f} output tokens/s, {eng._ticks} ticks")
+            del eng, got
+            release()
+        log(f"serve: continuous over static batching on the backlog: "
+            f"{pair['continuous'] / pair['static']:.3f}x output tokens/s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del model
+        release()
 
 
 # ---------------------------------------------------------------------------
@@ -2380,9 +2826,11 @@ SLICE3_RUNS = (
     ("qadam", BERT["cut_layers"], "qadam", {}),
 )
 #: slice 4 at world 2: (a) the main path, the README quick start with the
-#: 1-bit codec on the full BERT-Large, (b) top-k (1%) on the 4-layer cut
+#: 1-bit codec, (b) top-k (1%), both on the 4-layer cut (the full BERT-Large
+#: would not leave the script room for the obs and serve phases)
 SLICE4_RUNS = (
-    ("onebit_ef", None, "gradient_allreduce", {"compress_intra": "onebit_ef", "steps": FULL_STEPS}),
+    ("onebit_ef", BERT["cut_layers"], "gradient_allreduce",
+     {"compress_intra": "onebit_ef", "steps": FULL_STEPS}),
     ("topk", BERT["cut_layers"], "gradient_allreduce",
      {"compress_intra": "topk", "steps": FULL_STEPS}),
 )
@@ -2409,10 +2857,10 @@ ZERO_RUNS = (
     ("zero_int8", BERT["cut_layers"], "zero", {"compress_intra": "int8", "lr": 1e-3}),
 )
 #: the gossip families at world 2: (a) full-precision ``all`` with the peer
-#: weights tracked (no codec) on the full BERT-Large, (b) the low-precision
-#: ring, flat (a whole bucket one K1 chunk), on the 4-layer cut
+#: weights tracked (no codec), (b) the low-precision ring, flat (a whole
+#: bucket one K1 chunk), both on the 4-layer cut
 DECENTRALIZED_RUNS = (
-    ("decentralized_all", None, "decentralized_all", {"steps": FULL_STEPS}),
+    ("decentralized_all", BERT["cut_layers"], "decentralized_all", {"steps": FULL_STEPS}),
     ("low_precision", BERT["cut_layers"], "low_precision", {"steps": FULL_STEPS}),
 )
 #: the gossip families at world 4, two nodes of two ranks, on the 4-layer
@@ -2886,11 +3334,64 @@ def compressed_run(rank, world, run, device, label):
                              f"{record['ef_norm']} (finite {record['ef_finite']})")
     if name == "bytegrad":
         _check_plain_bucket(rank, trainer, model, batch, record)
+        obs_rank_record(rank, trainer, state, batch, record)
     if name == "onebit_ef":
         _check_ef_bucket(rank, trainer, state, model, batch, record)
     if name == "low_precision":
         _check_lowprec_bucket(rank, trainer, state, model, record)
     return record
+
+
+def obs_rank_record(rank, trainer, state, batch, record):
+    """One step more of the run under a ``torch.profiler`` capture, after
+    its timed steps and checks: the device attribution of its bucket
+    collectives (``attribute_device_comm``), and this rank's span ring dump
+    for the timeline (``dump_span_ring``), both into ``record``."""
+    from bagua_tpu_torch import profiling
+    from bagua_tpu_torch.obs import attribution, timeline
+
+    tmp = tempfile.mkdtemp()
+    try:
+        with profiling.trace(tmp, steps=1) as holder:
+            state, loss = trainer.train_step(state, batch)
+            loss.item()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        record["attribution"] = attribution.attribute_device_comm(holder["path"])
+        path = timeline.dump_span_ring(os.path.join(tmp, f"spans_rank{rank}.json"), rank=rank)
+        with open(path) as f:
+            record["span_dump"] = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_slice3_obs(card, runs):
+    """Slice 3's ByteGrad ranks (gloo through host memory): every bucket's
+    device work attributed to it, transport ``gloo`` (its staging copies)
+    beside the codec kernels of its range; the two ranks' span dumps merged
+    by ``assemble_timeline`` into a trace ``validate_timeline`` accepts."""
+    from bagua_tpu_torch.obs import timeline
+
+    for r, rec in enumerate(runs):
+        att = rec["attribution"]
+        rows = att.get("per_bucket") or []
+        log(f"obs, slice 3 bytegrad rank {r} ({card}): device attribution available "
+            f"{att.get('available')}, transport {att.get('transport')}, comm "
+            f"{att.get('comm_s_per_step')} s a step, overlap {att.get('overlap_fraction')}; "
+            f"{len(rows)} buckets, first {rows[:2]}, last {rows[-1:]}; rationale "
+            f"{att.get('rationale') or att.get('per_bucket_rationale')}")
+        if not (att.get("available") and att.get("transport") == "gloo"
+                and len(rows) == rec["buckets"]
+                and all(row["transport"] == "gloo" and row["device_comm_s"] > 0
+                        and row["device_codec_s"] > 0 for row in rows)):
+            raise AssertionError(f"slice 3 rank {r}: device attribution {att}")
+    trace = timeline.assemble_timeline([rec["span_dump"] for rec in runs])
+    problems = timeline.validate_timeline(trace)
+    meta = trace["metadata"]["ranks"]
+    log(f"obs, slice 3 bytegrad: the two ranks' span dumps merged into "
+        f"{len(trace['traceEvents'])} trace events; per rank {meta}; problems {problems}")
+    if problems or set(meta) != {str(r) for r in range(len(runs))}:
+        raise AssertionError(f"slice 3 timeline: {problems}, ranks {set(meta)}")
 
 
 def async_run(rank, world, run, device, label):
@@ -4607,8 +5108,6 @@ class CountingImages:
         return len(self.decodes)
 
     def __getitem__(self, i):
-        import numpy as np
-
         self.decodes[i] += 1
         img = np.random.default_rng(i).standard_normal((self.size, self.size, 3), np.float32)
         return img, i % self.classes
@@ -4628,7 +5127,6 @@ def vision_stack_run(rank, world, name, device, label):
     shards, batches through ``prefetch_to_device``, ``SyncBatchNorm`` over
     dp, ByteGrad (K1, K2), ``fuse_optimizer(SGD)``; the record the gates of
     :func:`check_vision_ranks` read."""
-    import numpy as np
 
     import bagua_tpu_torch as bt
     from bagua_tpu_torch.contrib import (CachedDataset, LoadBalancingDistributedSampler,
@@ -5060,8 +5558,9 @@ def check_async(runs, replicated, gossip):
                 f"({st['peak_gb'] - replicated['stats']['peak_gb']:+.3f}); step "
                 f"{st['step_ms']:.3f} ms (median {st['median_ms']:.3f}) against the replicated "
                 f"run's {replicated['stats']['step_ms']:.3f} (median "
-                f"{replicated['stats']['median_ms']:.3f}) and decentralized all's "
-                f"{gossip['stats']['step_ms']:.3f} (median {gossip['stats']['median_ms']:.3f}); "
+                f"{replicated['stats']['median_ms']:.3f}) and decentralized all's on "
+                f"{gossip['layers']} layers {gossip['stats']['step_ms']:.3f} (median "
+                f"{gossip['stats']['median_ms']:.3f}); "
                 f"{st['tokens_s']:.1f} tokens/s against {replicated['stats']['tokens_s']:.1f} "
                 f"and {gossip['stats']['tokens_s']:.1f}; forward+backward alone "
                 f"{r0['fwd_bwd_ms']:.3f} ms")
@@ -5512,7 +6011,8 @@ def watchdog_drill(card, slice1_losses, tmp):
     t0, wall0 = time.monotonic(), time.time()
     with open(log_path, "w") as out:
         proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
-                                env=_drill_env(BAGUA_COMM_TIMEOUT_S=DRILL_TIMEOUT_S),
+                                env=_drill_env(BAGUA_COMM_TIMEOUT_S=DRILL_TIMEOUT_S,
+                                               BAGUA_OBS_DUMP_DIR=os.path.join(tmp, "flight")),
                                 start_new_session=True)
         rc = _wait_bounded([proc], t0, "the watchdog drill")[0]
     run_s = time.monotonic() - t0
@@ -5534,6 +6034,7 @@ def watchdog_drill(card, slice1_losses, tmp):
                     if int(k) < WATCHDOG_DRILL["save_at"]})
         if [got.get(i) for i in range(STEPS)] != slice1_losses:
             raise AssertionError(f"the drill's losses {got} are not slice 1's {slice1_losses}")
+        check_watchdog_flight_record(os.path.join(tmp, "flight"))
     except Exception:
         log(text[-6000:])
         raise
@@ -5557,6 +6058,29 @@ def watchdog_drill(card, slice1_losses, tmp):
         f"first worker (s from its exec): {_startup_line(first)}; of the restarted one: "
         f"{_startup_line(second)}")
     return res
+
+
+def check_watchdog_flight_record(dump_dir):
+    """The watchdog drill's post-mortem: the first worker's
+    ``watchdog_abort`` flight record, valid, naming the wedged section,
+    which is still in flight (a ``watchdog/`` span among its active
+    spans)."""
+    from bagua_tpu_torch.obs.recorder import validate_flight_record
+
+    paths = glob.glob(os.path.join(dump_dir, "flight_watchdog_abort_*.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"watchdog drill: flight records {os.listdir(dump_dir)}")
+    with open(paths[0]) as f:
+        rec = json.load(f)
+    problems = validate_flight_record(rec)
+    active = [sp["name"] for sp in rec["active_spans"]]
+    log(f"robustness (a): the watchdog_abort flight record {os.path.basename(paths[0])}: "
+        f"reason {rec['reason']!r}, active spans {active}, {len(rec['spans'])} spans, "
+        f"ledger {rec['ledger'] and rec['ledger']['classes']}; problems {problems}")
+    if problems or not any(n.startswith("watchdog/") for n in active):
+        raise AssertionError(f"watchdog drill: flight record problems {problems}, "
+                             f"active spans {active}")
+    return rec
 
 
 def elastic_drill(card, tmp):
@@ -5742,6 +6266,7 @@ def main():
     rows.update(timed("sign kernels", phase_sign_kernels))
     timed("narrow shapes", phase_narrow_shapes)
     launches, base = timed("slice 1", phase_slice)
+    timed("obs", phase_obs, card)
     release()
     launches_moe, _, base_moe = timed("slice 2", phase_slice_moe)
     release()
@@ -5750,11 +6275,13 @@ def main():
     del base, base_moe
     ckpt_single = timed("checkpoint (a)", phase_checkpoint)
     timed("generate", phase_generate, card)
+    timed("serve", phase_serve, card)
     timed("vision", phase_vision, card)
     torch.distributed.destroy_process_group()
     release()   # the ranks of slices 3 and 4 share this card
     slice3 = slice4 = both = timed("slice 3, slice 4, zero, decentralized", phase_multi_rank,
                                    "slice3")
+    check_slice3_obs(card, slice3["bytegrad"])
     four = timed("slice 4 (2 x 2), decentralized (2 x 2)", phase_multi_rank, "slice4_2x2")
     zero = {name: both[name] for name, *_ in ZERO_RUNS}
     check_zero({name: recs[0] for name, recs in zero.items()})
@@ -5779,15 +6306,6 @@ def main():
     check_vision_ranks(card, tpp)
     timed("robustness", phase_robustness, card, slice1_losses, "--sequential" in sys.argv[1:])
     shutil.rmtree(os.path.dirname(os.environ.pop(GEN_REF_ENV)), ignore_errors=True)
-    for name, (rec, *_) in gossip.items():
-        if rec["params"] != full["params"]:
-            continue
-        log(f"decentralized {name}: peak {rec['stats']['peak_gb']:.3f} GB ("
-            f"{rec['stats']['peak_gb'] - full['stats']['peak_gb']:+.3f} GB against the "
-            f"replicated BERT-Large run of the zero phase, {full['stats']['peak_gb']:.3f}), step "
-            f"{rec['stats']['step_ms']:.3f} ms against its {full['stats']['step_ms']:.3f}, "
-            f"launches K1 {rec['launches']['compress_chunked']} K2 "
-            f"{rec['launches']['decompress_chunked']} in {len(rec['losses'])} steps")
     log(f"seconds by phase: {seconds}; the script's total "
         f"{time.perf_counter() - script_t0:.1f} s")
     # each kernel's launches come from its own path: flash from slice 1, gmm

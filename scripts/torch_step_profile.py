@@ -7,9 +7,10 @@ GradientAllReduceAlgorithm, random weights from a seed): ``longctx`` (the
 default) the long-context TransformerLM with AdamW, ``moe`` the dropless MoE
 TransformerLM of ``bench_moe_longseq`` with Adam.  Runs three warm-up steps,
 times five steps on the host clock, then traces five more with
-``torch.profiler``.  Prints the device time per kernel class per
-step, the ten most expensive kernels, and the device busy share of the traced
-window alone: the union of its kernels' intervals over the span from the
+``torch.profiler``.  Prints the device time per kernel class per step (the
+package's classifier, ``bagua_tpu_torch.profiling.classify_kernel``), the
+ten most expensive kernels, and the device busy share of the traced window
+alone: the union of its kernels' intervals over the span from the
 first kernel's start to the last kernel's end, and over the window's host
 wall time.  The profiler records device activity only, so the traced steps'
 host time stays close to the untraced ones' (both are printed).  Needs a
@@ -31,32 +32,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 STEPS = 5
 
-# name fragments -> class, first match wins
-CLASSES = (
-    ("flash_fwd", ("fwd_wgmma", "fwd_kernel")),
-    ("flash_bwd_dkv", ("dkv_wgmma", "dkv_kernel")),
-    ("flash_bwd_dq", ("dq_wgmma", "dq_kernel")),
-    ("gmm", ("gmm_kernel", "gmm_wgmma_kernel", "gmm_f32_kernel")),
-    ("gmm_drhs", ("gmm_drhs_",)),
-    ("nccl", ("nccl",)),
-    ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
-    ("optimizer", ("multi_tensor_apply",)),
-    ("softmax_cross_entropy", ("SoftMax", "softmax", "nll_loss")),
-    # MoE routing: top-k, the stable sort by expert, the row gather, the
-    # group-size scatter-add and the output index_add
-    ("sort_gather_scatter", ("Sort", "sort", "TopK", "radix", "scatter_gather",
-                             "indexSelect", "indexFunc", "index_elementwise")),
-    ("elementwise_and_copy", ("elementwise_kernel", "copy_kernel")),
-    ("reduce", ("reduce_kernel",)),
-)
-
-
-def classify(name: str) -> str:
-    for cls, frags in CLASSES:
-        if any(f in name for f in frags):
-            return cls
-    return "other"
-
 
 def union_us(spans) -> float:
     """Length of the union of ``(start, end)`` intervals: time the device
@@ -76,6 +51,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     import bagua_tpu_torch as bt
+    from bagua_tpu_torch.profiling import classify_kernel
     from chip_smoke import build_slice
 
     bt.init_process_group()
@@ -110,7 +86,7 @@ def main():
                 and "#" not in evt.name):
             us = evt.time_range.elapsed_us()
             per_kernel[evt.name] += us / 1e3
-            per_class[classify(evt.name)] += us / 1e3
+            per_class[classify_kernel(evt.name)] += us / 1e3
             spans.append((evt.time_range.start, evt.time_range.end))
     busy_ms = union_us(spans) / 1e3
     kernel_span_ms = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3

@@ -358,7 +358,7 @@ def test_lease_tracker_rearm_prevents_mass_expiry():
 
 
 # ---------------------------------------------------------------------------
-# the launcher's refusals: what waits for the port's obs and control plane
+# the launcher's refusals: what waits for the port's fleet and control plane
 # ---------------------------------------------------------------------------
 
 
@@ -367,13 +367,11 @@ def test_lease_tracker_rearm_prevents_mass_expiry():
     ("BAGUA_AUTOPILOT", "observe", "the fleet autopilot (bagua_tpu/autopilot/)"),
     ("BAGUA_OBS_HISTORIAN", "on", "the telemetry historian (bagua_tpu/obs/historian.py)"),
     ("BAGUA_OBS_HTTP_PORT", "8080", "the HTTP status plane (bagua_tpu/obs/http.py)"),
-    ("BAGUA_OBS_FLEET_OUT", "/tmp/fleet.json", "the fleet snapshot (bagua_tpu/obs/export.py)"),
 ])
 def test_launcher_refuses_what_waits_for_the_obs_plane(monkeypatch, name, value, module):
     from bagua_tpu_torch.distributed import run as run_mod
 
-    for var in ("BAGUA_AUTOPILOT", "BAGUA_OBS_HISTORIAN", "BAGUA_OBS_HTTP_PORT",
-                "BAGUA_OBS_FLEET_OUT"):
+    for var in ("BAGUA_AUTOPILOT", "BAGUA_OBS_HISTORIAN", "BAGUA_OBS_HTTP_PORT"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv(name, value)
     with pytest.raises(SystemExit) as e:
@@ -389,7 +387,8 @@ def test_launcher_runs_with_those_settings_off(monkeypatch):
     monkeypatch.setenv("BAGUA_AUTOPILOT", "off")
     monkeypatch.setenv("BAGUA_OBS_HISTORIAN", "off")
     monkeypatch.setenv("BAGUA_OBS_HTTP_PORT", "0")
-    monkeypatch.delenv("BAGUA_OBS_FLEET_OUT", raising=False)
+    # the fleet snapshot is the port's own now: accepted
+    monkeypatch.setenv("BAGUA_OBS_FLEET_OUT", "/tmp/fleet.json")
     run_mod.refuse_missing_modules()
 
 

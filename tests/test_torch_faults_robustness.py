@@ -267,17 +267,28 @@ def test_health_event_count_values():
 
 
 def test_health_beacon_roundtrip(tmp_path, monkeypatch):
+    from bagua_tpu_torch.obs import export as obs_export
+
     monkeypatch.delenv("BAGUA_ELASTIC_HEALTH_FILE", raising=False)
     assert mb.write_health_beacon() is False
     path = str(tmp_path / "health.json")
     monkeypatch.setenv("BAGUA_ELASTIC_HEALTH_FILE", path)
     counters.incr("grad_guard/unhealthy_steps")
+    # a process that noted no step carries no obs summary ...
+    obs_export.reset_local_summary()
     assert mb.write_health_beacon() is True
     snap = mb.file_health_source(path)()
     assert snap and snap.get("grad_unhealthy", 0) >= 1
     assert "obs" not in snap
     # the JAX package's reader takes the port's beacon as it is
     assert jmb.file_health_source(path)() == snap
+    # ... a training process carries its per-rank summary under "obs"
+    obs_export.note_step(3, 0.01)
+    assert mb.write_health_beacon() is True
+    snap = mb.file_health_source(path)()
+    assert snap["obs"]["step"] == 3
+    assert jmb.file_health_source(path)() == snap
+    obs_export.reset_local_summary()
     assert mb.file_health_source(str(tmp_path / "nope.json"))() is None
     with open(path, "w") as f:
         f.write("{torn")

@@ -26,7 +26,8 @@ def test_sources_found():
     names = {p.relative_to(REPO).as_posix() for p in SOURCES}
     assert {"chip_smoke.py", "bagua_tpu_torch/core/backend.py",
             "bagua_tpu_torch/ops/flash_attention.py", "bagua_tpu_torch/ops/gmm.py",
-            "bagua_tpu_torch/model_parallel/moe/layer.py"} <= names
+            "bagua_tpu_torch/model_parallel/moe/layer.py", "bagua_tpu_torch/obs/spans.py",
+            "bagua_tpu_torch/profiling.py", "bagua_tpu_torch/serve/engine.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -42,6 +43,9 @@ def test_import_without_jax_loads_no_bagua_tpu():
         "    sys.modules[m] = None\n"
         "import bagua_tpu_torch, bagua_tpu_torch.models.convert, "
         "bagua_tpu_torch.ops._build\n"
+        "import bagua_tpu_torch.obs, bagua_tpu_torch.obs.ledger, "
+        "bagua_tpu_torch.obs.timeline, bagua_tpu_torch.obs.attribution, "
+        "bagua_tpu_torch.obs.flops, bagua_tpu_torch.profiling, bagua_tpu_torch.serve\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'pydantic', 'bagua_tpu') and sys.modules[m]]\n"
