@@ -8,7 +8,7 @@ the JAX package's Pallas kernels rewritten by hand in CUDA for Hopper
 passes ``device="cpu"``.
 """
 
-__version__ = "0.1.0"
+from .version import __version__  # noqa: F401
 
 from . import env  # noqa: F401
 from .algorithms import (  # noqa: F401
@@ -37,9 +37,11 @@ from .communication import (  # noqa: F401
     ReduceOp,
     abort,
     allgather,
+    allgather_inplace,
     allreduce,
     allreduce_inplace,
     alltoall,
+    alltoall_inplace,
     alltoall_v,
     barrier,
     broadcast,
@@ -50,13 +52,14 @@ from .communication import (  # noqa: F401
     is_aborted,
     reduce,
     reduce_scatter,
+    reduce_scatter_inplace,
     reset_abort,
     scatter,
     send_recv,
 )
 from .core.backend import BaguaTrainer, TrainState  # noqa: F401
-from .define import TensorDeclaration, TensorDtype  # noqa: F401
-from .env import get_local_rank, get_rank, get_world_size  # noqa: F401
+from .define import BaguaHyperparameter, TensorDeclaration, TensorDtype  # noqa: F401
+from .env import get_local_rank, get_local_size, get_rank, get_world_size  # noqa: F401
 from .models.generate import decode_model, generate, generate_tp  # noqa: F401
 from .models.transformer import (  # noqa: F401
     KVCache,

@@ -12,8 +12,10 @@ codec), the chunk sizing of the overlap scheduler (:func:`ring_chunks_for`),
 communicator and the two tiers of the hierarchical collectives, the eager
 collective API (:func:`allreduce`, :func:`allgather`, ...,
 :func:`send_recv`, :func:`barrier`) and the process-wide abort flag
-(:func:`abort`, :func:`check_abort`).  NCCL carries the collectives on the
-card, gloo on the CPU.  Even at world size 1 every bucket goes through a real
+(:func:`abort`, :func:`check_abort`), and the autotune sidecar's start on
+rank 0 (:func:`start_autotune_server`) with its client
+(:func:`get_hyperparameters_service_client`).  NCCL carries the collectives
+on the card, gloo on the CPU.  Even at world size 1 every bucket goes through a real
 ``all_reduce``.
 
 The eager API takes this process's own rank's tensor and returns its own
@@ -199,6 +201,10 @@ def init_process_group(
             backend = "nccl" if device.type == "cuda" else "gloo"
         world_size = env.get_world_size() if world_size is None else world_size
         rank = env.get_rank() if rank is None else rank
+        if rank == 0 and env.get_bagua_service_port() > 0:
+            # before the rendezvous: the sidecar is listening before any
+            # rank can get past it and register its tensors
+            start_autotune_server(world_size)
         if device.type == "cuda":
             torch.cuda.set_device(env.get_local_rank() if device.index is None
                                   else device.index)
@@ -218,6 +224,78 @@ def init_process_group(
     if _BACKEND is None:
         _BACKEND = BaguaBackend(intra_size)
     return _BACKEND
+
+
+_AUTOTUNE_SERVER = None
+_AUTOTUNE_SERVER_LOCK = threading.Lock()
+
+
+def start_autotune_server(world_size: Optional[int] = None):
+    """Start the autotune sidecar on this process (reference
+    communication.py:95-104; ``bagua_tpu/communication.py:638``), on
+    ``BAGUA_SERVICE_PORT`` with the ``BAGUA_AUTOTUNE_*`` settings, and
+    return its HTTP server.
+
+    It runs on a daemon thread of the calling process, where the JAX
+    package forks a process.  A fork of a process that holds a CUDA
+    context, gloo's threads and the watchdog is not safe, and a spawned
+    process would import torch first (seconds) while the ranks register
+    at once.  The server is bound, so listening, when this returns; its
+    handlers are host-side JSON and the optimizer's arithmetic.  It lives
+    as long as the process: rank 0's exit ends it, as the JAX package's
+    daemon process ends with its parent.  Idempotent; None (with a
+    warning) where the port cannot be bound."""
+    global _AUTOTUNE_SERVER
+    with _AUTOTUNE_SERVER_LOCK:
+        if _AUTOTUNE_SERVER is not None:
+            return _AUTOTUNE_SERVER
+        from .service.autotune_service import AutotuneService, make_server
+
+        service = AutotuneService(
+            world_size=env.get_world_size() if world_size is None else world_size,
+            autotune_level=env.get_autotune_level(),
+            max_samples=env.get_autotune_max_samples(),
+            sampling_confidence_time_s=env.get_autotune_sampling_confidence_time_s(),
+            warmup_time_s=env.get_autotune_warmup_time_s(),
+            is_output_autotune_log=env.is_output_autotune_log(),
+            default_bucket_size=env.get_default_bucket_size(),
+            tune_algorithm=env.is_autotune_algorithm_on(),
+        )
+        try:
+            server = make_server(env.get_bagua_service_port(), service)
+        except OSError as e:
+            # as the JAX package's child process fails alone: the run goes
+            # on, and its trainers talk to whatever listens on the port
+            logger.warning("autotune service not started on :%d: %s",
+                           env.get_bagua_service_port(), e)
+            return None
+        server.daemon_threads = True
+        threading.Thread(target=server.serve_forever, name="bagua-autotune-service",
+                         daemon=True).start()
+        logger.info("autotune service listening on :%d", server.server_address[1])
+        _AUTOTUNE_SERVER = server
+        return server
+
+
+def stop_autotune_server() -> None:
+    """Shut the sidecar started by :func:`start_autotune_server` down (a
+    later start brings up a new one)."""
+    global _AUTOTUNE_SERVER
+    with _AUTOTUNE_SERVER_LOCK:
+        server, _AUTOTUNE_SERVER = _AUTOTUNE_SERVER, None
+    if server is not None:
+        server.shutdown()
+        server.server_close()
+
+
+@functools.lru_cache(maxsize=None)
+def get_hyperparameters_service_client():
+    """The autotune service's client, at ``MASTER_ADDR`` (default
+    127.0.0.1) and ``BAGUA_SERVICE_PORT`` (``bagua_tpu/communication.py:667``)."""
+    from .service.autotune_service import AutotuneClient
+
+    return AutotuneClient(os.environ.get("MASTER_ADDR", "127.0.0.1"),
+                          env.get_bagua_service_port())
 
 
 class _HostBuffers:
@@ -922,6 +1000,13 @@ def alltoall(send: torch.Tensor, comm: Optional[BaguaCommunicator] = None) -> to
         raise ValueError(f"alltoall: dim 0 of {tuple(send.shape)} does not split over {n} ranks")
     blocks = send.reshape((n, send.shape[0] // n) + tuple(send.shape[1:]))
     return c.alltoall(blocks).reshape(send.shape)
+
+
+#: in-place names of the JAX package's eager API (``communication.py:883,
+#: 892, 900``): there they are the same functions, and so here
+allgather_inplace = allgather
+reduce_scatter_inplace = reduce_scatter
+alltoall_inplace = alltoall
 
 
 @_watch_eager

@@ -66,6 +66,9 @@ class RingCodec:
     #: True for the codecs that converge only with the per-bucket
     #: error-feedback residual (the algorithm engages it)
     error_feedback: bool = False
+    #: True when the payload is not one element a chunk element (bit-packed
+    #: or sparse): decode needs ``m``, and bytes go through ``wire_bytes``
+    variable_payload: bool = False
     #: True for codecs whose wire format follows an env knob:
     #: :func:`get_codec` builds them afresh on every lookup
     env_tuned: bool = False
@@ -79,6 +82,12 @@ class RingCodec:
     def wire_bytes(self, numel: int) -> int:
         """Wire bytes of ONE encoded chunk of ``numel`` elements."""
         return int(numel) * self.payload_itemsize + 4 * self.sidecar_floats
+
+    def payload_numel(self, numel: int) -> int:
+        """Elements of the payload tensor of an ``numel``-element chunk: one
+        a chunk element for the uniform codecs; the bit-packed and sparse
+        ones override."""
+        return int(numel)
 
     def __repr__(self) -> str:
         return f"<RingCodec {self.name}>"
@@ -151,6 +160,7 @@ class OneBitEfCodec(RingCodec):
     name = "onebit_ef"
     sidecar_floats = 1
     error_feedback = True
+    variable_payload = True
 
     def encode(self, x2d):
         return sign_compress_chunked(x2d.reshape(-1), x2d.shape[0])
@@ -164,6 +174,10 @@ class OneBitEfCodec(RingCodec):
     def wire_bytes(self, numel: int) -> int:
         return sign_payload_bytes(numel) + 4 * self.sidecar_floats
 
+    def payload_numel(self, numel: int) -> int:
+        # the planar-packed u8 bytes of one chunk
+        return sign_payload_bytes(int(numel))
+
 
 class TopKCodec(RingCodec):
     """Top-k sparsification: parts ``(int32 indices, f32 values)`` of the
@@ -176,6 +190,7 @@ class TopKCodec(RingCodec):
     name = "topk"
     payload_itemsize = 4
     error_feedback = True
+    variable_payload = True
     env_tuned = True
 
     def __init__(self):
@@ -205,6 +220,10 @@ class TopKCodec(RingCodec):
     def wire_bytes(self, numel: int) -> int:
         return 8 * self.k_for(numel)   # an int32 index and an f32 value each
 
+    def payload_numel(self, numel: int) -> int:
+        # each of the two parts carries k_for(m) elements a row
+        return self.k_for(numel)
+
 
 CODECS: Dict[str, RingCodec] = {
     c.name: c
@@ -217,6 +236,11 @@ CODECS: Dict[str, RingCodec] = {
         TopKCodec(),
     )
 }
+
+#: the autopilot's compress_dcn escalation ladder: each sustained
+#: DCN-dominance verdict climbs one rung — 8-bit first (cheap, stateless),
+#: fp8 next, then the stateful 1-bit and sparse codecs
+CODEC_LADDER = ("minmax_uint8", "fp8_e4m3", "onebit_ef", "topk")
 
 #: codec-policy knob values beyond the codec names: ``off`` forces full
 #: precision on the tier, ``auto`` defers to the algorithm family

@@ -84,6 +84,17 @@ key names a compiled program; here it is the plan, the algorithm's phase
 and the layout, and the first step of each key is the ``step/build``
 window that the ledger books as ``compile`` (it builds the kernels, imports
 ``torch._dynamo`` at the first optimizer and autotunes cuBLAS).
+
+Autotune (``autotune``, ``model_name``; ``backend.py:2505-3160``): the
+trainer registers its plan's tensors with the autotune service at
+:meth:`BaguaTrainer.init` and applies the first recommendation before the
+state is built; every 100th step it reports its windowed speed, goodput
+window and perf hints and applies the round's recommendation (the service
+gives every rank the same one).  A rebucket, a family switch (QAdam's
+optimizer-ownership migration, async's catch-up average on the way out), a
+codec flip (the error-feedback residual added or dropped), a flat-residency
+flip or an overlap change each queue a migration that the same step applies
+before it runs; the context is rebuilt from the knobs.
 """
 
 from __future__ import annotations
@@ -123,6 +134,7 @@ from ..parallel.mesh import Mesh, get_global_mesh_if_set
 from ..profiling import StepProfiler
 from ..telemetry import counters
 from ..tensor import build_params
+from ..utils import StatisticalAverage
 
 logger = logging.getLogger(__name__)
 
@@ -336,6 +348,22 @@ class BaguaTrainer:
         pp_param_dim: ``name -> dim`` of the stage stacking (0 for the
             pipeline's ``blocks`` leaves); default
             ``parallel.pipeline.pp_param_dim``.
+        model_name: the autotune service's task this trainer reports to.
+        autotune: check in with the autotune service (default: env
+            ``BAGUA_AUTOTUNE`` >= 1; refused, with a warning, for a family
+            whose optimizer state is sharded per bucket).  The trainer
+            registers its tensors at :meth:`init` (with its capabilities,
+            unless ``BAGUA_AUTOTUNE_SPACE=legacy``) and applies the
+            service's first recommendation there; then every 100th step
+            (``autotune_checkin_steps``) it reports its windowed speed
+            (samples a second of the batches' dim 0, or
+            :meth:`record_speed`'s counts) with its goodput
+            window and the anomaly detector's perf hints, and applies the
+            recommendation: a rebucket, a family switch, the codec, overlap
+            and flat-resident knobs, each state migration queued for the
+            step (:meth:`_apply_recommendation`).  Three failed check-ins
+            in a row turn it off.  ``autotune_checkins`` keeps each
+            check-in's speed, times and resulting bucket count.
     """
 
     def __init__(
@@ -365,6 +393,8 @@ class BaguaTrainer:
         tp_param_dim: Optional[Callable[[str], Optional[int]]] = None,
         pp_axis: Optional[str] = None,
         pp_param_dim: Optional[Callable[[str], Optional[int]]] = None,
+        model_name: str = "bagua_module",
+        autotune: Optional[bool] = None,
     ):
         self.loss_fn = loss_fn
         self.optimizer_factory = optimizer_factory
@@ -473,7 +503,53 @@ class BaguaTrainer:
 
         timeout = get_comm_timeout_s()
         self._watchdog = get_global_watchdog(timeout) if timeout else None
+        self._init_autotune(model_name, autotune)
         self._init_obs()
+
+    def _init_autotune(self, model_name: str, autotune: Optional[bool]) -> None:
+        """The autotune check-in's state (``backend.py:487-536``)."""
+        self.model_name = model_name
+        # the user's configured instances by family name, so that a switch
+        # back to one of them restores their settings
+        name = getattr(self.algorithm, "name", None)
+        self._user_algorithms = {name: self.algorithm} if name else {}
+        self.autotune = env.get_autotune_level() >= 1 if autotune is None else bool(autotune)
+        if self.autotune and self.algorithm.sharded_opt_state:
+            # a rebucket would orphan the per-bucket chunk states
+            logger.warning("autotune disabled: %s shards optimizer state per bucket, which "
+                           "autotune rebucketing would invalidate",
+                           type(self.algorithm).__name__)
+            self.autotune = False
+        self._autotune_client = None
+        #: steps between check-ins: the JAX package's 100; a harness that
+        #: must see a decision in fewer steps sets it on the instance
+        self.autotune_checkin_steps = 100
+        self._autotune_failures = 0
+        self._autotune_completed = not self.autotune
+        #: the goodput ledger's cumulative classes at the last check-in
+        self._autotune_ledger_prev = None
+        self._telemetry_reported = False
+        #: each check-in: its step, the speed reported, the ms of the
+        #: synchronization, the report, the ask and the apply, and the
+        #: buckets after it
+        self.autotune_checkins: List[dict] = []
+        #: a torch optimizer displaced by a switch to a family that owns its
+        #: optimizer (QAdam): its state tree, layout and plan, for the way back
+        self._stashed_opt_state = None
+        #: whether init() has laid the state out: before, a flat_resident
+        #: recommendation sets the mode; after, it queues a live migration
+        self._flat_layout_live = False
+        #: the plan the state is laid out under right now (behind
+        #: ``self.plan`` between a rebucket and its migration)
+        self._live_plan: Optional[BucketPlan] = None
+        #: the throughput tracker behind the reported speed
+        self._speed_tracker = StatisticalAverage()
+        now = time.time()
+        self._last_report_time = now
+        self._last_speed_time = now
+        self._prev_speed_time = now
+        self._manual_speed = False
+        self._skip_next_speed_sample = True
 
     def _init_obs(self) -> None:
         """The observability plane's state (``backend.py:560-618``),
@@ -505,10 +581,15 @@ class BaguaTrainer:
         self.anomaly_detector = None
         if self._obs_enabled:
             from ..obs import export as _obs_export
+            from ..obs import http as _obs_http
             from ..obs import ledger as _obs_ledger
             from ..obs import recorder as _obs_recorder
 
             _obs_export.maybe_start_global_exporter(self)
+            # the per-process HTTP status plane (off unless
+            # BAGUA_OBS_HTTP_PORT is set; the launcher offsets each worker's
+            # port): /metrics serves the exporter's prepared snapshot
+            _obs_http.maybe_start_global_http_server()
             _obs_recorder.maybe_install_signal_hook()
             self._ledger = _obs_ledger.install()
             self._peak_flops = _obs_ledger.peak_flops_for_device_kind(self._device_kind)
@@ -885,8 +966,18 @@ class BaguaTrainer:
         decls = [p.declaration() for p in named]
         plan = algo.tensors_to_buckets(
             split_bucket_by_bucket_size(decls, self.bucket_bytes), named, self.world_size)
+        self._flat_layout_live = False
+        if self.autotune and not self._autotune_completed:
+            # the service's first recommendation lands before the state is
+            # built, which is then built in its plan, family and layout: no
+            # migration (``backend.py:1051-1055``)
+            self._ctx = self._make_ctx(plan, False)
+            self._autotune_register_tensors()
+            self._pending_state_migration = None
+            algo, plan = self.algorithm, self._ctx.plan
         self._flat_resident = self._resolve_flat_resident()
         self._ctx = self._make_ctx(plan, self._overlap_active())
+        self._live_plan = plan
         if self._flat_resident:
             with torch.no_grad():
                 self._lay_out(plan, plan.flatten(self._params))
@@ -894,13 +985,11 @@ class BaguaTrainer:
             handle.remove()
         self._overlap_hooks = []
         if self._ctx.overlap:
-            self._overlap_hooks = [
-                p.register_post_accumulate_grad_hook(
-                    functools.partial(_grad_accumulated, weakref.ref(self), name))
-                for name, p in self._params.items() if name not in local]
+            self._install_overlap_hooks()
         params = self._stage_params()
         with torch.no_grad():
             algo_state = algo.init_state(self._ctx, params)
+        self._flat_layout_live = True
         if algo.owns_optimizer:
             opt_state = (algo.init_optimizer_state_sharded(self._ctx, params)
                          if algo.sharded_opt_state else algo.init_optimizer_state(params))
@@ -909,6 +998,15 @@ class BaguaTrainer:
                             else self.optimizer_factory)
         optimizer = self.opt_factory(list(params) if self._flat_resident else model.parameters())
         return TrainState(0, model, optimizer, algo_state)
+
+    def _install_overlap_hooks(self) -> None:
+        """The overlap scheduler's hook on every plan parameter, run after
+        autograd accumulated its gradient (:func:`_grad_accumulated`)."""
+        local = set(self._local_names())
+        self._overlap_hooks = [
+            p.register_post_accumulate_grad_hook(
+                functools.partial(_grad_accumulated, weakref.ref(self), name))
+            for name, p in self._params.items() if name not in local]
 
     def shard_batch(self, local_batch: Mapping, global_batch: bool = False) -> dict:
         """This rank's batch on the trainer's device.  Each rank feeds its
@@ -977,8 +1075,10 @@ class BaguaTrainer:
             self._grad_flats = [None] * len(self._grad_flats)
         loss = None
         mbs = self._microbatches(batch)
+        # the readiness rebucket is skipped under autotune: the service's
+        # recommendations own the bucket order there (``backend.py:2102-2115``)
         observe = (self._ctx.overlap and not self._overlap_ordered
-                   and not self.algorithm.sharded_opt_state)
+                   and not self.algorithm.sharded_opt_state and not self.autotune)
         counter = self._flop_counter
         for k, mb in enumerate(mbs):
             if counter is not None:
@@ -1270,6 +1370,15 @@ class BaguaTrainer:
             closed = self._profiler.consume_closed_dir()
             if closed:
                 self._note_device_attribution(closed)
+        if self.autotune and not self._autotune_completed:
+            # the check-in every 100 steps (``backend.py:2088-2099``), before
+            # the queued migrations so that what it recommends applies to
+            # this step
+            if self._step_counter % self.autotune_checkin_steps == 0:
+                self._autotune_step(state)
+            if (self.autotune and not self._autotune_completed and not self._telemetry_reported
+                    and env.get_autotune_level() >= 2):
+                self._report_tensor_execution_order(state, batch)
         if self._pending_state_migration is not None:
             # a rebucket's migration, applied before the step consumes it;
             # the span feeds the ledger's state_migration class
@@ -1277,6 +1386,7 @@ class BaguaTrainer:
                 state = self._pending_state_migration(state)
             self._pending_state_migration = None
             self._anomaly_skip_window = True
+            self._skip_next_speed_sample = True
             if self._ledger_window_class is None:
                 self._ledger_window_class = "state_migration"
         algo, ctx = self.algorithm, self._ctx
@@ -1297,12 +1407,14 @@ class BaguaTrainer:
         # it runs as any step, but its window is the ledger's compile
         # class, the anomaly detector skips it, and its forward's model
         # flops become the MFU numerator of the key
-        key = (ctx.plan, self._phase)
+        key = (ctx.plan, self._phase, type(algo), ctx.intra_codec, ctx.inter_codec,
+               ctx.overlap, ctx.flat_resident)
         build = (self._step_key is None or key[0] is not self._step_key[0]
-                 or key[1] != self._step_key[1])
+                 or key[1:] != self._step_key[1:])
         if build:
             self._step_key = key
             self._anomaly_skip_window = True
+            self._skip_next_speed_sample = True
             self._ledger_window_class = "compile"
         counter = (_obs_flops.StepFlopCounter(state.model)
                    if build and self._obs_enabled else None)
@@ -1340,6 +1452,7 @@ class BaguaTrainer:
                 from ..elastic.membership import write_health_beacon
 
                 write_health_beacon()
+        self._auto_record_speed(batch)
         return new_state, loss
 
     def _run_step(self, state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
@@ -1693,6 +1806,7 @@ class BaguaTrainer:
                 opt_state = _relayout_container(opt_state, old_plan, new_plan)
             algo_state = self.algorithm.relayout_algo_state(old_plan, new_plan,
                                                             state.algo_state)
+            self._live_plan = new_plan
             return dataclasses.replace(state, opt_state=opt_state, algo_state=algo_state)
 
         return migrate
@@ -1709,6 +1823,587 @@ class BaguaTrainer:
         opt.param_groups[0]["params"] = list(self._flats)
         load_optimizer_state_tree(opt, self._convert_optimizer(tree, "flat", old_plan),
                                   self._param_keys())
+
+    # ---- autotune: the trainer's half (``backend.py:2505-3160``) ---------
+
+    def _report_tensor_execution_order(self, state: TrainState, batch) -> None:
+        """Send the service the gradient-readiness order of one backward
+        (the reference's tensor_ready spans), once, at level >= 2
+        (``backend.py:2510``)."""
+        self._telemetry_reported = True
+        try:
+            from ..communication import get_hyperparameters_service_client
+            from ..telemetry import profile_tensor_execution_order
+
+            spans = profile_tensor_execution_order(self.loss_fn, state.model, batch)
+            if self._autotune_client is None:
+                self._autotune_client = get_hyperparameters_service_client()
+            self._autotune_client.report_tensor_execution_order(spans,
+                                                                model_name=self.model_name)
+            logger.info("telemetry: reported execution order for %d tensors", len(spans))
+        except Exception as e:  # telemetry must never take down training
+            logger.warning("telemetry report failed: %s", e)
+
+    def _autotune_register_tensors(self) -> None:
+        """Declare the plan's tensors (and the capabilities) to the service
+        and apply its first recommendation (``backend.py:2535``); a failure
+        turns autotune off with a warning."""
+        from ..communication import get_hyperparameters_service_client
+        from ..define import BaguaHyperparameter
+
+        try:
+            if self._autotune_client is None:
+                self._autotune_client = get_hyperparameters_service_client()
+            rsp = self._autotune_client.register_tensors(
+                model_name=self.model_name,
+                tensor_list=[p.declaration().model_dump() for p in self._named_params],
+                capabilities=self._autotune_capabilities())
+            self._apply_recommendation(
+                BaguaHyperparameter(**rsp.get("recommended_hyperparameters", {})))
+        except Exception as e:  # autotune must never take down training
+            logger.warning("autotune register_tensors failed: %s", e)
+            self.autotune = False
+
+    def _switch_refused(self, proto: Algorithm, live: bool) -> Optional[str]:
+        """Why this trainer cannot switch to ``proto``'s family, or None
+        (``backend.py:2820-2868``; ``live`` adds the checks that depend on
+        the current layout)."""
+        algo = self.algorithm
+        if algo.owns_optimizer and not proto.owns_optimizer and self.optimizer_factory is None:
+            return "without a trainer optimizer"
+        if live and self._flat_resident and not proto.supports_flat_resident:
+            return "flat-resident state needs a supports_flat_resident family"
+        if proto.replicated_params != algo.replicated_params:
+            if algo.owns_optimizer or proto.owns_optimizer:
+                return ("a replication-boundary switch cannot also cross the "
+                        "optimizer-ownership boundary")
+            if self.expert_axis is not None or self._shard_axis is not None \
+                    or self.seq_axis is not None:
+                return "replication-boundary switches need a pure data-parallel mesh"
+        return None
+
+    def _family(self, name: str) -> Algorithm:
+        """The user's instance of family ``name``, else a new one."""
+        from ..algorithms import SWITCHABLE_ALGORITHMS
+
+        return self._user_algorithms.get(name) or SWITCHABLE_ALGORITHMS[name](False)
+
+    def _autotune_capabilities(self) -> Optional[dict]:
+        """What this trainer's mesh, family and layout make legal, sent once
+        at registration so the service builds the v2 knob space of exactly
+        the knobs it can apply (``backend.py:2559``); None keeps the legacy
+        two-knob space (``BAGUA_AUTOTUNE_SPACE=legacy``)."""
+        if env.get_autotune_space() == "legacy":
+            return None
+        from ..algorithms import SWITCHABLE_ALGORITHMS
+
+        current = getattr(self.algorithm, "name", None) or ""
+        families: list = []
+        flat_families: list = []
+        if current in SWITCHABLE_ALGORITHMS:
+            for name in SWITCHABLE_ALGORITHMS:
+                proto = self._family(name)
+                if name != current and self._switch_refused(proto, False):
+                    continue
+                families.append(name)
+                if proto.supports_flat_resident:
+                    flat_families.append(name)
+        algo, factory = self.algorithm, self.optimizer_factory
+        flat_ok = (self._flat_supported() and algo.replicated_params
+                   and not algo.owns_optimizer and not algo.sharded_opt_state
+                   and factory is not None and getattr(factory, "fused_inner", None) is None
+                   and _optimizer_flattens_safely(factory))
+        return {"space": "v2", "two_tier": bool(self._ctx.two_tier()),
+                "ef_ok": bool(self._ef_enabled), "flat_ok": bool(flat_ok),
+                "families": families, "flat_families": flat_families,
+                "current_algorithm": current}
+
+    def _refresh_ctx(self) -> None:
+        """Rebuild the algorithm context over the current plan from the
+        knobs (codecs, overlap, chunk targets, layout), as the JAX package's
+        step key re-jits; the overlap hooks are installed when the
+        scheduler turns on."""
+        self._ctx = self._make_ctx(self._ctx.plan, self._overlap_active())
+        if self._ctx.overlap and not self._overlap_hooks:
+            self._install_overlap_hooks()
+
+    def _apply_recommendation(self, recommended) -> None:
+        """Apply the service's recommendation (``backend.py:2617``): a
+        family switch, the overlap knobs, the codec policy, the buckets
+        (:meth:`rebucket`), flat residency and the hierarchical toggle,
+        then the error-feedback residual's migration where the knobs
+        flipped whether it is carried.  Every state change is a migration
+        queued for the next :meth:`train_step`, before its step runs."""
+        from ..compression.codecs import validate_codec_policy
+
+        ef_was = self._ef_active()
+        self._maybe_switch_algorithm(recommended)
+        if recommended.overlap in ("auto", "on", "off"):
+            self.overlap = recommended.overlap
+        for attr in ("overlap_chunk_bytes", "overlap_chunk_bytes_intra",
+                     "overlap_chunk_bytes_inter"):
+            value = getattr(recommended, attr)
+            if value:
+                setattr(self, attr, int(value))
+        # the codec policy ("" = keep current): the autopilot's compress_dcn
+        # hint reaches compress_inter here, on every rank at the same step
+        for attr in ("compress_intra", "compress_inter"):
+            value = getattr(recommended, attr, "")
+            if value:
+                try:
+                    setattr(self, attr, validate_codec_policy(value, attr))
+                except ValueError as e:
+                    logger.warning("autotune recommendation ignored: %s", e)
+        if recommended.buckets:
+            names = {p.name for p in self._named_params}
+            decl_buckets = [[d for d in bucket if d.name in names]
+                            for bucket in recommended.buckets]
+            decl_buckets = [b for b in decl_buckets if b]
+            if decl_buckets:
+                self.rebucket(decl_buckets)
+                self.bucket_bytes = recommended.bucket_size
+        # after any rebucket: the layout conversion runs under the plan the
+        # step will run (migrations apply in queue order)
+        if getattr(recommended, "flat_resident", ""):
+            self._apply_flat_resident(recommended.flat_resident)
+        # the hierarchical toggle only where the two tiers exist; never for
+        # a sharded-state family, whose staged form changes its state layout
+        if self._ctx.two_tier() and not self.algorithm.sharded_opt_state:
+            self.algorithm.hierarchical = bool(recommended.is_hierarchical_reduce)
+        self._refresh_ctx()
+        self._sync_ef_state(ef_was)
+
+    def _sync_ef_state(self, was_active: bool) -> None:
+        """Queue a migration where a knob flipped whether the error-feedback
+        residual is carried (``backend.py:935``): newly active starts from
+        zero residuals, one f32 flat a bucket; newly inactive drops it."""
+        now = self._ef_active()
+        if now == was_active:
+            return
+        if now:
+            @torch.no_grad()
+            def add_ef(state: TrainState) -> TrainState:
+                a = state.algo_state
+                if isinstance(a, dict) and "ef" in a:
+                    return state   # already carried (an idempotent re-queue)
+                logger.info("error-feedback residual enabled (codec policy flip): starting "
+                            "from zero residuals for %d buckets", len(self.plan.buckets))
+                return dataclasses.replace(
+                    state, algo_state=self.algorithm.ef_init_state(self._ctx, a))
+
+            self._queue_state_migration(add_ef)
+        else:
+            def drop_ef(state: TrainState) -> TrainState:
+                a = state.algo_state
+                if not (isinstance(a, dict) and "ef" in a):
+                    return state
+                logger.info("error-feedback residual disabled (codec policy flip): dropping "
+                            "the accumulated residual")
+                rest = {k: v for k, v in a.items() if k != "ef"}
+                return dataclasses.replace(state, algo_state=rest or None)
+
+            self._queue_state_migration(drop_ef)
+
+    def _apply_flat_resident(self, want: str) -> None:
+        """Apply a ``flat_resident`` recommendation (``"on"``/``"off"``,
+        ``backend.py:2682``).  Before :meth:`init` lays the state out it
+        sets the mode; after, it queues a live leaf <-> flat migration of
+        the parameters and the optimizer's state under the current plan
+        (the conversion a restore across layouts makes), so no training
+        math changes.  Refused, with a log line, for families whose state
+        does not mirror replicated parameters, a fused-wrapper optimizer,
+        and where the resident layout cannot hold the configuration."""
+        if want not in ("on", "off"):
+            return
+        algo, factory = self.algorithm, self.optimizer_factory
+        if not self._flat_layout_live:
+            if want == "off" or (self._flat_supported() and not algo.owns_optimizer
+                                 and not algo.sharded_opt_state
+                                 and _optimizer_flattens_safely(self._flat_opt_factory())):
+                self.flat_resident = want
+            else:
+                logger.info("autotune: flat_resident=%s not supported by this configuration; "
+                            "keeping mode %r", want, self.flat_resident)
+            return
+        want_on = want == "on"
+        if want_on == self._flat_resident:
+            return
+        if algo.owns_optimizer or algo.sharded_opt_state or not algo.replicated_params:
+            logger.info("autotune: live flat_resident=%s ignored — %s state is not "
+                        "param-mirrored replicated", want, type(algo).__name__)
+            return
+        if getattr(factory, "fused_inner", None) is not None:
+            logger.info("autotune: live flat_resident flip ignored — fused-wrapper optimizer "
+                        "state is not convertible in place")
+            return
+        if want_on and not (self._flat_supported() and factory is not None
+                            and _optimizer_flattens_safely(factory)):
+            logger.info("autotune: flat_resident=on refused — layout unsupported or optimizer "
+                        "does not commute with flattening")
+            return
+        self._queue_state_migration(self._make_layout_migration(want_on))
+        logger.info("autotune: flat_resident -> %s (migration queued)", want)
+
+    def _make_layout_migration(self, want_on: bool):
+        """The live leaf <-> flat conversion, run at the next step under the
+        plan then current: the parameters (views of new flats, or storage
+        of their own again), the torch optimizer rebuilt over them with its
+        state converted by parameter name, and the context."""
+        @torch.no_grad()
+        def migrate(state: TrainState) -> TrainState:
+            if want_on == self._flat_resident:
+                return state
+            plan, opt = self.plan, state.optimizer
+            tree = optimizer_state_tree(opt, self._param_keys()) if opt is not None else None
+            old_layout, old_plan = ("flat" if self._flat_resident else "leaf"), self._live_plan
+            if want_on:
+                logger.info("autotune: relaying state leaf -> bucket-flat")
+                self._flat_resident = True
+                self._lay_out(plan, plan.flatten(self._params))
+            else:
+                logger.info("autotune: relaying state bucket-flat -> leaf")
+                for handle in self._grad_hooks:
+                    handle.remove()
+                self._grad_hooks = []
+                for p in self._params.values():
+                    p.data = p.data.clone()
+                    p.grad = None
+                self._flats, self._grad_flats = None, None
+                self._flat_resident = False
+            self._live_plan = plan
+            self.opt_factory = self._flat_opt_factory() if want_on else self.optimizer_factory
+            new_opt = None
+            if opt is not None:
+                new_opt = self.opt_factory(list(self._flats) if want_on
+                                           else state.model.parameters())
+                load_optimizer_state_tree(
+                    new_opt, self._convert_optimizer(tree, old_layout, old_plan, plan),
+                    self._param_keys())
+            self._refresh_ctx()
+            return dataclasses.replace(state, optimizer=new_opt)
+
+        return migrate
+
+    def _maybe_switch_algorithm(self, recommended) -> None:
+        """Swap the algorithm family where the recommendation names another
+        switchable one (``backend.py:2802``): the user's own instance when
+        it is theirs, else a new one; the state migrations across the
+        optimizer-ownership and replication boundaries are queued, and the
+        plan is rebuilt under the new family's alignment."""
+        from ..algorithms import SWITCHABLE_ALGORITHMS
+
+        target = recommended.algorithm
+        current = getattr(self.algorithm, "name", None)
+        if (not target or target == current or current not in SWITCHABLE_ALGORITHMS
+                or target not in SWITCHABLE_ALGORITHMS):
+            return
+        old = self.algorithm
+        proto = self._family(target)
+        why = self._switch_refused(proto, True)
+        if why is not None:
+            logger.info("autotune: cannot switch %s -> %s — %s", current, target, why)
+            return
+        logger.info("autotune: switching algorithm %s -> %s", current, target)
+        if target in self._user_algorithms:
+            self.algorithm = proto
+            self.algorithm.hierarchical = bool(recommended.is_hierarchical_reduce)
+        else:
+            self.algorithm = SWITCHABLE_ALGORITHMS[target](
+                bool(recommended.is_hierarchical_reduce))
+        if hasattr(old, "reset_schedule"):
+            # leaving a scheduled family: its round in flight is dropped
+            old.reset_schedule()
+        if hasattr(self.algorithm, "reset_schedule"):
+            # (re-)entering one: the period calibrates against the current
+            # cadence, and no stale round survives a previous stint
+            self.algorithm.reset_schedule()
+        if not recommended.buckets:
+            # the plan under the new family's alignment (ByteGrad and QAdam
+            # pad buckets to the world); a recommendation with buckets of
+            # its own rebuckets after this
+            self.rebucket([[t.declaration() for t in b.tensors] for b in self.plan.buckets])
+        self._prepare_state_migration(old, self.algorithm)
+        self._prepare_replication_migration(old, self.algorithm)
+        new = self.algorithm
+
+        @torch.no_grad()
+        def enter(state: TrainState) -> TrainState:
+            # the new family's own state (async model average's groups,
+            # collective on every rank at this same step); a residual the
+            # old family carried stays, and _sync_ef_state adds or drops it
+            fresh = new.init_state(self._ctx, self._stage_params())
+            a = state.algo_state
+            keep = a is None or (isinstance(a, dict) and set(a) <= {"ef"})
+            return dataclasses.replace(state, algo_state=a if keep else fresh)
+
+        self._queue_state_migration(enter)
+
+    def _prepare_state_migration(self, old: Algorithm, new: Algorithm) -> None:
+        """Queue the optimizer-state migration of a switch across the
+        trainer-optimizer / owned-optimizer boundary (allreduce | bytegrad
+        <-> QAdam, ``backend.py:2900``).  Into QAdam its momenta are adopted
+        from a torch Adam-family optimizer's ``exp_avg`` and ``exp_avg_sq``
+        (else zeros) and its warmup is re-anchored at the switch step; the
+        displaced optimizer's state is stashed by parameter and restored on
+        the way back, into an optimizer built over the live parameters.
+        Queued after the switch's rebucket, so it runs on the plan the step
+        will run."""
+        if old.owns_optimizer == new.owns_optimizer:
+            return
+        from ..algorithms.q_adam import QAdamAlgorithm, QAdamOptState
+
+        if new.owns_optimizer:
+            assert isinstance(new, QAdamAlgorithm), type(new)
+            # re-anchor warmup at the switch, from the family's RELATIVE
+            # warmup, so repeated round trips do not compound the anchor
+            if not hasattr(new, "_base_warmup"):
+                new._base_warmup = new.warmup_steps
+            new._compressed = False
+            new.warmup_steps = self._step_counter + new._base_warmup
+
+            @torch.no_grad()
+            def to_owned(state: TrainState) -> TrainState:
+                opt = state.optimizer
+                params = self._stage_params()
+                keyed = (dict(enumerate(params)) if self._flat_resident else params)
+                moments = None
+                if opt is not None:
+                    self._stashed_opt_state = (
+                        copy_tree(optimizer_state_tree(opt, self._param_keys())),
+                        "flat" if self._flat_resident else "leaf", self._live_plan)
+                    sts = {k: opt.state.get(p, {}) for k, p in keyed.items()}
+                    if all("exp_avg" in s and "exp_avg_sq" in s for s in sts.values()):
+                        moments = tuple(
+                            {k: s[m].detach().clone() for k, s in sts.items()}
+                            for m in ("exp_avg", "exp_avg_sq"))
+                fresh = new.init_optimizer_state(params)
+                if moments is not None:
+                    if self._flat_resident:
+                        moments = tuple(tuple(d[i] for i in range(len(params))) for d in moments)
+                    fresh = QAdamOptState(exp_avg=moments[0], exp_avg_sq=moments[1])
+                self.opt_factory = None
+                return dataclasses.replace(state, optimizer=None, opt_state=fresh)
+
+            self._queue_state_migration(to_owned)
+        else:
+            @torch.no_grad()
+            def from_owned(state: TrainState) -> TrainState:
+                self.opt_factory = (self._flat_opt_factory() if self._flat_resident
+                                    else self.optimizer_factory)
+                opt = self.opt_factory(list(self._flats) if self._flat_resident
+                                       else state.model.parameters())
+                stashed, self._stashed_opt_state = self._stashed_opt_state, None
+                if stashed is not None:
+                    tree, layout, plan = stashed
+                    load_optimizer_state_tree(
+                        opt, self._convert_optimizer(tree, layout, plan, self._live_plan),
+                        self._param_keys())
+                return dataclasses.replace(state, optimizer=opt, opt_state=None)
+
+            self._queue_state_migration(from_owned)
+
+    def _prepare_replication_migration(self, old: Algorithm, new: Algorithm) -> None:
+        """Queue the migration of a switch across the replication boundary
+        (allreduce | bytegrad <-> async model average,
+        ``backend.py:2953-3020``).  The JAX package stacks the replicated
+        state into one row a rank on the way in and collapses the rows on
+        the way out.  Here every rank holds its own weights in either
+        family, so the way in moves nothing; the way out is one
+        synchronous catch-up average of the weights and the optimizer's
+        floating state over the ranks (MAX for its step counts and for
+        integers, an exact consensus), the semantics of one catch-up sync."""
+        if old.replicated_params == new.replicated_params or new.replicated_params is False:
+            return
+        comm = self.comm
+
+        @torch.no_grad()
+        def collapse(state: TrainState) -> TrainState:
+            logger.info("replication migration: per-rank replicas -> replicated via "
+                        "catch-up average (%s)", type(new).__name__)
+            for p in self._params.values():
+                comm.allreduce(p.data, ReduceOp.AVG)
+            opt = state.optimizer
+            if opt is not None:
+                for st in opt.state.values():
+                    for k, v in st.items():
+                        if not torch.is_tensor(v):
+                            continue
+                        exact = k == "step" or not v.is_floating_point()
+                        comm.allreduce(v, ReduceOp.MAX if exact else ReduceOp.AVG)
+            return state
+
+        self._queue_state_migration(collapse)
+
+    def _autotune_step(self, state: TrainState) -> None:
+        """The check-in (``backend.py:3022``): the windowed speed and
+        goodput window with the anomaly detector's perf hints reported, the
+        round's recommendation asked for and applied.  Hints are put back
+        when the report fails; three failures in a row turn autotune off.
+
+        The card's queue can run ahead of the host, so the check-in first
+        synchronizes once, and the wait joins the window as time with no
+        samples: the window's rate counts only finished work.  No other
+        step synchronizes."""
+        from ..communication import get_hyperparameters_service_client
+        from ..define import BaguaHyperparameter
+        from ..obs import anomaly as _obs_anomaly
+
+        rank = env.get_rank()
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if not self._manual_speed and not self._skip_next_speed_sample:
+            self._speed_tracker.record(0.0)
+            self._last_speed_time = time.time()
+        t_sync = time.monotonic()
+        now = time.time()
+        speed = self._speed_tracker.get(now - self._last_report_time)
+        self._last_report_time = now
+        hints = _obs_anomaly.drain_perf_hints()
+        delivered = False
+        try:
+            if self._autotune_client is None:
+                self._autotune_client = get_hyperparameters_service_client()
+            client = self._autotune_client
+            client.report_metrics(
+                model_name=self.model_name, rank=rank, train_iter=self._step_counter,
+                hyperparameters=self._current_hyperparameters().model_dump(), speed=speed,
+                perf_hints=hints or None, obs=self._autotune_obs_window())
+            delivered = True
+            t_report = time.monotonic()
+            rsp = client.ask_hyperparameters(model_name=self.model_name, rank=rank,
+                                             train_iter=self._step_counter)
+            t_ask = time.monotonic()
+            recommended = BaguaHyperparameter(**rsp["recommended_hyperparameters"])
+            self._autotune_completed = bool(rsp.get("is_autotune_completed", False))
+            self._apply_recommendation(recommended)
+            t_apply = time.monotonic()
+            self._autotune_failures = 0
+            self.autotune_checkins.append({
+                "step": self._step_counter, "speed": speed,
+                "sync_ms": (t_sync - t0) * 1e3, "report_ms": (t_report - t_sync) * 1e3,
+                "ask_ms": (t_ask - t_report) * 1e3, "apply_ms": (t_apply - t_ask) * 1e3,
+                "buckets": len(self.plan.buckets),
+                "completed": self._autotune_completed})
+        except Exception as e:  # autotune must never take down training
+            if hints and not delivered:
+                # a transient sidecar hiccup must not discard the taint
+                # signal: the next successful check-in carries it
+                _obs_anomaly.requeue_perf_hints(hints)
+            self._autotune_failures += 1
+            logger.warning("autotune check-in failed (%d/3): %s", self._autotune_failures, e)
+            if self._autotune_failures >= 3:
+                logger.warning("autotune disabled after repeated failures")
+                self.autotune = False
+
+    def _autotune_obs_window(self) -> Optional[dict]:
+        """The rank's efficiency window for the check-in (``backend.py:3076``):
+        the goodput fraction since the last report (a delta of the ledger's
+        cumulative classes), MFU, the DCN share of the step, HBM headroom
+        and the anomaly flag from the obs summary; None with the obs plane
+        or goodput reporting off (``BAGUA_AUTOTUNE_GOODPUT=0``) or before a
+        window has elapsed."""
+        if self._ledger is None or not env.get_autotune_goodput():
+            return None
+        try:
+            rep = self._ledger.report()
+        except Exception:  # the score input must never take down training
+            return None
+        if not rep:
+            return None
+        classes = dict(rep.get("classes") or {})
+        snap = {"wall_s": float(rep.get("wall_s") or 0.0), "classes": classes}
+        prev, self._autotune_ledger_prev = self._autotune_ledger_prev, snap
+        if prev is None:
+            # the first window opens at the ledger's first second, so the
+            # initial configuration's build lands in its own score
+            prev = {"wall_s": 0.0, "classes": {}}
+        dwall = snap["wall_s"] - prev["wall_s"]
+        if dwall <= 0:
+            return None
+        from ..obs.ledger import GOODPUT_CLASSES
+
+        dgood = sum(classes.get(c, 0.0) - prev["classes"].get(c, 0.0) for c in GOODPUT_CLASSES)
+        obs = {"goodput_fraction": max(0.0, min(1.0, dgood / dwall)),
+               "window_wall_s": round(dwall, 3)}
+        try:
+            from ..obs import export as _obs_export
+
+            summary = _obs_export.local_obs_summary() or {}
+        except Exception:
+            summary = {}
+        if summary.get("mfu") is not None:
+            obs["mfu"] = summary["mfu"]
+        dcn = summary.get("device_comm_dcn_s_per_step")
+        if dcn is not None:
+            obs["dcn_s_per_step"] = dcn
+            dt = summary.get("step_dt_p50")
+            if dt:
+                obs["dcn_share"] = max(0.0, min(1.0, float(dcn) / float(dt)))
+        if summary.get("hbm_headroom_bytes") is not None:
+            obs["hbm_headroom_bytes"] = summary["hbm_headroom_bytes"]
+        if summary.get("straggler_suspect"):
+            # the service re-measures anomaly-flagged windows
+            obs["anomaly"] = True
+        return obs
+
+    def _current_hyperparameters(self):
+        """What this trainer runs, as a :class:`BaguaHyperparameter`
+        (``backend.py:3138``)."""
+        from ..define import BaguaHyperparameter
+
+        return BaguaHyperparameter(
+            buckets=[[t.declaration() for t in b.tensors] for b in self.plan.buckets],
+            is_hierarchical_reduce=bool(self.algorithm.hierarchical),
+            bucket_size=int(self.bucket_bytes), overlap=self.overlap,
+            overlap_chunk_bytes=int(self.overlap_chunk_bytes),
+            overlap_chunk_bytes_intra=int(self.overlap_chunk_bytes_intra),
+            overlap_chunk_bytes_inter=int(self.overlap_chunk_bytes_inter),
+            compress_intra=self.compress_intra, compress_inter=self.compress_inter,
+            flat_resident="on" if self._flat_resident else "off")
+
+    def _auto_record_speed(self, batch) -> None:
+        """One throughput sample a step (``backend.py:2331``): the batch's
+        dim 0 over the host interval since the previous step; a build or a
+        migration's interval is dropped and restarts the clock.  Off once
+        the search completed or :meth:`record_speed` took over."""
+        if self._manual_speed or self._autotune_completed:
+            return
+        first = next((v for v in batch.values() if torch.is_tensor(v) and v.dim()), None) \
+            if isinstance(batch, Mapping) else None
+        if first is None:
+            return
+        now = time.time()
+        dt = now - self._last_speed_time
+        self._prev_speed_time = self._last_speed_time
+        self._last_speed_time = now
+        if self._skip_next_speed_sample:
+            self._skip_next_speed_sample = False
+            return
+        if dt > 0:
+            self._speed_tracker.record(first.shape[0] / dt)
+
+    def record_speed(self, n_samples: float) -> None:
+        """Count ``n_samples`` since the previous call, in place of the
+        automatic samples of the batches' dim 0 (``backend.py:3749``), e.g.
+        for token-weighted scoring."""
+        now = time.time()
+        if not self._manual_speed:
+            # the first call drops the automatic samples (other units) and
+            # records this one against the interval the automatic path
+            # measured for the same step, so a check-in before the second
+            # call never scores 0
+            self._manual_speed = True
+            self._speed_tracker = StatisticalAverage()
+            dt = now - self._prev_speed_time
+            self._last_speed_time = now
+            if dt > 0:
+                self._speed_tracker.record(n_samples / dt)
+            return
+        dt = now - self._last_speed_time
+        self._last_speed_time = now
+        if dt > 0:
+            self._speed_tracker.record(n_samples / dt)
 
     # ---- checkpointing ---------------------------------------------------
 
@@ -2128,11 +2823,13 @@ class BaguaTrainer:
         return out
 
     def _convert_optimizer(self, opt_tree: dict, saved_layout: str,
-                           old_plan: Optional[BucketPlan]) -> dict:
+                           old_plan: Optional[BucketPlan],
+                           plan: Optional[BucketPlan] = None) -> dict:
         """An optimizer state tree (:func:`optimizer_state_tree`) moved from
-        the saved layout onto the live one, through the state by parameter
-        name: a tensor shaped like its parameter (AdamW's moments) is sliced
-        or flattened, anything else (the step count) taken from the first
+        the saved layout onto the live one (the flats of ``plan``, by
+        default the trainer's), through the state by parameter name: a
+        tensor shaped like its parameter (AdamW's moments) is sliced or
+        flattened, anything else (the step count) taken from the first
         parameter of the bucket."""
         named: Dict[str, dict] = {}
         if saved_layout == "leaf":
@@ -2154,7 +2851,7 @@ class BaguaTrainer:
             return {"groups": [{"hyper": hyper, "params": keys}],
                     "state": {n: named[n] for n in keys if n in named}}
         state = {}
-        for i, b in enumerate(self.plan.buckets):
+        for i, b in enumerate((plan or self.plan).buckets):
             sts = [named.get(t.name) for t in b.tensors]
             if sts[0] is None:
                 continue

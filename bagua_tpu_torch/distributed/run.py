@@ -31,13 +31,19 @@ MIN:MAX``) replace the barrier with the membership subsystem
 nodes, standby joins force coordinated resizes at the restart boundary, and
 epoch-fenced keys keep zombies of an earlier attempt out of the current one.
 
-The coordinator writes the fleet snapshot (``BAGUA_OBS_FLEET_OUT``, every
-member's heartbeat health payload merged into one ``bagua-obs-fleet-v1``
-record), the fence paths leave ``health_fence`` flight records, and every
-rendezvous round is an ``elastic/rendezvous`` span.  What waits for the
-port's fleet and control plane is refused by name rather than silently
-skipped: ``BAGUA_AUTOPILOT`` other than ``off``, ``BAGUA_OBS_HTTP_PORT`` and
-``BAGUA_OBS_HISTORIAN`` (:func:`refuse_missing_modules`).
+The coordinator merges every member's heartbeat health payload into one
+``bagua-obs-fleet-v1`` record each monitor tick, written to
+``BAGUA_OBS_FLEET_OUT`` when set; the fence paths leave ``health_fence``
+flight records, and every rendezvous round is an ``elastic/rendezvous``
+span.  The coordinator's control plane (:func:`_build_coordinator_stack`)
+consumes that record: the telemetry historian (``BAGUA_OBS_HISTORIAN=on``)
+ingests it first and adds its trends, the fleet autopilot
+(``BAGUA_AUTOPILOT=observe|act``) decides on it, and the HTTP status plane
+(``BAGUA_OBS_HTTP_PORT``; each local worker gets ``base + 1 + local_rank``)
+serves it at ``/fleet`` with the historian's ``/history``.  A promoted
+standby builds the same stack, whose engine and historian resume their
+state from the restart store; the engine's storage-quarantine verdicts
+reach every respawned gang.
 """
 
 from __future__ import annotations
@@ -248,17 +254,22 @@ def build_env(args, local_rank: int, spec=None,
             BAGUA_ELASTIC_HEALTH_FILE=_health_beacon_path(args, local_rank),
         )
     if quarantined_ckpt_paths:
-        # storage-quarantine verdicts reach respawned workers at the
-        # restart boundary: their checkpoint managers seed the quarantine
-        # registry from this variable and redirect saves (the JAX package's
-        # autopilot is the caller that has verdicts).
+        # the autopilot's storage-quarantine verdicts reach respawned
+        # workers at the restart boundary: their checkpoint managers seed
+        # the quarantine registry from this variable and redirect saves.
         # Newline-separated — os.pathsep would split gs:// URIs apart
         env["BAGUA_CKPT_QUARANTINED_PATHS"] = "\n".join(
             str(p) for p in quarantined_ckpt_paths
         )
-    # the JAX launcher's HTTP port offsets and CPU-simulation XLA flags have
-    # no counterpart here: the HTTP plane is refused, and no launcher path
-    # picks or remaps a device
+    http_base = _env.get_obs_http_port()
+    if http_base > 0:
+        # the HTTP status plane: the launcher keeps the base port for
+        # itself (the coordinator's /fleet and /history); each local worker
+        # gets a fixed offset, so one host's processes never race onto one
+        # port (a lost race would still only degrade to an ephemeral port)
+        env["BAGUA_OBS_HTTP_PORT"] = str(http_base + 1 + local_rank)
+    # the JAX launcher's CPU-simulation XLA flags have no counterpart here:
+    # no launcher path picks or remaps a device
     return env
 
 
@@ -606,67 +617,104 @@ def publish_health_fence(client, epoch: int, tracker, unhealthy) -> str:
     return reason
 
 
-def _maybe_write_fleet_snapshot(spec, tracker) -> Optional[dict]:
-    """Coordinator-side fleet view: merge every member's latest heartbeat
-    health payload into one ``bagua-obs-fleet-v1`` record and write it to
-    ``BAGUA_OBS_FLEET_OUT`` (``bagua_tpu/distributed/run.py:614-660``,
-    without the historian).  Unset: nothing is merged.  Exception-free
-    (None on failure): the caller is the monitor loop."""
+def _maybe_write_fleet_snapshot(spec, tracker, want_record=False,
+                                historian=None, fleet_holder=None):
+    """Coordinator-side fleet view (``bagua_tpu/distributed/run.py:614``):
+    merge every member's latest heartbeat health payload into one
+    ``bagua-obs-fleet-v1`` record; written to ``BAGUA_OBS_FLEET_OUT`` when
+    set, and returned — the autopilot (``want_record=True``) consumes the
+    record the snapshot file carries.  The telemetry historian (when on)
+    ingests the record first and adds per-rank ``trends``, so the file, the
+    autopilot's trend rules and the HTTP plane's ``/fleet`` (fed through
+    ``fleet_holder``) all see one record.  With no consumer nothing is
+    merged.  Exception-free (None on failure): the caller is the monitor
+    loop."""
     out = _env.get_obs_fleet_out()
-    if not out:
+    if not out and not want_record and historian is None and fleet_holder is None:
         return None
     try:
         from ..obs.export import build_fleet_record, write_fleet_snapshot
 
         record = build_fleet_record(
             spec.epoch, {nid: tracker.health_of(nid) for nid in spec.ranks})
-        write_fleet_snapshot(out, spec.epoch, record=record)
+        if historian is not None:
+            record = historian.ingest(record)
+        if fleet_holder is not None:
+            fleet_holder["record"] = record
+        if out:
+            write_fleet_snapshot(out, spec.epoch, record=record)
         return record
     except Exception as e:  # noqa: BLE001 - monitoring must not die on obs
         logger.debug("fleet snapshot not written: %s", e)
         return None
 
 
-#: settings that need a module the port does not have yet, with the JAX
-#: package's module that serves each
-_MISSING_MODULES = (
-    ("BAGUA_AUTOPILOT", lambda: _env.get_autopilot_mode() != "off",
-     "the fleet autopilot (bagua_tpu/autopilot/)"),
-    ("BAGUA_OBS_HISTORIAN", _env.is_obs_historian_on,
-     "the telemetry historian (bagua_tpu/obs/historian.py)"),
-    ("BAGUA_OBS_HTTP_PORT", lambda: _env.get_obs_http_port() != 0,
-     "the HTTP status plane (bagua_tpu/obs/http.py)"),
-)
+def publish_autopilot_stop(client, epoch: int, action, nodes) -> str:
+    """Turn an autopilot ``fence``/``resize`` action into the
+    ``health_fenced`` stop event (the epoch and resize machinery that lease
+    expiry and the chronic-health fence ride: the fenced node's launcher
+    exits, the survivors regroup at n-1) and leave the flight record naming
+    the action and its evidence (``bagua_tpu/distributed/run.py:650``).
+    Returns the stop reason."""
+    from ..elastic import membership as mb
+    from ..obs.recorder import dump_flight_record
 
-
-def refuse_missing_modules() -> None:
-    """Refuse, naming the missing module, every setting that asks for a
-    part of the JAX launcher that waits for the port's fleet and control
-    plane: running without it would silently drop what the user asked
-    for."""
-    asked = [(name, module) for name, on, module in _MISSING_MODULES if on()]
-    if asked:
-        raise SystemExit(
-            "bagua_tpu_torch launcher: "
-            + "; ".join(f"{name} asks for {module}, which bagua_tpu_torch does not have yet"
-                        for name, module in asked)
-            + ": unset it, or run the JAX package's launcher")
+    reason = f"autopilot {action.kind} ({action.rule}): {action.reason}"
+    client.publish_stop(epoch, mb.STOP_HEALTH, nodes[0], reason, rejoin=False, nodes=nodes)
+    dump_flight_record(
+        "health_fence", reason=reason,
+        extra={"nodes": [int(n) for n in nodes], "autopilot_action": action.to_json()})
+    return reason
 
 
 def _build_coordinator_stack(args, store, client):
-    """The rendezvous coordinator of the coordinator role: ONE constructor
-    shared by the boot-time coordinator and a promoted standby, so the
-    takeover path constructs what the primary ran.  (The JAX package also
-    builds its autopilot engine, historian and HTTP plane here; the port's
-    launcher refuses those settings.)"""
+    """Everything the coordinator role needs beyond membership
+    (``bagua_tpu/distributed/run.py:673-737``): the rendezvous coordinator,
+    the autopilot engine, the telemetry historian, the fleet-record holder
+    and the HTTP status plane.  One function for the boot-time coordinator
+    and a promoted standby: the engine and the historian load their state
+    from the (replicated) restart store at construction, so cooldowns,
+    rungs, quarantines and trend windows resume on the new coordinator.
+    Returns ``(coordinator, autopilot, historian, fleet_holder,
+    http_server)``."""
     from ..elastic.coordinator import ElasticCoordinator
 
-    return ElasticCoordinator(
+    coordinator = ElasticCoordinator(
         client, args.min_nnodes, args.max_nnodes,
         args.master_addr, args.master_port,
         join_window_s=args.join_window,
         timeout_s=args.restart_barrier_timeout,
     )
+    autopilot = None
+    if _env.get_autopilot_mode() != "off":
+        from ..autopilot import AutopilotEngine, default_engine_actuators
+
+        autopilot = AutopilotEngine(
+            actuators=default_engine_actuators(
+                autotune_addr=f"{args.master_addr}:{args.bagua_service_port}"),
+            store=store,
+        )
+        logger.info("fleet autopilot: %s mode", autopilot.config.mode)
+    # a misconfigured historian knob degrades to "historian off" with a
+    # warning, never a dead coordinator
+    from ..obs.historian import maybe_build_historian
+
+    historian = maybe_build_historian(store=store)
+    if historian is not None:
+        logger.info("telemetry historian: on (window %.0fs, %d samples/series)",
+                    historian.window_s, historian.capacity)
+    fleet_holder = None
+    http_server = None
+    if _env.get_obs_http_port() > 0:
+        # the coordinator's fleet routes on top of the per-process ones; on
+        # a promoted standby whose launcher already serves, this attaches
+        # the fleet provider and the historian to that server
+        from ..obs.http import maybe_start_global_http_server
+
+        fleet_holder = {"record": None}
+        http_server = maybe_start_global_http_server(
+            fleet_provider=lambda: fleet_holder["record"], historian=historian)
+    return coordinator, autopilot, historian, fleet_holder, http_server
 
 
 class _PromotionHandle:
@@ -676,7 +724,9 @@ class _PromotionHandle:
     (which runs the store election in the background) and, once the watch
     wins, finishes the launcher-side half of the takeover:
 
-    1. build the coordinator over the replicated store;
+    1. build the coordinator stack over the replicated store: the
+       autopilot engine's and the historian's constructors load their
+       persisted state, so policy cooldowns and trend windows resume;
     2. start renewing the leadership lease under OUR node id;
     3. when promotion lands mid-epoch, hand back a
        :class:`~bagua_tpu_torch.elastic.membership.LeaseTracker` for the current
@@ -690,6 +740,10 @@ class _PromotionHandle:
         self.client = client
         self.watch = watch
         self.coordinator = None
+        self.autopilot = None
+        self.historian = None
+        self.fleet_holder = None
+        self.http_server = None
         self.keeper = None
         self.completed = False
 
@@ -707,7 +761,9 @@ class _PromotionHandle:
         from ..elastic.failover import CoordinatorLeaseKeeper
 
         args = self.args
-        self.coordinator = _build_coordinator_stack(args, self.store, self.client)
+        (self.coordinator, self.autopilot, self.historian,
+         self.fleet_holder, self.http_server) = _build_coordinator_stack(
+            args, self.store, self.client)
         self.keeper = CoordinatorLeaseKeeper(
             _store_connect_factory(args),
             args.node_rank, _env.get_restart_coord_lease_ttl_s(),
@@ -741,12 +797,15 @@ class _PromotionHandle:
 
 
 def monitor_elastic(args, procs, client, spec, coordinator, tracker,
+                    autopilot=None, historian=None, fleet_holder=None,
                     promotion=None) -> int:
     """Monitor one elastic attempt.  Every launcher: watch local workers +
     the per-epoch stop flag.  The coordinator additionally: expire silent
-    members' leases, fence chronically unhealthy ones, and scan for standby
-    joiners (scale-up requests) — each converted into a stop event the
-    whole gang observes."""
+    members' leases, merge the fleet record (through the historian, for
+    the autopilot and ``/fleet``), let the autopilot decide on it, fence
+    chronically unhealthy members, and scan for standby joiners (scale-up
+    requests) — each converted into a stop event the whole gang
+    observes."""
     from ..elastic import membership as mb
 
     epoch = spec.epoch
@@ -759,6 +818,9 @@ def monitor_elastic(args, procs, client, spec, coordinator, tracker,
             # gets expired while heartbeats re-converge on us
             tracker = promotion.complete(spec)
             coordinator = promotion.coordinator
+            autopilot = promotion.autopilot
+            historian = promotion.historian
+            fleet_holder = promotion.fleet_holder
         codes = [p.poll() for p in procs]
         failed = [c for c in codes if c not in (None, 0)]
         if failed:
@@ -834,7 +896,27 @@ def monitor_elastic(args, procs, client, spec, coordinator, tracker,
                             mb.STOP_LEASE_EXPIRED, expired[0], reason,
                             rejoin=False, nodes=expired,
                         )
-                    _maybe_write_fleet_snapshot(spec, tracker)
+                    fleet_record = _maybe_write_fleet_snapshot(
+                        spec, tracker, want_record=autopilot is not None,
+                        historian=historian, fleet_holder=fleet_holder)
+                    if autopilot is not None and fleet_record is not None:
+                        # the engine decides on the merged record the file
+                        # carries; it actuates the side-channel kinds (retune
+                        # hints, quarantine) itself and hands fence/resize
+                        # back, which stop this gang (``run.py:895-925``)
+                        for action in autopilot.observe_snapshot(fleet_record):
+                            if autopilot.config.mode != "act":
+                                continue
+                            if action.kind in ("fence", "resize"):
+                                nodes = [int(n) for n in (action.target or [])
+                                         if int(n) in spec.ranks]
+                                if not nodes:
+                                    continue
+                                reason = publish_autopilot_stop(client, epoch, action, nodes)
+                                autopilot.note_actuated(action)
+                                kill_gang(procs)
+                                raise _GangStop(mb.STOP_HEALTH, nodes[0], reason,
+                                                rejoin=False, nodes=nodes)
                     unhealthy = tracker.unhealthy_members()
                     if unhealthy:
                         reason = publish_health_fence(
@@ -905,6 +987,7 @@ def run_elastic(args) -> int:
 
     endpoints = _store_endpoints(args)
     server = None
+    http_server = None
     keeper = None
     promotion = None
     if endpoints is None:
@@ -941,8 +1024,12 @@ def run_elastic(args) -> int:
         store = _RestartStore(args)
         client = mb.MembershipClient(store, args.node_rank, args.max_nnodes)
         coordinator = None
+        autopilot = None
+        historian = None
+        fleet_holder = None
         if is_coord:
-            coordinator = _build_coordinator_stack(args, store, client)
+            (coordinator, autopilot, historian, fleet_holder,
+             http_server) = _build_coordinator_stack(args, store, client)
         if endpoints is not None:
             from ..elastic.failover import (
                 CoordinatorLeaseKeeper,
@@ -979,6 +1066,10 @@ def run_elastic(args) -> int:
                 # every round from here on as the coordinator
                 is_coord = True
                 coordinator = promotion.coordinator
+                autopilot = promotion.autopilot
+                historian = promotion.historian
+                fleet_holder = promotion.fleet_holder
+                http_server = promotion.http_server
             try:
                 from ..obs.spans import trace_span
 
@@ -1087,13 +1178,19 @@ def run_elastic(args) -> int:
                     # own workers' health must still reach the fence
                     observe_only_ids=[args.node_rank],
                 )
-            # (the JAX launcher also hands its autopilot's storage
-            # quarantine verdicts to the spawn here)
-            procs = spawn_gang(args, spec)
+            # every launcher (not just the coordinator's) reads the act-mode
+            # engine's storage-quarantine verdicts off the shared restart
+            # store: the node whose workers write to the rotting storage is
+            # usually not the coordinator's
+            from ..autopilot.engine import read_actuated_quarantines
+
+            procs = spawn_gang(args, spec,
+                               quarantined_ckpt_paths=read_actuated_quarantines(store))
             try:
                 rc = monitor_elastic(
                     args, procs, client, spec, coordinator, tracker,
-                    promotion=promotion)
+                    autopilot=autopilot, historian=historian,
+                    fleet_holder=fleet_holder, promotion=promotion)
                 try:
                     client.publish_done(spec.epoch)
                     # a takeover during the FINAL epoch makes us the
@@ -1200,12 +1297,17 @@ def run_elastic(args) -> int:
             keeper.stop()
         if promotion is not None:
             promotion.stop()
+            if http_server is None:
+                # promoted mid-epoch and gone before the loop's top took the
+                # takeover's server: it still runs
+                http_server = promotion.http_server
+        if http_server is not None:
+            http_server.stop()
         if server is not None:
             server.stop()
 
 
 def run(args) -> int:
-    refuse_missing_modules()
     if args.elastic:
         return run_elastic(args)
     if args.nnodes_int > 1 and args.max_restarts > 0:

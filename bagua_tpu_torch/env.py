@@ -1,6 +1,6 @@
 """Typed environment readers and process topology.
 
-Port of the part of ``bagua_tpu/env.py`` the port reads: the registry of
+Port of ``bagua_tpu/env.py``'s part the port reads: the registry of
 declared ``BAGUA_*`` variables with typed ``env_str``/``env_int``/``env_bool``
 readers, the default bucket size, the overlap scheduler's gate and its ring
 chunk targets (and their cap), the per-link codec policy, the stateful
@@ -8,11 +8,11 @@ codecs' knobs (top-k ratio, error-feedback residual), the flat-resident
 layout, the gradient-health guard, async model average's staleness cap, the
 fault-injection plan, the checkpoint storage quarantine, the hang watchdog's
 timeout, the launcher's rendezvous, the elastic membership block and the
-restart store's failover knobs, the observability plane (``BAGUA_OBS*`` but
-the HTTP plane's and the historian's), the profiler's window and the serving
-engine (``bagua_tpu/env.py:124-316, 356-385``, same names, defaults and
-meanings), the settings of the modules the port does not have yet (which its
-launcher refuses), and rank / world size / local rank / local world size.
+restart store's failover knobs, the autotune sidecar, the observability
+plane (the HTTP status plane and the historian included), the fleet
+autopilot, the profiler's window and the serving engine (same names,
+defaults and meanings as ``bagua_tpu/env.py``), and rank / world size /
+local rank / local world size.
 """
 
 from __future__ import annotations
@@ -280,19 +280,161 @@ _declare("BAGUA_SERVE_TICK_IDLE_S", "float", "0.001",
          "Scheduler idle-poll granularity in seconds: how long one wait "
          "slice lasts while the engine is empty and ahead of the next "
          "trace arrival (the wall it books as batch_formation_idle).")
-# -- settings of modules the port does not have: read only so that the
-# launcher can refuse them by name rather than run without them --
-_declare("BAGUA_AUTOPILOT", "enum", "off",
-         "Closed-loop fleet autopilot (the JAX package's `autopilot/`).  The "
-         "port has no autopilot: its launcher refuses any value but `off`.",
-         choices=("off", "observe", "act"))
+# -- autotune sidecar --
+_declare("BAGUA_SERVICE_PORT", "int", "-1",
+         "Port of the autotune hyperparameter service; -1 disables.")
+_declare("BAGUA_AUTOTUNE", "int", "0",
+         "Autotune level: 0 off, 1 bucket-size search, 2 adds the "
+         "tensor-readiness telemetry pipeline.")
+_declare("BAGUA_AUTOTUNE_MAX_SAMPLES", "int", "60",
+         "Max hyperparameter samples the Bayesian optimizer may score.")
+_declare("BAGUA_AUTOTUNE_SAMPLING_CONFIDENCE_TIME_S", "float", "5.0",
+         "Seconds of speed samples per hyperparameter config before scoring.")
+_declare("BAGUA_AUTOTUNE_WARMUP_TIME_S", "float", "30.0",
+         "Warmup seconds before the autotuner starts scoring configs.")
+_declare("BAGUA_AUTOTUNE_ALGORITHM", "bool", "0",
+         "Let the autotuner search over algorithm families too "
+         "(centralized / low-precision selectable).")
+_declare("BAGUA_AUTOTUNE_GOODPUT", "bool", "1",
+         "Score autotune sampling windows on fleet-min goodput (windowed "
+         "goodput_fraction/MFU/DCN-share observations ride each check-in "
+         "when the obs plane is on); 0 reports no observations, falling "
+         "back to the summed-speed score.")
+_declare("BAGUA_AUTOTUNE_SPACE", "str", "auto",
+         "Autotune search space: 'auto' reports trainer capabilities at "
+         "registration so the service searches the full capability-gated "
+         "v2 knob space (overlap + per-tier chunk bytes, codec ladder, "
+         "flat residency, family switching); 'legacy' keeps the "
+         "bucket-size x hierarchical two-knob space.")
+_declare("BAGUA_REPORT_METRICS", "bool", "0",
+         "Report training metrics to the autotune service.")
+_declare("BAGUA_IS_OUTPUT_AUTOTUNE_LOG", "bool", "0",
+         "Write the autotune search log to disk.")
+# -- HTTP status plane and historian --
 _declare("BAGUA_OBS_HTTP_PORT", "int", "0",
-         "HTTP status plane port (the JAX package's `obs/http.py`); the "
-         "port's launcher refuses a nonzero value.")
+         "Port of the per-process HTTP status plane "
+         "(bagua_tpu_torch.obs.http): `/metrics` serves the SAME Prometheus "
+         "text the exporter writes to metrics.prom, `/healthz` liveness, "
+         "`/ledger` the goodput report; the elastic coordinator "
+         "additionally serves `/fleet` (latest bagua-obs-fleet-v1 "
+         "snapshot) and `/history?metric=&window=` (historian windows).  "
+         "0 (default) disables the server; a taken port falls back to an "
+         "ephemeral one (logged, and published as the obs/http_port "
+         "gauge).  The elastic launcher offsets each local worker's port "
+         "(base + 1 + local_rank) so one host's processes never collide.")
+_declare("BAGUA_OBS_HTTP_ADDR", "str", "127.0.0.1",
+         "Bind address of the HTTP status plane.  The default stays on "
+         "loopback — expose it beyond the host deliberately (0.0.0.0) "
+         "only where the network is trusted; the endpoints are "
+         "read-only but unauthenticated.")
 _declare("BAGUA_OBS_HISTORIAN", "enum", "off",
-         "Coordinator-side telemetry historian (the JAX package's "
-         "`obs/historian.py`); the port's launcher refuses `on`.",
+         "Coordinator-side fleet telemetry historian "
+         "(bagua_tpu_torch.obs.historian): bounded per-rank per-metric "
+         "time-series rings fed by the beacon->heartbeat obs summaries "
+         "in every fleet snapshot, with windowed rate/percentile/"
+         "least-squares-slope queries.  Publishes derived trend gauges "
+         "(obs/goodput_slope, obs/hbm_headroom_slope, "
+         "obs/dcn_comm_share) back into the snapshot — the evidence the "
+         "autopilot's trend rules (pre-OOM resize, DCN compression "
+         "escalation) consume — and persists its rings through the "
+         "restart TCPStore so a relaunched coordinator keeps history.",
          choices=("off", "on"))
+_declare("BAGUA_OBS_HISTORIAN_CAPACITY", "int", "512",
+         "Samples retained per (rank, metric) historian ring; the oldest "
+         "drop first.  At the default ~1/s monitor cadence this is ~8.5 "
+         "minutes of full-rate history per series (slower snapshot "
+         "writers keep proportionally longer windows).")
+_declare("BAGUA_OBS_HISTORIAN_WINDOW_S", "float", "600",
+         "Trend window in seconds: slopes, percentiles, and the DCN "
+         "comm share are computed over the trailing window of this "
+         "length (the `sustained` horizon behind obs/goodput_slope and "
+         "friends; /history defaults to it too).")
+# -- fleet autopilot --
+_declare("BAGUA_AUTOPILOT", "enum", "off",
+         "Closed-loop fleet autopilot: the coordinator-side policy engine "
+         "over the fleet snapshot stream.  `off` (default) never "
+         "constructs the engine — coordinator behavior and the compiled "
+         "step are exactly the pre-autopilot ones; `observe` runs the full "
+         "decision matrix and flight-records every decision WITHOUT "
+         "actuating (the dry-run rollout mode); `act` additionally "
+         "actuates through the existing machinery (health fence/resize, "
+         "autotune perf hints, algorithm-family switch, checkpoint "
+         "storage quarantine).",
+         choices=("off", "observe", "act"))
+_declare("BAGUA_AUTOPILOT_SLO_GOODPUT", "float", "0",
+         "Goodput-fraction SLO for the autopilot's escalation ladder: a "
+         "fleet whose worst rank sits below this fraction for "
+         "BAGUA_AUTOPILOT_SUSTAIN consecutive snapshots walks hint -> "
+         "retune -> algorithm-family switch -> resize.  0 (default) "
+         "disables the SLO rule.")
+_declare("BAGUA_AUTOPILOT_SUSTAIN", "int", "3",
+         "Hysteresis: consecutive fleet snapshots a rule's condition must "
+         "hold before its action fires (one blip never actuates).")
+_declare("BAGUA_AUTOPILOT_COOLDOWN_S", "float", "300",
+         "Per-action-kind cooldown: after an autopilot action of a kind "
+         "fires, further actions of that kind are suppressed for this "
+         "many seconds (counted in autopilot/suppressed_cooldown).")
+_declare("BAGUA_AUTOPILOT_BUDGET", "int", "8",
+         "Global action budget per run: once the autopilot has taken this "
+         "many actions it stops actuating entirely (counted in "
+         "autopilot/suppressed_budget) — a mis-tuned policy can never "
+         "flap a fleet indefinitely.  0 disables the autopilot's actions.")
+_declare("BAGUA_AUTOPILOT_STALENESS_S", "float", "60",
+         "Fleet-snapshot freshness bound: the policy engine refuses to "
+         "decide on a snapshot older than this (a wedged snapshot writer "
+         "must not cause actions from stale evidence; counted in "
+         "autopilot/stale_snapshots).")
+_declare("BAGUA_AUTOPILOT_STRAGGLER_RATIO", "float", "3.0",
+         "Minimum straggler_suspect step-time ratio for the autopilot's "
+         "chronic-straggler / victim rules to count a snapshot toward "
+         "their sustain streak (blips below it are the anomaly "
+         "detector's business, not the autopilot's).")
+_declare("BAGUA_AUTOPILOT_SUSPECT_TTL_S", "float", "120",
+         "How long a straggler_suspect stays live evidence: a suspect "
+         "detected longer ago than this no longer feeds the straggler/"
+         "victim streaks (the beacon keeps re-publishing the LATEST "
+         "suspect even after the rank recovers).")
+_declare("BAGUA_AUTOPILOT_CKPT_FAILURES", "int", "3",
+         "Checkpoint-integrity threshold: a rank reporting at least this "
+         "many integrity failures + fallback restores gets its storage "
+         "path quarantined (saves redirect; see docs/autopilot.md).")
+_declare("BAGUA_AUTOPILOT_FAMILY", "str", "async",
+         "Algorithm family the escalation ladder's switch rung commands "
+         "(through the autotune service's recommendation path; must be a "
+         "SWITCHABLE_ALGORITHMS name).")
+_declare("BAGUA_AUTOPILOT_MODEL", "str", "bagua_module",
+         "Autotune task (model_name) the autopilot's perf hints and "
+         "family-switch commands address — the BaguaTrainer model_name "
+         "default unless the job names its model.")
+_declare("BAGUA_AUTOPILOT_DCN_SHARE", "float", "0.5",
+         "DCN-dominance threshold for the autopilot's trend rule: when "
+         "the historian's obs/dcn_comm_share (windowed mean DCN device "
+         "seconds over windowed mean step time) sits at or above this "
+         "fraction for BAGUA_AUTOPILOT_SUSTAIN snapshots, the autopilot "
+         "emits a compression-family escalation hint — compress the slow "
+         "tier (docs/hierarchical.md).  Requires the historian "
+         "(BAGUA_OBS_HISTORIAN=on): without trend windows the rule never "
+         "fires.  0 disables the rule.")
+_declare("BAGUA_AUTOPILOT_COMPRESS_FAMILY", "str", "bytegrad",
+         "Compression algorithm family the DCN-dominance hint names "
+         "(its hierarchical path compresses only the cross-slice DCN "
+         "stage; delivered as an autotune perf hint, never a forced "
+         "switch).")
+_declare("BAGUA_AUTOPILOT_COMPRESS_CODEC", "str", "minmax_uint8",
+         "DCN wire codec the autopilot's compress_dcn hint ACTUATES: the "
+         "autotune service applies it to the recommended "
+         "`compress_inter` policy, so every rank's next check-in re-jits "
+         "its hierarchical collectives with compressed cross-slice ring "
+         "hops (minmax_uint8|int8|fp8_e4m3|fp8_e5m2; "
+         "docs/compression.md).")
+_declare("BAGUA_AUTOPILOT_HBM_HORIZON_S", "float", "600",
+         "Pre-OOM horizon for the autopilot's HBM trend rule: when a "
+         "rank's historian headroom slope (obs/hbm_headroom_slope) is "
+         "negative and projects exhaustion within this many seconds "
+         "(headroom / -slope), sustained BAGUA_AUTOPILOT_SUSTAIN "
+         "snapshots, the autopilot resizes that node away BEFORE the "
+         "OOM kills the gang mid-collective.  Requires the historian; "
+         "0 disables the rule.")
 
 
 def _raw(name: str) -> Optional[str]:
@@ -405,6 +547,12 @@ def get_world_size() -> int:
 
 def get_local_rank() -> int:
     return _int_env("LOCAL_RANK", 0)
+
+
+def get_local_size() -> int:
+    """Ranks per node from ``LOCAL_WORLD_SIZE``, 1 when unset (the JAX
+    package's ``get_local_size``)."""
+    return _int_env("LOCAL_WORLD_SIZE", 1)
 
 
 def get_local_world_size() -> Optional[int]:
@@ -570,13 +718,149 @@ def get_restart_takeover_grace_s() -> float:
     return env_float("BAGUA_RESTART_TAKEOVER_GRACE_S")
 
 
+def get_bagua_service_port() -> int:
+    return env_int("BAGUA_SERVICE_PORT")
+
+
+def get_autotune_level() -> int:
+    return env_int("BAGUA_AUTOTUNE")
+
+
+def get_autotune_max_samples() -> int:
+    return env_int("BAGUA_AUTOTUNE_MAX_SAMPLES")
+
+
+def get_autotune_sampling_confidence_time_s() -> float:
+    return env_float("BAGUA_AUTOTUNE_SAMPLING_CONFIDENCE_TIME_S")
+
+
+def get_autotune_warmup_time_s() -> float:
+    return env_float("BAGUA_AUTOTUNE_WARMUP_TIME_S")
+
+
+def is_autotune_algorithm_on() -> bool:
+    """Let the autotuner search over algorithm families too."""
+    return env_bool("BAGUA_AUTOTUNE_ALGORITHM")
+
+
+def get_autotune_goodput() -> bool:
+    """Whether check-ins carry windowed goodput/MFU/DCN observations (the
+    v2 fleet-min-goodput score input; needs the obs plane on to matter)."""
+    return env_bool("BAGUA_AUTOTUNE_GOODPUT")
+
+
+def get_autotune_space() -> str:
+    """'auto' (capability-gated v2 knob space) or 'legacy' (two-knob)."""
+    v = env_str("BAGUA_AUTOTUNE_SPACE").strip().lower()
+    return v if v in ("auto", "legacy") else "auto"
+
+
+def is_report_metrics_switch_on() -> bool:
+    return env_bool("BAGUA_REPORT_METRICS")
+
+
+def is_output_autotune_log() -> bool:
+    return env_bool("BAGUA_IS_OUTPUT_AUTOTUNE_LOG")
+
+
+def get_autotune_server_addr() -> Optional[str]:
+    return os.environ.get("AUTO_TUNE_SERVER_ADDR") or None
+
+
 def get_autopilot_mode() -> str:
-    """``BAGUA_AUTOPILOT``: ``off`` (default), ``observe`` or ``act``."""
+    """Fleet-autopilot mode: ``off`` (default — no engine), ``observe``
+    (decide + flight-record, never actuate), or ``act``."""
     return env_enum("BAGUA_AUTOPILOT")
 
 
+def get_autopilot_slo_goodput() -> float:
+    """Goodput-fraction SLO for the escalation ladder (0 = rule off)."""
+    return env_float("BAGUA_AUTOPILOT_SLO_GOODPUT")
+
+
+def get_autopilot_sustain() -> int:
+    """Consecutive snapshots a rule must hold before acting."""
+    return env_int("BAGUA_AUTOPILOT_SUSTAIN")
+
+
+def get_autopilot_cooldown_s() -> float:
+    """Per-action-kind cooldown in seconds."""
+    return env_float("BAGUA_AUTOPILOT_COOLDOWN_S")
+
+
+def get_autopilot_budget() -> int:
+    """Global autopilot action budget per run."""
+    return env_int("BAGUA_AUTOPILOT_BUDGET")
+
+
+def get_autopilot_staleness_s() -> float:
+    """Fleet-snapshot freshness bound in seconds."""
+    return env_float("BAGUA_AUTOPILOT_STALENESS_S")
+
+
+def get_autopilot_straggler_ratio() -> float:
+    """Minimum suspect ratio feeding the straggler/victim streaks."""
+    return env_float("BAGUA_AUTOPILOT_STRAGGLER_RATIO")
+
+
+def get_autopilot_suspect_ttl_s() -> float:
+    """Straggler-suspect evidence time-to-live in seconds."""
+    return env_float("BAGUA_AUTOPILOT_SUSPECT_TTL_S")
+
+
+def get_autopilot_ckpt_failures() -> int:
+    """Checkpoint-integrity event threshold for storage quarantine."""
+    return env_int("BAGUA_AUTOPILOT_CKPT_FAILURES")
+
+
+def get_autopilot_family() -> str:
+    """Algorithm family the ladder's switch rung commands."""
+    return env_str("BAGUA_AUTOPILOT_FAMILY")
+
+
+def get_autopilot_model() -> str:
+    """Autotune task (model_name) autopilot hints address."""
+    return env_str("BAGUA_AUTOPILOT_MODEL")
+
+
+def get_autopilot_dcn_share() -> float:
+    """DCN-dominance share threshold for the trend rule (0 = off)."""
+    return env_float("BAGUA_AUTOPILOT_DCN_SHARE")
+
+
+def get_autopilot_compress_family() -> str:
+    """Compression family the DCN-dominance hint names."""
+    return env_str("BAGUA_AUTOPILOT_COMPRESS_FAMILY")
+
+
+def get_autopilot_compress_codec() -> str:
+    """DCN wire codec the compress_dcn hint actuates through autotune."""
+    return env_str("BAGUA_AUTOPILOT_COMPRESS_CODEC")
+
+
+def get_autopilot_hbm_horizon_s() -> float:
+    """Pre-OOM projection horizon for the HBM trend rule (0 = off)."""
+    return env_float("BAGUA_AUTOPILOT_HBM_HORIZON_S")
+
+
 def get_obs_http_port() -> int:
+    """HTTP status-plane port (0 = server disabled)."""
     return env_int("BAGUA_OBS_HTTP_PORT")
+
+
+def get_obs_http_addr() -> str:
+    """HTTP status-plane bind address (default loopback)."""
+    return env_str("BAGUA_OBS_HTTP_ADDR")
+
+
+def get_obs_historian_capacity() -> int:
+    """Samples retained per (rank, metric) historian ring."""
+    return env_int("BAGUA_OBS_HISTORIAN_CAPACITY")
+
+
+def get_obs_historian_window_s() -> float:
+    """Trend window (seconds) for historian slope/percentile queries."""
+    return env_float("BAGUA_OBS_HISTORIAN_WINDOW_S")
 
 
 def get_profile_dir() -> Optional[str]:
@@ -677,4 +961,5 @@ def get_serve_tick_idle_s() -> float:
 
 
 def is_obs_historian_on() -> bool:
+    """Whether the coordinator-side telemetry historian is enabled."""
     return env_enum("BAGUA_OBS_HISTORIAN") == "on"

@@ -27,8 +27,15 @@ Port of ``bagua_tpu/obs/``:
 * :mod:`~bagua_tpu_torch.obs.memory` — the static footprint (exact over the
   trainer's flats) and live ``torch.cuda`` allocator peaks and headroom.
 
-The JAX package's ``Historian`` and ``ObsHTTPServer`` (the fleet and
-control plane) are not exported: they come with the port's autopilot.
+* :mod:`~bagua_tpu_torch.obs.historian` — coordinator-side time-series
+  rings over the fleet-snapshot stream with windowed rate/percentile/slope
+  queries; publishes trend gauges (``obs/goodput_slope``,
+  ``obs/hbm_headroom_slope``, ``obs/dcn_comm_share``) back into each
+  snapshot and persists through the restart store.
+* :mod:`~bagua_tpu_torch.obs.http` — per-process HTTP status plane
+  (``/metrics`` from the same prepared snapshot as ``metrics.prom``,
+  ``/healthz``, ``/ledger``; the coordinator adds ``/fleet`` and
+  ``/history``), gated by ``BAGUA_OBS_HTTP_PORT``.
 
 Master switch: ``BAGUA_OBS`` (default on; ``off`` restores the exact
 pre-obs host behavior).  Import-light: nothing here imports torch at
@@ -53,6 +60,8 @@ from .recorder import (  # noqa: F401
 # re-exported here, where it would shadow the ``obs.recorder`` submodule
 from .spans import SpanRecorder, span_ring, trace_span  # noqa: F401
 from .anomaly import StepAnomalyDetector, fleet_straggler_suspects  # noqa: F401,E402
+from .historian import Historian, maybe_build_historian  # noqa: F401,E402
+from .http import ObsHTTPServer, maybe_start_global_http_server  # noqa: F401,E402
 # NOTE: obs.timeline and obs.ledger are NOT imported here: both are
 # `python -m` entry points, and a package-level import would leave a second
 # copy of the module executing under runpy

@@ -39,7 +39,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "StepAnomalyDetector", "PHASES", "publish_perf_hint",
-    "drain_perf_hints", "peek_perf_hints", "fleet_straggler_suspects",
+    "drain_perf_hints", "requeue_perf_hints", "peek_perf_hints",
+    "fleet_straggler_suspects",
 ]
 
 #: the attributed phases of one host step window; anything unattributed
@@ -228,6 +229,18 @@ def drain_perf_hints() -> List[dict]:
         hints = list(_HINTS)
         _HINTS.clear()
     return hints
+
+
+def requeue_perf_hints(hints: List[dict]) -> None:
+    """Put drained hints BACK (front of the queue, original order) after a
+    failed delivery — a transient sidecar hiccup must not silently discard
+    the taint signal for the window it described.  No counter increment:
+    these hints were already counted when published."""
+    if not hints:
+        return
+    with _HINT_LOCK:
+        for hint in reversed(hints):
+            _HINTS.appendleft(dict(hint))
 
 
 def peek_perf_hints() -> List[dict]:

@@ -5,13 +5,16 @@ Port of the counters of ``bagua_tpu/telemetry.py`` (``:36-101``): the
 and the ``faults/<point>/{armed,fired,recovered}`` counters of fault
 injection are read by tests and by ``chip_smoke.py``.  Counters are
 process-global: read deltas between two snapshots, never absolute values.
+
+And :func:`profile_tensor_execution_order` (``bagua_tpu/telemetry.py:166``),
+the gradient-readiness order the autotune service reorders buckets by.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Union
+from typing import Any, Callable, Dict, List, Union
 
 
 class CounterSnapshot(dict):
@@ -63,3 +66,46 @@ class TelemetryCounters:
 
 #: the process's counters
 counters = TelemetryCounters()
+
+
+def profile_tensor_execution_order(loss_fn: Callable, model: Any, batch: Any) -> List[Dict]:
+    """Each parameter's gradient-readiness time in one backward of
+    ``loss_fn(model, batch)``, as spans shaped like
+    :class:`~bagua_tpu_torch.define.BaguaCoreTelemetrySpan` (``trace_id``,
+    ``action`` ``"tensor_ready"``, ``tensor_name``, ``start_time`` and
+    ``end_time``: nanoseconds from the backward's start, on the host clock
+    of autograd's engine) sorted by readiness.
+
+    The JAX package derives the order from a trace of the program (the
+    first use of each parameter in the forward); here it is autograd's own:
+    a hook on each parameter records when its gradient is computed.  The
+    backward is ``torch.autograd.grad``, so no ``.grad`` is written, and
+    the random-number state is restored afterwards, so the training that
+    follows is unchanged.  A parameter that gets no gradient sorts last."""
+    import torch
+
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    ready: Dict[str, int] = {}
+
+    def hook(name):
+        def record(grad):
+            ready.setdefault(name, time.monotonic_ns() - t0)
+
+        return record
+
+    handles = [p.register_hook(hook(n)) for n, p in params]
+    cuda = sorted({p.device.index or 0 for _, p in params if p.device.type == "cuda"})
+    try:
+        with torch.random.fork_rng(devices=cuda):
+            t0 = time.monotonic_ns()
+            loss = loss_fn(model, batch)
+            torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
+    last = max(ready.values(), default=0) + 1
+    spans = [{"trace_id": 0, "action": "tensor_ready", "tensor_name": n,
+              "start_time": int(ready.get(n, last)), "end_time": int(ready.get(n, last))}
+             for n, _ in params]
+    spans.sort(key=lambda s: s["start_time"])
+    return spans

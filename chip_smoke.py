@@ -84,7 +84,13 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    trainers built with ``BAGUA_OBS`` on and off, ``OBS_STEPS`` steps each,
    parameters bitwise equal; a ``StepProfiler`` window of steps 2:5 whose
    Chrome trace names K6a-c ``n_layers`` times a step; the plane's cost, A B
-   B A, and its spans a step times one span's cost.
+   B A, and its spans a step times one span's cost.  Then the HTTP status
+   plane: a third trainer built with ``BAGUA_OBS_HTTP_PORT`` set (the trainer
+   starts the plane) runs 5 steps while a thread scrapes ``/metrics``,
+   ``/healthz`` and ``/ledger``; ``/metrics`` parses with a HELP and a TYPE
+   line for every series, its series equal ``metrics.prom``'s written by an
+   exporter of the same snapshot, and the parameters are bitwise those of
+   the plane-off run after 5 steps; a scrape's ms.
 9. slice 2: the dropless MoE TransformerLM of ``bench_moe_longseq`` (MoE in
    every odd layer, 8 experts, top-2) trained for 10 steps with Adam and the
    load-balancing loss; losses finite and falling, exact launch counts of
@@ -102,11 +108,12 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    itself twice as worker processes, two ranks on the one card, whose
    collectives go over gloo through host memory (NCCL refuses two ranks on
    one device; phases of one world and tiers share a spawn, ``SPAWNS``:
-   slice 3, slice 4, zero and decentralized; slice 4 (2 x 2) and
-   decentralized (2 x 2); async, features, overlap and checkpoint (b, c);
-   model_parallel and tensor_pipeline).  Each rank trains a 4-layer cut of BERT-Large (``bench_bert``:
+   every two-rank phase, slice 3 to tensor_pipeline, in one but checkpoint
+   (b, c); slice 4 (2 x 2) and decentralized (2 x 2) in another, which runs
+   beside the first on the card, as do tensor_pipeline (pp 2 x tp 2), the
+   robustness drills and checkpoint (b, c)).  Each rank trains a 4-layer cut of BERT-Large (``bench_bert``:
    24 layers, seq 384, batch 8 per rank, AdamW 1e-4) for 5 steps
-   (``FULL_STEPS``) with ``ByteGradAlgorithm`` (the overlap phase runs it on
+   (``CODEC_STEPS``) with ``ByteGradAlgorithm`` (the overlap phase runs it on
    the full model), then the cut with
    ``GradientAllReduceAlgorithm`` and ``compress_intra`` ``int8`` and
    ``fp8_e4m3``, and with ``QAdamAlgorithm(warmup_steps=2, lr=1e-5)``; losses finite
@@ -154,6 +161,32 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    last step; losses equal on the ranks, finite and falling; exact launches;
    the ring's codec of a middle bucket's and of the embedding bucket's
    ``diff`` through the kernels equal to the plain codec.
+   The same spawn then runs autotune (``AUTOTUNE_RUNS``) on the 4-layer
+   cut, AdamW 1e-4: (a) the live loop: rank 0's ``init_process_group``
+   serves the autotune sidecar (``BAGUA_SERVICE_PORT``, 2 samples, no
+   warmup or confidence time), a ``GradientAllReduceAlgorithm(
+   hierarchical=False)`` trainer at autotune level 1 with
+   ``BAGUA_AUTOTUNE_SPACE=legacy`` (one node: the bucket size is the only
+   knob) checks in every ``AUTOTUNE_EVERY`` (20) steps, where the trainer's
+   default is the JAX package's 100, and trains until the first check-in
+   that changes the plan, then 10 steps more (at most
+   ``AUTOTUNE_MAX_STEPS``), and an untuned control trainer restored from a
+   snapshot taken just before that check-in runs the same steps on the same
+   batch.  Gates: the service's task holds the cut's tensors, every
+   check-in reported a nonzero speed, the plan signature changed and is
+   equal on both ranks at every step, the losses equal the control's bitwise
+   at every step, the parameters bitwise equal on the ranks and to the
+   control's.  Prints the check-ins (synchronization, report, ask, apply
+   ms), the buckets before and after, and the step that rebucketed against
+   the median step.  (b) the codec flip: the same cut and family, 3 steps,
+   then ``_apply_recommendation(BaguaHyperparameter(compress_intra=
+   "onebit_ef"))`` for 3 steps, then ``"off"`` for 2.  Gates: the residual
+   appears zero-filled, one f32 a bucket element; the 1-bit steps launch K4
+   and K5 as slice 4's 1-bit run does a step, and stage as many bytes a
+   step; after the flip back ``algo_state`` holds no residual, allocated
+   memory falls by its bytes and the staged bytes are the first steps';
+   parameters bitwise equal on the ranks after every step.  Prints each
+   migration's ms.
 16. decentralized at 2 x 2, four ranks as two nodes of two on the 4-layer
    cut: ``shift_one`` over the four ranks (the peer weights equal to those
    of the step's partner) and ``LowPrecisionDecentralizedAlgorithm(
@@ -178,11 +211,14 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    for its round against a round's whole time alone.
 18. features, the trainer's step features at world size 2, two ranks as in
    slice 3: the full BERT-Large ZeRO over AdamW 1e-4 on the leaf layout
-   (``flat_resident="off"``, 5 steps), its per-step bucket fingerprints equal
+   (``flat_resident="off"``, 3 steps), its per-step bucket fingerprints equal
    to the zero phase's ZeRO run (resident by default) and its peak at least
-   0.9 GB above; the full BERT-Large with ``GradientAllReduceAlgorithm``,
-   ``accum_steps=2`` and ``grad_guard="skip"`` (5 steps), its losses within 1e-2 of the
-   zero phase's replicated run and every verdict healthy; on the cut, the
+   0.9 GB above; on the cut, ``GradientAllReduceAlgorithm`` with
+   ``accum_steps=2`` and ``grad_guard="skip"`` (3 steps), its losses within
+   1e-2 of the first 3 of the cut's full-precision run without rebucket
+   (below) and every verdict healthy (it ran on the full BERT-Large
+   against the zero phase's replicated run until the autotune phase needed
+   the time); on the cut, the
    1-bit ring under the guard with ``grad.poison`` at step 4 of 10 against a
    clean run of 9 (parameters and residual bitwise equal, after two clean
    runs shown bitwise equal; one skip), and a rebucket from 10 MiB to 2 MiB
@@ -192,16 +228,16 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    ``flat_resident="auto"`` layout, which each log line names.
 19. overlap, the overlap scheduler at world size 2, two ranks as in slice 3
    (``OVERLAP_RUNS``): (a) the 4-layer cut with GradientAllReduce, AdamW
-   1e-4, ``accum_steps=2``, ``overlap`` off then on (5 steps each): parameters
+   1e-4, ``accum_steps=2``, ``overlap`` off then on (3 steps each): parameters
    bitwise equal after every step; the backward's time, the communication's
    and the wait after the backward a step, and the share of the serialized
    communication the overlap hides; (b) the full BERT-Large with ByteGrad
-   and ``overlap="on"`` (5 steps): every K1 and K2 launch made on the comm
+   and ``overlap="on"`` (3 steps): every K1 and K2 launch made on the comm
    stream by the comm worker (99 and 198 a step), one real K1 call of the
    last step equal to plain, parameters bitwise equal to the serialized run
    on the same plan; K1's device intervals against the backward's kernels in
    one profiled step; (c) the full BERT-Large with ZeRO and
-   ``overlap="on"`` (5 steps): per-step fingerprints equal to the
+   ``overlap="on"`` (3 steps): per-step fingerprints equal to the
    zero phase's serialized run, its state exactly half the replicated run's,
    its peak no higher; on the 4-layer cut, (d) the chunked ring
    (``overlap_chunk_bytes`` 1 MiB) within 1e-5 of the fused allreduce's
@@ -234,8 +270,9 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    ledger's serving classes fed; 4 requests against ``generate()``
    (``check_against_generate``); TTFT and TPOT percentiles, tokens/s, the
    peak, and continuous against static batching on one backlog.
-   The multi-rank phase, after ``overlap``, two ranks as in slice 3, on the
-   4-layer cut: (b) the 1-bit ring with its residual (K4, K5), step 4's part
+   The multi-rank phase, two ranks as in slice 3 in a spawn of its own
+   after the robustness drills (beside the spawn of the other two-rank
+   phases), on the 4-layer cut: (b) the 1-bit ring with its residual (K4, K5), step 4's part
    of rank 1 alone corrupted, both ranks falling back to step 2; (c) ZeRO,
    the low-precision ring (K1, K2; peer replicas a rank) and async model
    average after ``sync_for_checkpoint``, and a resident
@@ -246,7 +283,7 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    time, the bytes on disk and the step with the save in flight against the
    same step without one, beside the card's name and power limit.
 21. model_parallel, expert and sequence parallelism at world size 2, two ranks
-   as in slice 3, one spawn (``MP_RUNS``).  (a) Slice 2's MoE LM at full width
+   as in slice 3, in their spawn (``MP_RUNS``).  (a) Slice 2's MoE LM at full width
    expert-parallel over the mesh ``{"ep": 2}`` (4 experts and 8 rows a rank,
    ``expert_axis="ep"``, Adam 1e-4, ``FULL_STEPS`` steps), from the world-1
    model's weights, first with the dense-slot exchange, then with the
@@ -281,7 +318,7 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    nonzero ``dlse`` at the ring's per-rank shape (b·h 32, s 2048) and times
    them beside SDPA's ``is_causal=False``.
 22. tensor_pipeline, tensor and pipeline parallelism, two ranks as in slice 3,
-   one spawn (``TPP_RUNS``), then four (``TPP4_RUNS``).  Slice 1's LM at full
+   in their spawn (``TPP_RUNS``), then four (``TPP4_RUNS``).  Slice 1's LM at full
    width from slice 1's world-1 weights (each rank's slice cut by
    ``models.convert.shard_state_dict``), AdamW 1e-4, ``FULL_STEPS`` steps on
    slice 1's batch: (a) over ``{"tp": 2}`` (8 heads and d_ff 2048 a rank, no
@@ -325,14 +362,14 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    GradientAllReduce flat; cuDNN's autotune on for it alone), 10 steps, the
    same loss gates.  Each prints its step ms, img/s, peak and model flops a
    step against the bf16 dense peak.
-24. vision (2 ranks), in the ``tensor_pipeline`` spawn (``VISION_STACK``,
+24. vision (2 ranks), in the two-rank spawn (``VISION_STACK``,
    ``VISION_CUT``): (c) ``examples/imagenet_resnet.py``'s stack on a
    one-block cut of ResNet50 (its widths, 1000 classes, 224 px, 16 images a
    rank): ``CachedDataset(backend="tcp", num_shards=2)`` on the native store
    server (built with the kernels, required) over 64 counted samples,
    ``LoadBalancingDistributedSampler`` shards, ``prefetch_to_device``,
    ``SyncBatchNorm`` over dp, ``ByteGradAlgorithm(hierarchical=False)`` and
-   ``fuse_optimizer(SGD(0.05, momentum=0.9))``, 5 steps
+   ``fuse_optimizer(SGD(0.05, momentum=0.9))``, 3 steps
    (``check_vision_ranks``: losses finite, parameters bitwise equal on both
    ranks, K1 = buckets x steps and K2 twice that, every SyncBN layer's last
    batch statistics bitwise equal on both ranks and a local-norm control's
@@ -342,7 +379,8 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    filters, two stages, 32 px, 4 images a rank) with SyncBN within
    ``MP_CUT_RTOL`` of world 1 on the 8 images, the local norm's control
    outside it.
-25. robustness (``phase_robustness``), after every multi-rank phase, each run
+25. robustness (``phase_robustness``), beside the two-rank spawn after the
+   four-rank ones, each run
    through ``python -m bagua_tpu_torch.distributed.run`` as a subprocess with
    a free port and a wall-clock bound (``DRILL_BOUND_S``), its worker this
    script under ``--drill``: (a) ``longctx-watchdog-1chip``, slice 1's LM at
@@ -364,8 +402,9 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    with ``ByteGradAlgorithm(hierarchical=False)`` and SGD 0.1 on a fixed
    global batch split by the world, a save every step; node 1's launcher and
    worker killed as a process group after 3 world-2 steps, node 0 resuming
-   at world 1, node 1 relaunched as a standby, a coordinated resize back to
-   world 2.  Gates: the worlds run ``[2, 1, 2]``; the launcher's counters
+   at world 1 (whose worker leaves the last 5 steps to world 2 and waits),
+   node 1 relaunched as a standby, a coordinated resize back to world 2.
+   Gates: the worlds run ``[2, 1, 2]``; the launcher's counters
    ``elastic/lease_expired`` 1 and ``elastic/resizes`` >= 1; both launchers
    exit 0; every step run twice within ``ELASTIC_RERUN_RTOL`` relative; the
    last parameters bitwise equal on both ranks; K1 = buckets and K2 = 2 x
@@ -377,6 +416,20 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    on (the default) against off, A B B A, ``WATCHDOG_COST_STEPS`` steps a
    window, and the watchdog's work on the step's host path directly.
 
+Phases 1-7 run alone (the kernels' times among them); then the spawn of
+the two-rank phases starts, and beside it run, in order, the in-process
+phases from slice 1 on, the four-rank spawns, the robustness drills and the
+spawn of checkpoint (b, c) (no gate of theirs is a time; their printed times
+hold the other spawn's load).
+
+The script is the subreaper of every process it starts (``adopt_orphans``):
+after each phase (or group of phases run side by side) it stops and reaps
+every child still alive, its own and the orphans of its children, and prints
+them (``stop_leftovers``); a phase that leaves one fails the run.  A failing
+run, a SIGTERM, SIGINT or SIGHUP, and ``SCRIPT_BOUND_S`` seconds of run stop
+them too and exit non-zero; the workers die with their parent
+(``PR_SET_PDEATHSIG``).
+
 The flash kernels are checked at every slice's shape (phase 3).  The line
 before the last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  ``build_slice`` holds slices 1 and 2's
@@ -387,6 +440,7 @@ same ones.
 from __future__ import annotations
 
 import collections
+import copy
 import functools
 import gc
 import glob
@@ -1287,8 +1341,11 @@ def phase_obs(card):
                 os.environ.pop("BAGUA_PROFILE_DIR", None)
                 os.environ.pop("BAGUA_PROFILE_STEPS", None)
             fa.reset_launch_counts()
-            for _ in range(OBS_STEPS):
+            for i in range(OBS_STEPS):
                 state, loss = trainer.train_step(state, batch)
+                if label == "on" and i + 1 == HTTP_STEPS:
+                    # the plane-off reference of the HTTP check below
+                    after_http_steps = [p.detach().clone() for p in model.parameters()]
             loss.item()
             runs[label] = [model, trainer, state, batch]
         obs_spans.set_enabled(True)
@@ -1352,11 +1409,106 @@ def phase_obs(card):
             f"a step; on {a:.3f} against off {b:.3f} ms ({(a / b - 1) * 100:+.2f}%); on the host "
             f"path {spans_a_step} spans a step at {span_us:.2f} us: "
             f"{spans_a_step * span_us / 1e3:.4f} ms a step")
+        runs.clear()
+        release()
+        http_check(card, after_http_steps)
     finally:
         obs_spans.set_enabled(None)
         shutil.rmtree(tmp, ignore_errors=True)
         runs.clear()
         release()
+
+
+HTTP_STEPS = 5
+
+
+def _prom_series(text):
+    return {line.split(" ", 1)[0] for line in text.splitlines()
+            if line and not line.startswith("#")}
+
+
+def http_check(card, reference):
+    """The HTTP status plane on the card: slice 1's trainer built with
+    ``BAGUA_OBS_HTTP_PORT`` set (the trainer starts the process's plane) runs
+    ``HTTP_STEPS`` steps while a thread scrapes ``/metrics``, ``/healthz``
+    and ``/ledger``.  ``/metrics`` must parse with a HELP and a TYPE line for
+    every series, equal an exporter's ``metrics.prom`` of the same snapshot
+    series for series, and the parameters must be bitwise ``reference``
+    (the plane-off run after as many steps)."""
+    import threading
+    import urllib.request
+
+    from bagua_tpu_torch.obs import export as obs_export
+    from bagua_tpu_torch.obs import http as obs_http
+
+    def get(path):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(srv.url + path, timeout=30) as rsp:
+            body = rsp.read().decode()
+        return body, (time.perf_counter() - t0) * 1e3
+
+    os.environ["BAGUA_OBS_HTTP_PORT"] = str(_free_port())
+    tmp = tempfile.mkdtemp()
+    stop, scrapes, errors = threading.Event(), {"/metrics": [], "/healthz": [], "/ledger": []}, []
+    try:
+        model, trainer, state, batch = build_slice("longctx")
+        srv = obs_http._GLOBAL_SERVER
+        if srv is None or srv.port != int(os.environ["BAGUA_OBS_HTTP_PORT"]):
+            raise AssertionError(f"the trainer started no HTTP plane on the port: {srv}")
+
+        def scraper():
+            while not stop.is_set():
+                try:
+                    for path in scrapes:
+                        body, ms = get(path)
+                        scrapes[path].append(ms)
+                        if path != "/metrics":
+                            json.loads(body)
+                except Exception as e:  # noqa: BLE001 - collected for the gate
+                    errors.append(repr(e))
+                    return
+
+        thread = threading.Thread(target=scraper, daemon=True)
+        thread.start()
+        for _ in range(HTTP_STEPS):
+            state, loss = trainer.train_step(state, batch)
+        loss.item()
+        stop.set()
+        thread.join(timeout=30)
+        bitwise = all(torch.equal(a, b) for a, b in zip(model.parameters(), reference))
+        text, _ = get("/metrics")
+        helped = {m.group(2) for m in re.finditer(r"^# (HELP) (\S+)", text, re.M)}
+        typed = {m.group(2) for m in re.finditer(r"^# (TYPE) (\S+)", text, re.M)}
+        series = _prom_series(text)
+        unlabelled = {s.split("{", 1)[0] for s in series}
+        exporter = obs_export.MetricsExporter(tmp, interval_s=3600)
+        exporter.export_once()
+        exporter.export_once()
+        scraped, _ = get("/metrics")
+        with open(os.path.join(tmp, "metrics.prom")) as f:
+            on_disk = f.read()
+        health = json.loads(get("/healthz")[0])
+        n = {k: len(v) for k, v in scrapes.items()}
+        log(f"obs HTTP plane ({card}): {n} scrapes during {HTTP_STEPS} steps of slice 1, "
+            f"errors {errors}; a scrape's ms: " + ", ".join(
+                f"{k} median {statistics.median(v):.3f} max {max(v):.3f}"
+                for k, v in scrapes.items() if v)
+            + f"; /metrics {len(series)} series, all with HELP and TYPE "
+            f"{unlabelled <= helped and unlabelled <= typed}, equal to metrics.prom "
+            f"{_prom_series(scraped) == _prom_series(on_disk)}; /healthz step "
+            f"{health.get('step')}; parameters bitwise the plane-off run's: {bitwise}")
+        if errors or not all(n.values()) or not (unlabelled <= helped and unlabelled <= typed) \
+                or "untyped" in text or _prom_series(scraped) != _prom_series(on_disk) \
+                or not bitwise or health.get("step") != trainer._step_counter:
+            raise AssertionError(f"HTTP plane: errors {errors}, scrapes {n}, series without "
+                                 f"HELP {unlabelled - helped}, without TYPE "
+                                 f"{unlabelled - typed}, bitwise {bitwise}, healthz {health}")
+    finally:
+        stop.set()
+        os.environ.pop("BAGUA_OBS_HTTP_PORT", None)
+        if obs_http._GLOBAL_SERVER is not None:
+            obs_http._GLOBAL_SERVER.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1434,10 +1586,11 @@ def phase_generate(card):
             and launches == want and bool(torch.isfinite(dense["logits"]).all())):
         raise AssertionError(f"generate: paged bitwise {bitwise}, logits error {err}, "
                              f"disagreements {int((~agree & sure).sum())}, launches {launches}")
-    path = os.path.join(tempfile.mkdtemp(), "generate_ref.pt")
+    # the two-rank spawn, started before this phase, waits for the file
+    path = os.environ[GEN_REF_ENV]
     torch.save({"prompt": prompt.cpu(), "tokens": dense["tokens"].cpu(),
-                "logits": dense["logits"].cpu()}, path)
-    os.environ[GEN_REF_ENV] = path
+                "logits": dense["logits"].cpu()}, path + ".part")
+    os.replace(path + ".part", path)
     del model, paged, out, dense, pg, forward
     release()
 
@@ -2812,17 +2965,20 @@ def phase_narrow_shapes():
 
 #: steps of the multi-rank runs (a step costs 0.2-6 s through gloo on the
 #: shared card); QAdam's run keeps ``STEPS`` for its warmup, the async and
-#: features phases' cut runs for their schedules
-FULL_STEPS = 5
+#: features phases' cut runs for their schedules.  The codec runs of slices 3
+#: and 4 and the gossip runs at world 2 keep ``CODEC_STEPS``: their checks against the
+#: plain codec were set on that state (at 3 steps the 1-bit residual of the
+#: embedding bucket read 1.62e-5 of the scale against the 1e-5 gate)
+FULL_STEPS, CODEC_STEPS = 3, 5
 #: (name, layers, algorithm, BaguaTrainer keywords).  Slice 3, on a 4-layer
 #: cut of BERT-Large: (a) ByteGrad (the overlap phase runs it on the full
 #: model), (b) the forced int8 and fp8 rings and (c) QAdam
 SLICE3_RUNS = (
-    ("bytegrad", BERT["cut_layers"], "bytegrad", {"steps": FULL_STEPS}),
+    ("bytegrad", BERT["cut_layers"], "bytegrad", {"steps": CODEC_STEPS}),
     ("int8", BERT["cut_layers"], "gradient_allreduce",
-     {"compress_intra": "int8", "steps": FULL_STEPS}),
+     {"compress_intra": "int8", "steps": CODEC_STEPS}),
     ("fp8_e4m3", BERT["cut_layers"], "gradient_allreduce",
-     {"compress_intra": "fp8_e4m3", "steps": FULL_STEPS}),
+     {"compress_intra": "fp8_e4m3", "steps": CODEC_STEPS}),
     ("qadam", BERT["cut_layers"], "qadam", {}),
 )
 #: slice 4 at world 2: (a) the main path, the README quick start with the
@@ -2830,9 +2986,9 @@ SLICE3_RUNS = (
 #: would not leave the script room for the obs and serve phases)
 SLICE4_RUNS = (
     ("onebit_ef", BERT["cut_layers"], "gradient_allreduce",
-     {"compress_intra": "onebit_ef", "steps": FULL_STEPS}),
+     {"compress_intra": "onebit_ef", "steps": CODEC_STEPS}),
     ("topk", BERT["cut_layers"], "gradient_allreduce",
-     {"compress_intra": "topk", "steps": FULL_STEPS}),
+     {"compress_intra": "topk", "steps": CODEC_STEPS}),
 )
 #: slice 4 at world 4, two nodes of two ranks, on the 4-layer cut: (a) the
 #: two-level allreduce with the 1-bit codec on the inter-node tier, (b)
@@ -2860,8 +3016,8 @@ ZERO_RUNS = (
 #: weights tracked (no codec), (b) the low-precision ring, flat (a whole
 #: bucket one K1 chunk), both on the 4-layer cut
 DECENTRALIZED_RUNS = (
-    ("decentralized_all", BERT["cut_layers"], "decentralized_all", {"steps": FULL_STEPS}),
-    ("low_precision", BERT["cut_layers"], "low_precision", {"steps": FULL_STEPS}),
+    ("decentralized_all", BERT["cut_layers"], "decentralized_all", {"steps": CODEC_STEPS}),
+    ("low_precision", BERT["cut_layers"], "low_precision", {"steps": CODEC_STEPS}),
 )
 #: the gossip families at world 4, two nodes of two ranks, on the 4-layer
 #: cut: (a) ``shift_one`` over the four ranks, the partner rotating with the
@@ -2885,20 +3041,22 @@ ASYNC_RUNS = (
 ASYNC_ABORT_AFTER, ASYNC_RESUME_AFTER = 3, 6
 #: the trainer's step features at world 2: (a) the full BERT-Large ZeRO on the
 #: leaf layout, beside the zero phase's ZeRO, which the default makes
-#: resident; (b) the full BERT-Large with GradientAllReduce, two microbatches
-#: of 4 of a rank's 8 rows and the guard on ``skip``, no fault; on the 4-layer
-#: cut, (c) the 1-bit ring under the guard: two clean runs of
+#: resident; on the 4-layer cut, (b) GradientAllReduce with two microbatches
+#: of 4 of a rank's 8 rows and the guard on ``skip``, no fault, held against
+#: the first steps of (d)'s run without rebucket (it ran on the full
+#: BERT-Large until the autotune phase needed the time), (c) the 1-bit ring under
+#: the guard: two clean runs of
 #: ``POISON_STEPS - 1`` steps and one of ``POISON_STEPS`` with ``grad.poison``
 #: at step ``POISON_AT``; (d) full precision, resident, without and with a
 #: rebucket from 10 MiB to ``REBUCKET_BYTES`` buckets after step
-#: ``REBUCKET_AFTER``, then the same rebucket under the 1-bit ring.  The two
-#: full BERT-Large runs take ``FULL_STEPS`` steps, held against the first
-#: steps of the zero phase's runs (each costs 2-6 s a step through gloo)
+#: ``REBUCKET_AFTER``, then the same rebucket under the 1-bit ring.  The full
+#: BERT-Large run and (b) take ``FULL_STEPS`` steps, (a) held against the
+#: first steps of the zero phase's ZeRO run (2-6 s a step through gloo)
 POISON_AT, POISON_STEPS = 4, STEPS
 REBUCKET_AFTER, REBUCKET_BYTES = 5, 2 * 1024 ** 2
 FEATURES_RUNS = (
     ("zero_leaf", None, "zero", {"flat_resident": "off", "steps": FULL_STEPS}),
-    ("accum_guard", None, "gradient_allreduce",
+    ("accum_guard", BERT["cut_layers"], "gradient_allreduce",
      {"accum_steps": 2, "grad_guard": "skip", "steps": FULL_STEPS}),
     ("onebit_clean", BERT["cut_layers"], "gradient_allreduce",
      {"compress_intra": "onebit_ef", "grad_guard": "skip", "steps": POISON_STEPS - 1}),
@@ -2950,8 +3108,8 @@ RING_LOSS_RTOL = 1e-5
 #: on the full BERT-Large (GB): the chunk copy a rank (0.931 GB) that the
 #: resident layout does without
 RESIDENT_PEAK_DROP_GB = 0.9
-#: the features runs' tolerance of the accumulated losses against the
-#: replicated run of the zero phase (relative, every step)
+#: the features runs' tolerance of the accumulated losses against the cut's
+#: full-precision run without rebucket (relative, every step)
 ACCUM_LOSS_RTOL = 1e-2
 #: the model_parallel phase at world 2, both ranks on the card over gloo, one
 #: spawn: (a) expert parallelism on slice 2's model at full width, mesh
@@ -3003,12 +3161,38 @@ TPP_RUNS = (
 TPP4_RUNS = (("cut_3d", None, "cut", {"axes": {"pp": 2, "tp": 2}, "ckpt": True}),)
 PP_MICRO = 2
 #: the multi-rank phases: name -> (label, runs, world, intra-node size)
+#: the autotune phase at world 2, in slice 3's spawn, on the 4-layer cut: (a)
+#: the live loop against an untuned control, (b) the codec flip that adds and
+#: drops the error-feedback residual
+AUTOTUNE_RUNS = (
+    ("autotune_loop", BERT["cut_layers"], "gradient_allreduce", {}),
+    ("codec_flip", BERT["cut_layers"], "gradient_allreduce", {}),
+)
+#: the sidecar's settings, read by rank 0's ``init_process_group`` in the
+#: spawn that runs the autotune phase (with ``BAGUA_SERVICE_PORT``)
+AUTOTUNE_SERVICE = {"BAGUA_AUTOTUNE": "1", "BAGUA_AUTOTUNE_MAX_SAMPLES": "2",
+                    "BAGUA_AUTOTUNE_SAMPLING_CONFIDENCE_TIME_S": "0",
+                    "BAGUA_AUTOTUNE_WARMUP_TIME_S": "0"}
+AUTOTUNE_MODEL = "chip_autotune"
+#: the live loop's steps between check-ins (the trainer's
+#: ``autotune_checkin_steps``, 100 by default as in the JAX package; at world
+#: 2 the service decides at the second check-in), its steps at most, and its
+#: steps after the first plan change
+AUTOTUNE_EVERY = 20
+AUTOTUNE_MAX_STEPS, AUTOTUNE_AFTER = 8 * AUTOTUNE_EVERY, 10
+#: the codec flip's steps before, with the 1-bit codec and after
+FLIP_STEPS = (3, 3, 2)
+#: the allocator's drop at the flip back against the residual's bytes,
+#: relative: the live tensors between two steps move by about 0.3-1.3 MB
+#: (of a 520 MB residual on the cut) from call to call
+FLIP_MEM_RTOL = 0.01
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
     "slice4": ("slice 4", SLICE4_RUNS, CODEC_WORLD, None),
     "slice4_2x2": ("slice 4 (2 x 2)", SLICE4_2X2_RUNS, 4, 2),
     "zero": ("zero", ZERO_RUNS, CODEC_WORLD, None),
     "decentralized": ("decentralized", DECENTRALIZED_RUNS, CODEC_WORLD, None),
+    "autotune": ("autotune", AUTOTUNE_RUNS, CODEC_WORLD, None),
     "decentralized_4": ("decentralized (2 x 2)", DECENTRALIZED_4_RUNS, 4, 2),
     "async": ("async", ASYNC_RUNS, CODEC_WORLD, None),
     "features": ("features", FEATURES_RUNS, CODEC_WORLD, None),
@@ -3020,11 +3204,11 @@ MULTI_RANK = {
 #: phases that run in one spawn, in order (the same world and tiers): a spawn
 #: costs 15-20 s (the ranks' start: importing torch, then torch._dynamo at the
 #: first optimizer, 7-8 s each on the card's host; CUDA and gloo), so the
-#: two-rank phases ride in three spawns and the four-rank ones in two
-SPAWNS = {"slice3": ("slice3", "slice4", "zero", "decentralized"),
-          "slice4_2x2": ("slice4_2x2", "decentralized_4"),
-          "async": ("async", "features", "overlap", "checkpoint"),
-          "model_parallel": ("model_parallel", "tensor_pipeline")}
+#: two-rank phases ride in one spawn, but checkpoint (b, c), which runs in a
+#: spawn of its own beside it to shorten the run, and the four-rank ones in two
+SPAWNS = {"slice3": ("slice3", "slice4", "zero", "decentralized", "autotune", "async",
+                     "features", "overlap", "model_parallel", "tensor_pipeline"),
+          "slice4_2x2": ("slice4_2x2", "decentralized_4")}
 QADAM_WARMUP = 2
 #: the generate phase: slice 1's LM, a prompt of its batch's first
 #: ``GEN_PROMPT`` tokens, ``GEN_NEW`` greedy tokens, dense and paged
@@ -3038,6 +3222,9 @@ GEN_LOGITS_RTOL = 5e-2
 GEN_REF_ENV = "CHIP_SMOKE_GENERATE_REF"
 #: seconds a multi-rank phase may take before its ranks are killed
 WORKER_TIMEOUT = 420
+#: the whole run's bound (the card run's limit is 1200 s): past it the run
+#: stops every process it started and exits 124
+SCRIPT_BOUND_S = 1150
 
 
 def _adamw(lr=1e-4):
@@ -3141,7 +3328,7 @@ def _flat_digests(trainer, model):
 
     with torch.no_grad():
         flats = trainer.plan.flatten(dict(model.named_parameters()))
-    return [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest() for f in flats]
+    return [hashlib.sha256(f.cpu().numpy()).hexdigest() for f in flats]
 
 
 def _check_plain_bucket(rank, trainer, model, batch, record):
@@ -3392,6 +3579,261 @@ def check_slice3_obs(card, runs):
         f"{len(trace['traceEvents'])} trace events; per rank {meta}; problems {problems}")
     if problems or set(meta) != {str(r) for r in range(len(runs))}:
         raise AssertionError(f"slice 3 timeline: {problems}, ranks {set(meta)}")
+
+
+# ---------------------------------------------------------------------------
+# autotune: the trainer's check-in against the sidecar, and the codec flip
+# ---------------------------------------------------------------------------
+
+
+def _plan_hash(trainer) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr(trainer.plan.signature()).encode()).hexdigest()[:16]
+
+
+def _param_digest(model) -> str:
+    """sha256 of every parameter's bytes, in name order (plan-independent)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            h.update(n.encode())
+            h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def autotune_loop_run(rank, world, run, device, label):
+    """(a) A trainer at autotune level 1 (legacy space) against rank 0's
+    sidecar: steps until the first check-in that changes the plan, then
+    ``AUTOTUNE_AFTER`` more, checking in every ``AUTOTUNE_EVERY`` steps; each
+    check-in step's state is snapshot before the step (the check-in runs at
+    its start) while the plan has not changed.
+    Then an untuned trainer restored from the last snapshot runs the same
+    steps on the same batch."""
+    from bagua_tpu_torch import communication
+
+    from bagua_tpu_torch.obs import anomaly
+
+    name, layers, algo_name, kw = run
+    # no step-time anomaly detector, and no hints left by the spawn's earlier
+    # runs: a window they taint is measured again (gloo through the host
+    # varies 2-3x from step to step), which would take the first decision
+    # from the second check-in to the fourth
+    anomaly.drain_perf_hints()
+    os.environ.update(BAGUA_AUTOTUNE_SPACE="legacy", BAGUA_OBS_ANOMALY="off")
+    try:
+        cfg, model, algo, trainer, state, batch, _ = _build_run(
+            rank, world, (name, layers, algo_name,
+                          {**kw, "autotune": True, "model_name": AUTOTUNE_MODEL}), device)
+    finally:
+        os.environ.pop("BAGUA_AUTOTUNE_SPACE", None)
+        os.environ.pop("BAGUA_OBS_ANOMALY", None)
+    if not trainer.autotune:
+        raise AssertionError(f"[rank {rank}] autotune: the registration failed")
+    trainer.autotune_checkin_steps = AUTOTUNE_EVERY
+    registered = None
+    if rank == 0:
+        server = communication._AUTOTUNE_SERVER
+        if server is None:
+            raise AssertionError("rank 0 serves no autotune sidecar")
+        registered = [d.name for d in
+                      server.RequestHandlerClass.service._task(AUTOTUNE_MODEL).tensor_list]
+    buckets_before, first = len(trainer.plan.buckets), _plan_hash(trainer)
+    losses, sigs, times, snap, changed_at = [], [], [], None, None
+    while len(losses) < AUTOTUNE_MAX_STEPS:
+        step = len(losses) + 1
+        if step % AUTOTUNE_EVERY == 0 and changed_at is None:
+            snap = None
+            snap = (step, {k: v.detach().clone() for k, v in model.state_dict().items()},
+                    copy.deepcopy(state.optimizer.state_dict()))
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.detach())
+        sigs.append(_plan_hash(trainer))
+        if changed_at is None and sigs[-1] != first:
+            changed_at = step
+        if changed_at is not None and step >= changed_at + AUTOTUNE_AFTER:
+            break
+    losses = [x.item() for x in losses]
+    if changed_at is None or snap is None:
+        raise AssertionError(f"[rank {rank}] autotune: no check-in changed the plan in "
+                             f"{len(losses)} steps: {trainer.autotune_checkins}")
+    digest = _param_digest(model)
+    start, msd, osd = snap
+    _, cmodel, _, control, cstate, cbatch, _ = _build_run(rank, world, run, device)
+    if control.autotune:
+        raise AssertionError("the control trainer is autotuned")
+    with torch.no_grad():
+        cmodel.load_state_dict(msd)
+    cstate.optimizer.load_state_dict(osd)
+    del snap, msd, osd
+    control_losses = []
+    for _ in range(start, len(losses) + 1):
+        cstate, loss = control.train_step(cstate, cbatch)
+        control_losses.append(loss.item())
+    record = {"name": name, "kind": "autotune", "losses": losses,
+              "control_losses": control_losses, "control_from": start, "signatures": sigs,
+              "changed_at": changed_at, "checkins": trainer.autotune_checkins,
+              "buckets_before": buckets_before,
+              "buckets_after": len(trainer.plan.buckets), "bucket_bytes": trainer.bucket_bytes,
+              "times_ms": [t * 1e3 for t in times], "registered": registered,
+              "named_params": [p.name for p in trainer._named_params],
+              "digest": digest, "control_digest": _param_digest(cmodel),
+              "completed": trainer._autotune_completed}
+    log(f"[rank {rank}] autotune: {len(losses)} steps, the plan changed at step {changed_at} "
+        f"({buckets_before} -> {record['buckets_after']} buckets of {trainer.bucket_bytes} "
+        f"bytes); control from step {start}")
+    return record
+
+
+def codec_flip_run(rank, world, run, device, label):
+    """(b) The codec flip through the recommendation path: ``FLIP_STEPS``
+    steps at the default policy, with ``compress_intra="onebit_ef"``, with
+    ``"off"``; each migration timed (synchronized) and the residual read
+    right after it."""
+    from bagua_tpu_torch.define import BaguaHyperparameter
+    from bagua_tpu_torch.ops import codec as cd
+
+    cfg, model, algo, trainer, state, batch, _ = _build_run(rank, world, run, device)
+    steps, migrations = [], []
+
+    def timed_migration(codec, apply_ms):
+        pending = trainer._pending_state_migration
+        if pending is None:
+            raise AssertionError(f"[rank {rank}] compress_intra={codec} queued no migration")
+
+        def migrate(s):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pending(s)
+            torch.cuda.synchronize()
+            a = out.algo_state if isinstance(out.algo_state, dict) else {}
+            ef = a.get("ef")
+            rec = {"to": codec, "apply_ms": apply_ms, "ms": (time.perf_counter() - t0) * 1e3,
+                   "ef": ef is not None}
+            if ef is not None:
+                rec.update(zero=all(not bool(r.any()) for r in ef["buckets"]),
+                           f32=all(r.dtype == torch.float32 for r in ef["buckets"]),
+                           numel=sum(r.numel() for r in ef["buckets"]),
+                           bytes=sum(r.numel() * r.element_size() for r in ef["buckets"]))
+            migrations.append(rec)
+            return out
+
+        trainer._pending_state_migration = migrate
+
+    for codec, n in zip((None, "onebit_ef", "off"), FLIP_STEPS):
+        if codec is not None:
+            t0 = time.perf_counter()
+            trainer._apply_recommendation(BaguaHyperparameter(compress_intra=codec))
+            timed_migration(codec, (time.perf_counter() - t0) * 1e3)
+        for _ in range(n):
+            cd.reset_launch_counts()
+            staged0 = trainer.host_staged_bytes
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, batch)
+            value = loss.item()
+            ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            a = state.algo_state if isinstance(state.algo_state, dict) else {}
+            steps.append({"codec": codec or "default", "loss": value, "ms": ms,
+                          "staged": trainer.host_staged_bytes - staged0,
+                          "k4": cd.sign_compress_chunked.launches,
+                          "k5": cd.sign_decompress_chunked.launches,
+                          "ef": "ef" in a, "mem": torch.cuda.memory_allocated(),
+                          "digests": _flat_digests(trainer, model)})
+    record = {"name": run[0], "kind": "autotune", "steps": steps, "migrations": migrations,
+              "buckets": len(trainer.plan.buckets),
+              "padded_numel": sum(b.padded_numel for b in trainer.plan.buckets)}
+    log(f"[rank {rank}] codec flip: losses {[s['loss'] for s in steps]}; migrations "
+        f"{[(m['to'], round(m['ms'], 3)) for m in migrations]}")
+    return record
+
+
+def autotune_run(rank, world, run, device, label):
+    return {"autotune_loop": autotune_loop_run, "codec_flip": codec_flip_run}[run[0]](
+        rank, world, run, device, label)
+
+
+def check_autotune(card, runs, onebit):
+    """The autotune phase's gates across the ranks (see the module
+    docstring, item 15); ``onebit`` is slice 4's 1-bit run on the cut."""
+    loop, flip = runs["autotune_loop"], runs["codec_flip"]
+    r0 = loop[0]
+    if sorted(r0["registered"] or []) != sorted(r0["named_params"]):
+        raise AssertionError(f"autotune: the service's task holds {r0['registered']}, "
+                             f"the cut has {r0['named_params']}")
+    for r, rec in enumerate(loop):
+        if not rec["checkins"] or not all(c["speed"] > 0 for c in rec["checkins"]):
+            raise AssertionError(f"autotune rank {r}: check-ins {rec['checkins']}")
+        start = rec["control_from"]
+        if rec["losses"][start - 1:] != rec["control_losses"]:
+            raise AssertionError(f"autotune rank {r}: losses from step {start} "
+                                 f"{rec['losses'][start - 1:]} against the control's "
+                                 f"{rec['control_losses']}")
+        if rec["digest"] != rec["control_digest"]:
+            raise AssertionError(f"autotune rank {r}: parameters differ from the control's")
+    for key in ("signatures", "losses", "digest", "changed_at"):
+        if loop[1][key] != r0[key]:
+            raise AssertionError(f"autotune: {key} differ between the ranks")
+    times = r0["times_ms"]
+    at = r0["changed_at"]
+    med = statistics.median(times)
+    for r, rec in enumerate(loop):
+        for c in rec["checkins"]:
+            log(f"autotune rank {r} ({card}): check-in at step {c['step']}: speed "
+                f"{c['speed']:.3f} samples/s, sync {c['sync_ms']:.3f} ms, report "
+                f"{c['report_ms']:.3f} ms, ask {c['ask_ms']:.3f} ms, apply {c['apply_ms']:.3f} ms, "
+                f"{c['buckets']} buckets after, completed {c['completed']}")
+    log(f"autotune ({card}): {len(times)} steps on both ranks, plan signature equal at every "
+        f"step; changed at step {at}: {r0['buckets_before']} -> {r0['buckets_after']} buckets "
+        f"({r0['bucket_bytes']} bytes); that step {times[at - 1]:.3f} ms, the next "
+        f"{times[at]:.3f} ms, median {med:.3f} ms; losses bitwise the untuned control's from "
+        f"step {r0['control_from']} ({len(r0['control_losses'])} steps), parameters bitwise "
+        f"equal on the ranks and to the control's")
+    per_step = {k: onebit[0]["launches"][k] / len(onebit[0]["losses"])
+                for k in ("sign_compress_chunked", "sign_decompress_chunked")}
+    onebit_staged = onebit[0]["host_staged_bytes"] / len(onebit[0]["losses"])
+    for r, rec in enumerate(flip):
+        steps, migs = rec["steps"], rec["migrations"]
+        on = [s for s in steps if s["codec"] == "onebit_ef"]
+        before = [s for s in steps if s["codec"] == "default"]
+        after = [s for s in steps if s["codec"] == "off"]
+        add, drop = migs
+        if not (add["ef"] and add["zero"] and add["f32"] and add["numel"] == rec["padded_numel"]):
+            raise AssertionError(f"codec flip rank {r}: the residual at the flip {add}")
+        if any(s["k4"] != per_step["sign_compress_chunked"]
+               or s["k5"] != per_step["sign_decompress_chunked"] for s in on):
+            raise AssertionError(f"codec flip rank {r}: K4/K5 a step "
+                                 f"{[(s['k4'], s['k5']) for s in on]}, slice 4's {per_step}")
+        if any(s["k4"] or s["k5"] for s in before + after):
+            raise AssertionError(f"codec flip rank {r}: K4/K5 outside the 1-bit steps")
+        if any(s["staged"] != onebit_staged for s in on):
+            raise AssertionError(f"codec flip rank {r}: staged {[s['staged'] for s in on]} a "
+                                 f"1-bit step, slice 4's {onebit_staged}")
+        if any(s["staged"] != before[0]["staged"] for s in before + after):
+            raise AssertionError(f"codec flip rank {r}: f32 steps staged "
+                                 f"{[s['staged'] for s in before + after]}")
+        fell = on[-1]["mem"] - after[0]["mem"]
+        if drop["ef"] or after[0]["ef"] or abs(fell - add["bytes"]) > FLIP_MEM_RTOL * add["bytes"]:
+            raise AssertionError(f"codec flip rank {r}: after the flip back the residual "
+                                 f"{drop}, allocated fell {fell} bytes, residual {add['bytes']}")
+    for i in range(len(flip[0]["steps"])):
+        if flip[1]["steps"][i]["digests"] != flip[0]["steps"][i]["digests"]:
+            raise AssertionError(f"codec flip: parameters differ between the ranks at step "
+                                 f"{i + 1}")
+    rec = flip[0]
+    steps, (add, drop) = rec["steps"], rec["migrations"]
+    fell = steps[sum(FLIP_STEPS[:2]) - 1]["mem"] - steps[sum(FLIP_STEPS[:2])]["mem"]
+    log(f"codec flip ({card}, rank 0): apply {add['apply_ms']:.3f} ms, migration to onebit_ef "
+        f"{add['ms']:.3f} ms (zero-filled residual of {add['numel']} f32, {add['bytes']} bytes, "
+        f"{rec['buckets']} buckets); apply {drop['apply_ms']:.3f} ms, migration back "
+        f"{drop['ms']:.3f} ms, allocated fell {fell} bytes; staged a step {[s['staged'] for s in steps]}; K4/K5 a step "
+        f"{[(s['k4'], s['k5']) for s in steps]}; step ms {[round(s['ms'], 3) for s in steps]}; "
+        f"losses {[s['loss'] for s in steps]}; parameters bitwise equal on the ranks at every "
+        f"step")
 
 
 def async_run(rank, world, run, device, label):
@@ -4940,7 +5382,12 @@ def tpp_generate_run(rank, world, name, device, label):
     import bagua_tpu_torch as bt
     from bagua_tpu_torch.ops import flash_attention as fa
 
-    ref = torch.load(os.environ[GEN_REF_ENV])
+    path, deadline = os.environ[GEN_REF_ENV], time.monotonic() + WORKER_TIMEOUT
+    while not os.path.exists(path):   # the generate phase runs beside this spawn
+        if time.monotonic() > deadline:
+            raise AssertionError(f"tp_generate: no generate reference at {path}")
+        time.sleep(0.5)
+    ref = torch.load(path)
     mesh = _mp_mesh({"tp": 2})
     model = tpp_model({"tp": 2})
     weights = _full_weights("longctx")
@@ -5384,11 +5831,15 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     device = torch.device(device)
     bt.init_process_group(init_method, world_size=world, rank=rank, device=device,
                           backend="gloo", intra_size=intra)
+    # the sidecar (rank 0, where the spawn set BAGUA_SERVICE_PORT) read its
+    # settings at the init above; the phases' other trainers stay untuned
+    os.environ.pop("BAGUA_AUTOTUNE", None)
     _CKPT_DIR["root"] = os.path.join(os.path.dirname(os.path.abspath(out_path)), "ckpt")
     records = []
     for sub in SPAWNS.get(phase, (phase,)):
         label, runs = MULTI_RANK[sub][:2]
         run_fn = {"async": async_run, "features": features_run, "overlap": overlap_run,
+                  "autotune": autotune_run,
                   "checkpoint": checkpoint_run, "model_parallel": model_parallel_run,
                   "tensor_pipeline": tensor_pipeline_run,
                   "tensor_pipeline_4": tensor_pipeline_run}.get(sub, compressed_run)
@@ -5413,8 +5864,13 @@ def phase_multi_rank(phase):
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'store')}"
         outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        env = dict(os.environ)
+        if "autotune" in SPAWNS.get(phase, (phase,)):
+            # rank 0's init_process_group serves the autotune sidecar
+            env.update(AUTOTUNE_SERVICE, BAGUA_SERVICE_PORT=str(_free_port()),
+                       MASTER_ADDR="127.0.0.1")
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                   "--worker", phase, str(r), init, outs[r]])
+                                   "--worker", phase, str(r), init, outs[r]], env=env)
                  for r in range(world)]
         deadline = time.monotonic() + WORKER_TIMEOUT * len(SPAWNS.get(phase, (phase,)))
         try:
@@ -5432,7 +5888,7 @@ def phase_multi_rank(phase):
     for runs in zip(*ranks):
         name, label = runs[0]["name"], runs[0]["label"]
         if runs[0].get("kind") in ("eager", "checkpoint", "model_parallel", "tensor_pipeline",
-                                   "vision"):
+                                   "vision", "autotune"):
             continue
         if runs[0]["fingerprints"] is not None:
             check_gossip(label, runs, intra or 1)
@@ -5456,6 +5912,8 @@ def phase_multi_rank(phase):
         if runs[0]["digests"] is not None:
             log(f"{label} {name}: parameters bitwise equal on all {world} ranks "
                 f"({len(runs[0]['digests'])} bucket digests)")
+    log(f"{label} spawn ({', '.join(SPAWNS.get(phase, (phase,)))}): seconds by run on rank 0 "
+        + str({runs[0]["name"]: round(runs[0]["seconds"], 1) for runs in zip(*ranks)}))
     return {runs[0]["name"]: list(runs) for runs in zip(*ranks)}
 
 
@@ -5610,8 +6068,8 @@ def check_features(feat, zero):
     every bucket equal to the resident ZeRO's of the zero phase over its first
     ``FULL_STEPS`` steps on each rank (one chunk update in either layout), and
     the resident peak at least ``RESIDENT_PEAK_DROP_GB`` below; (b) the
-    accumulated, guarded losses within ``ACCUM_LOSS_RTOL`` of the zero phase's
-    replicated run at every step, every verdict healthy; (c) the two clean 1-bit runs bitwise equal, and then the
+    accumulated, guarded losses within ``ACCUM_LOSS_RTOL`` of the cut's
+    ``no_rebucket`` run at every step, every verdict healthy; (c) the two clean 1-bit runs bitwise equal, and then the
     poisoned run's parameters and residual bitwise equal to the clean run's
     (else within ten times the clean runs' own difference), one skipped step
     and one fire on each rank; (d) the rebucketed run's parameters bitwise
@@ -5632,12 +6090,12 @@ def check_features(feat, zero):
     if not (fp_equal and len(leaf[0]["param_fingerprints"]) == FULL_STEPS
             and min(drop) >= RESIDENT_PEAK_DROP_GB):
         raise AssertionError(f"features (a): fingerprints equal {fp_equal}, peak drop {drop}")
-    acc, rep = feat["accum_guard"][0], zero["replicated"][0]
+    acc, rep = feat["accum_guard"][0], feat["no_rebucket"][0]
     gap = max(abs(a - b) / abs(b) for a, b in zip(acc["losses"], rep["losses"]))
     st = acc["stats"]
-    log(f"features (b): GradientAllReduce on BERT-Large, 2 microbatches of 4, guard skip: "
-        f"losses within {gap:.3g} of the replicated run's; verdicts {acc['healthy']}; step "
-        f"{st['step_ms']:.3f} ms (median {st['median_ms']:.3f}) against the replicated run's "
+    log(f"features (b): GradientAllReduce on the cut, 2 microbatches of 4, guard skip: "
+        f"losses within {gap:.3g} of the run without accumulation; verdicts {acc['healthy']}; "
+        f"step {st['step_ms']:.3f} ms (median {st['median_ms']:.3f}) against that run's "
         f"{rep['stats']['step_ms']:.3f}, peak {st['peak_gb']:.3f} GB ({st['layout']} layout) "
         f"against {rep['stats']['peak_gb']:.3f} GB; the guard's verdict and host read "
         f"{acc['guard_ms']:.3f} ms, {acc['guard_ms'] / st['step_ms']:.3%} of the step")
@@ -5766,7 +6224,13 @@ DRILL_TIMEOUT_S = 5          # BAGUA_COMM_TIMEOUT_S of the watchdog drill
 CYCLES_PER_S = SLEEP_CYCLES / 25e-3   # torch.cuda._sleep's cycles a second, about
 WEDGE_S = 120                # the device wedge: bounded, whatever tears the context down
 WATCHDOG_DRILL = dict(save_at=3, wedge_at=4)
-ELASTIC_DRILL = dict(steps=40, delay_s=0.3, rows=4, lease_ttl=3, join_window=4, kill_after=3)
+#: the elastic drill: its steps, a pause after each, the global batch's rows,
+#: the lease's TTL and the join window (s), node 1's world-2 steps before its
+#: kill, and the last steps that world 1 leaves to world 2 (it waits there
+#: for the resize, so that a standby slow to start cannot let the run end at
+#: world 1)
+ELASTIC_DRILL = dict(steps=40, delay_s=0.3, rows=4, lease_ttl=3, join_window=4, kill_after=3,
+                     hold=5)
 ELASTIC_RERUN_RTOL = 1e-5
 DRILL_BOUND_S = 240          # each drill's wall-clock bound
 WATCHDOG_COST_STEPS = 100
@@ -5830,6 +6294,64 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of every process it starts, so that
+    one which outlives its parent (a launcher's server, a worker's child)
+    is reparented here rather than to init, where :func:`stop_leftovers`
+    finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:   # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _children():
+    """``(pid, state, command line)`` of every child of this process."""
+    me, out = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:   # gone meanwhile
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if int(ppid) == me:
+            out.append((int(name), state, cmd))
+    return out
+
+
+def stop_leftovers(where):
+    """Kill and reap every child of this script still alive after
+    ``where`` (zombies are only reaped), and whatever they leave in turn;
+    returns the ``pid command`` of each one that was alive."""
+    import signal
+
+    left = []
+    for _ in range(20):   # a killed child's own children come back here
+        children = _children()
+        if not children:
+            break
+        for pid, state, cmd in children:
+            if state != "Z":
+                left.append(f"{pid} {cmd}")
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            try:
+                os.waitpid(pid, 0)
+            except ChildProcessError:
+                pass
+    if left:
+        log(f"processes left after {where}, now stopped: {left}")
+    return left
 
 
 def _write_json(path, obj) -> None:
@@ -5913,8 +6435,10 @@ def drill_elastic_worker(out_dir):
     launcher: slice 1's model cut to ``SP_CUT``'s widths on ``cuda:0`` over
     gloo (ranks of several launchers share the card), ByteGrad, SGD 0.1, the
     global batch (``ELASTIC_DRILL["rows"]`` rows of seed 1) split by the
-    world, resumed from the newest checkpoint, a save every step.  Each step
-    appends its world, node, loss and K1/K2 launches to
+    world, resumed from the newest checkpoint, a save every step; at world 1
+    it stops ``ELASTIC_DRILL["hold"]`` steps short of the end and waits for
+    the resize that ends its gang.  Each step appends its world, node, loss
+    and K1/K2 launches to
     ``steps_node<id>.jsonl``; the last parameters' digest goes to
     ``final_node<id>.json``."""
     import bagua_tpu_torch as bt
@@ -5945,6 +6469,9 @@ def drill_elastic_worker(out_dir):
         log(f"resumed from checkpoint step {step}")
     steps_path = os.path.join(out_dir, f"steps_node{ctx.node_id}.jsonl")
     while state.step < ELASTIC_DRILL["steps"]:
+        if world == 1 and state.step >= ELASTIC_DRILL["steps"] - ELASTIC_DRILL["hold"]:
+            time.sleep(0.1)   # the standby's resize stops this gang
+            continue
         i = state.step
         cd.reset_launch_counts()
         state, loss = trainer.train_step(state, batch)
@@ -6239,22 +6766,67 @@ def phase_robustness(card, slice1_losses, sequential=False):
     return out
 
 
+def _die_with_parent() -> None:
+    """A worker's end when the process that started it ends, however it
+    ends (``PR_SET_PDEATHSIG``): a killed script leaves no rank behind."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL, 0, 0, 0)
+
+
+def _guard_the_run() -> None:
+    """Stop every process of the run and exit non-zero on SIGTERM, SIGINT or
+    SIGHUP, and once the run has lasted ``SCRIPT_BOUND_S`` seconds."""
+    import signal
+    import threading
+
+    def end(why, code):
+        log(f"chip_smoke: {why}; stopping every process of the run")
+        stop_leftovers(why)
+        sys.stdout.flush()
+        os._exit(code)
+
+    for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        signal.signal(sig, lambda signum, _frame: end(
+            f"ended by {signal.Signals(signum).name}", 128 + signum))
+    timer = threading.Timer(SCRIPT_BOUND_S, end,
+                            (f"the run outlasted its {SCRIPT_BOUND_S} s bound", 124))
+    timer.daemon = True
+    timer.start()
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--worker"]:
+        _die_with_parent()
         phase, rank, init, out = sys.argv[2:6]
         multi_rank_worker(phase, int(rank), init, out)
         return
     if sys.argv[1:2] == ["--drill"]:
+        _die_with_parent()
         {"watchdog": drill_watchdog_worker, "elastic": drill_elastic_worker}[sys.argv[2]](
             sys.argv[3])
         return
     script_t0 = time.perf_counter()
-    seconds = {}
+    seconds, leftovers = {}, {}
+    adopt_orphans()
+    _guard_the_run()
 
-    def timed(name, fn, *args):
+    def stop(name):
+        left = stop_leftovers(name)
+        if left:
+            leftovers[name] = left
+
+    def timed(name, fn, *args, alone=True):
+        """``fn(*args)``, its seconds kept under ``name``; ``alone``: nothing
+        runs beside it, so every process left after it is stopped."""
         t0 = time.perf_counter()
-        out = fn(*args)
+        try:
+            out = fn(*args)
+        finally:
+            if alone:
+                stop(name)
         seconds[name] = round(time.perf_counter() - t0, 1)
         return out
 
@@ -6265,49 +6837,85 @@ def main():
     rows.update(timed("codec kernels", phase_codec_kernels))
     rows.update(timed("sign kernels", phase_sign_kernels))
     timed("narrow shapes", phase_narrow_shapes)
-    launches, base = timed("slice 1", phase_slice)
-    timed("obs", phase_obs, card)
     release()
-    launches_moe, _, base_moe = timed("slice 2", phase_slice_moe)
-    release()
-    timed("remat", phase_remat, {"longctx": base, "moe": base_moe})
-    slice1_losses, ep_losses = base["losses"], base_moe["ep_reference"]
-    del base, base_moe
-    ckpt_single = timed("checkpoint (a)", phase_checkpoint)
-    timed("generate", phase_generate, card)
-    timed("serve", phase_serve, card)
-    timed("vision", phase_vision, card)
-    torch.distributed.destroy_process_group()
-    release()   # the ranks of slices 3 and 4 share this card
-    slice3 = slice4 = both = timed("slice 3, slice 4, zero, decentralized", phase_multi_rank,
-                                   "slice3")
+    # every two-rank phase in one spawn, started now; beside it on the card,
+    # the in-process phases from slice 1 on, the four-rank spawns and the
+    # robustness drills (none of their gates is a time; the kernels' times
+    # above were taken alone)
+    gen_dir = tempfile.mkdtemp()
+    os.environ[GEN_REF_ENV] = os.path.join(gen_dir, "generate_ref.pt")
+    spawn, errors = {}, []
+
+    def two_ranks():
+        try:
+            spawn["both"] = timed(", ".join(SPAWNS["slice3"]), phase_multi_rank, "slice3",
+                                  alone=False)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    import threading
+
+    thread = threading.Thread(target=two_ranks, name="chip-smoke-two-ranks")
+    thread.start()
+    try:
+        launches, base = timed("slice 1", phase_slice, alone=False)
+        timed("obs", phase_obs, card, alone=False)
+        release()
+        launches_moe, _, base_moe = timed("slice 2", phase_slice_moe, alone=False)
+        release()
+        timed("remat", phase_remat, {"longctx": base, "moe": base_moe}, alone=False)
+        slice1_losses, ep_losses = base["losses"], base_moe["ep_reference"]
+        del base, base_moe
+        ckpt_single = timed("checkpoint (a)", phase_checkpoint, alone=False)
+        timed("generate", phase_generate, card, alone=False)
+        timed("serve", phase_serve, card, alone=False)
+        timed("vision", phase_vision, card, alone=False)
+        torch.distributed.destroy_process_group()
+        release()
+        four = timed("slice 4 (2 x 2), decentralized (2 x 2)", phase_multi_rank, "slice4_2x2",
+                     alone=False)
+        tpp4 = timed("tensor_pipeline (pp 2 x tp 2)", phase_multi_rank, "tensor_pipeline_4",
+                     alone=False)
+        timed("robustness", phase_robustness, card, slice1_losses,
+              "--sequential" in sys.argv[1:], alone=False)
+        ckpt_multi = timed("checkpoint (b, c)", phase_multi_rank, "checkpoint", alone=False)
+    except BaseException:
+        stop("a failed phase beside the two-rank spawn")   # ends that spawn too
+        raise
+    finally:
+        thread.join()
+        stop("the phases beside the two-rank spawn")
+        shutil.rmtree(gen_dir, ignore_errors=True)
+        os.environ.pop(GEN_REF_ENV, None)
+    if errors:
+        raise errors[0]
+    slice3 = slice4 = both = spawn["both"]
     check_slice3_obs(card, slice3["bytegrad"])
-    four = timed("slice 4 (2 x 2), decentralized (2 x 2)", phase_multi_rank, "slice4_2x2")
+    check_autotune(card, {name: both[name] for name, *_ in AUTOTUNE_RUNS},
+                   slice4["onebit_ef"])
     zero = {name: both[name] for name, *_ in ZERO_RUNS}
     check_zero({name: recs[0] for name, recs in zero.items()})
     gossip = {name: both[name] for name, *_ in DECENTRALIZED_RUNS}
     gossip.update({name: four[name] for name, *_ in DECENTRALIZED_4_RUNS})
     full = zero["replicated"][0]
-    joined = timed("async, features, overlap, checkpoint (b, c)", phase_multi_rank, "async")
-    by_phase = {sub: {name: joined[name] for name, *_ in MULTI_RANK[sub][1]}
-                for sub in SPAWNS["async"]}
+    by_phase = {sub: {name: both[name] for name, *_ in MULTI_RANK[sub][1]}
+                for sub in ("async", "features", "overlap")}
+    by_phase["checkpoint"] = ckpt_multi
     check_async(by_phase["async"], full, gossip["decentralized_all"][0])
     check_features(by_phase["features"], zero)
     check_overlap(by_phase["overlap"], zero)
     check_checkpoint(card, ckpt_single, by_phase["checkpoint"])
-    del joined, by_phase
-    joined = timed("model_parallel, tensor_pipeline", phase_multi_rank, "model_parallel")
-    mp = {name: joined[name] for name, *_ in MP_RUNS}
+    del by_phase
+    mp = {name: both[name] for name, *_ in MP_RUNS}
     for name, err in check_model_parallel(card, mp, slice1_losses, ep_losses).items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
-    tpp = {name: joined[name] for name, *_ in TPP_RUNS}
-    tpp4 = timed("tensor_pipeline (pp 2 x tp 2)", phase_multi_rank, "tensor_pipeline_4")
+    tpp = {name: both[name] for name, *_ in TPP_RUNS}
     check_tensor_pipeline(card, tpp, tpp4, slice1_losses)
     check_vision_ranks(card, tpp)
-    timed("robustness", phase_robustness, card, slice1_losses, "--sequential" in sys.argv[1:])
-    shutil.rmtree(os.path.dirname(os.environ.pop(GEN_REF_ENV)), ignore_errors=True)
-    log(f"seconds by phase: {seconds}; the script's total "
-        f"{time.perf_counter() - script_t0:.1f} s")
+    log(f"seconds by phase: {seconds} (from slice 1 to checkpoint (b, c) beside the "
+        f"two-rank spawn); the script's total {time.perf_counter() - script_t0:.1f} s")
+    if leftovers:
+        raise AssertionError(f"phases left processes running: {leftovers}")
     # each kernel's launches come from its own path: flash from slice 1, gmm
     # from slice 2, K1 and K2 from slice 3's ByteGrad run, K3 from its int8
     # ring, K4 and K5 from slice 4's main path (the other slices checked the

@@ -1,7 +1,9 @@
 """The port's eager collective API against the JAX package's.
 
 Mirrors ``tests/test_communication.py``, ``tests/test_alltoall_v.py`` and the
-dispatch case of ``tests/test_abort.py`` (``:142-170``).  JAX's eager calls
+dispatch case of ``tests/test_abort.py`` (``:142-170``); the in-place names
+(``allgather_inplace``, ``reduce_scatter_inplace``, ``alltoall_inplace``)
+are cases of their own.  JAX's eager calls
 take a leading rank axis, since one process holds every rank; the port's
 take each process's own tensor.  So ``tests/workers/torch_overlap_worker.py``
 runs every call on world 2 and 4 gloo ranks, row r of the inputs on rank r,
@@ -59,6 +61,10 @@ def _jax_calls(world):
         "eager/reduce_scatter": (lambda: bagua_tpu.reduce_scatter(e, JReduceOp.SUM, comm=c),
                                  False),
         "eager/alltoall": (lambda: bagua_tpu.alltoall(e, comm=c), True),
+        "eager/allgather_inplace": (lambda: bagua_tpu.allgather_inplace(e, comm=c), True),
+        "eager/reduce_scatter_inplace": (
+            lambda: bagua_tpu.reduce_scatter_inplace(e, JReduceOp.SUM, comm=c), False),
+        "eager/alltoall_inplace": (lambda: bagua_tpu.alltoall_inplace(e, comm=c), True),
         "eager/broadcast": (lambda: bagua_tpu.broadcast(e, src=world - 1, comm=c), True),
         "eager/reduce": (lambda: bagua_tpu.reduce(e, 1, JReduceOp.SUM, comm=c), False),
         "eager/reduce_recv": (lambda: bagua_tpu.reduce(e, 1, JReduceOp.SUM, comm=c,

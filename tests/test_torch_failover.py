@@ -1,16 +1,17 @@
 """The port's coordinator failover (``bagua_tpu_torch/elastic/failover.py``)
-over its replicated restart store, and the launcher's refusals.
+over its replicated restart store, and the launcher's coordinator stack.
 
 Mirrors ``tests/test_failover.py``: the replicated store (op-log
 replication, snapshot catch-up, generation fencing, a relaunched primary
 recovering from its peers), the multi-endpoint ``FailoverStore``, the
 leadership lease (keeper and standby watch), the lease re-arm at takeover.
-``test_promoted_coordinator_resumes_autopilot_and_historian_state`` is not
-mirrored: the autopilot and the historian wait for the port's obs and
-control plane.  For the same reason the failover counters are checked in
-the telemetry snapshot (the JAX package checks its obs metric registry), and
-the launcher refuses, in its own words, every setting that asks for one of
-those modules.
+``test_promoted_coordinator_resumes_autopilot_and_historian_state`` too,
+and the launcher's takeover stack (``_build_coordinator_stack`` over the
+replicated store) resumes the engine's policy state and the historian's
+rings.  The failover counters are checked in the telemetry snapshot (the
+JAX package checks its obs metric registry).  The settings the launcher
+refused until the port had the autopilot, the historian and the HTTP plane
+build their modules.
 """
 
 import json
@@ -358,48 +359,153 @@ def test_lease_tracker_rearm_prevents_mass_expiry():
 
 
 # ---------------------------------------------------------------------------
-# the launcher's refusals: what waits for the port's fleet and control plane
+# the launcher's control plane: the settings it refused until the port had
+# the autopilot, the historian and the HTTP plane now build them
 # ---------------------------------------------------------------------------
+
+_STACK_ARGS = dict(min_nnodes=1, max_nnodes=2, master_addr="127.0.0.1", master_port=1,
+                   join_window=3.0, restart_barrier_timeout=9.0, bagua_service_port=1)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 @pytest.mark.parametrize("name,value,module", [
-    ("BAGUA_AUTOPILOT", "act", "the fleet autopilot (bagua_tpu/autopilot/)"),
-    ("BAGUA_AUTOPILOT", "observe", "the fleet autopilot (bagua_tpu/autopilot/)"),
-    ("BAGUA_OBS_HISTORIAN", "on", "the telemetry historian (bagua_tpu/obs/historian.py)"),
-    ("BAGUA_OBS_HTTP_PORT", "8080", "the HTTP status plane (bagua_tpu/obs/http.py)"),
+    ("BAGUA_AUTOPILOT", "act", "autopilot"),
+    ("BAGUA_AUTOPILOT", "observe", "autopilot"),
+    ("BAGUA_OBS_HISTORIAN", "on", "historian"),
+    ("BAGUA_OBS_HTTP_PORT", "free", "http"),
 ])
 def test_launcher_refuses_what_waits_for_the_obs_plane(monkeypatch, name, value, module):
+    """The settings the launcher refused while the port lacked their
+    modules are accepted now: the coordinator stack builds the module each
+    asks for (and nothing is refused: ``refuse_missing_modules`` is gone)."""
+    from types import SimpleNamespace
+
     from bagua_tpu_torch.distributed import run as run_mod
 
+    assert not hasattr(run_mod, "refuse_missing_modules")
     for var in ("BAGUA_AUTOPILOT", "BAGUA_OBS_HISTORIAN", "BAGUA_OBS_HTTP_PORT"):
         monkeypatch.delenv(var, raising=False)
-    monkeypatch.setenv(name, value)
-    with pytest.raises(SystemExit) as e:
-        run_mod.main(["--nnodes", "1:2", "never_started.py"])
-    msg = str(e.value)
-    assert f"{name} asks for {module}, which bagua_tpu_torch does not have yet" in msg
-    assert "unset it" in msg
+    monkeypatch.setenv(name, str(_free_port()) if value == "free" else value)
+    stack = run_mod._build_coordinator_stack(SimpleNamespace(**_STACK_ARGS), InMemoryStore(),
+                                             MembershipClient(InMemoryStore(), 0, 2))
+    coordinator, autopilot, historian, fleet_holder, http_server = stack
+    try:
+        built = {"autopilot": autopilot, "historian": historian, "http": http_server}
+        assert built[module] is not None
+        assert [k for k, v in built.items() if v is not None] == [module]
+        if module == "autopilot":
+            assert autopilot.config.mode == value
+        if module == "http":
+            assert fleet_holder == {"record": None}
+    finally:
+        if http_server is not None:
+            http_server.stop()
 
 
 def test_launcher_runs_with_those_settings_off(monkeypatch):
+    from types import SimpleNamespace
+
     from bagua_tpu_torch.distributed import run as run_mod
 
     monkeypatch.setenv("BAGUA_AUTOPILOT", "off")
     monkeypatch.setenv("BAGUA_OBS_HISTORIAN", "off")
     monkeypatch.setenv("BAGUA_OBS_HTTP_PORT", "0")
-    # the fleet snapshot is the port's own now: accepted
     monkeypatch.setenv("BAGUA_OBS_FLEET_OUT", "/tmp/fleet.json")
-    run_mod.refuse_missing_modules()
+    _, autopilot, historian, fleet_holder, http_server = run_mod._build_coordinator_stack(
+        SimpleNamespace(**_STACK_ARGS), None, MembershipClient(InMemoryStore(), 0, 2))
+    assert (autopilot, historian, fleet_holder, http_server) == (None, None, None, None)
 
 
-def test_coordinator_stack_is_the_coordinator_alone():
+def test_coordinator_stack_is_the_coordinator_alone(monkeypatch):
     from types import SimpleNamespace
 
     from bagua_tpu_torch.distributed.run import _build_coordinator_stack
     from bagua_tpu_torch.elastic.coordinator import ElasticCoordinator
 
+    for var in ("BAGUA_AUTOPILOT", "BAGUA_OBS_HISTORIAN", "BAGUA_OBS_HTTP_PORT"):
+        monkeypatch.delenv(var, raising=False)
     args = SimpleNamespace(min_nnodes=1, max_nnodes=2, master_addr="127.0.0.1",
-                           master_port=1, join_window=3.0, restart_barrier_timeout=9.0)
-    coord = _build_coordinator_stack(args, None, MembershipClient(InMemoryStore(), 0, 2))
+                           master_port=1, join_window=3.0, restart_barrier_timeout=9.0,
+                           bagua_service_port=1)
+    coord, *rest = _build_coordinator_stack(args, None, MembershipClient(InMemoryStore(), 0, 2))
     assert isinstance(coord, ElasticCoordinator)
+    assert rest == [None, None, None, None]
     assert (coord.join_window_s, coord.timeout_s) == (3.0, 9.0)
+
+
+def _fleet_record(epoch, step):
+    from bagua_tpu_torch.obs.export import build_fleet_record
+
+    return build_fleet_record(epoch, {
+        0: {"obs": {"rank": 0, "step": step, "goodput_fraction": 0.9,
+                    "worst_badput_class": "collective_wait"}},
+        1: {"obs": {"rank": 1, "step": step, "goodput_fraction": 0.8,
+                    "worst_badput_class": "collective_wait"}},
+    })
+
+
+def test_promoted_coordinator_resumes_autopilot_and_historian_state():
+    """Mirrors ``tests/test_failover.py``'s case: a fresh engine and
+    historian over the same (replicated) store resume the policy state and
+    the trend rings."""
+    from bagua_tpu_torch.autopilot.engine import AutopilotEngine
+    from bagua_tpu_torch.autopilot.policy import PolicyConfig
+    from bagua_tpu_torch.obs.historian import Historian
+
+    store = InMemoryStore()
+    cfg = PolicyConfig(mode="observe", sustain=2, cooldown_s=0.0,
+                       budget=8, staleness_s=60.0, suspect_ttl_s=30.0)
+    engine = AutopilotEngine(config=cfg, store=store)
+    historian = Historian(capacity=64, window_s=60.0, store=store, persist_every=1)
+    for step in range(4):
+        record = _fleet_record(0, step)
+        historian.ingest(record)
+        engine.observe_snapshot(record)
+    engine._persist_state()
+    rung, taken = engine.state.rung, engine.state.actions_taken
+    series = len(historian.metrics())
+    assert series > 0
+    engine2 = AutopilotEngine(config=cfg, store=store)
+    historian2 = Historian(capacity=64, window_s=60.0, store=store, persist_every=1)
+    assert engine2.state.rung == rung
+    assert engine2.state.actions_taken == taken
+    assert len(historian2.metrics()) == series
+    assert all(len(historian2.window(rank, metric)) > 0
+               for rank, metric in historian2.metrics())
+
+
+def test_takeover_stack_resumes_the_engine_and_the_historian(monkeypatch):
+    """The launcher's takeover path: the promoted standby's
+    ``_build_coordinator_stack`` over the replicated store resumes what the
+    dead coordinator's stack persisted (the engine's policy state, the
+    historian's rings)."""
+    from types import SimpleNamespace
+
+    from bagua_tpu_torch.distributed import run as run_mod
+    from bagua_tpu_torch.obs.historian import STORE_KEY
+
+    monkeypatch.setenv("BAGUA_AUTOPILOT", "observe")
+    monkeypatch.setenv("BAGUA_OBS_HISTORIAN", "on")
+    monkeypatch.delenv("BAGUA_OBS_HTTP_PORT", raising=False)
+    store = InMemoryStore()
+    args = SimpleNamespace(**_STACK_ARGS)
+    _, engine, historian, _, _ = run_mod._build_coordinator_stack(
+        args, store, MembershipClient(store, 0, 2))
+    for step in range(4):
+        engine.observe_snapshot(historian.ingest(_fleet_record(0, step)))
+    engine._persist_state()
+    store.set(STORE_KEY, historian.to_json())
+    _, engine2, historian2, _, _ = run_mod._build_coordinator_stack(
+        args, store, MembershipClient(store, 1, 2))
+    assert engine2.state.to_json() == engine.state.to_json()
+    assert engine.state.last_snapshot_unix is not None
+    assert historian2.metrics() == historian.metrics()
+    assert all(historian2.window(r, m) == historian.window(r, m)
+               for r, m in historian.metrics())

@@ -27,7 +27,9 @@ def test_sources_found():
     assert {"chip_smoke.py", "bagua_tpu_torch/core/backend.py",
             "bagua_tpu_torch/ops/flash_attention.py", "bagua_tpu_torch/ops/gmm.py",
             "bagua_tpu_torch/model_parallel/moe/layer.py", "bagua_tpu_torch/obs/spans.py",
-            "bagua_tpu_torch/profiling.py", "bagua_tpu_torch/serve/engine.py"} <= names
+            "bagua_tpu_torch/profiling.py", "bagua_tpu_torch/serve/engine.py",
+            "bagua_tpu_torch/service/autotune_service.py", "bagua_tpu_torch/autopilot/engine.py",
+            "bagua_tpu_torch/obs/historian.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -46,6 +48,8 @@ def test_import_without_jax_loads_no_bagua_tpu():
         "import bagua_tpu_torch.obs, bagua_tpu_torch.obs.ledger, "
         "bagua_tpu_torch.obs.timeline, bagua_tpu_torch.obs.attribution, "
         "bagua_tpu_torch.obs.flops, bagua_tpu_torch.profiling, bagua_tpu_torch.serve\n"
+        "import bagua_tpu_torch.service, bagua_tpu_torch.autopilot, "
+        "bagua_tpu_torch.obs.historian, bagua_tpu_torch.obs.http, bagua_tpu_torch.version\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'pydantic', 'bagua_tpu') and sys.modules[m]]\n"

@@ -455,3 +455,127 @@ def test_watchdog_hang_restart_resume(runs):
     assert "resumed from checkpoint step 4" in log
     assert r["final"]["resumed_from"] == 4
     assert r["final"]["digest"] == _final(runs, "gang")["digest"]
+
+
+# ---- the coordinator's control plane (``run.py:673-737, 895-925``) ---------
+
+
+class _DoneProc:
+    """A worker that already exited 0."""
+
+    def poll(self):
+        return 0
+
+    def wait(self, timeout=None):
+        return 0
+
+    def send_signal(self, sig):
+        pass
+
+    def kill(self):
+        pass
+
+
+def _control_plane(monkeypatch, tmp_path, mode):
+    """One monitor tick of the coordinator over two nodes whose node 1
+    carries a chronic dispatch straggler, with the autopilot in ``mode``,
+    the historian on and the HTTP plane serving."""
+    from types import SimpleNamespace
+
+    from bagua_tpu_torch.contrib.utils.store import InMemoryStore
+    from bagua_tpu_torch.distributed import run as run_mod
+    from bagua_tpu_torch.elastic.membership import MembershipClient
+    from bagua_tpu_torch.obs import http as obs_http
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setattr(obs_http, "_GLOBAL_SERVER", None)
+    for k, v in {"BAGUA_AUTOPILOT": mode, "BAGUA_OBS_HISTORIAN": "on",
+                 "BAGUA_OBS_HTTP_PORT": str(port), "BAGUA_AUTOPILOT_SUSTAIN": "1",
+                 "BAGUA_OBS_DUMP_DIR": str(tmp_path / "dumps")}.items():
+        monkeypatch.setenv(k, v)
+    store = InMemoryStore()
+    client = MembershipClient(store, 0, 2)
+    args = SimpleNamespace(min_nnodes=1, max_nnodes=2, master_addr="127.0.0.1",
+                           master_port=1, join_window=3.0, restart_barrier_timeout=9.0,
+                           bagua_service_port=_free_port(), monitor_interval=0.01,
+                           lease_ttl=5.0, node_rank=0)
+    stack = run_mod._build_coordinator_stack(args, store, client)
+    now = time.time()
+    health = {0: {"obs": {"rank": 0, "step": 10, "goodput_fraction": 0.9}},
+              1: {"obs": {"rank": 1, "step": 10, "goodput_fraction": 0.9,
+                          "straggler_suspect": {"rank": 1, "step": 10, "ratio": 10.0,
+                                                "dominant_phase": "dispatch",
+                                                "detected_at_unix": now}}}}
+    tracker = SimpleNamespace(poll=lambda: [], health_of=health.get,
+                              unhealthy_members=lambda: [])
+    spec = SimpleNamespace(epoch=0, ranks=[0, 1], nnodes=2, max_nnodes=2)
+    return run_mod, args, client, spec, tracker, stack
+
+
+def test_coordinator_serves_fleet_and_history_and_observe_actuates_nothing(monkeypatch,
+                                                                           tmp_path):
+    import urllib.request
+
+    run_mod, args, client, spec, tracker, stack = _control_plane(monkeypatch, tmp_path,
+                                                                 "observe")
+    coordinator, autopilot, historian, holder, http_server = stack
+    coordinator = type("C", (), {"standby_ids": lambda self, spec: []})()
+    try:
+        rc = run_mod.monitor_elastic(args, [_DoneProc()], client, spec, coordinator, tracker,
+                                     autopilot=autopilot, historian=historian,
+                                     fleet_holder=holder)
+        assert rc == 0
+        # observe: decided and flight-recorded, not actuated
+        dumps = list((tmp_path / "dumps").glob("flight_autopilot_action_*.json"))
+        assert dumps
+        rec = json.load(open(dumps[0]))
+        assert rec["extra"]["action"]["kind"] == "fence" and rec["extra"]["mode"] == "observe"
+        assert client.read_stop(0) is None
+        assert autopilot.state.actions_taken == 1
+        with urllib.request.urlopen(http_server.url + "/fleet", timeout=10) as r:
+            fleet = json.loads(r.read())
+        assert fleet["ranks"]["1"]["obs"]["1"]["straggler_suspect"]["ratio"] == 10.0
+        # the record went through the historian on its way to /fleet
+        assert ("1", "goodput_fraction") in historian.metrics()
+        with urllib.request.urlopen(http_server.url + "/history?metric=goodput_fraction",
+                                    timeout=10) as r:
+            report = json.loads(r.read())
+        assert set(report["ranks"]) == {"0", "1"}
+    finally:
+        http_server.stop()
+
+
+def test_coordinator_act_mode_fences_through_the_gang_stop(monkeypatch, tmp_path):
+    run_mod, args, client, spec, tracker, stack = _control_plane(monkeypatch, tmp_path, "act")
+    coordinator, autopilot, historian, holder, http_server = stack
+    coordinator = type("C", (), {"standby_ids": lambda self, spec: []})()
+    try:
+        with pytest.raises(run_mod._GangStop) as e:
+            run_mod.monitor_elastic(args, [_DoneProc()], client, spec, coordinator, tracker,
+                                    autopilot=autopilot, historian=historian,
+                                    fleet_holder=holder)
+        assert e.value.nodes == [1] and not e.value.rejoin
+        stop = client.read_stop(0)
+        assert stop["kind"] == "health_fenced" and "autopilot fence" in stop["reason"]
+        assert list((tmp_path / "dumps").glob("flight_health_fence_*.json"))
+    finally:
+        http_server.stop()
+
+
+def test_launcher_hands_quarantines_to_the_respawn(monkeypatch):
+    """Every launcher reads the act-mode engine's storage-quarantine
+    verdicts off the restart store and injects them into the respawned
+    workers' environment (``run.py:1187-1191``)."""
+    from bagua_tpu_torch.autopilot.engine import QUARANTINE_STORE_KEY, read_actuated_quarantines
+    from bagua_tpu_torch.contrib.utils.store import InMemoryStore
+    from bagua_tpu_torch.distributed.run import build_env, parse_args
+
+    store = InMemoryStore()
+    assert read_actuated_quarantines(store) == []
+    store.set(QUARANTINE_STORE_KEY, "/ckpt/a\ngs://bucket/b\n")
+    paths = read_actuated_quarantines(store)
+    env = build_env(parse_args(["--nnodes", "1", "script.py"]), 0,
+                    quarantined_ckpt_paths=paths)
+    assert env["BAGUA_CKPT_QUARANTINED_PATHS"] == "/ckpt/a\ngs://bucket/b"

@@ -371,7 +371,6 @@ def test_launcher_writes_the_fleet_snapshot(tmp_path, monkeypatch):
 
     out = tmp_path / "fleet.json"
     monkeypatch.setenv("BAGUA_OBS_FLEET_OUT", str(out))
-    run_mod.refuse_missing_modules()   # accepted
     health = {0: {"obs": {"rank": 0, "step": 4}}, 1: {"grad_unhealthy": 2}}
     tracker = SimpleNamespace(health_of=lambda n: health.get(n))
     rec = run_mod._maybe_write_fleet_snapshot(SimpleNamespace(epoch=3, ranks=[0, 1]), tracker)

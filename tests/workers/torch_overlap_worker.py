@@ -77,6 +77,10 @@ def eager_cases(comm, d, counts):
     out["eager/allgather"] = bt.allgather(e)
     out["eager/reduce_scatter"] = bt.reduce_scatter(e, ReduceOp.SUM)
     out["eager/alltoall"] = bt.alltoall(e)
+    # the JAX package's in-place names (aliases there, and here)
+    out["eager/allgather_inplace"] = bt.allgather_inplace(e)
+    out["eager/reduce_scatter_inplace"] = bt.reduce_scatter_inplace(e, ReduceOp.SUM)
+    out["eager/alltoall_inplace"] = bt.alltoall_inplace(e)
     out["eager/broadcast"] = bt.broadcast(e, src=world - 1)
     out["eager/reduce"] = bt.reduce(e, dst=1, op=ReduceOp.SUM)
     out["eager/reduce_recv"] = bt.reduce(e, dst=1, op=ReduceOp.SUM, recv=d["recv"])
