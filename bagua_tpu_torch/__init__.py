@@ -11,6 +11,13 @@ passes ``device="cpu"``.
 from .version import __version__  # noqa: F401
 
 from . import env  # noqa: F401
+
+# the lockdep witness must wrap the lock factories BEFORE the imports below
+# create the package's module-level locks (BAGUA_LOCKDEP, off by default)
+from .analysis import lockdep as _lockdep  # noqa: E402
+
+_lockdep.maybe_install()
+
 from .algorithms import (  # noqa: F401
     Algorithm,
     AlgorithmContext,

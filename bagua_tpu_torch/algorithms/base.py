@@ -43,7 +43,8 @@ import torch
 
 from ..checkpoint import apply_tree, check_tree, to_tree
 from ..bucket import BucketPlan, relayout_flats
-from ..communication import LINK_DCN, LINK_ICI, BaguaCommunicator, ReduceOp, ring_chunks_for
+from ..communication import (LINK_DCN, LINK_ICI, BaguaCommunicator, ReduceOp,
+                             recording_tag, ring_chunks_for)
 from ..compression.codecs import get_codec
 from ..define import TensorDeclaration
 from ..obs import spans as _obs_spans
@@ -555,7 +556,7 @@ class Algorithm:
         the span while tracing its overlap path, once a compile; the eager
         step opens it on every call, in the serialized per-bucket path
         too."""
-        with _profile_annotate(BUCKET_ANNOTATION + str(index)):
+        with _profile_annotate(BUCKET_ANNOTATION + str(index)), recording_tag(index):
             if not _obs_spans.enabled():
                 return self.reduce_bucket_grad(ctx, index, flat)
             attrs = ctx.bucket_span_attrs(index, self.hierarchical, self.wire_codec_dcn,

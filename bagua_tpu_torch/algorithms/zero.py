@@ -59,7 +59,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..checkpoint import check_optimizer_state_tree, load_optimizer_state_tree, optimizer_state_tree
-from ..communication import ReduceOp
+from ..communication import ReduceOp, recording_tag
 from .base import Algorithm, AlgorithmContext
 
 
@@ -265,7 +265,10 @@ class ZeroOptimizerAlgorithm(Algorithm):
             # the overlap scheduler issued the reduce-scatters from the backward
             gchunks = list(grads.chunks)
         else:
-            gchunks = [self._avg_scatter(ctx, f) for f in ctx.bucket_flats(grads)]
+            gchunks = []
+            for i, f in enumerate(ctx.bucket_flats(grads)):
+                with recording_tag(i):   # the collective log's bucket
+                    gchunks.append(self._avg_scatter(ctx, f))
         if self.clip_global_norm is not None:
             # the chunks over the shard ranks tile every flat once (staged:
             # replicated across nodes, so the intra-node sum is the whole
@@ -283,10 +286,11 @@ class ZeroOptimizerAlgorithm(Algorithm):
         opt_state.optimizer.step()
         del gchunks   # no gradient chunk outlives the step
         flats = []
-        for chunk in opt_state.chunks:
+        for i, chunk in enumerate(opt_state.chunks):
             chunk.grad = None
-            flats.append(ctx.bucket_allgather(chunk) if shard is ctx.comm
-                         else ctx.tier_allgather(chunk))
+            with recording_tag(i):
+                flats.append(ctx.bucket_allgather(chunk) if shard is ctx.comm
+                             else ctx.tier_allgather(chunk))
         if ctx.flat_resident:
             for pflat, value in zip(pflats, flats):
                 pflat.copy_(value)

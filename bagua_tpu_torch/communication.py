@@ -47,6 +47,7 @@ stages on its own stream.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
@@ -126,9 +127,12 @@ def abort(reason: str = "user abort") -> None:
     """Flag every communicator as aborted: collectives in flight finish, no
     new communication is started."""
     global _ABORT_REASON
-    # the Event is the synchronization point: the reason is written before
-    # set(), and check_abort falls back to "aborted" on a torn read
-    _ABORT_REASON = reason
+    # lock-free by design (as ``bagua_tpu/communication.py:84-88``): the
+    # Event is the synchronization point (the reason is written before
+    # set(), so a reader that saw the event sees the reason), the store is
+    # one GIL-atomic reference assignment, and check_abort falls back to
+    # "aborted" on a stale read
+    _ABORT_REASON = reason  # bagua: lint-ignore[unguarded-shared-write] -- Event-published; GIL-atomic store; stale read falls back to "aborted"
     _ABORT_EVENT.set()
     counters.incr("comm/aborts")
     logger.error("bagua_tpu_torch: communication aborted: %s", reason)
@@ -329,17 +333,56 @@ class _HostBuffers:
         self._pending[buf.data_ptr()] = done
 
 
+# -- the collective-call log (``bagua_tpu_torch.analysis.collective_check``) --
+#
+# Every blocking call of a communicator passes through ``_watched``; while a
+# recorder is installed it reports ``(op, communicator, args)`` there: the
+# operand's shape and dtype are metadata, so recording adds no device
+# synchronization.  ``recording_tag`` tags the calls made on this thread:
+# a bucket's reduction with the bucket's index, the plan's upkeep (the
+# overlap scheduler's readiness negotiation) with ``"plan"``.
+
+#: None, or the callable every blocking communicator call reports to
+_COLLECTIVE_RECORDER: Optional[Callable] = None
+_RECORD_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def recording_tag(tag: Union[int, str]):
+    """Tag the collectives of this thread with ``tag`` (a bucket index, or
+    ``"plan"``) while a recorder is installed (a no-op otherwise)."""
+    if _COLLECTIVE_RECORDER is None:
+        yield
+        return
+    prev = getattr(_RECORD_TAG, "tag", None)
+    _RECORD_TAG.tag = tag
+    try:
+        yield
+    finally:
+        _RECORD_TAG.tag = prev
+
+
+def recorded_tag() -> Optional[Union[int, str]]:
+    """The tag this thread's collectives carry, if any."""
+    return getattr(_RECORD_TAG, "tag", None)
+
+
 def _watched(fn):
     """Run a blocking call of the communicator inside a section of the
     process's hang watchdog, when it has one.  A gloo collective blocks the
     calling thread until every peer has joined, so a peer that hangs with
     its socket open (a deadlock, a stopped process, a partition) keeps the
     section open past the timeout; an NCCL call returns once enqueued, and
-    the step's event fences its device work."""
+    the step's event fences its device work.  An installed collective
+    recorder sees the call first."""
     label = f"comm.{fn.__name__}"
+    op = fn.__name__
 
     @functools.wraps(fn)
     def call(self, *args, **kwargs):
+        recorder = _COLLECTIVE_RECORDER
+        if recorder is not None:
+            recorder(op, self, args)
         watchdog = _watchdog.active()
         if watchdog is None:
             return fn(self, *args, **kwargs)
@@ -456,6 +499,9 @@ class BaguaCommunicator:
         """Start the sum of ``x`` over the ranks, in place, without waiting:
         returns the collective's work, which the caller waits on before it
         reads ``x`` (async model average's round on its own group)."""
+        recorder = _COLLECTIVE_RECORDER
+        if recorder is not None:
+            recorder("allreduce_start", self, (x,))
         self._count_allreduce_staging(x)
         return dist.all_reduce(x, dist.ReduceOp.SUM, group=self.group, async_op=True)
 

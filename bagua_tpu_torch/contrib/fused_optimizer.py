@@ -47,6 +47,7 @@ def _group_leaves(tensors: List[torch.Tensor]) -> Dict[str, List[int]]:
 
 def _flatten(tensors: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Tensors -> ``{dtype_name: 1-D buffer}`` (their ravels concatenated)."""
+    # bagua: lint-ignore[per-step-reflatten] -- a standalone FusedOptimizer's step (the JAX update_fn's form); the trainer unwraps fuse_optimizer onto its resident flats and never runs it
     return {k: torch.cat([tensors[i].reshape(-1) for i in idx])
             for k, idx in _group_leaves(tensors).items()}
 

@@ -121,7 +121,8 @@ from ..checkpoint import (CheckpointIntegrityError, RankedState, apply_tree,
                           check_optimizer_state_tree, check_train_state, check_tree,
                           compute_state_digest, copy_tree, load_optimizer_state_tree,
                           optimizer_state_tree, restore_train_state, to_tree)
-from ..communication import ReduceOp, SelfCommunicator, abort, check_abort, get_backend
+from ..communication import (ReduceOp, SelfCommunicator, abort, check_abort, get_backend,
+                             recording_tag)
 from ..compression.codecs import validate_codec_policy
 from .overlap import CommWorker, OverlapStep
 from ..device import resolve_device
@@ -766,6 +767,7 @@ class BaguaTrainer:
             return {}
         grads = [(self._params[n].grad if self._params[n].grad is not None
                   else torch.zeros_like(self._params[n])) for n in names]
+        # bagua: lint-ignore[per-step-reflatten] -- the few leaves outside the bucket plan (expert tables, tp/pp shards) ride one allreduce a step by design
         flat = torch.cat([g.reshape(-1) / (self._ep_size if self._is_expert_name(n) else 1)
                           for n, g in zip(names, grads)])
         if self._replica_comm is not None:
@@ -1166,8 +1168,12 @@ class BaguaTrainer:
         index = {n: i for i, n in enumerate(names)}
         seen = [index[n] for n in dict.fromkeys(order)]
         perm = seen + [i for i in range(len(names)) if i not in set(seen)]
-        perm = self.comm.broadcast(torch.tensor(perm, dtype=torch.int64, device=self.device),
-                                   0).tolist()
+        # the plan's upkeep, not the step's construction: the collective
+        # log tags it (bagua_tpu_torch.analysis.collective_check)
+        with recording_tag("plan"):
+            # bagua: lint-ignore[host-sync-in-step] -- once per plan: the first overlapped step's readiness order, rank 0's, to every rank
+            perm = self.comm.broadcast(
+                torch.tensor(perm, dtype=torch.int64, device=self.device), 0).tolist()
         decls = {p.name: p.declaration() for p in self._named_params}
         before = len(self.plan.buckets)
         self.rebucket(split_bucket_by_bucket_size([decls[names[i]] for i in perm],
@@ -1647,6 +1653,7 @@ class BaguaTrainer:
 
     @staticmethod
     def _healthy(health: torch.Tensor) -> bool:
+        # bagua: lint-ignore[host-sync-in-step] -- the grad guard's verdict: skip and rewind need it on the host before the update
         return bool(health.min().item() > 0.5)
 
     def _snapshot(self, state: TrainState):
@@ -1702,7 +1709,7 @@ class BaguaTrainer:
         ``grad_guard_abort`` flight record."""
         t0 = time.monotonic()
         with trace_span("step/grad_guard_verdict", step=step_no):
-            hv = health.cpu().numpy()
+            hv = health.cpu().numpy()  # bagua: lint-ignore[host-sync-in-step] -- the grad guard's verdict, the policy's one readback
         # the readback blocks on the step's update: optimizer-adjacent work
         self.note_phase_duration("optimizer", time.monotonic() - t0)
         if self._obs_enabled:
@@ -1712,7 +1719,7 @@ class BaguaTrainer:
             from ..obs import export as _obs_export
 
             _obs_export.note_step_metrics({"grad_health_step": step_no,
-                                           "grad_healthy": float(hv.min())})
+                                           "grad_healthy": float(hv.min())})  # bagua: lint-ignore[host-sync-in-step] -- hv is the host copy read above: no device read
         if hv.min() > 0.5:
             self._guard_skips = 0
             return
@@ -2251,6 +2258,7 @@ class BaguaTrainer:
         rank = env.get_rank()
         t0 = time.monotonic()
         if self.device.type == "cuda":
+            # bagua: lint-ignore[host-sync-in-step] -- the check-in's one sync: the speed window counts finished work only
             torch.cuda.synchronize(self.device)
         if not self._manual_speed and not self._skip_next_speed_sample:
             self._speed_tracker.record(0.0)

@@ -10,7 +10,8 @@ fault-injection plan, the checkpoint storage quarantine, the hang watchdog's
 timeout, the launcher's rendezvous, the elastic membership block and the
 restart store's failover knobs, the autotune sidecar, the observability
 plane (the HTTP status plane and the historian included), the fleet
-autopilot, the profiler's window and the serving engine (same names,
+autopilot, the profiler's window, the serving engine, the lockdep
+witness and the pod simulator (same names,
 defaults and meanings as ``bagua_tpu/env.py``), and rank / world size /
 local rank / local world size.
 """
@@ -105,9 +106,8 @@ _declare("BAGUA_FAULT_PLAN", "str", "",
          "Deterministic fault-injection plan (JSON list of specs: point, "
          "kind, step/op trigger, count, seed) armed at the first fault-point "
          "query; drills and tests only, never production.  The port reaches "
-         "every point but podsim.link (the pod simulator is not ported).  "
-         "See "
-         "bagua_tpu_torch.faults.inject.")
+         "every point of the JAX package, podsim.link (the pod simulator's "
+         "shaped links) included.  See bagua_tpu_torch.faults.inject.")
 _declare("BAGUA_CKPT_QUARANTINED_PATHS", "str", "",
          "Newline-separated checkpoint directories under storage "
          "quarantine (newline, not os.pathsep — ':' appears inside "
@@ -250,6 +250,40 @@ _declare("BAGUA_OBS_DUMP_MAX_FILES", "int", "64",
          "comes from restarts minting new pids — a long run with "
          "recurring throttled faults previously accumulated dumps "
          "without limit.  0 disables pruning (unbounded).")
+# -- static analysis (bagua_tpu_torch.analysis) --
+_declare("BAGUA_LOCKDEP", "enum", "off",
+         "Runtime lockdep witness (bagua_tpu_torch.analysis.lockdep): `on` "
+         "wraps every lock the package creates so real acquisition orders "
+         "are recorded and opposite-order pairs (live deadlock windows) "
+         "are detected; the witness JSON is cross-checked against the "
+         "static concurrency engine's graph (`python -m "
+         "bagua_tpu_torch.analysis --witness`).  Diagnostics only: adds "
+         "bookkeeping to every acquisition, keep `off` in production.",
+         choices=("off", "on"))
+_declare("BAGUA_LOCKDEP_OUT", "str", "",
+         "Output path for the lockdep witness JSON (edges, inversions, "
+         "per-site acquisition counts), written at process exit.  Empty "
+         "falls back to ./bagua_lockdep_witness.json.")
+# -- pod simulator (bagua_tpu_torch.podsim) --
+_declare("BAGUA_SCALE_RANKS", "str", "32,64,128",
+         "Comma-separated world sizes of the pod simulator's drill: the "
+         "first runs the end-to-end scenario (shaped collectives, elastic "
+         "shrink and regrow, autopilot fence; "
+         "bagua_tpu_torch.podsim.orchestrator.full_scenario).")
+_declare("BAGUA_SCALE_SHAPE", "str", "pod",
+         "Link-shape model for the pod simulator's data plane: a preset "
+         "name (off|pod|wan) or a JSON ShapeSpec object, per-class "
+         "latency/bandwidth/jitter of the intra- and inter-node links.  See "
+         "bagua_tpu_torch.podsim.shaping.SHAPE_PRESETS.")
+_declare("BAGUA_SCALE_SEED", "int", "0",
+         "Determinism seed for the pod simulator: the shaped links' jitter "
+         "hash and the drill's per-rank vectors both derive from it, so two "
+         "runs at one seed inject identical network time.")
+_declare("BAGUA_SCALE_DCN_CODEC", "str", "minmax_uint8",
+         "Wire codec for the pod simulator's inter-node ring "
+         "(f32|minmax_uint8|onebit_ef|topk): its numpy wire model "
+         "(bagua_tpu_torch.podsim.collectives), checked within its "
+         "quantization tolerance.")
 # -- serving plane --
 _declare("BAGUA_SERVE_MAX_SLOTS", "int", "8",
          "Batch slots of the continuous-batching inference engine: the "
@@ -629,6 +663,42 @@ def get_grad_guard_mode() -> str:
     """Gradient-health sentinel policy: ``off`` (default), ``warn``,
     ``skip`` (rewind unhealthy steps), or ``abort``."""
     return env_enum("BAGUA_GRAD_GUARD")
+
+
+def get_lockdep_mode() -> str:
+    """Runtime lockdep witness: ``off`` (default) or ``on``.  Read once at
+    package import (the shim must wrap locks as they are created), so it is
+    set in the environment, never flipped at runtime."""
+    return env_enum("BAGUA_LOCKDEP")
+
+
+def get_lockdep_out() -> str:
+    """Lockdep witness JSON output path ("" = the default
+    ``./bagua_lockdep_witness.json``)."""
+    return env_str("BAGUA_LOCKDEP_OUT")
+
+
+def get_scale_ranks() -> list:
+    """World sizes the pod simulator's drill sweeps, parsed to ints (a bad
+    entry raises: a silently skipped size would fake coverage)."""
+    return [int(p) for p in env_str("BAGUA_SCALE_RANKS").split(",")
+            if p.strip()]
+
+
+def get_scale_shape() -> str:
+    """Raw link-shape selector (preset name or JSON); parsed by
+    :func:`bagua_tpu_torch.podsim.shaping.resolve_shape`."""
+    return env_str("BAGUA_SCALE_SHAPE")
+
+
+def get_scale_seed() -> int:
+    return env_int("BAGUA_SCALE_SEED")
+
+
+def get_scale_dcn_codec() -> str:
+    """Wire codec of the pod simulator's inter-node ring (numpy wire model;
+    default ``minmax_uint8``)."""
+    return env_str("BAGUA_SCALE_DCN_CODEC")
 
 
 def get_fault_plan_raw() -> Optional[str]:

@@ -1,8 +1,9 @@
 """Seeded fault-injection registry.
 
 Port of ``bagua_tpu/faults/inject.py``: the plan machinery (``:82-400``)
-and the hooks of every point but ``podsim.link`` (the pod simulator is not
-ported): ``store.op`` and ``store.failover`` (:func:`maybe_raise_store_error`,
+and the hooks of every point: ``podsim.link`` (the pod simulator's shaped
+links, :meth:`bagua_tpu_torch.podsim.shaping.LinkShaper.check_faults`),
+``store.op`` and ``store.failover`` (:func:`maybe_raise_store_error`,
 the restart store's clients), ``elastic.heartbeat``
 (:func:`should_drop_heartbeat`, the lease heartbeat), ``collective.hang``
 (:func:`maybe_hang`, the watchdog's waiter), ``step.straggle``

@@ -141,7 +141,10 @@ class MoEMLP(nn.Module):
         counts_recv = comm.alltoall(counts, 0, 0)
         sizes = counts_recv.sum(0)                      # rows per local expert
         if self.use_ragged:
-            send = counts.sum(1).tolist()               # the host sync of this form
+            # the host sync of this form: the ragged exchange's exact counts
+            # bagua: lint-ignore[host-sync-in-step] -- the MoE exact-count read: alltoall_v sizes its buffers on the host
+            send = counts.sum(1).tolist()
+            # bagua: lint-ignore[host-sync-in-step] -- the MoE exact-count read: alltoall_v sizes its buffers on the host
             recv_counts = counts_recv.tolist()
             recv = [sum(c) for c in recv_counts]
             x_recv = pf.alltoall_v(x_rows, comm, send, recv)

@@ -224,11 +224,17 @@ class HangWatchdog:
                         pass
                     # os._exit skips atexit: make the queued async saves
                     # durable first, bounded so a wedged flush cannot hold
-                    # the exit
+                    # the exit, and write the lockdep witness if one is on
                     try:
                         from .checkpoint import flush_all_checkpoints
 
                         flush_all_checkpoints(timeout_s=10.0)
+                    except Exception:  # noqa: BLE001 - dying anyway
+                        pass
+                    try:
+                        from .analysis import lockdep as _lockdep
+
+                        _lockdep.dump_now()
                     except Exception:  # noqa: BLE001 - dying anyway
                         pass
                     sys.stderr.flush()

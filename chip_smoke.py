@@ -239,11 +239,16 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    one profiled step; (c) the full BERT-Large with ZeRO and
    ``overlap="on"`` (3 steps): per-step fingerprints equal to the
    zero phase's serialized run, its state exactly half the replicated run's,
-   its peak no higher; on the 4-layer cut, (d) the chunked ring
+   the peak of the bytes it requests no higher; on the 4-layer cut, (d) the chunked ring
    (``overlap_chunk_bytes`` 1 MiB) within 1e-5 of the fused allreduce's
    losses, and the int8 (K3) and 1-bit (K4, K5) chunked rings with exact
    launches and the first sub-chunk encode of their last step on the comm
-   worker equal to plain; (e) every eager collective on card tensors.
+   worker equal to plain; (e) every eager collective on card tensors; (f)
+   the collective log (``bagua_tpu_torch.analysis.collective_check``) of
+   (b)'s overlapped and serialized ByteGrad runs and of (c) against the
+   zero phase's serialized run: every step's multiset of collectives equal
+   between the two, every bucket with at least one collective, the plan's
+   upkeep (the readiness broadcast) counted apart (``check_collectives``).
 20. checkpoint (``resume_check``): each run trains 4 steps uninterrupted, then
    again with an async save after step 2 and one step while it is in flight,
    then a fresh trainer and manager restore the newest verified step and
@@ -414,13 +419,29 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    thread each (``--sequential``: one after the other, each drill's times
    its own).  Slice 1 (phase 8) also times its step with the hang watchdog
    on (the default) against off, A B B A, ``WATCHDOG_COST_STEPS`` steps a
-   window, and the watchdog's work on the step's host path directly.
+   window, and the watchdog's work on the step's host path directly.  (a)
+   runs with ``BAGUA_LOCKDEP=on``: the witness of the launcher and of each
+   worker (the first writes it in the watchdog's exit) must hold no lock-order
+   inversion and no edge among the package's locks that the static graph
+   lacks (``check_lockdep_witness``).
+26. podsim (``phase_podsim``), beside the two-rank spawn after checkpoint (a):
+   the pod simulator's drill (``scripts/scale_drill.py:95-185``) at world
+   32, the first size of ``BAGUA_SCALE_RANKS``, slice 8, link shape ``pod``,
+   seed 0, inter-node codec ``minmax_uint8``, 1 step of 8192 elements, lease
+   TTL 4 s: 32 node processes and the coordinator stack in this process,
+   its 17 checks all true; prints the wall seconds, the cold start's
+   rendezvous, the monitor tick's p50/p99, the slowest node's import seconds
+   and the largest node resident set (the nodes import no torch).  Its processes are
+   stopped when it ends.
+27. lint (``phase_lint``), after podsim: ``python -m bagua_tpu_torch.analysis
+   bagua_tpu_torch/ --engine ast,concurrency,trace`` exits 0 against the
+   package's baseline; prints its findings by rule and its seconds.
 
 Phases 1-7 run alone (the kernels' times among them); then the spawn of
 the two-rank phases starts, and beside it run, in order, the in-process
-phases from slice 1 on, the four-rank spawns, the robustness drills and the
-spawn of checkpoint (b, c) (no gate of theirs is a time; their printed times
-hold the other spawn's load).
+phases from slice 1 on, podsim and lint, the four-rank spawns, the robustness
+drills and the spawn of checkpoint (b, c) (no gate of theirs is a time; their
+printed times hold the other spawn's load).
 
 The script is the subreaper of every process it starts (``adopt_orphans``):
 after each phase (or group of phases run side by side) it stops and reaps
@@ -1131,6 +1152,9 @@ def train_steps(trainer, state, batch, tokens_per_step, modules, after_step=None
         "first_ms": times[0] * 1e3,
         "times_ms": [t * 1e3 for t in times],
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        # the peak of the bytes the run asked the allocator for, without
+        # the caching allocator's rounding of the blocks it handed out
+        "requested_peak_bytes": torch.cuda.memory_stats().get("requested_bytes.all.peak"),
         "layout": "resident" if trainer._flat_resident else "leaf",
     }
     if not all(math.isfinite(x) for x in losses):
@@ -3225,6 +3249,17 @@ WORKER_TIMEOUT = 420
 #: the whole run's bound (the card run's limit is 1200 s): past it the run
 #: stops every process it started and exits 124
 SCRIPT_BOUND_S = 1150
+#: the pairs of runs whose collective logs the two-rank spawn records
+#: (overlapped, serialized): ByteGrad (K1 and K2) and ZeRO
+COLLECTIVE_PAIRS = (("bytegrad_overlap", "bytegrad_serial"), ("zero_overlap", "zero"))
+#: the pod simulator's drill (``scripts/scale_drill.py:95-185``) at the first
+#: size of BAGUA_SCALE_RANKS, the link shape, seed and inter-node codec of
+#: BAGUA_SCALE_SHAPE, _SEED and _DCN_CODEC (their defaults: pod, 0,
+#: minmax_uint8) and the drill's own settings
+PODSIM = dict(slice_size=8, steps=1, vec_elems=8192, lease_ttl_s=4.0, timeout_s=180.0)
+PODSIM_CHECKS = 17
+#: the static engines of the lint phase
+LINT_ENGINES = "ast,concurrency,trace"
 
 
 def _adamw(lr=1e-4):
@@ -5821,6 +5856,96 @@ def check_tensor_pipeline(card, tpp, tpp4, slice1_losses):
                    if "resume_bitwise" in recs[0] else ""))
 
 
+def recording_collectives(run_fn, rank, world, run, device, label):
+    """``run_fn``'s record with the collective log of its run
+    (``record["collectives"]``): every blocking communicator call, its group's
+    mesh axes, dtype, shape and tag, and the span of the log each
+    ``train_step`` made, with the plan's bucket sizes then.  The trainer's ``train_step`` is wrapped for
+    the run to mark the steps (and to learn the trainer's communicators at
+    its first step); recording reads metadata only."""
+    from bagua_tpu_torch.analysis import collective_check as cc
+    from bagua_tpu_torch.core.backend import BaguaTrainer
+
+    rec = cc.CollectiveRecorder()
+    spans, plans, mesh = [], [], []
+    plain = BaguaTrainer.train_step
+
+    def train_step(self, state, batch):
+        if not spans:
+            rec.axes_of.update(cc.communicator_axes(self))
+            mesh.extend(self.mesh.axis_names if self.mesh is not None else ("dp",))
+        plans.append([[b.padded_numel, str(b.dtype).replace("torch.", "")]
+                      for b in self.plan.buckets])
+        start = len(rec.log)
+        out = plain(self, state, batch)
+        spans.append((start, len(rec.log)))
+        return out
+
+    BaguaTrainer.train_step = train_step
+    try:
+        with rec:
+            record = run_fn(rank, world, run, device, label)
+    finally:
+        BaguaTrainer.train_step = plain
+    record["collectives"] = {"log": [c.to_json() for c in rec.log], "tags": rec.buckets,
+                             "spans": spans, "plans": plans, "mesh_axes": mesh,
+                             "world": world}
+    return record
+
+
+def check_collectives(both):
+    """(f) of the overlap phase: each pair of ``COLLECTIVE_PAIRS``, every rank,
+    the first ``FULL_STEPS`` steps: the multiset of the overlapped step's
+    collectives equal to the serialized one's (the plan's upkeep apart),
+    every collective's axes bound on the mesh, every bucket of the step's
+    plan with at least one collective; the ranks' logs the same sequence a
+    group of axes."""
+    from bagua_tpu_torch.analysis import collective_check as cc
+
+    def steps_of(rec):
+        c = rec["collectives"]
+        out = []
+        for (lo, hi), plan in list(zip(c["spans"], c["plans"]))[:FULL_STEPS]:
+            out.append({"log": [cc.Collective.from_json(x) for x in c["log"][lo:hi]],
+                        "buckets": c["tags"][lo:hi], "mesh_axes": c["mesh_axes"],
+                        "plan": cc.PlanRows(plan), "world": c["world"]})
+        return out
+
+    findings, summary = [], []
+    for ovl_name, ser_name in COLLECTIVE_PAIRS:
+        for r in range(len(both[ovl_name])):
+            ovl, ser = steps_of(both[ovl_name][r]), steps_of(both[ser_name][r])
+            if len(ovl) != FULL_STEPS or len(ser) != FULL_STEPS:
+                raise AssertionError(f"collectives: {ovl_name}/{ser_name} rank {r} recorded "
+                                     f"{len(ovl)} and {len(ser)} steps, not {FULL_STEPS}")
+            for s in range(FULL_STEPS):
+                f, report = cc.check_equivalence(f"{ovl_name}/{ser_name}:step{s}", 1,
+                                                 {"off": ser[s], "on": ovl[s]})
+                findings.extend(f)
+                for side in ("serialized", "overlap"):
+                    rows = [row for row in report[side]["buckets"]
+                            if isinstance(row["bucket"], int)]
+                    empty = [row["bucket"] for row in rows if not row["collectives"]]
+                    if not rows or empty:
+                        raise AssertionError(f"collectives: {ovl_name}/{ser_name} rank {r} "
+                                             f"step {s} {side}: buckets without a "
+                                             f"collective {empty}")
+                if r == 0:
+                    summary.append(
+                        f"{ovl_name}/{ser_name} step {s}: {len(report['overlap']['collectives'])}"
+                        f" collectives over {len(ovl[s]['plan'].buckets)} buckets, "
+                        f"{'equal' if report['equal'] else 'DIFFER'}, "
+                        f"{report['overlap']['total_wire_bytes']} wire bytes, plan upkeep "
+                        f"{len(report['overlap']['plan_collectives'])}")
+        for name in (ovl_name, ser_name):
+            findings.extend(cc.check_rank_agreement(
+                [[x for s in steps_of(rec) for x in s["log"]] for rec in both[name]],
+                context=name))
+    log("overlap (f), the collective log: " + "; ".join(summary))
+    if findings:
+        raise AssertionError("collectives: " + "\n".join(f.render() for f in findings))
+
+
 def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     """One rank of a multi-rank spawn: every run of the phase of
     ``MULTI_RANK`` (and of those ``SPAWNS`` joins to it), records to
@@ -5845,7 +5970,10 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
                   "tensor_pipeline_4": tensor_pipeline_run}.get(sub, compressed_run)
         for run in runs:
             t0 = time.perf_counter()
-            records.append(run_fn(rank, world, run, device, label))
+            if any(run[0] in pair for pair in COLLECTIVE_PAIRS):
+                records.append(recording_collectives(run_fn, rank, world, run, device, label))
+            else:
+                records.append(run_fn(rank, world, run, device, label))
             records[-1].setdefault("seconds", time.perf_counter() - t0)
             records[-1]["label"] = label
             if device.type == "cuda":
@@ -6149,7 +6277,11 @@ def check_overlap(ov, zero):
     parameters bitwise equal to the serialized run on the same plan after
     every step; (c) the overlapped ZeRO's per-step fingerprints equal to the
     zero phase's serialized run's, its state exactly ``1 / world`` of the
-    replicated run's, its peak no higher than the serialized run's; (d) the
+    replicated run's, the peak of the bytes it requests from the allocator
+    no higher than the serialized run's (``requested_peak_bytes``: the
+    allocated peak adds the caching allocator's rounding of each block, which
+    depends on the process's history and, overlapped, on the two threads'
+    interleaving; the same run has read 0.1-0.5 MB apart there); (d) the
     chunked ring's losses within ``RING_LOSS_RTOL`` of the fused run's.
     Launches, the captured kernel calls against plain and the eager
     collectives were checked in the ranks.  Logs the step times, the wait
@@ -6194,18 +6326,25 @@ def check_overlap(ov, zero):
     z, ser, rep = ov["zero_overlap"], zero["zero"], zero["replicated"]
     for r in ranks:
         want = [_fp_total(fp) for fp in ser[r]["param_fingerprints"][:FULL_STEPS]]
-        ok = (totals["zero_overlap"][r] == want
-              and CODEC_WORLD * z[r]["opt_state_bytes"] == rep[r]["opt_state_bytes"]
-              and z[r]["padded_numel"] == rep[r]["params"]
-              and z[r]["stats"]["peak_gb"] <= ser[r]["stats"]["peak_gb"])
+        zst, sst = z[r]["stats"], ser[r]["stats"]
+        gates = {
+            "fingerprints": totals["zero_overlap"][r] == want,
+            "state": CODEC_WORLD * z[r]["opt_state_bytes"] == rep[r]["opt_state_bytes"],
+            "padding": z[r]["padded_numel"] == rep[r]["params"],
+            "requested peak": (zst["requested_peak_bytes"] is not None
+                               and zst["requested_peak_bytes"] <= sst["requested_peak_bytes"]),
+        }
         log(f"overlap: zero_overlap rank {r}: per-step fingerprints "
-            f"{'equal' if totals['zero_overlap'][r] == want else 'DIFFER'} to the zero phase's "
+            f"{'equal' if gates['fingerprints'] else 'DIFFER'} to the zero phase's "
             f"serialized run; optimizer state {z[r]['opt_state_bytes']} bytes against the "
-            f"replicated {rep[r]['opt_state_bytes']}; peak {z[r]['stats']['peak_gb']:.3f} GB "
-            f"against the serialized {ser[r]['stats']['peak_gb']:.3f} GB; step "
-            f"{z[r]['stats']['step_ms']:.3f} ms against {ser[r]['stats']['step_ms']:.3f}")
-        if not ok:
-            raise AssertionError(f"overlap: ZeRO rank {r} fails its gates")
+            f"replicated {rep[r]['opt_state_bytes']}; peak requested "
+            f"{zst['requested_peak_bytes']} bytes against the serialized "
+            f"{sst['requested_peak_bytes']} (allocated {zst['peak_gb'] * 1e9:.0f} against "
+            f"{sst['peak_gb'] * 1e9:.0f}); step {zst['step_ms']:.3f} ms against "
+            f"{sst['step_ms']:.3f}")
+        failed = [name for name, ok in gates.items() if not ok]
+        if failed:
+            raise AssertionError(f"overlap: ZeRO rank {r} fails its gates: {failed}")
     fused, chunked = ov["ring_fused"][0]["losses"], ov["ring_chunked"][0]["losses"]
     gap = max(abs(a - b) / abs(b) for a, b in zip(chunked, fused))
     log(f"overlap (d): the chunked ring ({OVERLAP_CHUNK_BYTES} bytes a sub-ring; sub-rings a "
@@ -6389,9 +6528,12 @@ def drill_watchdog_worker(out_dir):
     device wedge before step ``wedge_at``'s forward, ``torch.cuda._sleep`` of
     about ``WEDGE_S`` on the step's stream, which the trainer's watchdog
     fence must catch.  Records the attempt in ``attempt<k>.json``."""
+    attempt = len([f for f in os.listdir(out_dir) if f.startswith("attempt")])
+    if os.environ.get("BAGUA_LOCKDEP"):
+        # each attempt's own witness (the package installs the shim at import)
+        os.environ["BAGUA_LOCKDEP_OUT"] = os.path.join(out_dir, f"lockdep_worker{attempt}.json")
     import bagua_tpu_torch as bt
 
-    attempt = len([f for f in os.listdir(out_dir) if f.startswith("attempt")])
     path = os.path.join(out_dir, f"attempt{attempt}.json")
     rec = {"attempt": attempt, "start": time.time(), "losses": {}}
     _startup(rec)
@@ -6539,7 +6681,10 @@ def watchdog_drill(card, slice1_losses, tmp):
     with open(log_path, "w") as out:
         proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
                                 env=_drill_env(BAGUA_COMM_TIMEOUT_S=DRILL_TIMEOUT_S,
-                                               BAGUA_OBS_DUMP_DIR=os.path.join(tmp, "flight")),
+                                               BAGUA_OBS_DUMP_DIR=os.path.join(tmp, "flight"),
+                                               BAGUA_LOCKDEP="on",
+                                               BAGUA_LOCKDEP_OUT=os.path.join(
+                                                   tmp, "lockdep_launcher.json")),
                                 start_new_session=True)
         rc = _wait_bounded([proc], t0, "the watchdog drill")[0]
     run_s = time.monotonic() - t0
@@ -6562,6 +6707,7 @@ def watchdog_drill(card, slice1_losses, tmp):
         if [got.get(i) for i in range(STEPS)] != slice1_losses:
             raise AssertionError(f"the drill's losses {got} are not slice 1's {slice1_losses}")
         check_watchdog_flight_record(os.path.join(tmp, "flight"))
+        check_lockdep_witness(tmp)
     except Exception:
         log(text[-6000:])
         raise
@@ -6734,6 +6880,87 @@ def elastic_drill(card, tmp):
     return res
 
 
+def phase_podsim(card):
+    """26. the pod simulator's full drill at the first size of
+    ``BAGUA_SCALE_RANKS`` (``PODSIM``); all 17 checks must hold.  Returns
+    its metrics."""
+    from bagua_tpu_torch import env
+    from bagua_tpu_torch.podsim.orchestrator import full_scenario
+
+    world = env.get_scale_ranks()[0]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        checks, metrics = full_scenario(
+            world, tmp, shape=env.get_scale_shape(), seed=env.get_scale_seed(),
+            dcn_codec=env.get_scale_dcn_codec(), **PODSIM)
+        failed = sorted(k for k, ok in checks.items() if not ok)
+        if failed or len(checks) != PODSIM_CHECKS:
+            for name in sorted(os.listdir(tmp))[:4]:
+                with open(os.path.join(tmp, name), errors="replace") as f:
+                    log(f"podsim {name}: ...{f.read()[-1500:]}")
+            raise AssertionError(f"podsim at world {world}: {len(checks)} checks, failed "
+                                 f"{failed}")
+    log(f"podsim ({card}; world {world}, slice {PODSIM['slice_size']}, shape "
+        f"{env.get_scale_shape()}, seed {env.get_scale_seed()}, codec "
+        f"{env.get_scale_dcn_codec()}, {PODSIM['steps']} step of {PODSIM['vec_elems']} "
+        f"elements, lease TTL {PODSIM['lease_ttl_s']} s): all {len(checks)} checks true "
+        f"({', '.join(checks)}); wall {metrics['wall_s']} s (phase "
+        f"{time.perf_counter() - t0:.1f} s), cold-start rendezvous "
+        f"{metrics['cold_start_rendezvous_s']} s, rendezvous {metrics['rendezvous_s']} s, "
+        f"monitor tick p50 {metrics['monitor_tick_p50_ms']} ms p99 "
+        f"{metrics['monitor_tick_p99_ms']} ms, decide p99 {metrics['decide_p99_ms']} ms, "
+        f"ingest p99 {metrics['ingest_p99_ms']} ms; the slowest node's imports "
+        f"{metrics['node_import_s_max']} s; the largest node resident set "
+        f"{metrics['node_peak_rss_mb_max']} MiB (VmRSS after the imports and after the data plane)")
+    return metrics
+
+
+def phase_lint():
+    """27. the port's static engines over its package (``LINT_ENGINES``),
+    which must exit 0 against the package's baseline."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "bagua_tpu_torch.analysis", "bagua_tpu_torch/",
+                          "--engine", LINT_ENGINES],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    log(f"lint ({LINT_ENGINES}): exit {out.returncode} in {time.perf_counter() - t0:.1f} s; "
+        + "; ".join(ln for ln in lines if ln.startswith("bagua-lint")))
+    if out.returncode != 0:
+        log(out.stdout[-6000:] + out.stderr[-3000:])
+        raise AssertionError(f"lint exited {out.returncode}")
+
+
+def check_lockdep_witness(tmp):
+    """(a)'s lockdep witnesses (``lockdep*.json``, the launcher's and each
+    worker's) against the static lock graph of the package: no runtime
+    inversion, no witnessed edge among the package's locks that the static
+    graph lacks."""
+    from bagua_tpu_torch.analysis.concurrency import build_program, static_lock_graph
+    from bagua_tpu_torch.analysis.lockdep import cross_check, load_witness
+
+    paths = sorted(glob.glob(os.path.join(tmp, "lockdep*.json")))
+    root = os.path.dirname(os.path.abspath(__file__))
+    graph = static_lock_graph(build_program([os.path.join(root, "bagua_tpu_torch")],
+                                            rel_to=root))
+    known = set(graph["locks"])
+    problems, summary = [], []
+    for path in paths:
+        w = load_witness(path)
+        problems.extend(cross_check(w, graph))
+        among = [e for e in w["edges"]
+                 if tuple(e["from"]) in known and tuple(e["to"]) in known]
+        summary.append(f"{os.path.basename(path)}: {len(w['sites'])} lock sites, "
+                       f"{sum(s['count'] for s in w['sites'])} acquisitions, "
+                       f"{len(w['edges'])} edges ({len(among)} among the static graph's "
+                       f"locks), {len(w['inversions'])} inversions")
+    log(f"robustness (a) lockdep witness against the static graph ({len(graph['locks'])} "
+        f"locks, {len(graph['edges'])} edges): " + "; ".join(summary))
+    if len(paths) < 2 or problems:
+        raise AssertionError(f"lockdep: witnesses {paths}; problems "
+                             + "; ".join(f.render() for f in problems))
+
+
 def phase_robustness(card, slice1_losses, sequential=False):
     """The watchdog drill (a) and the elastic drill (b), each through
     ``python -m bagua_tpu_torch.distributed.run`` as subprocesses with a free
@@ -6867,6 +7094,8 @@ def main():
         slice1_losses, ep_losses = base["losses"], base_moe["ep_reference"]
         del base, base_moe
         ckpt_single = timed("checkpoint (a)", phase_checkpoint, alone=False)
+        timed("podsim", phase_podsim, card, alone=False)
+        timed("lint", phase_lint, alone=False)
         timed("generate", phase_generate, card, alone=False)
         timed("serve", phase_serve, card, alone=False)
         timed("vision", phase_vision, card, alone=False)
@@ -6904,6 +7133,7 @@ def main():
     check_async(by_phase["async"], full, gossip["decentralized_all"][0])
     check_features(by_phase["features"], zero)
     check_overlap(by_phase["overlap"], zero)
+    check_collectives(both)
     check_checkpoint(card, ckpt_single, by_phase["checkpoint"])
     del by_phase
     mp = {name: both[name] for name, *_ in MP_RUNS}

@@ -1,12 +1,12 @@
 """The port's top-level API against the JAX package's.
 
 Every public name of ``bagua_tpu``'s top level exists on ``bagua_tpu_torch``,
-except ``compat`` (jax ``shard_map`` shims, not ported) and ``analysis``
-(the static analysis engines, still to port).  ``get_local_size`` reads
+except ``compat`` (jax ``shard_map`` shims, not ported).  ``get_local_size`` reads
 ``LOCAL_WORLD_SIZE`` with the JAX package's default of 1; the three in-place
 names are the same functions as their plain ones, as in the JAX package.
-The control plane's settings are declared with the JAX package's types,
-defaults and choices, and their getters read the same values.
+The control plane's settings, the pod simulator's (``BAGUA_SCALE_*``) and the
+lockdep witness's (``BAGUA_LOCKDEP*``) are declared with the JAX package's
+types, defaults and choices, and their getters read the same values.
 """
 
 import ast
@@ -21,7 +21,7 @@ import bagua_tpu_torch as bt
 from bagua_tpu import env as jenv
 from bagua_tpu_torch import env as tenv
 
-NOT_PORTED = {"compat", "analysis"}
+NOT_PORTED = {"compat"}
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -69,7 +69,9 @@ def test_get_local_size_matches_jax(monkeypatch, value):
     "BAGUA_AUTOPILOT_STRAGGLER_RATIO", "BAGUA_AUTOPILOT_SUSPECT_TTL_S",
     "BAGUA_AUTOPILOT_CKPT_FAILURES", "BAGUA_AUTOPILOT_FAMILY", "BAGUA_AUTOPILOT_MODEL",
     "BAGUA_AUTOPILOT_DCN_SHARE", "BAGUA_AUTOPILOT_COMPRESS_FAMILY",
-    "BAGUA_AUTOPILOT_COMPRESS_CODEC", "BAGUA_AUTOPILOT_HBM_HORIZON_S"])
+    "BAGUA_AUTOPILOT_COMPRESS_CODEC", "BAGUA_AUTOPILOT_HBM_HORIZON_S",
+    "BAGUA_SCALE_RANKS", "BAGUA_SCALE_SHAPE", "BAGUA_SCALE_SEED", "BAGUA_SCALE_DCN_CODEC",
+    "BAGUA_LOCKDEP", "BAGUA_LOCKDEP_OUT"])
 def test_control_plane_settings_declared_as_in_jax(name):
     t, j = tenv.ENV_REGISTRY[name], jenv.ENV_REGISTRY[name]
     assert (t.type, t.default, t.choices) == (j.type, j.default, j.choices)
@@ -86,6 +88,8 @@ GETTERS = [
     "get_autopilot_suspect_ttl_s", "get_autopilot_ckpt_failures", "get_autopilot_family",
     "get_autopilot_model", "get_autopilot_dcn_share", "get_autopilot_compress_family",
     "get_autopilot_compress_codec", "get_autopilot_hbm_horizon_s",
+    "get_scale_ranks", "get_scale_shape", "get_scale_seed", "get_scale_dcn_codec",
+    "get_lockdep_mode", "get_lockdep_out",
 ]
 
 
@@ -97,4 +101,9 @@ def test_control_plane_getters_agree_with_jax(monkeypatch, getter):
     monkeypatch.setenv("BAGUA_AUTOPILOT_SUSTAIN", "7")
     monkeypatch.setenv("BAGUA_OBS_HISTORIAN_WINDOW_S", "12.5")
     monkeypatch.setenv("BAGUA_AUTOTUNE_GOODPUT", "0")
+    monkeypatch.setenv("BAGUA_SCALE_RANKS", "8,16")
+    monkeypatch.setenv("BAGUA_SCALE_SHAPE", "wan")
+    monkeypatch.setenv("BAGUA_SCALE_SEED", "3")
+    monkeypatch.setenv("BAGUA_SCALE_DCN_CODEC", "topk")
+    monkeypatch.setenv("BAGUA_LOCKDEP_OUT", "/tmp/w.json")
     assert getattr(tenv, getter)() == getattr(jenv, getter)()

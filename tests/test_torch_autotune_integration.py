@@ -34,7 +34,6 @@ Mirrors ``tests/test_autotune_integration.py``:
 import functools
 import json
 import os
-import socket
 import subprocess
 import sys
 import threading
@@ -54,18 +53,13 @@ from bagua_tpu.define import BaguaHyperparameter as JHyper
 from bagua_tpu.parallel.mesh import build_mesh
 from bagua_tpu_torch.define import BaguaHyperparameter
 from bagua_tpu_torch.models.mlp import MLP
+from bagua_tpu_torch.podsim.util import reserve_port
 from bagua_tpu_torch.service.autotune_service import AutotuneService, make_server
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "workers",
                       "torch_autotune_worker.py")
 RUNS = ("tuned", "qadam", "qadam:leaf", "async", "ef", "sequence")
 _OUT = {}
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _jax_decls(bucket_bytes):
@@ -100,7 +94,7 @@ def _spawn(tmp):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]),
-           "BAGUA_SERVICE_PORT": str(_free_port()), "MASTER_ADDR": "127.0.0.1",
+           "BAGUA_SERVICE_PORT": str(reserve_port()), "MASTER_ADDR": "127.0.0.1",
            "BAGUA_AUTOTUNE": "1", "BAGUA_AUTOTUNE_MAX_SAMPLES": "2",
            "BAGUA_AUTOTUNE_SAMPLING_CONFIDENCE_TIME_S": "0",
            "BAGUA_AUTOTUNE_WARMUP_TIME_S": "0", "BAGUA_AUTOTUNE_SPACE": "legacy",
@@ -227,7 +221,7 @@ def test_registration_failure_turns_autotune_off(monkeypatch):
     trainer trains untuned (``backend.py:2555-2557``)."""
     from bagua_tpu_torch import communication
 
-    monkeypatch.setenv("BAGUA_SERVICE_PORT", str(_free_port()))
+    monkeypatch.setenv("BAGUA_SERVICE_PORT", str(reserve_port()))
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
     communication.get_hyperparameters_service_client.cache_clear()
     bt.init_process_group(device="cpu")
@@ -404,7 +398,7 @@ def test_launcher_autotune_level_reaches_the_check_in(monkeypatch):
     from bagua_tpu_torch import communication
     from bagua_tpu_torch.distributed.run import build_env, parse_args
 
-    port = _free_port()
+    port = reserve_port()
     env = build_env(parse_args(["--autotune_level", "1", "--bagua_service_port", str(port),
                                 "--autotune_warmup_time", "0",
                                 "--autotune_sampling_confidence_time", "0",

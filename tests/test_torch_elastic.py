@@ -17,7 +17,6 @@ its next collective), and ``elastic_restore``.
 """
 
 import concurrent.futures
-import socket
 import threading
 import time
 from types import SimpleNamespace
@@ -43,12 +42,7 @@ from bagua_tpu_torch.elastic.membership import (
     publish_leave_intent,
 )
 from bagua_tpu_torch.elastic.resize import ElasticContext, shard_bounds
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+from bagua_tpu_torch.podsim.util import reserve_port
 
 
 @pytest.fixture()
@@ -451,7 +445,7 @@ def test_connect_restart_store_failure_chains_cause_and_counts_attempts():
     'Connection refused' alone doesn't say the launcher retried at all."""
     from bagua_tpu_torch.distributed.run import _connect_restart_store
     # a bound-then-released port: connects fail fast with ECONNREFUSED
-    dead_port = _free_port()
+    dead_port = reserve_port()
     args = SimpleNamespace(master_addr="127.0.0.1",
                            restart_coordinator_port=dead_port)
     with pytest.raises(ConnectionError) as e:

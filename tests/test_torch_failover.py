@@ -36,6 +36,7 @@ from bagua_tpu_torch.elastic.failover import (
     write_coord_lease,
 )
 from bagua_tpu_torch.elastic.membership import LeaseTracker, MembershipClient
+from bagua_tpu_torch.podsim.util import reserve_port
 from bagua_tpu_torch.telemetry import counters
 
 
@@ -367,14 +368,6 @@ _STACK_ARGS = dict(min_nnodes=1, max_nnodes=2, master_addr="127.0.0.1", master_p
                    join_window=3.0, restart_barrier_timeout=9.0, bagua_service_port=1)
 
 
-def _free_port():
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.mark.parametrize("name,value,module", [
     ("BAGUA_AUTOPILOT", "act", "autopilot"),
     ("BAGUA_AUTOPILOT", "observe", "autopilot"),
@@ -392,7 +385,7 @@ def test_launcher_refuses_what_waits_for_the_obs_plane(monkeypatch, name, value,
     assert not hasattr(run_mod, "refuse_missing_modules")
     for var in ("BAGUA_AUTOPILOT", "BAGUA_OBS_HISTORIAN", "BAGUA_OBS_HTTP_PORT"):
         monkeypatch.delenv(var, raising=False)
-    monkeypatch.setenv(name, str(_free_port()) if value == "free" else value)
+    monkeypatch.setenv(name, str(reserve_port()) if value == "free" else value)
     stack = run_mod._build_coordinator_stack(SimpleNamespace(**_STACK_ARGS), InMemoryStore(),
                                              MembershipClient(InMemoryStore(), 0, 2))
     coordinator, autopilot, historian, fleet_holder, http_server = stack

@@ -29,7 +29,11 @@ def test_sources_found():
             "bagua_tpu_torch/model_parallel/moe/layer.py", "bagua_tpu_torch/obs/spans.py",
             "bagua_tpu_torch/profiling.py", "bagua_tpu_torch/serve/engine.py",
             "bagua_tpu_torch/service/autotune_service.py", "bagua_tpu_torch/autopilot/engine.py",
-            "bagua_tpu_torch/obs/historian.py"} <= names
+            "bagua_tpu_torch/obs/historian.py", "bagua_tpu_torch/podsim/worker.py",
+            "bagua_tpu_torch/podsim/coordinator.py", "bagua_tpu_torch/podsim/orchestrator.py",
+            "bagua_tpu_torch/podsim/collectives.py", "bagua_tpu_torch/analysis/cli.py",
+            "bagua_tpu_torch/analysis/collective_check.py",
+            "bagua_tpu_torch/analysis/concurrency.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -50,6 +54,9 @@ def test_import_without_jax_loads_no_bagua_tpu():
         "bagua_tpu_torch.obs.flops, bagua_tpu_torch.profiling, bagua_tpu_torch.serve\n"
         "import bagua_tpu_torch.service, bagua_tpu_torch.autopilot, "
         "bagua_tpu_torch.obs.historian, bagua_tpu_torch.obs.http, bagua_tpu_torch.version\n"
+        "import bagua_tpu_torch.podsim.orchestrator, bagua_tpu_torch.podsim.worker, "
+        "bagua_tpu_torch.podsim.coordinator, bagua_tpu_torch.podsim.collectives\n"
+        "import bagua_tpu_torch.analysis.cli, bagua_tpu_torch.analysis.collective_check\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'pydantic', 'bagua_tpu') and sys.modules[m]]\n"

@@ -47,6 +47,7 @@ import pytest
 import bench
 from bagua_tpu.distributed import run as jrun
 from bagua_tpu_torch.distributed.run import build_env, parse_args
+from bagua_tpu_torch.podsim.util import reserve_port
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "workers" / "torch_launch_worker.py")
@@ -54,12 +55,6 @@ RUN_TIMEOUT = 150
 #: what only the JAX launcher's ``--simulate_cpu_devices`` sets
 JAX_XLA_KEYS = ("JAX_PLATFORMS", "JAX_PLATFORM_NAME", "XLA_FLAGS")
 ATOL = 5e-5
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 # ---------------------------------------------------------------------------
@@ -216,13 +211,13 @@ def _worker_args(tmp, steps, save_every=2, algo="ga"):
 
 def _gang(tmp, crash_at, max_restarts=2):
     log = tmp / "launcher.log"
-    p = _launcher(["--max_restarts", str(max_restarts), "--master_port", str(_free_port())],
+    p = _launcher(["--max_restarts", str(max_restarts), "--master_port", str(reserve_port())],
                   _worker_args(tmp, 12) + ["--crash-at-step", crash_at], log, _base_env())
     return {"rc": _wait_procs([p], RUN_TIMEOUT)[0], "log": log.read_text()}
 
 
 def _multinode(tmp, node1_env, max_restarts):
-    master, coord = _free_port(), _free_port()
+    master, coord = reserve_port(), reserve_port()
     procs = []
     for node in (0, 1):
         flags = ["--nnodes", "2", "--node_rank", str(node), "--nproc_per_node", "1",
@@ -257,7 +252,7 @@ def _until(pred, timeout):
 
 
 def _elastic(tmp):
-    master, coord = _free_port(), _free_port()
+    master, coord = reserve_port(), reserve_port()
     out = tmp / "out"
     wargs = _worker_args(tmp, 40, save_every=1, algo="bytegrad")
 
@@ -302,7 +297,7 @@ def _elastic(tmp):
 def _watchdog(tmp):
     log = tmp / "launcher.log"
     env = _base_env(BAGUA_COMM_TIMEOUT_S="2", BAGUA_TEST_WEDGE_AT_STEP="5")
-    p = _launcher(["--max_restarts", "1", "--master_port", str(_free_port())],
+    p = _launcher(["--max_restarts", "1", "--master_port", str(reserve_port())],
                   _worker_args(tmp, 12), log, env)
     return {"rc": _wait_procs([p], RUN_TIMEOUT)[0], "log": log.read_text(),
             "final": json.loads((tmp / "out" / "final_rank0.json").read_text())
@@ -499,7 +494,7 @@ def _control_plane(monkeypatch, tmp_path, mode):
     client = MembershipClient(store, 0, 2)
     args = SimpleNamespace(min_nnodes=1, max_nnodes=2, master_addr="127.0.0.1",
                            master_port=1, join_window=3.0, restart_barrier_timeout=9.0,
-                           bagua_service_port=_free_port(), monitor_interval=0.01,
+                           bagua_service_port=reserve_port(), monitor_interval=0.01,
                            lease_ttl=5.0, node_rank=0)
     stack = run_mod._build_coordinator_stack(args, store, client)
     now = time.time()

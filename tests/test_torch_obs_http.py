@@ -17,7 +17,6 @@ import functools
 import json
 import os
 import re
-import socket
 import threading
 import time
 import urllib.error
@@ -35,20 +34,7 @@ from bagua_tpu_torch.obs import http as obs_http
 from bagua_tpu_torch.obs import spans as obs_spans
 from bagua_tpu_torch.obs.historian import Historian
 from bagua_tpu_torch.obs.http import ObsHTTPServer
-
-_HANDED_OUT = set()
-
-
-def reserve_port() -> int:
-    """A free loopback port this process has not handed out before."""
-    while True:
-        with socket.socket() as s:
-            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        if port not in _HANDED_OUT:
-            _HANDED_OUT.add(port)
-            return port
+from bagua_tpu_torch.podsim.util import reserve_port
 
 
 @pytest.fixture(scope="module", autouse=True)
