@@ -22,8 +22,9 @@ Port of ``bagua_tpu/obs/``:
   from a ``torch.profiler`` trace, by transport (null-with-rationale where
   the device did no communication work).
 * :mod:`~bagua_tpu_torch.obs.ledger` — goodput/badput wall-clock ledger
-  (``python -m bagua_tpu_torch.obs.ledger``) and the cards' peak tables
-  behind ``obs/mfu``.
+  (``python -m bagua_tpu_torch.obs.ledger``), the cards' peak tables
+  behind ``obs/mfu``, the efficiency record's schema
+  (``bagua-efficiency-v1``) and the chaos drills' badput classes.
 * :mod:`~bagua_tpu_torch.obs.memory` — the static footprint (exact over the
   trainer's flats) and live ``torch.cuda`` allocator peaks and headroom.
 
@@ -32,6 +33,12 @@ Port of ``bagua_tpu/obs/``:
   queries; publishes trend gauges (``obs/goodput_slope``,
   ``obs/hbm_headroom_slope``, ``obs/dcn_comm_share``) back into each
   snapshot and persists through the restart store.
+* :mod:`~bagua_tpu_torch.obs.regress` — the bench-trend sentinel
+  (``python -m bagua_tpu_torch.obs.regress``): a noise-bound-aware
+  comparison of fresh bench records against recorded ones, the in-process
+  quick probe and the ``bagua-bench-trend-v1`` record.
+* :mod:`~bagua_tpu_torch.obs.ab` — the interleaved A/B best-of-trials
+  protocol the paired measurements and the sentinel share.
 * :mod:`~bagua_tpu_torch.obs.http` — per-process HTTP status plane
   (``/metrics`` from the same prepared snapshot as ``metrics.prom``,
   ``/healthz``, ``/ledger``; the coordinator adds ``/fleet`` and
@@ -62,6 +69,6 @@ from .spans import SpanRecorder, span_ring, trace_span  # noqa: F401
 from .anomaly import StepAnomalyDetector, fleet_straggler_suspects  # noqa: F401,E402
 from .historian import Historian, maybe_build_historian  # noqa: F401,E402
 from .http import ObsHTTPServer, maybe_start_global_http_server  # noqa: F401,E402
-# NOTE: obs.timeline and obs.ledger are NOT imported here: both are
-# `python -m` entry points, and a package-level import would leave a second
+# NOTE: obs.timeline, obs.ledger and obs.regress are NOT imported here: all
+# are `python -m` entry points, and a package-level import would leave a second
 # copy of the module executing under runpy

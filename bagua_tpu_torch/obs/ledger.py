@@ -67,6 +67,7 @@ __all__ = [
     "LEDGER_CLASSES", "GOODPUT_CLASSES", "BADPUT_CLASSES", "SPAN_CLASS_MAP",
     "GoodputLedger", "ledger", "install", "PEAK_TFLOPS_BF16",
     "PEAK_HBM_GBPS", "peak_flops_for_device_kind", "load_ledger_reports",
+    "DRILL_BADPUT_EXPECTATIONS", "EFFICIENCY_SCHEMA", "validate_efficiency",
     "main",
 ]
 
@@ -107,6 +108,19 @@ SPAN_CLASS_MAP = {
     "serve/prefill": "prefill",
     "serve/decode": "decode",
     "serve/weight_load": "weight_load",
+}
+
+#: chaos-drill name -> the badput class its defense path must FEED: the
+#: single source ``scripts/torch_chaos_drill.py`` (class-delta verdicts in
+#: its record) and its tests iterate, so adding a ledger-checked drill
+#: can't silently drop out of the gate
+DRILL_BADPUT_EXPECTATIONS = {
+    "nan_grad_skip_loss_continuity": "rewind",
+    "async_partition_staleness_catchup": "catchup_sync",
+    "checkpoint_corruption_fallback_restore": "checkpoint",
+    # the autopilot's quarantine drill walks a real fallback restore (3
+    # torn steps) before the engine acts — that walk is checkpoint badput
+    "autopilot_ckpt_quarantine": "checkpoint",
 }
 
 # Peak rates of each card for MFU and roofline reporting, keyed by
@@ -333,6 +347,67 @@ def install() -> GoodputLedger:
             _spans.set_ledger_sink(ledger)
             _INSTALLED = True
     return ledger
+
+
+# ---- the efficiency record's schema (bagua-efficiency-v1) -------------------
+
+EFFICIENCY_SCHEMA = "bagua-efficiency-v1"
+
+
+def validate_efficiency(record: dict) -> List[str]:
+    """Schema problems with an efficiency record ([] = valid) — the gate of
+    whatever writes one and the regress sentinel's admission check."""
+    problems: List[str] = []
+    if not isinstance(record, dict):
+        return ["not a JSON object"]
+    if record.get("schema") != EFFICIENCY_SCHEMA:
+        problems.append(f"schema != {EFFICIENCY_SCHEMA}")
+    for key, typ in (("time_unix", (int, float)), ("platform", str),
+                     ("n_devices", int), ("config", dict),
+                     ("ledger", dict), ("footprint", dict),
+                     ("mfu", dict), ("trend_records", list)):
+        if not isinstance(record.get(key), typ):
+            problems.append(f"missing/mistyped {key}")
+    led = record.get("ledger") or {}
+    classes = led.get("classes")
+    if not isinstance(classes, dict):
+        problems.append("ledger.classes missing")
+    else:
+        for cls in LEDGER_CLASSES:
+            if cls not in classes:
+                problems.append(f"ledger.classes missing {cls}")
+        wall = led.get("wall_s")
+        if not isinstance(wall, (int, float)) or wall <= 0:
+            problems.append("ledger.wall_s missing/nonpositive")
+        elif sum(classes.values()) > wall * 1.01 + 1e-6:
+            problems.append("ledger classes sum exceeds wall_s (+1%)")
+    if not isinstance(led.get("goodput_fraction"), (int, float)):
+        problems.append("ledger.goodput_fraction missing")
+    fp = record.get("footprint") or {}
+    for key in ("params_bytes", "opt_state_bytes", "algo_state_bytes",
+                "grad_flats_bytes", "total_bytes"):
+        if not isinstance(fp.get(key), int):
+            problems.append(f"footprint.{key} missing/mistyped")
+    if isinstance(fp.get("total_bytes"), int) and all(
+        isinstance(fp.get(k), int)
+        for k in ("params_bytes", "opt_state_bytes", "algo_state_bytes",
+                  "grad_flats_bytes")
+    ):
+        if fp["total_bytes"] != (fp["params_bytes"] + fp["opt_state_bytes"]
+                                 + fp["algo_state_bytes"]
+                                 + fp["grad_flats_bytes"]):
+            problems.append("footprint.total_bytes != sum of components")
+    mfu = record.get("mfu") or {}
+    if "available" not in mfu:
+        problems.append("mfu.available missing")
+    elif not mfu.get("available") and not mfu.get("rationale"):
+        problems.append("mfu unavailable without rationale")
+    for rec in record.get("trend_records") or []:
+        if not isinstance(rec, dict) or "metric" not in rec \
+                or "value" not in rec:
+            problems.append("trend_records entry missing metric/value")
+            break
+    return problems
 
 
 # ---- CLI: per-run report from metrics.jsonl + flight dumps ----------------

@@ -18,6 +18,10 @@ Entry points:
   (a null context otherwise).  The trainer wraps each bucket's collective
   in ``bagua/bucket_collective#<i>``, which is how
   :func:`parse_trace_comm_events` ties a device event to its bucket.
+- :func:`trace_op_profile` and :func:`trace_overlap`: run a callable under
+  a capture of their own and return the parsed per-kernel profile or the
+  comm-hidden ratio (``{}`` where the trace holds no device event, as on
+  the CPU).
 - :func:`classify_kernel`: the one kernel classifier of the package (flash,
   gmm, codec, NCCL, GEMM, optimizer, ...);
   ``scripts/torch_step_profile.py`` and ``chip_smoke.py`` call it.
@@ -44,7 +48,8 @@ __all__ = [
     "KERNEL_CLASSES", "classify_kernel", "is_comm_op", "load_trace",
     "newest_trace", "device_events", "parse_trace_op_profile",
     "parse_trace_comm_events", "parse_trace_overlap", "trace_memory_traffic",
-    "MEMORY_TRAFFIC_RATIONALE", "BUCKET_ANNOTATION",
+    "trace_op_profile", "trace_overlap", "MEMORY_TRAFFIC_RATIONALE",
+    "BUCKET_ANNOTATION",
 ]
 
 #: name fragments -> class, first match wins.  The port's kernels first
@@ -152,6 +157,24 @@ def _activities():
     return acts
 
 
+def _profile():
+    """A ``torch.profiler.profile`` over :func:`_activities` that records
+    every thread's ranges: the overlap scheduler's comm worker (and any
+    thread started before the capture) opens its bucket ranges on its own
+    thread, which a default capture leaves out (``profile_all_threads``,
+    where the installed torch has it)."""
+    import torch
+
+    kw = {}
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        logger.info("profiling: this torch cannot profile threads started before the "
+                    "capture; their ranges are left out")
+    return torch.profiler.profile(activities=_activities(), **kw)
+
+
 def _trace_path(log_dir: str, tag: str = "") -> str:
     from . import env
 
@@ -181,8 +204,6 @@ def trace(log_dir: str, steps: Optional[int] = None):
     is recorded as the number of steps the region holds.  If a capture is
     already open, the region runs untraced with a warning."""
     global _TRACE_OWNER
-    import torch
-
     holder: Dict[str, Any] = {"path": None}
     if _TRACE_OWNER is not None:
         logger.warning("profiling.trace(%s): another trace is active; running "
@@ -190,7 +211,7 @@ def trace(log_dir: str, steps: Optional[int] = None):
         yield holder
         return
     token = object()
-    prof = torch.profiler.profile(activities=_activities())
+    prof = _profile()
     prof.__enter__()
     _TRACE_OWNER = token
     try:
@@ -248,9 +269,7 @@ class StepProfiler:
         if not self._active and step >= self.start:
             if _TRACE_OWNER is not None:
                 return   # another window is open: skip, do not crash
-            import torch
-
-            self._prof = torch.profiler.profile(activities=_activities())
+            self._prof = _profile()
             self._prof.__enter__()
             _TRACE_OWNER = self
             self._active = True
@@ -456,6 +475,60 @@ def parse_trace_overlap(trace) -> dict:
     return {"step_s": round(step_s, 9), "comm_s_per_step": round(comm_s, 9),
             "compute_s_per_step": round(compute_s, 9),
             "overlap_fraction": round(hidden, 3)}
+
+
+def _traced(body, log_dir: Optional[str], steps: Optional[int], prefix: str, parse) -> dict:
+    """Run ``body()`` under :func:`trace` into ``log_dir`` (a temporary
+    directory of its own when None, removed afterwards) and return
+    ``parse`` of the exported trace, ``{}`` when no trace was written.  The
+    device is synchronized INSIDE the window, after ``body``: CUPTI drops
+    the kernels that have not finished when the profiler stops, so a window
+    that only enqueues would lose its kernels."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    owned = log_dir is None
+    d = log_dir or tempfile.mkdtemp(prefix=prefix)
+    try:
+        with trace(d, steps=steps) as holder:
+            body()
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+        return parse(load_trace(holder["path"])) if holder["path"] else {}
+    finally:
+        if owned:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def trace_op_profile(run, log_dir: Optional[str] = None, finalize=None) -> dict:
+    """Run ``run()`` (then ``finalize()``, both inside the window) under a
+    capture and return :func:`parse_trace_op_profile` of it: each kernel's
+    device time and count, independent of the host's dispatch latency.
+    ``{}`` where the trace holds no device event (always on the CPU).  A
+    temporary directory made here is removed; a given ``log_dir`` keeps the
+    trace."""
+    def body():
+        run()
+        if finalize is not None:
+            finalize()
+
+    return _traced(body, log_dir, None, "bagua_optrace_", parse_trace_op_profile)
+
+
+def trace_overlap(run_step, steps: int = 5, finalize=None) -> dict:
+    """Run ``run_step()`` ``steps`` times (then ``finalize()``) under a
+    capture whose trace records ``steps`` and return
+    :func:`parse_trace_overlap`'s fields (``{}`` where the device did no
+    communication work, always on the CPU)."""
+    def body():
+        for _ in range(steps):
+            run_step()
+        if finalize is not None:
+            finalize()
+
+    return _traced(body, None, steps, "bagua_overlap_trace_", parse_trace_overlap)
 
 
 def trace_memory_traffic(run_step=None, steps: int = 5, log_dir=None,

@@ -12,9 +12,10 @@ Port of ``bagua_tpu/serve/``:
 * :mod:`~bagua_tpu_torch.serve.loader` — integrity-verified weight loads
   through the checkpoint digest chain, with the layout sidecar's
   flat-to-serving conversion.
+* :mod:`~bagua_tpu_torch.serve.schema` — the serving bench's record schema
+  (``bagua-bench-serve-v1``) and its validator.
 
-The JAX package's ``serve/schema.py`` (the ``BENCH_SERVE.json`` schema)
-comes with the port's benchmark.  Observability rides the existing planes:
+Observability rides the existing planes:
 ``serve/*`` spans and counters, and the goodput ledger's serving classes.
 """
 
@@ -26,3 +27,8 @@ from .engine import (  # noqa: F401
     ServeQueueFull,
 )
 from .loader import load_serving_params, save_serving_artifact  # noqa: F401
+from .schema import (  # noqa: F401
+    SERVE_BENCH_SCHEMA,
+    SERVE_SPEEDUP_GATE,
+    validate_serve_bench,
+)

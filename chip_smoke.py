@@ -436,6 +436,34 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
 27. lint (``phase_lint``), after podsim: ``python -m bagua_tpu_torch.analysis
    bagua_tpu_torch/ --engine ast,concurrency,trace`` exits 0 against the
    package's baseline; prints its findings by rule and its seconds.
+28. records: the port's own records, written under ``chiprun_out/``
+   (``RECORDS_DIR``) and validated by the port's schemas: (a) slice 1's
+   ``bagua-efficiency-v1`` record (its ledger report, static footprint and
+   ``obs/mfu`` record; ``efficiency_record``); (b) serve's
+   ``bagua-bench-serve-v1`` list (``smoke``: TTFT/TPOT percentiles of the
+   trace, continuous against static over ``SERVE_AB_TRIALS`` interleaved
+   trials, the serving ledger classes, the weights through the serving
+   loader; ``serve_bench_records``); (c) ``regress`` (``phase_regress``,
+   after serve): ``obs.regress``'s card probe (ResNet50, flat-resident off
+   against on, ``REGRESS_TRIALS`` trials, the efficiency trend records)
+   twice, the second against the first through the CLI's file mode; the
+   trend record validates, its verdicts printed, not gated; (d)
+   ``profiling.trace_op_profile`` around ``OP_PROFILE_CALLS`` enqueued
+   launches of each of K1-K5 at the 5 MiB chunk in the codec and sign phases:
+   each kernel in the trace as many times as it was launched, its device time
+   beside the event-timed row (``op_profile_check``); (e)
+   ``profiling.trace_overlap`` over ``TRACE_OVERLAP_STEPS`` more steps of
+   overlap's ``bytegrad_overlap`` run after its gates, rank 0 traced: non-empty,
+   communication on the device, an overlap fraction in [0, 1]
+   (``check_trace_overlap``).
+29. chaos: ``scripts/torch_chaos_drill.py``'s matrix, the JAX drill's 16
+   faults: its in-process drills at world 1 after ``regress``
+   (``phase_chaos``), its two-rank drills at the end of the two-rank spawn
+   and its 2 x 2 drill at the end of slice 4 (2 x 2)'s (``chaos_run``).
+   Gate: every drill injected, detected and recovered, with its flight record
+   and its badput class (``check_chaos``); the record to
+   ``chiprun_out/torch_chaos_drill.json``.  The seconds of both groups and of
+   both streams are printed at the end.
 
 Phases 1-7 run alone (the kernels' times among them); then the spawn of
 the two-rank phases starts, and beside it run, in order, the in-process
@@ -535,6 +563,22 @@ CODEC_SOURCE = "bagua_tpu_torch/ops/csrc/codec.cu"
 
 def log(*args):
     print(*args, flush=True)
+
+
+#: the checkout's root, and where the records of a run go (``.gitignore``
+#: lists it)
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+RECORDS_DIR = os.path.join(REPO_DIR, "chiprun_out")
+
+
+def write_record(name, obj) -> str:
+    """``obj`` as JSON to ``RECORDS_DIR/name``; returns the path."""
+    os.makedirs(RECORDS_DIR, exist_ok=True)
+    path = os.path.join(RECORDS_DIR, name)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1, sort_keys=True, default=str)
+        f.write("\n")
+    return path
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -1233,6 +1277,11 @@ def phase_slice():
     if any(n != want for n in launches.values()):
         raise AssertionError(f"kernel launches {launches}, expected {want} each")
     check_slice_obs(trainer, cfg, step_spans)
+    efficiency_record(trainer, state, {"slice": "longctx", "family": "gradient_allreduce",
+                                       "accum_steps": 1, "steps": STEPS,
+                                       "flat_resident": trainer.flat_resident,
+                                       "layout": "resident" if trainer._flat_resident
+                                       else "leaf"})
     # what the remat phase holds its run against: the losses, the peak, the
     # parameters after the steps and (last) the kernels' device time of one more
     base = {"losses": losses, "stats": st, "params": _params_on_host(model)}
@@ -1684,6 +1733,88 @@ def check_against_generate(model, req, gate=None):
     return upto if parted is None else parted, parted, err
 
 
+#: trials of the serve phase's continuous-against-static pair (the serving
+#: bench's smoke trials): interleaved, each trial both modes on the backlog
+SERVE_AB_TRIALS = 3
+
+
+def serve_throughput(model, conf, backlog, continuous):
+    """One engine mode's output tokens a second over ``backlog`` submitted
+    at once (the serving bench's offered-backlog measurement)."""
+    from bagua_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(model, None, conf, continuous=continuous)
+    cuda = next(model.parameters()).is_cuda
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = eng.run(backlog)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tokens = sum(len(r.output) for r in got)
+    return {"metric": ("serve_continuous_tokens_per_sec" if continuous
+                       else "serve_static_tokens_per_sec"),
+            "value": round(tokens / dt, 3), "unit": "tokens/s", "timing": "single_window",
+            "tokens": int(tokens), "wall_s": round(dt, 6), "n_requests": len(backlog),
+            "batching": "continuous" if continuous else "static", "ticks": eng._ticks}
+
+
+def _seconds_percentiles(values):
+    vals = np.asarray(sorted(values), float)
+    return {p: round(float(np.percentile(vals, q)), 6)
+            for p, q in (("p50", 50), ("p90", 90), ("p99", 99))}
+
+
+def serve_bench_records(done, ab, ledger_report, conf, cfg, device, trace_meta, smoke=True):
+    """A ``bagua-bench-serve-v1`` record list from a serve run's measurements:
+    ``done`` the latency trace's completed requests, ``ab`` the
+    ``(static, continuous, ratios)`` of :func:`~bagua_tpu_torch.obs.ab.
+    interleaved_ab` over :func:`serve_throughput`, ``ledger_report`` the
+    goodput ledger's report over the run (the loader's ``weight_load``
+    included)."""
+    from bagua_tpu_torch.obs.ab import speedup_record
+    from bagua_tpu_torch.serve import SERVE_BENCH_SCHEMA, SERVE_SPEEDUP_GATE
+    from bagua_tpu_torch.telemetry import counters
+
+    best_static, best_cont, ratios = ab
+    latency = {"metric": "serve_latency",
+               "ttft_s": _seconds_percentiles([r.ttft_s for r in done if r.ttft_s is not None]),
+               "tpot_s": _seconds_percentiles([r.tpot_s for r in done if r.tpot_s is not None]),
+               "n_requests": len(done), "trace": "poisson",
+               "mean_interarrival_s": trace_meta["mean_interarrival_s"]}
+    speedup = speedup_record(
+        "serve_continuous_over_static_throughput", ratios, "continuous/static tokens/s",
+        gate=SERVE_SPEEDUP_GATE, n_requests=best_cont["n_requests"], max_slots=conf.max_slots,
+        provenance=(f"{device.type} single-device measurement: both modes run the same tick "
+                    "on the same backlog; only the admission policy differs (static holds "
+                    "slots until the whole batch drains).  Gate: >= "
+                    f"{SERVE_SPEEDUP_GATE}x median ratio, or noise_bound flagged per the "
+                    "interleaved A/B protocol (obs/ab.py)."))
+    ledger = {"metric": "serve_ledger_classes",
+              "classes": {c: round(v, 6) for c, v in (ledger_report.get("classes") or {}).items()
+                          if v > 0},
+              "goodput_fraction": ledger_report.get("goodput_fraction"),
+              "wall_s": ledger_report.get("wall_s"),
+              "note": ("prefill/decode are serving goodput; batch_formation_idle and "
+                       "weight_load are serving badput with a name")}
+    header = {"metric": "serve_bench_schema", "schema": SERVE_BENCH_SCHEMA,
+              "time_unix": time.time(), "platform": device.type,
+              "device_kind": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                              else "cpu"),
+              "n_devices": 1, "smoke": bool(smoke),
+              "config": {"max_slots": conf.max_slots, "page_size": conf.page_size,
+                         "num_pages": conf.num_pages, "prefill_chunk": conf.prefill_chunk,
+                         "queue_depth": conf.queue_depth,
+                         "model": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                                   "n_heads": cfg.n_heads, "max_seq_len": cfg.max_seq_len,
+                                   "vocab_size": cfg.vocab_size}},
+              "trace": dict(trace_meta),
+              "counters": {k: v for k, v in counters.snapshot().items()
+                           if k.startswith("serve/")}}
+    return [header, latency, best_cont, best_static, speedup, ledger]
+
+
 #: ticks of the serve phase's profiled window, after as many warm-up ticks
 SERVE_PROFILE_TICKS = 30
 
@@ -1745,8 +1876,10 @@ def phase_serve(card):
     ``prefill``, ``decode`` and ``batch_formation_idle`` fed and their sum
     not above the wall; no flash launch in the ticks.  Prints TTFT and TPOT
     percentiles, tokens/s and the peak, where a tick's time goes
-    (:func:`serve_tick_breakdown`), and (no gate) continuous against static
-    batching on one backlog of the same requests."""
+    (:func:`serve_tick_breakdown`), and (no gate on the ratio) continuous
+    against static batching on one backlog of the same requests,
+    ``SERVE_AB_TRIALS`` interleaved trials; the run's ``bagua-bench-serve-v1``
+    record must validate (:func:`serve_bench_records`)."""
     from bagua_tpu_torch.obs import ledger as obs_ledger
     from bagua_tpu_torch.ops import flash_attention as fa
     from bagua_tpu_torch.serve import (ServeConfig, ServeEngine, load_serving_params,
@@ -1822,30 +1955,46 @@ def phase_serve(card):
                 f"preempted {r.preemptions}x) against generate(): {equal} tokens equal"
                 f"{'' if parted is None else f', parted at {parted} (a near tie)'}, logits "
                 f"within {err:.3g} (gate {GEN_LOGITS_RTOL})")
-        del engine, done, chosen, preempted
+        for r in done:
+            r.logits = None   # the record keeps their times only
+        del engine, chosen, preempted
         release()
         serve_tick_breakdown(model, trace, card)
-        # continuous against static batching on one backlog (no gate)
+        # continuous against static batching on one backlog, interleaved
+        # (no gate on the ratio: the record is the serving bench's smoke)
+        from bagua_tpu_torch.obs.ab import interleaved_ab
+        from bagua_tpu_torch.serve import validate_serve_bench
+
         backlog = [(0.0, p, n) for _, p, n in trace]
-        pair = {}
-        for mode in ("continuous", "static"):
-            eng = ServeEngine(model, None, ServeConfig(
-                max_slots=SERVE["slots"], page_size=SERVE["page"],
-                num_pages=2 + SERVE["slots"] * (cfg.max_seq_len // SERVE["page"]), queue_depth=256,
-                prefill_chunk=SERVE["chunk"], tick_idle_s=0.001),
-                continuous=mode == "continuous")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = eng.run(backlog)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            pair[mode] = sum(len(r.output) for r in got) / secs
-            log(f"serve backlog of {len(backlog)} requests, {mode} batching ({card}): "
-                f"{secs:.3f} s, {pair[mode]:.1f} output tokens/s, {eng._ticks} ticks")
-            del eng, got
+        ab_conf = ServeConfig(max_slots=SERVE["slots"], page_size=SERVE["page"],
+                              num_pages=2 + SERVE["slots"] * (cfg.max_seq_len // SERVE["page"]),
+                              queue_depth=256, prefill_chunk=SERVE["chunk"], tick_idle_s=0.001)
+
+        def measure(continuous):
+            rec = serve_throughput(model, ab_conf, backlog, continuous)
+            log(f"serve backlog of {len(backlog)} requests, {rec['batching']} batching "
+                f"({card}): {rec['wall_s']:.3f} s, {rec['value']:.1f} output tokens/s, "
+                f"{rec['ticks']} ticks")
             release()
-        log(f"serve: continuous over static batching on the backlog: "
-            f"{pair['continuous'] / pair['static']:.3f}x output tokens/s")
+            return rec
+
+        t_ab = time.perf_counter()
+        ab = interleaved_ab(lambda: measure(False), lambda: measure(True),
+                            trials=SERVE_AB_TRIALS)
+        GROUP_SECONDS["records"]["serve"] = time.perf_counter() - t_ab
+        log(f"serve: continuous over static batching on the backlog, per trial: {ab[2]}")
+        records = serve_bench_records(
+            done, ab, obs_ledger.ledger.report(), conf, cfg, torch.device("cuda"),
+            {"seed": SERVE["seed"], "prompt_range": list(SERVE["prompt"]),
+             "output_range": list(SERVE["new"]), "mean_interarrival_s": SERVE["gap_s"],
+             "n_latency_requests": len(done), "n_throughput_requests": len(backlog)})
+        problems = validate_serve_bench(records)
+        path = write_record("torch_serve_bench.json", records)
+        log(f"records: serve record ({SERVE_AB_TRIALS} interleaved trials, smoke) -> {path}; "
+            f"problems {problems}")
+        if problems:
+            raise AssertionError(f"records: the serve record is invalid: {problems}")
+        del done
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         del model
@@ -2646,6 +2795,46 @@ def codec_bound(name, n, m):
     return per_elem * n * m / PEAK_BYTES * 1e3, "bytes"
 
 
+#: the wrappers' launches under each ``trace_op_profile`` window, and the
+#: device kernel each one launches
+OP_PROFILE_CALLS = 5
+CODEC_KERNEL_NAME = {"compress_chunked": "minmax_compress_kernel",
+                     "decompress_chunked": "decompress_kernel",
+                     "absmax_chunked": "absmax_kernel",
+                     "sign_compress_chunked": "sign_compress_kernel",
+                     "sign_decompress_chunked": "sign_unpack_kernel"}
+
+
+def op_profile_check(label, fns, event_ms):
+    """``profiling.trace_op_profile`` around ``OP_PROFILE_CALLS`` enqueued
+    calls of each codec wrapper of ``fns`` (name -> call): its kernel must
+    appear in the trace as many times as the wrapper counted launches, and
+    its device time a launch is printed beside the event-timed ``event_ms``."""
+    from bagua_tpu_torch import profiling
+    from bagua_tpu_torch.ops import codec as cd
+
+    seen = {}
+    t0 = time.perf_counter()
+    for name, fn in fns.items():
+        wrapper = getattr(cd, name)
+        torch.cuda.synchronize()
+        before = wrapper.launches
+        prof = profiling.trace_op_profile(lambda: [fn() for _ in range(OP_PROFILE_CALLS)])
+        launched = wrapper.launches - before
+        ops = [r for k, r in (prof.get("ops") or {}).items() if CODEC_KERNEL_NAME[name] in k]
+        count = sum(r["count"] for r in ops)
+        dev_ms = sum(r["time_s"] for r in ops) / max(count, 1) * 1e3
+        seen[name] = dev_ms
+        log(f"records: trace_op_profile {label} {name}: {CODEC_KERNEL_NAME[name]} "
+            f"{count} times in the trace for {launched} launches; device time "
+            f"{dev_ms:.5f} ms a launch beside the event-timed {event_ms[name]:.5f} ms")
+        if not (count == launched == OP_PROFILE_CALLS):
+            raise AssertionError(f"records: trace_op_profile saw {name}'s kernel {count} "
+                                 f"times for {launched} launches")
+    GROUP_SECONDS["records"][f"trace_op_profile {label}"] = time.perf_counter() - t0
+    return seen
+
+
 def phase_codec_kernels():
     from bagua_tpu_torch.models.transformer import bert_large_config
     from bagua_tpu_torch.ops import codec as cd
@@ -2724,6 +2913,8 @@ def phase_codec_kernels():
         if label == "bucket chunk 5 MiB":
             kernels_a_call(f"codec chunk {label}", {k: kern for k, (kern, _) in fns.items()},
                            ("compress_chunked", "absmax_chunked"))
+            op_profile_check(f"codec chunk {label}", {k: kern for k, (kern, _) in fns.items()},
+                             {k: v[0] for k, v in times[label].items()})
     # K1 on the embedding bucket's chunk: more than the grid holds in shared
     # memory, so the part that does not fit is read again
     x = randn(n * embed_m)
@@ -2888,6 +3079,8 @@ def phase_sign_kernels():
         if label == "ring chunk 5 MiB":
             kernels_a_call(f"sign chunk {label}", {k: kern for k, (kern, _) in fns.items()},
                            ("sign_compress_chunked",))
+            op_profile_check(f"sign chunk {label}", {k: kern for k, (kern, _) in fns.items()},
+                             {k: v[0] for k, v in times[label].items()})
     # the library yardstick of K4 at the path's chunk: its reduction half
     x = randn(n * path_m)
     library = {"sign_compress_chunked": cuda_ms(lambda: x.view(n, -1).abs().sum(dim=1), 20),
@@ -3210,6 +3403,10 @@ FLIP_STEPS = (3, 3, 2)
 #: relative: the live tensors between two steps move by about 0.3-1.3 MB
 #: (of a 520 MB residual on the cut) from call to call
 FLIP_MEM_RTOL = 0.01
+#: the chaos matrix's drills of two ranks (in slice 3's spawn) and of the
+#: 2 x 2 mesh's four (in slice 4 (2 x 2)'s), ``scripts/torch_chaos_drill.py``
+CHAOS_RUNS = (("chaos",),)
+CHAOS_4_RUNS = (("chaos_4",),)
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
     "slice4": ("slice 4", SLICE4_RUNS, CODEC_WORLD, None),
@@ -3224,6 +3421,8 @@ MULTI_RANK = {
     "model_parallel": ("model_parallel", MP_RUNS, MP_WORLD, None),
     "tensor_pipeline": ("tensor_pipeline", TPP_RUNS, 2, None),
     "tensor_pipeline_4": ("tensor_pipeline (pp 2 x tp 2)", TPP4_RUNS, 4, None),
+    "chaos": ("chaos", CHAOS_RUNS, CODEC_WORLD, None),
+    "chaos_4": ("chaos (2 x 2)", CHAOS_4_RUNS, 4, 2),
 }
 #: phases that run in one spawn, in order (the same world and tiers): a spawn
 #: costs 15-20 s (the ranks' start: importing torch, then torch._dynamo at the
@@ -3231,8 +3430,8 @@ MULTI_RANK = {
 #: two-rank phases ride in one spawn, but checkpoint (b, c), which runs in a
 #: spawn of its own beside it to shorten the run, and the four-rank ones in two
 SPAWNS = {"slice3": ("slice3", "slice4", "zero", "decentralized", "autotune", "async",
-                     "features", "overlap", "model_parallel", "tensor_pipeline"),
-          "slice4_2x2": ("slice4_2x2", "decentralized_4")}
+                     "features", "overlap", "model_parallel", "tensor_pipeline", "chaos"),
+          "slice4_2x2": ("slice4_2x2", "decentralized_4", "chaos_4")}
 QADAM_WARMUP = 2
 #: the generate phase: slice 1's LM, a prompt of its batch's first
 #: ``GEN_PROMPT`` tokens, ``GEN_NEW`` greedy tokens, dense and paged
@@ -4382,7 +4581,46 @@ def overlap_run(rank, world, run, device, label):
             len(k) + 2 * sum(k) for k in ks)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"[rank {rank}] {name}: launches {launches}, expected {want}")
+    if name == "bytegrad_overlap":
+        # after every read of the run: extra steps move none of its gates
+        record["trace_overlap"] = overlap_trace(rank, trainer, state, batch, device)
     return record
+
+
+#: steps of the overlapped ByteGrad run under ``profiling.trace_overlap``
+TRACE_OVERLAP_STEPS = 3
+
+
+def overlap_trace(rank, trainer, state, batch, device):
+    """``TRACE_OVERLAP_STEPS`` more steps of the run, on rank 0 under
+    ``profiling.trace_overlap`` (the other ranks step alike, untraced);
+    returns rank 0's overlap fields."""
+    from bagua_tpu_torch import profiling
+
+    box = {"state": state}
+
+    def step():
+        box["state"], _ = trainer.train_step(box["state"], batch)
+
+    t0 = time.perf_counter()
+    if rank == 0 and device.type == "cuda":
+        out = profiling.trace_overlap(step, steps=TRACE_OVERLAP_STEPS)
+    else:
+        for _ in range(TRACE_OVERLAP_STEPS):
+            step()
+        out = None
+    return {"fields": out, "seconds": time.perf_counter() - t0}
+
+
+def check_trace_overlap(card, rec):
+    """``trace_overlap``'s fields of the overlapped ByteGrad run: non-empty,
+    communication on the device, a bounded overlap fraction."""
+    out = rec["trace_overlap"]["fields"] or {}
+    GROUP_SECONDS["records"]["trace_overlap"] = rec["trace_overlap"]["seconds"]
+    log(f"records: trace_overlap over {TRACE_OVERLAP_STEPS} steps of the overlapped ByteGrad "
+        f"run on rank 0 ({card}), {rec['trace_overlap']['seconds']:.1f} s: {out}")
+    if not (out and out["comm_s_per_step"] > 0 and 0.0 <= out["overlap_fraction"] <= 1.0):
+        raise AssertionError(f"records: trace_overlap returned {out}")
 
 
 def eager_checks(rank, world, device, label, comm=None):
@@ -5960,6 +6198,7 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
     # settings at the init above; the phases' other trainers stay untuned
     os.environ.pop("BAGUA_AUTOTUNE", None)
     _CKPT_DIR["root"] = os.path.join(os.path.dirname(os.path.abspath(out_path)), "ckpt")
+    _CKPT_DIR["chaos"] = os.path.join(os.path.dirname(os.path.abspath(out_path)), "chaos")
     records = []
     for sub in SPAWNS.get(phase, (phase,)):
         label, runs = MULTI_RANK[sub][:2]
@@ -5967,7 +6206,8 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
                   "autotune": autotune_run,
                   "checkpoint": checkpoint_run, "model_parallel": model_parallel_run,
                   "tensor_pipeline": tensor_pipeline_run,
-                  "tensor_pipeline_4": tensor_pipeline_run}.get(sub, compressed_run)
+                  "tensor_pipeline_4": tensor_pipeline_run, "chaos": chaos_run,
+                  "chaos_4": chaos_run}.get(sub, compressed_run)
         for run in runs:
             t0 = time.perf_counter()
             if any(run[0] in pair for pair in COLLECTIVE_PAIRS):
@@ -6016,7 +6256,7 @@ def phase_multi_rank(phase):
     for runs in zip(*ranks):
         name, label = runs[0]["name"], runs[0]["label"]
         if runs[0].get("kind") in ("eager", "checkpoint", "model_parallel", "tensor_pipeline",
-                                   "vision", "autotune"):
+                                   "vision", "autotune", "chaos"):
             continue
         if runs[0]["fingerprints"] is not None:
             check_gossip(label, runs, intra or 1)
@@ -6993,6 +7233,147 @@ def phase_robustness(card, slice1_losses, sequential=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# records: the efficiency, serve and bench-trend records the port makes;
+# chaos: the fault matrix of scripts/torch_chaos_drill.py
+# ---------------------------------------------------------------------------
+
+#: seconds of the records and chaos groups, by piece (the parent's own and
+#: the spawns' records)
+GROUP_SECONDS = {"records": {}, "chaos": {}}
+#: interleaved trials of each of the regress phase's two probes
+REGRESS_TRIALS = 2
+
+
+def efficiency_record(trainer, state, config):
+    """A ``bagua-efficiency-v1`` record of a trainer's run (its ledger
+    report, static footprint and MFU record), validated and written to
+    ``RECORDS_DIR``; returns it."""
+    from bagua_tpu_torch.obs import export as obs_export
+    from bagua_tpu_torch.obs import ledger as obs_ledger
+    from bagua_tpu_torch.obs.memory import static_footprint
+    from bagua_tpu_torch.obs.regress import build_efficiency_record
+
+    t0 = time.perf_counter()
+    raw = {"ledger": obs_ledger.ledger.report(), "footprint": static_footprint(trainer, state),
+           "mfu": obs_export.last_mfu() or {"available": False,
+                                            "rationale": "the trainer published no MFU"},
+           "steps": config["steps"], "platform": trainer.device.type,
+           "device_kind": torch.cuda.get_device_name(trainer.device),
+           "n_devices": trainer.world_size, "config": config}
+    record = build_efficiency_record(raw)
+    problems = obs_ledger.validate_efficiency(record)
+    path = write_record("torch_efficiency.json", record)
+    GROUP_SECONDS["records"]["efficiency"] = time.perf_counter() - t0
+    led = record["ledger"]
+    log(f"records: efficiency record of {config['slice']} -> {path}: goodput "
+        f"{led['goodput_fraction']}, classes { {k: v for k, v in led['classes'].items() if v} }, "
+        f"footprint {record['footprint']['total_bytes']} bytes, mfu {record['mfu']}; "
+        f"problems {problems}")
+    if problems:
+        raise AssertionError(f"records: the efficiency record is invalid: {problems}")
+    return record
+
+
+def phase_regress(card):
+    """The bench-trend sentinel's card probe (``obs.regress``: ResNet50,
+    flat-resident off against on, ``REGRESS_TRIALS`` interleaved trials, and
+    the efficiency trend records) twice, the second compared with the first
+    through the CLI's file mode; the trend record must validate.  The
+    verdicts are printed, not gated: the ratios are taken beside the
+    two-rank spawn."""
+    from bagua_tpu_torch.obs import regress
+
+    paths = []
+    for i in (1, 2):
+        t0 = time.perf_counter()
+        recs = regress.run_quick_probe(trials=REGRESS_TRIALS, device="cuda")
+        paths.append(write_record(f"torch_probe_{i}.json", recs))
+        log(f"records: regress probe {i} ({card}) in {time.perf_counter() - t0:.1f} s: " +
+            "; ".join(f"{r['metric']} {r['value']} {r.get('unit', '')}"
+                      + (f" {r['per_trial_ratios']}" if "per_trial_ratios" in r else "")
+                      for r in recs) + f"; config {recs[0]['config']}")
+    out = os.path.join(RECORDS_DIR, "torch_bench_trend.json")
+    rc = regress.main(["--fresh", paths[1], "--against", paths[0], "--out", out])
+    with open(out) as f:
+        trend = json.load(f)
+    problems = regress.validate_bench_trend(trend)
+    log(f"records: bench trend (probe 2 against probe 1) -> {out}: rc {rc}, verdicts "
+        f"{ {c['metric']: (c['verdict'], c['ratio']) for c in trend['comparisons']} }, "
+        f"problems {problems}")
+    if rc != 0 or problems or trend["mode"] != "files":
+        raise AssertionError(f"records: the bench-trend record failed: rc {rc}, {problems}")
+
+
+def _chaos_drill():
+    """``scripts/torch_chaos_drill.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(REPO_DIR, "scripts", "torch_chaos_drill.py")
+    spec = importlib.util.spec_from_file_location("torch_chaos_drill", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chaos_run(rank, world, run, device, label):
+    """The chaos matrix's drills of this spawn's world, on every rank."""
+    from bagua_tpu_torch.ops import codec as cd
+
+    drill = _chaos_drill()
+    t0 = time.perf_counter()
+    before = {k.__name__: k.launches for k in cd.KERNELS}
+    results = drill.run_rank_drills(drill.DRILL_NAMES, rank, world, device,
+                                    os.path.join(_CKPT_DIR["chaos"], str(world)))
+    # the codec kernels the drills launched (the compress_dcn drill's
+    # compressed inter-node ring runs K1 and K2)
+    launches = {k.__name__: k.launches - before[k.__name__] for k in cd.KERNELS}
+    return {"name": run[0], "kind": "chaos", "results": results, "codec_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_chaos(card):
+    """The chaos matrix's drills of one process, on the card at world 1."""
+    from bagua_tpu_torch.telemetry import counters
+
+    drill = _chaos_drill()
+    t0 = time.perf_counter()
+    before = counters.snapshot()
+    results = drill.run_in_process(drill.IN_PROCESS, device="cuda")
+    GROUP_SECONDS["chaos"]["in process"] = time.perf_counter() - t0
+    GROUP_SECONDS["chaos_counters"] = drill._counter_deltas(before)
+    for name, r in results.items():
+        log(f"chaos {name} ({card}, world 1): {'PASS' if drill.drill_passed(r) else 'FAIL'} "
+            f"in {r['seconds']} s: {r['details']}")
+    return results
+
+
+def check_chaos(card, in_process, two, four):
+    """The whole matrix: every drill injected, detected and recovered, with
+    its flight record and its badput class; the record to ``RECORDS_DIR``."""
+    drill = _chaos_drill()
+    results = dict(in_process)
+    for recs, world in ((two, 2), (four, 4)):
+        results.update(recs[0]["results"])
+        GROUP_SECONDS["chaos"][f"{world} ranks"] = recs[0]["seconds"]
+        log(f"chaos ({world} ranks): codec kernel launches on each rank "
+            f"{[r['codec_launches'] for r in recs]}")
+        for name, r in recs[0]["results"].items():
+            log(f"chaos {name} ({card}, {world} ranks): "
+                f"{'PASS' if drill.drill_passed(r) else 'FAIL'} in {r['seconds']} s: "
+                f"{r['details']}")
+    results = {n: results[n] for n in drill.DRILL_NAMES if n in results}
+    record = drill.build_record(results, "cuda", max(r["world"] for r in results.values()),
+                                sum(GROUP_SECONDS["chaos"].values()),
+                                GROUP_SECONDS.pop("chaos_counters", {}))
+    path = write_record("torch_chaos_drill.json", record)
+    failed = [n for n, r in results.items() if not drill.drill_passed(r)]
+    log(f"chaos: {len(results)} drills -> {path}; seconds by drill "
+        f"{ {n: r['seconds'] for n, r in results.items()} }; failed {failed}")
+    if failed or len(results) != len(drill.DRILL_NAMES):
+        raise AssertionError(f"chaos: drills failed {failed} (of {len(results)})")
+
+
 def _die_with_parent() -> None:
     """A worker's end when the process that started it ends, however it
     ends (``PR_SET_PDEATHSIG``): a killed script leaves no rank behind."""
@@ -7084,6 +7465,7 @@ def main():
 
     thread = threading.Thread(target=two_ranks, name="chip-smoke-two-ranks")
     thread.start()
+    streams, stream_t0 = {}, time.perf_counter()
     try:
         launches, base = timed("slice 1", phase_slice, alone=False)
         timed("obs", phase_obs, card, alone=False)
@@ -7098,6 +7480,9 @@ def main():
         timed("lint", phase_lint, alone=False)
         timed("generate", phase_generate, card, alone=False)
         timed("serve", phase_serve, card, alone=False)
+        timed("regress", phase_regress, card, alone=False)
+        GROUP_SECONDS["records"]["regress"] = seconds["regress"]
+        chaos_in = timed("chaos", phase_chaos, card, alone=False)
         timed("vision", phase_vision, card, alone=False)
         torch.distributed.destroy_process_group()
         release()
@@ -7108,6 +7493,7 @@ def main():
         timed("robustness", phase_robustness, card, slice1_losses,
               "--sequential" in sys.argv[1:], alone=False)
         ckpt_multi = timed("checkpoint (b, c)", phase_multi_rank, "checkpoint", alone=False)
+        streams["in process"] = time.perf_counter() - stream_t0
     except BaseException:
         stop("a failed phase beside the two-rank spawn")   # ends that spawn too
         raise
@@ -7134,6 +7520,8 @@ def main():
     check_features(by_phase["features"], zero)
     check_overlap(by_phase["overlap"], zero)
     check_collectives(both)
+    check_trace_overlap(card, both["bytegrad_overlap"][0])
+    check_chaos(card, chaos_in, both["chaos"], four["chaos_4"])
     check_checkpoint(card, ckpt_single, by_phase["checkpoint"])
     del by_phase
     mp = {name: both[name] for name, *_ in MP_RUNS}
@@ -7144,6 +7532,11 @@ def main():
     check_vision_ranks(card, tpp)
     log(f"seconds by phase: {seconds} (from slice 1 to checkpoint (b, c) beside the "
         f"two-rank spawn); the script's total {time.perf_counter() - script_t0:.1f} s")
+    for group in ("records", "chaos"):
+        pieces = {k: round(v, 1) for k, v in GROUP_SECONDS[group].items()}
+        log(f"seconds of the {group} group: {sum(pieces.values()):.1f} ({pieces})")
+    log(f"seconds of the streams: in-process {streams['in process']:.1f}, two-rank spawn "
+        f"{seconds[', '.join(SPAWNS['slice3'])]:.1f}")
     if leftovers:
         raise AssertionError(f"phases left processes running: {leftovers}")
     # each kernel's launches come from its own path: flash from slice 1, gmm

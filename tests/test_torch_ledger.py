@@ -172,3 +172,99 @@ def test_metrics_jsonl_rotation(tmp_path, monkeypatch):
         exp.export_once()
     assert (tmp_path / "metrics.jsonl.1").exists()
     assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 1
+
+
+# ---- the efficiency record's schema and the drills' badput classes ---------
+
+
+def _efficiency_record():
+    return {
+        "schema": obs_ledger.EFFICIENCY_SCHEMA,
+        "time_unix": 1.0, "platform": "cpu", "n_devices": 1,
+        "config": {"family": "gradient_allreduce"},
+        "ledger": {
+            "wall_s": 1.0,
+            "classes": {c: (0.5 if c == "productive_step" else 0.0)
+                        for c in obs_ledger.LEDGER_CLASSES},
+            "goodput_fraction": 0.5,
+        },
+        "footprint": {"params_bytes": 4, "opt_state_bytes": 0, "algo_state_bytes": 0,
+                      "grad_flats_bytes": 4, "total_bytes": 8},
+        "mfu": {"available": False, "rationale": "cpu"},
+        "trend_records": [{"metric": "m", "value": 1.0}],
+    }
+
+
+def _mutated(name):
+    rec = json.loads(json.dumps(_efficiency_record()))
+    if name == "classes_exceed_wall":
+        rec["ledger"]["classes"]["compile"] = 99.0
+    elif name == "total_not_sum":
+        rec["footprint"]["total_bytes"] = 7
+    elif name == "mfu_no_rationale":
+        rec["mfu"] = {"available": False}
+    elif name == "mfu_missing":
+        rec["mfu"] = {}
+    elif name == "schema":
+        rec["schema"] = "bagua-efficiency-v0"
+    elif name == "class_missing":
+        del rec["ledger"]["classes"]["rewind"]
+    elif name == "wall":
+        rec["ledger"]["wall_s"] = 0
+    elif name == "goodput":
+        del rec["ledger"]["goodput_fraction"]
+    elif name == "footprint_key":
+        rec["footprint"]["params_bytes"] = 4.0
+    elif name == "trend_entry":
+        rec["trend_records"] = [{"metric": "m"}]
+    elif name == "mistyped":
+        rec["n_devices"] = "1"
+    elif name == "not_dict":
+        rec = []
+    return rec
+
+
+@pytest.mark.parametrize("name", ["valid", "classes_exceed_wall", "total_not_sum",
+                                  "mfu_no_rationale", "mfu_missing", "schema", "class_missing",
+                                  "wall", "goodput", "footprint_key", "trend_entry", "mistyped",
+                                  "not_dict"])
+def test_validate_efficiency_equal_jax(name):
+    rec = _mutated(name)
+    problems = obs_ledger.validate_efficiency(rec)
+    assert problems == jledger.validate_efficiency(rec)
+    assert (problems == []) == (name == "valid")
+    if name == "classes_exceed_wall":
+        assert any("exceeds wall" in p for p in problems)
+    if name == "total_not_sum":
+        assert any("sum of components" in p for p in problems)
+    if name == "mfu_no_rationale":
+        assert any("rationale" in p for p in problems)
+
+
+def test_drill_expectations_and_classes_equal_jax():
+    assert obs_ledger.EFFICIENCY_SCHEMA == jledger.EFFICIENCY_SCHEMA
+    assert obs_ledger.DRILL_BADPUT_EXPECTATIONS == jledger.DRILL_BADPUT_EXPECTATIONS
+    assert obs_ledger.LEDGER_CLASSES == jledger.LEDGER_CLASSES
+    assert len(obs_ledger.LEDGER_CLASSES) == 13
+    assert set(obs_ledger.DRILL_BADPUT_EXPECTATIONS.values()) <= set(obs_ledger.BADPUT_CLASSES)
+
+
+def test_tiny_trainers_efficiency_record_validates():
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.obs import regress
+
+    bt.init_process_group(device="cpu")
+    obs_spans.set_enabled(True)
+    try:
+        raw = regress.measure_efficiency(device="cpu", steps=8)
+        rec = regress.build_efficiency_record(raw)
+        assert obs_ledger.validate_efficiency(rec) == jledger.validate_efficiency(rec) == []
+        classes = rec["ledger"]["classes"]
+        # the measured window feeds the badput it drills: build, save, rewind
+        assert classes["compile"] > 0 and classes["checkpoint"] > 0 and classes["rewind"] > 0
+        assert rec["footprint"]["total_bytes"] == rec["trend_records"][1]["value"]
+        assert [r["higher_better"] for r in rec["trend_records"]] == [True, False]
+    finally:
+        obs_ledger.ledger.reset()
+        obs_export.reset_local_summary()
+        obs_spans.set_enabled(None)

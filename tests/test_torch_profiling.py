@@ -192,3 +192,106 @@ def test_trace_context_manager(tmp_path):
     assert trace["bagua"]["steps"] == 1
     assert any(e.get("name") == prof.BUCKET_ANNOTATION + "0" for e in trace["traceEvents"])
     assert prof.annotate("x") is prof._NULL   # no capture open: no range
+
+
+# ---- the runners: trace_op_profile and trace_overlap ----------------------
+
+
+def test_runners_return_empty_on_the_cpu_and_run_inside_the_window():
+    seen = []
+
+    def finalize():
+        seen.append(prof._TRACE_OWNER is not None)
+
+    assert prof.trace_op_profile(lambda: torch.ones(64).sum(), finalize=finalize) == {}
+    steps = []
+    assert prof.trace_overlap(lambda: steps.append(prof._TRACE_OWNER is not None), steps=3,
+                              finalize=finalize) == {}
+    assert seen == [True, True] and steps == [True, True, True]
+    assert prof._TRACE_OWNER is None
+
+
+def test_runners_remove_their_own_directory_and_keep_a_given_one(tmp_path, monkeypatch):
+    import tempfile
+
+    made = []
+    real = tempfile.mkdtemp
+
+    def spy(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(tempfile, "mkdtemp", spy)
+    prof.trace_op_profile(lambda: torch.ones(4).sum())
+    prof.trace_overlap(lambda: torch.ones(4).sum(), steps=2)
+    assert len(made) == 2 and not any(os.path.exists(d) for d in made)
+    given = tmp_path / "kept"
+    prof.trace_op_profile(lambda: torch.ones(4).sum(), log_dir=str(given))
+    assert len(made) == 2
+    kept = prof.newest_trace(str(given))
+    assert kept is not None and prof.load_trace(kept)["bagua"]["steps"] is None
+
+
+def test_overlap_runner_records_its_steps(monkeypatch):
+    got = {}
+    real = prof.parse_trace_overlap
+
+    def spy(trace):
+        got["steps"] = trace["bagua"]["steps"]
+        return real(trace)
+
+    monkeypatch.setattr(prof, "parse_trace_overlap", spy)
+    assert prof.trace_overlap(lambda: None, steps=4) == {}
+    assert got["steps"] == 4
+
+
+def test_runners_trace_nothing_while_another_capture_is_open(tmp_path):
+    with prof.trace(str(tmp_path)):
+        assert prof.trace_op_profile(lambda: torch.ones(4).sum()) == {}
+
+
+@pytest.mark.cuda
+def test_op_profile_counts_k1_launches_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the codec kernels have no CPU mode")
+    from bagua_tpu_torch.ops import codec
+
+    x = torch.randn(2 * 1310720, device="cuda")
+    codec.compress_chunked(x, 2)   # builds and warms the kernel
+    torch.cuda.synchronize()
+    before = codec.compress_chunked.launches
+    # enqueue only: the runner synchronizes inside its window
+    out = prof.trace_op_profile(lambda: [codec.compress_chunked(x, 2) for _ in range(5)])
+    k1 = [r for name, r in out["ops"].items() if "minmax_compress_kernel" in name]
+    assert codec.compress_chunked.launches - before == 5
+    assert sum(r["count"] for r in k1) == 5 and all(r["time_s"] > 0 for r in k1)
+
+
+def test_capture_records_the_ranges_of_a_thread_started_before_it(tmp_path):
+    """The overlap scheduler's comm worker starts at a trainer's first
+    overlapped step and opens its bucket ranges on its own thread; a
+    capture opened later must record them, or the overlapped path's device
+    communication is never tied to a bucket (``trace_overlap`` then reads
+    nothing)."""
+    import queue
+    import threading
+
+    jobs, done = queue.Queue(), queue.Queue()
+
+    def worker():
+        while jobs.get() is not None:
+            with prof.annotate(prof.BUCKET_ANNOTATION + "7"):
+                torch.ones(64).sum()
+            done.put(True)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    jobs.put(1)
+    done.get()   # the thread runs before the capture opens
+    with prof.trace(str(tmp_path), steps=1) as holder:
+        jobs.put(1)
+        done.get()
+    jobs.put(None)
+    names = {e.get("name") for e in prof.load_trace(holder["path"])["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert prof.BUCKET_ANNOTATION + "7" in names
