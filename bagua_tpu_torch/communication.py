@@ -367,6 +367,15 @@ def recorded_tag() -> Optional[Union[int, str]]:
     return getattr(_RECORD_TAG, "tag", None)
 
 
+def collapse_trivial_axes(mesh, axes) -> Tuple[str, ...]:
+    """``axes`` of ``mesh`` (a :class:`~bagua_tpu_torch.parallel.mesh.Mesh`)
+    without the size-1 ones, keeping at least the last
+    (``communication.py:124-129``)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    nontrivial = tuple(a for a in axes if mesh.shape[a] > 1)
+    return nontrivial if nontrivial else axes[-1:]
+
+
 def _watched(fn):
     """Run a blocking call of the communicator inside a section of the
     process's hang watchdog, when it has one.  A gloo collective blocks the

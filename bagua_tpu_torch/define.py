@@ -145,6 +145,10 @@ class TensorDeclaration(_WireModel):
         return self.num_elements * DTYPE_BYTES[TensorDtype(self.dtype)]
 
 
+def get_tensor_declaration_bytes(td: TensorDeclaration) -> int:
+    return td.nbytes
+
+
 def _declaration(value) -> TensorDeclaration:
     if isinstance(value, TensorDeclaration):
         return value

@@ -589,6 +589,16 @@ def get_local_size() -> int:
     return _int_env("LOCAL_WORLD_SIZE", 1)
 
 
+def get_node_rank() -> int:
+    """This node's rank: ``NODE_RANK``, else the global rank over the ranks
+    a node."""
+    return _int_env("NODE_RANK", get_rank() // max(get_local_size(), 1))
+
+
+def get_master_addr() -> str:
+    return os.environ.get("MASTER_ADDR", "127.0.0.1")
+
+
 def get_local_world_size() -> Optional[int]:
     """Ranks per node from ``LOCAL_WORLD_SIZE`` (the launcher's), or None
     when unset: the default intra-node group size."""
@@ -1033,3 +1043,29 @@ def get_serve_tick_idle_s() -> float:
 def is_obs_historian_on() -> bool:
     """Whether the coordinator-side telemetry historian is enabled."""
     return env_enum("BAGUA_OBS_HISTORIAN") == "on"
+
+
+def render_env_vars_md() -> str:
+    """The ``docs/torch/env_vars.md`` reference table, emitted straight from
+    :data:`ENV_REGISTRY` (``scripts/torch_gen_env_docs.py`` writes and
+    checks it; the JAX package's ``render_env_vars_md``)."""
+    lines = [
+        "# Environment variables (bagua_tpu_torch)",
+        "",
+        "Generated by `scripts/torch_gen_env_docs.py` from "
+        "`bagua_tpu_torch.env.ENV_REGISTRY` — do not edit by hand.",
+        "",
+        "Every `BAGUA_*` tunable the port reads is declared in the registry and",
+        "read through `bagua_tpu_torch.env` accessors; the port's lint",
+        "(`python -m bagua_tpu_torch.analysis`) flags any other read.",
+        "",
+        "| Variable | Type | Default | Description |",
+        "| --- | --- | --- | --- |",
+    ]
+    for name in sorted(ENV_REGISTRY):
+        v = ENV_REGISTRY[name]
+        typ = v.type if not v.choices else "|".join(v.choices)
+        default = v.default if v.default != "" else "*(unset)*"
+        doc = " ".join(v.doc.split())
+        lines.append(f"| `{name}` | {typ} | `{default}` | {doc} |")
+    return "\n".join(lines) + "\n"

@@ -60,10 +60,12 @@ def torch_name(jax_name: str) -> str:
     jax_name = jax_name.replace(".MoEMLP_0.", ".mlp.")
     if jax_name.startswith("blocks.block."):
         jax_name = "blocks." + jax_name[len("blocks.block."):]
-    if jax_name == "pos_embed":
-        return "pos_embed.weight"
-    if jax_name == "embed.embedding":
-        return "embed.weight"
+    # a model under a parent module (``SquadModel``'s ``TransformerLM_0``)
+    # keeps the parent's prefix
+    if jax_name == "pos_embed" or jax_name.endswith(".pos_embed"):
+        return jax_name + ".weight"
+    if jax_name == "embed.embedding" or jax_name.endswith(".embed.embedding"):
+        return jax_name[: -len("embedding")] + "weight"
     if jax_name.endswith(".kernel"):
         return jax_name[: -len("kernel")] + "weight"
     return jax_name

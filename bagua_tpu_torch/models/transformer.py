@@ -338,19 +338,24 @@ class TransformerLM(nn.Module):
     :func:`causal_attention` (for example with the plain reference).
     ``mlp_factory(i)`` returns, for layer ``i``, a zero-argument function
     that makes that block's MLP (e.g. a ``MoEMLP``), or None for the dense
-    one, as in the JAX package."""
+    one, as in the JAX package.  ``head=False`` makes the encoder trunk
+    (``transformer.py:346,406-407``): no ``lm_head``, and the forward returns
+    the final-normed hidden states ``[batch, seq, d_model]`` in f32."""
 
     def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0,
                  attn_fn: Optional[Callable] = None,
-                 mlp_factory: Optional[Callable[[int], Optional[Callable]]] = None):
+                 mlp_factory: Optional[Callable[[int], Optional[Callable]]] = None,
+                 head: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.head = head
         for i in sorted(range(cfg.n_layers), key=str):
             mlp = mlp_factory(i) if mlp_factory is not None else None
             self.add_module(f"block_{i}", Block(cfg, attn_fn, mlp))
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype)
         self.final_norm = RMSNorm(cfg.d_model, cfg)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg)
+        if head:
+            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg)
         self.pos_embed = PosEmbed(cfg)
         device = resolve_device(device)
         self.to(device)
@@ -431,7 +436,8 @@ class TransformerLM(nn.Module):
                 x = (remat_wrap(block, cfg.remat_policy) if cfg.remat else block)(x)
         if cfg.decode and not paged:
             cache.index += s
-        return self.lm_head(self.final_norm(x)).float()
+        x = self.final_norm(x)
+        return (self.lm_head(x) if self.head else x).float()
 
 
 #: port parameter-name suffix -> (the dim of the GLOBAL weight sharded over

@@ -397,6 +397,33 @@ def is_registered(name: str) -> bool:
     return name in METRIC_REGISTRY
 
 
+def render_metrics_md() -> str:
+    """The ``docs/torch/metrics.md`` reference table, emitted straight from
+    :data:`METRIC_REGISTRY` (``scripts/torch_gen_env_docs.py`` writes and
+    checks it beside the env-var table; the JAX package's
+    ``render_metrics_md``)."""
+    lines = [
+        "# Metrics (bagua_tpu_torch)",
+        "",
+        "Generated by `scripts/torch_gen_env_docs.py` from "
+        "`bagua_tpu_torch.obs.export.METRIC_REGISTRY` — do not edit by hand.",
+        "",
+        "Every counter and gauge the port emits is declared in the registry;",
+        "the port's lint rule `unregistered-counter` flags any",
+        "`counters.incr`/`set_gauge` call site whose name is not declared",
+        "here.  Names export to Prometheus as `bagua_<name>` with `/` and `.`",
+        "mangled to `_` (see `prometheus_name`).",
+        "",
+        "| Metric | Kind | Description |",
+        "| --- | --- | --- |",
+    ]
+    for name in sorted(METRIC_REGISTRY):
+        m = METRIC_REGISTRY[name]
+        doc = " ".join(m.doc.split())
+        lines.append(f"| `{name}` | {m.kind} | {doc} |")
+    return "\n".join(lines) + "\n"
+
+
 def any_registered_matches(pattern: str) -> bool:
     """Whether some registered name fully matches ``pattern`` (a regex):
     how a test validates an f-string call site like

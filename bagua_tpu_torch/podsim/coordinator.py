@@ -65,6 +65,7 @@ from bagua_tpu_torch.elastic.failover import (  # noqa: E402
     FailoverStore,
     StandbyCoordinatorWatch,
     parse_endpoints,
+    read_coord_lease,
 )
 from bagua_tpu_torch.obs.export import build_fleet_record  # noqa: E402
 from bagua_tpu_torch.obs.historian import Historian  # noqa: E402
@@ -112,6 +113,18 @@ def _write_status(store, payload: dict) -> None:
         # a fenced/unreachable status write is itself a signal the monitor
         # loop will act on (server demotion check) — never die over it
         logger.debug("status not written: %s", e)
+
+
+def _still_leader(server, store, coord_id: int) -> bool:
+    """Whether this coordinator may still act: its store server is primary
+    and the leadership lease, read through the replica group, is its own."""
+    if not server.is_primary:
+        return False
+    try:
+        lease = read_coord_lease(store)
+    except ConnectionError:
+        return False
+    return lease is None or lease.get("node") == coord_id
 
 
 def run_coordinator(args, server, store, *, takeover: bool) -> int:
@@ -166,10 +179,11 @@ def run_coordinator(args, server, store, *, takeover: bool) -> int:
         logger.info("monitoring epoch %d (%d nodes)", spec.epoch,
                     spec.nnodes)
         while True:
-            if not server.is_primary:
-                # generation fence observed: a standby promoted while we
-                # were partitioned/paused — the replicated group already
-                # rejected our late writes; stand down
+            if not _still_leader(server, store, args.coord_id):
+                # generation fence observed, or the lease moved on: a
+                # standby promoted while we were partitioned/paused (our
+                # client may already write to it, our server never hearing
+                # of the fence) — stand down
                 logger.warning(
                     "this coordinator was demoted (store generation moved "
                     "on); exiting as the fenced ex-primary")
@@ -197,6 +211,16 @@ def run_coordinator(args, server, store, *, takeover: bool) -> int:
                 "autopilot_actions_taken": engine.state.actions_taken,
                 "time_unix": time.time(),
             })
+            if expired and not _still_leader(server, store, args.coord_id):
+                # a thawed ex-primary sees every lease stale on its own
+                # clock; the status write above met the generation fence
+                # (or the lease moved on): stand down before publishing a
+                # stop that its failed-over client would carry to the new
+                # primary
+                logger.warning(
+                    "this coordinator was demoted before acting on %s's "
+                    "expiry; exiting as the fenced ex-primary", expired)
+                return EXIT_DEMOTED
             if expired:
                 reason = (f"no heartbeat for {args.lease_ttl:.1f}s "
                           f"(node(s) {expired})")
@@ -211,6 +235,10 @@ def run_coordinator(args, server, store, *, takeover: bool) -> int:
                 break
             if client.read_halt() is not None:
                 logger.info("halt verdict read; coordinator exiting")
+                # the store's primary lives in this process: serve it one
+                # lease TTL more, so that every member reads the verdict
+                # before the store goes away
+                time.sleep(args.lease_ttl)
                 return 0
             time.sleep(args.tick)
 

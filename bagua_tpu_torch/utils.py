@@ -4,7 +4,11 @@ Port of part of ``bagua_tpu/utils.py``: ``remat_wrap`` (``:231-245``), the
 one map from a rematerialization policy name to what the backward keeps,
 shared by the models' ``remat``/``remat_policy`` knobs; and the speed
 statistics of the autotune check-in, ``average_by_removing_extreme_values``
-and ``StatisticalAverage`` (``:102-198``).
+and ``StatisticalAverage`` (``:102-198``); and the reference Bagua's own
+tensor utilities (``bagua/torch_api/utils.py:10-54,205-216``) as the JAX
+package has them (``:38-99``): ``flatten``/``unflatten`` over lists of
+tensors, ``check_contiguous``, ``apply_flattened_call`` over a nested
+mapping or sequence, the wire-dtype map and ``find_free_port``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,83 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from .define import _TORCH_DTYPES, TensorDtype, to_bagua_datatype  # noqa: F401
+
 _aten = torch.ops.aten
+
+
+def from_bagua_datatype(dtype) -> torch.dtype:
+    """Wire datatype name -> torch dtype (``utils.py:56-64``)."""
+    wire = TensorDtype(dtype)
+    return next(t for t, d in _TORCH_DTYPES.items() if d == wire)
+
+
+def flatten(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The tensors raveled into one 1-D buffer, in order; an empty list
+    gives an empty f32 buffer (``utils.py:67-71``)."""
+    if len(tensors) == 0:
+        return torch.zeros((0,), dtype=torch.float32)
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def unflatten(flat: torch.Tensor, like: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``flat`` cut back into tensors shaped like ``like`` (views of
+    ``flat``, ``utils.py:74-83``)."""
+    outs, offset = [], 0
+    for t in like:
+        n = t.numel()
+        outs.append(flat[offset:offset + n].view(t.shape))
+        offset += n
+    return outs
+
+
+def check_contiguous(sizes: List[int], offsets: List[int]) -> bool:
+    """Whether each offset is the sum of the sizes before it."""
+    off = 0
+    for s, o in zip(sizes, offsets):
+        if o != off:
+            return False
+        off += s
+    return True
+
+
+def _leaves(tree, out: List[torch.Tensor]):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _rebuild(tree, leaves):
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def apply_flattened_call(tree, call):
+    """``call`` applied to the leaves of ``tree`` (nested dicts, lists and
+    tuples of tensors; dict leaves in sorted key order, as a pytree) as one
+    flat buffer, the result cut back into ``tree``'s structure
+    (``utils.py:95-99``)."""
+    leaves = _leaves(tree, [])
+    return _rebuild(tree, iter(unflatten(call(flatten(leaves)), leaves)))
+
+
+def find_free_port(low: int = 20000, high: int = 65000) -> int:
+    """A TCP port the kernel reports free on this host (``utils.py:218-225``;
+    ``low`` and ``high`` are kept for the signature, the kernel picks)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
 
 #: policy name -> the ops whose outputs the backward keeps (None: keep
 #: nothing, recompute the whole block).  JAX's ``dots_saveable`` keeps every

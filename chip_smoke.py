@@ -464,6 +464,27 @@ other.)  Phases, in order; any failure exits non-zero before the result line:
    and its badput class (``check_chaos``); the record to
    ``chiprun_out/torch_chaos_drill.json``.  The seconds of both groups and of
    both streams are printed at the end.
+30. examples: the port's user entry points, ``examples/torch/*.py``, through
+   each example's ``run()`` (``run_example``, every kernel's launch count set
+   to 0 just before and read just after): in process after vision
+   (``phase_examples``, world 1) ``mnist_mlp`` (150 full-batch steps on the
+   digits; test accuracy at least ``MNIST_ACCURACY``), ``imagenet_resnet``
+   (full ResNet50 at 224 px, 3 steps of 8 images through the cached dataset
+   and SyncBN), ``moe_mnist --dropless`` at ep 1 (K7a and K7b launched,
+   losses falling) and ``elastic_training`` saved through step 2 and resumed
+   from it by a second call; at the end of the two-rank spawn
+   (``examples_run``) ``squad_finetune`` at full width
+   (``bert_large_config(max_seq_len=384)``, batch 8 a rank, world 2) under
+   ByteGrad for 4 steps (finite losses, step 4 below step 1, parameters
+   bitwise equal on both ranks, its first step profiled: K6a-c and K1/K2
+   among the device kernels it ran, ``SQUAD_KERNELS``; its seq/s over steps
+   2-4 and its peak GB a rank printed) and under QAdam for 2, ``moe_mnist
+   --dropless`` at ep 2, ``generate_lm`` (the memorized sequence regenerated
+   by ``generate`` and by ``generate_tp`` at tp 2) and
+   ``communication_primitives``; at the end of slice 4 (2 x 2)'s spawn the
+   primitives at 4 ranks and ``parallelism_zoo`` (every row at world 4:
+   finite, falling and equal losses on every rank).  ``check_examples`` gates
+   them and prints each run's seconds.
 
 Phases 1-7 run alone (the kernels' times among them); then the spawn of
 the two-rank phases starts, and beside it run, in order, the in-process
@@ -489,6 +510,7 @@ same ones.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import functools
 import gc
@@ -3407,6 +3429,33 @@ FLIP_MEM_RTOL = 0.01
 #: 2 x 2 mesh's four (in slice 4 (2 x 2)'s), ``scripts/torch_chaos_drill.py``
 CHAOS_RUNS = (("chaos",),)
 CHAOS_4_RUNS = (("chaos_4",),)
+EXAMPLES_DIR = os.path.join(REPO_DIR, "examples", "torch")
+#: the examples phase's runs: name -> (example, its flags, profile the first
+#: step).  squad at full width is ``bert_large_config(max_seq_len=384)``,
+#: batch 8 a rank, at world 2 (the two-rank spawn); moe routes ``--dropless``
+#: (the grouped matmul, K7a/K7b); the in-process runs are at world 1.
+EXAMPLE_SPECS = {
+    "mnist": ("mnist_mlp", [], False),
+    "imagenet": ("imagenet_resnet", ["--steps", "3"], False),
+    "moe_ep1": ("moe_mnist", ["--dropless", "--steps", "15", "--batch", "32"], False),
+    "squad_bytegrad": ("squad_finetune", ["--algorithm", "bytegrad", "--steps", "4"], True),
+    "squad_qadam": ("squad_finetune", ["--algorithm", "qadam", "--steps", "2"], False),
+    "moe_ep2": ("moe_mnist", ["--dropless", "--steps", "15", "--batch", "32"], False),
+    "generate_tp2": ("generate_lm", [], False),
+    "comm_2": ("communication_primitives", [], False),
+    "comm_4": ("communication_primitives", [], False),
+    "zoo_4": ("parallelism_zoo", [], False),
+}
+EXAMPLES_IN_PROCESS = ("mnist", "imagenet", "moe_ep1")
+EXAMPLES_RUNS = (("squad_bytegrad",), ("squad_qadam",), ("moe_ep2",), ("generate_tp2",),
+                 ("comm_2",))
+EXAMPLES_4_RUNS = (("comm_4",), ("zoo_4",))
+#: the device kernels squad's profiled step must name: K6a-c (bf16, head_dim
+#: 64) and K1/K2 (ByteGrad's MinMaxUInt8 at world 2)
+SQUAD_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel",
+                 "minmax_compress_kernel", "decompress_kernel")
+#: the digits MLP's accuracy gate (the JAX example test's)
+MNIST_ACCURACY = 0.95
 MULTI_RANK = {
     "slice3": ("slice 3", SLICE3_RUNS, CODEC_WORLD, None),
     "slice4": ("slice 4", SLICE4_RUNS, CODEC_WORLD, None),
@@ -3423,6 +3472,8 @@ MULTI_RANK = {
     "tensor_pipeline_4": ("tensor_pipeline (pp 2 x tp 2)", TPP4_RUNS, 4, None),
     "chaos": ("chaos", CHAOS_RUNS, CODEC_WORLD, None),
     "chaos_4": ("chaos (2 x 2)", CHAOS_4_RUNS, 4, 2),
+    "examples": ("examples", EXAMPLES_RUNS, CODEC_WORLD, None),
+    "examples_4": ("examples (2 x 2)", EXAMPLES_4_RUNS, 4, 2),
 }
 #: phases that run in one spawn, in order (the same world and tiers): a spawn
 #: costs 15-20 s (the ranks' start: importing torch, then torch._dynamo at the
@@ -3430,8 +3481,9 @@ MULTI_RANK = {
 #: two-rank phases ride in one spawn, but checkpoint (b, c), which runs in a
 #: spawn of its own beside it to shorten the run, and the four-rank ones in two
 SPAWNS = {"slice3": ("slice3", "slice4", "zero", "decentralized", "autotune", "async",
-                     "features", "overlap", "model_parallel", "tensor_pipeline", "chaos"),
-          "slice4_2x2": ("slice4_2x2", "decentralized_4", "chaos_4")}
+                     "features", "overlap", "model_parallel", "tensor_pipeline", "chaos",
+                     "examples"),
+          "slice4_2x2": ("slice4_2x2", "decentralized_4", "chaos_4", "examples_4")}
 QADAM_WARMUP = 2
 #: the generate phase: slice 1's LM, a prompt of its batch's first
 #: ``GEN_PROMPT`` tokens, ``GEN_NEW`` greedy tokens, dense and paged
@@ -6207,7 +6259,8 @@ def multi_rank_worker(phase, rank, init_method, out_path, device="cuda"):
                   "checkpoint": checkpoint_run, "model_parallel": model_parallel_run,
                   "tensor_pipeline": tensor_pipeline_run,
                   "tensor_pipeline_4": tensor_pipeline_run, "chaos": chaos_run,
-                  "chaos_4": chaos_run}.get(sub, compressed_run)
+                  "chaos_4": chaos_run, "examples": examples_run,
+                  "examples_4": examples_run}.get(sub, compressed_run)
         for run in runs:
             t0 = time.perf_counter()
             if any(run[0] in pair for pair in COLLECTIVE_PAIRS):
@@ -6256,7 +6309,7 @@ def phase_multi_rank(phase):
     for runs in zip(*ranks):
         name, label = runs[0]["name"], runs[0]["label"]
         if runs[0].get("kind") in ("eager", "checkpoint", "model_parallel", "tensor_pipeline",
-                                   "vision", "autotune", "chaos"):
+                                   "vision", "autotune", "chaos", "examples"):
             continue
         if runs[0]["fingerprints"] is not None:
             check_gossip(label, runs, intra or 1)
@@ -7374,6 +7427,190 @@ def check_chaos(card, in_process, two, four):
         raise AssertionError(f"chaos: drills failed {failed} (of {len(results)})")
 
 
+# ---------------------------------------------------------------------------
+# examples: examples/torch, the port's user entry points, on the card
+# ---------------------------------------------------------------------------
+
+
+
+def load_example(name):
+    """``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(EXAMPLES_DIR, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def first_step_profiled(store):
+    """Every ``BaguaTrainer.train_step`` of the block, the first one traced:
+    the names of the device kernels it ran go to ``store["kernels"]`` (as
+    :func:`device_kernels` names them)."""
+    from bagua_tpu_torch.core.backend import BaguaTrainer
+
+    plain = BaguaTrainer.train_step
+
+    def step(self, state, batch):
+        if "kernels" in store:
+            return plain(self, state, batch)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = plain(self, state, batch)
+            torch.cuda.synchronize()
+        store["kernels"] = sorted({e.name for e in prof.events()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA})
+        return out
+
+    BaguaTrainer.train_step = step
+    try:
+        yield store
+    finally:
+        BaguaTrainer.train_step = plain
+
+
+def run_example(key, device="cuda", extra=()):
+    """One run of ``EXAMPLE_SPECS[key]`` through the example's ``run()``:
+    every launch count of K1-K7 set to 0 just before and read just after;
+    returns the record (the example's JSON-able result, launches, peak GB,
+    seconds, digests of the trained model's bucket flats where it trains
+    one) and the example's whole result."""
+    import bagua_tpu_torch as bt
+    from bagua_tpu_torch.ops import codec, flash_attention, gmm
+
+    name, flags, profile = EXAMPLE_SPECS[key]
+    ex = load_example(name)
+    args = ex.parser().parse_args([*flags, *extra, "--device", str(device)])
+    bt.set_global_mesh(None)       # an example builds the meshes it needs
+    modules = (flash_attention, gmm, codec)
+    cuda = torch.device(device).type == "cuda"    # (a CPU rehearsal runs the plain versions)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for mod in modules:
+        mod.reset_launch_counts()
+    store = {}
+    t0 = time.perf_counter()
+    if profile and cuda:
+        with first_step_profiled(store):
+            out = ex.run(args)
+    else:
+        out = ex.run(args)
+    seconds = time.perf_counter() - t0
+    record = {k: v for k, v in out.items() if k not in ("model", "trainer", "state")}
+    record.update(name=key, kind="examples", seconds=seconds,
+                  launches={k.__name__: k.launches for mod in modules for k in mod.KERNELS},
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+                  kernels=store.get("kernels"))
+    if "trainer" in out and "model" in out:
+        record["digests"] = _flat_digests(out["trainer"], out["model"])
+    json.dumps(record)
+    return record, out
+
+
+def examples_run(rank, world, run, device, label):
+    """One run of the examples phase on every rank of a spawn."""
+    record, out = run_example(run[0], device)
+    del out
+    log(f"[rank {rank}] {label} {run[0]}: {record['seconds']:.1f} s, launches "
+        f"{ {k: v for k, v in record['launches'].items() if v} }")
+    return record
+
+
+def phase_examples(card):
+    """The world-1 runs of the examples phase in this process, and one save
+    and one resume of ``elastic_training`` (a second call resuming from the
+    first's checkpoint)."""
+    records = {}
+    for key in EXAMPLES_IN_PROCESS:
+        records[key], out = run_example(key)
+        del out
+        release()
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = load_example("elastic_training")
+        flags = ["--ckpt-dir", os.path.join(tmp, "ck"), "--save-every", "2", "--device", "cuda"]
+        t0 = time.perf_counter()
+        first = ex.run(ex.parser().parse_args([*flags, "--steps", "3"]))
+        second = ex.run(ex.parser().parse_args([*flags, "--steps", "6"]))
+        records["elastic"] = {"first": first, "second": second,
+                              "seconds": time.perf_counter() - t0}
+    release()
+    return records
+
+
+def check_examples(card, single, two, four):
+    """The examples phase's gates and prints (see the module docstring)."""
+    for key in EXAMPLES_IN_PROCESS:
+        rec = single[key]
+        log(f"examples {key} ({card}, world 1): {rec['seconds']:.1f} s, losses "
+            f"{rec['losses'][:2]} ... {rec['losses'][-1]}, launches "
+            f"{ {k: v for k, v in rec['launches'].items() if v} }, peak {rec['peak_gb']:.3f} GB")
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            raise AssertionError(f"examples {key}: non-finite loss {rec['losses']}")
+    if single["mnist"]["test_accuracy"] < MNIST_ACCURACY:
+        raise AssertionError(f"examples mnist: test accuracy {single['mnist']['test_accuracy']}")
+    if single["imagenet"]["cache_entries"] < 1:
+        raise AssertionError("examples imagenet: nothing cached")
+    for key, recs in (("moe_ep1", [single["moe_ep1"]]), ("moe_ep2", two["moe_ep2"])):
+        for rec in recs:
+            if not (rec["launches"]["grouped_matmul"] > 0
+                    and rec["launches"]["grouped_matmul_drhs"] > 0):
+                raise AssertionError(f"examples {key}: K7a/K7b not launched: {rec['launches']}")
+            if not rec["losses"][-1] < rec["losses"][0]:
+                raise AssertionError(f"examples {key}: loss did not fall: {rec['losses']}")
+    el = single["elastic"]
+    log(f"examples elastic ({card}, world 1): steps 0-2 saved at 0 and 2, resumed from step "
+        f"{el['second']['resumed']}, losses {el['second']['losses']}, {el['seconds']:.1f} s")
+    if el["first"]["resumed"] is not None or el["second"]["resumed"] != 2 or \
+            el["second"]["start"] != 3 or len(el["second"]["losses"]) != 3:
+        raise AssertionError(f"examples elastic: no resume from step 2: {el['second']}")
+    squad = two["squad_bytegrad"]
+    for r, rec in enumerate(squad):
+        losses = rec["losses"]
+        log(f"examples squad bytegrad rank {r} ({card}, BERT-Large seq 384, batch 8 a rank, "
+            f"world 2, gloo through host memory): losses {losses}, throughput "
+            f"{rec['seq_per_sec']:.2f} seq/s (steps 2-4), peak {rec['peak_gb']:.3f} GB, "
+            f"launches {rec['launches']}, {rec['seconds']:.1f} s")
+        if not (all(math.isfinite(x) for x in losses) and losses[3] < losses[0]):
+            raise AssertionError(f"examples squad: losses {losses}")
+        missing = [k for k in SQUAD_KERNELS if not any(k in n for n in rec["kernels"])]
+        log(f"examples squad bytegrad rank {r}: the profiled first step ran "
+            f"{len(rec['kernels'])} distinct device kernels, the port's "
+            f"{[n for n in rec['kernels'] if any(k in n for k in SQUAD_KERNELS)]}")
+        if missing:
+            raise AssertionError(f"examples squad: kernels {missing} not in the step")
+    if squad[0]["digests"] != squad[1]["digests"]:
+        raise AssertionError("examples squad: parameters differ between the ranks")
+    qadam = two["squad_qadam"]
+    log(f"examples squad qadam ({card}): losses {qadam[0]['losses']}, "
+        f"{qadam[0]['seq_per_sec']:.2f} seq/s, peak {qadam[0]['peak_gb']:.3f} GB, "
+        f"{qadam[0]['seconds']:.1f} s")
+    if qadam[0]["digests"] != qadam[1]["digests"] or not all(
+            math.isfinite(x) for x in qadam[0]["losses"]):
+        raise AssertionError(f"examples squad qadam: {qadam[0]['losses']}, digests equal "
+                             f"{qadam[0]['digests'] == qadam[1]['digests']}")
+    gen = two["generate_tp2"]
+    if any(rec["tokens_tp"] != rec["tokens"] for rec in gen):
+        raise AssertionError("examples generate_lm: tp 2 decoded another sequence")
+    for key, recs, world in (("comm_2", two["comm_2"], 2), ("comm_4", four["comm_4"], 4)):
+        if [rec["world"] for rec in recs] != [world] * world:
+            raise AssertionError(f"examples {key}: {recs}")
+    zoo = four["zoo_4"]
+    for name, losses in zoo[0]["losses"].items():
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]) or any(
+                rec["losses"][name] != losses for rec in zoo):
+            raise AssertionError(f"examples zoo {name}: {[rec['losses'][name] for rec in zoo]}")
+    log(f"examples zoo (4 ranks): {len(zoo[0]['losses'])} rows, skipped {zoo[0]['skipped']}, "
+        f"launches {zoo[0]['launches']}")
+    seconds = {key: round(rec["seconds"], 1) for key, rec in single.items()}
+    seconds.update({key: round(two[key][0]["seconds"], 1) for (key,) in EXAMPLES_RUNS})
+    seconds.update({key: round(four[key][0]["seconds"], 1) for (key,) in EXAMPLES_4_RUNS})
+    log(f"examples: seconds by run {seconds} (in process {sum(single[k]['seconds'] for k in single):.1f}, "
+        f"two-rank spawn {sum(two[k][0]['seconds'] for (k,) in EXAMPLES_RUNS):.1f}, four-rank "
+        f"spawn {sum(four[k][0]['seconds'] for (k,) in EXAMPLES_4_RUNS):.1f})")
+
+
 def _die_with_parent() -> None:
     """A worker's end when the process that started it ends, however it
     ends (``PR_SET_PDEATHSIG``): a killed script leaves no rank behind."""
@@ -7484,6 +7721,7 @@ def main():
         GROUP_SECONDS["records"]["regress"] = seconds["regress"]
         chaos_in = timed("chaos", phase_chaos, card, alone=False)
         timed("vision", phase_vision, card, alone=False)
+        ex_single = timed("examples", phase_examples, card, alone=False)
         torch.distributed.destroy_process_group()
         release()
         four = timed("slice 4 (2 x 2), decentralized (2 x 2)", phase_multi_rank, "slice4_2x2",
@@ -7530,6 +7768,7 @@ def main():
     tpp = {name: both[name] for name, *_ in TPP_RUNS}
     check_tensor_pipeline(card, tpp, tpp4, slice1_losses)
     check_vision_ranks(card, tpp)
+    check_examples(card, ex_single, both, four)
     log(f"seconds by phase: {seconds} (from slice 1 to checkpoint (b, c) beside the "
         f"two-rank spawn); the script's total {time.perf_counter() - script_t0:.1f} s")
     for group in ("records", "chaos"):

@@ -10,7 +10,13 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pydantic", "bagua_tpu")
-SOURCES = sorted((REPO / "bagua_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+#: the port's user scripts: the examples, the failover drill, the docs generators
+USER_SCRIPTS = (sorted((REPO / "examples" / "torch").glob("*.py"))
+                + [REPO / "scripts" / "torch_failover_drill.py",
+                   REPO / "scripts" / "torch_gen_api_docs.py",
+                   REPO / "scripts" / "torch_gen_env_docs.py"])
+SOURCES = (sorted((REPO / "bagua_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+           + USER_SCRIPTS)
 
 
 def _imported_roots(path: Path):
@@ -33,7 +39,10 @@ def test_sources_found():
             "bagua_tpu_torch/podsim/coordinator.py", "bagua_tpu_torch/podsim/orchestrator.py",
             "bagua_tpu_torch/podsim/collectives.py", "bagua_tpu_torch/analysis/cli.py",
             "bagua_tpu_torch/analysis/collective_check.py",
-            "bagua_tpu_torch/analysis/concurrency.py"} <= names
+            "bagua_tpu_torch/analysis/concurrency.py",
+            "examples/torch/squad_finetune.py", "examples/torch/parallelism_zoo.py",
+            "scripts/torch_failover_drill.py", "scripts/torch_gen_api_docs.py"} <= names
+    assert len(list((REPO / "examples" / "torch").glob("*.py"))) == 8
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -64,6 +73,27 @@ def test_import_without_jax_loads_no_bagua_tpu():
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_examples_import_without_jax_loads_no_bagua_tpu():
+    """Every example's module body (its imports, the port's modules they
+    reach) with the JAX stack and the JAX package made unimportable."""
+    code = (
+        "import importlib.util, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'pydantic', 'bagua_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for path in {[str(p) for p in USER_SCRIPTS if 'examples' in p.parts]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'pydantic', 'bagua_tpu') and sys.modules[m]]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd="/", capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
